@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
 
 1. env      torch / CUDA versions, the card's name and power limit
             (also printed raw, as nvidia-smi gives them);
-2. build    every kernel built from lux_tpu_torch/csrc, build seconds;
+2. build    every kernel built from lux_tpu_torch/csrc (B1, B2), one
+            nvcc per source started together, build seconds;
 3. graph    the main path's graph: R-MAT scale 21, edge factor 16
             (2,097,152 vertices, 33,554,432 edges), made from --seed,
             and its PageRank engine on the card;
@@ -18,11 +19,25 @@ Phases, each printing one JSON line:
             kernels line with times, bound and launches;
 5. main     PageRank, 10 iterations, through the port's entry points,
             against the float64 oracle (rtol 5e-5, atol 1e-9); B1's
-            launch count must rise by exactly one per iteration;
+            launch count must rise by exactly one per iteration, B2's
+            by none;
 6. layers   per-layer device time of one iteration (gather, kernel,
             combine, apply);
-7. parts    R-MAT scale 18 with 4 parts on one card and a chunk width
-            that needs the segmented combine, against the oracle.
+7. paged    bench.py's gather-ab@paged: the same graph degree-relabelled,
+            128-aligned layout, gather="paged", 10 iterations against
+            the float64 oracle of the relabelled graph; B2 and B1 each
+            launched once per iteration; plan stats and build seconds,
+            per-layer times (page fetch, B2, B1, class combine, apply).
+            Before it, a second kernels line: B2 (lane_shuffle) against
+            its plain version, bit for bit, on the paged path's own rows
+            and on f32 NaN payloads, int32 rows, packed words with bit
+            31 set and row counts that are not multiples of 512;
+8. pagemajor the same with gather="pagemajor" (B2 over the gather rows,
+            B1 over the virtual rows), its own rows checked the same way;
+9. parts    R-MAT scale 18 with 4 parts on one card and a chunk width
+            that needs the segmented combine, then the same graph
+            relabelled with 4 parts paged and page-major, against the
+            oracle.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -34,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -268,24 +284,45 @@ def phase_kernels(args, torch, eng):
             "bytes": bytes_moved, "library_ms": library_ms}
 
 
-def phase_main(args, torch, g, eng, card):
-    from lux_tpu_torch.apps import pagerank
+def zero_launches():
     from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
+    chunk_partials.launches = 0
+    lane_shuffle.launches = 0
+
+
+def read_launches():
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
+    return {"chunk_partials": chunk_partials.launches,
+            "lane_shuffle": lane_shuffle.launches}
+
+
+def timed_run(torch, eng, iters):
+    """Warm up one iteration, then run ``iters`` from a fresh state
+    with every launch count at 0 just before and read just after.
+    Returns (state, seconds, launches, peak device bytes)."""
     eng.step(eng.init_state())                    # warm-up iteration
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state = eng.init_state()
     torch.cuda.synchronize()
-    chunk_partials.launches = 0
+    zero_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    state = eng.run(state, args.iters)
+    state = eng.run(state, iters)
     end.record()
     end.synchronize()
-    launches = chunk_partials.launches
-    secs = start.elapsed_time(end) / 1e3
-    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    return (state, start.elapsed_time(end) / 1e3, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_main(args, torch, g, eng, card):
+    from lux_tpu_torch.apps import pagerank
+    state, secs, counts, peak = timed_run(torch, eng, args.iters)
+    launches = counts["chunk_partials"]
     got = eng.unpad(state)
     want = pagerank.reference_pagerank(g, args.iters)
     require(got.shape == (g.nv,) and np.isfinite(got).all(),
@@ -297,6 +334,8 @@ def phase_main(args, torch, g, eng, card):
     require(launches == args.iters,
             f"chunk_partials launched {launches} times in {args.iters} "
             f"iterations (want one per iteration)")
+    require(counts["lane_shuffle"] == 0,
+            "the flat path launched lane_shuffle")
     emit({"phase": "main", "app": "pagerank", "nv": g.nv, "ne": g.ne,
           "iters": args.iters, "seconds": secs,
           "ms_per_iter": secs * 1e3 / args.iters,
@@ -337,32 +376,262 @@ def phase_layers(args, torch, eng):
     emit({"phase": "layers", **out})
 
 
+def check_pagerank(g, got, want, what: str) -> float:
+    """Finite [nv] result within MAIN_TOL of the oracle; returns the
+    max relative error."""
+    require(got.shape == (g.nv,) and np.isfinite(got).all(),
+            f"{what}: result is not finite [nv]")
+    rel_err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    require(np.allclose(got, want, **MAIN_TOL),
+            f"{what} disagrees with the float64 oracle (max rel err "
+            f"{rel_err.max():.3e})")
+    return float(rel_err.max())
+
+
+def phase_paged_graph(args, torch, g):
+    """bench.py's gather-ab preprocessing on the main graph: degree
+    relabel, then the 128-aligned layout both paged modes share."""
+    from lux_tpu_torch.graph import ShardedGraph, degree_relabel
+    t0 = time.perf_counter()
+    g2, _perm = degree_relabel(g)
+    t_relabel = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sg = ShardedGraph.build(g2, 1, vpad_align=128)
+    t_layout = time.perf_counter() - t0
+    emit({"phase": "paged_graph", "nv": g2.nv, "ne": g2.ne, "vpad": sg.vpad,
+          "relabel_seconds": round(t_relabel, 3),
+          "layout_seconds": round(t_layout, 3)})
+    return g2, sg
+
+
+def _same_words(a, b) -> bool:
+    """Bit-equal 4-byte words, NaN payloads included."""
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_b2(args, torch, eng, label: str, synthetic: bool):
+    """Kernel B2 against its plain version on the card, bit for bit:
+    the engine's own rows (the first iteration's fetched page rows and
+    its slot_lane), then (``synthetic``) int32 rows, f32 NaN payloads,
+    packed words over the full 32-bit range (bit 31 set) and row
+    counts that are not multiples of 512.  Returns the engine's own
+    (rows, slot_lane) for timing."""
+    from lux_tpu_torch.ops.lane_shuffle import lane_shuffle, lane_shuffle_plain
+    from lux_tpu_torch.ops.pagegather import W, row_slots
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    a = eng.arrays
+    sl = a["pg_sl"].reshape(-1, W)
+    P, n_pages = a["pg_ids"].shape
+    flat = eng.init_state().reshape(-1)
+    pages = torch.index_select(flat.reshape(-1, W), 0,
+                               a["pg_ids"].reshape(-1).long())
+    base = torch.arange(P, device=dev)[:, None] * n_pages
+    rows = torch.index_select(pages, 0,
+                              (row_slots(a["pg_sl"]) + base).reshape(-1))
+
+    def words(shape, lo=-2**31, hi=2**31 - 1):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    cases = [(f"{label}_rows", rows, sl)]
+    if synthetic:
+        R = rows.shape[0]
+        cases.append((f"{label}_rows/int32", words((R, W)), sl))
+        nan = rows.clone()
+        nbits = nan.view(torch.int32)
+        # quiet and signalling NaNs with payloads, both signs
+        pay = words((R, W), 1, 1 << 23)     # mantissa: never 0
+        nbits[::3, ::5] = (0x7F800000 | pay[::3, ::5]) \
+            .to(torch.int32)
+        nbits[1::3, 2::5] = (-0x800000 | pay[1::3, 2::5]).to(torch.int32)
+        cases.append((f"{label}_rows/nan_payloads", nan, sl))
+        for r in (1, 7, 520, 1001, 4099):
+            cases.append((f"R{r}/f32_bit31", words((r, W)).view(
+                torch.float32), words((r, W))))
+            cases.append((f"R{r}/int32_bit31", words((r, W)), words((r, W))))
+        cases.append(("R0", words((0, W)), words((0, W))))
+    detail = []
+    for name, rws, sls in cases:
+        got = lane_shuffle(rws, sls)
+        want = lane_shuffle_plain(rws, sls)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"B2 {name}: shape/dtype")
+        require(_same_words(got, want),
+                f"B2 case {name} is not bit-equal to the plain version")
+        detail.append({"case": name, "R": rws.shape[0],
+                       "dtype": str(rws.dtype).replace("torch.", ""),
+                       "nan": int(torch.isnan(rws).sum())
+                       if rws.is_floating_point() else 0,
+                       "bit31_words": int((sls < 0).sum()),
+                       "tolerance": "bit-equal"})
+    emit({"phase": "kernels", "kernel": "lane_shuffle", "path": label,
+          "cases": len(detail), "all_pass": True, "detail": detail})
+    return rows, sl
+
+
+def b2_line(args, torch, rows, sl):
+    """The kernels-line entry of B2 at a paged path's own shape."""
+    from lux_tpu_torch.ops.lane_shuffle import (decode_lanes, lane_shuffle,
+                                                lane_shuffle_plain)
+    reps = args.reps
+    lane = decode_lanes(sl)
+    R = rows.shape[0]
+    bytes_moved = R * rows.shape[1] * 12     # read rows + slot_lane, write
+    return {"name": "lane_shuffle", "route": "cuda",
+            "source": "lux_tpu_torch/csrc/lane_shuffle.cu",
+            "replaces": "lux_tpu/ops/pagegather.py:1040",
+            "shape": list(rows.shape), "launches": None,
+            "max_abs_err": 0.0 if _same_words(
+                lane_shuffle(rows, sl), lane_shuffle_plain(rows, sl))
+            else float("inf"),
+            "ms": cuda_ms(lambda: lane_shuffle(rows, sl), reps),
+            "plain_ms": cuda_ms(lambda: lane_shuffle_plain(rows, sl), reps),
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": bytes_moved,
+            "library_ms": cuda_ms(lambda: torch.gather(rows, 1, lane),
+                                  reps)}
+
+
+def paged_layers(args, torch, eng):
+    """Device ms of each layer of one paged iteration, each timed
+    alone on the engine's own arrays."""
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
+    from lux_tpu_torch.ops.pagegather import W, row_slots
+    from lux_tpu_torch.ops.pairs import class_combine
+    a, pp = eng.arrays, eng.page_plan
+    P, n_pages = a["pg_ids"].shape
+    state = eng.init_state()
+    flat = state.reshape(-1)
+    ids = a["pg_ids"].reshape(-1).long()
+    sl = a["pg_sl"].reshape(-1, W)
+    base = torch.arange(P, device=flat.device)[:, None] * n_pages
+
+    def fetch():
+        pages = torch.index_select(flat.reshape(-1, W), 0, ids)
+        return torch.index_select(pages, 0,
+                                  (row_slots(a["pg_sl"]) + base).reshape(-1))
+
+    rows = fetch()
+    vals = lane_shuffle(rows, sl)
+    reps = args.reps
+    out = {"page_fetch_ms": cuda_ms(fetch, reps),
+           "lane_shuffle_ms": cuda_ms(lambda: lane_shuffle(rows, sl), reps)}
+    vrs = a.get("pg_vrs")
+    if vrs is not None:
+        vidx = (vrs.long() + torch.arange(P, device=flat.device)[:, None]
+                * sl.shape[0] // P).reshape(-1)
+        out["vrow_take_ms"] = cuda_ms(
+            lambda: torch.index_select(vals, 0, vidx), reps)
+        vals = torch.index_select(vals, 0, vidx)
+    rel = a["pg_rel"].reshape(-1, W)
+    partials = chunk_partials(vals, rel, W, "sum")
+    out["chunk_partials_ms"] = cuda_ms(
+        lambda: chunk_partials(vals, rel, W, "sum"), reps)
+    # byte bounds at these shapes: B2 reads rows and slot_lane and
+    # writes out (12 B a lane); B1 reads values and rel, writes partials
+    out["lane_shuffle_bound_ms"] = sl.numel() * 12 / HBM_BYTES_PER_S * 1e3
+    out["chunk_partials_bound_ms"] = rel.numel() * 9 / HBM_BYTES_PER_S * 1e3
+    part3 = partials.view(P, pp.Rp, W)[:, :pp.R]
+    out["class_combine_ms"] = cuda_ms(
+        lambda: class_combine(pp, part3, a["pg_tp"], "sum"), reps)
+    red = class_combine(pp, part3, a["pg_tp"], "sum").reshape(P, -1)
+    out["apply_ms"] = cuda_ms(lambda: eng._apply_epilogue(state, red), reps)
+    out["step_ms"] = cuda_ms(lambda: eng.step(state), reps)
+    return out
+
+
+def phase_paged(args, torch, g2, sg, mode: str, want, card):
+    """One paged mode end to end: engine build (plan + upload), B2
+    checks on its own rows, the timed run against the oracle with both
+    kernels launched once per iteration, per-layer times."""
+    from lux_tpu_torch.apps import pagerank
+    t0 = time.perf_counter()
+    eng = pagerank.build_engine(g2, sg=sg, gather=mode)
+    torch.cuda.synchronize()
+    t_engine = time.perf_counter() - t0
+    require(eng.gather == mode, f"engine resolved gather={eng.gather}")
+    engine_bytes = sum(t.numel() * t.element_size()
+                       for t in eng.arrays.values())
+    rows, sl = check_b2(args, torch, eng, mode, synthetic=mode == "paged")
+    state, secs, counts, peak = timed_run(torch, eng, args.iters)
+    err = check_pagerank(g2, eng.unpad(state), want, f"{mode} path")
+    for k, n in counts.items():
+        require(n == args.iters, f"{mode} path launched {k} {n} times in "
+                                 f"{args.iters} iterations")
+    pp = eng.page_plan
+    line = b2_line(args, torch, rows, sl)
+    emit({"phase": mode, "app": "pagerank", "nv": g2.nv, "ne": g2.ne,
+          "iters": args.iters, "seconds": secs,
+          "ms_per_iter": secs * 1e3 / args.iters,
+          "gteps": g2.ne * args.iters / secs / 1e9,
+          "peak_bytes": int(peak), "engine_bytes": int(engine_bytes),
+          "max_rel_err": err, "tolerance": MAIN_TOL, "launches": counts,
+          "engine_seconds": round(t_engine, 3),
+          "plan_seconds": round(eng.plan_seconds, 3),
+          # the process's peak resident host memory so far (Linux: KiB)
+          "host_peak_rss_bytes":
+              resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+          "plan": {"R": pp.R, "Rp": pp.Rp, "Rg": pp.Rg or pp.Rp,
+                   "n_pages": pp.n_pages, "classes": len(pp.classes),
+                   **{k: pp.stats[k] for k in (
+                       "rows", "fill", "padded_fill", "page_ratio",
+                       "unique_pages", "lane_inflation", "g_rows",
+                       "g_fill") if k in pp.stats}},
+          "layers": paged_layers(args, torch, eng),
+          "lane_shuffle": {k: line[k] for k in (
+              "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
+          "card": card})
+    del eng, state, rows, sl
+    torch.cuda.empty_cache()
+    return counts, line
+
+
 def phase_parts(args, torch):
     from lux_tpu_torch.apps import pagerank
     from lux_tpu_torch.convert import rmat_edges
-    from lux_tpu_torch.graph import Graph
-    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    from lux_tpu_torch.graph import Graph, degree_relabel
     src, dst, nv = rmat_edges(18, 16, seed=args.seed + 1)
     g = Graph.from_edges(src, dst, nv)
     eng = pagerank.build_engine(g, num_parts=4, tile_e=128)
     require(eng.tiles.needs_scan, "parts phase must need the segmented "
                                   "combine")
     state = eng.init_state()
-    chunk_partials.launches = 0
+    zero_launches()
     state = eng.run(state, args.iters)
     torch.cuda.synchronize()
-    launches = chunk_partials.launches
+    counts = read_launches()
+    launches = counts["chunk_partials"]
     got = eng.unpad(state)
     want = pagerank.reference_pagerank(g, args.iters)
     rel_err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
     require(np.allclose(got, want, **MAIN_TOL),
             f"4-part run disagrees with the oracle ({rel_err.max():.3e})")
-    require(launches == args.iters, f"4-part run launched chunk_partials "
-                                    f"{launches} times")
+    require(launches == args.iters and counts["lane_shuffle"] == 0,
+            f"4-part run launched {counts}")
+    paged = {}
+    g2, _perm = degree_relabel(g)
+    want2 = pagerank.reference_pagerank(g2, args.iters)
+    for mode in ("paged", "pagemajor"):
+        peng = pagerank.build_engine(g2, num_parts=4, gather=mode)
+        state = peng.init_state()
+        zero_launches()
+        state = peng.run(state, args.iters)
+        torch.cuda.synchronize()
+        pcounts = read_launches()
+        err = check_pagerank(g2, peng.unpad(state), want2,
+                             f"4-part {mode} run")
+        require(all(n == args.iters for n in pcounts.values()),
+                f"4-part {mode} run launched {pcounts}")
+        paged[mode] = {"Rp": peng.page_plan.Rp, "max_rel_err": err,
+                       "launches": pcounts}
     emit({"phase": "parts", "nv": g.nv, "ne": g.ne, "num_parts": 4,
           "tile_e": 128, "chunks": eng.num_parts * eng.tiles.n_chunks,
           "iters": args.iters, "max_rel_err": float(rel_err.max()),
-          "chunk_partials_launches": launches})
+          "chunk_partials_launches": launches, "paged": paged})
 
 
 def main(argv=None) -> int:
@@ -388,14 +657,33 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
+    from lux_tpu_torch.apps import pagerank
     card = phase_env(torch)
     phase_build()
     g, eng = phase_graph(args, torch)
     kline = phase_kernels(args, torch, eng)
     kline["launches"] = phase_main(args, torch, g, eng, card)
     phase_layers(args, torch, eng)
+    del eng
+    torch.cuda.empty_cache()
+    g2, sg = phase_paged_graph(args, torch, g)
+    del g
+    want = pagerank.reference_pagerank(g2, args.iters)
+    by_path = {"main": {"chunk_partials": kline["launches"],
+                        "lane_shuffle": 0}}
+    lines = {}
+    for mode in ("paged", "pagemajor"):
+        by_path[mode], lines[mode] = phase_paged(args, torch, g2, sg, mode,
+                                                 want, card)
+    del g2, sg, want
+    b2 = lines["paged"]                 # B2 at the paged path's own rows
     phase_parts(args, torch)
-    emit({"kernels": [kline]})
+    kline["launches_by_path"] = {k: v["chunk_partials"]
+                                 for k, v in by_path.items()}
+    b2["launches"] = by_path["paged"]["lane_shuffle"]
+    b2["launches_by_path"] = {k: v["lane_shuffle"]
+                              for k, v in by_path.items()}
+    emit({"kernels": [kline, b2]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

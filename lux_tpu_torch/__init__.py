@@ -10,7 +10,9 @@ counterpart is easy to find:
   partition.py    edge-balanced contiguous vertex partitioner
   graph.py        host Graph + padded part-major ShardedGraph layout
   ops/            segment oracle, tiled chunk layout, chunk_partials
-                  (hand-written CUDA kernel, csrc/chunk_partials.cu)
+                  (hand-written CUDA kernel, csrc/chunk_partials.cu),
+                  paged / page-major gather with lane_shuffle
+                  (csrc/lane_shuffle.cu) and the row-class combine
   engine/         vertex-program bundle and the pull engine
   apps/           PageRank
   timing.py       CUDA-event timed runs

@@ -43,6 +43,9 @@ KERNELS = {
                                [_P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                                 _P]),
     }),
+    "lane_shuffle": ("lane_shuffle.cu", {
+        "lux_lane_shuffle": (ctypes.c_int, [_P, _P, _P, _I64, _P]),
+    }),
 }
 
 

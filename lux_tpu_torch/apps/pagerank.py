@@ -17,7 +17,7 @@ import torch
 from lux_tpu_torch.device import resolve_device
 from lux_tpu_torch.engine.program import PullProgram
 from lux_tpu_torch.engine.pull import PullEngine
-from lux_tpu_torch.graph import Graph, ShardedGraph
+from lux_tpu_torch.graph import VPAD_ALIGN, Graph, ShardedGraph
 
 ALPHA = 0.15
 
@@ -43,16 +43,23 @@ def make_program() -> PullProgram:
 
 
 def build_engine(g: Graph, num_parts: int = 1, *, device=None,
+                 sg: ShardedGraph | None = None,
                  tile_e: int = 512, layout: str = "tiled",
                  exchange: str = "auto", gather: str = "flat",
                  pair_threshold: int | None = None,
                  mesh=None) -> PullEngine:
     """float32 PageRank engine on ``device`` (None = the card; "cpu"
-    when asked).  ``tile_e`` is the chunk width (512, the reference's
-    default without pairs).  Options the port does not carry yet
-    (pairs, owner, paged, mesh) raise engine.pull.NotPortedError."""
+    when asked).  ``sg`` is a prebuilt layout of ``g``; without it,
+    ``gather="paged"|"pagemajor"`` builds the 128-aligned vertex
+    padding the paged plan needs.  ``tile_e`` is the chunk width (512,
+    the reference's default without pairs).  Options the port does not
+    carry yet (pairs, owner, gather="auto", mesh) raise
+    engine.pull.NotPortedError."""
     dev = resolve_device(device)
-    sg = ShardedGraph.build(g, num_parts)
+    if sg is None:
+        sg = ShardedGraph.build(g, num_parts,
+                                vpad_align=128 if gather != "flat"
+                                else VPAD_ALIGN)
     return PullEngine(sg, make_program(), device=dev, layout=layout,
                       tile_e=tile_e,
                       exchange=exchange, gather=gather,

@@ -2,6 +2,7 @@
 lux_tpu/cli.py:596-689 and :864).
 
     python -m lux_tpu_torch.cli pagerank -file g.lux -ni 10 [-np N]
+                                         [-gather flat|paged|pagemajor]
                                          [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli convert -input edges.txt -output g.lux
                                         -nv N [-weighted]
@@ -9,7 +10,9 @@ lux_tpu/cli.py:596-689 and :864).
 ``pagerank`` prints ``ELAPSED TIME = ... s`` (the timed run only, after
 one warm-up run) and ``GTEPS = ne * iterations / seconds / 1e9``, like
 the reference.  The default device is the card; ``-device cpu`` runs
-the plain PyTorch versions on the host.
+the plain PyTorch versions on the host.  ``-gather paged|pagemajor``
+runs the page-binned delivery (ops/pagegather.py); ``-gather auto``
+is refused (exit 2) until its cost model is measured on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 import sys
 
 from lux_tpu_torch.device import DeviceUnavailableError
+from lux_tpu_torch.engine.pull import NotPortedError
 
 
 def cmd_pagerank(argv) -> int:
@@ -28,6 +32,12 @@ def cmd_pagerank(argv) -> int:
     ap.add_argument("-np", type=int, default=1, help="partitions")
     ap.add_argument("-check", action="store_true",
                     help="residual audit of the result (exit 1 on FAIL)")
+    ap.add_argument("-gather", default="flat",
+                    choices=["flat", "paged", "pagemajor", "auto"],
+                    help="state-table delivery: the per-edge gather "
+                         "('flat'), page rows + lane shuffle ('paged'), "
+                         "or full gather rows bound to pages first "
+                         "('pagemajor'); 'auto' is not ported")
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -44,7 +54,8 @@ def cmd_pagerank(argv) -> int:
     except GraphFormatError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    eng = pagerank.build_engine(g, max(1, args.np), device=args.device)
+    eng = pagerank.build_engine(g, max(1, args.np), device=args.device,
+                                gather=args.gather)
     state, elapsed = timed_fused_run(eng, args.ni)
     print(f"ELAPSED TIME = {elapsed:.7f} s")
     print(f"GTEPS = {g.ne * args.ni / elapsed / 1e9:.4f}")
@@ -85,7 +96,7 @@ def main(argv=None) -> int:
         return 2
     try:
         return _APPS[argv[0]](argv[1:])
-    except DeviceUnavailableError as e:
+    except (DeviceUnavailableError, NotPortedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 

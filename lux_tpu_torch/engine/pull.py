@@ -1,6 +1,6 @@
 """The pull engine: dense gather-apply iterations on one device
-(counterpart of lux_tpu/engine/pull.py:142-194, :535-629, :922-962,
-:1108, :1235).
+(counterpart of lux_tpu/engine/pull.py:142-194, :240-304, :407-462,
+:535-629, :922-962, :1108, :1235).
 
 One iteration, every part at once (parts are a batch dimension):
 
@@ -13,14 +13,23 @@ One iteration, every part at once (parts are a batch dimension):
    ``layout="flat"`` is the scatter-reduce oracle (ops/segment.py);
 4. per-vertex apply epilogue, masked to real vertex slots.
 
+``gather="paged"`` / ``"pagemajor"`` replace steps 1-3 with the
+page-binned delivery (ops/pagegather.py): the plan IS the edge layout,
+so neither chunk arrays nor a per-edge gather exist; one iteration
+launches kernel B2 (lane shuffle) and kernel B1 (over [P*Rp, 128]
+rows) once each.
+
 The reference fuses a fixed-iteration run into one XLA program; here a
 run is a Python loop over ``step`` on the device's stream.  The
-reference's exchange variants (owner), pair-lane and paged deliveries,
-streamed blocks and the mesh are refused with a typed
-:class:`NotPortedError` naming the ROADMAP item that brings them.
+reference's exchange variants (owner), pair-lane delivery,
+``gather="auto"``, streamed blocks and the mesh are refused with a
+typed :class:`NotPortedError` naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -28,6 +37,9 @@ import torch
 from lux_tpu_torch.device import resolve_device
 from lux_tpu_torch.engine.program import PartCtx, PullProgram, vmask_of
 from lux_tpu_torch.graph import ShardedGraph
+from lux_tpu_torch.ops.pagegather import (PAGED_KEYS, W, engine_page_plan,
+                                          paged_partial, plan_graph_arrays,
+                                          row_slots)
 from lux_tpu_torch.ops.segment import segment_reduce
 from lux_tpu_torch.ops.tiled import (TiledLayout, segment_plan,
                                      tiled_segment_reduce)
@@ -47,8 +59,9 @@ class NotPortedError(NotImplementedError):
 
 def _refuse(what: str, item: str):
     raise NotPortedError(f"{what} is not ported yet (ROADMAP {item}); "
-                         f"this slice runs one device, layout "
-                         f"'tiled'/'flat', exchange 'gather'")
+                         f"the port runs one device, layout "
+                         f"'tiled'/'flat', gather 'flat'/'paged'/"
+                         f"'pagemajor', exchange 'gather'")
 
 
 def resolve_exchange(exchange: str, sg: ShardedGraph, program) -> str:
@@ -70,12 +83,17 @@ def resolve_exchange(exchange: str, sg: ShardedGraph, program) -> str:
     return exchange
 
 
+def common_graph_arrays(sg: ShardedGraph) -> dict:
+    """deg + nvp, the apply-epilogue arrays every layout needs."""
+    return dict(deg=sg.deg_padded,
+                nvp=sg.nv_part.astype(np.int32)[:, None])
+
+
 def build_graph_arrays(sg: ShardedGraph, layout: str, tile_e: int):
     """Per-part host arrays (leading dim num_parts) for either edge
     layout -> (arrays dict, TiledLayout | None).  The tiled keys and
     values are the reference's (engine/pull.py:164-194)."""
-    common = dict(deg=sg.deg_padded,
-                  nvp=sg.nv_part.astype(np.int32)[:, None])
+    common = common_graph_arrays(sg)
     if layout == "flat":
         arrays = dict(src_slot=sg.src_slot, dst_local=sg.dst_local,
                       **common)
@@ -99,6 +117,8 @@ class PullEngine:
     device (``device=None`` means the card; pass ``"cpu"`` for the
     plain PyTorch versions)."""
 
+    plan_seconds = 0.0      # host seconds spent building the paged plan
+
     def __init__(self, sg: ShardedGraph, program: PullProgram, *,
                  device=None, layout: str = "tiled", tile_e: int = 512,
                  exchange: str = "auto", gather: str = "flat",
@@ -107,55 +127,90 @@ class PullEngine:
         dev = resolve_device(device)
         if mesh is not None:
             _refuse("a device mesh", "A6")
+        if gather == "auto":
+            _refuse("gather='auto' (it resolves through scalemodel, "
+                    "whose constants were measured on the TPU)", "A10")
+        if gather in ("paged", "pagemajor") and pair_threshold is not None:
+            raise ValueError(
+                f"gather={gather!r} subsumes pair delivery (both are "
+                f"row-granular layouts); build without pair_threshold")
         if pair_threshold is not None:
             _refuse("pair-lane delivery (pair_threshold)", "A3")
-        if gather != "flat":
-            _refuse(f"gather={gather!r}", "A8")
         if stream_msgs:
             _refuse("streamed chunk blocks (stream_msgs)", "A6")
         if program.needs_dst:
             _refuse("programs whose edge_value reads the destination",
                     "A5")
         resolve_exchange(exchange, sg, program)
-        arrays, lay = build_graph_arrays(sg, layout, tile_e)
-        self._bind(program, arrays, None if lay is None else lay.geometry,
-                   nv=sg.nv, ne=sg.ne, num_parts=sg.num_parts,
-                   vpad=sg.vpad, device=dev, sg=sg)
+        t0 = time.perf_counter()
+        plan = engine_page_plan(sg, gather, program)
+        plan_seconds = time.perf_counter() - t0
+        if plan is not None:
+            # the paged plan IS the edge layout: no chunk arrays
+            arrays, tiles = dict(common_graph_arrays(sg),
+                                 **plan_graph_arrays(plan)), None
+        else:
+            arrays, lay = build_graph_arrays(sg, layout, tile_e)
+            tiles = None if lay is None else lay.geometry
+        self._bind(program, arrays, tiles, nv=sg.nv, ne=sg.ne,
+                   num_parts=sg.num_parts, vpad=sg.vpad, device=dev, sg=sg,
+                   pages=plan)
+        self.plan_seconds = plan_seconds
 
     @classmethod
     def from_arrays(cls, program: PullProgram, arrays: dict, tiles, *,
                     nv: int, ne: int, num_parts: int, vpad: int,
-                    device=None):
-        """An engine on given per-part arrays (tiled keys: src_slot,
-        rel_dst, chunk_start, last_chunk, deg, nvp) and tile geometry
-        (ops/tiled.TileGeometry) — how interop.from_reference carries a
-        reference engine's arrays across bit for bit."""
+                    device=None, pages=None):
+        """An engine on given per-part arrays and their geometry — how
+        interop.from_reference carries a reference engine's arrays
+        across bit for bit.  Tiled: keys src_slot, rel_dst,
+        chunk_start, last_chunk, deg, nvp and ``tiles`` an
+        ops/tiled.TileGeometry.  Paged: keys pg_ids, pg_sl, pg_rel,
+        pg_tp (+ pg_w, pg_vrs), deg, nvp, ``tiles=None`` and ``pages``
+        an ops/pagegather.PageGeometry."""
         eng = cls.__new__(cls)
         eng._bind(program, arrays, tiles, nv=nv, ne=ne,
                   num_parts=num_parts, vpad=vpad,
-                  device=resolve_device(device), sg=None)
+                  device=resolve_device(device), sg=None, pages=pages)
         return eng
 
     def _bind(self, program, arrays, tiles, *, nv, ne, num_parts, vpad,
-              device, sg):
+              device, sg, pages=None):
         self.program = program
         self.sg = sg
         self.tiles = tiles
+        # the PagedPlan (or, carried from arrays, its PageGeometry)
+        self.page_plan = pages
+        self.gather = "flat" if pages is None else pages.mode
         self.nv, self.ne = int(nv), int(ne)
         self.num_parts, self.vpad = int(num_parts), int(vpad)
         self.device = device
-        need = TILED_KEYS if tiles is not None else (
-            "src_slot", "dst_local", "deg", "nvp")
+        if pages is not None:
+            need = PAGED_KEYS + ("deg", "nvp") + (
+                ("pg_vrs",) if pages.mode == "pagemajor" else ())
+        elif tiles is not None:
+            need = TILED_KEYS
+        else:
+            need = ("src_slot", "dst_local", "deg", "nvp")
         missing = [k for k in need if k not in arrays]
         if missing:
             raise KeyError(f"graph arrays lack {missing}")
-        self.arrays = {k: torch.tensor(np.asarray(v), device=device)
-                       for k, v in arrays.items()}
+        # uint32 arrays (the packed slot_lane) ride as int32 with the
+        # same bits: torch's uint32 has thin CUDA coverage
+        self.arrays = {}
+        for k, v in arrays.items():
+            v = np.asarray(v)
+            if v.dtype == np.uint32:
+                v = v.view(np.int32)
+            self.arrays[k] = torch.tensor(v, device=device)
         a, P = self.arrays, self.num_parts
         if a["deg"].shape != (P, self.vpad) or a["nvp"].shape != (P, 1):
             raise ValueError(f"deg {tuple(a['deg'].shape)} / nvp "
                              f"{tuple(a['nvp'].shape)} do not match "
                              f"num_parts={P} vpad={self.vpad}")
+        if pages is not None:
+            self._check_paged()
+            return
         src = a["src_slot"]
         if src.numel() and (int(src.min()) < 0
                             or int(src.max()) >= P * self.vpad):
@@ -177,6 +232,40 @@ class PullEngine:
             # part's trash row vpad kept apart
             base = torch.arange(P, device=device)[:, None] * (self.vpad + 1)
             self._seg = (a["dst_local"].to(torch.int64) + base).reshape(-1)
+
+    def _check_paged(self):
+        """Shapes and index ranges of the paged arrays, checked once:
+        an out-of-range index would fault on the card."""
+        a, P, pp = self.arrays, self.num_parts, self.page_plan
+        ids, sl, rel, tp = (a[k] for k in PAGED_KEYS)
+        Rg = sl.shape[1] if sl.dim() == 3 else -1
+        vrs = a.get("pg_vrs")
+        w = a.get("pg_w")
+        ok = (ids.dim() == 2 and ids.shape[0] == P
+              and tuple(sl.shape) == (P, Rg, W) and sl.dtype == torch.int32
+              and tuple(rel.shape) == (P, pp.Rp, W)
+              and rel.dtype == torch.int8
+              and tuple(tp.shape) == (P, pp.n_tiles)
+              and pp.n_tiles * W == self.vpad
+              and sum(c * L for c, L in pp.classes) == pp.R <= pp.Rp
+              and (w is None or tuple(w.shape) == (P, pp.Rp, W))
+              and (tuple(vrs.shape) == (P, pp.Rp) if vrs is not None
+                   else Rg == pp.Rp))
+        if not ok:
+            raise ValueError(
+                f"paged arrays do not match the plan geometry {pp} "
+                f"(num_parts={P}, vpad={self.vpad})")
+
+        def outside(x, hi):
+            return x.numel() and (int(x.min()) < 0 or int(x.max()) >= hi)
+
+        if (outside(ids, P * self.vpad // W)
+                or outside(row_slots(sl), ids.shape[1])
+                or outside(tp, pp.n_slots + 1)
+                or (vrs is not None and outside(vrs, Rg))):
+            raise ValueError("paged arrays index outside the state table, "
+                             "the page list, the class slots or the "
+                             "gather rows")
 
     # -- state --------------------------------------------------------
 
@@ -221,10 +310,25 @@ class PullEngine:
                                     a["last_chunk"], a["rel_dst"], vpad,
                                     prog.reduce, self._plan)
 
+    def _paged_red(self, flat_state):
+        """Paged delivery + reduce for every part -> [P, vpad] (the
+        plan serves every edge).  A page-major plan rides the same
+        call: ``pg_vrs`` binds each virtual reduce row to its gather
+        row."""
+        prog, a = self.program, self.arrays
+        red = paged_partial(
+            self.page_plan, flat_state, a["pg_ids"], a["pg_sl"],
+            a["pg_rel"], a.get("pg_w"), a["pg_tp"], prog.reduce,
+            lambda vals, w: prog.edge_value(vals, None, w),
+            vrow_src=a.get("pg_vrs"))
+        return red[:, :self.vpad]
+
     def step(self, state: torch.Tensor) -> torch.Tensor:
         """One iteration: [P, vpad] -> [P, vpad]."""
-        msgs = self._messages(state.reshape(-1))
-        return self._apply_epilogue(state, self._reduce(msgs))
+        flat = state.reshape(-1)
+        if self.page_plan is not None:
+            return self._apply_epilogue(state, self._paged_red(flat))
+        return self._apply_epilogue(state, self._reduce(self._messages(flat)))
 
     def run(self, state: torch.Tensor, num_iters: int) -> torch.Tensor:
         """``num_iters`` iterations, enqueued on the device's stream

@@ -1,5 +1,6 @@
 """Host graph and the padded part-major layout (counterpart of
-lux_tpu/graph.py:69 ``Graph`` and :364-517 ``ShardedGraph``).
+lux_tpu/graph.py:69 ``Graph``, :198 ``degree_relabel`` and :364-517
+``ShardedGraph``).
 
 ``ShardedGraph.build`` does all index translation once on the host so
 the per-iteration device work is nothing but gathers and reductions:
@@ -27,7 +28,7 @@ from lux_tpu_torch import format as luxfmt
 from lux_tpu_torch.partition import edge_balanced_bounds, part_edge_counts
 
 
-VPAD_ALIGN = 8      # padded vertices per part: a multiple of this
+VPAD_ALIGN = 8      # default: padded vertices per part, a multiple of this
 EPAD_ALIGN = 128    # padded edges per part: a multiple of this
 
 
@@ -78,6 +79,21 @@ class Graph:
         return src, dst
 
 
+def degree_relabel(g: Graph):
+    """Relabel vertices by descending total degree (in + out), ties in
+    vertex order — concentrates hubs into shared 128-vertex pages for
+    the paged gather.  Returns (relabeled graph, perm) with
+    perm[new] = old."""
+    src, dst = g.edge_arrays()
+    deg = (np.bincount(src, minlength=g.nv)
+           + np.bincount(dst, minlength=g.nv))
+    perm = np.argsort(-deg, kind="stable")
+    rank = np.empty(g.nv, np.int64)
+    rank[perm] = np.arange(g.nv)
+    g2 = Graph.from_edges(rank[src], rank[dst], g.nv, weights=g.weights)
+    return g2, perm
+
+
 @dataclasses.dataclass
 class ShardedGraph:
     """Padded part-major layout; all arrays are host numpy."""
@@ -99,12 +115,15 @@ class ShardedGraph:
     weighted: bool = False
 
     @classmethod
-    def build(cls, g: Graph, num_parts: int) -> "ShardedGraph":
-        """Edge-balanced parts, padded and stacked."""
+    def build(cls, g: Graph, num_parts: int,
+              vpad_align: int = VPAD_ALIGN) -> "ShardedGraph":
+        """Edge-balanced parts, padded and stacked.  ``vpad_align=128``
+        gives the 128-aligned vertex padding the paged gather needs
+        (ops/pagegather.py)."""
         starts = edge_balanced_bounds(g.row_ptrs, num_parts)
         nv_part = (starts[1:] - starts[:-1]).astype(np.int32)
         ne_part = part_edge_counts(g.row_ptrs, starts).astype(np.int64)
-        vpad = _round_up(max(1, int(nv_part.max())), VPAD_ALIGN)
+        vpad = _round_up(max(1, int(nv_part.max())), vpad_align)
         epad = _round_up(max(1, int(ne_part.max())), EPAD_ALIGN)
         if epad >= np.iinfo(np.int32).max:
             raise ValueError(

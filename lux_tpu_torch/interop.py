@@ -16,29 +16,55 @@ import torch
 
 from lux_tpu_torch.apps.pagerank import make_program
 from lux_tpu_torch.engine.pull import TILED_KEYS, PullEngine
+from lux_tpu_torch.ops.pagegather import PAGED_KEYS, PageGeometry
 from lux_tpu_torch.ops.tiled import TileGeometry
 
-META_KEYS = ("W", "E", "n_tiles", "n_chunks", "needs_scan", "vpad", "nv",
-             "ne", "num_parts")
+COMMON_META = ("vpad", "nv", "ne", "num_parts")
+META_KEYS = ("W", "E", "n_tiles", "n_chunks", "needs_scan") + COMMON_META
+PAGED_META_KEYS = ("classes", "R", "Rp", "n_tiles", "n_slots",
+                   "mode") + COMMON_META
+
+
+def _require(meta: dict, keys):
+    missing = [k for k in keys if k not in meta]
+    if missing:
+        raise KeyError(f"meta lacks {missing}")
 
 
 def from_reference(arrays: dict, state: np.ndarray, *, meta: dict,
                    device=None):
-    """arrays: the reference engine's tiled arrays (src_slot, rel_dst,
-    chunk_start, last_chunk, deg, nvp) as numpy; state: its padded
-    [num_parts, vpad] state; meta: W, E, n_tiles, n_chunks, needs_scan,
-    vpad, nv, ne, num_parts.  The program is PageRank.  Returns (PullEngine, state tensor on ``device``)."""
-    missing = [k for k in META_KEYS if k not in meta]
-    if missing:
-        raise KeyError(f"meta lacks {missing}")
-    tiles = TileGeometry(W=int(meta["W"]), E=int(meta["E"]),
-                         n_tiles=int(meta["n_tiles"]),
-                         n_chunks=int(meta["n_chunks"]),
-                         needs_scan=bool(meta["needs_scan"]))
-    host = {k: np.asarray(arrays[k]) for k in TILED_KEYS}
-    eng = PullEngine.from_arrays(
-        make_program(), host, tiles, nv=meta["nv"], ne=meta["ne"],
-        num_parts=meta["num_parts"], vpad=meta["vpad"], device=device)
+    """arrays: the reference engine's graph arrays as numpy; state: its
+    padded [num_parts, vpad] state; meta: its geometry.  The program
+    is PageRank.  Returns (PullEngine, state tensor on ``device``).
+
+    - tiled engine: arrays src_slot, rel_dst, chunk_start, last_chunk,
+      deg, nvp; meta W, E, n_tiles, n_chunks, needs_scan + the common
+      keys (vpad, nv, ne, num_parts);
+    - paged engine (meta ``mode`` "paged" or "pagemajor"): arrays
+      pg_ids, pg_sl (uint32), pg_rel, pg_tp, deg, nvp, and pg_w /
+      pg_vrs where the reference has them; meta classes, R, Rp,
+      n_tiles, n_slots, mode + the common keys."""
+    paged = meta.get("mode") in ("paged", "pagemajor")
+    _require(meta, PAGED_META_KEYS if paged else META_KEYS)
+    common = dict(nv=meta["nv"], ne=meta["ne"], num_parts=meta["num_parts"],
+                  vpad=meta["vpad"], device=device)
+    if paged:
+        pages = PageGeometry(
+            classes=tuple((int(c), int(L)) for c, L in meta["classes"]),
+            R=int(meta["R"]), Rp=int(meta["Rp"]),
+            n_tiles=int(meta["n_tiles"]), n_slots=int(meta["n_slots"]),
+            mode=meta["mode"])
+        keys = PAGED_KEYS + ("deg", "nvp", "pg_w", "pg_vrs")
+        host = {k: np.asarray(arrays[k]) for k in keys if k in arrays}
+        eng = PullEngine.from_arrays(make_program(), host, None,
+                                     pages=pages, **common)
+    else:
+        tiles = TileGeometry(W=int(meta["W"]), E=int(meta["E"]),
+                             n_tiles=int(meta["n_tiles"]),
+                             n_chunks=int(meta["n_chunks"]),
+                             needs_scan=bool(meta["needs_scan"]))
+        host = {k: np.asarray(arrays[k]) for k in TILED_KEYS}
+        eng = PullEngine.from_arrays(make_program(), host, tiles, **common)
     st = torch.tensor(np.asarray(state), device=eng.device)
     if tuple(st.shape) != (eng.num_parts, eng.vpad):
         raise ValueError(f"state {tuple(st.shape)} is not [num_parts, "

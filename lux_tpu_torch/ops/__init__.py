@@ -1,2 +1,3 @@
-"""Device operations: the segment oracle, the tiled chunk layout and
-the chunk_partials kernel (with its plain PyTorch version)."""
+"""Device operations: the segment oracle, the tiled chunk layout, the
+paged gather and its row classes, and the hand-written kernels with
+their plain PyTorch versions (chunk_partials, lane_shuffle)."""

@@ -203,7 +203,7 @@ def test_default_device_is_the_card(small_graph):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(exchange="owner"), "A6"),
     (dict(pair_threshold=16), "A3"),
-    (dict(gather="paged"), "A8"),
+    (dict(gather="auto"), "A10"),
     (dict(mesh=object()), "A6"),
 ])
 def test_unported_options_refused(small_graph, kwargs, item):
