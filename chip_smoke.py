@@ -15,8 +15,14 @@ Phases, each printing one JSON line:
 4. kernels  kernel B1 (chunk_partials) against its plain PyTorch
             version on the card: the main path's own chunks, plus
             {f32, int32} x {sum, min, max} cases with pads, empty lanes,
-            unsorted pair-row lanes, an odd C and NaN lanes; then the
-            kernels line with times, bound and launches;
+            unsorted pair-row lanes, an odd C and NaN lanes, and the
+            edge cases of its warp design (one lane for a whole chunk,
+            runs across every 4- and 32-entry boundary, all-pad chunks,
+            E in {1, 3, 33, 130}, rows that ascend then descend, lanes
+            outside [0, W), unaligned bases, paged-shaped rows with NaN
+            in every pad's value, int32 sums that wrap); two
+            launches on the main path's chunks must be bit-equal; then
+            the kernel's times, bound and library time at that shape;
 5. main     PageRank, 10 iterations, through the port's entry points,
             against the float64 oracle (rtol 5e-5, atol 1e-9); B1's
             launch count must rise by exactly one per iteration, B2's
@@ -31,7 +37,10 @@ Phases, each printing one JSON line:
             Before it, a second kernels line: B2 (lane_shuffle) against
             its plain version, bit for bit, on the paged path's own rows
             and on f32 NaN payloads, int32 rows, packed words with bit
-            31 set and row counts that are not multiples of 512;
+            31 set and row counts that are not multiples of 512.  After
+            it, B1 on the path's own [Rp, 128] rows against its plain
+            version, two launches bit-equal, and B1's times at that
+            shape (the kernels line's chunk_partials@paged entry);
 8. pagemajor the same with gather="pagemajor" (B2 over the gather rows,
             B1 over the virtual rows), its own rows checked the same way;
 9. parts    R-MAT scale 18 with 4 parts on one card and a chunk width
@@ -93,6 +102,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host wall ms to enqueue ``fn`` over ``reps`` calls, after
+    one warm-up and with the device idle at the start (few enough calls
+    that the launch queue never fills and blocks)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def same_bits(a, b) -> bool:
     """Bit-equal, NaN positions matching (any NaN payload)."""
     import torch
@@ -125,8 +148,9 @@ def phase_build():
     rep = _kernels.build()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "kernels": {k: {"seconds": round(v["seconds"], 3),
-                          "ptxas": [ln for ln in v["ptxas"].splitlines()
-                                    if "registers" in ln or "smem" in ln]}
+                          "ptxas": [ln.strip() for ln in
+                                    v["ptxas"].splitlines()
+                                    if "registers" in ln or "spill" in ln]}
                       for k, v in rep.items()}})
 
 
@@ -180,7 +204,7 @@ def _check_case(torch, name, vals, rel, W, kind, signed=False,
         err = float(diff.max()) if diff.numel() else 0.0
         if signed:
             E = vals.shape[1]
-            atol = E * 2.0 ** -23 * float(vals.abs().max())
+            atol = E * 2.0 ** -23 * float(vals.abs().nan_to_num(0.0).max())
             ok = err <= atol
             tol = f"atol {atol:.3e}"
         else:
@@ -195,12 +219,184 @@ def _check_case(torch, name, vals, rel, W, kind, signed=False,
             "max_abs_err": err, "tolerance": tol}
 
 
-def phase_kernels(args, torch, eng):
-    """Kernel B1 vs its plain version on the card, then its timings at
-    the main path's shape on the main path's own chunks."""
+def check_deterministic(torch, name, vals, rel, W):
+    """Two launches of B1 on the same inputs give the same bits: the
+    kernel has no atomics, so its combine order is fixed."""
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    a = chunk_partials(vals, rel, W, "sum")
+    b = chunk_partials(vals, rel, W, "sum")
+    torch.cuda.synchronize()
+    require(_same_words(a, b), f"B1 {name}: two launches differ in bits")
+    return {"case": f"{name}/deterministic", "C": vals.shape[0],
+            "E": vals.shape[1],
+            "dtype": str(vals.dtype).replace("torch.", ""), "kind": "sum",
+            "max_abs_err": 0.0, "tolerance": "bit-equal across launches"}
+
+
+B1_RUN_LENGTHS = (3, 5, 6, 7, 31, 33, 100, 129)
+
+
+def b1_edge_cases(torch, gen, dev, W):
+    """Kernel B1 against its plain version at the shapes on which its
+    design splits, f32 and int32, sum/min/max: one lane for a whole
+    chunk (a single run of E), runs crossing every 4-entry (one
+    thread) and 32-entry boundary, all-pad chunks, unaligned E (1, 3,
+    33, 130: the scalar path) with sorted and unsorted rows, rows that
+    ascend then descend, lanes outside [0, W) with W = 100 and 37,
+    unaligned base pointers, paged-shaped rows with NaN in every pad's
+    value, and int32 sums that wrap past INT32_MAX.  C = 1001 leaves a
+    part-filled last group where a warp takes 2 or 4 rows at once.
+    f32 sums within E * 2^-23 * max|v|, the rest bit-equal."""
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    cases = []
+
+    def make_vals(dtype, c, e, offset):
+        n = c * e + offset
+        if dtype == torch.int32:
+            flat = torch.randint(-1000, 1000, (n,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        else:
+            flat = torch.randn((n,), generator=gen, device=dev)
+        return flat[offset:].view(c, e)
+
+    def run_all(label, rel, w=W, offset=0):
+        c, e = rel.shape
+        for dtype in (torch.float32, torch.int32):
+            for kind in ("sum", "min", "max"):
+                cases.append(_check_case(
+                    torch, f"{label}/{str(dtype)[6:]}_{kind}",
+                    make_vals(dtype, c, e, offset), rel, w, kind,
+                    signed=True))
+
+    C = 1001
+    rows = torch.arange(C, device=dev)[:, None]
+    e512 = torch.arange(512, device=dev)[None, :]
+    run_all("one_lane", (rows * 17 % W).expand(C, 512).to(torch.int8)
+            .contiguous())
+    L = torch.tensor(B1_RUN_LENGTHS, device=dev)[rows % len(B1_RUN_LENGTHS)]
+    run_all("runs_cross_boundaries", torch.clamp(
+        (e512 + rows // 8 % 4 + 1) // L, max=W - 1).to(torch.int8))
+    for e in (512, 128):
+        run_all(f"all_pad_E{e}",
+                torch.full((C, e), -1, dtype=torch.int8, device=dev))
+    for e in (1, 3, 33, 130):
+        r = torch.randint(0, W, (C, e), generator=gen, device=dev)
+        r[::2] = r[::2].sort(dim=1).values
+        r = torch.where(torch.rand((C, e), generator=gen, device=dev) < 0.1,
+                        -1, r)
+        run_all(f"E{e}", r.to(torch.int8))
+    r = torch.randint(0, W, (C, 512), generator=gen,
+                      device=dev).sort(dim=1).values
+    r[:, 256:] = r[:, 256:].flip(1)
+    run_all("ascend_descend", r.to(torch.int8))
+    r = torch.randint(-128, 128, (C, 256), generator=gen,
+                      device=dev).to(torch.int8)
+    for w in (100, 37):
+        run_all(f"lanes_outside_W{w}", r, w)
+    r = torch.randint(-1, W, (C * 512 + 1,), generator=gen,
+                      device=dev).to(torch.int8)[1:].view(C, 512)
+    run_all("unaligned_base", r.sort(dim=1).values.contiguous(), offset=1)
+    run_all("unaligned_base_unsorted", r, offset=1)
+    # a paged row's shape (a few ascending lanes at the front, pads
+    # after them, four rows a warp) with NaN in every pad's value: the
+    # kernel reads no pad's value, and none reaches a lane
+    n_live = torch.randint(0, 24, (C, 1), generator=gen, device=dev)
+    r = torch.randint(0, W, (C, 128), generator=gen,
+                      device=dev).sort(dim=1).values
+    r = torch.where(torch.arange(128, device=dev)[None, :] < n_live, r,
+                    -1).to(torch.int8)
+    for dtype in (torch.float32, torch.int32):
+        for kind in ("sum", "min", "max"):
+            v = make_vals(dtype, C, 128, 0)
+            if dtype == torch.float32:
+                v = torch.where(r < 0, float("nan"), v)
+            cases.append(_check_case(
+                torch, f"paged_rows_nan_pads/{str(dtype)[6:]}_{kind}", v, r,
+                W, kind, signed=True))
+    # int32 sums past INT32_MAX wrap mod 2^32, as the reference's do
+    r = torch.randint(0, 4, (C, 512), generator=gen,
+                      device=dev).sort(dim=1).values
+    v = torch.randint(1 << 29, (1 << 31) - 1, (C, 512), generator=gen,
+                      device=dev, dtype=torch.int64)
+    for kind in ("sum", "min", "max"):
+        cases.append(_check_case(torch, f"int32_wrap/{kind}",
+                                 v.to(torch.int32), r.to(torch.int8), W,
+                                 kind))
+    wide = torch.zeros((C, W), dtype=torch.int64,
+                       device=dev).scatter_add_(1, r, v)
+    require(bool((wide > (1 << 31) - 1).any()), "int32_wrap: no sum wraps")
+    wrapped = ((wide + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+    require(torch.equal(chunk_partials(v.to(torch.int32), r.to(torch.int8),
+                                       W, "sum"), wrapped),
+            "int32_wrap: kernel sums are not the int64 sums mod 2^32")
+    return cases
+
+
+def b1_bound(torch, vals, rel, W) -> dict:
+    """B1's least time on these inputs.  Bytes: every lane id read
+    once, the value of every entry that matches a lane (in the 32 B
+    sectors the card reads: the sectors holding at least one such
+    entry; a pad's value is never needed), the output written once.
+    Operations: one combine per live entry."""
+    C, E = vals.shape
+    live = (rel >= 0) & (rel.to(torch.int16) < W)
+    ops = int(live.sum())
+    per = 32 // vals.element_size()          # entries in a 32 B sector
+    flat = live.reshape(-1)
+    pad = -flat.numel() % per
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    sectors = int(flat.view(-1, per).any(dim=1).sum())
+    bytes_moved = C * E + sectors * 32 + C * W * vals.element_size()
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_moved, "live_entries": ops,
+            "live_sectors": sectors,
+            # reading every value, pads included
+            "all_values_bytes": C * E * (vals.element_size() + 1)
+            + C * W * vals.element_size()}
+
+
+def b1_line(args, torch, vals, rel, W, name):
+    """The kernels-line entry of B1 on ``vals``/``rel``: kernel, plain
+    and one-``scatter_reduce`` times, and the bound (``b1_bound``)."""
     from lux_tpu_torch.ops.chunk_reduce import (chunk_partials,
                                                 chunk_partials_plain)
     from lux_tpu_torch.ops.segment import SCATTER_REDUCE, identity_for
+    reps = args.reps
+    C, E = vals.shape
+    ms = cuda_ms(lambda: chunk_partials(vals, rel, W, "sum"), reps)
+    plain_ms = cuda_ms(lambda: chunk_partials_plain(vals, rel, W, "sum"),
+                       reps)
+    relw = rel.to(torch.int64)
+    idx = (torch.arange(C, device=vals.device)[:, None] * (W + 1)
+           + torch.where((relw >= 0) & (relw < W), relw, W)).reshape(-1)
+    del relw
+    base = torch.full((C * (W + 1),), identity_for("sum", vals.dtype),
+                      dtype=vals.dtype, device=vals.device)
+    flat = vals.reshape(-1)
+    library_ms = cuda_ms(lambda: base.scatter_reduce(
+        0, idx, flat, SCATTER_REDUCE["sum"], include_self=True), reps)
+    del idx, base
+    got = chunk_partials(vals, rel, W, "sum")
+    want = chunk_partials_plain(vals, rel, W, "sum")
+    max_abs_err = float((got.double() - want.double()).abs().max())
+    del got, want
+    return {"name": name, "route": "cuda",
+            "source": "lux_tpu_torch/csrc/chunk_partials.cu",
+            "replaces": "lux_tpu/ops/pallas_reduce.py:63",
+            "shape": [C, E, W], "launches": None,
+            "max_abs_err": max_abs_err, "max_err": max_abs_err,
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            **b1_bound(torch, vals, rel, W),
+            "library_ms": library_ms}
+
+
+def phase_kernels(args, torch, eng):
+    """Kernel B1 vs its plain version on the card, then its timings at
+    the main path's shape on the main path's own chunks."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     tiles = eng.tiles
@@ -249,39 +445,14 @@ def phase_kernels(args, torch, eng):
     for kind in ("min", "max"):
         cases.append(_check_case(torch, f"nan/{kind}", v, rel, W, kind,
                                  plain_on="cpu"))
+    cases += b1_edge_cases(torch, gen, dev, W)
+    cases.append(check_deterministic(torch, "main_path_chunks", msgs_main,
+                                     rel_main, W))
     emit({"phase": "kernels", "cases": len(cases), "all_pass": True,
           "detail": cases})
 
     # timings at the main path's shape, on the main path's chunks
-    reps = args.reps
-    ms = cuda_ms(lambda: chunk_partials(msgs_main, rel_main, W, "sum"), reps)
-    plain_ms = cuda_ms(
-        lambda: chunk_partials_plain(msgs_main, rel_main, W, "sum"), reps)
-    relw = rel_main.to(torch.int64)
-    lane = torch.where((relw >= 0) & (relw < W), relw, W)
-    idx = (torch.arange(C, device=dev)[:, None] * (W + 1) + lane).reshape(-1)
-    base = torch.full((C * (W + 1),), identity_for("sum", msgs_main.dtype),
-                      dtype=msgs_main.dtype, device=dev)
-    flat_msgs = msgs_main.reshape(-1)
-    library_ms = cuda_ms(lambda: base.scatter_reduce(
-        0, idx, flat_msgs, SCATTER_REDUCE["sum"], include_self=True), reps)
-    got = chunk_partials(msgs_main, rel_main, W, "sum")
-    want = chunk_partials_plain(msgs_main, rel_main, W, "sum")
-    max_abs_err = float((got.double() - want.double()).abs().max())
-    bytes_moved = C * E * (msgs_main.element_size() + 1) \
-        + C * W * msgs_main.element_size()
-    ops = C * E                     # one combine per message
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return {"name": "chunk_partials", "route": "cuda",
-            "source": "lux_tpu_torch/csrc/chunk_partials.cu",
-            "replaces": "lux_tpu/ops/pallas_reduce.py:63",
-            "shape": [C, E, W], "launches": None,
-            "max_abs_err": max_abs_err, "max_err": max_abs_err,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": bytes_moved, "library_ms": library_ms}
+    return b1_line(args, torch, msgs_main, rel_main, W, "chunk_partials")
 
 
 def zero_launches():
@@ -301,7 +472,10 @@ def read_launches():
 def timed_run(torch, eng, iters):
     """Warm up one iteration, then run ``iters`` from a fresh state
     with every launch count at 0 just before and read just after.
-    Returns (state, seconds, launches, peak device bytes)."""
+    Returns (state, seconds, launches, peak device bytes, host enqueue
+    seconds): the last is the host's wall time to enqueue the run, so
+    a run whose enqueue takes as long as its device time is bound by
+    the host's launches, not by the card."""
     eng.step(eng.init_state())                    # warm-up iteration
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -311,17 +485,19 @@ def timed_run(torch, eng, iters):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     state = eng.run(state, iters)
+    host_s = time.perf_counter() - t0
     end.record()
     end.synchronize()
     launches = read_launches()
     return (state, start.elapsed_time(end) / 1e3, launches,
-            torch.cuda.max_memory_allocated())
+            torch.cuda.max_memory_allocated(), host_s)
 
 
 def phase_main(args, torch, g, eng, card):
     from lux_tpu_torch.apps import pagerank
-    state, secs, counts, peak = timed_run(torch, eng, args.iters)
+    state, secs, counts, peak, host_s = timed_run(torch, eng, args.iters)
     launches = counts["chunk_partials"]
     got = eng.unpad(state)
     want = pagerank.reference_pagerank(g, args.iters)
@@ -336,12 +512,22 @@ def phase_main(args, torch, g, eng, card):
             f"iterations (want one per iteration)")
     require(counts["lane_shuffle"] == 0,
             "the flat path launched lane_shuffle")
+    # two more timed runs (after the counts are read): the spread, and
+    # whether the host's enqueue keeps up with the card
+    repeats = []
+    for _ in range(2):
+        _s, r_secs, _c, _p, r_host = timed_run(torch, eng, args.iters)
+        repeats.append({"ms_per_iter": r_secs * 1e3 / args.iters,
+                        "host_enqueue_ms_per_iter":
+                            r_host * 1e3 / args.iters})
     emit({"phase": "main", "app": "pagerank", "nv": g.nv, "ne": g.ne,
           "iters": args.iters, "seconds": secs,
           "ms_per_iter": secs * 1e3 / args.iters,
+          "host_enqueue_ms_per_iter": host_s * 1e3 / args.iters,
           "gteps": g.ne * args.iters / secs / 1e9,
           "peak_bytes": int(peak), "max_rel_err": float(rel_err.max()),
           "tolerance": MAIN_TOL, "chunk_partials_launches": launches,
+          "repeats": repeats,
           "state_table_bytes": eng.num_parts * eng.vpad * 4,
           "note": "the f32 state table fits in the card's 50 MB L2",
           "card": card})
@@ -372,6 +558,12 @@ def phase_layers(args, torch, eng):
             eng._plan), reps),
         "apply_ms": cuda_ms(lambda: eng._apply_epilogue(state, red), reps),
         "step_ms": cuda_ms(lambda: eng.step(state), reps),
+        # the host's time to enqueue each: where it reaches the device
+        # time above, the card waits on the host's launches
+        "combine_host_ms": host_ms(torch, lambda: combine_partials(
+            partials, t, a["chunk_start"], a["last_chunk"], eng.vpad, "sum",
+            eng._plan), 10),
+        "step_host_ms": host_ms(torch, lambda: eng.step(state), 10),
     }
     emit({"phase": "layers", **out})
 
@@ -532,22 +724,37 @@ def paged_layers(args, torch, eng):
     out["chunk_partials_ms"] = cuda_ms(
         lambda: chunk_partials(vals, rel, W, "sum"), reps)
     # byte bounds at these shapes: B2 reads rows and slot_lane and
-    # writes out (12 B a lane); B1 reads values and rel, writes partials
+    # writes out (12 B a lane); B1 as b1_bound counts it
     out["lane_shuffle_bound_ms"] = sl.numel() * 12 / HBM_BYTES_PER_S * 1e3
-    out["chunk_partials_bound_ms"] = rel.numel() * 9 / HBM_BYTES_PER_S * 1e3
+    out["chunk_partials_bound_ms"] = b1_bound(torch, vals, rel,
+                                              W)["bound_ms"]
     part3 = partials.view(P, pp.Rp, W)[:, :pp.R]
     out["class_combine_ms"] = cuda_ms(
         lambda: class_combine(pp, part3, a["pg_tp"], "sum"), reps)
     red = class_combine(pp, part3, a["pg_tp"], "sum").reshape(P, -1)
     out["apply_ms"] = cuda_ms(lambda: eng._apply_epilogue(state, red), reps)
     out["step_ms"] = cuda_ms(lambda: eng.step(state), reps)
-    return out
+    return out, vals, rel
+
+
+def check_b1_rows(args, torch, vals, rel, label: str, line: bool):
+    """Kernel B1 on a paged path's own rows: against its plain version,
+    two launches bit-equal, and (``line``) its kernels-line entry."""
+    from lux_tpu_torch.ops.pagegather import W
+    cases = [_check_case(torch, f"{label}_rows", vals, rel, W, "sum"),
+             check_deterministic(torch, f"{label}_rows", vals, rel, W)]
+    emit({"phase": "kernels", "kernel": "chunk_partials", "path": label,
+          "cases": len(cases), "all_pass": True, "detail": cases})
+    return b1_line(args, torch, vals, rel, W,
+                   f"chunk_partials@{label}") if line else None
 
 
 def phase_paged(args, torch, g2, sg, mode: str, want, card):
     """One paged mode end to end: engine build (plan + upload), B2
     checks on its own rows, the timed run against the oracle with both
-    kernels launched once per iteration, per-layer times."""
+    kernels launched once per iteration, per-layer times, then B1 on
+    the path's own rows (and, for ``paged``, B1's kernels-line entry at
+    that shape)."""
     from lux_tpu_torch.apps import pagerank
     t0 = time.perf_counter()
     eng = pagerank.build_engine(g2, sg=sg, gather=mode)
@@ -557,16 +764,18 @@ def phase_paged(args, torch, g2, sg, mode: str, want, card):
     engine_bytes = sum(t.numel() * t.element_size()
                        for t in eng.arrays.values())
     rows, sl = check_b2(args, torch, eng, mode, synthetic=mode == "paged")
-    state, secs, counts, peak = timed_run(torch, eng, args.iters)
+    state, secs, counts, peak, host_s = timed_run(torch, eng, args.iters)
     err = check_pagerank(g2, eng.unpad(state), want, f"{mode} path")
     for k, n in counts.items():
         require(n == args.iters, f"{mode} path launched {k} {n} times in "
                                  f"{args.iters} iterations")
     pp = eng.page_plan
     line = b2_line(args, torch, rows, sl)
+    layers, b1_vals, b1_rel = paged_layers(args, torch, eng)
     emit({"phase": mode, "app": "pagerank", "nv": g2.nv, "ne": g2.ne,
           "iters": args.iters, "seconds": secs,
           "ms_per_iter": secs * 1e3 / args.iters,
+          "host_enqueue_ms_per_iter": host_s * 1e3 / args.iters,
           "gteps": g2.ne * args.iters / secs / 1e9,
           "peak_bytes": int(peak), "engine_bytes": int(engine_bytes),
           "max_rel_err": err, "tolerance": MAIN_TOL, "launches": counts,
@@ -581,13 +790,17 @@ def phase_paged(args, torch, g2, sg, mode: str, want, card):
                        "rows", "fill", "padded_fill", "page_ratio",
                        "unique_pages", "lane_inflation", "g_rows",
                        "g_fill") if k in pp.stats}},
-          "layers": paged_layers(args, torch, eng),
+          "layers": layers,
           "lane_shuffle": {k: line[k] for k in (
               "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
           "card": card})
     del eng, state, rows, sl
     torch.cuda.empty_cache()
-    return counts, line
+    b1 = check_b1_rows(args, torch, b1_vals, b1_rel, mode,
+                       line=mode == "paged")
+    del b1_vals, b1_rel
+    torch.cuda.empty_cache()
+    return counts, line, b1
 
 
 def phase_parts(args, torch):
@@ -671,19 +884,22 @@ def main(argv=None) -> int:
     want = pagerank.reference_pagerank(g2, args.iters)
     by_path = {"main": {"chunk_partials": kline["launches"],
                         "lane_shuffle": 0}}
-    lines = {}
+    lines, b1_lines = {}, {}
     for mode in ("paged", "pagemajor"):
-        by_path[mode], lines[mode] = phase_paged(args, torch, g2, sg, mode,
-                                                 want, card)
+        by_path[mode], lines[mode], b1_lines[mode] = phase_paged(
+            args, torch, g2, sg, mode, want, card)
     del g2, sg, want
+    kpaged = b1_lines["paged"]          # B1 at the paged path's own rows
     b2 = lines["paged"]                 # B2 at the paged path's own rows
     phase_parts(args, torch)
     kline["launches_by_path"] = {k: v["chunk_partials"]
                                  for k, v in by_path.items()}
+    kpaged["launches"] = by_path["paged"]["chunk_partials"]
+    kpaged["launches_by_path"] = kline["launches_by_path"]
     b2["launches"] = by_path["paged"]["lane_shuffle"]
     b2["launches_by_path"] = {k: v["lane_shuffle"]
                               for k, v in by_path.items()}
-    emit({"kernels": [kline, b2]})
+    emit({"kernels": [kline, kpaged, b2]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -95,6 +95,124 @@ def test_unsorted_lanes_and_odd_c():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def rmat_graphs(lux_ref):
+    """R-MAT scale 11, edge factor 16 in both packages (hub tiles span
+    several 128- and 512-edge chunks)."""
+    from lux_tpu_torch.convert import rmat_edges
+    from lux_tpu_torch.graph import Graph
+    src, dst, nv = rmat_edges(11, 16, seed=1)
+    return (Graph.from_edges(src, dst, nv),
+            lux_ref.graph.Graph.from_edges(src, dst, nv))
+
+
+@pytest.mark.parametrize("num_parts,E", [(1, 512), (4, 128)],
+                         ids=["main_e512", "parts4_e128"])
+def test_tiled_rel_dst_ascends_with_tail_pads(lux_ref, rmat_graphs,
+                                              num_parts, E):
+    """The contract the kernel's sorted fast path relies on: in every
+    chunk of the engine's tiled layout the live lanes ascend and the
+    pads (-1) sit only at the tail, array-equal to lux_tpu's layout.
+    The kernel checks it with a ballot on the card; this pins that
+    the main path's chunks take the sorted path."""
+    from lux_tpu_torch.engine.pull import build_graph_arrays
+    from lux_tpu_torch.graph import ShardedGraph
+    g, gr = rmat_graphs
+    arrays, lay = build_graph_arrays(ShardedGraph.build(g, num_parts),
+                                     "tiled", E)
+    ref_sg = lux_ref.graph.ShardedGraph.build(gr, num_parts)
+    ref = lux_ref.tiled.TiledLayout.build(ref_sg.row_ptr_local,
+                                          ref_sg.dst_local, ref_sg.vpad, E=E)
+    assert lay.needs_scan                    # tiles span several chunks
+    np.testing.assert_array_equal(arrays["rel_dst"], ref.rel_dst)
+    rel = arrays["rel_dst"].reshape(-1, E).astype(np.int16)
+    live = rel >= 0
+    assert ((rel == -1) | live).all()
+    assert not (~live[:, :-1] & live[:, 1:]).any(), "a pad before a live lane"
+    rise = np.diff(rel, axis=1)
+    assert (rise[live[:, 1:]] >= 0).all(), "live lanes descend in a chunk"
+
+
+def _edge_inputs(case, dtype, seed):
+    """(vals [C, E], rel int8 [C, E], W) for the shapes on which the
+    kernel's design splits: runs of one lane across 4-entry (one
+    thread) and 32-entry boundaries, all-pad chunks, unaligned E,
+    steps that are not sorted, lanes outside [0, W), int32 sums that
+    wrap.  C is a multiple of 8 (the Pallas kernel's block)."""
+    rng = np.random.default_rng(seed)
+    C, E, W_ = 8, 512, W
+    if case.startswith("E"):                    # E1, E3, E33, E130
+        C, E = 16, int(case[1:])
+    elif case == "lanes_outside_W":
+        E, W_ = 256, 100
+    if dtype == np.int32:
+        lo, hi = (1 << 29, (1 << 31) - 1) if case == "int32_wrap" \
+            else (-1000, 1000)
+        vals = rng.integers(lo, hi, size=(C, E), dtype=np.int32)
+    else:
+        vals = rng.standard_normal((C, E)).astype(np.float32)
+    e = np.arange(E)
+    if case == "one_lane":                      # a single run of E
+        rel = np.repeat((np.arange(C) * 17 % W_)[:, None], E, axis=1)
+    elif case == "runs_cross_boundaries":
+        L = np.array([3, 5, 6, 7, 31, 33, 100, 129])[:, None]
+        rel = np.minimum((e[None, :] + 2) // L, W_ - 1)
+    elif case == "all_pad":
+        rel = np.full((C, E), -1)
+    elif case.startswith("E"):                  # rows 0-7 sorted, 8-15 not
+        rel = rng.integers(0, W_, size=(C, E))
+        rel[:8] = np.sort(rel[:8], axis=1)
+        rel[rng.random((C, E)) < 0.1] = -1
+    elif case == "ascend_descend":
+        rel = np.sort(rng.integers(0, W_, size=(C, E)), axis=1)
+        rel[:, E // 2:] = rel[:, E // 2:][:, ::-1]
+        rel[::2, -E // 8:] = -1                 # pads at some tails
+    elif case == "lanes_outside_W":
+        rel = rng.integers(-128, 128, size=(C, E))
+    else:                                       # int32_wrap: 4 lanes
+        rel = np.sort(rng.integers(0, 4, size=(C, E)), axis=1)
+    return vals, rel.astype(np.int8), W_
+
+
+EDGE_CASES = ["one_lane", "runs_cross_boundaries", "all_pad", "E1", "E3",
+              "E33", "E130", "ascend_descend", "lanes_outside_W",
+              "int32_wrap"]
+EDGE_PARAMS = [pytest.param(case, dtype, id=f"{case}-{dtype.__name__}")
+               for case in EDGE_CASES for dtype in (np.float32, np.int32)
+               if case != "int32_wrap" or dtype == np.int32]
+
+
+@pytest.mark.parametrize("kind", ["sum", "min", "max"])
+@pytest.mark.parametrize("case,dtype", EDGE_PARAMS)
+def test_plain_matches_pallas_edge_shapes(lux_ref, case, dtype, kind):
+    """The plain version against chunk_partials_pallas in interpret
+    mode at the edge shapes chip_smoke.py holds the kernel to.  int32
+    and min/max are bit-equal; f32 sums within E * 2^-23 * max|v|,
+    the error bound of a float32 sum of E terms in any order."""
+    import jax.numpy as jnp
+    seed = EDGE_CASES.index(case) * 6 + ("sum", "min", "max").index(kind)
+    vals, rel, W_ = _edge_inputs(case, dtype, seed)
+    got = chunk_partials_plain(torch.from_numpy(vals),
+                               torch.from_numpy(rel), W_, kind).numpy()
+    want = np.asarray(lux_ref.pallas_reduce.chunk_partials_pallas(
+        jnp.asarray(vals), jnp.asarray(rel), W_, kind, interpret=True))
+    assert got.shape == want.shape == (vals.shape[0], W_)
+    assert got.dtype == want.dtype == vals.dtype
+    if dtype == np.int32 or kind != "sum":
+        np.testing.assert_array_equal(got, want)
+    else:
+        atol = vals.shape[1] * 2.0 ** -23 * float(np.abs(vals).max())
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    if case == "int32_wrap" and kind == "sum":
+        # the int64 sums pass INT32_MAX; both wrap them mod 2^32
+        wide = np.zeros((vals.shape[0], W_), np.int64)
+        np.add.at(wide, (np.arange(vals.shape[0])[:, None], rel),
+                  vals.astype(np.int64))
+        assert (wide > np.iinfo(np.int32).max).any()
+        wrapped = ((wide + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+        np.testing.assert_array_equal(got, wrapped)
+
+
 @pytest.mark.parametrize("case", ["int8_vals", "wide_W", "shape_mismatch",
                                   "int32_rel", "unknown_kind"])
 def test_wrapper_raises_typed(case):
