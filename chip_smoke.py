@@ -42,11 +42,28 @@ Phases, each printing one JSON line:
             version, two launches bit-equal, and B1's times at that
             shape (the kernels line's chunk_partials@paged entry);
 8. pagemajor the same with gather="pagemajor" (B2 over the gather rows,
-            B1 over the virtual rows), its own rows checked the same way;
+            B1 over the virtual rows), its own rows checked the same way
+            (the kernels line's chunk_partials@pagemajor entry);
 9. parts    R-MAT scale 18 with 4 parts on one card and a chunk width
             that needs the segmented combine, then the same graph
-            relabelled with 4 parts paged and page-major, against the
-            oracle.
+            relabelled with 4 parts paged and page-major, then
+            pair_relabel'd with 4 parts and pair-lane rows (streamed and
+            monolithic), against the oracle;
+10. pairs   bench.py's pagerank config on the main graph: pair_relabel,
+            pair_threshold 16, min_fill 24, tile_e 128, through
+            pagerank.build_engine once with each pair_stream setting
+            (streamed, the default, then monolithic), 10 iterations
+            against the float64 oracle of the relabelled graph; B1
+            launched once per iteration over the residual chunks plus
+            once over the pair rows (monolithic) or once a block
+            (streamed), B2 never; plan stats, set-up seconds, per-layer
+            times (B1 on the residual chunks with its bound, plain and
+            scatter_reduce times); then B1 on the path's own [Rp, 128]
+            pair rows against its plain version (two launches
+            bit-equal) and on the residual chunks, its times on the pair
+            rows (the kernels line's chunk_partials@pairs entry), and
+            how many 32-lane steps of those rows take B1's sorted path
+            and how many its __match_any_sync path.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -71,6 +88,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 MAIN_TOL = dict(rtol=5e-5, atol=1e-9)   # tests/test_pagerank.py:31
+
+# bench.py's pagerank config: PAIR_THRESHOLD (bench.py:103) and the
+# per-config min_fill default (bench.py:1381-1382)
+PAIR_THRESHOLD = 16
+PAIR_MIN_FILL = 24
 
 
 def emit(obj) -> None:
@@ -737,24 +759,22 @@ def paged_layers(args, torch, eng):
     return out, vals, rel
 
 
-def check_b1_rows(args, torch, vals, rel, label: str, line: bool):
+def check_b1_rows(args, torch, vals, rel, label: str):
     """Kernel B1 on a paged path's own rows: against its plain version,
-    two launches bit-equal, and (``line``) its kernels-line entry."""
+    two launches bit-equal, and its kernels-line entry."""
     from lux_tpu_torch.ops.pagegather import W
     cases = [_check_case(torch, f"{label}_rows", vals, rel, W, "sum"),
              check_deterministic(torch, f"{label}_rows", vals, rel, W)]
     emit({"phase": "kernels", "kernel": "chunk_partials", "path": label,
           "cases": len(cases), "all_pass": True, "detail": cases})
-    return b1_line(args, torch, vals, rel, W,
-                   f"chunk_partials@{label}") if line else None
+    return b1_line(args, torch, vals, rel, W, f"chunk_partials@{label}")
 
 
 def phase_paged(args, torch, g2, sg, mode: str, want, card):
     """One paged mode end to end: engine build (plan + upload), B2
     checks on its own rows, the timed run against the oracle with both
     kernels launched once per iteration, per-layer times, then B1 on
-    the path's own rows (and, for ``paged``, B1's kernels-line entry at
-    that shape)."""
+    the path's own rows and B1's kernels-line entry at that shape."""
     from lux_tpu_torch.apps import pagerank
     t0 = time.perf_counter()
     eng = pagerank.build_engine(g2, sg=sg, gather=mode)
@@ -796,8 +816,7 @@ def phase_paged(args, torch, g2, sg, mode: str, want, card):
           "card": card})
     del eng, state, rows, sl
     torch.cuda.empty_cache()
-    b1 = check_b1_rows(args, torch, b1_vals, b1_rel, mode,
-                       line=mode == "paged")
+    b1 = check_b1_rows(args, torch, b1_vals, b1_rel, mode)
     del b1_vals, b1_rel
     torch.cuda.empty_cache()
     return counts, line, b1
@@ -806,7 +825,8 @@ def phase_paged(args, torch, g2, sg, mode: str, want, card):
 def phase_parts(args, torch):
     from lux_tpu_torch.apps import pagerank
     from lux_tpu_torch.convert import rmat_edges
-    from lux_tpu_torch.graph import Graph, degree_relabel
+    from lux_tpu_torch.graph import Graph, degree_relabel, pair_relabel
+    from lux_tpu_torch.ops.pairs import stream_blocks
     src, dst, nv = rmat_edges(18, 16, seed=args.seed + 1)
     g = Graph.from_edges(src, dst, nv)
     eng = pagerank.build_engine(g, num_parts=4, tile_e=128)
@@ -841,10 +861,247 @@ def phase_parts(args, torch):
                 f"4-part {mode} run launched {pcounts}")
         paged[mode] = {"Rp": peng.page_plan.Rp, "max_rel_err": err,
                        "launches": pcounts}
+    del peng
+    pairs = {}
+    g3, _perm, starts = pair_relabel(g, 4, pair_threshold=16)
+    want3 = pagerank.reference_pagerank(g3, args.iters)
+    for stream in (True, False):
+        peng = pagerank.build_engine(g3, num_parts=4, starts=starts,
+                                     pair_threshold=16, pair_min_fill=24,
+                                     pair_stream=stream)
+        state = peng.init_state()
+        zero_launches()
+        state = peng.run(state, args.iters)
+        torch.cuda.synchronize()
+        pcounts = read_launches()
+        err = check_pagerank(g3, peng.unpad(state), want3,
+                             f"4-part pairs (stream={stream}) run")
+        per_iter = 1 + (len(stream_blocks(peng.pairs.classes)) if stream
+                        else 1)
+        require(pcounts == {"chunk_partials": per_iter * args.iters,
+                            "lane_shuffle": 0},
+                f"4-part pairs (stream={stream}) run launched {pcounts}")
+        pairs["streamed" if stream else "monolithic"] = {
+            "Rp": peng.pairs.Rp, "classes": len(peng.pairs.classes),
+            "max_rel_err": err, "launches": pcounts}
     emit({"phase": "parts", "nv": g.nv, "ne": g.ne, "num_parts": 4,
           "tile_e": 128, "chunks": eng.num_parts * eng.tiles.n_chunks,
           "iters": args.iters, "max_rel_err": float(rel_err.max()),
-          "chunk_partials_launches": launches, "paged": paged})
+          "chunk_partials_launches": launches, "paged": paged,
+          "pairs": pairs})
+
+
+def b1_step_paths(rel, W) -> dict:
+    """How kernel B1 takes the 128-entry (32 threads x 4) steps of rows
+    ``rel`` [C, E], E a multiple of 128, counted on the host: a step
+    with no live entry is skipped; one whose live lanes, in entry
+    order, never fall takes the segmented-scan path; any other the
+    __match_any_sync path (the kernel's ballot in step())."""
+    import torch
+    steps = rel.reshape(-1, 128).cpu().to(torch.int16)
+    live = (steps >= 0) & (steps < W)
+    keyed = torch.where(live, steps, torch.full_like(steps, -1))
+    running = torch.cummax(keyed, dim=1).values
+    falls = (live[:, 1:] & (keyed[:, 1:] < running[:, :-1])).any(dim=1)
+    has = live.any(dim=1)
+    n_live = live.sum(dim=1)
+    return {"steps": steps.shape[0], "all_pad": int((~has).sum()),
+            "sorted": int((has & ~falls).sum()),
+            "match_any": int((has & falls).sum()),
+            "live_entries_per_live_step":
+                float(n_live[has].double().mean()) if has.any() else 0.0}
+
+
+def pair_layers(args, torch, eng):
+    """Device ms of each layer of one pair-lane iteration, each timed
+    alone on the engine's own arrays: the residual's gather, B1 and
+    segmented combine; the pair rows' fetch, B1 and class combine
+    (streamed: summed over the blocks, each layer's blocks timed as one
+    loop); combine_op; apply.  Returns (layers, the monolithic pair
+    rows' values and rel for the B1 checks)."""
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    from lux_tpu_torch.ops.pairs import (W, _reduce_depth, _take_slots,
+                                         class_combine, stream_blocks)
+    from lux_tpu_torch.ops.tiled import combine_op, combine_partials
+    a, t, sp = eng.arrays, eng.tiles, eng.pairs
+    P, reps = eng.num_parts, args.reps
+    state = eng.init_state()
+    flat = state.reshape(-1)
+    msgs = eng._messages(flat)
+    C = P * t.n_chunks
+    msgs_res = msgs.reshape(C, t.E)
+    rel_res = a["rel_dst"].reshape(C, t.E)
+    partials = chunk_partials(msgs_res, rel_res, t.W, "sum")
+    red = combine_partials(partials, t, a["chunk_start"], a["last_chunk"],
+                           eng.vpad, "sum", eng._plan)
+    res_line = b1_line(args, torch, msgs_res, rel_res, t.W,
+                       "chunk_partials@pairs_residual")
+    out = {
+        "residual_gather_ms": cuda_ms(lambda: eng._messages(flat), reps),
+        "residual_chunk_partials_ms": res_line["ms"],
+        "residual_chunk_partials_bound_ms": res_line["bound_ms"],
+        "residual_chunk_partials_plain_ms": res_line["plain_ms"],
+        "residual_scatter_reduce_ms": res_line["library_ms"],
+        "segmented_combine_ms": cuda_ms(lambda: combine_partials(
+            partials, t, a["chunk_start"], a["last_chunk"], eng.vpad, "sum",
+            eng._plan), reps),
+    }
+    s2d = flat.reshape(-1, W)
+    rb = a["pair_rowbind"].reshape(-1).long()
+    rel = a["pair_rel"].reshape(-1, W)
+
+    def fetch():
+        return torch.index_select(s2d, 0, rb)
+
+    vals = fetch()
+    pparts = chunk_partials(vals, rel, W, "sum")
+    part3 = pparts.view(P, sp.Rp, W)[:, :sp.R]
+    tp = a["pair_tile_pos"]
+    if eng.pair_stream:
+        blocks = stream_blocks(sp.classes)
+        rb2 = a["pair_rowbind"]
+        rl2 = a["pair_rel"]
+        bidx = [rb2[:, r0:r0 + S * L].reshape(-1).long()
+                for r0, S, L in blocks]
+        brel = [rl2[:, r0:r0 + S * L].reshape(-1, W) for r0, S, L in blocks]
+        bvals = [torch.index_select(s2d, 0, i) for i in bidx]
+        bparts = [chunk_partials(v, r, W, "sum").view(P, S, L, W)
+                  for v, r, (_r0, S, L) in zip(bvals, brel, blocks)]
+
+        def combine():
+            outs = [_reduce_depth(p, "sum") for p in bparts]
+            return _take_slots(outs, tp, "sum", torch.float32, flat.device,
+                               (W,))
+
+        out.update(
+            pair_blocks=len(blocks),
+            pair_fetch_ms=cuda_ms(lambda: [torch.index_select(s2d, 0, i)
+                                           for i in bidx], reps),
+            pair_chunk_partials_ms=cuda_ms(lambda: [
+                chunk_partials(v, r, W, "sum")
+                for v, r in zip(bvals, brel)], reps),
+            pair_combine_ms=cuda_ms(combine, reps))
+        del bvals, bparts
+    else:
+        out.update(
+            pair_blocks=1,
+            pair_fetch_ms=cuda_ms(fetch, reps),
+            pair_chunk_partials_ms=cuda_ms(
+                lambda: chunk_partials(vals, rel, W, "sum"), reps),
+            pair_combine_ms=cuda_ms(
+                lambda: class_combine(sp, part3, tp, "sum"), reps))
+    out["pair_chunk_partials_bound_ms"] = b1_bound(torch, vals, rel,
+                                                   W)["bound_ms"]
+    pred = eng._pair_red(flat)
+    out["pair_delivery_ms"] = cuda_ms(lambda: eng._pair_red(flat), reps)
+    out["combine_op_ms"] = cuda_ms(lambda: combine_op("sum")(red, pred),
+                                   reps)
+    both = combine_op("sum")(red, pred)
+    out["apply_ms"] = cuda_ms(lambda: eng._apply_epilogue(state, both), reps)
+    out["step_ms"] = cuda_ms(lambda: eng.step(state), reps)
+    out["step_host_ms"] = host_ms(torch, lambda: eng.step(state), 10)
+    return out, vals, rel
+
+
+def phase_pairs(args, torch, g, card):
+    """bench.py's pagerank config (bench.py:987-1011) on the main graph,
+    once with each pair_stream setting; returns (launches by setting,
+    the kernels-line entry of B1 on the pair rows)."""
+    from lux_tpu_torch.apps import pagerank
+    from lux_tpu_torch.graph import pair_relabel
+    from lux_tpu_torch.ops.pairs import stream_blocks
+    t0 = time.perf_counter()
+    g2, _perm, starts = pair_relabel(g, 1, pair_threshold=PAIR_THRESHOLD)
+    t_relabel = time.perf_counter() - t0
+    want = pagerank.reference_pagerank(g2, args.iters)
+    counts_by, b1 = {}, None
+    for stream in (True, False):
+        label = "streamed" if stream else "monolithic"
+        t0 = time.perf_counter()
+        eng = pagerank.build_engine(g2, 1, pair_threshold=PAIR_THRESHOLD,
+                                    pair_min_fill=PAIR_MIN_FILL,
+                                    starts=starts, pair_stream=stream)
+        torch.cuda.synchronize()
+        t_engine = time.perf_counter() - t0
+        require(eng.pair_stream is stream and eng.tiles.E == 128,
+                f"pairs {label}: engine resolved stream={eng.pair_stream} "
+                f"E={eng.tiles.E}")
+        sp = eng.pairs
+        blocks = len(stream_blocks(sp.classes)) if stream else 1
+        state, secs, counts, peak, host_s = timed_run(torch, eng, args.iters)
+        err = check_pagerank(g2, eng.unpad(state), want, f"pairs {label}")
+        require(counts == {"chunk_partials": (1 + blocks) * args.iters,
+                           "lane_shuffle": 0},
+                f"pairs {label} launched {counts} in {args.iters} "
+                f"iterations (want B1 {1 + blocks} a iteration: the "
+                f"residual chunks and {blocks} pair launch(es); B2 none)")
+        repeats = []
+        for _ in range(2):
+            _s, r_secs, _c, _p, r_host = timed_run(torch, eng, args.iters)
+            repeats.append({"ms_per_iter": r_secs * 1e3 / args.iters,
+                            "host_enqueue_ms_per_iter":
+                                r_host * 1e3 / args.iters})
+        layers, vals, rel = pair_layers(args, torch, eng)
+        engine_bytes = sum(t.numel() * t.element_size()
+                           for t in eng.arrays.values())
+        emit({"phase": "pairs", "pair_stream": stream, "app": "pagerank",
+              "nv": g2.nv, "ne": g2.ne, "iters": args.iters,
+              "pair_threshold": PAIR_THRESHOLD, "min_fill": PAIR_MIN_FILL,
+              "tile_e": eng.tiles.E, "seconds": secs,
+              "ms_per_iter": secs * 1e3 / args.iters,
+              "host_enqueue_ms_per_iter": host_s * 1e3 / args.iters,
+              "gteps": g2.ne * args.iters / secs / 1e9,
+              "repeats": repeats, "peak_bytes": int(peak),
+              "engine_bytes": int(engine_bytes), "max_rel_err": err,
+              "tolerance": MAIN_TOL, "launches": counts,
+              "relabel_seconds": round(t_relabel, 3),
+              "pair_plan_seconds": round(eng.plan_seconds, 3),
+              "engine_seconds": round(t_engine, 3),
+              "host_peak_rss_bytes":
+                  resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+              "plan": {"R": sp.R, "Rp": sp.Rp, "classes": len(sp.classes),
+                       "n_slots": sp.n_slots, "blocks": blocks,
+                       "covered": sp.stats["covered"],
+                       "coverage": sp.stats["coverage"],
+                       "inflation": sp.stats["inflation"],
+                       "residual_edges": int(eng.sg.ne_part.sum()),
+                       "residual_chunks": eng.num_parts * eng.tiles.n_chunks,
+                       "needs_scan": eng.tiles.needs_scan,
+                       "longest_tile_chunks": eng._plan.max_len},
+              "layers": layers, "card": card})
+        counts_by[label] = counts
+        if stream:
+            # B1's own checks and timing at the pair rows, once (both
+            # settings deliver the same rows), before the monolithic
+            # engine is built so that nothing held here counts in its
+            # peak memory
+            b1 = check_pair_rows(args, torch, eng, vals, rel)
+        del eng, state, vals, rel
+        torch.cuda.empty_cache()
+    return counts_by, b1
+
+
+def check_pair_rows(args, torch, eng, vals, rel):
+    """Kernel B1 on the pair config's own rows [Rp, 128] (sum, min,
+    max against its plain version, two launches bit-equal) and on its
+    residual chunks; the host count of each path's step kinds; B1's
+    kernels-line entry at the pair rows."""
+    res = eng.arrays["rel_dst"].reshape(-1, 128)
+    res_msgs = eng._messages(eng.init_state().reshape(-1)).reshape(res.shape)
+    paths = {"pair_rows": b1_step_paths(rel, 128),
+             "residual_chunks": b1_step_paths(res, 128)}
+    cases = [_check_case(torch, f"pairs_rows/{kind}", vals, rel, 128, kind)
+             for kind in ("sum", "min", "max")]
+    cases.append(check_deterministic(torch, "pairs_rows", vals, rel, 128))
+    cases.append(_check_case(torch, "pairs_residual_chunks", res_msgs, res,
+                             128, "sum"))
+    del res_msgs, res
+    emit({"phase": "kernels", "kernel": "chunk_partials", "path": "pairs",
+          "cases": len(cases), "all_pass": True, "detail": cases,
+          "step_paths": paths})
+    b1 = b1_line(args, torch, vals, rel, 128, "chunk_partials@pairs")
+    b1["step_paths"] = paths["pair_rows"]
+    return b1
 
 
 def main(argv=None) -> int:
@@ -880,7 +1137,6 @@ def main(argv=None) -> int:
     del eng
     torch.cuda.empty_cache()
     g2, sg = phase_paged_graph(args, torch, g)
-    del g
     want = pagerank.reference_pagerank(g2, args.iters)
     by_path = {"main": {"chunk_partials": kline["launches"],
                         "lane_shuffle": 0}}
@@ -889,17 +1145,23 @@ def main(argv=None) -> int:
         by_path[mode], lines[mode], b1_lines[mode] = phase_paged(
             args, torch, g2, sg, mode, want, card)
     del g2, sg, want
-    kpaged = b1_lines["paged"]          # B1 at the paged path's own rows
     b2 = lines["paged"]                 # B2 at the paged path's own rows
     phase_parts(args, torch)
+    pair_counts, kpairs = phase_pairs(args, torch, g, card)
+    del g
+    by_path["pairs"] = pair_counts["streamed"]
+    by_path["pairs_monolithic"] = pair_counts["monolithic"]
     kline["launches_by_path"] = {k: v["chunk_partials"]
                                  for k, v in by_path.items()}
-    kpaged["launches"] = by_path["paged"]["chunk_partials"]
-    kpaged["launches_by_path"] = kline["launches_by_path"]
+    # B1 at each row path's own rows, with that path's launches
+    b1_lines["pairs"] = kpairs
+    for path, line in b1_lines.items():
+        line["launches"] = by_path[path]["chunk_partials"]
+        line["launches_by_path"] = kline["launches_by_path"]
     b2["launches"] = by_path["paged"]["lane_shuffle"]
     b2["launches_by_path"] = {k: v["lane_shuffle"]
                               for k, v in by_path.items()}
-    emit({"kernels": [kline, kpaged, b2]})
+    emit({"kernels": [kline, *b1_lines.values(), b2]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -44,26 +44,36 @@ def make_program() -> PullProgram:
 
 def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                  sg: ShardedGraph | None = None,
-                 tile_e: int = 512, layout: str = "tiled",
-                 exchange: str = "auto", gather: str = "flat",
                  pair_threshold: int | None = None,
-                 mesh=None) -> PullEngine:
+                 pair_min_fill: int | str | None = None,
+                 pair_stream: bool | None = None,
+                 starts=None, tile_e: int | None = None,
+                 layout: str = "tiled", exchange: str = "auto",
+                 gather: str = "flat", mesh=None) -> PullEngine:
     """float32 PageRank engine on ``device`` (None = the card; "cpu"
-    when asked).  ``sg`` is a prebuilt layout of ``g``; without it,
-    ``gather="paged"|"pagemajor"`` builds the 128-aligned vertex
-    padding the paged plan needs.  ``tile_e`` is the chunk width (512,
-    the reference's default without pairs).  Options the port does not
-    carry yet (pairs, owner, gather="auto", mesh) raise
+    when asked).  ``sg`` is a prebuilt layout of ``g``; without it the
+    layout is built here, with ``starts`` as its cut points (e.g. from
+    graph.pair_relabel) and the 128-aligned vertex padding that
+    ``gather="paged"|"pagemajor"`` and pair-lane delivery need.
+    ``pair_threshold`` / ``pair_min_fill`` / ``pair_stream``: pair-lane
+    delivery (engine.pull.PullEngine).  ``tile_e``, the chunk width,
+    defaults to 128 with pairs (the residual edges are sparse) and 512
+    without, as in the reference.  Options the port does not carry yet
+    (owner, gather="auto", mesh, min_fill="auto") raise
     engine.pull.NotPortedError."""
     dev = resolve_device(device)
     if sg is None:
-        sg = ShardedGraph.build(g, num_parts,
+        sg = ShardedGraph.build(g, num_parts, starts=starts,
+                                pair_threshold=pair_threshold,
                                 vpad_align=128 if gather != "flat"
                                 else VPAD_ALIGN)
+    if tile_e is None:
+        tile_e = 128 if pair_threshold is not None else 512
     return PullEngine(sg, make_program(), device=dev, layout=layout,
-                      tile_e=tile_e,
-                      exchange=exchange, gather=gather,
-                      pair_threshold=pair_threshold, mesh=mesh)
+                      tile_e=tile_e, exchange=exchange, gather=gather,
+                      pair_threshold=pair_threshold,
+                      pair_min_fill=pair_min_fill, pair_stream=pair_stream,
+                      mesh=mesh)
 
 
 def run(g: Graph, num_iters: int, num_parts: int = 1, *,

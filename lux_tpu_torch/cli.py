@@ -1,8 +1,9 @@
 """Command-line apps with the reference's flag names (counterpart of
-lux_tpu/cli.py:596-689 and :864).
+lux_tpu/cli.py:69, :116, :165, :557 and :596-689, :864).
 
     python -m lux_tpu_torch.cli pagerank -file g.lux -ni 10 [-np N]
                                          [-gather flat|paged|pagemajor]
+                                         [-pair T [-min-fill F]]
                                          [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli convert -input edges.txt -output g.lux
                                         -nv N [-weighted]
@@ -13,6 +14,10 @@ the reference.  The default device is the card; ``-device cpu`` runs
 the plain PyTorch versions on the host.  ``-gather paged|pagemajor``
 runs the page-binned delivery (ops/pagegather.py); ``-gather auto``
 is refused (exit 2) until its cost model is measured on the card.
+``-pair T`` relabels the graph (graph.pair_relabel) and serves dense
+tile pairs by pair-lane rows (ops/pairs.py); the ranks go back to the
+input's vertex order before ``-check``.  ``-min-fill auto`` is refused
+(exit 2) like ``-gather auto``.
 """
 
 from __future__ import annotations
@@ -21,8 +26,25 @@ import argparse
 import os
 import sys
 
+import numpy as np
+
 from lux_tpu_torch.device import DeviceUnavailableError
 from lux_tpu_torch.engine.pull import NotPortedError
+
+
+def _min_fill_arg(v: str):
+    """-min-fill value: an int, or 'auto' (not ported)."""
+    return "auto" if v == "auto" else int(v)
+
+
+def _relabel_for_pairs(args, g, num_parts):
+    """-pair T: relabel so pair-lane delivery finds dense tile pairs.
+    Returns (graph to run on, perm | None, starts | None) with
+    perm[new] = old."""
+    if args.pair is None:
+        return g, None, None
+    from lux_tpu_torch.graph import pair_relabel
+    return pair_relabel(g, num_parts, pair_threshold=args.pair)
 
 
 def cmd_pagerank(argv) -> int:
@@ -38,14 +60,26 @@ def cmd_pagerank(argv) -> int:
                          "('flat'), page rows + lane shuffle ('paged'), "
                          "or full gather rows bound to pages first "
                          "('pagemajor'); 'auto' is not ported")
+    ap.add_argument("-pair", type=int, default=None, metavar="T",
+                    help="pair-lane delivery with threshold T (relabels "
+                         "the graph internally; ranks are mapped back "
+                         "to input ids); exclusive with -gather "
+                         "paged|pagemajor")
+    ap.add_argument("-min-fill", type=_min_fill_arg, default=None,
+                    dest="min_fill", metavar="F",
+                    help="with -pair: drop pair rows that would deliver "
+                         "< F live lanes (their edges ride the residual "
+                         "path); 'auto' is not ported")
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
     from lux_tpu_torch.apps import pagerank
     from lux_tpu_torch.format import GraphFormatError
     from lux_tpu_torch.graph import Graph
+    from lux_tpu_torch.ops.pairs import resolve_min_fill
     from lux_tpu_torch.timing import timed_fused_run
 
+    resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
@@ -54,14 +88,23 @@ def cmd_pagerank(argv) -> int:
     except GraphFormatError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    eng = pagerank.build_engine(g, max(1, args.np), device=args.device,
-                                gather=args.gather)
+    num_parts = max(1, args.np)
+    g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
+    eng = pagerank.build_engine(g_run, num_parts, device=args.device,
+                                gather=args.gather, starts=starts,
+                                pair_threshold=args.pair,
+                                pair_min_fill=args.min_fill)
     state, elapsed = timed_fused_run(eng, args.ni)
     print(f"ELAPSED TIME = {elapsed:.7f} s")
     print(f"GTEPS = {g.ne * args.ni / elapsed / 1e9:.4f}")
     if args.check:
         from lux_tpu_torch.check import check_pagerank
-        res = check_pagerank(g, eng.unpad(state), tol=1e-3)
+        ranks = eng.unpad(state)
+        if perm is not None:        # relabelled order -> input order
+            user = np.empty_like(ranks)
+            user[perm] = ranks
+            ranks = user
+        res = check_pagerank(g, ranks, tol=1e-3)
         print(res)
         return 0 if res.ok else 1
     return 0

@@ -1,5 +1,5 @@
 """The pull engine: dense gather-apply iterations on one device
-(counterpart of lux_tpu/engine/pull.py:142-194, :240-304, :407-462,
+(counterpart of lux_tpu/engine/pull.py:142-194, :240-304, :361-462,
 :535-629, :922-962, :1108, :1235).
 
 One iteration, every part at once (parts are a batch dimension):
@@ -19,12 +19,17 @@ so neither chunk arrays nor a per-edge gather exist; one iteration
 launches kernel B2 (lane shuffle) and kernel B1 (over [P*Rp, 128]
 rows) once each.
 
+``pair_threshold`` moves the edges of dense (src tile, dst tile) pairs
+out of the tiled path into pair-lane rows (ops/pairs.py): an iteration
+runs the tiled path over the residual edges and the pair delivery
+(one launch of B1 over all [P*Rp, 128] pair rows, or one a block when
+streamed), combined per destination.
+
 The reference fuses a fixed-iteration run into one XLA program; here a
 run is a Python loop over ``step`` on the device's stream.  The
-reference's exchange variants (owner), pair-lane delivery,
-``gather="auto"``, streamed blocks and the mesh are refused with a
-typed :class:`NotPortedError` naming the ROADMAP item that brings
-them.
+reference's exchange variants (owner), ``gather="auto"``, streamed
+chunk blocks and the mesh are refused with a typed
+:class:`NotPortedError` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -40,8 +45,11 @@ from lux_tpu_torch.graph import ShardedGraph
 from lux_tpu_torch.ops.pagegather import (PAGED_KEYS, W, engine_page_plan,
                                           paged_partial, plan_graph_arrays,
                                           row_slots)
+from lux_tpu_torch.ops.pairs import (PAIR_KEYS, pair_graph_arrays,
+                                     pair_partial, pair_partial_streamed,
+                                     plan_sharded_pairs, resolve_pair_stream)
 from lux_tpu_torch.ops.segment import segment_reduce
-from lux_tpu_torch.ops.tiled import (TiledLayout, segment_plan,
+from lux_tpu_torch.ops.tiled import (TiledLayout, combine_op, segment_plan,
                                      tiled_segment_reduce)
 
 # exchange="auto" picks the owner exchange once the flat state table
@@ -61,7 +69,32 @@ def _refuse(what: str, item: str):
     raise NotPortedError(f"{what} is not ported yet (ROADMAP {item}); "
                          f"the port runs one device, layout "
                          f"'tiled'/'flat', gather 'flat'/'paged'/"
-                         f"'pagemajor', exchange 'gather'")
+                         f"'pagemajor' or pair-lane rows, exchange "
+                         f"'gather'")
+
+
+def _check_pair_program(layout: str, program) -> None:
+    """What pair-lane delivery refuses, with the reference's messages
+    (lux_tpu/engine/pull.py:372-384); its dot path is ROADMAP A5."""
+    if layout != "tiled":
+        raise ValueError("pair_threshold requires the tiled layout")
+    if getattr(program, "batch", None) is not None:
+        raise ValueError(
+            "pair_threshold does not support query-batched programs: "
+            "pair delivery reads scalar vertex state "
+            "(ops/pairs.pair_partial); run batched engines without pairs")
+    dot = getattr(program, "edge_value_from_dot", None)
+    if program.needs_dst and dot is None:
+        raise ValueError("pair_threshold supports programs whose "
+                         "edge_value depends only on the source state, "
+                         "or on <src, dst> via edge_value_from_dot")
+    if dot is not None:
+        _refuse("pair delivery of edge_value_from_dot programs", "A5")
+
+
+def _outside(x: torch.Tensor, hi: int) -> bool:
+    """Any entry of ``x`` outside [0, hi)."""
+    return bool(x.numel()) and (int(x.min()) < 0 or int(x.max()) >= hi)
 
 
 def resolve_exchange(exchange: str, sg: ShardedGraph, program) -> str:
@@ -117,13 +150,22 @@ class PullEngine:
     device (``device=None`` means the card; pass ``"cpu"`` for the
     plain PyTorch versions)."""
 
-    plan_seconds = 0.0      # host seconds spent building the paged plan
+    plan_seconds = 0.0      # host seconds spent building the paged or
+                            # pair plan
 
     def __init__(self, sg: ShardedGraph, program: PullProgram, *,
                  device=None, layout: str = "tiled", tile_e: int = 512,
                  exchange: str = "auto", gather: str = "flat",
                  pair_threshold: int | None = None,
+                 pair_min_fill: int | str | None = None,
+                 pair_stream: bool | None = None,
                  stream_msgs: bool | None = None, mesh=None):
+        """``pair_threshold``: serve the edges of (src tile, dst tile)
+        pairs with at least this many edges by pair-lane rows
+        (ops/pairs.py; needs vpad % 128 == 0), the rest by the tiled
+        path; ``pair_min_fill`` drops pair rows with fewer live lanes
+        to the residual; ``pair_stream`` (None = True, the reference's
+        default) reduces the pair rows in blocks."""
         dev = resolve_device(device)
         if mesh is not None:
             _refuse("a device mesh", "A6")
@@ -134,16 +176,21 @@ class PullEngine:
             raise ValueError(
                 f"gather={gather!r} subsumes pair delivery (both are "
                 f"row-granular layouts); build without pair_threshold")
-        if pair_threshold is not None:
-            _refuse("pair-lane delivery (pair_threshold)", "A3")
         if stream_msgs:
             _refuse("streamed chunk blocks (stream_msgs)", "A6")
+        if pair_threshold is not None:
+            _check_pair_program(layout, program)
         if program.needs_dst:
             _refuse("programs whose edge_value reads the destination",
                     "A5")
         resolve_exchange(exchange, sg, program)
         t0 = time.perf_counter()
         plan = engine_page_plan(sg, gather, program)
+        pairs = None
+        if pair_threshold is not None:
+            # the tiled path runs on the residual of the pair plan
+            pairs, sg = plan_sharded_pairs(sg, pair_threshold,
+                                           min_fill=pair_min_fill)
         plan_seconds = time.perf_counter() - t0
         if plan is not None:
             # the paged plan IS the edge layout: no chunk arrays
@@ -152,36 +199,46 @@ class PullEngine:
         else:
             arrays, lay = build_graph_arrays(sg, layout, tile_e)
             tiles = None if lay is None else lay.geometry
+            if pairs is not None:
+                arrays.update(pair_graph_arrays(pairs))
         self._bind(program, arrays, tiles, nv=sg.nv, ne=sg.ne,
                    num_parts=sg.num_parts, vpad=sg.vpad, device=dev, sg=sg,
-                   pages=plan)
+                   pages=plan, pairs=pairs, pair_stream=pair_stream)
         self.plan_seconds = plan_seconds
 
     @classmethod
     def from_arrays(cls, program: PullProgram, arrays: dict, tiles, *,
                     nv: int, ne: int, num_parts: int, vpad: int,
-                    device=None, pages=None):
+                    device=None, pages=None, pairs=None, pair_stream=None):
         """An engine on given per-part arrays and their geometry — how
         interop.from_reference carries a reference engine's arrays
         across bit for bit.  Tiled: keys src_slot, rel_dst,
         chunk_start, last_chunk, deg, nvp and ``tiles`` an
-        ops/tiled.TileGeometry.  Paged: keys pg_ids, pg_sl, pg_rel,
+        ops/tiled.TileGeometry; with pair rows also pair_rowbind,
+        pair_rel, pair_tile_pos (+ pair_weight) and ``pairs`` an
+        ops/pairs.PairGeometry.  Paged: keys pg_ids, pg_sl, pg_rel,
         pg_tp (+ pg_w, pg_vrs), deg, nvp, ``tiles=None`` and ``pages``
         an ops/pagegather.PageGeometry."""
         eng = cls.__new__(cls)
         eng._bind(program, arrays, tiles, nv=nv, ne=ne,
                   num_parts=num_parts, vpad=vpad,
-                  device=resolve_device(device), sg=None, pages=pages)
+                  device=resolve_device(device), sg=None, pages=pages,
+                  pairs=pairs, pair_stream=pair_stream)
         return eng
 
     def _bind(self, program, arrays, tiles, *, nv, ne, num_parts, vpad,
-              device, sg, pages=None):
+              device, sg, pages=None, pairs=None, pair_stream=None):
         self.program = program
         self.sg = sg
         self.tiles = tiles
         # the PagedPlan (or, carried from arrays, its PageGeometry)
         self.page_plan = pages
         self.gather = "flat" if pages is None else pages.mode
+        # the StackedPairPlan (or its PairGeometry); None without pairs
+        if pairs is not None and tiles is None:
+            raise ValueError("pair rows need the tiled layout")
+        self.pairs = pairs
+        self.pair_stream = resolve_pair_stream(pair_stream, pairs)
         self.nv, self.ne = int(nv), int(ne)
         self.num_parts, self.vpad = int(num_parts), int(vpad)
         self.device = device
@@ -192,6 +249,8 @@ class PullEngine:
             need = TILED_KEYS
         else:
             need = ("src_slot", "dst_local", "deg", "nvp")
+        if pairs is not None:
+            need += PAIR_KEYS
         missing = [k for k in need if k not in arrays]
         if missing:
             raise KeyError(f"graph arrays lack {missing}")
@@ -227,6 +286,8 @@ class PullEngine:
                     f"tiled arrays do not match [P, C, E] = {shape} / "
                     f"last_chunk [P, n_tiles={tiles.n_tiles}] int8 rel")
             self._plan = segment_plan(a["chunk_start"], a["last_chunk"])
+            if pairs is not None:
+                self._check_pairs()
         else:
             # flat oracle: one segment space for all parts, with each
             # part's trash row vpad kept apart
@@ -256,16 +317,38 @@ class PullEngine:
                 f"paged arrays do not match the plan geometry {pp} "
                 f"(num_parts={P}, vpad={self.vpad})")
 
-        def outside(x, hi):
-            return x.numel() and (int(x.min()) < 0 or int(x.max()) >= hi)
-
-        if (outside(ids, P * self.vpad // W)
-                or outside(row_slots(sl), ids.shape[1])
-                or outside(tp, pp.n_slots + 1)
-                or (vrs is not None and outside(vrs, Rg))):
+        if (_outside(ids, P * self.vpad // W)
+                or _outside(row_slots(sl), ids.shape[1])
+                or _outside(tp, pp.n_slots + 1)
+                or (vrs is not None and _outside(vrs, Rg))):
             raise ValueError("paged arrays index outside the state table, "
                              "the page list, the class slots or the "
                              "gather rows")
+
+    def _check_pairs(self):
+        """Shapes and index ranges of the pair arrays, checked once: an
+        out-of-range rowbind or tile_pos would fault on the card."""
+        a, P, sp = self.arrays, self.num_parts, self.pairs
+        rb, rel, tp = (a[k] for k in PAIR_KEYS)
+        w = a.get("pair_weight")
+        ok = (tuple(rb.shape) == (P, sp.Rp) and rb.dtype == torch.int32
+              and tuple(rel.shape) == (P, sp.Rp, W)
+              and rel.dtype == torch.int8
+              and tuple(tp.shape) == (P, sp.n_tiles)
+              and sp.n_tiles * W == self.vpad
+              and sum(c * L for c, L in sp.classes) == sp.R <= sp.Rp
+              and sum(c for c, _L in sp.classes) == sp.n_slots
+              and (w is None or tuple(w.shape) == (P, sp.Rp, W)))
+        if not ok:
+            raise ValueError(
+                f"pair arrays do not match the plan geometry (classes "
+                f"{len(sp.classes)}, R={sp.R}, Rp={sp.Rp}, n_tiles="
+                f"{sp.n_tiles}, n_slots={sp.n_slots}; num_parts={P}, "
+                f"vpad={self.vpad})")
+        if (_outside(rb, P * self.vpad // W)
+                or _outside(tp, sp.n_slots + 1)):
+            raise ValueError("pair arrays index outside the state table "
+                             "or the class slots")
 
     # -- state --------------------------------------------------------
 
@@ -323,12 +406,26 @@ class PullEngine:
             vrow_src=a.get("pg_vrs"))
         return red[:, :self.vpad]
 
+    def _pair_red(self, flat_state):
+        """Pair-lane delivery + reduce for every part -> [P, vpad]
+        (identity where pairs contribute nothing)."""
+        prog, a = self.program, self.arrays
+        fn = pair_partial_streamed if self.pair_stream else pair_partial
+        return fn(self.pairs, flat_state, a["pair_rowbind"], a["pair_rel"],
+                  a.get("pair_weight"), a["pair_tile_pos"], prog.reduce,
+                  lambda vals, w: prog.edge_value(vals, None, w))
+
     def step(self, state: torch.Tensor) -> torch.Tensor:
         """One iteration: [P, vpad] -> [P, vpad]."""
         flat = state.reshape(-1)
         if self.page_plan is not None:
             return self._apply_epilogue(state, self._paged_red(flat))
-        return self._apply_epilogue(state, self._reduce(self._messages(flat)))
+        red = self._reduce(self._messages(flat))
+        if self.pairs is not None:
+            # the residual's reduction, then the pair rows', as the
+            # reference combines them (engine/pull.py:591)
+            red = combine_op(self.program.reduce)(red, self._pair_red(flat))
+        return self._apply_epilogue(state, red)
 
     def run(self, state: torch.Tensor, num_iters: int) -> torch.Tensor:
         """``num_iters`` iterations, enqueued on the device's stream

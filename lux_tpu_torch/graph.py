@@ -1,5 +1,6 @@
 """Host graph and the padded part-major layout (counterpart of
-lux_tpu/graph.py:69 ``Graph``, :198 ``degree_relabel`` and :364-517
+lux_tpu/graph.py:43 ``_check_partition_starts``, :69 ``Graph``, :198
+``degree_relabel``, :213 ``pair_relabel`` and :364-517
 ``ShardedGraph``).
 
 ``ShardedGraph.build`` does all index translation once on the host so
@@ -30,10 +31,37 @@ from lux_tpu_torch.partition import edge_balanced_bounds, part_edge_counts
 
 VPAD_ALIGN = 8      # default: padded vertices per part, a multiple of this
 EPAD_ALIGN = 128    # padded edges per part: a multiple of this
+# pair_relabel deals each part at most ceil(VPAD_CAP * tiles / parts)
+# tiles: pure cost balancing can blow up the worst part's padding
+VPAD_CAP = 1.2
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def _check_partition_starts(starts: np.ndarray, num_parts: int,
+                            nv: int) -> None:
+    """Cut-point invariants: num_parts + 1 points spanning 0 .. nv,
+    monotone non-decreasing.  A bad ``starts`` would otherwise build
+    negative-size parts."""
+    if starts.shape[0] != num_parts + 1:
+        raise luxfmt.GraphFormatError(
+            "starts", "partition_starts",
+            f"{starts.shape[0]} cut points for {num_parts} parts "
+            f"(need num_parts + 1)")
+    if int(starts[0]) != 0 or int(starts[-1]) != nv:
+        raise luxfmt.GraphFormatError(
+            "starts", "partition_starts",
+            f"cut points must span [0, {nv}], got "
+            f"[{int(starts[0])}, {int(starts[-1])}]")
+    d = np.diff(starts)
+    if (d < 0).any():
+        at = int(np.argmax(d < 0))
+        raise luxfmt.GraphFormatError(
+            "starts", "partition_starts",
+            f"cut points decrease at part {at} "
+            f"({int(starts[at])} -> {int(starts[at + 1])})")
 
 
 @dataclasses.dataclass
@@ -94,6 +122,93 @@ def degree_relabel(g: Graph):
     return g2, perm
 
 
+def pair_relabel(g: Graph, num_parts: int = 1, pair_threshold: int = 16):
+    """Degree-sort, then deal whole 128-vertex tiles to parts, for
+    pair-lane delivery (ops/pairs.py).  One part: the tiles in degree
+    order (a plain degree sort).  Several parts: a capped LPT greedy
+    over the degree-ordered tiles, each tile to the currently cheapest
+    part holding fewer than ceil(VPAD_CAP * tiles / P) tiles, so every
+    part gets a similar depth profile and estimated cost.  A tile's
+    cost: ops/pairs.PAIR_COST per in-edge in a dense (>= pair_threshold
+    edges) global (src tile, dst tile) pair, GATHER_COST per other
+    in-edge.  Dealing moves whole tiles, so pair coverage equals the
+    plain degree sort's.
+
+    Returns (relabelled graph, perm, starts) with perm[new] = old and
+    ``starts`` the tile-aligned cut points for ShardedGraph.build (a
+    partial trailing tile goes last); starts is None where the graph
+    has fewer full tiles than parts (plain degree sort)."""
+    from lux_tpu_torch.ops.pairs import GATHER_COST, PAIR_COST
+
+    src, dst = g.edge_arrays()
+    src = src.astype(np.uint32)
+    dst = dst.astype(np.uint32)
+    deg = (np.bincount(src, minlength=g.nv)
+           + np.bincount(dst, minlength=g.nv))
+    by_deg = np.argsort(-deg, kind="stable")      # degree position -> old
+    del deg
+    Wt = 128
+    n_tiles = -(-g.nv // Wt)
+    full = n_tiles - 1 if g.nv % Wt else n_tiles
+    P = max(1, num_parts)
+    if P > 1 and full < P:
+        rank = np.empty(g.nv, np.int64)
+        rank[by_deg] = np.arange(g.nv)
+        g2 = Graph.from_edges(rank[src], rank[dst], g.nv, weights=g.weights)
+        return g2, by_deg, None
+
+    if P > 1 and full:
+        # estimated per-tile in-edge cost in the degree-sorted tiling
+        rank0 = np.empty(g.nv, np.uint32)
+        rank0[by_deg] = np.arange(g.nv, dtype=np.uint32)
+        d2t = (rank0[dst] // Wt).astype(np.int32)
+        key = (rank0[src] // Wt).astype(np.int64) * np.int64(n_tiles) + d2t
+        # pair multiplicity of every edge: group the sorted keys
+        order = np.argsort(key, kind="stable")
+        key = key[order]
+        newg = np.ones(len(key), bool)
+        newg[1:] = key[1:] != key[:-1]
+        del key
+        gid = np.cumsum(newg) - 1
+        cnt = np.bincount(gid)
+        is_pair = np.empty(len(gid), bool)            # per-edge dense?
+        is_pair[order] = cnt[gid] >= pair_threshold
+        del order, newg, gid, cnt
+        pair_by_tile = np.bincount(d2t[is_pair], minlength=n_tiles)
+        all_by_tile = np.bincount(d2t, minlength=n_tiles)
+        tile_cost = (PAIR_COST * pair_by_tile
+                     + GATHER_COST * (all_by_tile - pair_by_tile))
+        cap = max(1, int(np.ceil(VPAD_CAP * full / P)))
+        load = np.zeros(P)
+        tiles_held = np.zeros(P, np.int64)
+        owner = np.empty(full, np.int64)
+        for t in range(full):                     # capped LPT greedy
+            masked = np.where(tiles_held < cap, load, np.inf)
+            p = int(np.argmin(masked))
+            owner[t] = p
+            load[p] += tile_cost[t]
+            tiles_held[p] += 1
+        part_tiles = [np.nonzero(owner == p)[0] for p in range(P)]
+    else:
+        part_tiles = [np.arange(p, full, P) for p in range(P)]
+
+    counts_v = [len(t) * Wt for t in part_tiles]
+    if g.nv % Wt:
+        part_tiles[-1] = np.concatenate(
+            [part_tiles[-1], [full]]).astype(np.int64)
+        counts_v[-1] += g.nv % Wt
+    starts = np.concatenate(([0], np.cumsum(counts_v))).astype(np.int64)
+    tile_seq = np.concatenate(part_tiles)
+    vert_order = (tile_seq[:, None] * Wt
+                  + np.arange(Wt)[None, :]).reshape(-1)
+    vert_order = vert_order[vert_order < g.nv]    # clip the partial tile
+    perm = by_deg[vert_order]                     # new -> old
+    rank = np.empty(g.nv, np.uint32)
+    rank[perm] = np.arange(g.nv, dtype=np.uint32)
+    g2 = Graph.from_edges(rank[src], rank[dst], g.nv, weights=g.weights)
+    return g2, perm, starts
+
+
 @dataclasses.dataclass
 class ShardedGraph:
     """Padded part-major layout; all arrays are host numpy."""
@@ -116,11 +231,25 @@ class ShardedGraph:
 
     @classmethod
     def build(cls, g: Graph, num_parts: int,
-              vpad_align: int = VPAD_ALIGN) -> "ShardedGraph":
+              vpad_align: int = VPAD_ALIGN,
+              starts: np.ndarray | None = None,
+              pair_threshold: int | None = None) -> "ShardedGraph":
         """Edge-balanced parts, padded and stacked.  ``vpad_align=128``
         gives the 128-aligned vertex padding the paged gather needs
-        (ops/pagegather.py)."""
-        starts = edge_balanced_bounds(g.row_ptrs, num_parts)
+        (ops/pagegather.py).  ``starts`` overrides the cut points.
+        ``pair_threshold``: build for pair-lane delivery — 128-aligned
+        vertex padding and, for several parts without ``starts``, cuts
+        that balance the estimated cost under the pair/gather split
+        (ops/pairs.cost_balanced_starts)."""
+        if pair_threshold is not None:
+            vpad_align = max(vpad_align, 128)
+            if starts is None and num_parts > 1:
+                from lux_tpu_torch.ops.pairs import cost_balanced_starts
+                starts = cost_balanced_starts(g, num_parts, pair_threshold)
+        if starts is None:
+            starts = edge_balanced_bounds(g.row_ptrs, num_parts)
+        starts = np.asarray(starts, np.int64)
+        _check_partition_starts(starts, num_parts, g.nv)
         nv_part = (starts[1:] - starts[:-1]).astype(np.int32)
         ne_part = part_edge_counts(g.row_ptrs, starts).astype(np.int64)
         vpad = _round_up(max(1, int(nv_part.max())), vpad_align)

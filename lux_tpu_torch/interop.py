@@ -17,12 +17,14 @@ import torch
 from lux_tpu_torch.apps.pagerank import make_program
 from lux_tpu_torch.engine.pull import TILED_KEYS, PullEngine
 from lux_tpu_torch.ops.pagegather import PAGED_KEYS, PageGeometry
+from lux_tpu_torch.ops.pairs import PAIR_KEYS, PairGeometry
 from lux_tpu_torch.ops.tiled import TileGeometry
 
 COMMON_META = ("vpad", "nv", "ne", "num_parts")
 META_KEYS = ("W", "E", "n_tiles", "n_chunks", "needs_scan") + COMMON_META
 PAGED_META_KEYS = ("classes", "R", "Rp", "n_tiles", "n_slots",
                    "mode") + COMMON_META
+PAIR_META_KEYS = ("classes", "R", "Rp", "n_tiles", "n_slots")
 
 
 def _require(meta: dict, keys):
@@ -39,7 +41,11 @@ def from_reference(arrays: dict, state: np.ndarray, *, meta: dict,
 
     - tiled engine: arrays src_slot, rel_dst, chunk_start, last_chunk,
       deg, nvp; meta W, E, n_tiles, n_chunks, needs_scan + the common
-      keys (vpad, nv, ne, num_parts);
+      keys (vpad, nv, ne, num_parts).  With pair rows (the residual's
+      tiled arrays, then) also arrays pair_rowbind, pair_rel,
+      pair_tile_pos (+ pair_weight) and meta ``pairs``, a dict of the
+      stacked plan's classes, R, Rp, n_tiles, n_slots (and
+      ``pair_stream``, None for the reference's default);
     - paged engine (meta ``mode`` "paged" or "pagemajor"): arrays
       pg_ids, pg_sl (uint32), pg_rel, pg_tp, deg, nvp, and pg_w /
       pg_vrs where the reference has them; meta classes, R, Rp,
@@ -63,8 +69,20 @@ def from_reference(arrays: dict, state: np.ndarray, *, meta: dict,
                              n_tiles=int(meta["n_tiles"]),
                              n_chunks=int(meta["n_chunks"]),
                              needs_scan=bool(meta["needs_scan"]))
-        host = {k: np.asarray(arrays[k]) for k in TILED_KEYS}
-        eng = PullEngine.from_arrays(make_program(), host, tiles, **common)
+        keys, pairs = TILED_KEYS, None
+        if meta.get("pairs") is not None:
+            pm = meta["pairs"]
+            _require(pm, PAIR_META_KEYS)
+            pairs = PairGeometry(
+                classes=tuple((int(c), int(L)) for c, L in pm["classes"]),
+                R=int(pm["R"]), Rp=int(pm["Rp"]),
+                n_tiles=int(pm["n_tiles"]), n_slots=int(pm["n_slots"]))
+            keys = TILED_KEYS + PAIR_KEYS + ("pair_weight",)
+        host = {k: np.asarray(arrays[k]) for k in keys if k in arrays}
+        eng = PullEngine.from_arrays(make_program(), host, tiles,
+                                     pairs=pairs,
+                                     pair_stream=meta.get("pair_stream"),
+                                     **common)
     st = torch.tensor(np.asarray(state), device=eng.device)
     if tuple(st.shape) != (eng.num_parts, eng.vpad):
         raise ValueError(f"state {tuple(st.shape)} is not [num_parts, "

@@ -1,5 +1,5 @@
 """Edge-balanced contiguous vertex partitioning (counterpart of
-lux_tpu/partition.py:20 and :108).
+lux_tpu/partition.py:20, :58 and :108).
 
 Cut point p is the smallest vertex whose cumulative in-edge count
 reaches ``p * ne / num_parts`` — a quantile search over the CSC
@@ -38,6 +38,51 @@ def edge_balanced_bounds(row_ptrs, num_parts: int) -> np.ndarray:
     if starts[0] != 0 or starts[num_parts] != nv:
         raise ValueError(f"partition cut points {starts} do not span "
                          f"[0, {nv}]")
+    return starts
+
+
+def weighted_balanced_bounds(cost_ptrs, num_parts: int,
+                             align: int = 1) -> np.ndarray:
+    """Cut points balancing an arbitrary per-vertex cumulative cost
+    (``cost_ptrs[v]`` = total cost through vertex v, END offsets like
+    row_ptrs); ``edge_balanced_bounds`` is the case cost = in-degree.
+    ``align > 1`` rounds interior cuts to multiples of ``align`` (128
+    keeps every part tile-aligned), falling back to 1 when num_parts *
+    align > nv."""
+    cost_ptrs = np.asarray(cost_ptrs)
+    nv = cost_ptrs.shape[0]
+    if num_parts < 1:
+        raise ValueError("num_parts must be >= 1")
+    if num_parts > nv:
+        raise ValueError(f"num_parts={num_parts} exceeds nv={nv}")
+    if align > 1 and num_parts * align > nv:
+        align = 1
+    total = float(cost_ptrs[-1]) if nv else 0.0
+    targets = np.arange(1, num_parts) * (total / num_parts)
+    cuts = np.searchsorted(cost_ptrs, targets, side="left") + 1
+    if align > 1:
+        cuts = np.round(cuts / align).astype(np.int64) * align
+    starts = np.empty(num_parts + 1, dtype=np.int64)
+    starts[0] = 0
+    starts[1:num_parts] = cuts
+    starts[num_parts] = nv
+    # the fix-ups of edge_balanced_bounds, stepping by ``align`` where
+    # feasible (alignment is an optimisation, not a requirement)
+    for p in range(1, num_parts):
+        if starts[p] <= starts[p - 1]:
+            starts[p] = starts[p - 1] + align
+    for p in range(num_parts - 1, 0, -1):
+        if starts[p] >= starts[p + 1]:
+            starts[p] = starts[p + 1] - (align if starts[p + 1] % align
+                                         == 0 else 1)
+    starts[1:num_parts] = np.clip(starts[1:num_parts], 1, nv - 1)
+    for p in range(1, num_parts):
+        if starts[p] <= starts[p - 1]:
+            starts[p] = starts[p - 1] + 1
+    if starts[0] != 0 or starts[num_parts] != nv or (
+            np.diff(starts) <= 0).any():
+        raise ValueError(f"partition cut points {starts} do not split "
+                         f"[0, {nv}] into non-empty parts")
     return starts
 
 

@@ -202,7 +202,7 @@ def test_default_device_is_the_card(small_graph):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(exchange="owner"), "A6"),
-    (dict(pair_threshold=16), "A3"),
+    (dict(pair_threshold=16, pair_min_fill="auto"), "A10"),
     (dict(gather="auto"), "A10"),
     (dict(mesh=object()), "A6"),
 ])
