@@ -7,8 +7,10 @@ Phases, each printing one JSON line:
 
 1. env      torch / CUDA versions, the card's name and power limit
             (also printed raw, as nvidia-smi gives them);
-2. build    every kernel built from lux_tpu_torch/csrc (B1, B2), one
-            nvcc per source started together, build seconds;
+2. build    every kernel built from lux_tpu_torch/csrc (B1, B2, and the
+            probe kernels S7 carry, S8 fused_carry, S9 onehot_reduce,
+            S3/S12 transposed_reduce), one nvcc per source started
+            together, build seconds;
 3. graph    the main path's graph: R-MAT scale 21, edge factor 16
             (2,097,152 vertices, 33,554,432 edges), made from --seed,
             and its PageRank engine on the card;
@@ -63,7 +65,22 @@ Phases, each printing one JSON line:
             bit-equal) and on the residual chunks, its times on the pair
             rows (the kernels line's chunk_partials@pairs entry), and
             how many 32-lane steps of those rows take B1's sorted path
-            and how many its __match_any_sync path.
+            and how many its __match_any_sync path;
+11. probes  the TPU probe scripts' counterparts (lux_tpu_torch/probes:
+            profile_kernel --3d, profile_slotted on the main graph's
+            in-degrees, profile_v3) at the scripts' shapes and seed, each
+            run once with every launch count at 0 just before and read
+            just after (its kernels must launch; no system path above
+            launched any of them); then each probe kernel against its
+            plain version at rtol 1e-5, atol 1e-5 on the scripts' full
+            inputs and on edge shapes (C or N not a multiple of the
+            kernel's tile, start[0] = 0, one segment across all rows, a
+            start on every row, unsorted lanes, lanes W and outside
+            [0, W), E in {1, 33, 512}, W in {1, 37, 100} and, for S7,
+            200, S3/S12 columns that hit few or no output rows, every wg);
+            then each kernel's loop_bench time, its plain version's, one
+            library call's where one computes the same function
+            (scatter_add_) and its bound at the scripts' shapes.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -82,10 +99,12 @@ import time
 
 import numpy as np
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s,
+# float32 operations/s outside the tensor cores, dense bf16 tensor-core
+# operations/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 MAIN_TOL = dict(rtol=5e-5, atol=1e-9)   # tests/test_pagerank.py:31
 
@@ -95,7 +114,14 @@ PAIR_THRESHOLD = 16
 PAIR_MIN_FILL = 24
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's elapsed
+    seconds."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1104,6 +1130,325 @@ def check_pair_rows(args, torch, eng, vals, rel):
     return b1
 
 
+def probe_close(torch, name, got, want) -> dict:
+    """``got`` finite, of ``want``'s dtype, and within the probes'
+    tolerance of it (rtol 1e-5, atol 1e-5: values in [0, 1))."""
+    from lux_tpu_torch.probes import ProbeCheckError, max_abs_err
+    torch.cuda.synchronize()
+    require(got.dtype == want.dtype and bool(torch.isfinite(got).all()),
+            f"probe case {name}: dtype {got.dtype} (want {want.dtype}) or "
+            f"a non-finite output")
+    try:
+        err = max_abs_err(got, want)
+    except ProbeCheckError as e:
+        raise SmokeFailure(f"probe case {name}: {e}") from e
+    return {"case": name, "shape": list(got.shape), "max_abs_err": err}
+
+
+def probe_cases(torch, gen, full) -> list:
+    """Each probe kernel against its plain version on the card: the
+    scripts' full inputs (``full``), then the edge shapes."""
+    from lux_tpu_torch.ops.carry import (carry_combine, carry_combine_plain,
+                                         fused_carry, fused_carry_plain)
+    from lux_tpu_torch.ops.onehot_reduce import (onehot_reduce,
+                                                 onehot_reduce_plain)
+    from lux_tpu_torch.ops.transposed_reduce import (transposed_reduce,
+                                                     transposed_reduce_plain)
+    dev = gen.device
+    cases = []
+
+    def carry_case(name, part, start):
+        cases.append(probe_close(torch, f"carry/{name}",
+                                 carry_combine(part, start),
+                                 carry_combine_plain(part, start)))
+
+    def fused_case(name, vals, rel, start, W=128):
+        cases.append(probe_close(torch, f"fused_carry/{name}",
+                                 fused_carry(vals, rel, start, W),
+                                 fused_carry_plain(vals, rel, start, W)))
+
+    def onehot_case(name, vals, rel, W=128):
+        cases.append(probe_close(torch, f"onehot/{name}",
+                                 onehot_reduce(vals, rel, W),
+                                 onehot_reduce_plain(vals, rel, W)))
+
+    def transposed_case(name, vals, rel, W=128, wgs=(None,)):
+        want = transposed_reduce_plain(vals, rel, W)
+        for wg in wgs:
+            cases.append(probe_close(
+                torch, f"transposed/{name}/wg{wg or W}",
+                transposed_reduce(vals, rel, W, wg), want))
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def lanes(c, e, lo, hi, sort):
+        r = torch.randint(lo, hi, (c, e), generator=gen, device=dev,
+                          dtype=torch.int32)
+        return r.sort(dim=1).values.contiguous() if sort else r
+
+    def starts(c, p, first=1):
+        st = (rand(c) < p).to(torch.int32)
+        st[0] = first
+        return st.reshape(c, 1)
+
+    # the scripts' full inputs
+    carry_case("script_full", full["partials"], full["slot_start"])
+    fused_case("script_full", full["vals"], full["rel"], full["start"])
+    onehot_case("script_full", full["vals"], full["rel"])
+    transposed_case("script_full", full["tvals"], full["trel"],
+                    wgs=(8, 16, 32, None))
+    C_full = full["partials"].shape[0]
+    one = torch.zeros((C_full, 1), dtype=torch.int32, device=dev)
+    one[0] = 1
+    carry_case("one_segment_full", rand(C_full, 128), one)
+    Ck = full["vals"].shape[0]
+    one_k = torch.zeros((Ck, 1), dtype=torch.int32, device=dev)
+    one_k[0] = 1
+    fused_case("one_segment_full", full["vals"], full["rel"], one_k)
+    # S7: odd C (not a multiple of its 64-row tile), start[0] = 0, a
+    # start on every row, no start at all, W in {1, 37, 128, 200}
+    for W in (1, 37, 128, 200):
+        carry_case(f"C1001_W{W}", rand(1001, W), starts(1001, 0.3))
+    carry_case("start0_zero", rand(1001, 128), starts(1001, 0.3, first=0))
+    carry_case("start_every_row", rand(1001, 128),
+               torch.ones((1001, 1), dtype=torch.int32, device=dev))
+    carry_case("no_start", rand(4099, 128),
+               torch.zeros(4099, dtype=torch.int32, device=dev))
+    carry_case("C1", rand(1, 128), starts(1, 1.0, first=0))
+    # S8 and S9: odd C (not a multiple of 32 or of 4), E in {1, 33,
+    # 512}, sorted and unsorted lanes, pads W, lanes outside [0, W),
+    # W in {1, 37, 100}
+    for E in (1, 33, 512):
+        for sort in (True, False):
+            label = f"C1001_E{E}_{'sorted' if sort else 'unsorted'}"
+            v, r = rand(1001, E), lanes(1001, E, 0, 129, sort)
+            fused_case(label, v, r, starts(1001, 0.2))
+            onehot_case(label, v, r)
+    v, r = rand(1001, 256), lanes(1001, 256, -5, 140, False)
+    for W in (1, 37, 100):
+        fused_case(f"outside_W{W}", v, r, starts(1001, 0.2), W)
+        onehot_case(f"outside_W{W}", v, r, W)
+    v, r = rand(1001, 512), lanes(1001, 512, 0, 129, True)
+    fused_case("start0_zero", v, r, starts(1001, 0.2, first=0))
+    fused_case("start_every_row", v, r,
+               torch.ones((1001, 1), dtype=torch.int32, device=dev))
+    fused_case("one_segment", v, r, starts(1001, 0.0))
+    onehot_case("few_lanes", v, lanes(1001, 512, 120, 132, True))
+    # S3/S12: odd N (not a multiple of 128), E in {1, 33, 512}, unsorted
+    # lanes and lanes outside [0, W), columns that hit few or no output
+    # rows (their other rows must be 0), every wg
+    for E in (1, 33, 512):
+        transposed_case(f"N1001_E{E}", rand(E, 1001),
+                        lanes(E, 1001, 0, 128, False), wgs=(8, None))
+    r = lanes(512, 1001, -5, 140, False)
+    transposed_case("outside_W100", rand(512, 1001), r, 100, wgs=(32, None))
+    r = lanes(512, 1001, 0, 128, True)
+    r[:, ::3] = torch.randint(0, 4, (512, len(range(0, 1001, 3))),
+                              generator=gen, device=dev, dtype=torch.int32)
+    r[:, 1::7] = -1
+    transposed_case("empty_rows", rand(512, 1001), r.contiguous(),
+                    wgs=(8, 16, 32, None))
+    return cases
+
+
+def bench_ms(args, dev, fn) -> float:
+    """Median ms a call of ``fn``: the port's loop_bench, 3 samples of
+    ``--reps`` calls."""
+    from lux_tpu_torch.timing import loop_bench, median_mad
+    return median_mad(loop_bench(fn, args.reps, repeats=3,
+                                 device=dev))[0] * 1e3
+
+
+def fusion_answers(args, torch, dev, vals, rel, start, W) -> dict:
+    """At the probe's [C, E] shape: B1 alone, B1 then carry_combine (the
+    unfused form of S8), fused_carry and onehot_reduce, timed in turns
+    (each twice, the order reversed the second time); fused_carry is
+    first held to B1 then carry_combine."""
+    from lux_tpu_torch.ops.carry import carry_combine, fused_carry
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    from lux_tpu_torch.ops.onehot_reduce import onehot_reduce
+    rel8 = torch.where((rel >= 0) & (rel < W), rel, -1).to(torch.int8)
+    forms = {
+        "b1": lambda: chunk_partials(vals, rel8, W, "sum"),
+        "b1_then_carry": lambda: carry_combine(
+            chunk_partials(vals, rel8, W, "sum"), start),
+        "fused_carry": lambda: fused_carry(vals, rel, start, W),
+        "onehot_reduce": lambda: onehot_reduce(vals, rel, W),
+    }
+    check = probe_close(torch, "fused_carry_vs_b1_then_carry",
+                        forms["fused_carry"](), forms["b1_then_carry"]())
+    order = list(forms) + list(forms)[::-1]
+    times = {k: [] for k in forms}
+    for k in order:
+        times[k].append(bench_ms(args, dev, forms[k]))
+    return {"shape": list(vals.shape) + [W], "ms": times,
+            "check": check}
+
+
+def probe_line(args, torch, dev, spec: dict, counts: dict) -> dict:
+    """The kernels-line entry of a probe kernel from ``spec``: the
+    loop_bench median ms of its kernel, its plain version and its
+    library call (None: no PyTorch call computes the function), its
+    bound from (bytes, operations, peak operations/s), its launches in
+    each probe's run (``counts``; none on the system paths)."""
+    n_bytes, ops, ops_rate = spec["bound"]
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    key = spec["key"]
+    return {"name": spec["name"], "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"],
+            "launches": sum(c[key] for c in counts.values()),
+            "launches_by_path": {"system paths": 0,
+                                 **{k: c[key] for k, c in counts.items()}},
+            "shape": spec["shape"], "max_abs_err": spec["max_abs_err"],
+            "ms": bench_ms(args, dev, spec["kernel"]),
+            "plain_ms": bench_ms(args, dev, spec["plain"]),
+            # the host's time to enqueue a call: where it reaches "ms",
+            # the card waits on the host's launches
+            "host_enqueue_ms": host_ms(torch, spec["kernel"], 10),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "operations": ops,
+            "library_ms": None if spec["library"] is None
+            else bench_ms(args, dev, spec["library"]),
+            **spec.get("extra", {})}
+
+
+def phase_probes(args, torch, g, card):
+    """The probe entry points, each run once with the counts at 0 just
+    before it and read just after; the probe kernels' checks; their
+    kernels-line entries at the scripts' shapes."""
+    from lux_tpu_torch.ops.carry import (carry_combine, carry_combine_plain,
+                                         fused_carry, fused_carry_plain)
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    from lux_tpu_torch.ops.onehot_reduce import (MMA_OPS, mma_count,
+                                                 onehot_reduce,
+                                                 onehot_reduce_plain)
+    from lux_tpu_torch.ops.transposed_reduce import (transposed_reduce,
+                                                     transposed_reduce_plain)
+    from lux_tpu_torch.probes import (profile_kernel, profile_slotted,
+                                      profile_v3)
+    w = {"carry_combine": carry_combine, "fused_carry": fused_carry,
+         "onehot_reduce": onehot_reduce,
+         "transposed_reduce": transposed_reduce}
+    before = {k: f.launches for k, f in w.items()}
+    require(all(n == 0 for n in before.values()),
+            f"a system path launched a probe kernel: {before}")
+    t0 = time.perf_counter()
+    hk = profile_kernel.make_inputs()
+    C_slot = profile_slotted.host_half(g.in_degrees())["C"]
+    hs = profile_slotted.make_inputs(C_slot, g.nv)
+    hv = profile_v3.make_inputs()
+    t_inputs = time.perf_counter() - t0
+    runs, counts = {}, {}
+    for label, run in (
+            ("profile_kernel", lambda: profile_kernel.main(
+                ["--3d"], inputs=hk)),
+            ("profile_slotted", lambda: profile_slotted.main(
+                ["--scale", str(args.scale)], graph=g, inputs=hs)),
+            ("profile_v3", lambda: profile_v3.main([], inputs=hv))):
+        zero_launches()
+        for f in w.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        runs[label] = run()
+        torch.cuda.synchronize()
+        counts[label] = {"seconds": time.perf_counter() - t0,
+                         "chunk_partials": chunk_partials.launches,
+                         **{k: f.launches for k, f in w.items()}}
+    want = {"profile_kernel": ("chunk_partials", "fused_carry",
+                               "onehot_reduce"),
+            "profile_slotted": ("carry_combine",),
+            "profile_v3": ("transposed_reduce",)}
+    for label, names in want.items():
+        for k in names:
+            require(counts[label][k] > 0,
+                    f"{label} never launched {k}: {counts[label]}")
+
+    dev = torch.device("cuda")
+    full = {"vals": torch.from_numpy(hk["vals"]).to(dev),
+            "rel": torch.from_numpy(hk["rel"]).to(dev),
+            "start": torch.from_numpy(hk["start"]).to(dev),
+            "slot_start": torch.from_numpy(hs["start"]).to(dev),
+            "tvals": torch.from_numpy(hv["vals"]).to(dev),
+            "trel": torch.from_numpy(hv["rel"]).to(dev)}
+    slots = torch.from_numpy(hs["slots"]).to(dev).reshape(-1)
+    state = torch.from_numpy(hs["state"]).to(dev)
+    # the slotted probe's partials: its gather + sum
+    full["partials"] = torch.index_select(state, 0, slots).view(
+        C_slot, profile_slotted.K, profile_slotted.W).sum(dim=1)
+    del slots, state, hk, hs, hv
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    cases = probe_cases(torch, gen, full)
+    emit({"phase": "probes", "input_seconds": round(t_inputs, 3),
+          "runs": counts, "cases": len(cases), "all_pass": True,
+          "detail": cases,
+          "probe_lines": {k: v["lines"] for k, v in runs.items()},
+          "slot_host": runs["profile_slotted"]["host"], "card": card})
+
+    err = {c["case"]: c["max_abs_err"] for c in cases}
+    part, sst = full["partials"], full["slot_start"]
+    vals, rel, start = full["vals"], full["rel"], full["start"]
+    tvals, trel = full["tvals"], full["trel"]
+    C, W = part.shape
+    Ck, E = vals.shape
+    Et, N = tvals.shape
+    # one scatter_add computes S9's sums over [C, W + 1] (the pad lane
+    # dropped after) and S3/S12's along dim 0 over [W + 1, N]
+    lane = torch.where((rel >= 0) & (rel < W), rel, W).long()
+    flat_idx = (torch.arange(Ck, device=dev)[:, None] * (W + 1)
+                + lane).reshape(-1)
+    del lane
+    flat_vals = vals.reshape(-1)
+    base = torch.zeros(Ck * (W + 1), device=dev)
+    tidx = torch.where((trel >= 0) & (trel < W), trel, W).long()
+    tbase = torch.zeros((W + 1, N), device=dev)
+    mmas = mma_count(rel, W)
+    specs = [
+        {"name": "carry", "key": "carry_combine", "shape": [C, W],
+         "kernel": lambda: carry_combine(part, sst),
+         "plain": lambda: carry_combine_plain(part, sst), "library": None,
+         "bound": (C * (8 * W + 4), C * W, FP32_OPS_PER_S),
+         "source": "lux_tpu_torch/csrc/carry.cu",
+         "replaces": "scripts/profile_slotted.py:127",
+         "max_abs_err": err["carry/script_full"]},
+        {"name": "fused_carry", "key": "fused_carry", "shape": [Ck, E, W],
+         "kernel": lambda: fused_carry(vals, rel, start, W),
+         "plain": lambda: fused_carry_plain(vals, rel, start, W),
+         "library": None,
+         "bound": (Ck * (8 * E + 4 + 4 * W), Ck * (E + W), FP32_OPS_PER_S),
+         "source": "lux_tpu_torch/csrc/fused_carry.cu",
+         "replaces": "scripts/profile_kernel.py:82",
+         "max_abs_err": err["fused_carry/script_full"]},
+        {"name": "onehot_reduce", "key": "onehot_reduce",
+         "shape": [Ck, E, W],
+         "kernel": lambda: onehot_reduce(vals, rel, W),
+         "plain": lambda: onehot_reduce_plain(vals, rel, W),
+         "library": lambda: base.scatter_add(0, flat_idx, flat_vals),
+         "bound": (Ck * (8 * E + 4 * W), mmas * MMA_OPS, BF16_TC_OPS_PER_S),
+         "source": "lux_tpu_torch/csrc/onehot_mma.cu",
+         "replaces": "scripts/profile_kernel.py:123",
+         "max_abs_err": err["onehot/script_full"],
+         "extra": {"mma_issued": mmas}},
+        {"name": "transposed_reduce", "key": "transposed_reduce",
+         "shape": [Et, N, W],
+         "kernel": lambda: transposed_reduce(tvals, trel, W),
+         "plain": lambda: transposed_reduce_plain(tvals, trel, W),
+         "library": lambda: tbase.scatter_add(0, tidx, tvals),
+         "bound": ((8 * Et + 4 * W) * N, Et * N, FP32_OPS_PER_S),
+         "source": "lux_tpu_torch/csrc/transposed_reduce.cu",
+         "replaces": "scripts/profile_v3.py:66 and "
+                     "scripts/profile_true.py:141",
+         "max_abs_err": err[f"transposed/script_full/wg{W}"]},
+    ]
+    lines = [probe_line(args, torch, dev, spec, counts) for spec in specs]
+    emit({"phase": "probes_fusion",
+          **fusion_answers(args, torch, dev, vals, rel, start, W),
+          "card": card})
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=21)
@@ -1148,6 +1493,7 @@ def main(argv=None) -> int:
     b2 = lines["paged"]                 # B2 at the paged path's own rows
     phase_parts(args, torch)
     pair_counts, kpairs = phase_pairs(args, torch, g, card)
+    probe_lines = phase_probes(args, torch, g, card)
     del g
     by_path["pairs"] = pair_counts["streamed"]
     by_path["pairs_monolithic"] = pair_counts["monolithic"]
@@ -1161,7 +1507,7 @@ def main(argv=None) -> int:
     b2["launches"] = by_path["paged"]["lane_shuffle"]
     b2["launches_by_path"] = {k: v["lane_shuffle"]
                               for k, v in by_path.items()}
-    emit({"kernels": [kline, *b1_lines.values(), b2]})
+    emit({"kernels": [kline, *b1_lines.values(), b2, *probe_lines]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

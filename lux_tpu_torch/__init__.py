@@ -12,10 +12,15 @@ counterpart is easy to find:
   ops/            segment oracle, tiled chunk layout, chunk_partials
                   (hand-written CUDA kernel, csrc/chunk_partials.cu),
                   paged / page-major gather with lane_shuffle
-                  (csrc/lane_shuffle.cu) and the row-class combine
+                  (csrc/lane_shuffle.cu) and the row-class combine;
+                  the probe kernels carry / fused_carry, onehot_reduce
+                  and transposed_reduce (csrc/carry.cu, fused_carry.cu,
+                  onehot_mma.cu, transposed_reduce.cu)
   engine/         vertex-program bundle and the pull engine
   apps/           PageRank
-  timing.py       CUDA-event timed runs
+  timing.py       CUDA-event timed runs, loop_bench, median_mad
+  probes/         counterparts of the TPU probe scripts
+                  (profile_kernel, profile_slotted, profile_v3)
   check.py        host correctness audit
   cli.py          python -m lux_tpu_torch.cli {pagerank,convert}
   interop.py      carry arrays and state across from the reference

@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one source under ``csrc/`` with a plain C interface.
+Each kernel is one source under ``csrc/`` with a plain C interface
+(``carry.cu`` and ``fused_carry.cu`` share ``carry_tiles.cuh``).
 It is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``lux_tpu_torch/_build/`` (git-ignored) at first use, and loaded with
 ``ctypes``.  The library's file name carries a hash of the source and
@@ -12,7 +13,8 @@ the CPU tests import every module, and there is no ``nvcc`` there.
 source, all started together; ``load(name)`` builds on demand and
 returns the library with ``argtypes``/``restype`` set on every C
 function (without them ctypes would pass a Python int as 32 bits and
-cut a pointer).
+cut a pointer); ``launch(name, *args)`` calls kernel ``name``'s
+``lux_<name>`` and raises on a failed launch.
 """
 
 from __future__ import annotations
@@ -46,6 +48,23 @@ KERNELS = {
     "lane_shuffle": ("lane_shuffle.cu", {
         "lux_lane_shuffle": (ctypes.c_int, [_P, _P, _P, _I64, _P]),
     }),
+    "carry": ("carry.cu", {
+        "lux_carry": (ctypes.c_int,
+                      [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P]),
+    }),
+    "fused_carry": ("fused_carry.cu", {
+        "lux_fused_carry": (ctypes.c_int,
+                            [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32,
+                             _I32, _P]),
+    }),
+    "onehot_reduce": ("onehot_mma.cu", {
+        "lux_onehot_reduce": (ctypes.c_int,
+                              [_P, _P, _P, _I64, _I64, _I32, _P]),
+    }),
+    "transposed_reduce": ("transposed_reduce.cu", {
+        "lux_transposed_reduce": (ctypes.c_int,
+                                  [_P, _P, _P, _I64, _I64, _I32, _I32, _P]),
+    }),
 }
 
 
@@ -72,10 +91,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel ``name`` is built: the hash covers source + flags."""
+    """Where kernel ``name`` is built: the hash covers the source, the
+    headers it may include (every ``csrc/*.cuh``) and the flags."""
     src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -128,3 +151,15 @@ def load(name: str) -> ctypes.CDLL:
                 f.argtypes = argtypes
             _LIBS[name] = lib
         return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C function ``lux_<name>`` with ``args``
+    (it launches on the stream it is given and returns a cudaError_t);
+    raise ``KernelLaunchError`` when that is not 0."""
+    from lux_tpu_torch.ops.chunk_reduce import KernelLaunchError
+
+    err = getattr(load(name), f"lux_{name}")(*args)
+    if err != 0:
+        raise KernelLaunchError(f"{name} launch failed with cudaError_t "
+                                f"{err}")

@@ -61,6 +61,27 @@ def _check(vals: torch.Tensor, rel_dst: torch.Tensor, W: int, kind: str):
                                f"{rel_dst.device}")
 
 
+def check_int32_lanes(vals: torch.Tensor, rel: torch.Tensor, W: int,
+                      shape: str, reduce_dim: int) -> None:
+    """The probe kernels' inputs (the TPU scripts' dtypes): f32 ``vals``
+    and int32 lanes ``rel`` of one 2-D ``shape`` ("[C, E]" or "[E, N]")
+    with at least one entry along ``reduce_dim``, on one device, and
+    1 <= W <= 128."""
+    if vals.dtype != torch.float32:
+        raise KernelInputError(f"vals dtype {vals.dtype} is not float32")
+    if rel.dtype != torch.int32:
+        raise KernelInputError(f"rel dtype {rel.dtype} is not int32")
+    if vals.dim() != 2 or vals.shape != rel.shape or \
+            vals.shape[reduce_dim] < 1:
+        raise KernelInputError(f"vals {tuple(vals.shape)} and rel "
+                               f"{tuple(rel.shape)} must be the same "
+                               f"{shape} shape, E >= 1")
+    if not 1 <= W <= MAX_W:
+        raise KernelInputError(f"W={W} outside [1, {MAX_W}]")
+    if vals.device != rel.device:
+        raise KernelInputError(f"vals on {vals.device}, rel on {rel.device}")
+
+
 def chunk_partials_plain(vals: torch.Tensor, rel_dst: torch.Tensor,
                          W: int, kind: str) -> torch.Tensor:
     """The plain PyTorch version: one ``scatter_reduce`` over the

@@ -1,0 +1,98 @@
+"""Kernel S9, the per-chunk reduce as a one-hot product on the tensor
+cores: its wrapper, its plain PyTorch version and its launch count
+(counterpart of scripts/profile_kernel.py:123 ``mxu``).
+
+    out[c, w] = sum of vals[c, e] over every e with rel[c, e] == w
+
+``vals`` [C, E] float32 with finite values, ``rel`` [C, E] int32 (the
+script's dtypes: lanes outside [0, W), the script's pad W among them,
+add nothing; rows need not be sorted), 1 <= W <= 128.  It is B1's sum
+(chunk_partials) on other hardware units: csrc/onehot_mma.cu issues
+``mma.sync`` with the chunk's one-hot built in registers and its
+values split into three bf16 parts (see there).
+
+``onehot_reduce`` launches that kernel for tensors on the card and
+takes ``onehot_reduce_plain`` only for tensors on the CPU — there is
+no fallback from the card to the plain version.
+``onehot_reduce.launches`` counts kernel launches.  No system path
+calls it: the probe lux_tpu_torch/probes/profile_kernel.py does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lux_tpu_torch.ops.chunk_reduce import (KernelInputError,
+                                            check_int32_lanes)
+
+PLAIN_BLOCK = 1024          # chunks a bmm of the plain version
+K_STEP = 16                 # entries an mma k-step (m16n8k16)
+M_TILE = 16                 # lanes an mma m-tile
+MMA_OPS = 2 * 16 * 8 * 16   # operations of one m16n8k16
+
+
+def onehot_reduce_plain(vals: torch.Tensor, rel: torch.Tensor,
+                        W: int) -> torch.Tensor:
+    """The plain PyTorch version: the one-hot contraction
+    vals[c, 1, E] @ onehot(rel)[c, E, W], PLAIN_BLOCK chunks a ``bmm``
+    (at [81,920 x 512] the whole one-hot would take 21 GB).  TF32 is
+    off for the call (it keeps about three decimal digits): full
+    float32 products."""
+    check_int32_lanes(vals, rel, W, "[C, E]", 1)
+    C, E = vals.shape
+    out = torch.empty((C, W), dtype=torch.float32, device=vals.device)
+    lanes = torch.arange(W, device=vals.device, dtype=torch.int32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for c0 in range(0, C, PLAIN_BLOCK):
+            c1 = c0 + PLAIN_BLOCK
+            onehot = (rel[c0:c1, :, None] == lanes).to(torch.float32)
+            out[c0:c1] = torch.bmm(vals[c0:c1, None, :], onehot)[:, 0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return out
+
+
+def mma_count(rel: torch.Tensor, W: int) -> int:
+    """How many m16n8k16 the kernel issues on ``rel``: one for each
+    (chunk, 16-entry k-step, 16-lane m-tile) that a live entry hits."""
+    C, E = rel.shape
+    pad = -E % K_STEP
+    r = torch.nn.functional.pad(rel, (0, pad), value=-1) if pad else rel
+    live = (r >= 0) & (r < W)
+    tile = torch.where(live, r // M_TILE, -1).view(C, -1, K_STEP)
+    n_tiles = -(-W // M_TILE)
+    hits = torch.zeros((C, tile.shape[1], n_tiles + 1), dtype=torch.bool,
+                       device=rel.device)
+    hits.scatter_(2, (tile + 1).long(), True)   # slot 0 takes the pads
+    return int(hits[:, :, 1:].sum())
+
+
+def onehot_reduce(vals: torch.Tensor, rel: torch.Tensor,
+                  W: int) -> torch.Tensor:
+    """Per-chunk sums [C, E] -> [C, W] on the tensor cores for tensors
+    on the card, the plain version for tensors on the CPU."""
+    check_int32_lanes(vals, rel, W, "[C, E]", 1)
+    if vals.device.type == "cpu":
+        return onehot_reduce_plain(vals, rel, W)
+    if vals.device.type != "cuda":
+        raise KernelInputError(f"no onehot_reduce path for device "
+                               f"{vals.device}")
+    if not (vals.is_contiguous() and rel.is_contiguous()):
+        raise KernelInputError("vals and rel must be contiguous")
+    C, E = vals.shape
+    out = torch.empty((C, W), dtype=torch.float32, device=vals.device)
+    if C == 0:
+        return out
+    from lux_tpu_torch import _kernels
+
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        _kernels.launch("onehot_reduce", vals.data_ptr(), rel.data_ptr(),
+                        out.data_ptr(), C, E, W, stream)
+    onehot_reduce.launches += 1
+    return out
+
+
+onehot_reduce.launches = 0

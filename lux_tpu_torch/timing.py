@@ -1,5 +1,6 @@
 """Timed runs with completion fences (counterpart of
-lux_tpu/timing.py:51 ``fence`` and :113 ``timed_fused_run``).
+lux_tpu/timing.py:51 ``fence``, :69 ``loop_bench`` and :113
+``timed_fused_run``), and ``median_mad``.
 
 PyTorch returns before the card finishes, so a host clock without a
 fence measures the enqueue.  On the card a run is timed with CUDA
@@ -10,9 +11,12 @@ the device inside a timed region.
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
+
+from lux_tpu_torch.device import resolve_device
 
 
 def fence(device: torch.device) -> None:
@@ -42,3 +46,49 @@ def timed_fused_run(eng, num_iters: int):
     t0 = time.perf_counter()
     state = eng.run(state, num_iters)
     return state, time.perf_counter() - t0
+
+
+def median_mad(xs):
+    """(median, median absolute deviation) of ``xs`` — the robust pair
+    the probes report instead of mean and stdev (counterpart of
+    lux_tpu/observe.py:118 ``median_mad``)."""
+    xs = list(xs)
+    if not xs:
+        raise ValueError("median_mad of an empty sample set")
+    m = statistics.median(xs)
+    return m, statistics.median(abs(x - m) for x in xs)
+
+
+def loop_bench(fn, k: int, repeats: int = 3, device=None):
+    """Seconds per call of ``fn()``: one warm-up call, then ``repeats``
+    samples of ``k`` calls each, on ``device`` (None means the card, as
+everywhere in the port) (counterpart of lux_tpu/timing.py:69
+    ``loop_bench``).  The reference threads a loop-dependent carry
+    through one ``fori_loop`` so that XLA cannot hoist the work; eager
+    PyTorch hoists nothing, so ``k`` plain calls stand in for it.  On
+    the card each sample is two CUDA events around the ``k`` calls; on
+    the CPU the host clock.  Returns the list of per-call seconds, one
+    entry a sample."""
+    dev = resolve_device(device)
+    if k < 1 or repeats < 1:
+        raise ValueError(f"loop_bench needs k >= 1 and repeats >= 1 "
+                         f"(got k={k}, repeats={repeats})")
+    fn()
+    fence(dev)
+    samples = []
+    for _ in range(repeats):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(k):
+                fn()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end) / 1e3 / k)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(k):
+                fn()
+            samples.append((time.perf_counter() - t0) / k)
+    return samples
