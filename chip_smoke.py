@@ -7,10 +7,12 @@ Phases, each printing one JSON line:
 
 1. env      torch / CUDA versions, the card's name and power limit
             (also printed raw, as nvidia-smi gives them);
-2. build    every kernel built from lux_tpu_torch/csrc (B1, B2, and the
-            probe kernels S7 carry, S8 fused_carry, S9 onehot_reduce,
-            S3/S12 transposed_reduce), one nvcc per source started
-            together, build seconds;
+2. build    every kernel built from lux_tpu_torch/csrc (B1
+            chunk_partials, B2 lane_shuffle, and the probe kernels S7
+            carry, S8 fused_carry, S9 onehot_reduce, S3/S12
+            transposed_reduce, S2/S11 sub_gather, S4/S5 elementwise, S6
+            block_rowsum: every entry of _kernels.KERNELS), one nvcc per
+            source started together, build seconds;
 3. graph    the main path's graph: R-MAT scale 21, edge factor 16
             (2,097,152 vertices, 33,554,432 edges), made from --seed,
             and its PageRank engine on the card;
@@ -68,19 +70,33 @@ Phases, each printing one JSON line:
             and how many its __match_any_sync path;
 11. probes  the TPU probe scripts' counterparts (lux_tpu_torch/probes:
             profile_kernel --3d, profile_slotted on the main graph's
-            in-degrees, profile_v3) at the scripts' shapes and seed, each
-            run once with every launch count at 0 just before and read
-            just after (its kernels must launch; no system path above
-            launched any of them); then each probe kernel against its
-            plain version at rtol 1e-5, atol 1e-5 on the scripts' full
-            inputs and on edge shapes (C or N not a multiple of the
+            in-degrees, profile_v3, profile_true, profile_shuffle,
+            profile_vpu) at the scripts' shapes and seed, each run once
+            with every launch count at 0 just before and read just after
+            (its kernels must launch, B2 in profile_true and
+            profile_shuffle too; no system path above launched a probe
+            kernel); then each probe kernel against its plain version on
+            the scripts' full inputs and on edge shapes: S7, S8, S9 and
+            S3/S12 at rtol 1e-5, atol 1e-5 (C or N not a multiple of the
             kernel's tile, start[0] = 0, one segment across all rows, a
             start on every row, unsorted lanes, lanes W and outside
             [0, W), E in {1, 33, 512}, W in {1, 37, 100} and, for S7,
-            200, S3/S12 columns that hit few or no output rows, every wg);
-            then each kernel's loop_bench time, its plain version's, one
-            library call's where one computes the same function
-            (scatter_add_) and its bound at the scripts' shapes.
+            200, S3/S12 columns that hit few or no output rows, every
+            wg); S1/S10 (B2) and S2/S11 sub_gather bit for bit (M in {1,
+            3, 8, 64, 512, 4096, 7264}, R / M of 1 and 5, ids at 0 and
+            M - 1, int32 words and NaN payloads); S4/S5 elementwise
+            bit for bit (every body and dtype at 1,001 rows and at an
+            element count that is no multiple of the 16 B vector, with
+            NaN, -0.0 and inf inputs, aliased and distinct inputs; NaN
+            positions must match and every other word be equal, and each
+            case says whether the NaN words were equal too); S6
+            block_rowsum at rtol 1e-5, atol 1e-5 (bm in {1, 37, 1024}, R
+            = bm and 5 bm, negative values) with two launches bit-equal;
+            then each kernel's loop_bench time, its plain version's, its
+            host enqueue time, one library call's where one computes the
+            same function (scatter_add_, torch.gather, torch.add,
+            torch.sum) and its bound at the scripts' shapes (S5's from
+            unique bytes: an aliased input is read once).
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -1249,6 +1265,178 @@ def probe_cases(torch, gen, full) -> list:
     r[:, 1::7] = -1
     transposed_case("empty_rows", rand(512, 1001), r.contiguous(),
                     wgs=(8, 16, 32, None))
+    return (cases + gather_cases(torch, gen, full)
+            + elementwise_cases(torch, gen, full)
+            + rowsum_cases(torch, gen, full))
+
+
+def _words(torch, gen, shape, lo=-2**31, hi=2**31 - 1):
+    """Random int32 words over [lo, hi) on the card."""
+    return torch.randint(lo, hi, shape, generator=gen, device=gen.device,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def _nan_payloads(torch, gen, x):
+    """A copy of f32 ``x`` with quiet and signalling NaNs of random
+    payloads, both signs, in a regular pattern."""
+    x = x.clone()
+    bits = x.view(torch.int32)
+    pay = _words(torch, gen, x.shape, 1, 1 << 23)     # mantissa: never 0
+    bits[::3, ::5] = (0x7F800000 | pay[::3, ::5]).to(torch.int32)
+    bits[1::3, 2::5] = (-0x800000 | pay[1::3, 2::5]).to(torch.int32)
+    return x
+
+
+def gather_cases(torch, gen, full) -> list:
+    """S1/S10 (B2) and S2/S11 (sub_gather) against their plain versions
+    on the card, bit for bit: the scripts' full inputs, then M in {1, 3,
+    8, 64, 512, 4096, MAX_M} with R / M of 1 and 5, ids 0 and M - 1 in
+    the first and last rows, f32 values, int32 words and NaN payloads."""
+    from lux_tpu_torch.ops.lane_shuffle import lane_shuffle, lane_shuffle_plain
+    from lux_tpu_torch.ops.sub_gather import (MAX_M, sub_gather,
+                                              sub_gather_plain)
+    dev, W = gen.device, 128
+    cases = []
+
+    def case(name, got, want, x):
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype
+                and _same_words(got, want),
+                f"probe case {name} is not bit-equal to its plain version")
+        cases.append({"case": name, "shape": list(got.shape),
+                      "dtype": str(x.dtype).replace("torch.", ""),
+                      "nan": int(torch.isnan(x).sum())
+                      if x.is_floating_point() else 0,
+                      "tolerance": "bit-equal", "max_abs_err": 0.0})
+
+    def sub_case(name, x, idx, M):
+        case(f"sub_gather/{name}", sub_gather(x, idx, M),
+             sub_gather_plain(x, idx, M), x)
+
+    for label, x, idx in (("S1", full["x0"], full["sidx"]),
+                          ("S10", full["sx"], full["idx1"])):
+        case(f"lane_shuffle/script_full_{label}", lane_shuffle(x, idx),
+             lane_shuffle_plain(x, idx), x)
+    sub_case("script_full_S2_M8", full["x0"], full["sidx8"], 8)
+    for M in (8, 64, 512, 4096):
+        sub_case(f"script_full_S11_M{M}", full["sx"], full[f"idx0_{M}"], M)
+    for M in (1, 3, 8, 64, 512, 4096, MAX_M):
+        for nb in (1, 5):
+            R = M * nb
+            idx = torch.randint(0, M, (R, W), generator=gen, device=dev,
+                                dtype=torch.int32)
+            idx[0], idx[-1] = 0, M - 1
+            x = torch.rand((R, W), generator=gen, device=dev)
+            sub_case(f"M{M}_R{R}/f32", x, idx, M)
+            sub_case(f"M{M}_R{R}/int32", _words(torch, gen, (R, W)), idx, M)
+            sub_case(f"M{M}_R{R}/nan_payloads", _nan_payloads(torch, gen, x),
+                     idx, M)
+    return cases
+
+
+def _special_values(torch, gen, x):
+    """A copy of f32 ``x`` with NaNs of random payloads (quiet and
+    signalling, both signs), -0.0, +-inf and values near the f32 limit
+    in a regular pattern."""
+    flat = x.clone().reshape(-1)
+    bits = flat.view(torch.int32)
+    pay = _words(torch, gen, flat.shape, 1, 1 << 23)   # mantissa: never 0
+    bits[1::23] = (0x7F800000 | pay[1::23]).to(torch.int32)
+    bits[2::29] = (-0x800000 | pay[2::29]).to(torch.int32)
+    flat[3::11] = -0.0
+    flat[5::13] = float("inf")
+    flat[7::17] = float("-inf")
+    flat[9::19] = -3.0e38
+    return flat.reshape(x.shape)
+
+
+def _word_view(torch, x):
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
+
+
+def elementwise_cases(torch, gen, full) -> list:
+    """S4/S5 (elementwise) against its plain version on the card: each
+    body on its script's full inputs, then every body and dtype at
+    [1001, 128] and at 128,131 elements (no multiple of the 16 B
+    vector), random values and then NaN, -0.0 and inf inputs, the
+    two-input bodies aliased (x, x) and distinct.  NaN positions must
+    match and every other word be bit-equal; each case records whether
+    the NaN words were equal too."""
+    from lux_tpu_torch.ops.elementwise import (BODIES, elementwise,
+                                               elementwise_plain)
+    dev = gen.device
+    cases = []
+
+    def case(name, body, ins):
+        got = elementwise(body, *ins)
+        want = elementwise_plain(body, *ins)
+        torch.cuda.synchronize()
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"probe case {name}: shape/dtype")
+        gw, ww = _word_view(torch, got), _word_view(torch, want)
+        gn, wn = torch.isnan(got), torch.isnan(want)
+        require(torch.equal(gn, wn) and torch.equal(gw[~gn], ww[~wn]),
+                f"probe case {name} is not bit-equal to its plain version")
+        neg_zero = _word_view(torch, torch.full((1,), -0.0, dtype=got.dtype,
+                                                device=dev))
+        cases.append({"case": name, "shape": list(got.shape),
+                      "nan_in": int(torch.isnan(ins[0]).sum()),
+                      "nan_out": int(gn.sum()),
+                      "neg_zero_out": int((gw == neg_zero).sum()),
+                      "nan_words_equal": torch.equal(gw, ww),
+                      "tolerance": "bit-equal", "max_abs_err": 0.0})
+
+    for name, body, ins in script_bodies(torch, full):
+        case(f"elementwise/script_full/{name}", body, ins)
+    for shape in ((1001, 128), (1001 * 128 + 3,)):
+        base = torch.rand(shape, generator=gen, device=dev)
+        other = torch.rand(shape, generator=gen, device=dev)
+        lanes = torch.randint(0, 20, shape, generator=gen, device=dev,
+                              dtype=torch.int32)
+        for values in ("random", "special"):
+            a32, b32 = base, other
+            if values == "special":
+                a32 = _special_values(torch, gen, base)
+                b32 = _special_values(torch, gen, other).flip(0).contiguous()
+            for body, (_, types) in BODIES.items():
+                for dtype, (b_dtype, _) in types.items():
+                    a, b = a32.to(dtype), b32.to(dtype)
+                    if b_dtype is None:
+                        calls = {"one": (a,)}
+                    elif b_dtype == torch.int32:
+                        calls = {"lanes": (a, lanes)}
+                    else:
+                        calls = {"aliased": (a, a), "distinct": (a, b)}
+                    label = (f"elementwise/{body}/"
+                             f"{str(dtype).replace('torch.', '')}/"
+                             f"{'x'.join(map(str, shape))}/{values}")
+                    for form, ins in calls.items():
+                        case(f"{label}/{form}", body, ins)
+    return cases
+
+
+def rowsum_cases(torch, gen, full) -> list:
+    """S6 (block_rowsum) against its plain version on the card at rtol
+    1e-5, atol 1e-5 (another summation order): the script's full input,
+    then bm in {1, 37, 1024} with R = bm and 5 bm and values in
+    [-0.5, 0.5); two launches must be bit-equal."""
+    from lux_tpu_torch.ops.block_rowsum import (block_rowsum,
+                                                block_rowsum_plain)
+    dev = gen.device
+    inputs = [("script_full", full["vx"], 1024)]
+    for bm in (1, 37, 1024):
+        for nb in (1, 5):
+            inputs.append((f"bm{bm}_R{bm * nb}",
+                           torch.rand((bm * nb, 128), generator=gen,
+                                      device=dev) - 0.5, bm))
+    cases = []
+    for name, x, bm in inputs:
+        got = block_rowsum(x, bm)
+        again = block_rowsum(x, bm)
+        cases.append(probe_close(torch, f"block_rowsum/{name}", got,
+                                 block_rowsum_plain(x, bm)))
+        require(_same_words(got, again),
+                f"block_rowsum {name}: two launches differ")
     return cases
 
 
@@ -1315,6 +1503,109 @@ def probe_line(args, torch, dev, spec: dict, counts: dict) -> dict:
             **spec.get("extra", {})}
 
 
+def gather_specs(torch, full, err) -> list:
+    """The kernels-line specs of S1/S10 (kernel B2 at profile_true's
+    shape) and S2/S11 (sub_gather at profile_shuffle's, each M), bound
+    by bytes: x and idx read once, out written once.  The library call
+    is one ``torch.gather`` with int64 ids made outside the timed
+    call."""
+    from lux_tpu_torch.ops.lane_shuffle import lane_shuffle, lane_shuffle_plain
+    from lux_tpu_torch.ops.sub_gather import sub_gather, sub_gather_plain
+    x0, sidx = full["x0"], full["sidx"]
+    sidx64 = sidx.long()
+    R = x0.shape[0]
+    specs = [{"name": "lane_shuffle@profile_true", "key": "lane_shuffle",
+              "shape": [R, 128], "kernel": lambda: lane_shuffle(x0, sidx),
+              "plain": lambda: lane_shuffle_plain(x0, sidx),
+              "library": lambda: torch.gather(x0, 1, sidx64),
+              "bound": (R * 128 * 12, 0, FP32_OPS_PER_S),
+              "source": "lux_tpu_torch/csrc/lane_shuffle.cu",
+              "replaces": "scripts/profile_true.py:60 and "
+                          "scripts/profile_shuffle.py:56, on kernel B2 "
+                          "(lux_tpu/ops/pagegather.py:1040)",
+              "max_abs_err": err["lane_shuffle/script_full_S1"]}]
+    x = full["sx"]
+    R = x.shape[0]
+    for M in (8, 64, 512, 4096):
+        idx = full[f"idx0_{M}"]
+        idx64 = idx.long().view(R // M, M, 128)
+        xv = x.view(R // M, M, 128)
+        specs.append({
+            "name": "sub_gather" if M == 8 else f"sub_gather@M{M}",
+            "key": "sub_gather", "shape": [R, 128, M],
+            "kernel": lambda idx=idx, M=M: sub_gather(x, idx, M),
+            "plain": lambda idx=idx, M=M: sub_gather_plain(x, idx, M),
+            "library": lambda idx64=idx64, xv=xv: torch.gather(xv, 1, idx64),
+            "bound": (R * 128 * 12, 0, FP32_OPS_PER_S),
+            "source": "lux_tpu_torch/csrc/sub_gather.cu",
+            "replaces": "scripts/profile_shuffle.py:82" + (
+                " and scripts/profile_true.py:89" if M == 8 else ""),
+            "max_abs_err": err[f"sub_gather/script_full_S11_M{M}"]})
+    return specs
+
+
+def script_bodies(torch, full) -> list:
+    """(name, body, inputs) of each S4/S5 line at its script's shape:
+    profile_vpu's x and r ([524,288 x 128]; ``x + x`` and both chain10
+    lines pass one array twice, as the script does) and profile_true's
+    x0 for chain32 ([262,144 x 128])."""
+    vx, vr = full["vx"], full["vr"]
+    vxb = vx.to(torch.bfloat16)
+    return [("add", "add", (vx, vx)), ("chain10", "chain10", (vx, vx)),
+            ("chain10_bf16", "chain10", (vxb, vxb)),
+            ("cmpsel16", "cmpsel16", (vx, vr)),
+            ("cmpmul16", "cmpmul16", (vx, vr)),
+            ("chain32", "chain32", (full["x0"],))]
+
+
+def vpu_specs(torch, full, err) -> list:
+    """The kernels-line specs of S4/S5 (elementwise, each body at its
+    script's shape) and S6 (block_rowsum).  Bounds count unique bytes:
+    an input passed twice is read once.  Operations are the scripts'
+    own counts (S5's work, S4's 64 an element) against the f32 rate;
+    bytes bound every one.  Library calls: ``torch.add(x, x)`` for add,
+    ``torch.sum`` of the [R / 1024, 1024, 128] view for S6, none for
+    the chains and compare bodies."""
+    from lux_tpu_torch.ops.block_rowsum import (block_rowsum,
+                                                block_rowsum_plain)
+    from lux_tpu_torch.ops.elementwise import elementwise, elementwise_plain
+    # operations an element: the scripts' work counts
+    ops = {"add": 1, "chain10": 10, "chain10_bf16": 10, "cmpsel16": 48,
+           "cmpmul16": 64, "chain32": 64}
+    specs = []
+    for name, body, ins in script_bodies(torch, full):
+        a = ins[0]
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in {t.data_ptr(): t for t in ins}.values())
+        n_bytes += a.numel() * a.element_size()          # the output
+        specs.append({
+            "name": f"elementwise@{name}", "key": "elementwise",
+            "shape": list(a.shape),
+            "kernel": lambda body=body, ins=ins: elementwise(body, *ins),
+            "plain": lambda body=body, ins=ins: elementwise_plain(body, *ins),
+            "library": (lambda a=a: torch.add(a, a)) if body == "add"
+            else None,
+            "bound": (n_bytes, ops[name] * a.numel(), FP32_OPS_PER_S),
+            "source": "lux_tpu_torch/csrc/elementwise.cu",
+            "replaces": "scripts/profile_true.py:175" if body == "chain32"
+            else "scripts/profile_vpu.py:49 (mk's run)",
+            "max_abs_err": err[f"elementwise/script_full/{name}"],
+            "extra": {"body": body,
+                      "dtype": str(a.dtype).replace("torch.", "")}})
+    vx = full["vx"]
+    R = vx.shape[0]
+    specs.append({
+        "name": "block_rowsum", "key": "block_rowsum", "shape": [R, 128],
+        "kernel": lambda: block_rowsum(vx, 1024),
+        "plain": lambda: block_rowsum_plain(vx, 1024),
+        "library": lambda: torch.sum(vx.view(R // 1024, 1024, 128), dim=1),
+        "bound": ((R + R // 1024) * 128 * 4, vx.numel(), FP32_OPS_PER_S),
+        "source": "lux_tpu_torch/csrc/block_rowsum.cu",
+        "replaces": "scripts/profile_vpu.py:102",
+        "max_abs_err": err["block_rowsum/script_full"]})
+    return specs
+
+
 def phase_probes(args, torch, g, card):
     """The probe entry points, each run once with the counts at 0 just
     before it and read just after; the probe kernels' checks; their
@@ -1327,11 +1618,17 @@ def phase_probes(args, torch, g, card):
                                                  onehot_reduce_plain)
     from lux_tpu_torch.ops.transposed_reduce import (transposed_reduce,
                                                      transposed_reduce_plain)
-    from lux_tpu_torch.probes import (profile_kernel, profile_slotted,
-                                      profile_v3)
+    from lux_tpu_torch.ops.block_rowsum import block_rowsum
+    from lux_tpu_torch.ops.elementwise import elementwise
+    from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
+    from lux_tpu_torch.ops.sub_gather import sub_gather
+    from lux_tpu_torch.probes import (profile_kernel, profile_shuffle,
+                                      profile_slotted, profile_true,
+                                      profile_v3, profile_vpu)
     w = {"carry_combine": carry_combine, "fused_carry": fused_carry,
          "onehot_reduce": onehot_reduce,
-         "transposed_reduce": transposed_reduce}
+         "transposed_reduce": transposed_reduce, "sub_gather": sub_gather,
+         "elementwise": elementwise, "block_rowsum": block_rowsum}
     before = {k: f.launches for k, f in w.items()}
     require(all(n == 0 for n in before.values()),
             f"a system path launched a probe kernel: {before}")
@@ -1340,6 +1637,9 @@ def phase_probes(args, torch, g, card):
     C_slot = profile_slotted.host_half(g.in_degrees())["C"]
     hs = profile_slotted.make_inputs(C_slot, g.nv)
     hv = profile_v3.make_inputs()
+    ht = profile_true.make_inputs()
+    hsh = profile_shuffle.make_inputs()
+    hvpu = profile_vpu.make_inputs()
     t_inputs = time.perf_counter() - t0
     runs, counts = {}, {}
     for label, run in (
@@ -1347,7 +1647,11 @@ def phase_probes(args, torch, g, card):
                 ["--3d"], inputs=hk)),
             ("profile_slotted", lambda: profile_slotted.main(
                 ["--scale", str(args.scale)], graph=g, inputs=hs)),
-            ("profile_v3", lambda: profile_v3.main([], inputs=hv))):
+            ("profile_v3", lambda: profile_v3.main([], inputs=hv)),
+            ("profile_true", lambda: profile_true.main([], inputs=ht)),
+            ("profile_shuffle", lambda: profile_shuffle.main(
+                [], inputs=hsh)),
+            ("profile_vpu", lambda: profile_vpu.main([], inputs=hvpu))):
         zero_launches()
         for f in w.values():
             f.launches = 0
@@ -1356,11 +1660,16 @@ def phase_probes(args, torch, g, card):
         torch.cuda.synchronize()
         counts[label] = {"seconds": time.perf_counter() - t0,
                          "chunk_partials": chunk_partials.launches,
+                         "lane_shuffle": lane_shuffle.launches,
                          **{k: f.launches for k, f in w.items()}}
     want = {"profile_kernel": ("chunk_partials", "fused_carry",
                                "onehot_reduce"),
             "profile_slotted": ("carry_combine",),
-            "profile_v3": ("transposed_reduce",)}
+            "profile_v3": ("transposed_reduce",),
+            "profile_true": ("lane_shuffle", "sub_gather",
+                             "transposed_reduce", "elementwise"),
+            "profile_shuffle": ("lane_shuffle", "sub_gather"),
+            "profile_vpu": ("elementwise", "block_rowsum")}
     for label, names in want.items():
         for k in names:
             require(counts[label][k] > 0,
@@ -1372,13 +1681,20 @@ def phase_probes(args, torch, g, card):
             "start": torch.from_numpy(hk["start"]).to(dev),
             "slot_start": torch.from_numpy(hs["start"]).to(dev),
             "tvals": torch.from_numpy(hv["vals"]).to(dev),
-            "trel": torch.from_numpy(hv["rel"]).to(dev)}
+            "trel": torch.from_numpy(hv["rel"]).to(dev),
+            **{k: torch.from_numpy(ht[k]).to(dev)
+               for k in ("x0", "sidx", "sidx8")},
+            "sx": torch.from_numpy(hsh["x"]).to(dev),
+            **{k: torch.from_numpy(v).to(dev) for k, v in hsh.items()
+               if k.startswith("idx")},
+            "vx": torch.from_numpy(hvpu["x"]).to(dev),
+            "vr": torch.from_numpy(hvpu["r"]).to(dev)}
     slots = torch.from_numpy(hs["slots"]).to(dev).reshape(-1)
     state = torch.from_numpy(hs["state"]).to(dev)
     # the slotted probe's partials: its gather + sum
     full["partials"] = torch.index_select(state, 0, slots).view(
         C_slot, profile_slotted.K, profile_slotted.W).sum(dim=1)
-    del slots, state, hk, hs, hv
+    del slots, state, hk, hs, hv, ht, hsh, hvpu
     gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
     cases = probe_cases(torch, gen, full)
     emit({"phase": "probes", "input_seconds": round(t_inputs, 3),
@@ -1441,6 +1757,7 @@ def phase_probes(args, torch, g, card):
          "replaces": "scripts/profile_v3.py:66 and "
                      "scripts/profile_true.py:141",
          "max_abs_err": err[f"transposed/script_full/wg{W}"]},
+        *gather_specs(torch, full, err), *vpu_specs(torch, full, err),
     ]
     lines = [probe_line(args, torch, dev, spec, counts) for spec in specs]
     emit({"phase": "probes_fusion",
@@ -1507,6 +1824,10 @@ def main(argv=None) -> int:
     b2["launches"] = by_path["paged"]["lane_shuffle"]
     b2["launches_by_path"] = {k: v["lane_shuffle"]
                               for k, v in by_path.items()}
+    for line in probe_lines:           # B2 at S1's shape: its system paths
+        if line["name"].startswith("lane_shuffle@"):
+            del line["launches_by_path"]["system paths"]
+            line["launches_by_path"].update(b2["launches_by_path"])
     emit({"kernels": [kline, *b1_lines.values(), b2, *probe_lines]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

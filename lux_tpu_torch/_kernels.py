@@ -65,6 +65,15 @@ KERNELS = {
         "lux_transposed_reduce": (ctypes.c_int,
                                   [_P, _P, _P, _I64, _I64, _I32, _I32, _P]),
     }),
+    "sub_gather": ("sub_gather.cu", {
+        "lux_sub_gather": (ctypes.c_int, [_P, _P, _P, _I64, _I32, _P]),
+    }),
+    "elementwise": ("elementwise.cu", {
+        "lux_elementwise": (ctypes.c_int, [_I32, _P, _P, _P, _I64, _P]),
+    }),
+    "block_rowsum": ("block_rowsum.cu", {
+        "lux_block_rowsum": (ctypes.c_int, [_P, _P, _I64, _I32, _P]),
+    }),
 }
 
 

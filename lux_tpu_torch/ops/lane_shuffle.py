@@ -10,6 +10,13 @@ carries the bits of the plan's packed uint32 ``page_slot << 7 | lane``
 movement of 4-byte words: the result is bit-equal to the input words,
 NaN payloads included.
 
+For ids in [0, 128) the mask is the identity, so this is also the TPU
+probe scripts' lane shuffle ``out[r, j] = x[r, idx[r, j]]``: S1,
+scripts/profile_true.py:60, and S10, scripts/profile_shuffle.py:56
+(both ``lane_shuffle``).  The probes lux_tpu_torch/probes/profile_true.py
+and profile_shuffle.py call it with the scripts' idx; the scripts' bm
+(a VMEM block size) has no counterpart here.
+
 ``lane_shuffle`` launches the CUDA kernel (csrc/lane_shuffle.cu) for
 tensors on the card and takes ``lane_shuffle_plain`` only for tensors
 on the CPU — there is no fallback from the card to the plain version.

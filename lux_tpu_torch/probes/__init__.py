@@ -5,14 +5,19 @@
     python3 -m lux_tpu_torch.probes.profile_slotted [--scale S] \
         [--device cpu] [--small]
     python3 -m lux_tpu_torch.probes.profile_v3 [--device cpu] [--small]
+    python3 -m lux_tpu_torch.probes.profile_true [--device cpu] [--small]
+    python3 -m lux_tpu_torch.probes.profile_shuffle [--device cpu] \
+        [--small]
+    python3 -m lux_tpu_torch.probes.profile_vpu [--device cpu] [--small]
 
 Each runs the port's kernels at its script's shapes and seed
-(``np.random.default_rng(0)``), prints the script's own lines (ms and
-Gedge/s or GTEPS-equivalent, the median of ``repeats`` samples of
-``loop_bench``) and one JSON line, and returns that line's dict.  The
-default device is the card; ``--device cpu`` runs the plain versions
-(host-clock times of PyTorch's CPU ops, no device metric) and
-``--small`` cuts the shapes for a quick run.  Nothing runs at import.
+(``np.random.default_rng(0)``, drawn in the script's own order), prints
+the script's own lines (ms and the script's rate, the median of
+``repeats`` samples of ``loop_bench``) and one JSON line, and returns
+that line's dict.  The default device is the card; ``--device cpu``
+runs the plain versions (host-clock times of PyTorch's CPU ops, no
+device metric) and ``--small`` cuts the shapes for a quick run.
+Nothing runs at import.
 """
 
 from __future__ import annotations
@@ -38,16 +43,16 @@ def parser(description: str) -> argparse.ArgumentParser:
 
 
 def timeit(name: str, fn, work: int, unit: str, width: int,
-           device) -> dict:
+           device, per: float = 1e9) -> dict:
     """Median seconds a call of ``fn`` (``loop_bench``, ``REPEATS``
     samples of ``REPS`` calls), printed as the scripts print it:
-    ms and ``work`` / seconds / 1e9 in ``unit``."""
+    ms and ``work`` / seconds / ``per`` in ``unit``."""
     samples = loop_bench(fn, REPS, repeats=REPEATS, device=device)
     dt, mad = median_mad(samples)
-    print(f"{name:{width}s} {dt * 1e3:8.2f} ms  ({work / dt / 1e9:6.2f} "
+    print(f"{name:{width}s} {dt * 1e3:8.2f} ms  ({work / dt / per:6.2f} "
           f"{unit})", flush=True)
     return {"name": name, "ms": dt * 1e3, "mad_ms": mad * 1e3,
-            "rate": work / dt / 1e9, "unit": unit}
+            "rate": work / dt / per, "unit": unit}
 
 
 class ProbeCheckError(RuntimeError):
@@ -68,3 +73,18 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
                               f"max abs err {float(diff.max())} "
                               f"(rtol 1e-5, atol 1e-5)")
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def bit_equal(got: torch.Tensor, want: torch.Tensor) -> float:
+    """0.0 when ``got`` holds the same bits as ``want`` (dtype, shape
+    and every byte, NaN payloads included), else ``ProbeCheckError``:
+    the check of a kernel that moves bits or rounds as its plain
+    version does."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise ProbeCheckError(f"{got.dtype} {tuple(got.shape)} vs "
+                              f"{want.dtype} {tuple(want.shape)}")
+    if not torch.equal(got.reshape(-1).view(torch.uint8),
+                       want.reshape(-1).view(torch.uint8)):
+        raise ProbeCheckError("kernel is not bit-equal to its plain "
+                              "version")
+    return 0.0

@@ -3,8 +3,11 @@ fused_carry, S9 onehot_reduce, S3/S12 transposed_reduce) against the
 TPU probe scripts' own Pallas functions in TPU interpret mode, on the
 same numpy inputs, at rtol 1e-5 and atol 1e-5 (values in [0, 1); the
 scripts sum in f32 in their own order, the plain versions in f32 or
-f64 in another).  Also the wrappers on the CPU, the probes' entry
-points at ``--device cpu --small``, and ``loop_bench`` / ``median_mad``.
+f64 in another).  Also the wrappers on the CPU, every probe's entry
+point at ``--device cpu --small``, and ``loop_bench`` / ``median_mad``.
+The other probe kernels' parity tests (S1/S10, S2/S11, S4/S5, S6) are
+in tests/test_torch_probes_vpu.py, which loads the scripts with this
+file's ``_script_functions``.
 
 The scripts run their benchmarks at import, so they are never
 imported: ``_script_functions`` parses a script, keeps only the named
@@ -38,12 +41,22 @@ from lux_tpu_torch.timing import loop_bench, median_mad
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 TOL = dict(rtol=1e-5, atol=1e-5)
 
-# script -> the functions each parity test needs (kernel body, wrapper)
+# script -> (the functions the parity tests load, the wrappers among
+# them: each must reach pallas_call; profile_vpu.py's ``run`` is nested
+# in ``mk``)
 FUNCTIONS = {
-    "profile_slotted.py": ("_carry_kernel", "carry"),
-    "profile_kernel.py": ("_fused_kernel", "fused", "_mxu_kernel", "mxu"),
-    "profile_v3.py": ("kernel", "reduce_v3"),
-    "profile_true.py": ("v3_kernel", "v3"),
+    "profile_slotted.py": (("_carry_kernel", "carry"), ("carry",)),
+    "profile_kernel.py": (("_fused_kernel", "fused", "_mxu_kernel", "mxu"),
+                          ("fused", "mxu")),
+    "profile_v3.py": (("kernel", "reduce_v3"), ("reduce_v3",)),
+    "profile_true.py": (("v3_kernel", "v3", "shuffle_kernel", "lane_shuffle",
+                         "sub_kernel", "sub_shuffle", "chain_kernel",
+                         "chain"),
+                        ("v3", "lane_shuffle", "sub_shuffle", "chain")),
+    "profile_shuffle.py": (("shuffle_kernel", "lane_shuffle", "sub_kernel",
+                            "sub_gather"), ("lane_shuffle", "sub_gather")),
+    "profile_vpu.py": (("mk", "chain10", "cmpsel16", "cmpmul16",
+                        "redrow_kern", "redrow"), ("mk", "redrow")),
 }
 
 
@@ -53,7 +66,7 @@ def _script_functions(script: str, **consts) -> dict:
     pl, pltpu, functools and ``consts``."""
     path = SCRIPTS / script
     tree = ast.parse(path.read_text(), filename=str(path))
-    names = FUNCTIONS[script]
+    names = FUNCTIONS[script][0]
     defs = [n for n in tree.body
             if isinstance(n, ast.FunctionDef) and n.name in names]
     ns = {"jax": jax, "jnp": jnp, "pl": pl, "pltpu": pltpu,
@@ -74,15 +87,16 @@ def _close(got, want):
 
 @pytest.mark.parametrize("script", sorted(FUNCTIONS))
 def test_loader_finds_each_function(script):
+    names, wrapper_names = FUNCTIONS[script]
     ns = _script_functions(script, C=8, E=8, W=128, NB=1)
-    for name in FUNCTIONS[script]:
+    for name in names:
         assert callable(ns.get(name)), f"{script} has no function {name}"
     # each wrapper still reaches pallas_call
     src = (SCRIPTS / script).read_text()
     tree = ast.parse(src)
     wrappers = [n for n in tree.body if isinstance(n, ast.FunctionDef)
-                and n.name in FUNCTIONS[script][1::2]]
-    assert len(wrappers) == len(FUNCTIONS[script]) // 2
+                and n.name in wrapper_names]
+    assert len(wrappers) == len(wrapper_names)
     for fn in wrappers:
         assert "pallas_call" in ast.get_source_segment(src, fn)
 
@@ -292,7 +306,8 @@ def test_wrappers_refuse_typed(case):
 
 @pytest.mark.parametrize("probe,argv", [
     ("profile_kernel", ["--3d"]), ("profile_slotted", []),
-    ("profile_v3", [])])
+    ("profile_v3", []), ("profile_true", []), ("profile_shuffle", []),
+    ("profile_vpu", [])])
 def test_probe_main_on_cpu_small(probe, argv, capsys):
     import importlib
     mod = importlib.import_module(f"lux_tpu_torch.probes.{probe}")
@@ -306,7 +321,8 @@ def test_probe_main_on_cpu_small(probe, argv, capsys):
 
 
 @pytest.mark.parametrize("probe", ["profile_kernel", "profile_slotted",
-                                   "profile_v3"])
+                                   "profile_v3", "profile_true",
+                                   "profile_shuffle", "profile_vpu"])
 def test_probe_default_device_needs_cuda(probe, monkeypatch):
     import importlib
     mod = importlib.import_module(f"lux_tpu_torch.probes.{probe}")
