@@ -82,9 +82,12 @@ Phases, each printing one JSON line:
             start on every row, unsorted lanes, lanes W and outside
             [0, W), E in {1, 33, 512}, W in {1, 37, 100} and, for S7,
             200, S3/S12 columns that hit few or no output rows, every
-            wg); S1/S10 (B2) and S2/S11 sub_gather bit for bit (M in {1,
-            3, 8, 64, 512, 4096, 7264}, R / M of 1 and 5, ids at 0 and
-            M - 1, int32 words and NaN payloads); S4/S5 elementwise
+            wg; for S9 also C of 1,003 to 12,677, E in {1, 33, 257, 512,
+            1000} and unsorted rows over all 128 lanes at W in {1, 37,
+            100, 128}); S1/S10 (B2) and S2/S11 sub_gather bit for bit
+            (M at each boundary of its plan, 1 to 7264, R / M of 1, 5
+            and 15, ids at 0 and M - 1, int32 words and NaN payloads);
+            S4/S5 elementwise
             bit for bit (every body and dtype at 1,001 rows and at an
             element count that is no multiple of the 16 B vector, with
             NaN, -0.0 and inf inputs, aliased and distinct inputs; NaN
@@ -1251,6 +1254,18 @@ def probe_cases(torch, gen, full) -> list:
                torch.ones((1001, 1), dtype=torch.int32, device=dev))
     fused_case("one_segment", v, r, starts(1001, 0.0))
     onehot_case("few_lanes", v, lanes(1001, 512, 120, 132, True))
+    # S9's staging and product: C not a multiple of its 8 chunks a block
+    # and more chunks than its persistent warps (several a warp), E of
+    # one, two and four 256-entry stages with part-filled last ones (the
+    # scalar copy where E % 4 != 0), unsorted rows over all 128 lanes,
+    # so that every 16-lane tile is hit, W in {1, 37, 100, 128}
+    for C, E in ((1003, 1), (1003, 33), (12677, 512), (1003, 1000),
+                 (1005, 257)):
+        for W in (1, 37, 100, 128):
+            v, r = rand(C, E), lanes(C, E, -3, 131, False)
+            onehot_case(f"C{C}_E{E}_unsorted_W{W}", v, r, W)
+        onehot_case(f"C{C}_E{E}_sorted", rand(C, E),
+                    lanes(C, E, 0, 129, True))
     # S3/S12: odd N (not a multiple of 128), E in {1, 33, 512}, unsorted
     # lanes and lanes outside [0, W), columns that hit few or no output
     # rows (their other rows must be 0), every wg
@@ -1289,9 +1304,10 @@ def _nan_payloads(torch, gen, x):
 
 def gather_cases(torch, gen, full) -> list:
     """S1/S10 (B2) and S2/S11 (sub_gather) against their plain versions
-    on the card, bit for bit: the scripts' full inputs, then M in {1, 3,
-    8, 64, 512, 4096, MAX_M} with R / M of 1 and 5, ids 0 and M - 1 in
-    the first and last rows, f32 values, int32 words and NaN payloads."""
+    on the card, bit for bit: the scripts' full inputs, then every M at
+    a boundary of sub_gather's plan with R / M of 1, 5 and 15 (1 and 5
+    from M = 4096), ids 0 and M - 1 in the first and last rows, f32
+    values, int32 words and NaN payloads."""
     from lux_tpu_torch.ops.lane_shuffle import lane_shuffle, lane_shuffle_plain
     from lux_tpu_torch.ops.sub_gather import (MAX_M, sub_gather,
                                               sub_gather_plain)
@@ -1320,8 +1336,14 @@ def gather_cases(torch, gen, full) -> list:
     sub_case("script_full_S2_M8", full["x0"], full["sidx8"], 8)
     for M in (8, 64, 512, 4096):
         sub_case(f"script_full_S11_M{M}", full["sx"], full[f"idx0_{M}"], M)
-    for M in (1, 3, 8, 64, 512, 4096, MAX_M):
-        for nb in (1, 5):
+    # each M where sub_gather's plan changes (direct to staged at 8/9,
+    # 64 rows a tile to one block at 64/65, the strip width at 128/129,
+    # 256/257 and 512, staged to direct at 512/513, and MAX_M), block
+    # counts of 1, 5 and 15 (M = 9 takes 7 blocks a tile: 15 leaves a
+    # part-filled tile)
+    for M in (1, 3, 8, 9, 63, 64, 65, 128, 129, 256, 257, 512, 513, 4096,
+              MAX_M):
+        for nb in ((1, 5, 15) if M < 4096 else (1, 5)):
             R = M * nb
             idx = torch.randint(0, M, (R, W), generator=gen, device=dev,
                                 dtype=torch.int32)
@@ -1451,8 +1473,9 @@ def bench_ms(args, dev, fn) -> float:
 def fusion_answers(args, torch, dev, vals, rel, start, W) -> dict:
     """At the probe's [C, E] shape: B1 alone, B1 then carry_combine (the
     unfused form of S8), fused_carry and onehot_reduce, timed in turns
-    (each twice, the order reversed the second time); fused_carry is
-    first held to B1 then carry_combine."""
+    (each twice, the order reversed the second time), and onehot's
+    median over B1's; fused_carry is first held to B1 then
+    carry_combine."""
     from lux_tpu_torch.ops.carry import carry_combine, fused_carry
     from lux_tpu_torch.ops.chunk_reduce import chunk_partials
     from lux_tpu_torch.ops.onehot_reduce import onehot_reduce
@@ -1470,7 +1493,9 @@ def fusion_answers(args, torch, dev, vals, rel, start, W) -> dict:
     times = {k: [] for k in forms}
     for k in order:
         times[k].append(bench_ms(args, dev, forms[k]))
+    med = {k: float(np.median(v)) for k, v in times.items()}
     return {"shape": list(vals.shape) + [W], "ms": times,
+            "onehot_vs_b1": med["onehot_reduce"] / med["b1"],
             "check": check}
 
 

@@ -66,7 +66,8 @@ KERNELS = {
                                   [_P, _P, _P, _I64, _I64, _I32, _I32, _P]),
     }),
     "sub_gather": ("sub_gather.cu", {
-        "lux_sub_gather": (ctypes.c_int, [_P, _P, _P, _I64, _I32, _P]),
+        "lux_sub_gather": (ctypes.c_int, [_P, _P, _P, _I64, _I32, _I32,
+                                          _I32, _I32, _I32, _P]),
     }),
     "elementwise": ("elementwise.cu", {
         "lux_elementwise": (ctypes.c_int, [_I32, _P, _P, _P, _I64, _P]),

@@ -8,8 +8,8 @@ cores: its wrapper, its plain PyTorch version and its launch count
 script's dtypes: lanes outside [0, W), the script's pad W among them,
 add nothing; rows need not be sorted), 1 <= W <= 128.  It is B1's sum
 (chunk_partials) on other hardware units: csrc/onehot_mma.cu issues
-``mma.sync`` with the chunk's one-hot built in registers and its
-values split into three bf16 parts (see there).
+``mma.sync`` with lane % 16 as the one-hot's rows and lane / 16 as its
+columns, the values split into three bf16 parts (see there).
 
 ``onehot_reduce`` launches that kernel for tensors on the card and
 takes ``onehot_reduce_plain`` only for tensors on the CPU — there is
@@ -27,7 +27,7 @@ from lux_tpu_torch.ops.chunk_reduce import (KernelInputError,
 
 PLAIN_BLOCK = 1024          # chunks a bmm of the plain version
 K_STEP = 16                 # entries an mma k-step (m16n8k16)
-M_TILE = 16                 # lanes an mma m-tile
+MMAS_A_STEP = 3             # mma a k-step: one a bf16 part of the values
 MMA_OPS = 2 * 16 * 8 * 16   # operations of one m16n8k16
 
 
@@ -55,18 +55,11 @@ def onehot_reduce_plain(vals: torch.Tensor, rel: torch.Tensor,
 
 
 def mma_count(rel: torch.Tensor, W: int) -> int:
-    """How many m16n8k16 the kernel issues on ``rel``: one for each
-    (chunk, 16-entry k-step, 16-lane m-tile) that a live entry hits."""
+    """How many m16n8k16 the kernel issues on ``rel``: MMAS_A_STEP (one
+    a bf16 part of the values) for each (chunk, 16-entry k-step), pad
+    steps included; W and the lanes do not change it."""
     C, E = rel.shape
-    pad = -E % K_STEP
-    r = torch.nn.functional.pad(rel, (0, pad), value=-1) if pad else rel
-    live = (r >= 0) & (r < W)
-    tile = torch.where(live, r // M_TILE, -1).view(C, -1, K_STEP)
-    n_tiles = -(-W // M_TILE)
-    hits = torch.zeros((C, tile.shape[1], n_tiles + 1), dtype=torch.bool,
-                       device=rel.device)
-    hits.scatter_(2, (tile + 1).long(), True)   # slot 0 takes the pads
-    return int(hits[:, :, 1:].sum())
+    return MMAS_A_STEP * C * -(-E // K_STEP)
 
 
 def onehot_reduce(vals: torch.Tensor, rel: torch.Tensor,

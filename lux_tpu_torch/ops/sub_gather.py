@@ -9,13 +9,18 @@ which compute the same function).
 ``x`` [R, 128] float32 or int32, ``idx`` [R, 128] int32 in [0, M)
 (the scripts' dtypes), R % M == 0 (the scripts' grid covers R // M
 whole blocks; a ragged block's ids could point past the array), and
-1 <= M <= MAX_M (the kernel stages an 8-column strip of a block, 32 B
-a row, in shared memory).  Pure data movement of 4-byte words: the
+1 <= M <= MAX_M (the kernel may stage a column strip of a block in
+shared memory; MAX_M is the M whose 8-column strip, 32 B a row, fills
+a block's 227 KB).  Pure data movement of 4-byte words: the
 kernel is bit-equal to the plain version, NaN payloads included.
 
 ``sub_gather`` launches the CUDA kernel (csrc/sub_gather.cu) for
 tensors on the card and takes ``sub_gather_plain`` only for tensors on
 the CPU — there is no fallback from the card to the plain version.
+``plan(M)`` is the kernel's launch plan (its mode, strip width, blocks
+a tile, threads), chosen on the host from M so that the CPU tests can
+check that its CTAs cover every (row, column) once, stage whole blocks
+and fit a block's shared memory (``plan_ctas``, ``plan_smem``).
 ``sub_gather.launches`` counts kernel launches.  No system path calls
 it: the probes lux_tpu_torch/probes/profile_true.py and
 profile_shuffle.py do.
@@ -23,12 +28,20 @@ profile_shuffle.py do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from lux_tpu_torch.ops.chunk_reduce import KernelInputError
 
 W = 128
-MAX_M = 232448 // 32     # 227 KB of shared memory / 32 B a row (7,264)
+SMEM_BYTES = 232448      # a block's shared memory on sm_90 (227 KB)
+MAX_M = SMEM_BYTES // 32     # 227 KB / 32 B a row (7,264)
+MODES = {"staged": 0, "direct": 1}  # csrc/sub_gather.cu Mode
+MIN_COLS = 8             # narrowest strip: 32 B a row, one sector
+SMALL_ROWS = 64          # rows a tile for M <= 64 (all 128 columns)
+TILE_BYTES = 64 * 1024   # the most a CTA stages for M > 64
+DIRECT_M = 8             # the default plan stages nothing up to this M
+STAGED_MAX_M = 512       # ... and past this one
 
 _DTYPES = (torch.float32, torch.int32)
 
@@ -63,9 +76,71 @@ def sub_gather_plain(x: torch.Tensor, idx: torch.Tensor,
                         idx.view(R // M, M, W).long()).view(R, W)
 
 
-def sub_gather(x: torch.Tensor, idx: torch.Tensor, M: int) -> torch.Tensor:
+def _ceil_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def plan(M: int, mode: str | None = None,
+         tile_bytes: int = TILE_BYTES) -> dict:
+    """The kernel's launch plan for block size M (csrc/sub_gather.cu).
+
+    ``mode`` None takes the default: "staged" for DIRECT_M < M <=
+    STAGED_MAX_M, else "direct" (lux_tpu_torch/tools/probe_ab.py's
+    measurements, PERF.md).
+    - "staged": M <= 64, all 128 columns of SMALL_ROWS // M whole
+      blocks (64 rows; 63 for M = 3) a tile, 256 threads; larger M, one
+      block a tile, the widest power-of-two strip whose M rows fit
+      ``tile_bytes`` (never under MIN_COLS), threads for about eight
+      16 B units each (256 to 1,024).
+    - "direct": no staging; one CTA of 256 threads a 256 16 B units.
+    """
+    if not 1 <= M <= MAX_M:
+        raise KernelInputError(f"M={M} outside [1, {MAX_M}]")
+    if mode is None:
+        mode = "staged" if DIRECT_M < M <= STAGED_MAX_M else "direct"
+    if mode not in MODES:
+        raise KernelInputError(f"sub_gather mode {mode!r} is not one of "
+                               f"{sorted(MODES)}")
+    cw, K, threads = W, 1, 256
+    if mode == "staged" and M <= SMALL_ROWS:
+        K = SMALL_ROWS // M
+    elif mode == "staged":
+        while cw > MIN_COLS and M * cw * 4 > tile_bytes:
+            cw //= 2
+        threads = min(1024, max(256, _ceil_pow2(M * cw // 32)))
+    return {"mode": mode, "cw": cw, "K": K, "threads": threads}
+
+
+def plan_smem(p: dict, M: int) -> int:
+    """Shared memory bytes a CTA of plan ``p`` takes."""
+    return p["K"] * M * p["cw"] * 4 if p["mode"] == "staged" else 0
+
+
+def plan_ctas(p: dict, M: int, n_blocks: int):
+    """What each CTA of plan ``p`` writes over ``n_blocks`` M-row
+    blocks, in the kernel's order (csrc/sub_gather.cu): int64 numpy
+    columns (first row, rows, first column, columns).  "staged": K
+    whole blocks a CTA, the strips of one block range neighbours, each
+    reading only its staged rows; "direct": one CTA a 256 16 B units
+    (8 rows), each row reading its own block."""
+    R = n_blocks * M
+    if p["mode"] == "direct":
+        r0 = np.arange(0, R, 8, dtype=np.int64)
+        return np.stack([r0, np.minimum(8, R - r0), 0 * r0, 0 * r0 + W],
+                        axis=1)
+    cw, K = p["cw"], p["K"]
+    strips = W // cw
+    t = np.arange(strips * -(-n_blocks // K), dtype=np.int64)
+    g = t // strips
+    return np.stack([g * K * M, np.minimum(K, n_blocks - g * K) * M,
+                     (t - g * strips) * cw, np.full_like(t, cw)], axis=1)
+
+
+def sub_gather(x: torch.Tensor, idx: torch.Tensor, M: int,
+               plan_override: dict | None = None) -> torch.Tensor:
     """[R, 128] gather within M-row blocks: the CUDA kernel for tensors
-    on the card, the plain version for tensors on the CPU."""
+    on the card, the plain version for tensors on the CPU.
+    ``plan_override`` replaces ``plan(M)`` (the A/B tool's variants)."""
     _check(x, idx, M)
     if x.device.type == "cpu":
         return sub_gather_plain(x, idx, M)
@@ -84,8 +159,10 @@ def sub_gather(x: torch.Tensor, idx: torch.Tensor, M: int) -> torch.Tensor:
 
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        p = plan_override or plan(M)
         _kernels.launch("sub_gather", x.data_ptr(), idx.data_ptr(),
-                        out.data_ptr(), R, M, stream)
+                        out.data_ptr(), R, M, MODES[p["mode"]], p["cw"],
+                        p["K"], p["threads"], stream)
     sub_gather.launches += 1
     return out
 

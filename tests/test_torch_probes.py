@@ -231,15 +231,16 @@ def test_transposed_empty_rows_are_zero():
 
 
 def test_mma_count():
-    """One mma a (chunk, 16-entry step, 16-lane tile) a live entry hits."""
+    """Three mma a (chunk, 16-entry k-step), one a bf16 part: pad steps
+    and lanes outside W included, whatever W is."""
     rel = torch.full((2, 40), -1, dtype=torch.int32)
-    rel[0, 0] = 3          # step 0, tile 0
-    rel[0, 1] = 17         # step 0, tile 1
-    rel[0, 2] = 5          # step 0, tile 0 again
-    rel[0, 39] = 127       # step 2 (the padded tail), tile 7
-    rel[1, 16] = 128       # outside W: no mma
-    assert mma_count(rel, 128) == 3
-    assert mma_count(rel, 16) == 1
+    rel[0, 0] = 3          # step 0
+    rel[0, 39] = 127       # step 2 (the padded tail)
+    rel[1, 16] = 128       # outside W
+    assert mma_count(rel, 128) == 2 * 3 * 3
+    assert mma_count(rel, 16) == 2 * 3 * 3
+    assert mma_count(rel[:, :16], 128) == 2 * 1 * 3
+    assert mma_count(rel[:1, :1], 1) == 3
 
 
 def _wrapper_inputs(rng, C=40, E=24, W=128):
