@@ -81,16 +81,21 @@ Phases, each printing one JSON line:
             kernel's tile, start[0] = 0, one segment across all rows, a
             start on every row, unsorted lanes, lanes W and outside
             [0, W), E in {1, 33, 512}, W in {1, 37, 100} and, for S7,
-            200, S3/S12 columns that hit few or no output rows, every
-            wg; for S9 also C of 1,003 to 12,677, E in {1, 33, 257, 512,
-            1000} and unsorted rows over all 128 lanes at W in {1, 37,
-            100, 128}); S1/S10 (B2) and S2/S11 sub_gather bit for bit
+            200, S3/S12 columns that hit few or no output rows, N under
+            a CTA's columns, E under or no multiple of its slices, and
+            wg in {1, 3, 8, 16, 32, 37, W}, every launch of a
+            case at a wg bit-equal to the first; for S9 also C of
+            1,003 to 12,677, E in {1, 33, 257, 512, 1000} and unsorted
+            rows over all 128 lanes at W in {1, 37, 100, 128}); S1/S10
+            (B2) and S2/S11 sub_gather bit for bit
             (M at each boundary of its plan, 1 to 7264, R / M of 1, 5
             and 15, ids at 0 and M - 1, int32 words and NaN payloads);
             S4/S5 elementwise
             bit for bit (every body and dtype at 1,001 rows and at an
             element count that is no multiple of the 16 B vector, with
-            NaN, -0.0 and inf inputs, aliased and distinct inputs; NaN
+            NaN, -0.0, inf and subnormal inputs, aliased and distinct
+            inputs, and at one element short of and one past a vector,
+            a tile and a wave of tiles; NaN
             positions must match and every other word be equal, and each
             case says whether the NaN words were equal too); S6
             block_rowsum at rtol 1e-5, atol 1e-5 (bm in {1, 37, 1024}, R
@@ -99,7 +104,8 @@ Phases, each printing one JSON line:
             host enqueue time, one library call's where one computes the
             same function (scatter_add_, torch.gather, torch.add,
             torch.sum) and its bound at the scripts' shapes (S5's from
-            unique bytes: an aliased input is read once).
+            unique bytes: an aliased input is read once); S3/S12 once
+            at each of wg 8, 16, 32 and W.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -1191,12 +1197,19 @@ def probe_cases(torch, gen, full) -> list:
                                  onehot_reduce(vals, rel, W),
                                  onehot_reduce_plain(vals, rel, W)))
 
-    def transposed_case(name, vals, rel, W=128, wgs=(None,)):
+    def transposed_case(name, vals, rel, W=128):
+        """Every wg of TRANSPOSED_WGS up to W, and W: one launch each (wg
+        does not change it), each bit-equal to the first."""
         want = transposed_reduce_plain(vals, rel, W)
-        for wg in wgs:
-            cases.append(probe_close(
-                torch, f"transposed/{name}/wg{wg or W}",
-                transposed_reduce(vals, rel, W, wg), want))
+        first = None
+        for wg in sorted({w for w in TRANSPOSED_WGS if w <= W} | {W}):
+            got = transposed_reduce(vals, rel, W, wg)
+            cases.append(probe_close(torch, f"transposed/{name}/wg{wg}",
+                                     got, want))
+            first = got if first is None else first
+            require(_same_words(got, first),
+                    f"transposed {name}: the launches at wg {wg} and 1 "
+                    f"differ")
 
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=dev)
@@ -1215,8 +1228,7 @@ def probe_cases(torch, gen, full) -> list:
     carry_case("script_full", full["partials"], full["slot_start"])
     fused_case("script_full", full["vals"], full["rel"], full["start"])
     onehot_case("script_full", full["vals"], full["rel"])
-    transposed_case("script_full", full["tvals"], full["trel"],
-                    wgs=(8, 16, 32, None))
+    transposed_case("script_full", full["tvals"], full["trel"])
     C_full = full["partials"].shape[0]
     one = torch.zeros((C_full, 1), dtype=torch.int32, device=dev)
     one[0] = 1
@@ -1266,23 +1278,34 @@ def probe_cases(torch, gen, full) -> list:
             onehot_case(f"C{C}_E{E}_unsorted_W{W}", v, r, W)
         onehot_case(f"C{C}_E{E}_sorted", rand(C, E),
                     lanes(C, E, 0, 129, True))
-    # S3/S12: odd N (not a multiple of 128), E in {1, 33, 512}, unsorted
-    # lanes and lanes outside [0, W), columns that hit few or no output
-    # rows (their other rows must be 0), every wg
+    # S3/S12, every wg of each: N not a multiple of a CTA's columns and
+    # under them, E in {1, 33, 512} and E under the plan's slices or no
+    # multiple of them (the last slice shorter), E past two 16-row
+    # batches a slice, sorted and unsorted lanes, lanes outside [0, W),
+    # W in {1, 37, 100}, columns that hit few or no output rows (their
+    # other rows must be 0)
     for E in (1, 33, 512):
         transposed_case(f"N1001_E{E}", rand(E, 1001),
-                        lanes(E, 1001, 0, 128, False), wgs=(8, None))
+                        lanes(E, 1001, 0, 128, False))
+    for E, N in ((2, 5), (3, 31), (5, 33), (1000, 1), (77, 97)):
+        transposed_case(f"N{N}_E{E}_sorted", rand(E, N),
+                        lanes(E, N, 0, 128, True))
     r = lanes(512, 1001, -5, 140, False)
-    transposed_case("outside_W100", rand(512, 1001), r, 100, wgs=(32, None))
+    for W in (1, 37, 100):
+        transposed_case(f"outside_W{W}", rand(512, 1001), r, W)
     r = lanes(512, 1001, 0, 128, True)
     r[:, ::3] = torch.randint(0, 4, (512, len(range(0, 1001, 3))),
                               generator=gen, device=dev, dtype=torch.int32)
     r[:, 1::7] = -1
-    transposed_case("empty_rows", rand(512, 1001), r.contiguous(),
-                    wgs=(8, 16, 32, None))
+    transposed_case("empty_rows", rand(512, 1001), r.contiguous())
     return (cases + gather_cases(torch, gen, full)
             + elementwise_cases(torch, gen, full)
             + rowsum_cases(torch, gen, full))
+
+
+# S3/S12's wg in the probe cases: the scripts' 8, 16 and 32, and 1, 3
+# and 37 (no divisor of W), each with W itself
+TRANSPOSED_WGS = (1, 3, 8, 16, 32, 37)
 
 
 def _words(torch, gen, shape, lo=-2**31, hi=2**31 - 1):
@@ -1358,8 +1381,8 @@ def gather_cases(torch, gen, full) -> list:
 
 def _special_values(torch, gen, x):
     """A copy of f32 ``x`` with NaNs of random payloads (quiet and
-    signalling, both signs), -0.0, +-inf and values near the f32 limit
-    in a regular pattern."""
+    signalling, both signs), -0.0, +-inf, values near the f32 limit and
+    subnormals in a regular pattern."""
     flat = x.clone().reshape(-1)
     bits = flat.view(torch.int32)
     pay = _words(torch, gen, flat.shape, 1, 1 << 23)   # mantissa: never 0
@@ -1369,6 +1392,7 @@ def _special_values(torch, gen, x):
     flat[5::13] = float("inf")
     flat[7::17] = float("-inf")
     flat[9::19] = -3.0e38
+    flat[11::31] = 1.0e-39          # subnormal in f32 and in bf16
     return flat.reshape(x.shape)
 
 
@@ -1380,11 +1404,13 @@ def elementwise_cases(torch, gen, full) -> list:
     """S4/S5 (elementwise) against its plain version on the card: each
     body on its script's full inputs, then every body and dtype at
     [1001, 128] and at 128,131 elements (no multiple of the 16 B
-    vector), random values and then NaN, -0.0 and inf inputs, the
-    two-input bodies aliased (x, x) and distinct.  NaN positions must
-    match and every other word be bit-equal; each case records whether
-    the NaN words were equal too."""
-    from lux_tpu_torch.ops.elementwise import (BODIES, elementwise,
+    vector), random values and then NaN, -0.0, inf and subnormal
+    inputs, the two-input bodies aliased (x, x) and distinct; then at
+    one element short of and one past a vector, a tile and a wave of
+    tiles.  NaN positions must match and every other word be bit-equal;
+    each case records whether the NaN words were equal too."""
+    from lux_tpu_torch.ops.elementwise import (BODIES, THREADS, UNROLL,
+                                               VECTOR_BYTES, elementwise,
                                                elementwise_plain)
     dev = gen.device
     cases = []
@@ -1434,6 +1460,27 @@ def elementwise_cases(torch, gen, full) -> list:
                              f"{'x'.join(map(str, shape))}/{values}")
                     for form, ins in calls.items():
                         case(f"{label}/{form}", body, ins)
+    # the kernel's tile boundaries: one element short of and one past a
+    # 16 B vector, a tile (THREADS x UNROLL[body] vectors) and a wave of
+    # tiles (one CTA a tile, 2,048 threads an SM), each body and dtype
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for body, (_, types) in BODIES.items():
+        for dtype, (b_dtype, _) in types.items():
+            vec = VECTOR_BYTES // torch.empty(0, dtype=dtype).element_size()
+            tile = THREADS * UNROLL[body] * vec
+            for m, what in ((vec, "vector"), (tile, "tile"),
+                            (sms * (2048 // THREADS) * tile, "wave")):
+                for n in (m - 1, m + 1):
+                    a = torch.rand(n, generator=gen, device=dev).to(dtype)
+                    ins = ((a,) if b_dtype is None else
+                           (a, torch.randint(0, 20, (n,), generator=gen,
+                                             device=dev, dtype=torch.int32))
+                           if b_dtype == torch.int32 else
+                           (a, torch.rand(n, generator=gen,
+                                          device=dev).to(dtype)))
+                    case(f"elementwise/{body}/"
+                         f"{str(dtype).replace('torch.', '')}/{what}_{n}",
+                         body, ins)
     return cases
 
 
@@ -1772,16 +1819,17 @@ def phase_probes(args, torch, g, card):
          "replaces": "scripts/profile_kernel.py:123",
          "max_abs_err": err["onehot/script_full"],
          "extra": {"mma_issued": mmas}},
-        {"name": "transposed_reduce", "key": "transposed_reduce",
-         "shape": [Et, N, W],
-         "kernel": lambda: transposed_reduce(tvals, trel, W),
-         "plain": lambda: transposed_reduce_plain(tvals, trel, W),
-         "library": lambda: tbase.scatter_add(0, tidx, tvals),
-         "bound": ((8 * Et + 4 * W) * N, Et * N, FP32_OPS_PER_S),
-         "source": "lux_tpu_torch/csrc/transposed_reduce.cu",
-         "replaces": "scripts/profile_v3.py:66 and "
-                     "scripts/profile_true.py:141",
-         "max_abs_err": err[f"transposed/script_full/wg{W}"]},
+        *({"name": f"transposed_reduce@wg{wg}", "key": "transposed_reduce",
+           "shape": [Et, N, W],
+           "kernel": lambda wg=wg: transposed_reduce(tvals, trel, W, wg),
+           "plain": lambda: transposed_reduce_plain(tvals, trel, W),
+           "library": lambda: tbase.scatter_add(0, tidx, tvals),
+           "bound": ((8 * Et + 4 * W) * N, Et * N, FP32_OPS_PER_S),
+           "source": "lux_tpu_torch/csrc/transposed_reduce.cu",
+           "replaces": "scripts/profile_v3.py:66 and "
+                       "scripts/profile_true.py:141",
+           "max_abs_err": err[f"transposed/script_full/wg{wg}"],
+           "extra": {"wg": wg}} for wg in (8, 16, 32, W)),
         *gather_specs(torch, full, err), *vpu_specs(torch, full, err),
     ]
     lines = [probe_line(args, torch, dev, spec, counts) for spec in specs]

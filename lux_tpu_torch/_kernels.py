@@ -63,7 +63,8 @@ KERNELS = {
     }),
     "transposed_reduce": ("transposed_reduce.cu", {
         "lux_transposed_reduce": (ctypes.c_int,
-                                  [_P, _P, _P, _I64, _I64, _I32, _I32, _P]),
+                                  [_P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                                   _I32, _P]),
     }),
     "sub_gather": ("sub_gather.cu", {
         "lux_sub_gather": (ctypes.c_int, [_P, _P, _P, _I64, _I32, _I32,

@@ -34,12 +34,26 @@
 // instructions an element (no FMA), which at the card's published f32
 // rate still take less than its bytes.
 //
-// Design (simple and right; not tuned): a grid-stride loop over 16 B
-// vectors (4 f32 or 8 bf16 a thread a step), one 16 B load of each
-// input (one when b == a) and one 16 B store; the n % vector tail is
-// done element by element after.
+// Design.  A tile is kThreads x U 16 B vectors (4 f32 or 8 bf16 each;
+// U = 1, and 2 for chain32, whose 32 dependent steps an element want
+// more elements in flight); one CTA a tile, so the grid is
+// ceil(n / V / tile) CTAs (the loop over tiles runs once unless
+// kMaxBlocks caps the grid).  A thread issues its U loads of each
+// input (one when b == a), neighbouring threads on neighbouring
+// vectors, before its first store.  Loads go through the read-only
+// path (`ld.global.nc`), stores are plain.  This measured fastest on
+// the card (PERF.md): more vectors a thread, streaming (evict-first)
+// hints, a persistent grid and a bulk-copy (TMA) ring through shared
+// memory were each as fast or slower; `x + x` then runs at the speed of
+// torch.add and of a plain copy (lux_tpu_torch/tools/probe_ab.py).  The n % V tail is done element by
+// element by the first CTA.  bf16 chain10 adds two values with one
+// `add.rn.bf16x2` (sm_90) and converts nothing: the f32 sum of two
+// bf16 values rounded to bf16 equals their exact sum rounded once to
+// bf16 (double rounding is innocuous for addition when 24 >= 2 x 8 +
+// 2), so the bits equal torch's for every finite input; a NaN's
+// payload may differ (tests/test_torch_kernel_plans.py checks the
+// identity over every bf16 pattern of one operand).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
@@ -47,7 +61,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 4096;
+constexpr int kUnroll = 1;         // 16 B vectors a thread, but for chain32:
+constexpr int kUnrollChain32 = 2;  // 32 dependent steps an element
+constexpr int64_t kMaxBlocks = 0x7FFFFFFF;   // the grid's x limit
 constexpr float kChainC = 1.0000001f;   // scripts/profile_true.py:171
 
 struct Add {
@@ -66,18 +82,24 @@ struct Chain10 {
   }
 };
 
-// bf16 values ride as their 16 raw bits
+// two bf16 sums, each the exact sum rounded once to nearest even
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// bf16 values ride as their 16 raw bits, two to a 32-bit word
 struct Chain10Bf16 {
   using A = uint16_t;
   using B = uint16_t;
-  __device__ static uint16_t apply(uint16_t a, uint16_t b) {
-    const float fb = __bfloat162float(__ushort_as_bfloat16(b));
+  __device__ static uint32_t apply2(uint32_t a, uint32_t b) {
 #pragma unroll
-    for (int i = 0; i < 10; ++i) {
-      const float s = __fadd_rn(__bfloat162float(__ushort_as_bfloat16(a)), fb);
-      a = __bfloat16_as_ushort(__float2bfloat16_rn(s));
-    }
+    for (int i = 0; i < 10; ++i) a = add_bf16x2(a, b);
     return a;
+  }
+  __device__ static uint16_t apply(uint16_t a, uint16_t b) {
+    return (uint16_t)apply2(a, b);    // the high halves add 0 + 0
   }
 };
 
@@ -115,40 +137,86 @@ struct CmpMul16 {
   }
 };
 
+// 16 B vectors a thread, each loaded before the first store
+template <class Body>
+struct Unroll {
+  static constexpr int value = kUnroll;
+};
+
+template <>
+struct Unroll<Chain32> {
+  static constexpr int value = kUnrollChain32;
+};
+
+// One 16 B vector of each input to one of the output, element by element
+template <class Body>
+__device__ __forceinline__ uint4 apply_vec(uint4 a, uint4 b) {
+  using A = typename Body::A;
+  using B = typename Body::B;
+  constexpr int V = 16 / sizeof(A);
+  union VA { uint4 u; A e[V]; };
+  union VB { uint4 u; B e[V]; };
+  VA va, vo;
+  VB vb;
+  va.u = a;
+  vb.u = b;
+#pragma unroll
+  for (int k = 0; k < V; ++k) vo.e[k] = Body::apply(va.e[k], vb.e[k]);
+  return vo.u;
+}
+
+template <>
+__device__ __forceinline__ uint4 apply_vec<Chain10Bf16>(uint4 a, uint4 b) {
+  return make_uint4(Chain10Bf16::apply2(a.x, b.x),
+                    Chain10Bf16::apply2(a.y, b.y),
+                    Chain10Bf16::apply2(a.z, b.z),
+                    Chain10Bf16::apply2(a.w, b.w));
+}
+
 template <class Body>
 __global__ void __launch_bounds__(kThreads)
 elementwise_kernel(const typename Body::A* __restrict__ a,
                    const typename Body::B* __restrict__ b,
                    typename Body::A* __restrict__ out, int64_t n) {
-  using A = typename Body::A;
-  using B = typename Body::B;
-  static_assert(sizeof(A) == sizeof(B), "inputs share one vector width");
-  constexpr int V = 16 / sizeof(A);
-  union VA { uint4 u; A e[V]; };
-  union VB { uint4 u; B e[V]; };
+  static_assert(sizeof(typename Body::A) == sizeof(typename Body::B),
+                "inputs share one vector width");
+  constexpr int V = 16 / sizeof(typename Body::A);
+  constexpr int U = Unroll<Body>::value;
+  constexpr int64_t kTile = (int64_t)kThreads * U;
   const bool same = static_cast<const void*>(a) == static_cast<const void*>(b);
+  const uint4* a4 = reinterpret_cast<const uint4*>(a);
+  const uint4* b4 = reinterpret_cast<const uint4*>(b);
+  uint4* o4 = reinterpret_cast<uint4*>(out);
   const int64_t nvec = n / V;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t t0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int64_t i = t0; i < nvec; i += stride) {
-    VA va, vo;
-    VB vb;
-    va.u = __ldg(reinterpret_cast<const uint4*>(a) + i);
-    vb.u = same ? va.u : __ldg(reinterpret_cast<const uint4*>(b) + i);
+  const int64_t tiles = (nvec + kTile - 1) / kTile;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t i0 = t * kTile + threadIdx.x;
+    uint4 ua[U], ub[U];
 #pragma unroll
-    for (int k = 0; k < V; ++k) vo.e[k] = Body::apply(va.e[k], vb.e[k]);
-    reinterpret_cast<uint4*>(out)[i] = vo.u;
+    for (int u = 0; u < U; ++u) {
+      const int64_t i = i0 + u * kThreads;
+      if (i < nvec) {
+        ua[u] = __ldg(a4 + i);
+        ub[u] = same ? ua[u] : __ldg(b4 + i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t i = i0 + u * kThreads;
+      if (i < nvec) o4[i] = apply_vec<Body>(ua[u], ub[u]);
+    }
   }
-  const int64_t t = nvec * V + t0;     // the tail, n % V elements
-  if (t < n) out[t] = Body::apply(a[t], b[t]);
+  const int64_t e = nvec * V + threadIdx.x;    // the tail, n % V elements
+  if (blockIdx.x == 0 && e < n) out[e] = Body::apply(a[e], b[e]);
 }
 
 template <class Body>
 int launch(const void* a, const void* b, void* out, int64_t n,
            cudaStream_t stream) {
   constexpr int V = 16 / sizeof(typename Body::A);
-  const int64_t work = n / V > n % V ? n / V : n % V;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
+  constexpr int64_t kTile = (int64_t)kThreads * Unroll<Body>::value;
+  int64_t blocks = (n / V + kTile - 1) / kTile;
+  if (blocks < 1) blocks = 1;                  // the tail alone
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   elementwise_kernel<Body><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const typename Body::A*>(a),

@@ -33,6 +33,13 @@ import torch
 from lux_tpu_torch.ops.chunk_reduce import KernelInputError
 
 CHAIN_C = 1.0000001     # scripts/profile_true.py:171; torch rounds it to f32
+# csrc/elementwise.cu's tile: THREADS x UNROLL[body] vectors of
+# VECTOR_BYTES, one CTA a tile (chip_smoke.py tests the element counts
+# around them)
+VECTOR_BYTES = 16
+THREADS = 256
+UNROLL = {"add": 1, "chain10": 1, "chain32": 2, "cmpsel16": 1,
+          "cmpmul16": 1}
 
 
 def _add(a, b):

@@ -8,10 +8,12 @@ E = 512 entries of NB * 128 = 65,536 chunks into W = 128 output rows
 (``--small``: E 64, NB 4): vals uniform in [0, 1), rel sorted down each
 column in [0, 128), from ``np.random.default_rng(0)``.  S3/S12,
 ``transposed_reduce`` (csrc/transposed_reduce.cu), at the script's wg
-8, 16 and 32 (output rows a block; each block re-reads its columns'
-inputs) and at the port's default wg = 128 (inputs read once), each
-checked against the plain version first.  Then the script's own
-check (the first 128 columns against a numpy loop) and one JSON line.
+8, 16 and 32 (its output rows a TPU program) and at wg = 128, each
+checked against the plain version first.  On this card wg does not
+change the launch: a CTA owns all W output rows of its columns (64
+columns by 2 slices of the rows: ops/transposed_reduce.py ``plan``)
+and reads every input once, at every wg.  Then the script's own check
+(the first 128 columns against a numpy loop) and one JSON line.
 """
 
 from __future__ import annotations

@@ -1,34 +1,43 @@
-"""A/B of the launch plans of S2/S11 ``sub_gather`` and S9
-``onehot_reduce`` on the card.
+"""A/B of the launch plans and variants of the redesigned probe kernels
+on the card: S2/S11 ``sub_gather``, S9 ``onehot_reduce``, S3/S12
+``transposed_reduce`` and S4/S5 ``elementwise``.
 
     python3 -m lux_tpu_torch.tools.probe_ab [--rounds 5] [--reps 20]
-        [--old-csrc DIR] [--only sub_gather|onehot] [--ablate]
+        [--old-csrc DIR]
+        [--only sub_gather|onehot|transposed|elementwise] [--ablate]
 
 At the probe scripts' shapes and seed (profile_shuffle.py's [262,144 x
 128] at M = 8, 64, 512 and 4,096; profile_kernel.py's [81,920 x 512],
-W = 128), every variant is first held to the plain version (bit for
-bit for the gather, rtol/atol 1e-5 for the reduce), then all are timed
-in turns (CUDA events around ``--reps`` calls, the order reversed
-every other round), beside one library call (``torch.gather`` with
-int64 ids made outside the timed call; ``scatter_add`` over
-[C, W + 1]) and, for S9, kernel B1 at the same shape.
+W = 128; profile_v3.py's [512 x 65,536], W = 128; profile_vpu.py's
+[524,288 x 128] and profile_true.py's [262,144 x 128]), every variant
+is first held to the plain version (bit for bit for the gather and the
+elementwise bodies, rtol/atol 1e-5 for the reduces), then all are
+timed in turns (CUDA events around ``--reps`` calls, the order
+reversed every other round), beside one library call
+(``torch.gather`` with int64 ids made outside the timed call;
+``scatter_add`` over [C, W + 1] or along dim 0 into [W + 1, N];
+``torch.add(x, x)`` and a plain copy ``out.copy_(x)``) and, for S9,
+kernel B1 at the same shape.
 
 Variants: ``sub_gather`` plans (ops/sub_gather.py ``plan``): the
 default, "direct", "staged" at 64 KB, 128 KB and 227 KB a CTA (each
-distinct plan once); ``onehot_reduce`` as it is.  ``--old-csrc DIR``
-also builds DIR/sub_gather.cu and DIR/onehot_mma.cu, the designs
-these replace, with their C interfaces (``OLD_ABI``) and times them in
-the same turns; ``--ablate`` builds onehot_mma.cu with other
-register budgets (``bps2``, ``bps4``: blocks an SM, checked) and with
-one part of its work taken out each (``no_*``: no mma, no one-hot
-compares, no bf16 conversions, no copies of the values and lanes;
-unchecked, their answers are wrong) and times those too: where the
-time goes.
+distinct plan once); ``onehot_reduce`` as it is; ``transposed_reduce``
+through its wrapper at the scripts' wg 8, 16, 32 and at 128 (one
+launch: wg does not change it); ``elementwise``, each body, its build
+called raw and through its wrapper.  ``--old-csrc DIR`` also builds the
+sources in DIR that these designs replace (sub_gather.cu,
+onehot_mma.cu, transposed_reduce.cu, elementwise.cu) with their C
+interfaces (OLD_ABI) and times them in the same turns;
+``--ablate`` builds onehot_mma.cu with other register budgets
+(``bps2``, ``bps4``: blocks an SM, checked) and with one part of its
+work taken out each (``no_*``: no mma, no one-hot compares, no bf16
+conversions, no copies of the values and lanes; unchecked, their
+answers are wrong) and times those too: where the time goes.
 
 Prints the card's name and power limit, the ptxas lines of the builds,
 then one JSON line a shape: each variant's median ms, its per-round ms
-and its ratio to the default plan.  Needs a card and nvcc; it writes
-its builds under lux_tpu_torch/_build.
+and its ratio to the default.  Needs a card and nvcc; it writes its
+builds under lux_tpu_torch/_build.
 """
 
 from __future__ import annotations
@@ -41,40 +50,65 @@ import subprocess
 import sys
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-# the C interfaces of the replaced designs
-OLD_ABI = {"sub_gather.cu": ("lux_sub_gather",
+# the C interfaces of the replaced designs, by the --only choice that
+# times them
+OLD_ABI = {"sub_gather.cu": ("sub_gather", "lux_sub_gather",
                              [_P, _P, _P, _I64, _I32, _P]),
-           "onehot_mma.cu": ("lux_onehot_reduce",
-                             [_P, _P, _P, _I64, _I64, _I32, _P])}
+           "onehot_mma.cu": ("onehot", "lux_onehot_reduce",
+                             [_P, _P, _P, _I64, _I64, _I32, _P]),
+           "transposed_reduce.cu": ("transposed", "lux_transposed_reduce",
+                                    [_P, _P, _P, _I64, _I64, _I32, _I32,
+                                     _P]),
+           "elementwise.cu": ("elementwise", "lux_elementwise",
+                              [_I32, _P, _P, _P, _I64, _P])}
+CHOICES = ("sub_gather", "onehot", "transposed", "elementwise")
 
 
-def build_old(csrc: str) -> dict:
+def compile_all(jobs: dict, ptxas: list) -> dict:
+    """{name: ctypes.CDLL} for jobs {name: (source, library)}: one nvcc
+    each with the port's flags, started together; each build's ptxas
+    lines go to ``ptxas``."""
+    from lux_tpu_torch import _kernels
+    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(lib),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, (src, lib) in jobs.items()}
+    out = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        ptxas.append(f"{name}: " + "; ".join(sorted(
+            {ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln})))
+        out[name] = ctypes.CDLL(str(jobs[name][1]))
+    return out
+
+
+def bind(lib, name: str, restype, argtypes):
+    fn = getattr(lib, name)
+    fn.restype, fn.argtypes = restype, argtypes
+    return fn
+
+
+def build_old(csrc: str, only) -> dict:
     """{source name: ctypes function} of the replaced designs in
-    ``csrc``, one nvcc each, started together."""
+    ``csrc`` (those ``only`` times; all when None), one nvcc each,
+    started together."""
     from pathlib import Path
 
     from lux_tpu_torch import _kernels
-    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for src in OLD_ABI:
-        lib = _kernels.BUILD_DIR / f"old_{Path(src).stem}.so"
-        procs[src] = (subprocess.Popen(
-            [_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(lib),
-             str(Path(csrc) / src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), lib)
-    out = {}
-    for src, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-        print(f"old {src}: " + "; ".join(sorted(
-            {ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln})), flush=True)
-        name, argtypes = OLD_ABI[src]
-        fn = getattr(ctypes.CDLL(str(lib)), name)
-        fn.restype, fn.argtypes = ctypes.c_int, argtypes
-        out[src] = fn
-    return out
+    srcs = [src for src, (choice, _, _) in OLD_ABI.items()
+            if only in (None, choice)]
+    ptxas = []
+    libs = compile_all({src: (Path(csrc) / src,
+                              _kernels.BUILD_DIR / f"old_{Path(src).stem}.so")
+                        for src in srcs}, ptxas)
+    for ln in ptxas:
+        print(f"old {ln}", flush=True)
+    return {src: bind(libs[src], OLD_ABI[src][1], ctypes.c_int,
+                      OLD_ABI[src][2]) for src in srcs}
 
 
 # onehot_mma.cu with one part of the work taken out each (no_*: timing
@@ -99,6 +133,17 @@ ABLATIONS = {
 }
 
 
+def variant_source(text: str, edits: list) -> str:
+    """``text`` with each (anchor, replacement) of ``edits`` applied;
+    each anchor must occur exactly once."""
+    for anchor, repl in edits:
+        if text.count(anchor) != 1:
+            raise ValueError(f"anchor found {text.count(anchor)} times, "
+                             f"want 1: {anchor!r}")
+        text = text.replace(anchor, repl)
+    return text
+
+
 def build_ablations(ptxas: list) -> dict:
     """{name: ctypes lux_onehot_reduce} of each ABLATIONS build, one
     nvcc each, started together."""
@@ -106,34 +151,15 @@ def build_ablations(ptxas: list) -> dict:
     src_name, fns = _kernels.KERNELS["onehot_reduce"]
     text = (_kernels.CSRC / src_name).read_text()
     _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    jobs = {}
     for name, edits in ABLATIONS.items():
-        t = text
-        for anchor, repl in edits:
-            if t.count(anchor) != 1:
-                raise ValueError(f"{name}: anchor found {t.count(anchor)} "
-                                 f"times, want 1: {anchor!r}")
-            t = t.replace(anchor, repl)
         src = _kernels.BUILD_DIR / f"onehot_ab_{name}.cu"
-        src.write_text(t)
-        lib = src.with_suffix(".so")
-        procs[name] = (subprocess.Popen(
-            [_kernels.nvcc_path(), *_kernels.NVCC_FLAGS, "-o", str(lib),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), lib)
-    out = {}
+        src.write_text(variant_source(text, edits))
+        jobs[name] = (src, src.with_suffix(".so"))
+    libs = compile_all(jobs, ptxas)
     restype, argtypes = fns["lux_onehot_reduce"]
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        ptxas.append(f"{name}: " + "; ".join(sorted(
-            {ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln})))
-        fn = ctypes.CDLL(str(lib)).lux_onehot_reduce
-        fn.restype, fn.argtypes = restype, argtypes
-        out[name] = fn
-    return out
+    return {name: bind(libs[name], "lux_onehot_reduce", restype, argtypes)
+            for name in ABLATIONS}
 
 
 def call_old(torch, fn, out, *args):
@@ -146,7 +172,10 @@ def call_old(torch, fn, out, *args):
 
 def in_turns(torch, forms: dict, rounds: int, reps: int) -> dict:
     """{name: [ms a round]}: CUDA events around ``reps`` calls of each
-    form, the forms in turns, the order reversed every other round."""
+    form, the forms in turns, the order reversed every other round.  One
+    call of the form is enqueued before the start event, so the card is
+    busy when timing starts and the host's time to reach the first
+    launch (larger through a Python wrapper) is not counted."""
     names = list(forms)
     times = {k: [] for k in names}
     for k in names:                       # warm-up
@@ -156,6 +185,7 @@ def in_turns(torch, forms: dict, rounds: int, reps: int) -> dict:
         for k in (names if r % 2 == 0 else names[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            forms[k]()
             start.record()
             for _ in range(reps):
                 forms[k]()
@@ -269,12 +299,107 @@ def onehot_ab(torch, args, old) -> dict:
     return line
 
 
+def transposed_ab(torch, args, old) -> dict:
+    from lux_tpu_torch.ops.transposed_reduce import (transposed_reduce,
+                                                     transposed_reduce_plain)
+    from lux_tpu_torch.probes import max_abs_err, profile_v3
+    dev = torch.device("cuda")
+    h = profile_v3.make_inputs()
+    vals = torch.from_numpy(h["vals"]).to(dev)
+    rel = torch.from_numpy(h["rel"]).to(dev)
+    E, N = vals.shape
+    W = profile_v3.W
+    want = transposed_reduce_plain(vals, rel, W)
+    forms = {f"wg{wg}": (lambda wg=wg: transposed_reduce(vals, rel, W, wg))
+             for wg in profile_v3.WGS}
+    if old:
+        for wg in profile_v3.WGS:
+            o = torch.empty((W, N), device=dev)
+            forms[f"replaced_wg{wg}"] = lambda wg=wg, o=o: call_old(
+                torch, old["transposed_reduce.cu"], o, vals.data_ptr(),
+                rel.data_ptr(), o.data_ptr(), E, N, W, wg)
+    errs = {k: max_abs_err(f(), want) for k, f in forms.items()}
+    again = forms["wg8"]()
+    torch.cuda.synchronize()
+    if not torch.equal(again.view(torch.int32),
+                       forms["wg128"]().view(torch.int32)):
+        raise RuntimeError("transposed_reduce: two launches differ")
+    idx = torch.where((rel >= 0) & (rel < W), rel, W).long()
+    base = torch.zeros((W + 1, N), device=dev)
+    forms["scatter_add"] = lambda: base.scatter_add(0, idx, vals)
+    times = in_turns(torch, forms, args.rounds, args.reps)
+    line = {"kernel": "transposed_reduce", "shape": [E, N, W],
+            "bound_ms": (8 * E + 4 * W) * N / 3.35e12 * 1e3,
+            "max_abs_err": errs, "variants": summary(times, "wg128")}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def elementwise_ab(torch, args, old) -> list:
+    from lux_tpu_torch import _kernels
+    from lux_tpu_torch.ops.elementwise import (BODIES, elementwise,
+                                               elementwise_plain)
+    from lux_tpu_torch.probes import profile_true, profile_vpu
+    dev = torch.device("cuda")
+    hv = profile_vpu.make_inputs()
+    vx = torch.from_numpy(hv["x"]).to(dev)
+    vr = torch.from_numpy(hv["r"]).to(dev)
+    x0 = torch.from_numpy(profile_true.make_inputs()["x0"]).to(dev)
+    vxb = vx.to(torch.bfloat16)
+    lib_fn = _kernels.load("elementwise").lux_elementwise
+    lines = []
+    for name, body, a, b in (("add", "add", vx, vx),
+                             ("chain10", "chain10", vx, vx),
+                             ("chain10_bf16", "chain10", vxb, vxb),
+                             ("cmpsel16", "cmpsel16", vx, vr),
+                             ("cmpmul16", "cmpmul16", vx, vr),
+                             ("chain32", "chain32", x0, None)):
+        body_id = BODIES[body][1][a.dtype][1]
+        want = elementwise_plain(body, a, b)
+        bb = a if b is None else b
+
+        def raw(fn, o):
+            return lambda: call_old(torch, fn, o, body_id, a.data_ptr(),
+                                    bb.data_ptr(), o.data_ptr(), a.numel())
+        # the default build called raw into one output buffer, and
+        # through its wrapper (a new output a call, as torch.add)
+        forms = {"default": raw(lib_fn, torch.empty_like(a)),
+                 "wrapper": lambda: elementwise(body, a, b)}
+        if old:
+            forms["replaced"] = raw(old["elementwise.cu"],
+                                    torch.empty_like(a))
+        for k, f in forms.items():
+            got = f()
+            torch.cuda.synchronize()
+            words = torch.int32 if a.element_size() == 4 else torch.int16
+            if not torch.equal(got.view(words), want.view(words)):
+                raise RuntimeError(f"elementwise {name} {k} is not "
+                                   f"bit-equal to the plain version")
+        if name == "add":
+            out = torch.empty_like(a)
+            forms["torch.add"] = lambda: torch.add(a, a)
+            forms["torch.add_out"] = lambda: torch.add(a, a, out=out)
+            forms["copy_"] = lambda: out.copy_(a)
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in {t.data_ptr(): t for t in (a, bb)}.values())
+        n_bytes += a.numel() * a.element_size()
+        times = in_turns(torch, forms, args.rounds, args.reps)
+        line = {"kernel": "elementwise", "body": name,
+                "shape": list(a.shape),
+                "dtype": str(a.dtype).replace("torch.", ""),
+                "bound_ms": n_bytes / 3.35e12 * 1e3,
+                "variants": summary(times, "default")}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--old-csrc", default=None)
-    ap.add_argument("--only", choices=("sub_gather", "onehot"))
+    ap.add_argument("--only", choices=CHOICES)
     ap.add_argument("--ablate", action="store_true",
                     help="also time onehot_mma.cu with one part of its "
                          "work taken out each (ABLATIONS; wrong answers)")
@@ -289,15 +414,17 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), flush=True)
     for name, rep in _kernels.build(["sub_gather", "onehot_reduce",
-                                     "chunk_partials"]).items():
+                                     "chunk_partials", "transposed_reduce",
+                                     "elementwise"]).items():
         print(f"{name}: " + "; ".join(sorted(
             {ln.split(":", 1)[-1].strip() for ln in rep["ptxas"].splitlines()
              if "registers" in ln or "spill" in ln})), flush=True)
-    old = build_old(args.old_csrc) if args.old_csrc else {}
-    if args.only != "onehot":
-        sub_gather_ab(torch, args, old)
-    if args.only != "sub_gather":
-        onehot_ab(torch, args, old)
+    old = build_old(args.old_csrc, args.only) if args.old_csrc else {}
+    runs = {"sub_gather": sub_gather_ab, "onehot": onehot_ab,
+            "transposed": transposed_ab, "elementwise": elementwise_ab}
+    for choice in CHOICES:
+        if args.only in (None, choice):
+            runs[choice](torch, args, old)
     return 0
 
 
