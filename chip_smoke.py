@@ -32,7 +32,12 @@ Phases, each printing one JSON line:
             launch count must rise by exactly one per iteration, B2's
             by none;
 6. layers   per-layer device time of one iteration (gather, kernel,
-            combine, apply);
+            combine, apply), and kernel S7 (carry_combine) on the
+            layer's own partials followed by the take of each tile's
+            last chunk, held to the combine's result (rtol 2e-5) and
+            timed beside it (measured only: the engine does not call
+            it; the pairs phase does the same on the residual's
+            partials);
 7. paged    bench.py's gather-ab@paged: the same graph degree-relabelled,
             128-aligned layout, gather="paged", 10 iterations against
             the float64 oracle of the relabelled graph; B2 and B1 each
@@ -81,7 +86,12 @@ Phases, each printing one JSON line:
             kernel's tile, start[0] = 0, one segment across all rows, a
             start on every row, unsorted lanes, lanes W and outside
             [0, W), E in {1, 33, 512}, W in {1, 37, 100} and, for S7,
-            200, S3/S12 columns that hit few or no output rows, N under
+            200; S7 twice bit-equal on the full inputs and on one
+            segment across all rows, three S7 calls captured in a CUDA
+            graph and replayed twice, each output bit-equal to an eager
+            call's, and a torch.profiler count over 10 S7 calls: 10
+            carry.cu kernels and no memset; S3/S12 columns that hit
+            few or no output rows, N under
             a CTA's columns, E under or no multiple of its slices, and
             wg in {1, 3, 8, 16, 32, 37, W}, every launch of a
             case at a wg bit-equal to the first; for S9 also C of
@@ -105,7 +115,9 @@ Phases, each printing one JSON line:
             same function (scatter_add_, torch.gather, torch.add,
             torch.sum) and its bound at the scripts' shapes (S5's from
             unique bytes: an aliased input is read once); S3/S12 once
-            at each of wg 8, 16, 32 and W.
+            at each of wg 8, 16, 32 and W; S7 also replayed from a CUDA
+            graph of 20 calls, and torch.cumsum(part, 0) beside it (the
+            same bytes, not the same function).
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -607,8 +619,77 @@ def phase_main(args, torch, g, eng, card):
     return launches
 
 
+def carry_combined(torch, eng, partials, starts):
+    """The engine's combine of its per-chunk partials [R*C, W] computed
+    by S7 instead (measured only: the engine does not call it):
+    ``carry_combine`` over the partials with the layout's chunk starts
+    as int32 ``starts`` [R*C] (each part's first chunk starts a
+    segment), then each tile's last chunk taken by the engine's
+    SegmentPlan, edge-less tiles set to the sum's identity, cut to
+    [R, vpad] (or [vpad]) as ``combine_partials`` returns it."""
+    from lux_tpu_torch.ops.carry import carry_combine
+    from lux_tpu_torch.ops.segment import identity_for
+    t, plan, lc = eng.tiles, eng._plan, eng.arrays["last_chunk"]
+    scan = carry_combine(partials, starts)
+    tiles = scan[plan.take].reshape(tuple(lc.shape) + (t.W,))
+    tiles = torch.where(plan.empty.reshape(tuple(lc.shape) + (1,)),
+                        identity_for("sum", tiles.dtype), tiles)
+    lead = tuple(lc.shape[:-1])
+    return tiles.reshape(lead + (t.n_tiles * t.W,)).narrow(len(lead), 0,
+                                                           eng.vpad)
+
+
+# carry_combined against combine_partials: the chunk sums agree to the
+# tolerance the port's f32 PageRank is held to (tests/test_torch_pagerank.py),
+# not in bits: the carry adds in sequence, combine_chunks by doubling
+CARRY_COMBINED_TOL = dict(rtol=2e-5, atol=0.0)
+
+
+# launches of probe kernels made to measure them beside a system path
+# (carry_layer), no path's own: the probes phase's guard allows these
+MEASURE_LAUNCHES = {"carry_combine": 0}
+
+
+def carry_layer(args, torch, eng, partials, red) -> dict:
+    """S7 on the engine's own partials, beside its combine: held to
+    ``red`` (``combine_partials``' result) at CARRY_COMBINED_TOL, then
+    timed as the scan and take together (``carry_combine_ms``) and the
+    scan alone, with the scan's byte bound.  The int32 starts are made
+    once, outside the timing, as an engine would keep them.  These
+    launches measure and are no path's: S7's count must rise by the
+    calls made here, which MEASURE_LAUNCHES adds up."""
+    from lux_tpu_torch.ops.carry import carry_combine
+    before = carry_combine.launches
+    starts = eng.arrays["chunk_start"].to(torch.int32).reshape(-1)
+    got = carry_combined(torch, eng, partials, starts)
+    torch.cuda.synchronize()
+    require(got.shape == red.shape and bool(torch.isfinite(got).all()),
+            f"carry_combined: shape {tuple(got.shape)} (want "
+            f"{tuple(red.shape)}) or a non-finite value")
+    rel = ((got - red).abs() / red.abs().clamp_min(1e-30)).max().item()
+    require(torch.allclose(got, red, **CARRY_COMBINED_TOL),
+            f"carry_combined disagrees with combine_partials (max rel err "
+            f"{rel:.3e})")
+    C, W = partials.shape
+    out = {"carry_combine_ms": cuda_ms(
+               lambda: carry_combined(torch, eng, partials, starts),
+               args.reps),
+           "carry_scan_ms": cuda_ms(lambda: carry_combine(partials, starts),
+                                    args.reps),
+           "carry_scan_bound_ms": C * (8 * W + 4) / HBM_BYTES_PER_S * 1e3,
+           "carry_shape": [C, W], "carry_max_rel_err": rel,
+           "carry_tolerance": CARRY_COMBINED_TOL}
+    # one checked call, then cuda_ms's warm-up and reps, twice
+    calls, made = 3 + 2 * args.reps, carry_combine.launches - before
+    require(made == calls,
+            f"carry_layer: S7 launched {made} times, it made {calls} calls")
+    MEASURE_LAUNCHES["carry_combine"] += made
+    return out
+
+
 def phase_layers(args, torch, eng):
-    """Device ms of each layer of one iteration, each timed alone."""
+    """Device ms of each layer of one iteration, each timed alone, and
+    S7 timed on the layer's partials beside the combine."""
     from lux_tpu_torch.ops.chunk_reduce import chunk_partials
     from lux_tpu_torch.ops.tiled import combine_partials
     a, t = eng.arrays, eng.tiles
@@ -637,6 +718,7 @@ def phase_layers(args, torch, eng):
             partials, t, a["chunk_start"], a["last_chunk"], eng.vpad, "sum",
             eng._plan), 10),
         "step_host_ms": host_ms(torch, lambda: eng.step(state), 10),
+        **carry_layer(args, torch, eng, partials, red),
     }
     emit({"phase": "layers", **out})
 
@@ -996,6 +1078,7 @@ def pair_layers(args, torch, eng):
         "segmented_combine_ms": cuda_ms(lambda: combine_partials(
             partials, t, a["chunk_start"], a["last_chunk"], eng.vpad, "sum",
             eng._plan), reps),
+        **carry_layer(args, torch, eng, partials, red),
     }
     s2d = flat.reshape(-1, W)
     rb = a["pair_rowbind"].reshape(-1).long()
@@ -1170,6 +1253,76 @@ def probe_close(torch, name, got, want) -> dict:
     return {"case": name, "shape": list(got.shape), "max_abs_err": err}
 
 
+def carry_graph_case(torch, gen, part, start) -> dict:
+    """Three S7 calls on ``part``, ``start`` captured in a CUDA graph
+    (after a call on the capture stream, which makes its scratch),
+    replayed twice, each time after new data of the same shape was
+    copied into them: starts at p = 0.3, then rare starts and none on
+    row 0, so each tile looks back further than before.  Every output
+    of a replay is bit-equal to an eager call on that data and within
+    the probes' tolerance of the plain version: a status left by an
+    earlier call or replay is never taken for a fresh one, and nothing
+    a replay would freeze comes from the host."""
+    from lux_tpu_torch.ops.carry import carry_combine, carry_combine_plain
+    dev = part.device
+    C = part.shape[0]
+    p, s = part.clone(), start.clone().reshape(C)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        carry_combine(p, s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [carry_combine(p, s) for _ in range(3)]
+    err = 0.0
+    for r, (prob, first) in enumerate(((0.3, 1), (0.002, 0))):
+        p.copy_(torch.rand(p.shape, generator=gen, device=dev))
+        new = (torch.rand(C, generator=gen, device=dev) < prob)
+        s.copy_(new.to(torch.int32))
+        s[0] = first
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        eager = carry_combine(p, s)
+        want = carry_combine_plain(p, s)
+        for i, o in enumerate(outs):
+            err = max(err, probe_close(torch, f"carry/graph_replay{r}/{i}",
+                                       o, want)["max_abs_err"])
+            require(_same_words(o, eager),
+                    f"carry graph replay {r}, call {i}: not the words of "
+                    f"an eager call on the replay's data")
+    return {"case": "carry/graph_replay", "shape": list(part.shape),
+            "captured_calls": 3, "replays": 2, "new_data_each_replay": True,
+            "max_abs_err": err}
+
+
+def carry_profile_case(torch, part, start) -> dict:
+    """torch.profiler over 10 S7 calls: the card ran 10 kernels, each
+    carry.cu's carry_kernel, and no memset (the status scratch is
+    zeroed once, when it is allocated)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lux_tpu_torch.ops.carry import carry_combine
+    carry_combine(part, start)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            carry_combine(part, start)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum("carry_kernel" in n for n in names)
+    memsets = sum("memset" in n.lower() for n in names)
+    require(kernels == 10 and memsets == 0 and len(names) == 10,
+            f"carry profile: {kernels} carry kernels, {memsets} memsets "
+            f"among {len(names)} device events over 10 calls (want 10, 0, "
+            f"10)")
+    return {"case": "carry/profile_10_calls", "shape": list(part.shape),
+            "device_events": len(names), "carry_kernels": kernels,
+            "memsets": memsets, "max_abs_err": 0.0}
+
+
 def probe_cases(torch, gen, full) -> list:
     """Each probe kernel against its plain version on the card: the
     scripts' full inputs (``full``), then the edge shapes."""
@@ -1182,10 +1335,22 @@ def probe_cases(torch, gen, full) -> list:
     dev = gen.device
     cases = []
 
-    def carry_case(name, part, start):
-        cases.append(probe_close(torch, f"carry/{name}",
-                                 carry_combine(part, start),
+    def carry_case(name, part, start, twice=False):
+        got = carry_combine(part, start)
+        cases.append(probe_close(torch, f"carry/{name}", got,
                                  carry_combine_plain(part, start)))
+        if twice:
+            # a call on other data of the same shape, with rare starts,
+            # between the two: its statuses must not be taken for the
+            # next call's
+            op, os_ = rand(*part.shape), starts(part.shape[0], 0.002, 0)
+            other = carry_combine(op, os_)
+            again = carry_combine(part, start)
+            cases.append(probe_close(torch, f"carry/{name}/between", other,
+                                     carry_combine_plain(op, os_)))
+            require(_same_words(got, again),
+                    f"carry {name}: two calls differ")
+            cases[-2]["two_calls_bit_equal"] = True
 
     def fused_case(name, vals, rel, start, W=128):
         cases.append(probe_close(torch, f"fused_carry/{name}",
@@ -1225,14 +1390,18 @@ def probe_cases(torch, gen, full) -> list:
         return st.reshape(c, 1)
 
     # the scripts' full inputs
-    carry_case("script_full", full["partials"], full["slot_start"])
+    carry_case("script_full", full["partials"], full["slot_start"], True)
+    cases.append(carry_graph_case(torch, gen, full["partials"],
+                                  full["slot_start"]))
+    cases.append(carry_profile_case(torch, full["partials"],
+                                    full["slot_start"]))
     fused_case("script_full", full["vals"], full["rel"], full["start"])
     onehot_case("script_full", full["vals"], full["rel"])
     transposed_case("script_full", full["tvals"], full["trel"])
     C_full = full["partials"].shape[0]
     one = torch.zeros((C_full, 1), dtype=torch.int32, device=dev)
     one[0] = 1
-    carry_case("one_segment_full", rand(C_full, 128), one)
+    carry_case("one_segment_full", rand(C_full, 128), one, True)
     Ck = full["vals"].shape[0]
     one_k = torch.zeros((Ck, 1), dtype=torch.int32, device=dev)
     one_k[0] = 1
@@ -1509,6 +1678,33 @@ def rowsum_cases(torch, gen, full) -> list:
     return cases
 
 
+def graph_ms(torch, fn, calls: int) -> float:
+    """Device ms a call of ``fn`` replayed from a CUDA graph of
+    ``calls`` calls: the median of 3 replays, each between two CUDA
+    events, after one warm replay (no host launches in the timing).
+    ``fn`` runs once on the capture stream first (S7 makes its status
+    scratch there)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                    # first on the capture stream
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def bench_ms(args, dev, fn) -> float:
     """Median ms a call of ``fn``: the port's loop_bench, 3 samples of
     ``--reps`` calls."""
@@ -1702,8 +1898,10 @@ def phase_probes(args, torch, g, card):
          "transposed_reduce": transposed_reduce, "sub_gather": sub_gather,
          "elementwise": elementwise, "block_rowsum": block_rowsum}
     before = {k: f.launches for k, f in w.items()}
-    require(all(n == 0 for n in before.values()),
-            f"a system path launched a probe kernel: {before}")
+    measured = {k: MEASURE_LAUNCHES.get(k, 0) for k in w}
+    require(before == measured,
+            f"a system path launched a probe kernel: {before} (launches "
+            f"made to measure beside a path: {measured})")
     t0 = time.perf_counter()
     hk = profile_kernel.make_inputs()
     C_slot = profile_slotted.host_half(g.in_degrees())["C"]
@@ -1800,7 +1998,15 @@ def phase_probes(args, torch, g, card):
          "bound": (C * (8 * W + 4), C * W, FP32_OPS_PER_S),
          "source": "lux_tpu_torch/csrc/carry.cu",
          "replaces": "scripts/profile_slotted.py:127",
-         "max_abs_err": err["carry/script_full"]},
+         "max_abs_err": err["carry/script_full"],
+         "extra": {
+             "graph_replay_ms": graph_ms(torch, lambda: carry_combine(
+                 part, sst), 20),
+             "cumsum_ms": bench_ms(args, dev,
+                                   lambda: torch.cumsum(part, 0)),
+             "cumsum_note": "torch.cumsum(part, 0): the same bytes, not "
+                            "the same function (no segments); a "
+                            "yardstick, not the library column"}},
         {"name": "fused_carry", "key": "fused_carry", "shape": [Ck, E, W],
          "kernel": lambda: fused_carry(vals, rel, start, W),
          "plain": lambda: fused_carry_plain(vals, rel, start, W),

@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one source under ``csrc/`` with a plain C interface
-(``carry.cu`` and ``fused_carry.cu`` share ``carry_tiles.cuh``).
+(``fused_carry.cu`` includes ``carry_tiles.cuh``).
 It is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``lux_tpu_torch/_build/`` (git-ignored) at first use, and loaded with
 ``ctypes``.  The library's file name carries a hash of the source and
@@ -50,7 +50,8 @@ KERNELS = {
     }),
     "carry": ("carry.cu", {
         "lux_carry": (ctypes.c_int,
-                      [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P]),
+                      [_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P]),
+        "lux_carry_status_bytes": (ctypes.c_int64, [_I64]),
     }),
     "fused_carry": ("fused_carry.cu", {
         "lux_fused_carry": (ctypes.c_int,

@@ -1,7 +1,8 @@
-// Passes 2 and 3 of the tiled chained scan that csrc/carry.cu (S7) and
-// csrc/fused_carry.cu (S8) share.
+// Passes 2 and 3 of the tiled chained scan of csrc/fused_carry.cu (S8),
+// its only user: csrc/carry.cu (S7) is one single-pass launch with
+// decoupled look-back and includes nothing of this header.
 //
-// Pass 1 (in each source) scans each tile of rows on its own, from a
+// Pass 1 (in fused_carry.cu) scans each tile of rows on its own, from a
 // carry of 0, and writes per tile:
 //   agg[t, w]  the tile's value at its last row (the sum since the
 //              tile's last start, or since the tile's first row);

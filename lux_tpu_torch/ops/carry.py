@@ -18,22 +18,45 @@ The wrappers launch the CUDA kernels (csrc/carry.cu, csrc/fused_carry.cu)
 for tensors on the card and take the plain versions only for tensors
 on the CPU — there is no fallback from the card to the plain version.
 ``carry_combine.launches`` and ``fused_carry.launches`` count wrapper
-calls that launched the kernel (its three passes are one launch here).
-No system path calls them: the probes in lux_tpu_torch/probes do.
+calls that launched the kernel.  ``carry_combine`` enqueues one kernel
+a call, a single-pass chained scan with decoupled look-back, and
+allocates only its output: the kernel's tile statuses live in a scratch
+kept per stream, zeroed once when it is allocated and grown (never
+freed: a captured CUDA graph may still hold an older one).  Calls that
+share a scratch must not overlap in time, and calls on one stream run
+in order, so calls on any mix of streams never meet.  A CUDA graph
+keeps the scratch of the stream it was captured on: a capture
+allocates none, so make one call at the size on that stream before
+it, and do not replay the graph beside calls on that stream.  A
+look-back wait that lasts 4 s traps on the card, so a call that broke
+these rules fails at the next synchronising call instead of hanging.
+``fused_carry``
+still runs three passes (csrc/fused_carry.cu) in one launch of its C
+function.  No system path calls them: the probes in
+lux_tpu_torch/probes do.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from lux_tpu_torch.ops.chunk_reduce import (KernelInputError,
+                                            KernelLaunchError,
                                             check_int32_lanes,
                                             chunk_partials_plain)
 
-# rows (carry) and chunks (fused_carry) a tile of pass 1: kTile in
-# csrc/carry.cu and csrc/fused_carry.cu, which refuse any other value
+# rows (carry) and chunks (fused_carry) a tile: kTile in csrc/carry.cu
+# and csrc/fused_carry.cu, which refuse any other value; kLanes columns
+# a column group of csrc/carry.cu
 CARRY_TILE = 64
+CARRY_LANES = 128
 FUSED_TILE = 32
+
+# (device index, raw stream handle) -> [(status scratch, slots)], the
+# newest last
+_STATUS: dict = {}
 
 
 def _check_start(start: torch.Tensor, C: int, device) -> torch.Tensor:
@@ -83,29 +106,74 @@ def _scratch(C: int, W: int, tile: int, device):
             torch.empty((nT, W), dtype=torch.float32, device=device))
 
 
+def carry_slots(C: int, W: int) -> int:
+    """Status slots a call at [C, W] takes: one a (tile, column
+    group)."""
+    return -(-C // CARRY_TILE) * -(-W // CARRY_LANES)
+
+
+def _status(device, stream: int, slots: int):
+    """(scratch, its slots) of calls on ``stream`` (the raw handle of
+    the current stream of ``device``) with room for ``slots``.  A new
+    one is zeroed on that stream when it is allocated, never while a
+    graph is being captured (the zeroing would be captured and
+    replayed)."""
+    held = _STATUS.setdefault((device.index, stream), [])
+    if held and held[-1][1] >= slots:
+        return held[-1]
+    if torch.cuda.is_current_stream_capturing():
+        raise KernelInputError(
+            f"carry_combine needs a status scratch of {slots} slots on a "
+            f"stream that is capturing a CUDA graph: make one call at "
+            f"this size on that stream before the capture")
+    cap = max(slots, 2 * held[-1][1]) if held else slots
+    nbytes = _carry_fns()[1](cap)
+    held.append((torch.zeros(-(-nbytes // 8), dtype=torch.int64,
+                             device=device), cap))
+    return held[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _carry_fns():
+    """(lux_carry, lux_carry_status_bytes) of the built kernel, looked
+    up once: a call through _kernels.launch looks it up each time."""
+    from lux_tpu_torch import _kernels
+    lib = _kernels.load("carry")
+    return lib.lux_carry, lib.lux_carry_status_bytes
+
+
+def _launch_carry(part, st, out):
+    C, W = part.shape
+    # the raw stream handle: torch.cuda.current_stream() builds a
+    # Stream object, several microseconds of host time a call
+    stream = torch._C._cuda_getCurrentRawStream(part.device.index)
+    status, cap = _status(part.device, stream, carry_slots(C, W))
+    err = _carry_fns()[0](part.data_ptr(), st.data_ptr(), out.data_ptr(),
+                          status.data_ptr(), cap, C, W, CARRY_TILE, stream)
+    if err != 0:
+        raise KernelLaunchError(f"carry launch failed with cudaError_t "
+                                f"{err}")
+
+
 def carry_combine(part: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     """Segmented carry [C, W] -> [C, W]: the CUDA kernel for tensors on
     the card, the plain version for tensors on the CPU."""
     st = _check_part(part, start)
     if part.device.type == "cpu":
         return carry_combine_plain(part, start)
+    if not (part.is_contiguous() and st.is_contiguous()):
+        raise KernelInputError("part and start must be contiguous")
     if part.device.type != "cuda":
         raise KernelInputError(f"no carry_combine path for device "
                                f"{part.device}")
-    if not (part.is_contiguous() and st.is_contiguous()):
-        raise KernelInputError("part and start must be contiguous")
-    C, W = part.shape
     out = torch.empty_like(part)
-    if C == 0:
+    if part.shape[0] == 0:
         return out
-    agg, first, cin = _scratch(C, W, CARRY_TILE, part.device)
-    from lux_tpu_torch import _kernels
-
-    with torch.cuda.device(part.device):
-        stream = torch.cuda.current_stream(part.device).cuda_stream
-        _kernels.launch("carry", part.data_ptr(), st.data_ptr(),
-                        out.data_ptr(), agg.data_ptr(), first.data_ptr(),
-                        cin.data_ptr(), C, W, CARRY_TILE, stream)
+    if part.device.index == torch.cuda.current_device():
+        _launch_carry(part, st, out)
+    else:
+        with torch.cuda.device(part.device):
+            _launch_carry(part, st, out)
     carry_combine.launches += 1
     return out
 

@@ -1,38 +1,48 @@
 """A/B of the launch plans and variants of the redesigned probe kernels
 on the card: S2/S11 ``sub_gather``, S9 ``onehot_reduce``, S3/S12
-``transposed_reduce`` and S4/S5 ``elementwise``.
+``transposed_reduce``, S4/S5 ``elementwise`` and S7 ``carry_combine``.
 
     python3 -m lux_tpu_torch.tools.probe_ab [--rounds 5] [--reps 20]
         [--old-csrc DIR]
-        [--only sub_gather|onehot|transposed|elementwise] [--ablate]
+        [--only sub_gather|onehot|transposed|elementwise|carry] [--ablate]
 
 At the probe scripts' shapes and seed (profile_shuffle.py's [262,144 x
 128] at M = 8, 64, 512 and 4,096; profile_kernel.py's [81,920 x 512],
 W = 128; profile_v3.py's [512 x 65,536], W = 128; profile_vpu.py's
-[524,288 x 128] and profile_true.py's [262,144 x 128]), every variant
+[524,288 x 128] and profile_true.py's [262,144 x 128]; profile_slotted.py's
+partials at its C at R-MAT scale 21, 57,664 x 128, and at the main
+path's 73,712 and 133,184 chunk rows), every variant
 is first held to the plain version (bit for bit for the gather and the
 elementwise bodies, rtol/atol 1e-5 for the reduces), then all are
 timed in turns (CUDA events around ``--reps`` calls, the order
 reversed every other round), beside one library call
 (``torch.gather`` with int64 ids made outside the timed call;
 ``scatter_add`` over [C, W + 1] or along dim 0 into [W + 1, N];
-``torch.add(x, x)`` and a plain copy ``out.copy_(x)``) and, for S9,
-kernel B1 at the same shape.
+``torch.add(x, x)`` and a plain copy ``out.copy_(x)``; for S7 the copy
+and ``torch.cumsum(part, 0)``, same bytes but not the same function)
+and, for S9, kernel B1 at the same shape.
 
 Variants: ``sub_gather`` plans (ops/sub_gather.py ``plan``): the
 default, "direct", "staged" at 64 KB, 128 KB and 227 KB a CTA (each
 distinct plan once); ``onehot_reduce`` as it is; ``transposed_reduce``
 through its wrapper at the scripts' wg 8, 16, 32 and at 128 (one
 launch: wg does not change it); ``elementwise``, each body, its build
-called raw and through its wrapper.  ``--old-csrc DIR`` also builds the
-sources in DIR that these designs replace (sub_gather.cu,
-onehot_mma.cu, transposed_reduce.cu, elementwise.cu) with their C
-interfaces (OLD_ABI) and times them in the same turns;
+called raw and through its wrapper; ``carry_combine`` through its
+wrapper, its build called raw, one call replayed from a CUDA graph, and
+the CARRY_VARIANTS build (``tile32``: 32-row tiles; checked).
+``--old-csrc DIR`` also builds the sources in DIR that these designs
+replace (sub_gather.cu, onehot_mma.cu, transposed_reduce.cu,
+elementwise.cu, carry.cu with the carry_tiles.cuh it includes, which
+DIR must hold too) with their C interfaces (OLD_ABI) and times them in
+the same turns;
 ``--ablate`` builds onehot_mma.cu with other register budgets
 (``bps2``, ``bps4``: blocks an SM, checked) and with one part of its
 work taken out each (``no_*``: no mma, no one-hot compares, no bf16
 conversions, no copies of the values and lanes; unchecked, their
-answers are wrong) and times those too: where the time goes.
+answers are wrong), and carry.cu with one part taken out each
+(CARRY_ABLATIONS: no look-back, the local scan alone, the local scan
+without the ticket; unchecked), and times those too: where the time
+goes.
 
 Prints the card's name and power limit, the ptxas lines of the builds,
 then one JSON line a shape: each variant's median ms, its per-round ms
@@ -60,8 +70,19 @@ OLD_ABI = {"sub_gather.cu": ("sub_gather", "lux_sub_gather",
                                     [_P, _P, _P, _I64, _I64, _I32, _I32,
                                      _P]),
            "elementwise.cu": ("elementwise", "lux_elementwise",
-                              [_I32, _P, _P, _P, _I64, _P])}
-CHOICES = ("sub_gather", "onehot", "transposed", "elementwise")
+                              [_I32, _P, _P, _P, _I64, _P]),
+           "carry.cu": ("carry", "lux_carry",
+                        [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P])}
+# headers an old source includes, which --old-csrc DIR must hold beside it
+OLD_HEADERS = {"carry.cu": ("carry_tiles.cuh",)}
+CHOICES = ("sub_gather", "onehot", "transposed", "elementwise", "carry")
+# profile_slotted.py's chunk rows C at its default R-MAT scale 21 (its
+# host half: the sorted k-slot layout's chunks, rounded up to 64)
+SLOTTED_C = 57_664
+# the carry's row counts: the script's C, and the chunk rows of the
+# main path's two segmented combines (chip_smoke.py's main graph: the
+# flat path's 73,712 chunks, the pair config's 133,184 residual chunks)
+CARRY_ROWS = (SLOTTED_C, 73_712, 133_184)
 
 
 def compile_all(jobs: dict, ptxas: list) -> dict:
@@ -101,6 +122,12 @@ def build_old(csrc: str, only) -> dict:
     from lux_tpu_torch import _kernels
     srcs = [src for src, (choice, _, _) in OLD_ABI.items()
             if only in (None, choice)]
+    for src in srcs:
+        for header in OLD_HEADERS.get(src, ()):
+            if not (Path(csrc) / header).exists():
+                raise FileNotFoundError(
+                    f"--old-csrc {csrc} has no {header}, which the old "
+                    f"{src} includes: put the parent's copy beside it")
     ptxas = []
     libs = compile_all({src: (Path(csrc) / src,
                               _kernels.BUILD_DIR / f"old_{Path(src).stem}.so")
@@ -144,22 +171,76 @@ def variant_source(text: str, edits: list) -> str:
     return text
 
 
-def build_ablations(ptxas: list) -> dict:
-    """{name: ctypes lux_onehot_reduce} of each ABLATIONS build, one
-    nvcc each, started together."""
+def build_edited(kernel: str, edits: dict, ptxas: list) -> dict:
+    """{name: (ctypes.CDLL, edited source)} of kernel ``kernel``'s
+    source with each entry of ``edits`` {name: anchored edits} applied,
+    one nvcc each, started together."""
     from lux_tpu_torch import _kernels
-    src_name, fns = _kernels.KERNELS["onehot_reduce"]
-    text = (_kernels.CSRC / src_name).read_text()
+    text = (_kernels.CSRC / _kernels.KERNELS[kernel][0]).read_text()
     _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, edits in ABLATIONS.items():
-        src = _kernels.BUILD_DIR / f"onehot_ab_{name}.cu"
-        src.write_text(variant_source(text, edits))
+    jobs, bodies = {}, {}
+    for name, edit in edits.items():
+        bodies[name] = variant_source(text, edit)
+        src = _kernels.BUILD_DIR / f"{kernel}_ab_{name}.cu"
+        src.write_text(bodies[name])
         jobs[name] = (src, src.with_suffix(".so"))
     libs = compile_all(jobs, ptxas)
-    restype, argtypes = fns["lux_onehot_reduce"]
-    return {name: bind(libs[name], "lux_onehot_reduce", restype, argtypes)
-            for name in ABLATIONS}
+    return {name: (libs[name], bodies[name]) for name in edits}
+
+
+def build_ablations(ptxas: list) -> dict:
+    """{name: ctypes lux_onehot_reduce} of each ABLATIONS build."""
+    from lux_tpu_torch import _kernels
+    fns = _kernels.KERNELS["onehot_reduce"][1]
+    return {name: bind(lib, "lux_onehot_reduce", *fns["lux_onehot_reduce"])
+            for name, (lib, _) in build_edited("onehot_reduce", ABLATIONS,
+                                               ptxas).items()}
+
+
+# carry.cu with another tile (checked) or with one part of the work
+# taken out each (unchecked: the answers are wrong); anchored edits that
+# must apply exactly once
+CARRY_VARIANTS = {
+    "tile32": [("constexpr int kTile = 64;", "constexpr int kTile = 32;")],
+}
+# the local scan alone: every row stored as scanned, no status, no carry
+_LOCAL_ONLY = [
+    ("      if (j < first) s_pre[j * kLanes + threadIdx.x] = v[j];\n"
+     "      else if (live && j < n)", "      if (live && j < n)"),
+    ("    if (has_start || t == 0)\n      publish(",
+     "    __syncthreads();\n    if (false)\n      publish("),
+    ("    else\n      publish(agg_at",
+     "    else if (false)\n      publish(agg_at"),
+    ("    if (first > 0) {  // CTA-uniform",
+     "    if (false) {  // CTA-uniform")]
+CARRY_ABLATIONS = {
+    "no_lookback": [("      if (t > 0) {\n        if (threadIdx.x < 32) {",
+                     "      if (false) {\n        if (threadIdx.x < 32) {")],
+    "local_only": _LOCAL_ONLY,
+    # tiles by a fixed stride instead of tickets (safe only with no waits)
+    "local_no_ticket": _LOCAL_ONLY + [
+        ("s_first_ticket = next_ticket(ctl, total, done);",
+         "s_first_ticket = blockIdx.x;"),
+        ("drawn = next_ticket(ctl, total, done);",
+         "drawn = ticket + gridDim.x;")],
+}
+
+
+def build_carry_variants(names, ptxas: list) -> dict:
+    """{name: (lux_carry, lux_carry_status_bytes, tile)} of each named
+    CARRY_VARIANTS / CARRY_ABLATIONS build."""
+    import re
+
+    from lux_tpu_torch import _kernels
+    fns = _kernels.KERNELS["carry"][1]
+    edits = {**CARRY_VARIANTS, **CARRY_ABLATIONS}
+    built = build_edited("carry", {n: edits[n] for n in names}, ptxas)
+    return {name: (bind(lib, "lux_carry", *fns["lux_carry"]),
+                   bind(lib, "lux_carry_status_bytes",
+                        *fns["lux_carry_status_bytes"]),
+                   int(re.search(r"constexpr int kTile = (\d+);",
+                                 body).group(1)))
+            for name, (lib, body) in built.items()}
 
 
 def call_old(torch, fn, out, *args):
@@ -394,6 +475,133 @@ def elementwise_ab(torch, args, old) -> list:
     return lines
 
 
+def in_device(torch, dev, fn):
+    with torch.cuda.device(dev):
+        return fn()
+
+
+def host_us(torch, fns: dict, batches: int = 20, calls: int = 10) -> dict:
+    """{name: host microseconds a call}: ``batches`` runs of ``calls``
+    calls each, the card idle at the start of each (a synchronize
+    between runs, outside the clock)."""
+    import time
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(batches):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            total += time.perf_counter() - t0
+            torch.cuda.synchronize()
+        out[name] = total / (batches * calls) * 1e6
+    return out
+
+
+def carry_ab(torch, args, old) -> list:
+    from lux_tpu_torch.ops.carry import CARRY_LANES
+    ab_ptxas = []
+    names = list(CARRY_VARIANTS) + (list(CARRY_ABLATIONS) if args.ablate
+                                    else [])
+    builds = build_carry_variants(names, ab_ptxas)
+    for ln in ab_ptxas:
+        print(ln, flush=True)
+    return [carry_ab_rows(torch, args, old, builds, C, CARRY_LANES)
+            for C in CARRY_ROWS]
+
+
+def carry_ab_rows(torch, args, old, builds, C, W) -> dict:
+    """The carry forms at C rows of profile_slotted.py's partials (its
+    gather + sum of a 2^21-vertex state; starts at p = 0.3 and on row
+    0); the host's microseconds a call at the script's own C."""
+    from lux_tpu_torch import _kernels
+    from lux_tpu_torch.ops.carry import (CARRY_LANES, CARRY_TILE, _status,
+                                         carry_combine, carry_combine_plain,
+                                         carry_slots)
+    from lux_tpu_torch.probes import max_abs_err, profile_slotted
+    dev = torch.device("cuda")
+    K = profile_slotted.K
+    h = profile_slotted.make_inputs(C, 1 << profile_slotted.SCALE)
+    slots = torch.from_numpy(h["slots"]).to(dev).reshape(-1)
+    state = torch.from_numpy(h["state"]).to(dev)
+    part = torch.index_select(state, 0, slots).view(C, K, W).sum(dim=1)
+    st = torch.from_numpy(h["start"]).to(dev).reshape(-1)
+    del slots, state, h
+    want = carry_combine_plain(part, st)
+    out = torch.empty_like(part)
+    carry_combine(part, st)                   # the wrapper's scratch
+    status, cap = _status(part.device, torch._C._cuda_getCurrentRawStream(
+        part.device.index), carry_slots(C, W))
+    lib_fn = _kernels.load("carry").lux_carry
+    forms = {"default": lambda: carry_combine(part, st),
+             "raw": lambda: call_old(torch, lib_fn, out, part.data_ptr(),
+                                     st.data_ptr(), out.data_ptr(),
+                                     status.data_ptr(), cap, C, W,
+                                     CARRY_TILE)}
+    # the capture stream's scratch is made by a call on it before the
+    # capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        carry_combine(part, st)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        g_out = carry_combine(part, st)
+    forms["graph"] = lambda: (graph.replay(), g_out)[1]
+    for name, (fn, nbytes, tile) in builds.items():
+        n_slots = -(-C // tile) * -(-W // CARRY_LANES)
+        buf = torch.zeros(-(-nbytes(n_slots) // 8), dtype=torch.int64,
+                          device=dev)
+        o = torch.empty_like(part)
+        forms[name if name in CARRY_VARIANTS else f"ablate_{name}"] = (
+            lambda fn=fn, buf=buf, o=o, n_slots=n_slots, tile=tile:
+            call_old(torch, fn, o, part.data_ptr(), st.data_ptr(),
+                     o.data_ptr(), buf.data_ptr(), n_slots, C, W, tile))
+    if old:
+        nT = -(-C // CARRY_TILE)
+        agg = torch.empty((nT, W), device=dev)
+        first = torch.empty(nT, dtype=torch.int32, device=dev)
+        cin = torch.empty((nT, W), device=dev)
+        o_old = torch.empty_like(part)
+        forms["replaced"] = lambda: call_old(
+            torch, old["carry.cu"], o_old, part.data_ptr(), st.data_ptr(),
+            o_old.data_ptr(), agg.data_ptr(), first.data_ptr(),
+            cin.data_ptr(), C, W, CARRY_TILE)
+    errs, words = {}, {}
+    for k, f in forms.items():
+        if k.startswith("ablate_"):
+            continue
+        got = f().clone()
+        errs[k] = max_abs_err(got, want)  # raises past rtol/atol 1e-5
+        again = f()
+        torch.cuda.synchronize()
+        words[k] = bool(torch.equal(got.view(torch.int32),
+                                    again.view(torch.int32)))
+    if not words["default"] or not words["raw"]:
+        raise RuntimeError("carry_combine: two calls differ")
+    host = None if C != SLOTTED_C else host_us(torch, {
+        "wrapper": lambda: carry_combine(part, st),
+        "wrapper_in_device_context": lambda: in_device(
+            torch, dev, lambda: carry_combine(part, st)),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(
+            dev.index or 0)})
+    copy_out = torch.empty_like(part)
+    forms["copy_"] = lambda: copy_out.copy_(part)
+    forms["cumsum"] = lambda: torch.cumsum(part, 0)
+    times = in_turns(torch, forms, args.rounds, args.reps)
+    line = {"kernel": "carry_combine", "shape": [C, W],
+            "bound_ms": C * (8 * W + 4) / 3.35e12 * 1e3,
+            "max_abs_err": errs, "two_calls_bit_equal": words,
+            "not_the_same_function": ["copy_", "cumsum"],
+            "host_us_a_call": host,
+            "variants": summary(times, "default")}
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=5)
@@ -401,8 +609,9 @@ def main(argv=None) -> int:
     ap.add_argument("--old-csrc", default=None)
     ap.add_argument("--only", choices=CHOICES)
     ap.add_argument("--ablate", action="store_true",
-                    help="also time onehot_mma.cu with one part of its "
-                         "work taken out each (ABLATIONS; wrong answers)")
+                    help="also time onehot_mma.cu and carry.cu with one "
+                         "part of their work taken out each (ABLATIONS, "
+                         "CARRY_ABLATIONS; wrong answers)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -415,13 +624,14 @@ def main(argv=None) -> int:
         text=True).stdout.strip(), flush=True)
     for name, rep in _kernels.build(["sub_gather", "onehot_reduce",
                                      "chunk_partials", "transposed_reduce",
-                                     "elementwise"]).items():
+                                     "elementwise", "carry"]).items():
         print(f"{name}: " + "; ".join(sorted(
             {ln.split(":", 1)[-1].strip() for ln in rep["ptxas"].splitlines()
              if "registers" in ln or "spill" in ln})), flush=True)
     old = build_old(args.old_csrc, args.only) if args.old_csrc else {}
     runs = {"sub_gather": sub_gather_ab, "onehot": onehot_ab,
-            "transposed": transposed_ab, "elementwise": elementwise_ab}
+            "transposed": transposed_ab, "elementwise": elementwise_ab,
+            "carry": carry_ab}
     for choice in CHOICES:
         if args.only in (None, choice):
             runs[choice](torch, args, old)

@@ -270,13 +270,28 @@ def test_wrappers_on_cpu_take_plain_versions():
         assert torch.equal(got, want)
 
 
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
 # each call takes (vals [C, E] f32, rel [C, E] int32, start [C, 1] int32,
 # part [C, 16] f32) and must raise KernelInputError
 BAD_CALLS = {
     "carry/f64_part": lambda v, r, s, p: carry_combine(p.double(), s),
     "carry/f32_start": lambda v, r, s, p: carry_combine(p, s.float()),
+    "carry/int64_start": lambda v, r, s, p: carry_combine(p, s.long()),
     "carry/short_start": lambda v, r, s, p: carry_combine(p, s[:-1]),
     "carry/wide_start": lambda v, r, s, p: carry_combine(p, s.repeat(1, 2)),
+    "carry/part_1d": lambda v, r, s, p: carry_combine(p[:, 0], s),
+    "carry/part_W0": lambda v, r, s, p: carry_combine(p[:, :0], s),
+    "carry/part_3d": lambda v, r, s, p: carry_combine(p.reshape(40, 4, 4),
+                                                      s),
+    "carry/non_contiguous_part": lambda v, r, s, p: carry_combine(
+        _meta(16, 40).T, _meta(40, dtype=torch.int32)),
+    "carry/non_contiguous_start": lambda v, r, s, p: carry_combine(
+        _meta(40, 16), _meta(40, 2, dtype=torch.int32)[:, 0]),
+    "carry/devices": lambda v, r, s, p: carry_combine(
+        p, _meta(40, dtype=torch.int32)),
     "fused/f64_vals": lambda v, r, s, p: fused_carry(v.double(), r, s, 128),
     "fused/int64_rel": lambda v, r, s, p: fused_carry(v, r.long(), s, 128),
     "fused/int8_rel": lambda v, r, s, p: fused_carry(
