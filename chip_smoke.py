@@ -57,7 +57,13 @@ Phases, each printing one JSON line:
             that needs the segmented combine, then the same graph
             relabelled with 4 parts paged and page-major, then
             pair_relabel'd with 4 parts and pair-lane rows (streamed and
-            monolithic), against the oracle;
+            monolithic), against the oracle; then the push engine on the
+            same graph and parts: hop SSSP, weighted SSSP with
+            delta="auto" (integer weights 1..5) and components on the
+            symmetrized graph, each over the tiled layout, paged,
+            page-major and pair rows streamed and monolithic, labels
+            bit-equal to the oracle, kernels launched only by dense
+            iterations (B2 once each on the paged paths);
 10. pairs   bench.py's pagerank config on the main graph: pair_relabel,
             pair_threshold 16, min_fill 24, tile_e 128, through
             pagerank.build_engine once with each pair_stream setting
@@ -117,7 +123,31 @@ Phases, each printing one JSON line:
             unique bytes: an aliased input is read once); S3/S12 once
             at each of wg 8, 16, 32 and W; S7 also replayed from a CUDA
             graph of 20 calls, and torch.cumsum(part, 0) beside it (the
-            same bytes, not the same function).
+            same bytes, not the same function);
+12. sssp    bench.py's sssp config on the pairs phase's relabelled
+            graph: pair_threshold 16, min_fill 24, hops, no delta,
+            sparse iterations on, one part, through
+            sssp.build_engine(...); started at the relabelled id of the
+            smallest input id with an out-edge (bench.py's vertex 0 has
+            none in this graph); labels bit-equal to a level-synchronous
+            numpy BFS, the host and device audits at 0 violations, at
+            least one dense and one sparse iteration, B1 launched only
+            by dense iterations (the residual chunks plus each pair
+            block), at most one host sync an iteration (torch's sync
+            debug mode over the converge), the same launches step by
+            step; timed converges (wall and CUDA-event spans, GTEPS as
+            bench.py reckons it), one converge under torch.profiler (its
+            device time against its wall time: the idle share; the
+            kernels by time), per-layer device ms of one dense and one
+            sparse iteration (and each replayed from a CUDA graph), and
+            B1 on the path's own int32 residual chunks and pair rows
+            (min) against its plain version, two launches bit-equal (the
+            kernels line's chunk_partials@sssp entry);
+13. cc      bench.py's cc config: R-MAT one scale under --scale,
+            symmetrized, pair_relabel, pair_threshold 16, min_fill 24,
+            one part, through components.build_engine(...); the same
+            checks with max, labels bit-equal to scipy's components
+            (each one's largest relabelled id) (chunk_partials@cc).
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -304,17 +334,17 @@ def _check_case(torch, name, vals, rel, W, kind, signed=False,
             "max_abs_err": err, "tolerance": tol}
 
 
-def check_deterministic(torch, name, vals, rel, W):
+def check_deterministic(torch, name, vals, rel, W, kind="sum"):
     """Two launches of B1 on the same inputs give the same bits: the
     kernel has no atomics, so its combine order is fixed."""
     from lux_tpu_torch.ops.chunk_reduce import chunk_partials
-    a = chunk_partials(vals, rel, W, "sum")
-    b = chunk_partials(vals, rel, W, "sum")
+    a = chunk_partials(vals, rel, W, kind)
+    b = chunk_partials(vals, rel, W, kind)
     torch.cuda.synchronize()
     require(_same_words(a, b), f"B1 {name}: two launches differ in bits")
     return {"case": f"{name}/deterministic", "C": vals.shape[0],
             "E": vals.shape[1],
-            "dtype": str(vals.dtype).replace("torch.", ""), "kind": "sum",
+            "dtype": str(vals.dtype).replace("torch.", ""), "kind": kind,
             "max_abs_err": 0.0, "tolerance": "bit-equal across launches"}
 
 
@@ -444,35 +474,37 @@ def b1_bound(torch, vals, rel, W) -> dict:
             + C * W * vals.element_size()}
 
 
-def b1_line(args, torch, vals, rel, W, name):
-    """The kernels-line entry of B1 on ``vals``/``rel``: kernel, plain
-    and one-``scatter_reduce`` times, and the bound (``b1_bound``)."""
+def b1_line(args, torch, vals, rel, W, name, kind="sum"):
+    """The kernels-line entry of B1 on ``vals``/``rel`` reducing by
+    ``kind``: kernel, plain and one-``scatter_reduce`` times, and the
+    bound (``b1_bound``)."""
     from lux_tpu_torch.ops.chunk_reduce import (chunk_partials,
                                                 chunk_partials_plain)
     from lux_tpu_torch.ops.segment import SCATTER_REDUCE, identity_for
     reps = args.reps
     C, E = vals.shape
-    ms = cuda_ms(lambda: chunk_partials(vals, rel, W, "sum"), reps)
-    plain_ms = cuda_ms(lambda: chunk_partials_plain(vals, rel, W, "sum"),
+    ms = cuda_ms(lambda: chunk_partials(vals, rel, W, kind), reps)
+    plain_ms = cuda_ms(lambda: chunk_partials_plain(vals, rel, W, kind),
                        reps)
     relw = rel.to(torch.int64)
     idx = (torch.arange(C, device=vals.device)[:, None] * (W + 1)
            + torch.where((relw >= 0) & (relw < W), relw, W)).reshape(-1)
     del relw
-    base = torch.full((C * (W + 1),), identity_for("sum", vals.dtype),
+    base = torch.full((C * (W + 1),), identity_for(kind, vals.dtype),
                       dtype=vals.dtype, device=vals.device)
     flat = vals.reshape(-1)
     library_ms = cuda_ms(lambda: base.scatter_reduce(
-        0, idx, flat, SCATTER_REDUCE["sum"], include_self=True), reps)
+        0, idx, flat, SCATTER_REDUCE[kind], include_self=True), reps)
     del idx, base
-    got = chunk_partials(vals, rel, W, "sum")
-    want = chunk_partials_plain(vals, rel, W, "sum")
+    got = chunk_partials(vals, rel, W, kind)
+    want = chunk_partials_plain(vals, rel, W, kind)
     max_abs_err = float((got.double() - want.double()).abs().max())
     del got, want
     return {"name": name, "route": "cuda",
             "source": "lux_tpu_torch/csrc/chunk_partials.cu",
             "replaces": "lux_tpu/ops/pallas_reduce.py:63",
-            "shape": [C, E, W], "launches": None,
+            "shape": [C, E, W], "kind": kind,
+            "dtype": str(vals.dtype).replace("torch.", ""), "launches": None,
             "max_abs_err": max_abs_err, "max_err": max_abs_err,
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             **b1_bound(torch, vals, rel, W),
@@ -1017,11 +1049,13 @@ def phase_parts(args, torch):
         pairs["streamed" if stream else "monolithic"] = {
             "Rp": peng.pairs.Rp, "classes": len(peng.pairs.classes),
             "max_rel_err": err, "launches": pcounts}
+    del peng
+    push = parts_push(args, torch, g)
     emit({"phase": "parts", "nv": g.nv, "ne": g.ne, "num_parts": 4,
           "tile_e": 128, "chunks": eng.num_parts * eng.tiles.n_chunks,
           "iters": args.iters, "max_rel_err": float(rel_err.max()),
           "chunk_partials_launches": launches, "paged": paged,
-          "pairs": pairs})
+          "pairs": pairs, "push": push})
 
 
 def b1_step_paths(rel, W) -> dict:
@@ -1137,16 +1171,22 @@ def pair_layers(args, torch, eng):
     return out, vals, rel
 
 
-def phase_pairs(args, torch, g, card):
-    """bench.py's pagerank config (bench.py:987-1011) on the main graph,
-    once with each pair_stream setting; returns (launches by setting,
-    the kernels-line entry of B1 on the pair rows)."""
-    from lux_tpu_torch.apps import pagerank
+def pair_relabelled(g):
+    """bench.py's preprocessing for its pair configs: pair_relabel with
+    one part -> (relabelled graph, perm, starts, seconds)."""
     from lux_tpu_torch.graph import pair_relabel
-    from lux_tpu_torch.ops.pairs import stream_blocks
     t0 = time.perf_counter()
-    g2, _perm, starts = pair_relabel(g, 1, pair_threshold=PAIR_THRESHOLD)
-    t_relabel = time.perf_counter() - t0
+    g2, perm, starts = pair_relabel(g, 1, pair_threshold=PAIR_THRESHOLD)
+    return g2, perm, starts, time.perf_counter() - t0
+
+
+def phase_pairs(args, torch, g2, starts, t_relabel, card):
+    """bench.py's pagerank config (bench.py:987-1011) on the main graph
+    ``g2`` (pair_relabelled, with its cut points ``starts``), once with
+    each pair_stream setting; returns (launches by setting, the
+    kernels-line entry of B1 on the pair rows)."""
+    from lux_tpu_torch.apps import pagerank
+    from lux_tpu_torch.ops.pairs import stream_blocks
     want = pagerank.reference_pagerank(g2, args.iters)
     counts_by, b1 = {}, None
     for stream in (True, False):
@@ -1236,6 +1276,582 @@ def check_pair_rows(args, torch, eng, vals, rel):
     b1 = b1_line(args, torch, vals, rel, 128, "chunk_partials@pairs")
     b1["step_paths"] = paths["pair_rows"]
     return b1
+
+
+
+# ---------------------------------------------------------------------
+# the push engine: bench.py's sssp and cc configs, and 4 parts
+# ---------------------------------------------------------------------
+
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def first_out_vertex(g) -> int:
+    """The smallest input id with an out-edge: bench.py's sssp starts
+    at vertex 0 (bench.py:1062-1066), which has none in R-MAT seed 0,
+    so a run from it would stop after one iteration."""
+    has = np.flatnonzero(np.asarray(g.out_degrees) > 0)
+    require(has.size > 0, "the graph has no edge")
+    return int(has[0])
+
+
+def relabelled_id(perm, v: int) -> int:
+    """The new id of input vertex ``v`` under ``perm`` (perm[new] =
+    old)."""
+    return int(np.flatnonzero(np.asarray(perm) == v)[0])
+
+
+def bfs_levels(g, start: int) -> np.ndarray:
+    """Level-synchronous BFS over the edge list -> int32 hop counts,
+    HOP_INF where unreached: the hop SSSP's exact fixed point."""
+    from lux_tpu_torch.apps.sssp import HOP_INF
+    src, dst = g.edge_arrays()
+    dist = np.full(g.nv, HOP_INF, np.int32)
+    dist[start] = 0
+    level = 0
+    while True:
+        reach = dst[dist[src] == level]
+        reach = reach[dist[reach] == HOP_INF]
+        if reach.size == 0:
+            return dist
+        level += 1
+        dist[reach] = level
+
+
+def components_oracle(g):
+    """Each vertex's component's largest id (the max-propagation fixed
+    point on a symmetrized graph), through scipy -> (int64 labels,
+    component sizes)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    src, dst = g.edge_arrays()
+    m = csr_matrix((np.ones(src.size, np.int8), (src, dst)),
+                   shape=(g.nv, g.nv))
+    n, comp = connected_components(m, directed=True, connection="weak")
+    top = np.full(n, -1, np.int64)
+    np.maximum.at(top, comp, np.arange(g.nv, dtype=np.int64))
+    return top[comp], np.bincount(comp, minlength=n)
+
+
+def dense_launches(eng) -> dict:
+    """Kernel launches of one dense push iteration: B1 once over the
+    chunks (or the paged rows) plus once a pair block; B2 once on the
+    paged paths."""
+    from lux_tpu_torch.ops.pairs import stream_blocks
+    if eng.page_plan is not None:
+        return {"chunk_partials": 1, "lane_shuffle": 1}
+    pairs = 0 if eng.pairs is None else (
+        len(stream_blocks(eng.pairs.classes)) if eng.pair_stream else 1)
+    return {"chunk_partials": 1 + pairs, "lane_shuffle": 0}
+
+
+def converge_counted(torch, eng):
+    """One converge from a fresh init_state with every launch count at 0
+    just before and read just after, and the host syncs it makes
+    counted by torch's sync debug mode -> (label, active, iterations,
+    launches, syncs, schedule)."""
+    import warnings
+    label, active = eng.init_state()
+    torch.cuda.synchronize()
+    zero_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            label, active, it = eng.converge(label, active)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    return label, active, it, read_launches(), syncs, list(eng.schedule)
+
+
+def check_push_launches(eng, counts, schedule, what: str) -> dict:
+    """A converge's launches are its dense iterations' and nothing
+    else: a sparse iteration launches no kernel."""
+    per = dense_launches(eng)
+    n_dense = schedule.count("dense")
+    want = {k: n_dense * v for k, v in per.items()}
+    require(counts == want,
+            f"{what}: launched {counts} in {n_dense} dense and "
+            f"{schedule.count('sparse')} sparse iterations (want {want}: "
+            f"{per} a dense iteration, none a sparse one)")
+    return per
+
+
+def push_steps(torch, eng):
+    """The run again one ``step`` at a time from init_state, each step's
+    launches read around it: a dense step must launch its kernels once
+    each (dense_launches), a sparse step none.  Returns (steps, the
+    input state of the first dense step, that of the sparse step with
+    the largest frontier)."""
+    per = dense_launches(eng)
+    label, active = eng.init_state()
+    steps, dense_in, sparse_in = [], None, None
+    while True:
+        cnt = int(active.sum())
+        if cnt == 0:
+            return steps, dense_in, sparse_in
+        before = read_launches()
+        new_l, new_a, _c = eng.step(label, active)
+        torch.cuda.synchronize()
+        kind = eng.schedule[-1]
+        made = {k: v - before[k] for k, v in read_launches().items()}
+        want = per if kind == "dense" else {k: 0 for k in per}
+        require(made == want, f"a {kind} push step launched {made} "
+                              f"(want {want})")
+        steps.append({"kind": kind, "frontier": cnt})
+        if kind == "dense" and dense_in is None:
+            dense_in = (label, active)
+        if kind == "sparse" and (sparse_in is None
+                                 or cnt > sparse_in[2]):
+            sparse_in = (label, active, cnt)
+        label, active = new_l, new_a
+
+
+def pair_block_rows(eng):
+    """The pair rows as the engine launches them: (first row, rows) of
+    each block (one block when monolithic)."""
+    from lux_tpu_torch.ops.pairs import stream_blocks
+    sp = eng.pairs
+    if not eng.pair_stream:
+        return [(0, sp.Rp)]
+    return [(r0, S * L) for r0, S, L in stream_blocks(sp.classes)]
+
+
+def push_dense_layers(args, torch, eng, label, active) -> dict:
+    """Device ms of each layer of one dense push iteration on its own
+    input state, each timed alone: the masked flat table, the residual's
+    gather + relax, B1 on its chunks, the segmented combine, the pair
+    rows' fetch + relax, B1 on them and the class combine (summed over
+    the blocks), the combine of both, the update; then the whole
+    iteration, alone, replayed from a CUDA graph of 3 (no host gaps),
+    and its host enqueue time."""
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    from lux_tpu_torch.ops.pairs import (W, _reduce_depth, _take_slots,
+                                         class_combine)
+    from lux_tpu_torch.ops.tiled import combine_op, combine_partials
+    a, t, sp, P = eng.arrays, eng.tiles, eng.pairs, eng.num_parts
+    kind, reps = eng.program.reduce, args.reps
+    flat = eng._masked_flat(label, active)
+    cand = eng._dense_cand(flat)
+    C = P * t.n_chunks
+    vals, rel = cand.reshape(C, t.E), a["rel_dst"].reshape(C, t.E)
+    partials = chunk_partials(vals, rel, t.W, kind)
+    red = combine_partials(partials, t, a["chunk_start"], a["last_chunk"],
+                           eng.vpad, kind, eng._plan)
+    out = {
+        "mask_ms": cuda_ms(lambda: eng._masked_flat(label, active), reps),
+        "gather_relax_ms": cuda_ms(lambda: eng._dense_cand(flat), reps),
+        "chunk_partials_ms": cuda_ms(
+            lambda: chunk_partials(vals, rel, t.W, kind), reps),
+        "combine_ms": cuda_ms(lambda: combine_partials(
+            partials, t, a["chunk_start"], a["last_chunk"], eng.vpad, kind,
+            eng._plan), reps)}
+    s2d = flat.reshape(-1, W)
+    pw = a.get("pair_weight")
+    blocks = pair_block_rows(eng)
+
+    def fetch(r0, n):
+        rows = torch.index_select(
+            s2d, 0, a["pair_rowbind"][:, r0:r0 + n].reshape(-1).long())
+        return eng._msg(rows.view(P, n, W),
+                        None if pw is None else pw[:, r0:r0 + n])
+
+    bvals = [fetch(r0, n).reshape(-1, W) for r0, n in blocks]
+    brel = [a["pair_rel"][:, r0:r0 + n].reshape(-1, W).contiguous()
+            for r0, n in blocks]
+    bparts = [chunk_partials(v, r, W, kind) for v, r in zip(bvals, brel)]
+    tp = a["pair_tile_pos"]
+    if eng.pair_stream:
+        from lux_tpu_torch.ops.pairs import stream_blocks
+        shapes = [(S, L) for _r0, S, L in stream_blocks(sp.classes)]
+
+        def pair_combine():
+            outs = [_reduce_depth(p.view(P, S, L, W), kind)
+                    for p, (S, L) in zip(bparts, shapes)]
+            return _take_slots(outs, tp, kind, flat.dtype, flat.device, (W,))
+    else:
+        def pair_combine():
+            return class_combine(sp, bparts[0].view(P, sp.Rp, W)[:, :sp.R],
+                                 tp, kind)
+    pred = eng._pair_red(flat)
+    both = combine_op(kind)(red, pred)
+    out.update(
+        pair_blocks=len(blocks),
+        pair_fetch_ms=cuda_ms(lambda: [fetch(r0, n) for r0, n in blocks],
+                              reps),
+        pair_chunk_partials_ms=cuda_ms(lambda: [
+            chunk_partials(v, r, W, kind) for v, r in zip(bvals, brel)],
+            reps),
+        class_combine_ms=cuda_ms(pair_combine, reps),
+        combine_op_ms=cuda_ms(lambda: combine_op(kind)(red, pred), reps),
+        update_ms=cuda_ms(lambda: eng._dense_update(label, both), reps),
+        step_ms=cuda_ms(lambda: eng._dense(label, active), reps),
+        step_graph_ms=graph_ms(torch, lambda: eng._dense(label, active), 3),
+        step_host_ms=host_ms(torch, lambda: eng._dense(label, active), 10),
+        frontier=int(active.sum()))
+    out["layers_sum_ms"] = sum(out[k] for k in (
+        "mask_ms", "gather_relax_ms", "chunk_partials_ms", "combine_ms",
+        "pair_fetch_ms", "pair_chunk_partials_ms", "class_combine_ms",
+        "combine_op_ms", "update_ms"))
+    return out
+
+
+def kernel_rows(prof, calls: int) -> list:
+    """[name, device ms a call] of every device activity (kernels,
+    copies, fills) in a torch.profiler run of ``calls`` calls, the
+    largest first."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append([e.key[:80], us / calls / 1e3])
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def converge_profile(torch, eng, wall_ms: float) -> dict:
+    """One converge under torch.profiler: its summed device time
+    (kernels, the count copies, fills) against its own wall time and
+    against ``wall_ms``, the median unprofiled converge -> the device's
+    busy and idle shares (None where the profiler saw no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+    label, active = eng.init_state()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.converge(label, active)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    rows = kernel_rows(prof, 1)
+    busy = sum(r[1] for r in rows)
+    return {"device_ms": busy, "profiled_wall_ms": prof_wall,
+            "idle_share_profiled": 1 - busy / prof_wall if busy else None,
+            "idle_share": 1 - busy / wall_ms if busy else None,
+            "top": rows[:10]}
+
+
+def push_sparse_layers(args, torch, eng, label, active) -> dict:
+    """Device ms of each layer of one sparse push iteration on its own
+    input state: the queue compaction, the expansion over the
+    src-sorted view, the relax + bounded scatter, the clear; then the
+    whole iteration, alone, replayed from a CUDA graph of 3 (no host
+    gaps), and its host enqueue time."""
+    reps = args.reps
+    gids, vals, cnts = eng._sparse_compact(label, active)
+    edge_idx, src_val, in_range, off = eng._sparse_expand(gids, vals)
+    return {
+        "frontier": int(active.sum()),
+        "out_edges": int(off[:, -1].max()),
+        "edge_budget": eng.edge_budget, "queue_cap": eng.queue_cap,
+        "compact_ms": cuda_ms(lambda: eng._sparse_compact(label, active),
+                              reps),
+        "expand_ms": cuda_ms(lambda: eng._sparse_expand(gids, vals), reps),
+        "relax_scatter_ms": cuda_ms(lambda: eng._sparse_relax(
+            label, edge_idx, src_val, in_range), reps),
+        "clear_ms": cuda_ms(lambda: eng._sparse_clear(active, gids, cnts,
+                                                      off), reps),
+        "step_ms": cuda_ms(lambda: eng._sparse(label, active), reps),
+        "step_graph_ms": graph_ms(torch, lambda: eng._sparse(label, active),
+                                  3),
+        "step_host_ms": host_ms(torch, lambda: eng._sparse(label, active),
+                                10)}
+
+
+def push_b1(args, torch, eng, label, active, name: str):
+    """Kernel B1 on the push path's own inputs at a dense iteration: the
+    residual chunks and the pair rows (the program's int32 min or max)
+    against its plain version, two launches bit-equal on each; then
+    B1's kernels-line entry at the residual chunks, with its numbers at
+    the pair rows beside."""
+    a, t, P = eng.arrays, eng.tiles, eng.num_parts
+    kind = eng.program.reduce
+    flat = eng._masked_flat(label, active)
+    C = P * t.n_chunks
+    vals = eng._dense_cand(flat).reshape(C, t.E).contiguous()
+    rel = a["rel_dst"].reshape(C, t.E)
+    rows = torch.index_select(flat.reshape(-1, 128), 0,
+                              a["pair_rowbind"].reshape(-1).long())
+    pw = a.get("pair_weight")
+    pvals = eng._msg(rows.view(P, -1, 128), pw).reshape(-1, 128)
+    pvals = pvals.contiguous()
+    prel = a["pair_rel"].reshape(-1, 128)
+    cases = [_check_case(torch, f"{name}_residual/{kind}", vals, rel, t.W,
+                         kind),
+             check_deterministic(torch, f"{name}_residual", vals, rel, t.W,
+                                 kind),
+             _check_case(torch, f"{name}_pair_rows/{kind}", pvals, prel, 128,
+                         kind),
+             check_deterministic(torch, f"{name}_pair_rows", pvals, prel,
+                                 128, kind)]
+    emit({"phase": "kernels", "kernel": "chunk_partials", "path": name,
+          "cases": len(cases), "all_pass": True, "detail": cases,
+          "step_paths": {"pair_rows": b1_step_paths(prel, 128),
+                         "residual_chunks": b1_step_paths(rel, 128)}})
+    line = b1_line(args, torch, vals, rel, t.W, f"chunk_partials@{name}",
+                   kind)
+    rows_line = b1_line(args, torch, pvals, prel, 128,
+                        f"chunk_partials@{name}_pair_rows", kind)
+    line["pair_rows"] = {k: rows_line[k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err")}
+    line["note"] = ("int32 compare-selects counted at the f32 rate (the "
+                    "data sheet gives no int32 rate); bytes bound it")
+    return line
+
+
+def timed_converges(torch, eng, n: int):
+    """``n`` converges from fresh init states: host wall seconds (fenced)
+    and the device's span between two CUDA events, each."""
+    out = []
+    for _ in range(n):
+        label, active = eng.init_state()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        label, active, it = eng.converge(label, active)
+        end.record()
+        end.synchronize()
+        out.append({"wall_s": time.perf_counter() - t0,
+                    "event_s": start.elapsed_time(end) / 1e3,
+                    "iterations": it})
+    return out
+
+
+def run_push_config(args, torch, eng, g, want, name: str, card, extra):
+    """Drive one push engine to convergence through converge and hold it
+    to everything: labels bit-equal to ``want`` (the oracle in the
+    engine's ids), both audits at 0, launches per iteration kind, at
+    most one host sync an iteration; then timed runs, the stepwise
+    launch check, per-layer times and B1 at the path's own inputs.
+    Returns (the kernels-line entry, B1 launches of the counted run)."""
+    from lux_tpu_torch import check, device_check
+    prog = eng.program
+    eng.converge(*eng.init_state())                # warm-up run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    label, active, it, counts, syncs, schedule = converge_counted(torch,
+                                                                  eng)
+    peak = torch.cuda.max_memory_allocated()
+    n_dense, n_sparse = schedule.count("dense"), schedule.count("sparse")
+    got = eng.unpad(label)
+    require(got.shape == (g.nv,) and got.dtype == np.int32,
+            f"{name}: labels are not int32 [nv]")
+    require(np.array_equal(got.astype(np.int64), want.astype(np.int64)),
+            f"{name}: labels differ from the oracle at "
+            f"{int((got != want).sum())} vertices")
+    require(not bool(active.any()), f"{name}: converge left vertices "
+                                    f"active")
+    require(n_dense >= 1, f"{name}: no dense iteration ({schedule})")
+    if prog.reduce == "min":
+        require(n_sparse >= 1, f"{name}: no sparse iteration ({schedule})")
+    per = check_push_launches(eng, counts, schedule, name)
+    require(syncs <= it, f"{name}: {syncs} host syncs in {it} iterations "
+                         f"(want at most one an iteration)")
+    if prog.reduce == "min":           # hop counts
+        host = check.check_sssp(g, got)
+        dev = device_check.DeviceChecker(eng.sg).sssp(label)
+    else:
+        host = check.check_components(g, got)
+        dev = device_check.DeviceChecker(eng.sg).components(label)
+    require(host.ok and dev.ok, f"{name}: audits {host} / {dev}")
+    runs = timed_converges(torch, eng, 3)
+    steps, dense_in, sparse_in = push_steps(torch, eng)
+    require([s["kind"] for s in steps] == schedule,
+            f"{name}: stepwise kinds {steps} differ from the converge's "
+            f"{schedule}")
+    layers = {"dense": push_dense_layers(args, torch, eng, *dense_in)}
+    if sparse_in is not None:
+        layers["sparse"] = push_sparse_layers(args, torch, eng,
+                                              *sparse_in[:2])
+    wall = [r["wall_s"] for r in runs]
+    best = float(np.median(wall))
+    profiled = converge_profile(torch, eng, best * 1e3)
+    emit({"phase": name, "nv": g.nv, "ne": g.ne, "iterations": it,
+          "dense_iterations": n_dense, "sparse_iterations": n_sparse,
+          "schedule": schedule, "frontiers": [s["frontier"] for s in steps],
+          "launches": counts, "launches_per_dense_iteration": per,
+          "host_syncs": syncs, "host_syncs_per_iteration": syncs / it,
+          "converge_wall_s": wall,
+          "converge_event_s": [r["event_s"] for r in runs],
+          "ms_per_iter": best * 1e3 / it,
+          "gteps": g.ne * it / best / 1e9,
+          "gteps_note": "ne x iterations / median wall seconds of 3 "
+                        "converges (bench.py:333-335)",
+          "device_profile": profiled,
+          "peak_bytes": int(peak), "audit_host": str(host),
+          "audit_device": str(dev), "layers": layers, **extra,
+          "card": card})
+    line = push_b1(args, torch, eng, *dense_in, name)
+    return line, counts["chunk_partials"]
+
+
+def phase_sssp(args, torch, g, g2, perm, starts, card):
+    """bench.py's sssp config (bench.py:1034-1077) on the main graph:
+    pair_relabel (threshold 16), min_fill 24, hops, no delta, sparse
+    iterations on, one part, started at the relabelled id of the
+    smallest input id with an out-edge (first_out_vertex)."""
+    from lux_tpu_torch.apps import sssp
+    v0 = first_out_vertex(g)
+    start = relabelled_id(perm, v0)
+    t0 = time.perf_counter()
+    eng = sssp.build_engine(g2, start, 1, pair_threshold=PAIR_THRESHOLD,
+                            pair_min_fill=PAIR_MIN_FILL, starts=starts)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = bfs_levels(g2, start)
+    t_oracle = time.perf_counter() - t0
+    extra = {"start_input_id": v0, "start_relabelled_id": start,
+             "input_vertex_0_out_degree": int(g.out_degrees[0]),
+             "reached": int((want < sssp.HOP_INF).sum()),
+             "pair_threshold": PAIR_THRESHOLD, "min_fill": PAIR_MIN_FILL,
+             "tile_e": eng.tiles.E, "pair_stream": eng.pair_stream,
+             "queue_cap": eng.queue_cap, "edge_budget": eng.edge_budget,
+             "sparse_limit": eng._sparse_mode()[1],
+             "setup_seconds": round(t_setup, 3),
+             "pair_plan_seconds": round(eng.plan_seconds, 3),
+             "oracle": "level-synchronous numpy BFS",
+             "oracle_seconds": round(t_oracle, 3)}
+    line, launches = run_push_config(args, torch, eng, g2, want, "sssp",
+                                     card, extra)
+    del eng
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def phase_cc(args, torch, card):
+    """bench.py's cc config (bench.py:1038-1053): R-MAT one scale under
+    --scale (20 by default, as bench.py's cc runs one under its sssp),
+    --ef, --seed, symmetrized, pair_relabel (threshold 16), min_fill 24,
+    one part; labels held to scipy's components (each one's largest
+    relabelled id)."""
+    from lux_tpu_torch.apps import components
+    from lux_tpu_torch.convert import rmat_edges
+    from lux_tpu_torch.graph import Graph, pair_relabel
+    t0 = time.perf_counter()
+    scale = args.scale - 1
+    src, dst, nv = rmat_edges(scale, args.ef, seed=args.seed)
+    s, d = components.symmetrize(src, dst)
+    del src, dst
+    g = Graph.from_edges(s, d, nv)
+    del s, d
+    g2, _perm, starts = pair_relabel(g, 1, pair_threshold=PAIR_THRESHOLD)
+    del g
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = components.build_engine(g2, 1, pair_threshold=PAIR_THRESHOLD,
+                                  pair_min_fill=PAIR_MIN_FILL, starts=starts)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, sizes = components_oracle(g2)
+    t_oracle = time.perf_counter() - t0
+    extra = {"scale": scale, "edge_factor": args.ef, "seed": args.seed,
+             "components": int(sizes.size),
+             "largest_component": int(sizes.max()),
+             "isolated": int((sizes == 1).sum()),
+             "pair_threshold": PAIR_THRESHOLD, "min_fill": PAIR_MIN_FILL,
+             "tile_e": eng.tiles.E, "pair_stream": eng.pair_stream,
+             "queue_cap": eng.queue_cap, "edge_budget": eng.edge_budget,
+             "sparse_limit": eng._sparse_mode()[1],
+             "graph_seconds": round(t_graph, 3),
+             "setup_seconds": round(t_setup, 3),
+             "pair_plan_seconds": round(eng.plan_seconds, 3),
+             "oracle": "scipy connected_components, max id a component",
+             "oracle_seconds": round(t_oracle, 3)}
+    line, launches = run_push_config(args, torch, eng, g2, want, "cc",
+                                     card, extra)
+    del eng, g2
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def parts_push(args, torch, g) -> dict:
+    """The push engine on the parts phase's graph ``g`` with 4 parts on
+    one card: hop SSSP, weighted SSSP with delta="auto" (weights drawn as
+    bench.py:198-200 draws them) and components on the symmetrized
+    graph, each over a tiled layout that needs the segmented combine,
+    degree-relabelled paged and page-major delivery, and pair_relabel'd
+    pair rows streamed and monolithic; labels bit-equal to the oracle,
+    launches as dense_launches says for every dense iteration, none
+    for a sparse one (the paged paths: B2 once a dense iteration)."""
+    from lux_tpu_torch.apps import components, sssp
+    from lux_tpu_torch.engine.push import PushEngine
+    from lux_tpu_torch.graph import (Graph, ShardedGraph, degree_relabel,
+                                     pair_relabel)
+    P = 4
+    src, dst = g.edge_arrays()
+    w = np.random.default_rng(1).integers(1, 6, size=g.ne).astype(np.int32)
+    gw = Graph.from_edges(src, dst, g.nv, w)
+    gs = Graph.from_edges(*components.symmetrize(src, dst), g.nv)
+    del src, dst
+    v0 = first_out_vertex(g)
+    want_hops = bfs_levels(g, v0)
+    want_w = sssp.reference_sssp(gw, v0, weighted=True)
+    want_cc, _sizes = components_oracle(gs)
+    apps = {"hops": (g, want_hops), "weighted": (gw, want_w),
+            "cc": (gs, want_cc)}
+    out = {}
+    for app, (G, want) in apps.items():
+        gd, perm_d = degree_relabel(G)
+        gp, perm_p, starts_p = pair_relabel(G, P, pair_threshold=16)
+        variants = {
+            "tiled": (G, None, ShardedGraph.build(G, P), dict(tile_e=128)),
+            "paged": (gd, perm_d, ShardedGraph.build(gd, P, vpad_align=128),
+                      dict(gather="paged")),
+            "pagemajor": (gd, perm_d,
+                          ShardedGraph.build(gd, P, vpad_align=128),
+                          dict(gather="pagemajor")),
+            "pairs_streamed": (gp, perm_p, ShardedGraph.build(
+                gp, P, starts=starts_p, pair_threshold=16),
+                dict(pair_threshold=16, pair_min_fill=24)),
+            "pairs_monolithic": (gp, perm_p, ShardedGraph.build(
+                gp, P, starts=starts_p, pair_threshold=16),
+                dict(pair_threshold=16, pair_min_fill=24,
+                     pair_stream=False))}
+        for vname, (Gv, perm, sg, opts) in variants.items():
+            if app == "cc":
+                prog, delta = components.make_program(), None
+                if perm is None:
+                    want_v = want
+                else:   # each component's largest id in the new ids
+                    rank = np.empty(G.nv, np.int64)
+                    rank[perm] = np.arange(G.nv)
+                    top = np.full(G.nv, -1, np.int64)
+                    np.maximum.at(top, want, rank)
+                    want_v = top[want[perm]]
+            else:
+                start = v0 if perm is None else relabelled_id(perm, v0)
+                prog = sssp.make_program(start, app == "weighted")
+                delta = sssp.default_delta(Gv) if app == "weighted" \
+                    else None
+                want_v = want if perm is None else want[perm]
+            eng = PushEngine(sg, prog, delta=delta, **opts)
+            if vname == "tiled":
+                require(eng.tiles.needs_scan, "parts push: the tiled "
+                                              "layout must need the "
+                                              "segmented combine")
+            label, active, it, counts, _syncs, sched = converge_counted(
+                torch, eng)
+            got = eng.unpad(label).astype(np.float64)
+            require(np.array_equal(got, np.asarray(want_v, np.float64)),
+                    f"parts push {app}/{vname}: labels differ from the "
+                    f"oracle at {int((got != want_v).sum())} vertices")
+            check_push_launches(eng, counts, sched,
+                                f"parts push {app}/{vname}")
+            out[f"{app}/{vname}"] = {
+                "iterations": it, "dense": sched.count("dense"),
+                "sparse": sched.count("sparse"), "launches": counts,
+                "delta": delta}
+            del eng, label, active
+        torch.cuda.empty_cache()
+    return out
 
 
 def probe_close(torch, name, got, want) -> dict:
@@ -2088,11 +2704,22 @@ def main(argv=None) -> int:
     del g2, sg, want
     b2 = lines["paged"]                 # B2 at the paged path's own rows
     phase_parts(args, torch)
-    pair_counts, kpairs = phase_pairs(args, torch, g, card)
+    g2, perm, starts, t_relabel = pair_relabelled(g)
+    pair_counts, kpairs = phase_pairs(args, torch, g2, starts, t_relabel,
+                                      card)
+    # the probes before the push phases: its torch.profiler count of S7
+    # must be the process's first profiler session (a later session can
+    # see a part of the device events)
     probe_lines = phase_probes(args, torch, g, card)
-    del g
+    push_counts = {}
+    b1_lines["sssp"], push_counts["sssp"] = phase_sssp(
+        args, torch, g, g2, perm, starts, card)
+    del g, g2, perm, starts
+    b1_lines["cc"], push_counts["cc"] = phase_cc(args, torch, card)
     by_path["pairs"] = pair_counts["streamed"]
     by_path["pairs_monolithic"] = pair_counts["monolithic"]
+    for path, n in push_counts.items():
+        by_path[path] = {"chunk_partials": n, "lane_shuffle": 0}
     kline["launches_by_path"] = {k: v["chunk_partials"]
                                  for k, v in by_path.items()}
     # B1 at each row path's own rows, with that path's launches

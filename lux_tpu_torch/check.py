@@ -1,5 +1,8 @@
-"""Correctness audits (counterpart of lux_tpu/check.py:20-91 for
-PageRank): host-side fixed-point checks over the edge list."""
+"""Correctness audits (counterpart of lux_tpu/check.py:20-91):
+host-side fixed-point checks over the edge list.  The reference's
+``-check`` GPU tasks audit only fixed points per part (sssp_gpu.cu:
+773-798, components_gpu.cu:788); device_check.py runs the same
+audits on the engine's device."""
 
 from __future__ import annotations
 
@@ -15,6 +18,10 @@ class CheckResult:
     name: str
     violations: int
     checked: int
+    # device audits report per-part counts, like the reference's
+    # per-part [PASS]/[FAIL] prints (sssp_gpu.cu:837-842)
+    per_part: tuple | None = None
+    unit: str = "vertices"      # what ``checked`` counts
 
     @property
     def ok(self) -> bool:
@@ -22,8 +29,36 @@ class CheckResult:
 
     def __str__(self):
         tag = "PASS" if self.ok else "FAIL"
-        return (f"[{tag}] {self.name}: {self.violations} violations "
-                f"over {self.checked} vertices")
+        s = (f"[{tag}] {self.name}: {self.violations} violations "
+             f"over {self.checked} {self.unit}")
+        if self.per_part is not None and not self.ok:
+            failing = {p: c for p, c in enumerate(self.per_part) if c}
+            s += f" (by part: {failing})"
+        return s
+
+
+def check_sssp(g: Graph, dist: np.ndarray,
+               weighted: bool = False) -> CheckResult:
+    """Fixed point: dist[dst] <= dist[src] + w for every edge
+    (reference sssp_gpu.cu:792-796 with w = 1)."""
+    src, dst = g.edge_arrays()
+    if weighted:
+        w = np.asarray(g.weights, dtype=np.float64)
+        d = np.asarray(dist, dtype=np.float64)
+    else:
+        w = 1
+        d = np.asarray(dist, dtype=np.int64)
+    bad = int(np.count_nonzero(d[dst] > d[src] + w))
+    return CheckResult("sssp triangle inequality", bad, g.ne, unit="edges")
+
+
+def check_components(g: Graph, labels: np.ndarray) -> CheckResult:
+    """Fixed point: labels[dst] >= labels[src] for every edge
+    (reference components_gpu.cu:788)."""
+    src, dst = g.edge_arrays()
+    lab = np.asarray(labels, dtype=np.int64)
+    bad = int(np.count_nonzero(lab[dst] < lab[src]))
+    return CheckResult("components monotonicity", bad, g.ne, unit="edges")
 
 
 def check_pagerank(g: Graph, norm_ranks: np.ndarray,

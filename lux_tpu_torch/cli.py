@@ -5,6 +5,12 @@ lux_tpu/cli.py:69, :116, :165, :557 and :596-689, :864).
                                          [-gather flat|paged|pagemajor]
                                          [-pair T [-min-fill F]]
                                          [-check] [-device cuda|cpu]
+    python -m lux_tpu_torch.cli sssp -file g.lux [-start S] [-weighted]
+                                     [-delta D|auto] [-np N]
+                                     [-gather flat|paged|pagemajor]
+                                     [-pair T [-min-fill F]]
+                                     [-check] [-device cuda|cpu]
+    python -m lux_tpu_torch.cli components -file g.lux [-np N] [...]
     python -m lux_tpu_torch.cli convert -input edges.txt -output g.lux
                                         -nv N [-weighted]
 
@@ -18,6 +24,13 @@ is refused (exit 2) until its cost model is measured on the card.
 tile pairs by pair-lane rows (ops/pairs.py); the ranks go back to the
 input's vertex order before ``-check``.  ``-min-fill auto`` is refused
 (exit 2) like ``-gather auto``.
+
+``sssp`` and ``components`` run the push engine to convergence and
+print ``ELAPSED TIME = ... s (N iterations)`` (one timed converge after
+a warm-up) and GTEPS over the iterations run; ``-start`` is an input
+vertex id, mapped through the relabelling under ``-pair``; ``-check``
+runs the on-device fixed-point audit (device_check.py) on the engine's
+device.  ``components`` expects an undirected (symmetrized) graph.
 """
 
 from __future__ import annotations
@@ -110,6 +123,94 @@ def cmd_pagerank(argv) -> int:
     return 0
 
 
+def _push_app(argv, prog_name) -> int:
+    ap = argparse.ArgumentParser(prog=f"lux_tpu_torch {prog_name}")
+    ap.add_argument("-file", required=True, help=".lux graph file")
+    ap.add_argument("-np", type=int, default=1, help="partitions")
+    ap.add_argument("-check", action="store_true",
+                    help="on-device fixed-point audit (exit 1 on FAIL)")
+    ap.add_argument("-gather", default="flat",
+                    choices=["flat", "paged", "pagemajor", "auto"],
+                    help="dense iterations' delivery (as for pagerank)")
+    ap.add_argument("-pair", type=int, default=None, metavar="T",
+                    help="pair-lane delivery with threshold T on dense "
+                         "iterations (relabels the graph internally)")
+    ap.add_argument("-min-fill", type=_min_fill_arg, default=None,
+                    dest="min_fill", metavar="F",
+                    help="with -pair: drop pair rows with < F live lanes; "
+                         "'auto' is not ported")
+    ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
+    if prog_name == "sssp":
+        ap.add_argument("-start", type=int, default=0,
+                        help="start vertex (input id)")
+        ap.add_argument("-weighted", action="store_true",
+                        help="weighted distances (else hop counts)")
+        ap.add_argument("-delta", default=None,
+                        help="delta-stepping bucket width (a number or "
+                             "'auto'; default: off)")
+    args = ap.parse_args(argv)
+
+    from lux_tpu_torch import device_check
+    from lux_tpu_torch.apps import components, sssp
+    from lux_tpu_torch.format import GraphFormatError
+    from lux_tpu_torch.graph import Graph
+    from lux_tpu_torch.ops.pairs import resolve_min_fill
+    from lux_tpu_torch.timing import timed_converge
+
+    resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
+    weighted = prog_name == "sssp" and args.weighted
+    if not os.path.exists(args.file):
+        print(f"error: graph file not found: {args.file}", file=sys.stderr)
+        return 2
+    try:
+        g = Graph.from_file(args.file, weighted=weighted or None)
+    except GraphFormatError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    num_parts = max(1, args.np)
+    g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
+    opts = dict(num_parts=num_parts, starts=starts, gather=args.gather,
+                pair_threshold=args.pair, pair_min_fill=args.min_fill,
+                device=args.device)
+    if prog_name == "sssp":
+        start = args.start
+        if perm is not None and 0 <= start < g.nv:
+            rank = np.empty(g.nv, np.int64)
+            rank[perm] = np.arange(g.nv)
+            start = int(rank[start])
+        delta = args.delta
+        if delta is not None and delta != "auto":
+            delta = float(delta)
+        eng = sssp.build_engine(g_run, start, weighted=weighted,
+                                delta=delta, **opts)
+    else:
+        eng = components.build_engine(g_run, **opts)
+    labels, iters, [elapsed] = timed_converge(eng)
+    print(f"ELAPSED TIME = {elapsed:.7f} s ({iters} iterations)")
+    if iters > 0:
+        print(f"GTEPS = {g.ne * iters / elapsed / 1e9:.4f}")
+    if args.check:
+        # labels are in g_run's order, which is the engine's; the
+        # fixed-point properties do not depend on the numbering
+        if prog_name == "sssp":
+            res = device_check.check_sssp_device(
+                eng.sg, labels, weighted=weighted, device=args.device)
+        else:
+            res = device_check.check_components_device(
+                eng.sg, labels, device=args.device)
+        print(res)
+        return 0 if res.ok else 1
+    return 0
+
+
+def cmd_sssp(argv) -> int:
+    return _push_app(argv, "sssp")
+
+
+def cmd_components(argv) -> int:
+    return _push_app(argv, "components")
+
+
 def cmd_convert(argv) -> int:
     ap = argparse.ArgumentParser(prog="lux_tpu_torch convert")
     ap.add_argument("-input", required=True, help="text edge list")
@@ -124,7 +225,8 @@ def cmd_convert(argv) -> int:
     return 0
 
 
-_APPS = {"pagerank": cmd_pagerank, "convert": cmd_convert}
+_APPS = {"pagerank": cmd_pagerank, "sssp": cmd_sssp,
+         "components": cmd_components, "convert": cmd_convert}
 
 
 def main(argv=None) -> int:

@@ -97,14 +97,17 @@ def _outside(x: torch.Tensor, hi: int) -> bool:
     return bool(x.numel()) and (int(x.min()) < 0 or int(x.max()) >= hi)
 
 
-def resolve_exchange(exchange: str, sg: ShardedGraph, program) -> str:
+def resolve_exchange(exchange: str, sg: ShardedGraph, program,
+                     itemsize: int | None = None) -> str:
     """'auto' resolves as the reference does: 'owner' once the state
     table passes OWNER_AUTO_BYTES (for programs whose messages depend
-    only on the source), else 'gather'.  Only 'gather' is ported."""
+    only on the source), else 'gather'.  Only 'gather' is ported.
+    ``itemsize``: bytes per vertex of the state (default the program's
+    ``state_bytes``, else 4)."""
     if exchange == "auto":
-        itemsize = program.state_bytes or 4
+        itemsize = itemsize or getattr(program, "state_bytes", None) or 4
         big = sg.num_parts * sg.vpad * itemsize > OWNER_AUTO_BYTES
-        if big and not program.needs_dst:
+        if big and not getattr(program, "needs_dst", False):
             _refuse(f"the owner exchange, which exchange='auto' picks "
                     f"for this {sg.num_parts * sg.vpad * itemsize} B "
                     f"state table (pass exchange='gather'),", "A6")
@@ -143,6 +146,113 @@ def build_graph_arrays(sg: ShardedGraph, layout: str, tile_e: int):
     if sg.weighted:
         arrays["weight"] = lay.chunk(sg.edge_weight)
     return arrays, lay
+
+
+def device_arrays(arrays: dict, device) -> dict:
+    """Host arrays -> tensors on ``device``.  uint32 arrays (the packed
+    slot_lane) ride as int32 with the same bits: torch's uint32 has
+    thin CUDA coverage."""
+    out = {}
+    for k, v in arrays.items():
+        v = np.asarray(v)
+        if v.dtype == np.uint32:
+            v = v.view(np.int32)
+        out[k] = torch.tensor(v, device=device)
+    return out
+
+
+def check_dense_arrays(a: dict, P: int, vpad: int, tiles, pages,
+                       pairs) -> None:
+    """Shapes and index ranges of a dense engine's arrays on the
+    device (tiled, flat or paged, with or without pair rows), checked
+    once: an out-of-range index would fault on the card."""
+    if a["deg"].shape != (P, vpad) or a["nvp"].shape != (P, 1):
+        raise ValueError(f"deg {tuple(a['deg'].shape)} / nvp "
+                         f"{tuple(a['nvp'].shape)} do not match "
+                         f"num_parts={P} vpad={vpad}")
+    if pages is not None:
+        check_paged_arrays(a, P, vpad, pages)
+        return
+    src = a["src_slot"]
+    if _outside(src, P * vpad):
+        raise ValueError(f"src_slot outside the [0, {P * vpad}) state "
+                         f"table")
+    if tiles is not None:
+        shape = (P, tiles.n_chunks, tiles.E)
+        if (tuple(src.shape) != shape
+                or tuple(a["rel_dst"].shape) != shape
+                or a["rel_dst"].dtype != torch.int8
+                or tuple(a["last_chunk"].shape) != (P, tiles.n_tiles)):
+            raise ValueError(
+                f"tiled arrays do not match [P, C, E] = {shape} / "
+                f"last_chunk [P, n_tiles={tiles.n_tiles}] int8 rel")
+        if pairs is not None:
+            check_pair_arrays(a, P, vpad, pairs)
+
+
+def flat_segments(dst_local: torch.Tensor, vpad: int) -> torch.Tensor:
+    """The flat oracle's segment ids: one segment space for all parts,
+    with each part's trash row vpad kept apart."""
+    P = dst_local.shape[0]
+    base = torch.arange(P, device=dst_local.device)[:, None] * (vpad + 1)
+    return (dst_local.to(torch.int64) + base).reshape(-1)
+
+
+def check_paged_arrays(a: dict, P: int, vpad: int, pp) -> None:
+    """Shapes and index ranges of an engine's paged arrays ``a`` (on
+    the device), checked once: an out-of-range index would fault on
+    the card."""
+    ids, sl, rel, tp = (a[k] for k in PAGED_KEYS)
+    Rg = sl.shape[1] if sl.dim() == 3 else -1
+    vrs = a.get("pg_vrs")
+    w = a.get("pg_w")
+    ok = (ids.dim() == 2 and ids.shape[0] == P
+          and tuple(sl.shape) == (P, Rg, W) and sl.dtype == torch.int32
+          and tuple(rel.shape) == (P, pp.Rp, W)
+          and rel.dtype == torch.int8
+          and tuple(tp.shape) == (P, pp.n_tiles)
+          and pp.n_tiles * W == vpad
+          and sum(c * L for c, L in pp.classes) == pp.R <= pp.Rp
+          and (w is None or tuple(w.shape) == (P, pp.Rp, W))
+          and (tuple(vrs.shape) == (P, pp.Rp) if vrs is not None
+               else Rg == pp.Rp))
+    if not ok:
+        raise ValueError(
+            f"paged arrays do not match the plan geometry {pp} "
+            f"(num_parts={P}, vpad={vpad})")
+
+    if (_outside(ids, P * vpad // W)
+            or _outside(row_slots(sl), ids.shape[1])
+            or _outside(tp, pp.n_slots + 1)
+            or (vrs is not None and _outside(vrs, Rg))):
+        raise ValueError("paged arrays index outside the state table, "
+                         "the page list, the class slots or the "
+                         "gather rows")
+
+
+def check_pair_arrays(a: dict, P: int, vpad: int, sp) -> None:
+    """Shapes and index ranges of an engine's pair arrays ``a`` (on the
+    device), checked once: an out-of-range rowbind or tile_pos would
+    fault on the card."""
+    rb, rel, tp = (a[k] for k in PAIR_KEYS)
+    w = a.get("pair_weight")
+    ok = (tuple(rb.shape) == (P, sp.Rp) and rb.dtype == torch.int32
+          and tuple(rel.shape) == (P, sp.Rp, W)
+          and rel.dtype == torch.int8
+          and tuple(tp.shape) == (P, sp.n_tiles)
+          and sp.n_tiles * W == vpad
+          and sum(c * L for c, L in sp.classes) == sp.R <= sp.Rp
+          and sum(c for c, _L in sp.classes) == sp.n_slots
+          and (w is None or tuple(w.shape) == (P, sp.Rp, W)))
+    if not ok:
+        raise ValueError(
+            f"pair arrays do not match the plan geometry (classes "
+            f"{len(sp.classes)}, R={sp.R}, Rp={sp.Rp}, n_tiles="
+            f"{sp.n_tiles}, n_slots={sp.n_slots}; num_parts={P}, "
+            f"vpad={vpad})")
+    if _outside(rb, P * vpad // W) or _outside(tp, sp.n_slots + 1):
+        raise ValueError("pair arrays index outside the state table "
+                         "or the class slots")
 
 
 class PullEngine:
@@ -254,101 +364,16 @@ class PullEngine:
         missing = [k for k in need if k not in arrays]
         if missing:
             raise KeyError(f"graph arrays lack {missing}")
-        # uint32 arrays (the packed slot_lane) ride as int32 with the
-        # same bits: torch's uint32 has thin CUDA coverage
-        self.arrays = {}
-        for k, v in arrays.items():
-            v = np.asarray(v)
-            if v.dtype == np.uint32:
-                v = v.view(np.int32)
-            self.arrays[k] = torch.tensor(v, device=device)
+        self.arrays = device_arrays(arrays, device)
         a, P = self.arrays, self.num_parts
-        if a["deg"].shape != (P, self.vpad) or a["nvp"].shape != (P, 1):
-            raise ValueError(f"deg {tuple(a['deg'].shape)} / nvp "
-                             f"{tuple(a['nvp'].shape)} do not match "
-                             f"num_parts={P} vpad={self.vpad}")
+        check_dense_arrays(a, P, self.vpad, tiles, pages, pairs)
         if pages is not None:
-            self._check_paged()
             return
-        src = a["src_slot"]
-        if src.numel() and (int(src.min()) < 0
-                            or int(src.max()) >= P * self.vpad):
-            raise ValueError(f"src_slot outside the [0, {P * self.vpad}) "
-                             f"state table")
-        self._src = src.reshape(-1)
+        self._src = a["src_slot"].reshape(-1)
         if tiles is not None:
-            shape = (P, tiles.n_chunks, tiles.E)
-            if (tuple(src.shape) != shape
-                    or tuple(a["rel_dst"].shape) != shape
-                    or a["rel_dst"].dtype != torch.int8
-                    or tuple(a["last_chunk"].shape) != (P, tiles.n_tiles)):
-                raise ValueError(
-                    f"tiled arrays do not match [P, C, E] = {shape} / "
-                    f"last_chunk [P, n_tiles={tiles.n_tiles}] int8 rel")
             self._plan = segment_plan(a["chunk_start"], a["last_chunk"])
-            if pairs is not None:
-                self._check_pairs()
         else:
-            # flat oracle: one segment space for all parts, with each
-            # part's trash row vpad kept apart
-            base = torch.arange(P, device=device)[:, None] * (self.vpad + 1)
-            self._seg = (a["dst_local"].to(torch.int64) + base).reshape(-1)
-
-    def _check_paged(self):
-        """Shapes and index ranges of the paged arrays, checked once:
-        an out-of-range index would fault on the card."""
-        a, P, pp = self.arrays, self.num_parts, self.page_plan
-        ids, sl, rel, tp = (a[k] for k in PAGED_KEYS)
-        Rg = sl.shape[1] if sl.dim() == 3 else -1
-        vrs = a.get("pg_vrs")
-        w = a.get("pg_w")
-        ok = (ids.dim() == 2 and ids.shape[0] == P
-              and tuple(sl.shape) == (P, Rg, W) and sl.dtype == torch.int32
-              and tuple(rel.shape) == (P, pp.Rp, W)
-              and rel.dtype == torch.int8
-              and tuple(tp.shape) == (P, pp.n_tiles)
-              and pp.n_tiles * W == self.vpad
-              and sum(c * L for c, L in pp.classes) == pp.R <= pp.Rp
-              and (w is None or tuple(w.shape) == (P, pp.Rp, W))
-              and (tuple(vrs.shape) == (P, pp.Rp) if vrs is not None
-                   else Rg == pp.Rp))
-        if not ok:
-            raise ValueError(
-                f"paged arrays do not match the plan geometry {pp} "
-                f"(num_parts={P}, vpad={self.vpad})")
-
-        if (_outside(ids, P * self.vpad // W)
-                or _outside(row_slots(sl), ids.shape[1])
-                or _outside(tp, pp.n_slots + 1)
-                or (vrs is not None and _outside(vrs, Rg))):
-            raise ValueError("paged arrays index outside the state table, "
-                             "the page list, the class slots or the "
-                             "gather rows")
-
-    def _check_pairs(self):
-        """Shapes and index ranges of the pair arrays, checked once: an
-        out-of-range rowbind or tile_pos would fault on the card."""
-        a, P, sp = self.arrays, self.num_parts, self.pairs
-        rb, rel, tp = (a[k] for k in PAIR_KEYS)
-        w = a.get("pair_weight")
-        ok = (tuple(rb.shape) == (P, sp.Rp) and rb.dtype == torch.int32
-              and tuple(rel.shape) == (P, sp.Rp, W)
-              and rel.dtype == torch.int8
-              and tuple(tp.shape) == (P, sp.n_tiles)
-              and sp.n_tiles * W == self.vpad
-              and sum(c * L for c, L in sp.classes) == sp.R <= sp.Rp
-              and sum(c for c, _L in sp.classes) == sp.n_slots
-              and (w is None or tuple(w.shape) == (P, sp.Rp, W)))
-        if not ok:
-            raise ValueError(
-                f"pair arrays do not match the plan geometry (classes "
-                f"{len(sp.classes)}, R={sp.R}, Rp={sp.Rp}, n_tiles="
-                f"{sp.n_tiles}, n_slots={sp.n_slots}; num_parts={P}, "
-                f"vpad={self.vpad})")
-        if (_outside(rb, P * self.vpad // W)
-                or _outside(tp, sp.n_slots + 1)):
-            raise ValueError("pair arrays index outside the state table "
-                             "or the class slots")
+            self._seg = flat_segments(a["dst_local"], self.vpad)
 
     # -- state --------------------------------------------------------
 

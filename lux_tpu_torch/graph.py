@@ -1,7 +1,7 @@
 """Host graph and the padded part-major layout (counterpart of
 lux_tpu/graph.py:43 ``_check_partition_starts``, :69 ``Graph``, :198
-``degree_relabel``, :213 ``pair_relabel`` and :364-517
-``ShardedGraph``).
+``degree_relabel``, :213 ``pair_relabel``, :364-517 ``ShardedGraph``
+and :615-690, its src-sorted push view).
 
 ``ShardedGraph.build`` does all index translation once on the host so
 the per-iteration device work is nothing but gathers and reductions:
@@ -228,6 +228,12 @@ class ShardedGraph:
     vmask: np.ndarray         # bool [num_parts, vpad] valid-vertex mask
     deg_padded: np.ndarray    # int32 [num_parts, vpad] out-degrees, padded
     weighted: bool = False
+    # max out-degree over the whole graph
+    max_out_degree: int = 0
+    # the src-sorted view, built once (_src_sorted_raw); not an init
+    # field, so dataclasses.replace (the pair residual) starts empty
+    _src_sorted_cache: tuple | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @classmethod
     def build(cls, g: Graph, num_parts: int,
@@ -320,7 +326,8 @@ class ShardedGraph:
                    src_slot=src_slot, dst_local=dst_local,
                    edge_weight=edge_weight, row_ptr_local=row_ptr_local,
                    vmask=vmask, deg_padded=deg_padded,
-                   weighted=g.weights is not None)
+                   weighted=g.weights is not None,
+                   max_out_degree=int(g.out_degrees.max(initial=0)))
 
     def to_padded(self, x: np.ndarray) -> np.ndarray:
         """[nv, ...] user order -> [num_parts, vpad, ...] padded."""
@@ -343,3 +350,75 @@ class ShardedGraph:
             v0, v1 = int(self.starts[p]), int(self.starts[p + 1])
             out[v0:v1] = x[p, :v1 - v0]
         return out
+
+    # ---- push-model (src-sorted) edge view ---------------------------
+
+    def _src_sorted_raw(self):
+        """Per-part src-sort + unique-source compression (host, once):
+        (ids, END offsets, dsts, weights) lists by part and the max
+        edges of one source within a part."""
+        if self._src_sorted_cache is None:
+            ids_l, off_l, dst_l, w_l = [], [], [], []
+            max_deg = 0
+            for p in range(self.num_parts):
+                nep = int(self.ne_part[p])
+                # global source of each real edge: invert the
+                # part-major slot translation
+                slot = self.src_slot[p, :nep].astype(np.int64)
+                sp = slot // self.vpad
+                src = self.starts[sp] + (slot - sp * self.vpad)
+                order = np.argsort(src, kind="stable")
+                uniq, counts = np.unique(src[order], return_counts=True)
+                if counts.size:
+                    max_deg = max(max_deg, int(counts.max()))
+                ids_l.append(uniq.astype(np.int32))
+                off_l.append(np.concatenate(
+                    ([0], np.cumsum(counts))).astype(np.int32))
+                dst_l.append(self.dst_local[p, :nep][order])
+                w_l.append(self.edge_weight[p, :nep][order]
+                           if self.weighted else None)
+            self._src_sorted_cache = (ids_l, off_l, dst_l, w_l, max_deg)
+        return self._src_sorted_cache
+
+    def src_unique_max(self) -> int:
+        """Max unique-source count over the parts (the compressed
+        source index's pad size)."""
+        return max((len(u) for u in self._src_sorted_raw()[0]),
+                   default=1) or 1
+
+    def max_in_deg(self) -> int:
+        """Max edges of one source within a part."""
+        return self._src_sorted_raw()[4]
+
+    def src_sorted(self, s_pad: int | None = None) -> dict:
+        """Per-part edges re-sorted by GLOBAL source id, with a
+        compressed source index: only sources with an edge in the part
+        are stored (sorted ids + END offsets), binary-searched when a
+        frontier is expanded (engine/frontier.expand_frontier).
+
+        Returns numpy arrays: src_ids int32 [P, S] (pad nv), src_off
+        int32 [P, S+1] END offsets (pad repeats), ss_dst int32 [P,
+        epad] (pad vpad), ss_weight float32 [P, epad] or None, and
+        max_in_deg."""
+        ids_l, off_l, dst_l, w_l, max_deg = self._src_sorted_raw()
+        R = len(ids_l)
+        need = max((len(u) for u in ids_l), default=0)
+        S = max(1, need if s_pad is None else int(s_pad))
+        if S < need:
+            raise ValueError(f"s_pad={s_pad} < max unique sources {need}")
+        src_ids = np.full((R, S), self.nv, dtype=np.int32)
+        src_off = np.zeros((R, S + 1), dtype=np.int32)
+        ss_dst = np.full((R, self.epad), self.vpad, dtype=np.int32)
+        ss_weight = (np.zeros((R, self.epad), dtype=np.float32)
+                     if self.weighted else None)
+        for r in range(R):
+            u, off = ids_l[r], off_l[r]
+            src_ids[r, :len(u)] = u
+            src_off[r, :len(u) + 1] = off
+            src_off[r, len(u) + 1:] = off[-1]
+            nep = len(dst_l[r])
+            ss_dst[r, :nep] = dst_l[r]
+            if ss_weight is not None:
+                ss_weight[r, :nep] = w_l[r]
+        return dict(src_ids=src_ids, src_off=src_off, ss_dst=ss_dst,
+                    ss_weight=ss_weight, max_in_deg=max_deg)

@@ -644,8 +644,11 @@ def _row_partials(flat_state, rowbind, rel, weight, kind, msg_fn):
     vals = torch.index_select(flat_state.reshape(-1, W), 0,
                               rowbind.reshape(-1).to(torch.int64))
     msgs = msg_fn(vals.view(P, n, W), weight)
+    # a block's slice of several parts' rows is a view the kernel cannot
+    # take (one row a part merges into strides (Rp*W, 1))
     return chunk_partials(msgs.reshape(-1, W).contiguous(),
-                          rel.reshape(-1, W), W, kind).view(P, n, W)
+                          rel.reshape(-1, W).contiguous(), W,
+                          kind).view(P, n, W)
 
 
 def pair_partial(sp, flat_state, rowbind, rel, weight, tile_pos,

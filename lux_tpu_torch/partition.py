@@ -1,5 +1,6 @@
-"""Edge-balanced contiguous vertex partitioning (counterpart of
-lux_tpu/partition.py:20, :58 and :108).
+"""Edge-balanced contiguous vertex partitioning and the push engine's
+queue sizing (counterpart of lux_tpu/partition.py:20, :58, :108 and
+:118).
 
 Cut point p is the smallest vertex whose cumulative in-edge count
 reaches ``p * ne / num_parts`` — a quantile search over the CSC
@@ -94,3 +95,10 @@ def part_edge_counts(row_ptrs, starts) -> np.ndarray:
     begins[0] = 0
     begins[1:] = ends[:-1]
     return ends - begins
+
+
+def frontier_capacity(part_nv: int, sparse_threshold: int = 16,
+                      slack: int = 100) -> int:
+    """Sparse-frontier queue slots of a part: the reference's sizing
+    rule ``part_nv / SPARSE_THRESHOLD + 100`` (push_model.inl:393-397)."""
+    return part_nv // sparse_threshold + slack

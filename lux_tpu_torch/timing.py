@@ -1,6 +1,6 @@
 """Timed runs with completion fences (counterpart of
-lux_tpu/timing.py:51 ``fence``, :69 ``loop_bench`` and :113
-``timed_fused_run``), and ``median_mad``.
+lux_tpu/timing.py:51 ``fence``, :69 ``loop_bench``, :113
+``timed_fused_run`` and :174 ``timed_converge``), and ``median_mad``.
 
 PyTorch returns before the card finishes, so a host clock without a
 fence measures the enqueue.  On the card a run is timed with CUDA
@@ -46,6 +46,27 @@ def timed_fused_run(eng, num_iters: int):
     t0 = time.perf_counter()
     state = eng.run(state, num_iters)
     return state, time.perf_counter() - t0
+
+
+def timed_converge(eng, max_iters=None, repeats: int = 1):
+    """Warm up a push engine with one untimed converge, then time
+    ``repeats`` converges, each from a fresh ``init_state`` whose
+    upload is fenced outside the timed region.  A converge reads a
+    count to the host every iteration, so its host wall time, fenced
+    at the end, is the run's time.  Returns (labels [nv] host,
+    iterations, [seconds per repeat])."""
+    dev = eng.device
+    eng.converge(*eng.init_state(), max_iters)
+    fence(dev)
+    elapsed = []
+    for _ in range(repeats):
+        label, active = eng.init_state()
+        fence(dev)
+        t0 = time.perf_counter()
+        label, _active, it = eng.converge(label, active, max_iters)
+        fence(dev)
+        elapsed.append(time.perf_counter() - t0)
+    return eng.unpad(label), it, elapsed
 
 
 def median_mad(xs):

@@ -53,7 +53,7 @@ def test_pagerank_default_device_refuses_without_cuda(lux_file, capsys):
 def test_missing_file_and_unknown_app(tmp_path, capsys):
     assert cli.main(["pagerank", "-file", str(tmp_path / "none.lux"),
                      "-device", "cpu"]) == 2
-    assert cli.main(["sssp"]) == 2
+    assert cli.main(["nosuchapp"]) == 2
 
 
 @pytest.mark.parametrize("weighted", [False, True])
