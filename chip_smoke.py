@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch / H100 port starts on the card.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py                    # every phase, one card
 
 Phases, each printing one JSON line:
 
@@ -63,7 +63,12 @@ Phases, each printing one JSON line:
             symmetrized graph, each over the tiled layout, paged,
             page-major and pair rows streamed and monolithic, labels
             bit-equal to the oracle, kernels launched only by dense
-            iterations (B2 once each on the paged paths);
+            iterations (B2 once each on the paged paths); then
+            colfilter (R-MAT 18, ef 16, weighted) with 4 parts tiled (E
+            128), flat, pair rows monolithic and streamed and paged,
+            each within rtol 1e-5 of the float64 oracle with no hand
+            kernel launched, and page-major refused with the
+            reference's ValueError;
 10. pairs   bench.py's pagerank config on the main graph: pair_relabel,
             pair_threshold 16, min_fill 24, tile_e 128, through
             pagerank.build_engine once with each pair_stream setting
@@ -147,7 +152,23 @@ Phases, each printing one JSON line:
             symmetrized, pair_relabel, pair_threshold 16, min_fill 24,
             one part, through components.build_engine(...); the same
             checks with max, labels bit-equal to scipy's components
-            (each one's largest relabelled id) (chunk_partials@cc).
+            (each one's largest relabelled id) (chunk_partials@cc);
+14. colfilter bench.py's colfilter config (bench.py:1012-1033): R-MAT 16,
+            ef 128, seed --seed, weights 1..5; (a) pair_relabel,
+            threshold 16, min_fill 22 (what the reference resolves
+            "auto" to at K = 20), tile_e 128, pair rows monolithic (the
+            default by the 1 GB rule) and streamed; (b) no pairs, tile_e
+            512; (c) gather="paged" on the degree-relabelled graph; each
+            through colfilter.build_engine and run, 10 iterations: TF32
+            off, the state within rtol 1e-5, atol 1e-8 of the float64
+            oracle, three runs bit-equal, B1 and B2 launched 0 times,
+            both audits at 0 (RMSE does not rise), the reduce from a
+            state in {-1, 0, 1} bit-equal to the int64 oracle; times,
+            GTEPS, host enqueue, peak memory, set-up seconds, per-layer
+            device ms (fetch, D, lane select, messages, one-hot reduce,
+            combine_chunks, class combine, apply), device launches an
+            iteration (torch.profiler) and the step at the default
+            blocks (1 GB of D a block) against the reference's.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -1051,11 +1072,12 @@ def phase_parts(args, torch):
             "max_rel_err": err, "launches": pcounts}
     del peng
     push = parts_push(args, torch, g)
+    cf = parts_colfilter(args, torch)
     emit({"phase": "parts", "nv": g.nv, "ne": g.ne, "num_parts": 4,
           "tile_e": 128, "chunks": eng.num_parts * eng.tiles.n_chunks,
           "iters": args.iters, "max_rel_err": float(rel_err.max()),
           "chunk_partials_launches": launches, "paged": paged,
-          "pairs": pairs, "push": push})
+          "pairs": pairs, "push": push, "colfilter": cf})
 
 
 def b1_step_paths(rel, W) -> dict:
@@ -1510,6 +1532,19 @@ def kernel_rows(prof, calls: int) -> list:
         if us > 0:
             rows.append([e.key[:80], us / calls / 1e3])
     return sorted(rows, key=lambda r: -r[1])
+
+
+def device_events(prof) -> int:
+    """How many device activities (kernels, copies, fills) a
+    torch.profiler run recorded."""
+    n = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            n += e.count
+    return n
 
 
 def converge_profile(torch, eng, wall_ms: float) -> dict:
@@ -2661,6 +2696,436 @@ def phase_probes(args, torch, g, card):
     return lines
 
 
+# ---------------------------------------------------------------------
+# colfilter: bench.py's colfilter config on the dot path (no hand kernel)
+# ---------------------------------------------------------------------
+
+# bench.py's colfilter config: R-MAT scale 16, edge factor 128
+# (DEFAULT_SHAPE, bench.py:105-112), weights 1..5 (bench.py:198-200),
+# pair threshold 16 and min_fill "auto" (bench.py:1381-1383), which the
+# reference resolves to 22 at K = 20 (lux_tpu/ops/pairs.py:160-168); the
+# port refuses "auto" (ROADMAP A10), so the run passes 22
+CF_SCALE, CF_EF, CF_MIN_FILL = 16, 128, 22
+CF_TOL = dict(rtol=1e-5, atol=1e-8)     # __graft_entry__.py:76
+# the reference's TPU blocks, timed against the port's default (1 GB of
+# the [B, E, W] dot intermediate D a block, ops/dot.DOT_BLOCK_BYTES):
+# chunks (lux_tpu/engine/pull.py:48) and rows (lux_tpu/ops/pairs.py:843)
+REF_DOT_BLOCKS = (128, 256)
+
+
+def weighted_rmat(scale: int, ef: int, seed: int):
+    """bench.py's weighted graph (bench.py:191-203): R-MAT from
+    ``seed``, weights ``default_rng(1).integers(1, 6)`` int32 in CSR
+    order."""
+    from lux_tpu_torch.convert import rmat_graph
+    g = rmat_graph(scale, ef, seed=seed)
+    g.weights = np.random.default_rng(1).integers(
+        1, 6, size=g.ne).astype(np.int32)
+    return g
+
+
+def require_full_fp32(torch, what: str) -> dict:
+    """The dot path's matmuls must run in full f32: TF32 would break
+    the reference's rtol 1e-5."""
+    flags = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "float32_matmul_precision":
+                 torch.get_float32_matmul_precision()}
+    require(flags["allow_tf32"] is False
+            and flags["float32_matmul_precision"] == "highest",
+            f"{what}: TF32 is enabled ({flags})")
+    return flags
+
+
+def cf_blocks(eng, state):
+    """The engine's dot blocks of one iteration, for the layer timing:
+    (tiled-chunk blocks, pair-row blocks (each with its S, L when
+    streamed), paged-row blocks, and the thunk that builds the paged
+    blocks, which fetches the unique pages)."""
+    from lux_tpu_torch.ops.pagegather import paged_dot_blocks
+    from lux_tpu_torch.ops.pairs import pair_dot_blocks, pair_dot_stream_units
+    a = eng.arrays
+    flat = state.reshape(-1, state.shape[-1])
+    chunk = eng.dot_chunk_blocks(state) if eng.tiles is not None else []
+    pairs = []
+    if eng.pairs is not None:
+        args = (flat, a["pair_rowbind"], a["pair_rel"], a["pair_weight"],
+                a["pair_row_tile"], a["pair_tile0"])
+        if eng.pair_dot_stream:
+            pairs = pair_dot_stream_units(*args, eng.pairs.classes)
+        else:
+            pairs = [(b, None, None) for b in
+                     pair_dot_blocks(*args, eng.dot_block_rows)]
+    paged_thunk = None
+    if eng.page_plan is not None:
+        def paged_thunk():
+            return paged_dot_blocks(flat, a["pg_ids"], a["pg_sl"],
+                                    a["pg_rel"], a["pg_w"], a["pg_rt"],
+                                    a["pg_t0"], eng.dot_block_rows)
+    return chunk, pairs, paged_thunk
+
+
+def dot_stage_ms(args, torch, blocks, fn, prefix: str) -> tuple:
+    """Device ms of each stage of the SDDMM step over ``blocks`` (one
+    iteration's blocks of one delivery), each stage timed alone as a
+    loop over every block on the previous stage's outputs: the row /
+    tile fetch, D = S @ T^T, the lane select, the messages and the
+    one-hot reduce.  Returns (times, the blocks' partials)."""
+    from lux_tpu_torch.ops.dot import lane_select, onehot_sum
+    reps = max(3, args.reps // 4)
+    ST = [b.fetch() for b in blocks]
+    W = ST[0][1].shape[1]
+
+    def dmat():
+        return [torch.bmm(S, T.transpose(1, 2)) for S, T in ST]
+
+    Ds = dmat()
+
+    def select():
+        return [lane_select(D, b.rel) for D, b in zip(Ds, blocks)]
+
+    dots = select()
+    out = {f"{prefix}fetch_ms": cuda_ms(lambda: [b.fetch() for b in blocks],
+                                        reps),
+           f"{prefix}dot_matmul_ms": cuda_ms(dmat, reps),
+           f"{prefix}lane_select_ms": cuda_ms(select, reps)}
+    Ds.clear()
+
+    def msgs_fn():
+        return [fn(S, d, b.weight) for (S, _T), d, b in zip(ST, dots,
+                                                             blocks)]
+
+    msgs = msgs_fn()
+    out[f"{prefix}messages_ms"] = cuda_ms(msgs_fn, reps)
+    out[f"{prefix}onehot_reduce_ms"] = cuda_ms(
+        lambda: [onehot_sum(m, b.rel, W) for m, b in zip(msgs, blocks)],
+        reps)
+    parts = [onehot_sum(m, b.rel, W) for m, b in zip(msgs, blocks)]
+    out[f"{prefix}blocks"] = len(blocks)
+    return out, parts
+
+
+def cf_layers(args, torch, eng) -> dict:
+    """Device ms of each layer of one colfilter iteration on the
+    engine's own arrays and blocks: per delivery the fetch, D, lane
+    select, messages and one-hot reduce (ops/dot.py, summed over the
+    blocks), then combine_chunks, the class combine, the pair merge and
+    apply; the whole step, its host enqueue and its device launches
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lux_tpu_torch.ops.pairs import W, class_combine, fold_stream_slots
+    from lux_tpu_torch.ops.tiled import combine_partials
+    a, reps = eng.arrays, args.reps
+    state = eng.init_state()
+    P, K = eng.num_parts, state.shape[-1]
+    fn = eng.program.edge_value_from_dot
+    chunk, pairs, paged_thunk = cf_blocks(eng, state)
+    out, red = {}, None
+    if chunk:
+        times, parts = dot_stage_ms(args, torch, chunk, fn, "chunk_")
+        out.update(times)
+        partials = torch.cat(parts)
+        out["combine_chunks_ms"] = cuda_ms(lambda: combine_partials(
+            partials, eng.tiles, a["chunk_start"], a["last_chunk"],
+            eng.vpad, "sum", eng._plan), reps)
+        red = combine_partials(partials, eng.tiles, a["chunk_start"],
+                               a["last_chunk"], eng.vpad, "sum", eng._plan)
+        del partials, parts
+    geo, rows = None, None
+    if pairs:
+        geo, tp = eng.pairs, a["pair_tile_pos"]
+        times, parts = dot_stage_ms(args, torch, [b for b, _S, _L in pairs],
+                                    fn, "pair_")
+        out.update(times)
+        if eng.pair_dot_stream:
+            def combine():
+                return fold_stream_slots(
+                    geo, ((p, S, L) for p, (_b, S, L) in zip(parts, pairs)),
+                    tp, K, torch.float32, state.device)
+        else:
+            rows = torch.cat(parts).view(P, geo.Rp, W, K)[:, :geo.R]
+
+            def combine():
+                return class_combine(geo, rows, tp, "sum")
+        out["class_combine_ms"] = cuda_ms(combine, reps)
+        pred = combine().reshape(P, -1, K)[:, :eng.vpad]
+        out["pair_merge_ms"] = cuda_ms(lambda: red + pred, reps)
+        red = red + pred
+        del parts, rows
+    if paged_thunk is not None:
+        geo = eng.page_plan
+        out["page_fetch_ms"] = cuda_ms(paged_thunk, reps)
+        times, parts = dot_stage_ms(args, torch, paged_thunk(), fn, "paged_")
+        out.update(times)
+        rows = torch.cat(parts).view(P, geo.Rp, W, K)[:, :geo.R]
+        tp = a["pg_tp"]
+        out["class_combine_ms"] = cuda_ms(
+            lambda: class_combine(geo, rows, tp, "sum"), reps)
+        red = class_combine(geo, rows, tp, "sum").reshape(
+            P, -1, K)[:, :eng.vpad]
+        del parts, rows
+    out["apply_ms"] = cuda_ms(lambda: eng._apply_epilogue(state, red), reps)
+    out["reduced_ms"] = cuda_ms(lambda: eng.reduced(state), reps)
+    out["step_ms"] = cuda_ms(lambda: eng.step(state), reps)
+    out["step_host_ms"] = host_ms(torch, lambda: eng.step(state), 5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.step(state)
+        torch.cuda.synchronize()
+    rows_p = kernel_rows(prof, 1)
+    out["device_events_per_iter"] = device_events(prof)
+    out["profiled_device_ms"] = sum(r[1] for r in rows_p)
+    out["top"] = rows_p[:8]
+    return out
+
+
+def cf_block_sweep(args, torch, eng) -> list:
+    """The step's device ms, host enqueue ms and peak memory at the
+    engine's default blocks and at the reference's (REF_DOT_BLOCKS;
+    streamed pair rows keep their default live-bytes budget), the
+    engine's own sizes restored after."""
+    keep = (eng.dot_block_chunks, eng.dot_block_rows)
+    state = eng.init_state()
+    out = []
+    for label, sizes in (("default", keep),
+                         ("reference", (REF_DOT_BLOCKS[0] if eng.tiles
+                                        is not None else keep[0],
+                                        REF_DOT_BLOCKS[1]))):
+        eng.dot_block_chunks, eng.dot_block_rows = sizes
+        eng.step(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: eng.step(state), 5)
+        out.append({"blocks": label, "block_chunks": sizes[0],
+                    "block_rows": sizes[1], "step_ms": ms,
+                    "step_host_ms": host_ms(torch, lambda: eng.step(state),
+                                            3),
+                    "peak_bytes": int(torch.cuda.max_memory_allocated())})
+    eng.dot_block_chunks, eng.dot_block_rows = keep
+    return out
+
+
+def run_cf_config(args, torch, eng, g, sg, want, int_case, name, card,
+                  extra) -> dict:
+    """Drive one colfilter engine through ``run`` and hold it to
+    everything: the float64 oracle ``want`` at CF_TOL, two runs
+    bit-equal, no hand kernel launched, both audits at 0 (RMSE does not
+    rise), the integer-valued reduce bit-equal to the int64 oracle
+    (``int_case`` = (state, reduce) in the engine's ids); then its
+    times, layers and block-size sweep.  Returns its launch counts."""
+    from lux_tpu_torch import check, device_check
+    from lux_tpu_torch.apps import colfilter
+    flags = require_full_fp32(torch, name)
+    state, secs, counts, peak, host_s = timed_run(torch, eng, args.iters)
+    require(counts == {"chunk_partials": 0, "lane_shuffle": 0},
+            f"{name}: the dot path launched {counts} (want no hand "
+            f"kernel)")
+    got = eng.unpad(state)
+    require(got.shape == (g.nv, colfilter.K) and np.isfinite(got).all(),
+            f"{name}: state is not finite [nv, K]")
+    rel_err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    require(np.allclose(got, want, **CF_TOL),
+            f"{name}: disagrees with the float64 oracle (max rel err "
+            f"{rel_err.max():.3e})")
+    repeats = []
+    for _ in range(2):
+        again, r_secs, _c, _p, r_host = timed_run(torch, eng, args.iters)
+        require(same_bits(again, state), f"{name}: two runs differ")
+        repeats.append({"ms_per_iter": r_secs * 1e3 / args.iters,
+                        "host_enqueue_ms_per_iter":
+                            r_host * 1e3 / args.iters})
+    del again
+    host = check.check_colfilter(g, got)
+    dev = device_check.DeviceChecker(sg).colfilter(state)
+    require(host.ok and dev.ok, f"{name}: audits {host} / {dev}")
+    rmse = [colfilter.rmse(g, np.full((g.nv, colfilter.K),
+                                      np.sqrt(1 / colfilter.K))),
+            colfilter.rmse(g, got)]
+    st, red_want = int_case
+    red = eng.unpad(eng.reduced(colfilter.to_state(eng, st)))
+    require(np.array_equal(red, red_want.astype(np.float32))
+            and np.abs(red_want).max() < 2 ** 24,
+            f"{name}: the integer-valued reduce differs from the int64 "
+            f"oracle at {int((red != red_want).any(axis=1).sum())} "
+            f"vertices")
+    del state
+    layers = cf_layers(args, torch, eng)
+    sweep = cf_block_sweep(args, torch, eng)
+    emit({"phase": "colfilter", "config": name, "nv": g.nv, "ne": g.ne,
+          "iters": args.iters, "seconds": secs,
+          "ms_per_iter": secs * 1e3 / args.iters,
+          "host_enqueue_ms_per_iter": host_s * 1e3 / args.iters,
+          "gteps": g.ne * args.iters / secs / 1e9,
+          "gteps_note": "ne x iterations / CUDA-event seconds of the run",
+          "repeats": repeats, "peak_bytes": int(peak),
+          "engine_bytes": int(sum(t.numel() * t.element_size()
+                                  for t in eng.arrays.values())),
+          "max_rel_err": float(rel_err.max()), "tolerance": CF_TOL,
+          "bit_equal_runs": 3, "launches": counts, "fp32": flags,
+          "audit_host": str(host), "audit_device": str(dev),
+          "rmse_init_final": rmse,
+          "int_reduce": {"bit_equal": True,
+                         "max_abs": int(np.abs(red_want).max())},
+          "block_chunks": eng.dot_block_chunks,
+          "block_rows": eng.dot_block_rows,
+          "pair_dot_stream": eng.pair_dot_stream,
+          "layers": layers, "block_sweep": sweep,
+          "host_peak_rss_bytes":
+              resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+          **extra, "card": card})
+    return counts
+
+
+def phase_colfilter(args, torch, card) -> dict:
+    """bench.py's colfilter config (bench.py:1012-1033) on R-MAT 16, ef
+    128, seed --seed, weighted: (a) pair_relabel, threshold 16,
+    min_fill 22, tile_e 128, pair rows monolithic (the default here)
+    and streamed; (b) no pairs, tile_e 512; (c) gather="paged" on the
+    degree-relabelled, 128-aligned graph.  Returns launches by path."""
+    from lux_tpu_torch.apps import colfilter
+    from lux_tpu_torch.graph import ShardedGraph, degree_relabel, pair_relabel
+    t0 = time.perf_counter()
+    g = weighted_rmat(CF_SCALE, CF_EF, args.seed)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = colfilter.reference_colfilter(g, args.iters).astype(np.float32)
+    t_oracle = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    int_state = np.random.default_rng(args.seed).integers(
+        -1, 2, (g.nv, colfilter.K)).astype(np.float32)
+    int_red = colfilter.reduced_int64(g, int_state)
+    t_int = time.perf_counter() - t0
+    deg = g.in_degrees()
+    common = {"scale": CF_SCALE, "edge_factor": CF_EF, "seed": args.seed,
+              "graph_seconds": round(t_graph, 3),
+              "oracle_seconds": round(t_oracle, 3),
+              "int_oracle_seconds": round(t_int, 3),
+              "max_in_degree": int(deg.max()),
+              "median_in_degree": float(np.median(deg))}
+    counts = {}
+    t0 = time.perf_counter()
+    g3, perm, starts = pair_relabel(g, 1, pair_threshold=PAIR_THRESHOLD)
+    t_relabel = time.perf_counter() - t0
+    for stream in (False, True):
+        label = "streamed" if stream else "monolithic"
+        t0 = time.perf_counter()
+        sg = ShardedGraph.build(g3, 1, starts=starts,
+                                pair_threshold=PAIR_THRESHOLD)
+        eng = colfilter.build_engine(
+            g3, 1, sg=sg, pair_threshold=PAIR_THRESHOLD,
+            pair_min_fill=CF_MIN_FILL, pair_stream=None if not stream
+            else True)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        require(eng.pairs is not None and eng.tiles.E == 128
+                and eng.pair_dot_stream is stream,
+                f"pairs {label}: resolved stream={eng.pair_dot_stream} "
+                f"E={eng.tiles.E}")
+        sp = eng.pairs
+        extra = dict(common, pair_threshold=PAIR_THRESHOLD,
+                     min_fill=CF_MIN_FILL, tile_e=eng.tiles.E,
+                     relabel_seconds=round(t_relabel, 3),
+                     setup_seconds=round(t_setup, 3),
+                     pair_plan_seconds=round(eng.plan_seconds, 3),
+                     plan={"R": sp.R, "Rp": sp.Rp,
+                           "classes": len(sp.classes),
+                           "covered": sp.stats["covered"],
+                           "coverage": sp.stats["coverage"],
+                           "residual_edges": int(eng.sg.ne_part.sum()),
+                           "residual_chunks": eng.tiles.n_chunks})
+        counts[f"colfilter_pairs_{label}"] = run_cf_config(
+            args, torch, eng, g3, sg, want[perm],
+            (int_state[perm], int_red[perm]), f"pairs_{label}", card,
+            extra)
+        del eng, sg
+        torch.cuda.empty_cache()
+    del g3, perm, starts
+    t0 = time.perf_counter()
+    sg = ShardedGraph.build(g, 1)
+    eng = colfilter.build_engine(g, 1, sg=sg)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    require(eng.pairs is None and eng.tiles.E == 512,
+            "no pairs: tile_e is not 512")
+    counts["colfilter_tiled"] = run_cf_config(
+        args, torch, eng, g, sg, want, (int_state, int_red), "tiled", card,
+        dict(common, tile_e=eng.tiles.E, setup_seconds=round(t_setup, 3),
+             chunks=eng.tiles.n_chunks,
+             longest_tile_chunks=eng._plan.max_len))
+    del eng, sg
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g2, perm2 = degree_relabel(g)
+    t_relabel = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sg = ShardedGraph.build(g2, 1, vpad_align=128)
+    eng = colfilter.build_engine(g2, 1, sg=sg, gather="paged")
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    pp = eng.page_plan
+    counts["colfilter_paged"] = run_cf_config(
+        args, torch, eng, g2, sg, want[perm2],
+        (int_state[perm2], int_red[perm2]), "paged", card,
+        dict(common, relabel_seconds=round(t_relabel, 3),
+             setup_seconds=round(t_setup, 3),
+             plan_seconds=round(eng.plan_seconds, 3),
+             plan={"R": pp.R, "Rp": pp.Rp, "classes": len(pp.classes),
+                   "n_pages": pp.n_pages}))
+    del eng, sg
+    torch.cuda.empty_cache()
+    return counts
+
+
+def parts_colfilter(args, torch) -> dict:
+    """ColFilter at R-MAT 18, ef 16, seed --seed + 1, weighted, 4 parts:
+    tiled E 128, flat, pair rows monolithic and streamed, paged; each
+    against the float64 oracle at CF_TOL with no hand kernel launched;
+    page-major must raise the reference's ValueError."""
+    from lux_tpu_torch.apps import colfilter
+    from lux_tpu_torch.graph import pair_relabel
+    g = weighted_rmat(18, 16, args.seed + 1)
+    want = colfilter.reference_colfilter(g, args.iters)
+    g3, perm, starts = pair_relabel(g, 4, pair_threshold=PAIR_THRESHOLD)
+    runs = {"tiled": (g, want, dict(tile_e=128)),
+            "flat": (g, want, dict(layout="flat")),
+            "pairs_monolithic": (g3, want[perm], dict(
+                pair_threshold=PAIR_THRESHOLD, pair_min_fill=CF_MIN_FILL,
+                starts=starts, pair_stream=False)),
+            "pairs_streamed": (g3, want[perm], dict(
+                pair_threshold=PAIR_THRESHOLD, pair_min_fill=CF_MIN_FILL,
+                starts=starts, pair_stream=True)),
+            "paged": (g, want, dict(gather="paged"))}
+    out = {}
+    for name, (gr, wt, kw) in runs.items():
+        eng = colfilter.build_engine(gr, 4, **kw)
+        state = eng.init_state()
+        zero_launches()
+        state = eng.run(state, args.iters)
+        torch.cuda.synchronize()
+        counts = read_launches()
+        got = eng.unpad(state)
+        rel_err = np.abs(got - wt) / np.maximum(np.abs(wt), 1e-30)
+        require(np.allclose(got, wt, **CF_TOL),
+                f"4-part colfilter {name} disagrees with the oracle "
+                f"({rel_err.max():.3e})")
+        require(counts == {"chunk_partials": 0, "lane_shuffle": 0},
+                f"4-part colfilter {name} launched {counts}")
+        out[name] = {"max_rel_err": float(rel_err.max()),
+                     "launches": counts,
+                     "pairs_R": None if eng.pairs is None else eng.pairs.R}
+        del eng, state
+    try:
+        colfilter.build_engine(g, 4, gather="pagemajor")
+    except ValueError as e:
+        require("keep gather='paged'" in str(e),
+                f"page-major refused with another message: {e}")
+        out["pagemajor"] = f"ValueError: {e}"
+    else:
+        raise SmokeFailure("colfilter gather='pagemajor' was not refused")
+    torch.cuda.empty_cache()
+    return {"nv": g.nv, "ne": g.ne, **out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=21)
@@ -2716,6 +3181,9 @@ def main(argv=None) -> int:
         args, torch, g, g2, perm, starts, card)
     del g, g2, perm, starts
     b1_lines["cc"], push_counts["cc"] = phase_cc(args, torch, card)
+    # the colfilter paths launch no hand kernel (chip_smoke checks 0)
+    for path, n in phase_colfilter(args, torch, card).items():
+        by_path[path] = n
     by_path["pairs"] = pair_counts["streamed"]
     by_path["pairs_monolithic"] = pair_counts["monolithic"]
     for path, n in push_counts.items():

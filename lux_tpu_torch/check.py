@@ -1,4 +1,5 @@
-"""Correctness audits (counterpart of lux_tpu/check.py:20-91):
+"""Correctness audits (counterpart of lux_tpu/check.py:20-91, with
+``check_colfilter`` :67):
 host-side fixed-point checks over the edge list.  The reference's
 ``-check`` GPU tasks audit only fixed points per part (sssp_gpu.cu:
 773-798, components_gpu.cu:788); device_check.py runs the same
@@ -59,6 +60,18 @@ def check_components(g: Graph, labels: np.ndarray) -> CheckResult:
     lab = np.asarray(labels, dtype=np.int64)
     bad = int(np.count_nonzero(lab[dst] < lab[src]))
     return CheckResult("components monotonicity", bad, g.ne, unit="edges")
+
+
+def check_colfilter(g: Graph, state: np.ndarray) -> CheckResult:
+    """Training audit: the learned factors must predict the ratings no
+    worse than the uniform sqrt(1/K) init."""
+    from lux_tpu_torch.apps.colfilter import K, rmse
+    state = np.asarray(state)
+    k = state.shape[1] if state.ndim > 1 else K
+    init = np.full((g.nv, k), np.sqrt(1.0 / k), dtype=np.float64)
+    bad = int(rmse(g, state) > rmse(g, init) + 1e-9)
+    return CheckResult("colfilter rmse non-increase", bad, g.ne,
+                       unit="edges")
 
 
 def check_pagerank(g: Graph, norm_ranks: np.ndarray,

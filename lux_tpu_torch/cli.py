@@ -11,6 +11,10 @@ lux_tpu/cli.py:69, :116, :165, :557 and :596-689, :864).
                                      [-pair T [-min-fill F]]
                                      [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli components -file g.lux [-np N] [...]
+    python -m lux_tpu_torch.cli colfilter -file w.lux -ni 10 [-np N]
+                                          [-gather flat|paged]
+                                          [-pair T [-min-fill F]]
+                                          [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli convert -input edges.txt -output g.lux
                                         -nv N [-weighted]
 
@@ -31,6 +35,11 @@ a warm-up) and GTEPS over the iterations run; ``-start`` is an input
 vertex id, mapped through the relabelling under ``-pair``; ``-check``
 runs the on-device fixed-point audit (device_check.py) on the engine's
 device.  ``components`` expects an undirected (symmetrized) graph.
+
+``colfilter`` trains the K = 20 factorization on a weighted graph for
+``-ni`` iterations and prints ``ELAPSED TIME``, ``GTEPS`` and ``RMSE``
+(over the edges of the graph it ran, relabelled under ``-pair``) as
+the reference does; ``-check`` runs the on-device RMSE audit.
 """
 
 from __future__ import annotations
@@ -211,6 +220,76 @@ def cmd_components(argv) -> int:
     return _push_app(argv, "components")
 
 
+def cmd_colfilter(argv) -> int:
+    ap = argparse.ArgumentParser(prog="lux_tpu_torch colfilter")
+    ap.add_argument("-file", required=True, help="weighted .lux file")
+    ap.add_argument("-ni", type=int, default=10, help="iterations")
+    ap.add_argument("-np", type=int, default=1, help="partitions")
+    ap.add_argument("-check", action="store_true",
+                    help="on-device RMSE audit (exit 1 on FAIL)")
+    ap.add_argument("-gather", default="flat",
+                    choices=["flat", "paged", "pagemajor", "auto"],
+                    help="delivery (as for pagerank; 'pagemajor' is "
+                         "refused for the dot path, 'auto' not ported)")
+    ap.add_argument("-pair", type=int, default=None, metavar="T",
+                    help="pair-lane SDDMM delivery with threshold T "
+                         "(relabels the graph internally)")
+    ap.add_argument("-min-fill", type=_min_fill_arg, default=None,
+                    dest="min_fill", metavar="F",
+                    help="with -pair: drop pair rows with < F live lanes "
+                         "(bench.py's colfilter config uses 22); 'auto' "
+                         "is not ported")
+    ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+
+    from lux_tpu_torch import device_check
+    from lux_tpu_torch.apps import colfilter
+    from lux_tpu_torch.format import GraphFormatError
+    from lux_tpu_torch.graph import VPAD_ALIGN, Graph, ShardedGraph
+    from lux_tpu_torch.ops.pairs import resolve_min_fill
+    from lux_tpu_torch.timing import timed_fused_run
+
+    resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
+    if not os.path.exists(args.file):
+        print(f"error: graph file not found: {args.file}", file=sys.stderr)
+        return 2
+    try:
+        g = Graph.from_file(args.file, weighted=True)
+    except GraphFormatError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    num_parts = max(1, args.np)
+    g_run, _perm, starts = _relabel_for_pairs(args, g, num_parts)
+    # the whole graph's layout: the audit reads every edge, while a
+    # pair engine keeps only the residual's
+    sg = ShardedGraph.build(g_run, num_parts, starts=starts,
+                            pair_threshold=args.pair,
+                            vpad_align=128 if args.gather != "flat"
+                            else VPAD_ALIGN)
+    try:
+        eng = colfilter.build_engine(g_run, num_parts, device=args.device,
+                                     sg=sg, gather=args.gather,
+                                     pair_threshold=args.pair,
+                                     pair_min_fill=args.min_fill)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    state, elapsed = timed_fused_run(eng, args.ni)
+    print(f"ELAPSED TIME = {elapsed:.7f} s")
+    if args.ni > 0:
+        print(f"GTEPS = {g.ne * args.ni / elapsed / 1e9:.4f}")
+    out = eng.unpad(state)
+    # out is in g_run's order; the RMSE runs over its edges, so the
+    # relabelled graph is the matching choice
+    print(f"RMSE = {colfilter.rmse(g_run, out):.6f}")
+    if args.check:
+        res = device_check.check_colfilter_device(sg, state,
+                                                  device=args.device)
+        print(res)
+        return 0 if res.ok else 1
+    return 0
+
+
 def cmd_convert(argv) -> int:
     ap = argparse.ArgumentParser(prog="lux_tpu_torch convert")
     ap.add_argument("-input", required=True, help="text edge list")
@@ -226,7 +305,8 @@ def cmd_convert(argv) -> int:
 
 
 _APPS = {"pagerank": cmd_pagerank, "sssp": cmd_sssp,
-         "components": cmd_components, "convert": cmd_convert}
+         "components": cmd_components, "colfilter": cmd_colfilter,
+         "convert": cmd_convert}
 
 
 def main(argv=None) -> int:

@@ -4,7 +4,8 @@ lux_tpu/engine/program.py:21-109).
 A vertex program is a small bundle of functions over tensors.  The
 port runs every part at once — parts are a leading batch dimension
 written out — so the callbacks see stacked arrays: state ``[P, vpad,
-...]``, per-edge values ``[P*C, E]`` (tiled) or ``[P, epad]`` (flat).
+...]``, per-edge values ``[P*C, E, ...]`` (tiled) or ``[P, epad, ...]``
+(flat).
 """
 
 from __future__ import annotations
@@ -44,13 +45,27 @@ class PullProgram:
     reduce      'sum' | 'min' | 'max' — how edge messages combine per
                 destination.
     edge_value  (src_val, dst_val, weight|None) -> msg, per edge.
-    apply       (old [P, vpad], reduced [P, vpad], ctx: PartCtx) ->
-                new [P, vpad]; the per-vertex epilogue.
-    init        (sharded_graph) -> initial padded state [P, vpad]
+    apply       (old [P, vpad, ...], reduced [P, vpad, ...], ctx:
+                PartCtx) -> new [P, vpad, ...]; the per-vertex
+                epilogue.
+    init        (sharded_graph) -> initial padded state [P, vpad, ...]
                 (numpy).
-    needs_dst   whether edge_value reads dst_val (not ported yet).
-    state_bytes bytes per vertex of the iterated state; feeds the
-                exchange='auto' table-size estimate (None -> 4).
+    needs_dst   whether edge_value reads dst_val (the engine then
+                gathers each edge's destination state too).
+    edge_value_from_dot
+                optional (src_val [..., K], dot [...], weight [...]) ->
+                msg [..., K], for programs whose destination dependence
+                is only the inner product <src, dst> (colfilter's
+                rating error).  With the tiled layout, pair rows or
+                paged rows the engine then computes every dot from the
+                destination TILE by batched matmuls instead of a
+                per-edge destination gather (engine/pull.py
+                ``dot_partials``); needs reduce 'sum' and a weighted
+                graph.
+    state_bytes bytes per vertex of the iterated state (itemsize x
+                trailing dims, 4 * K for a [vpad, K] f32 state); feeds
+                the exchange='auto' table-size estimate and the
+                streamed dot rule (None -> 4).
     name        optional app label.
     """
     reduce: str
@@ -58,5 +73,6 @@ class PullProgram:
     apply: Callable
     init: Callable
     needs_dst: bool = False
+    edge_value_from_dot: Callable | None = None
     state_bytes: int | None = None
     name: str | None = None

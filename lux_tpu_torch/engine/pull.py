@@ -1,6 +1,6 @@
 """The pull engine: dense gather-apply iterations on one device
-(counterpart of lux_tpu/engine/pull.py:142-194, :240-304, :361-462,
-:535-629, :922-962, :1108, :1235).
+(counterpart of lux_tpu/engine/pull.py:45-60, :142-194, :240-304,
+:361-462, :535-729, :922-962, :1108, :1235).
 
 One iteration, every part at once (parts are a batch dimension):
 
@@ -25,6 +25,17 @@ runs the tiled path over the residual edges and the pair delivery
 (one launch of B1 over all [P*Rp, 128] pair rows, or one a block when
 streamed), combined per destination.
 
+Programs whose destination dependence is only the inner product <src,
+dst> (``edge_value_from_dot``, colfilter) replace steps 1-3 on the
+tiled layout, pair rows and paged rows by the blocked SDDMM of
+ops/dot.py: per block of chunks or rows, the source rows and the
+destination tile, D = S @ T^T, each edge's lane of D, the messages and
+a one-hot matmul to per-lane sums (``torch.bmm``; no hand kernel: the
+reference computes these products outside Pallas too), then the same
+chunk or class combine.  Other programs reading the destination
+(``needs_dst``) gather it per edge.  State may carry trailing dims
+(colfilter's [P, vpad, K]).
+
 The reference fuses a fixed-iteration run into one XLA program; here a
 run is a Python loop over ``step`` on the device's stream.  The
 reference's exchange variants (owner), ``gather="auto"``, streamed
@@ -42,14 +53,24 @@ import torch
 from lux_tpu_torch.device import resolve_device
 from lux_tpu_torch.engine.program import PartCtx, PullProgram, vmask_of
 from lux_tpu_torch.graph import ShardedGraph
-from lux_tpu_torch.ops.pagegather import (PAGED_KEYS, W, engine_page_plan,
-                                          paged_partial, plan_graph_arrays,
-                                          row_slots)
-from lux_tpu_torch.ops.pairs import (PAIR_KEYS, pair_graph_arrays,
-                                     pair_partial, pair_partial_streamed,
-                                     plan_sharded_pairs, resolve_pair_stream)
+from lux_tpu_torch.ops.dot import (DOT_BLOCK_BYTES, DotBlock, blocks,
+                                   run_blocks)
+from lux_tpu_torch.ops.pagegather import (PAGED_DOT_KEYS, PAGED_KEYS, W,
+                                          engine_page_plan, paged_partial,
+                                          paged_partial_dot,
+                                          plan_graph_arrays, row_slots)
+from lux_tpu_torch.ops.pairs import (DOT_BLOCK_ROWS, PAIR_DOT_KEYS,
+                                     PAIR_KEYS,
+                                     pair_graph_arrays,
+                                     pair_partial, pair_partial_dot,
+                                     pair_partial_dot_streamed,
+                                     pair_partial_streamed,
+                                     plan_sharded_pairs,
+                                     resolve_pair_dot_stream,
+                                     resolve_pair_stream)
 from lux_tpu_torch.ops.segment import segment_reduce
-from lux_tpu_torch.ops.tiled import (TiledLayout, combine_op, segment_plan,
+from lux_tpu_torch.ops.tiled import (TiledLayout, combine_op,
+                                     combine_partials, segment_plan,
                                      tiled_segment_reduce)
 
 # exchange="auto" picks the owner exchange once the flat state table
@@ -58,6 +79,23 @@ OWNER_AUTO_BYTES = 96 << 20
 
 TILED_KEYS = ("src_slot", "rel_dst", "chunk_start", "last_chunk", "deg",
               "nvp")
+
+
+def dot_kdim(program) -> int:
+    """K of a dot program's vector state, from ``state_bytes`` = 4 * K
+    (the reference's ``_dot_kdim``, lux_tpu/engine/pull.py:51-60); 1
+    for other programs.  It feeds the streamed pair-dot rule."""
+    if getattr(program, "edge_value_from_dot", None) is None:
+        return 1
+    return max(1, (getattr(program, "state_bytes", None) or 4) // 4)
+
+
+def uses_dst(program) -> bool:
+    """Whether the program reads destination state at all (per edge, or
+    only through <src, dst>)."""
+    return bool(program.needs_dst
+                or getattr(program, "edge_value_from_dot", None)
+                is not None)
 
 
 class NotPortedError(NotImplementedError):
@@ -75,7 +113,7 @@ def _refuse(what: str, item: str):
 
 def _check_pair_program(layout: str, program) -> None:
     """What pair-lane delivery refuses, with the reference's messages
-    (lux_tpu/engine/pull.py:372-384); its dot path is ROADMAP A5."""
+    (lux_tpu/engine/pull.py:372-384)."""
     if layout != "tiled":
         raise ValueError("pair_threshold requires the tiled layout")
     if getattr(program, "batch", None) is not None:
@@ -88,8 +126,6 @@ def _check_pair_program(layout: str, program) -> None:
         raise ValueError("pair_threshold supports programs whose "
                          "edge_value depends only on the source state, "
                          "or on <src, dst> via edge_value_from_dot")
-    if dot is not None:
-        _refuse("pair delivery of edge_value_from_dot programs", "A5")
 
 
 def _outside(x: torch.Tensor, hi: int) -> bool:
@@ -107,7 +143,7 @@ def resolve_exchange(exchange: str, sg: ShardedGraph, program,
     if exchange == "auto":
         itemsize = itemsize or getattr(program, "state_bytes", None) or 4
         big = sg.num_parts * sg.vpad * itemsize > OWNER_AUTO_BYTES
-        if big and not getattr(program, "needs_dst", False):
+        if big and not uses_dst(program):
             _refuse(f"the owner exchange, which exchange='auto' picks "
                     f"for this {sg.num_parts * sg.vpad * itemsize} B "
                     f"state table (pass exchange='gather'),", "A6")
@@ -125,10 +161,12 @@ def common_graph_arrays(sg: ShardedGraph) -> dict:
                 nvp=sg.nv_part.astype(np.int32)[:, None])
 
 
-def build_graph_arrays(sg: ShardedGraph, layout: str, tile_e: int):
+def build_graph_arrays(sg: ShardedGraph, layout: str, tile_e: int,
+                       needs_dst: bool = False):
     """Per-part host arrays (leading dim num_parts) for either edge
     layout -> (arrays dict, TiledLayout | None).  The tiled keys and
-    values are the reference's (engine/pull.py:164-194)."""
+    values are the reference's (engine/pull.py:164-194); ``needs_dst``
+    adds each chunk's destination tile ``chunk_tile``."""
     common = common_graph_arrays(sg)
     if layout == "flat":
         arrays = dict(src_slot=sg.src_slot, dst_local=sg.dst_local,
@@ -145,6 +183,8 @@ def build_graph_arrays(sg: ShardedGraph, layout: str, tile_e: int):
                   **common)
     if sg.weighted:
         arrays["weight"] = lay.chunk(sg.edge_weight)
+    if needs_dst:
+        arrays["chunk_tile"] = lay.chunk_tile
     return arrays, lay
 
 
@@ -186,6 +226,11 @@ def check_dense_arrays(a: dict, P: int, vpad: int, tiles, pages,
             raise ValueError(
                 f"tiled arrays do not match [P, C, E] = {shape} / "
                 f"last_chunk [P, n_tiles={tiles.n_tiles}] int8 rel")
+        ct = a.get("chunk_tile")
+        if ct is not None and (tuple(ct.shape) != shape[:2]
+                               or _outside(ct, tiles.n_tiles + 1)):
+            raise ValueError(f"chunk_tile is not [P, C] = {shape[:2]} "
+                             f"in [0, {tiles.n_tiles}]")
         if pairs is not None:
             check_pair_arrays(a, P, vpad, pairs)
 
@@ -228,6 +273,22 @@ def check_paged_arrays(a: dict, P: int, vpad: int, pp) -> None:
         raise ValueError("paged arrays index outside the state table, "
                          "the page list, the class slots or the "
                          "gather rows")
+    if "pg_rt" in a:
+        check_dot_tiles(a["pg_rt"], a["pg_t0"], P, vpad, pp, "pg")
+
+
+def check_dot_tiles(row_tile, tile0, P: int, vpad: int, geom,
+                    what: str) -> None:
+    """A dot engine's destination-tile arrays: ``row_tile`` [P, Rp] in
+    [0, n_tiles) and ``tile0`` [P, 1] = each part's first state tile."""
+    want = torch.arange(P, device=tile0.device)[:, None] * (vpad // W)
+    if (tuple(row_tile.shape) != (P, geom.Rp)
+            or _outside(row_tile, geom.n_tiles)
+            or tuple(tile0.shape) != (P, 1)
+            or not torch.equal(tile0.to(torch.int64), want)):
+        raise ValueError(f"{what} dot arrays: row tiles must be [P, Rp] "
+                         f"in [0, {geom.n_tiles}) and tile 0 [P, 1] = "
+                         f"p * vpad / {W}")
 
 
 def check_pair_arrays(a: dict, P: int, vpad: int, sp) -> None:
@@ -253,6 +314,9 @@ def check_pair_arrays(a: dict, P: int, vpad: int, sp) -> None:
     if _outside(rb, P * vpad // W) or _outside(tp, sp.n_slots + 1):
         raise ValueError("pair arrays index outside the state table "
                          "or the class slots")
+    if "pair_row_tile" in a:
+        check_dot_tiles(a["pair_row_tile"], a["pair_tile0"], P, vpad, sp,
+                        "pair")
 
 
 class PullEngine:
@@ -269,13 +333,21 @@ class PullEngine:
                  pair_threshold: int | None = None,
                  pair_min_fill: int | str | None = None,
                  pair_stream: bool | None = None,
-                 stream_msgs: bool | None = None, mesh=None):
+                 stream_msgs: bool | None = None, mesh=None,
+                 dot_block_chunks: int | None = None,
+                 dot_block_rows: int | None = None):
         """``pair_threshold``: serve the edges of (src tile, dst tile)
         pairs with at least this many edges by pair-lane rows
         (ops/pairs.py; needs vpad % 128 == 0), the rest by the tiled
         path; ``pair_min_fill`` drops pair rows with fewer live lanes
-        to the residual; ``pair_stream`` (None = True, the reference's
-        default) reduces the pair rows in blocks."""
+        to the residual; ``pair_stream`` (None = the reference's
+        default: streamed for scalar programs, by the 1 GB rule for
+        dot programs) reduces the pair rows in blocks.
+        ``dot_block_chunks`` / ``dot_block_rows``: chunks / rows a
+        block of the dot path (None: 1 GB of the [B, E, W] f32 dot
+        intermediate, ops/dot.DOT_BLOCK_BYTES; the reference's TPU
+        blocks are 128 chunks and 256 rows); results do not depend on
+        them beyond the order of float sums."""
         dev = resolve_device(device)
         if mesh is not None:
             _refuse("a device mesh", "A6")
@@ -290,9 +362,6 @@ class PullEngine:
             _refuse("streamed chunk blocks (stream_msgs)", "A6")
         if pair_threshold is not None:
             _check_pair_program(layout, program)
-        if program.needs_dst:
-            _refuse("programs whose edge_value reads the destination",
-                    "A5")
         resolve_exchange(exchange, sg, program)
         t0 = time.perf_counter()
         plan = engine_page_plan(sg, gather, program)
@@ -302,42 +371,55 @@ class PullEngine:
             pairs, sg = plan_sharded_pairs(sg, pair_threshold,
                                            min_fill=pair_min_fill)
         plan_seconds = time.perf_counter() - t0
+        dot = getattr(program, "edge_value_from_dot", None) is not None
         if plan is not None:
             # the paged plan IS the edge layout: no chunk arrays
             arrays, tiles = dict(common_graph_arrays(sg),
-                                 **plan_graph_arrays(plan)), None
+                                 **plan_graph_arrays(plan, dot=dot,
+                                                     vpad=sg.vpad)), None
         else:
-            arrays, lay = build_graph_arrays(sg, layout, tile_e)
+            arrays, lay = build_graph_arrays(sg, layout, tile_e,
+                                             needs_dst=uses_dst(program))
             tiles = None if lay is None else lay.geometry
             if pairs is not None:
-                arrays.update(pair_graph_arrays(pairs))
+                arrays.update(pair_graph_arrays(pairs, dot=dot,
+                                                vpad=sg.vpad))
         self._bind(program, arrays, tiles, nv=sg.nv, ne=sg.ne,
                    num_parts=sg.num_parts, vpad=sg.vpad, device=dev, sg=sg,
-                   pages=plan, pairs=pairs, pair_stream=pair_stream)
+                   pages=plan, pairs=pairs, pair_stream=pair_stream,
+                   dot_block_chunks=dot_block_chunks,
+                   dot_block_rows=dot_block_rows)
         self.plan_seconds = plan_seconds
 
     @classmethod
     def from_arrays(cls, program: PullProgram, arrays: dict, tiles, *,
                     nv: int, ne: int, num_parts: int, vpad: int,
-                    device=None, pages=None, pairs=None, pair_stream=None):
+                    device=None, pages=None, pairs=None, pair_stream=None,
+                    dot_block_chunks=None, dot_block_rows=None):
         """An engine on given per-part arrays and their geometry — how
         interop.from_reference carries a reference engine's arrays
         across bit for bit.  Tiled: keys src_slot, rel_dst,
-        chunk_start, last_chunk, deg, nvp and ``tiles`` an
+        chunk_start, last_chunk, deg, nvp (+ weight; + chunk_tile for
+        programs reading the destination) and ``tiles`` an
         ops/tiled.TileGeometry; with pair rows also pair_rowbind,
-        pair_rel, pair_tile_pos (+ pair_weight) and ``pairs`` an
+        pair_rel, pair_tile_pos (+ pair_weight; + pair_row_tile,
+        pair_tile0 for dot programs) and ``pairs`` an
         ops/pairs.PairGeometry.  Paged: keys pg_ids, pg_sl, pg_rel,
-        pg_tp (+ pg_w, pg_vrs), deg, nvp, ``tiles=None`` and ``pages``
-        an ops/pagegather.PageGeometry."""
+        pg_tp (+ pg_w, pg_vrs; + pg_rt, pg_t0 for dot programs), deg,
+        nvp, ``tiles=None`` and ``pages`` an
+        ops/pagegather.PageGeometry."""
         eng = cls.__new__(cls)
         eng._bind(program, arrays, tiles, nv=nv, ne=ne,
                   num_parts=num_parts, vpad=vpad,
                   device=resolve_device(device), sg=None, pages=pages,
-                  pairs=pairs, pair_stream=pair_stream)
+                  pairs=pairs, pair_stream=pair_stream,
+                  dot_block_chunks=dot_block_chunks,
+                  dot_block_rows=dot_block_rows)
         return eng
 
     def _bind(self, program, arrays, tiles, *, nv, ne, num_parts, vpad,
-              device, sg, pages=None, pairs=None, pair_stream=None):
+              device, sg, pages=None, pairs=None, pair_stream=None,
+              dot_block_chunks=None, dot_block_rows=None):
         self.program = program
         self.sg = sg
         self.tiles = tiles
@@ -352,15 +434,44 @@ class PullEngine:
         self.nv, self.ne = int(nv), int(ne)
         self.num_parts, self.vpad = int(num_parts), int(vpad)
         self.device = device
+        dot = getattr(program, "edge_value_from_dot", None) is not None
+        # the dot path runs on tiled chunks, pair rows and paged rows;
+        # the flat layout calls edge_value with a per-edge dst gather
+        self.dot = dot and (tiles is not None or pages is not None)
+        # the SDDMM pair rows stream by the reference's 1 GB rule
+        self.pair_dot_stream = resolve_pair_dot_stream(
+            pair_stream, pairs if dot else None, self.num_parts,
+            dot_kdim(program))
+        self.dot_block_chunks = None if tiles is None else int(
+            dot_block_chunks
+            or max(1, DOT_BLOCK_BYTES // (tiles.E * tiles.W * 4)))
+        self.dot_block_rows = int(dot_block_rows or DOT_BLOCK_ROWS)
         if pages is not None:
             need = PAGED_KEYS + ("deg", "nvp") + (
                 ("pg_vrs",) if pages.mode == "pagemajor" else ())
+            wkey = "pg_w"
+            if dot:
+                need += PAGED_DOT_KEYS
         elif tiles is not None:
-            need = TILED_KEYS
+            need = TILED_KEYS + (("chunk_tile",) if uses_dst(program)
+                                 else ())
+            wkey = "weight"
         else:
             need = ("src_slot", "dst_local", "deg", "nvp")
+            wkey = "weight"
         if pairs is not None:
-            need += PAIR_KEYS
+            need += PAIR_KEYS + (PAIR_DOT_KEYS + ("pair_weight",) if dot
+                                 else ())
+        if dot:
+            # the reference's dot-program checks (engine/pull.py:279-288)
+            if program.reduce != "sum":
+                raise ValueError(
+                    "edge_value_from_dot requires reduce='sum' (the "
+                    "mask-matmul partial reduction is a sum)")
+            if wkey not in arrays:
+                raise ValueError(
+                    "edge_value_from_dot requires a weighted graph "
+                    "(the dot path passes per-edge weights)")
         missing = [k for k in need if k not in arrays]
         if missing:
             raise KeyError(f"graph arrays lack {missing}")
@@ -374,6 +485,25 @@ class PullEngine:
             self._plan = segment_plan(a["chunk_start"], a["last_chunk"])
         else:
             self._seg = flat_segments(a["dst_local"], self.vpad)
+        self._dst = None
+        if program.needs_dst and not self.dot:
+            self._dst = self._dst_slots()
+
+    def _dst_slots(self) -> torch.Tensor:
+        """Each edge's destination slot in the flat state table, clipped
+        into its part as the reference does (pads point at a real slot;
+        the reduce drops them): flat ``dst_local``, tiled ``chunk_tile
+        * W + rel_dst``."""
+        a, P, vpad = self.arrays, self.num_parts, self.vpad
+        if self.tiles is None:
+            local = a["dst_local"].to(torch.int64).clamp(max=vpad - 1)
+        else:
+            local = (a["chunk_tile"].to(torch.int64)[..., None]
+                     * self.tiles.W + a["rel_dst"].to(torch.int64)
+                     ).clamp(0, vpad - 1)
+        base = torch.arange(P, device=local.device) * vpad
+        return (local + base.reshape((P,) + (1,) * (local.dim() - 1))
+                ).reshape(-1)
 
     # -- state --------------------------------------------------------
 
@@ -384,7 +514,8 @@ class PullEngine:
         return torch.as_tensor(self.program.init(self.sg)).to(self.device)
 
     def unpad(self, state: torch.Tensor) -> np.ndarray:
-        """Padded device state -> [nv, ...] user order (host)."""
+        """Padded device state [P, vpad, ...] -> [nv, ...] user order
+        (host)."""
         if self.sg is None:
             raise ValueError("engine built from arrays has no partition "
                              "to unpad with")
@@ -397,23 +528,37 @@ class PullEngine:
         ctx = PartCtx(deg=self.arrays["deg"], vmask=vm, nv=self.nv,
                       ne=self.ne)
         new = self.program.apply(old, red, ctx)
-        return torch.where(vm, new, old)
+        # vector state: the [P, vpad] mask over its trailing dims
+        keep = vm.reshape(tuple(vm.shape) + (1,) * (new.dim() - 2))
+        return torch.where(keep, new, old)
 
     def _messages(self, flat_state):
-        """Phase 1 (gather): per-edge source gather + message values."""
-        src_vals = torch.index_select(flat_state, 0, self._src)
-        src_vals = src_vals.view(self.arrays["src_slot"].shape)
-        return self.program.edge_value(src_vals, None,
+        """Phase 1 (gather): per-edge source (and, for programs reading
+        it, destination) gather + message values."""
+        shape = tuple(self.arrays["src_slot"].shape) + \
+            tuple(flat_state.shape[1:])
+        src_vals = torch.index_select(flat_state, 0, self._src).view(shape)
+        dst_vals = None
+        if self._dst is not None:
+            dst_vals = torch.index_select(flat_state, 0,
+                                          self._dst).view(shape)
+        return self.program.edge_value(src_vals, dst_vals,
                                        self.arrays.get("weight"))
 
     def _reduce(self, msgs):
-        """Phase 2 (reduce): [P, vpad] per-vertex reductions."""
+        """Phase 2 (reduce): [P, vpad, ...] per-vertex reductions."""
         prog, a, P, vpad = self.program, self.arrays, self.num_parts, \
             self.vpad
         if self.tiles is None:
-            red = segment_reduce(msgs.reshape(-1), self._seg,
+            trail = tuple(msgs.shape[2:])
+            red = segment_reduce(msgs.reshape((-1,) + trail), self._seg,
                                  P * (vpad + 1), prog.reduce)
-            return red.view(P, vpad + 1)[:, :vpad]
+            return red.view((P, vpad + 1) + trail)[:, :vpad]
+        if msgs.dim() > 3:
+            # kernel B1 reduces scalars; vector programs reach the
+            # tiled layout through edge_value_from_dot (the dot path)
+            _refuse("vector messages on the tiled layout outside the "
+                    "dot path", "A7")
         return tiled_segment_reduce(msgs, self.tiles, a["chunk_start"],
                                     a["last_chunk"], a["rel_dst"], vpad,
                                     prog.reduce, self._plan)
@@ -440,17 +585,108 @@ class PullEngine:
                   a.get("pair_weight"), a["pair_tile_pos"], prog.reduce,
                   lambda vals, w: prog.edge_value(vals, None, w))
 
-    def step(self, state: torch.Tensor) -> torch.Tensor:
-        """One iteration: [P, vpad] -> [P, vpad]."""
-        flat = state.reshape(-1)
+    # -- the dot path (edge_value_from_dot programs) --------------------
+
+    def dot_chunk_blocks(self, state) -> list:
+        """The tiled layout's SDDMM blocks (ops/dot.DotBlock): the
+        [P*C] chunks in blocks of ``dot_block_chunks``, each fetching
+        its edges' source rows and its chunks' destination tiles from
+        ``state`` [P, vpad, K] padded to whole tiles
+        (lux_tpu/engine/pull.py:635-697).  Pad chunks (tile n_tiles)
+        read the last tile and are never taken by the combine."""
+        a, t = self.arrays, self.tiles
+        P, vpad, K = state.shape
+        pad = t.n_tiles * t.W - vpad
+        if pad:
+            state_t = torch.cat([state, state.new_zeros((P, pad, K))], 1)
+        else:
+            state_t = state
+        tiles = state_t.reshape(P * t.n_tiles, t.W, K)
+        flat = state.reshape(-1, K)
+        n = P * t.n_chunks
+        src = self._src.view(n, t.E)
+        rel = a["rel_dst"].view(n, t.E)
+        wgt = a["weight"].view(n, t.E)
+        base = torch.arange(P, device=state.device)[:, None] * t.n_tiles
+        tix = (base + a["chunk_tile"].to(torch.int64).clamp(
+            max=t.n_tiles - 1)).reshape(-1)
+
+        def fetch(sl, m):
+            S = torch.index_select(flat, 0, src[sl].reshape(-1))
+            return S.view(m, t.E, K), torch.index_select(tiles, 0, tix[sl])
+
+        out = []
+        for c0, m in blocks(n, self.dot_block_chunks):
+            sl = slice(c0, c0 + m)
+            out.append(DotBlock(fetch=lambda sl=sl, m=m: fetch(sl, m),
+                                rel=rel[sl], weight=wgt[sl], units=sl))
+        return out
+
+    def dot_chunk_partials(self, state):
+        """Every chunk's [W, K] partials -> [P*C, W, K]."""
+        t = self.tiles
+        out = torch.empty((self.num_parts * t.n_chunks, t.W,
+                           state.shape[-1]), dtype=state.dtype,
+                          device=state.device)
+        return run_blocks(self.dot_chunk_blocks(state),
+                          self.program.edge_value_from_dot, out)
+
+    def _pair_dot_red(self, flat_state):
+        """SDDMM pair delivery for every part -> [P, vpad, K]."""
+        a = self.arrays
+        args = (self.pairs, flat_state, a["pair_rowbind"], a["pair_rel"],
+                a["pair_weight"], a["pair_row_tile"], a["pair_tile_pos"],
+                a["pair_tile0"], self.program.edge_value_from_dot)
+        if self.pair_dot_stream:
+            red = pair_partial_dot_streamed(*args)
+        else:
+            red = pair_partial_dot(*args, block_rows=self.dot_block_rows)
+        return red[:, :self.vpad]
+
+    def _paged_dot_red(self, flat_state):
+        """Paged SDDMM delivery for every part -> [P, vpad, K]."""
+        a = self.arrays
+        red = paged_partial_dot(
+            self.page_plan, flat_state, a["pg_ids"], a["pg_sl"],
+            a["pg_rel"], a["pg_w"], a["pg_rt"], a["pg_tp"], a["pg_t0"],
+            self.program.edge_value_from_dot,
+            block_rows=self.dot_block_rows)
+        return red[:, :self.vpad]
+
+    def _dot_red(self, state, flat_state):
+        """The tiled dot path: chunk partials, their segmented combine,
+        plus the pair rows' sums -> [P, vpad, K]."""
+        a = self.arrays
+        red = combine_partials(self.dot_chunk_partials(state), self.tiles,
+                               a["chunk_start"], a["last_chunk"],
+                               self.vpad, "sum", self._plan)
+        if self.pairs is not None:
+            red = red + self._pair_dot_red(flat_state)
+        return red
+
+    # -- the step -------------------------------------------------------
+
+    def reduced(self, state: torch.Tensor) -> torch.Tensor:
+        """One iteration's delivery and reduce, before the apply
+        epilogue: [P, vpad, ...] -> the per-vertex reductions [P, vpad,
+        ...] (the reduce identity where no edge arrives)."""
+        flat = state.reshape((-1,) + tuple(state.shape[2:]))
         if self.page_plan is not None:
-            return self._apply_epilogue(state, self._paged_red(flat))
+            if self.dot:
+                return self._paged_dot_red(flat)
+            return self._paged_red(flat)
+        if self.dot:
+            return self._dot_red(state, flat)
         red = self._reduce(self._messages(flat))
         if self.pairs is not None:
             # the residual's reduction, then the pair rows', as the
             # reference combines them (engine/pull.py:591)
             red = combine_op(self.program.reduce)(red, self._pair_red(flat))
-        return self._apply_epilogue(state, red)
+        return red
+
+    def step(self, state: torch.Tensor) -> torch.Tensor:
+        """One iteration: [P, vpad, ...] -> [P, vpad, ...]."""
+        return self._apply_epilogue(state, self.reduced(state))
 
     def run(self, state: torch.Tensor, num_iters: int) -> torch.Tensor:
         """``num_iters`` iterations, enqueued on the device's stream

@@ -18,8 +18,9 @@ import torch
 from lux_tpu_torch.apps.pagerank import make_program
 from lux_tpu_torch.engine.pull import TILED_KEYS, PullEngine
 from lux_tpu_torch.engine.push import SPARSE_KEYS, PushEngine
-from lux_tpu_torch.ops.pagegather import PAGED_KEYS, PageGeometry
-from lux_tpu_torch.ops.pairs import PAIR_KEYS, PairGeometry
+from lux_tpu_torch.ops.pagegather import (PAGED_DOT_KEYS, PAGED_KEYS,
+                                          PageGeometry)
+from lux_tpu_torch.ops.pairs import PAIR_DOT_KEYS, PAIR_KEYS, PairGeometry
 from lux_tpu_torch.ops.tiled import TileGeometry
 
 COMMON_META = ("vpad", "nv", "ne", "num_parts")
@@ -51,13 +52,14 @@ def _geometry(arrays: dict, meta: dict):
             n_tiles=int(meta["n_tiles"]), n_slots=int(meta["n_slots"]),
             mode=meta["mode"])
         kw["tiles"] = None
-        keys = PAGED_KEYS + ("deg", "nvp", "pg_w", "pg_vrs")
+        keys = PAGED_KEYS + ("deg", "nvp", "pg_w", "pg_vrs") \
+            + PAGED_DOT_KEYS
     else:
         kw["tiles"] = TileGeometry(W=int(meta["W"]), E=int(meta["E"]),
                                    n_tiles=int(meta["n_tiles"]),
                                    n_chunks=int(meta["n_chunks"]),
                                    needs_scan=bool(meta["needs_scan"]))
-        keys = TILED_KEYS + ("weight",)
+        keys = TILED_KEYS + ("weight", "chunk_tile")
         if meta.get("pairs") is not None:
             pm = meta["pairs"]
             _require(pm, PAIR_META_KEYS)
@@ -66,24 +68,27 @@ def _geometry(arrays: dict, meta: dict):
                 R=int(pm["R"]), Rp=int(pm["Rp"]),
                 n_tiles=int(pm["n_tiles"]), n_slots=int(pm["n_slots"]))
             kw["pair_stream"] = meta.get("pair_stream")
-            keys += PAIR_KEYS + ("pair_weight",)
+            keys += PAIR_KEYS + ("pair_weight",) + PAIR_DOT_KEYS
     host = {k: np.asarray(arrays[k]) for k in keys if k in arrays}
     return host, kw
 
 
 def _state(x, eng, what: str) -> torch.Tensor:
     st = torch.tensor(np.asarray(x), device=eng.device)
-    if tuple(st.shape) != (eng.num_parts, eng.vpad):
+    if tuple(st.shape[:2]) != (eng.num_parts, eng.vpad):
         raise ValueError(f"{what} {tuple(st.shape)} is not [num_parts, "
-                         f"vpad] = [{eng.num_parts}, {eng.vpad}]")
+                         f"vpad, ...] = [{eng.num_parts}, {eng.vpad}, "
+                         f"...]")
     return st
 
 
 def from_reference(arrays: dict, state: np.ndarray, *, meta: dict,
-                   device=None):
+                   program=None, device=None):
     """arrays: the reference engine's graph arrays as numpy; state: its
-    padded [num_parts, vpad] state; meta: its geometry.  The program
-    is PageRank.  Returns (PullEngine, state tensor on ``device``).
+    padded [num_parts, vpad, ...] state; meta: its geometry; program:
+    the port's program of the same app (None: PageRank's; its chunk
+    weights are not carried).  Returns (PullEngine, state
+    tensor on ``device``).
 
     - tiled engine: arrays src_slot, rel_dst, chunk_start, last_chunk,
       deg, nvp; meta W, E, n_tiles, n_chunks, needs_scan + the common
@@ -95,10 +100,16 @@ def from_reference(arrays: dict, state: np.ndarray, *, meta: dict,
     - paged engine (meta ``mode`` "paged" or "pagemajor"): arrays
       pg_ids, pg_sl (uint32), pg_rel, pg_tp, deg, nvp, and pg_w /
       pg_vrs where the reference has them; meta classes, R, Rp,
-      n_tiles, n_slots, mode + the common keys."""
+      n_tiles, n_slots, mode + the common keys.
+
+    Programs reading the destination carry ``chunk_tile``; dot
+    programs (colfilter) also pair_row_tile, pair_tile0 or pg_rt,
+    pg_t0, as the reference builds them."""
     host, kw = _geometry(arrays, meta)
-    host.pop("weight", None)            # PageRank reads no weights
-    eng = PullEngine.from_arrays(make_program(), host, device=device, **kw)
+    if program is None:
+        program = make_program()
+        host.pop("weight", None)        # PageRank reads no weights
+    eng = PullEngine.from_arrays(program, host, device=device, **kw)
     return eng, _state(state, eng, "state")
 
 

@@ -34,11 +34,14 @@ kernel:
 5. ``partials = chunk_partials(msgs, rel)``       kernel B1, E = 128
 6. ``class_combine`` -> [P, n_tiles * 128]
 
+Vector-state dot programs (colfilter) take ``paged_partial_dot``: the
+pair rows' SDDMM step (ops/dot.py) on page rows, each lane's source row
+selected from its page by an index gather; no hand kernel.
+
 On the device ``slot_lane`` rides as int32 with the uint32's bits;
 page slots decode as ``(x >> 7) & 0x1FFFFFF``, lanes as ``x & 0x7F``.
-The owner-exchange plans (ROADMAP A6), the SDDMM dot path (A5) and
-``gather="auto"`` (A10, priced by TPU-measured constants) are not
-ported.
+The owner-exchange plans (ROADMAP A6) and ``gather="auto"`` (A10,
+priced by TPU-measured constants) are not ported.
 """
 
 from __future__ import annotations
@@ -49,8 +52,11 @@ import numpy as np
 import torch
 
 from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+from lux_tpu_torch.ops.dot import DotBlock, blocks, run_blocks
 from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
-from lux_tpu_torch.ops.pairs import class_combine, quantize_depths
+from lux_tpu_torch.ops.pairs import (DOT_BLOCK_ROWS, class_combine,
+                                     dot_msgs_numpy, part_tile0,
+                                     quantize_depths)
 
 W = 128
 
@@ -569,20 +575,26 @@ def resolve_gather(gather: str) -> str:
 
 
 def engine_page_plan(sg, gather: str, program) -> PagedPlan | None:
-    """The engines' plan-or-not resolution: the paged or page-major
-    plan of a dense (gather-exchange) engine, None for the flat
-    gather.  Raises ValueError on configurations the plans do not
-    support."""
+    """The engines' plan-or-not resolution (lux_tpu/ops/pagegather.py:
+    925-951): the paged or page-major plan of a dense (gather-exchange)
+    engine, None for the flat gather.  Dot programs
+    (``edge_value_from_dot``) take gather='paged' only.  Raises
+    ValueError, with the reference's messages, on configurations the
+    plans do not support."""
     gather = resolve_gather(gather)
     if gather == "flat":
         return None
+    dot = getattr(program, "edge_value_from_dot", None) is not None
     why = None
-    if getattr(program, "needs_dst", False):
-        why = ("programs reading destination state keep the flat "
-               "gather")
+    if getattr(program, "needs_dst", False) and not dot:
+        why = ("programs reading destination state (needs_dst "
+               "without edge_value_from_dot) keep the flat gather")
     elif sg.vpad % W:
         why = ("paged gather needs vpad % 128 == 0; build the "
                "ShardedGraph with vpad_align=128")
+    elif gather == "pagemajor" and dot:
+        why = ("page-major rows split the reduce from the MXU dot "
+               "pipeline; K-dim (SDDMM) programs keep gather='paged'")
     if why is not None:
         raise ValueError(f"gather={gather!r}: {why}")
     return plan_pagemajor(sg) if gather == "pagemajor" \
@@ -590,19 +602,27 @@ def engine_page_plan(sg, gather: str, program) -> PagedPlan | None:
 
 
 # graph-array keys of a dense paged engine (pg_w when weighted, pg_vrs
-# for page-major plans)
+# for page-major plans, PAGED_DOT_KEYS for dot programs)
 PAGED_KEYS = ("pg_ids", "pg_sl", "pg_rel", "pg_tp")
+PAGED_DOT_KEYS = ("pg_rt", "pg_t0")
 
 
-def plan_graph_arrays(pp: PagedPlan) -> dict:
+def plan_graph_arrays(pp: PagedPlan, dot: bool = False,
+                      vpad: int | None = None) -> dict:
     """The plan's per-part host arrays for a dense engine's array dict
-    (leading dim num_parts), under the reference's key names."""
+    (leading dim num_parts), under the reference's key names; ``dot``
+    adds each row's destination tile and each part's tile 0 (``vpad``
+    needed), which the SDDMM delivery fetches
+    (lux_tpu/ops/pagegather.py:1255-1260)."""
     arrays = {"pg_ids": pp.page_ids, "pg_sl": pp.slot_lane,
               "pg_rel": pp.rel_dst, "pg_tp": pp.tile_pos}
     if pp.weight is not None:
         arrays["pg_w"] = pp.weight
     if pp.vrow_src is not None:
         arrays["pg_vrs"] = pp.vrow_src
+    if dot:
+        arrays["pg_rt"] = pp.row_tile
+        arrays["pg_t0"] = part_tile0(pp.page_ids.shape[0], vpad)
     return arrays
 
 
@@ -659,6 +679,62 @@ def paged_partial(pp, flat_state, page_ids, slot_lane, rel, weight,
     return red.reshape(P, pp.n_tiles * W)
 
 
+def paged_dot_blocks(state, page_ids, slot_lane, rel, weight, row_tile,
+                     part_tile0, block_rows: int = DOT_BLOCK_ROWS) -> list:
+    """The paged dot delivery's blocks: the unique pages are fetched
+    once here as [128, K] tiles; each block of ``block_rows`` of the
+    [P*Rp] rows then fetches its rows' pages, picks each lane's source
+    row from its page by an index gather, and fetches the destination
+    tiles ``part_tile0 + row_tile``."""
+    P, n_pages = page_ids.shape
+    K = state.shape[-1]
+    s3 = state.reshape(-1, W, K)
+    pages = torch.index_select(s3, 0, page_ids.reshape(-1))
+    base = torch.arange(P, device=state.device)[:, None] * n_pages
+    rs = (row_slots(slot_lane) + base).reshape(-1)
+    lane = (slot_lane & 0x7F).to(torch.int64).reshape(-1, W)
+    tile = (part_tile0.reshape(P, 1) + row_tile).reshape(-1)
+    rl, wt = rel.reshape(-1, W), weight.reshape(-1, W)
+
+    def fetch(sl, n):
+        pg = torch.index_select(pages, 0, rs[sl])           # [n, 128, K]
+        S = torch.gather(pg, 1, lane[sl].unsqueeze(-1).expand(n, W, K))
+        return S, torch.index_select(s3, 0, tile[sl])
+
+    out = []
+    for r0, n in blocks(P * slot_lane.shape[1], block_rows):
+        sl = slice(r0, r0 + n)
+        out.append(DotBlock(fetch=lambda sl=sl, n=n: fetch(sl, n),
+                            rel=rl[sl], weight=wt[sl], units=sl))
+    return out
+
+
+def paged_partial_dot(pp, state, page_ids, slot_lane, rel, weight,
+                      row_tile, tile_pos, part_tile0, msg_dot_fn,
+                      block_rows: int = DOT_BLOCK_ROWS):
+    """Paged delivery for vector-state dot programs, every part at once
+    -> ``[P, n_tiles * 128, K]`` sums (lux_tpu/ops/pagegather.py:1143).
+    ``state`` [P*vpad, K]; the plan's arrays as for ``paged_partial``
+    (``slot_lane`` int32 [P, Rp, 128]) plus ``row_tile`` [P, Rp] and
+    ``part_tile0`` [P, 1]; ``paged_dot_blocks`` then
+    ops/dot.dot_partials a block, then the class combine.  The
+    reference picks each lane by a one-hot matmul; the gather gives the
+    same bits for finite states, and an inf or NaN in a lane that is
+    not picked no longer reaches the result."""
+    if weight is None:
+        raise ValueError("paged_partial_dot needs per-lane weights")
+    P, Rp = slot_lane.shape[:2]
+    K = state.shape[-1]
+    partials = torch.empty((P * Rp, W, K), dtype=state.dtype,
+                           device=state.device)
+    run_blocks(paged_dot_blocks(state, page_ids, slot_lane, rel, weight,
+                                row_tile, part_tile0, block_rows),
+               msg_dot_fn, partials)
+    red = class_combine(pp, partials.view(P, Rp, W, K)[:, :pp.R],
+                        tile_pos, "sum")
+    return red.reshape(P, pp.n_tiles * W, K)
+
+
 # ---------------------------------------------------------------------
 # NumPy oracles
 # ---------------------------------------------------------------------
@@ -705,4 +781,22 @@ def paged_reduce_numpy(pp: PagedPlan, p: int, state_flat: np.ndarray,
     rows, cols = np.nonzero(live)
     dst = pp.row_tile[p][rows].astype(np.int64) * W + rel[rows, cols]
     op.at(out, dst, vals[rows, cols])
+    return out
+
+
+def paged_dot_numpy(pp: PagedPlan, p: int, state: np.ndarray,
+                    part_tile0: int, msg_dot_fn) -> np.ndarray:
+    """float64 oracle for one part of the paged SDDMM delivery
+    (lux_tpu/ops/pagegather.py:1462) -> [n_tiles * 128, K]: every live
+    lane decoded to its (source, destination) edge, msgs =
+    msg_dot_fn(S, <S, T>, w) summed per destination.  With
+    integer-valued states and weights whose sums stay under 2^24 it
+    equals the f32 device result exactly."""
+    src, dst = decode_plan(pp, p)
+    rel = pp.rel_dst[p]
+    rows, cols = np.nonzero(rel != -1)
+    msg = dot_msgs_numpy(state, src, dst + part_tile0 * W,
+                         pp.weight[p][rows, cols], msg_dot_fn)
+    out = np.zeros((pp.n_tiles * W, msg.shape[-1]))
+    np.add.at(out, dst, msg)
     return out

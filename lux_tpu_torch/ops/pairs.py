@@ -1,6 +1,5 @@
 """Pair-lane delivery and the row-class machinery it shares with the
-paged gather (counterpart of lux_tpu/ops/pairs.py:40-838 and
-:1021-1058; the SDDMM dot forms :841-1018 come with ROADMAP A5).
+paged gather (counterpart of lux_tpu/ops/pairs.py:40-1100).
 
 Edges of a dense (src tile, dst tile) pair — both tiles 128 vertices,
 a pair with at least ``threshold`` edges — are served by fetching the
@@ -28,6 +27,13 @@ the plans are array-equal to the reference's.  Device side
 
 ``pair_partial_streamed`` runs the same per class in blocks of whole
 slots, one B1 launch per block.
+
+Vector-state dot programs (colfilter, ``edge_value_from_dot``) take the
+SDDMM forms instead, which launch no hand kernel: ``pair_partial_dot``
+fetches each row's [128, K] source tile and its destination tile and
+runs ops/dot.dot_partials in blocks of rows; ``pair_partial_dot_streamed``
+runs it per class in blocks of whole slots and folds each block's depth
+rows at once.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ import numpy as np
 import torch
 
 from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+from lux_tpu_torch.ops.dot import (DOT_BLOCK_BYTES, STREAM_MSG_BYTES,
+                                   DotBlock, blocks, run_blocks)
 from lux_tpu_torch.ops.segment import identity_for
 
 W = 128
@@ -165,7 +173,9 @@ def resolve_min_fill(min_fill) -> int | None:
         raise NotPortedError(
             "min_fill='auto' is not ported yet (ROADMAP A10): it "
             "resolves through a cost model measured on the TPU; pass "
-            "an int (bench.py's pagerank config uses 24) or None")
+            "an int (bench.py's pagerank config uses 24, its colfilter "
+            "config 22, what the reference resolves 'auto' to at K = "
+            "20) or None")
     if min_fill is not None and not isinstance(min_fill, (int,
                                                           np.integer)):
         raise ValueError(f"min_fill must be an int, None or 'auto', "
@@ -729,16 +739,204 @@ def resolve_pair_stream(pair_stream, pairs) -> bool:
     return True if pair_stream is None else bool(pair_stream)
 
 
+# ---------------------------------------------------------------------
+# the SDDMM (vector-state dot) forms
+# ---------------------------------------------------------------------
+
+
+# rows a block of the monolithic pair and paged dot deliveries: 1 GB
+# of D (ops/dot.DOT_BLOCK_BYTES); the reference's lax.map block is 256
+# rows (lux_tpu/ops/pairs.py:843), a TPU choice
+DOT_BLOCK_ROWS = DOT_BLOCK_BYTES // (W * W * 4)
+
+
+def _row_block(s3, rowbind, rel, weight, tile, units) -> DotBlock:
+    """A block of rows: source tiles ``rowbind`` and destination tiles
+    ``tile`` (flat state-tile indices) of ``s3`` [n_rows, 128, K]."""
+    return DotBlock(
+        fetch=lambda: (torch.index_select(s3, 0, rowbind),
+                       torch.index_select(s3, 0, tile)),
+        rel=rel, weight=weight, units=units)
+
+
+def pair_dot_blocks(state, rowbind, rel, weight, row_tile, part_tile0,
+                    block_rows: int = DOT_BLOCK_ROWS) -> list:
+    """The monolithic dot delivery's blocks: the [P*Rp] stacked rows in
+    blocks of ``block_rows``, each fetching its rows' source tiles and
+    destination tiles ``part_tile0 + row_tile`` from ``state`` [P*vpad,
+    K] viewed as [P*vpad/128, 128, K]."""
+    P, Rp = rowbind.shape
+    s3 = state.reshape(-1, W, state.shape[-1])
+    rb, rl = rowbind.reshape(-1), rel.reshape(-1, W)
+    wt = weight.reshape(-1, W)
+    tile = (part_tile0.reshape(P, 1) + row_tile).reshape(-1)
+    return [_row_block(s3, rb[r0:r0 + n], rl[r0:r0 + n], wt[r0:r0 + n],
+                       tile[r0:r0 + n], slice(r0, r0 + n))
+            for r0, n in blocks(P * Rp, block_rows)]
+
+
+def pair_partial_dot(sp, state, rowbind, rel, weight, row_tile, tile_pos,
+                     part_tile0, msg_dot_fn,
+                     block_rows: int = DOT_BLOCK_ROWS):
+    """Pair-lane delivery for vector-state dot programs, every part at
+    once -> ``[P, n_tiles * 128, K]`` sums (0 where pairs contribute
+    nothing).  ``state`` [P*vpad, K] the whole state; ``rowbind``,
+    ``row_tile`` [P, Rp], ``rel`` int8 / ``weight`` [P, Rp, 128],
+    ``tile_pos`` [P, n_tiles] the stacked arrays; ``part_tile0`` [P, 1]
+    the state tile of each part's tile 0 (p * vpad / 128).  Every
+    [P*Rp] row runs ops/dot.dot_partials in blocks of ``block_rows``
+    rows into stacked row partials, then the class combine."""
+    if weight is None:
+        raise ValueError("pair_partial_dot needs per-lane weights")
+    P, Rp = rowbind.shape
+    K = state.shape[-1]
+    partials = torch.empty((P * Rp, W, K), dtype=state.dtype,
+                           device=state.device)
+    run_blocks(pair_dot_blocks(state, rowbind, rel, weight, row_tile,
+                               part_tile0, block_rows),
+               msg_dot_fn, partials)
+    red = class_combine(sp, partials.view(P, Rp, W, K)[:, :sp.R],
+                        tile_pos, "sum")
+    return red.reshape(P, sp.n_tiles * W, K)
+
+
+def dot_stream_blocks(classes, kdim: int,
+                      block_bytes: int = DOT_BLOCK_BYTES):
+    """The streamed dot delivery's blocks, in order: (first row, slots
+    S, depth L), S*L rows of one class — the reference's scan blocks:
+    whole slots, S sized so one part's block (its S and T tiles, the
+    messages and partials [128, K] each and the [128, 128] dot and mask
+    blocks a row) stays under ``block_bytes`` (ops/dot.DOT_BLOCK_BYTES;
+    the reference's 64 MB, lux_tpu/ops/pairs.py:916, is a TPU
+    choice)."""
+    row_bytes = 4 * W * (W + 4 * max(1, kdim))
+    out, row0 = [], 0
+    for cnt, L in classes:
+        S = max(1, min(cnt, block_bytes // max(1, L * row_bytes)))
+        nB, rem = divmod(cnt, S)
+        out += [(row0 + b * S * L, S, L) for b in range(nB)]
+        if rem:
+            out.append((row0 + nB * S * L, rem, L))
+        row0 += cnt * L
+    return out
+
+
+def pair_dot_stream_units(state, rowbind, rel, weight, row_tile,
+                          part_tile0, classes,
+                          block_bytes: int = DOT_BLOCK_BYTES) -> list:
+    """The streamed dot delivery's blocks (``dot_stream_blocks``, every
+    part): [(DotBlock over the block's P*S*L rows, S, L)]."""
+    P = rowbind.shape[0]
+    s3 = state.reshape(-1, W, state.shape[-1])
+    out = []
+    for r0, S, L in dot_stream_blocks(classes, state.shape[-1],
+                                      block_bytes):
+        sl = slice(r0, r0 + S * L)
+        tile = part_tile0.reshape(P, 1) + row_tile[:, sl]
+        out.append((_row_block(s3, rowbind[:, sl].reshape(-1),
+                               rel[:, sl].reshape(-1, W),
+                               weight[:, sl].reshape(-1, W),
+                               tile.reshape(-1), sl), S, L))
+    return out
+
+
+def pair_partial_dot_streamed(sp, state, rowbind, rel, weight, row_tile,
+                              tile_pos, part_tile0, msg_dot_fn,
+                              block_bytes: int = DOT_BLOCK_BYTES):
+    """The result of ``pair_partial_dot`` with neither the [P*Rp, 128,
+    K] row partials nor the fetched tiles existing beyond one block:
+    each block (``dot_stream_blocks``, every part) runs the SDDMM step
+    and folds its slots' depth rows to per-slot sums [P, S, 128, K]."""
+    if weight is None:
+        raise ValueError("pair_partial_dot needs per-lane weights")
+    units = pair_dot_stream_units(state, rowbind, rel, weight, row_tile,
+                                  part_tile0, sp.classes, block_bytes)
+    return fold_stream_slots(
+        sp, ((blk.partials(msg_dot_fn), S, L) for blk, S, L in units),
+        tile_pos, state.shape[-1], state.dtype, state.device)
+
+
+def fold_stream_slots(sp, block_partials, tile_pos, K: int, dtype,
+                      device):
+    """The streamed dot's combine: each block's row partials [P*S*L,
+    128, K] (``block_partials`` yields (partials, S, L); a generator
+    keeps one block live) summed over its slots' depth rows to per-slot
+    sums [P, S, 128, K], then the slots taken by ``tile_pos`` ->
+    ``[P, n_tiles * 128, K]``."""
+    P = tile_pos.shape[0]
+    outs = [p.view(P, S, L, W, K).sum(dim=2)
+            for p, S, L in block_partials]
+    red = _take_slots(outs, tile_pos, "sum", dtype, device, (W, K))
+    return red.reshape(P, sp.n_tiles * W, K)
+
+
+def resolve_pair_dot_stream(pair_stream, sp, rows: int, kdim: int) -> bool:
+    """The reference's rule (lux_tpu/ops/pairs.py:1003): stream once the
+    monolithic path's stacked f32 row partials [rows, Rp, 128, kdim]
+    pass ``STREAM_MSG_BYTES``; True/False force."""
+    if sp is None:
+        return False
+    if pair_stream is not None:
+        return bool(pair_stream)
+    return rows * sp.Rp * W * max(1, kdim) * 4 > STREAM_MSG_BYTES
+
+
+def dot_msgs_numpy(state: np.ndarray, src: np.ndarray, dst: np.ndarray,
+                   weight: np.ndarray, msg_dot_fn) -> np.ndarray:
+    """float64 messages of edges ``src`` -> ``dst`` (indices into
+    ``state`` [n, K]): msg_dot_fn(S, <S, T>, w), vectorised over the
+    edges (``msg_dot_fn`` broadcasts, as colfilter's ``(w - dot)[...,
+    None] * S`` does) -> [n_edges, K]."""
+    s2 = np.asarray(state, np.float64)
+    S = s2[src]
+    dot = np.einsum("ek,ek->e", S, s2[dst])
+    return np.asarray(msg_dot_fn(S, dot, np.asarray(weight, np.float64))
+                      ).reshape(len(src), s2.shape[-1])
+
+
+def stacked_pair_dot_numpy(sp: StackedPairPlan, p: int,
+                           state: np.ndarray, part_tile0: int,
+                           msg_dot_fn) -> np.ndarray:
+    """float64 oracle for one part of the SDDMM pair delivery
+    (lux_tpu/ops/pairs.py:1061): per live lane, dot = <S, T> with S the
+    lane's source row and T its destination row, msgs = msg_dot_fn(S,
+    dot, w) summed into the destination.  ``state`` [n_rows * 128, K];
+    returns [n_tiles * 128, K].  With integer-valued states and weights
+    whose sums stay under 2^24 it equals the f32 device result
+    exactly."""
+    rel = sp.rel_dst[p].astype(np.int64)
+    rows, cols = np.nonzero((rel >= 0) & (rel < W))
+    src = sp.rowbind[p][rows].astype(np.int64) * W + cols
+    dst = sp.row_tile[p][rows].astype(np.int64) * W + rel[rows, cols]
+    msg = dot_msgs_numpy(state, src, dst + part_tile0 * W,
+                         sp.weight[p][rows, cols], msg_dot_fn)
+    out = np.zeros((sp.n_tiles * W, msg.shape[-1]))
+    np.add.at(out, dst, msg)
+    return out
+
+
 # graph-array keys of an engine's pair rows (pair_weight when weighted),
-# under the reference's names
+# under the reference's names; dot programs add PAIR_DOT_KEYS
 PAIR_KEYS = ("pair_rowbind", "pair_rel", "pair_tile_pos")
+PAIR_DOT_KEYS = ("pair_row_tile", "pair_tile0")
 
 
-def pair_graph_arrays(sp: StackedPairPlan) -> dict:
+def part_tile0(num_parts: int, vpad: int) -> np.ndarray:
+    """int32 [P, 1]: the state tile of each part's tile 0."""
+    return (np.arange(num_parts) * (vpad // W)).astype(np.int32)[:, None]
+
+
+def pair_graph_arrays(sp: StackedPairPlan, dot: bool = False,
+                      vpad: int | None = None) -> dict:
     """The stacked plan's per-part host arrays for an engine's array
-    dict (leading dim num_parts)."""
+    dict (leading dim num_parts); ``dot`` adds each row's destination
+    tile and each part's tile 0 (``vpad`` needed), which the SDDMM
+    delivery fetches."""
     arrays = {"pair_rowbind": sp.rowbind, "pair_rel": sp.rel_dst,
               "pair_tile_pos": sp.tile_pos}
     if sp.weight is not None:
         arrays["pair_weight"] = sp.weight
+    if dot:
+        arrays["pair_row_tile"] = sp.row_tile
+        arrays["pair_tile0"] = part_tile0(sp.rowbind.shape[0], vpad)
     return arrays

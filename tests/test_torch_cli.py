@@ -1,5 +1,5 @@
-"""The port's CLI: ``pagerank`` on the CPU end to end, and ``convert``
-writing the same bytes as lux_tpu's converter."""
+"""The port's CLI: ``pagerank`` and ``colfilter`` on the CPU end to
+end, and ``convert`` writing the same bytes as lux_tpu's converter."""
 
 import os
 import subprocess
@@ -41,6 +41,38 @@ def test_pagerank_cpu_check(lux_file):
     assert "ELAPSED TIME = " in proc.stdout
     assert "GTEPS = " in proc.stdout
     assert "[PASS] pagerank residual" in proc.stdout
+
+
+@pytest.fixture(scope="module")
+def weighted_lux_file(tmp_path_factory):
+    src, dst, nv = rmat_edges(9, 8, seed=2)
+    g = Graph.from_edges(src, dst, nv)
+    w = np.random.default_rng(3).integers(1, 6, size=g.ne).astype(np.int32)
+    path = str(tmp_path_factory.mktemp("cli") / "w.lux")
+    write_lux(path, g.row_ptrs, g.col_idx, w, g.out_degrees)
+    return path
+
+
+@pytest.mark.parametrize("extra", [[], ["-np", "2"],
+                                   ["-pair", "4", "-min-fill", "22"],
+                                   ["-gather", "paged"]])
+def test_colfilter_cpu_check(weighted_lux_file, extra):
+    proc = _run_cli("colfilter", "-file", weighted_lux_file, "-ni", "2",
+                    "-device", "cpu", "-check", *extra)
+    assert proc.returncode == 0, proc.stderr
+    assert "ELAPSED TIME = " in proc.stdout
+    assert "GTEPS = " in proc.stdout
+    assert "RMSE = " in proc.stdout
+    assert "[PASS] colfilter rmse non-increase (device)" in proc.stdout
+
+
+@pytest.mark.parametrize("extra,msg", [
+    (["-gather", "pagemajor"], "keep gather='paged'"),
+    (["-pair", "4", "-min-fill", "auto"], "ROADMAP A10")])
+def test_colfilter_refusals_exit_2(weighted_lux_file, extra, msg):
+    proc = _run_cli("colfilter", "-file", weighted_lux_file, "-ni", "1",
+                    "-device", "cpu", *extra)
+    assert proc.returncode == 2 and msg in proc.stderr
 
 
 def test_pagerank_default_device_refuses_without_cuda(lux_file, capsys):

@@ -370,3 +370,79 @@ def test_paged_value_errors():
         pagerank.build_engine(g, sg=sg, device=CPU, gather="pagemajor")
     with pytest.raises(ValueError, match="unknown gather"):
         pagerank.build_engine(g, device=CPU, gather="bogus")
+
+
+# ---------------------------------------------------------------------
+# the SDDMM (dot-program) paged delivery
+
+
+def _msg_dot(s, dot, wt):
+    # colfilter's gradient: (w - <s, d>) * s
+    return (wt - dot)[..., None] * s
+
+
+@pytest.mark.parametrize("kdim", [1, 20])
+@pytest.mark.parametrize("num_parts", [1, 3])
+def test_paged_dot_exact_against_lux_tpu(lux_ref, layouts, kdim,
+                                         num_parts):
+    """Integer-valued states and weights: the port's paged_partial_dot
+    equals lux_tpu's, the port's paged_dot_numpy and the reference's
+    bit for bit, part by part; the dot arrays equal the reference's."""
+    import jax.numpy as jnp
+    sg, ref_sg = layouts(10, num_parts, True)
+    plan = pg.plan_paged_gather(sg)
+    ref_plan = lux_ref.pagegather.plan_paged_gather(ref_sg)
+    state = np.random.default_rng(4).integers(
+        0, 4, (sg.num_parts * sg.vpad, kdim)).astype(np.float32)
+    host = pg.plan_graph_arrays(plan, dot=True, vpad=sg.vpad)
+    ref_host = lux_ref.pagegather.plan_graph_arrays(
+        ref_plan, np.asarray, owner=False, dot=True,
+        num_parts=sg.num_parts, vpad=sg.vpad)
+    for k in pg.PAGED_DOT_KEYS:
+        np.testing.assert_array_equal(host[k], ref_host[k], err_msg=k)
+        assert host[k].dtype == ref_host[k].dtype, k
+    a = {k: torch.tensor(v.view(np.int32) if v.dtype == np.uint32 else v)
+         for k, v in host.items()}
+    got = pg.paged_partial_dot(
+        plan, torch.from_numpy(state), a["pg_ids"], a["pg_sl"], a["pg_rel"],
+        a["pg_w"], a["pg_rt"], a["pg_tp"], a["pg_t0"], _msg_dot,
+        block_rows=9).numpy()
+    assert got.shape == (sg.num_parts, plan.n_tiles * W, kdim)
+    for p in range(sg.num_parts):
+        t0 = p * (sg.vpad // W)
+        want = np.asarray(lux_ref.pagegather.paged_partial_dot(
+            ref_plan, jnp.asarray(state), jnp.asarray(ref_plan.page_ids[p]),
+            jnp.asarray(ref_plan.slot_lane[p]),
+            jnp.asarray(ref_plan.rel_dst[p]), jnp.asarray(ref_plan.weight[p]),
+            jnp.asarray(ref_plan.row_tile[p]),
+            jnp.asarray(ref_plan.tile_pos[p]), t0, _msg_dot))
+        np.testing.assert_array_equal(got[p], want)
+        oracle = pg.paged_dot_numpy(plan, p, state, t0, _msg_dot)
+        np.testing.assert_array_equal(oracle, want.astype(np.float64))
+        np.testing.assert_array_equal(
+            oracle, lux_ref.pagegather.paged_dot_numpy(ref_plan, p, state,
+                                                       t0, _msg_dot))
+
+
+@pytest.mark.parametrize("gather", ["paged", "pagemajor"])
+@pytest.mark.parametrize("prog", ["dot", "needs_dst"])
+def test_engine_page_plan_dot_rules_match_lux_tpu(lux_ref, layouts, gather,
+                                                  prog):
+    """Dot programs take gather='paged' and raise the reference's
+    ValueError for 'pagemajor'; needs_dst without a dot keeps the flat
+    gather (ValueError when paged is asked for), as in the reference."""
+    import types
+    sg, ref_sg = layouts(9, 1, True)
+    program = types.SimpleNamespace(
+        needs_dst=True, state_bytes=80,
+        edge_value_from_dot=len if prog == "dot" else None)
+    try:
+        lux_ref.pagegather.engine_page_plan(ref_sg, gather, program,
+                                            "gather")
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            pg.engine_page_plan(sg, gather, program)
+        assert str(got.value) == str(e)
+    else:
+        plan = pg.engine_page_plan(sg, gather, program)
+        assert plan is not None and plan.mode == gather

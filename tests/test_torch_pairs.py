@@ -567,7 +567,8 @@ def test_pair_not_ported_refusals():
     with pytest.raises(NotPortedError, match="ROADMAP A10"):
         PullEngine(sg, pagerank.make_program(), device=CPU,
                    pair_threshold=16, pair_min_fill="auto")
-    with pytest.raises(NotPortedError, match="ROADMAP A5"):
+    # dot programs ride pair rows since A5, on weighted graphs only
+    with pytest.raises(ValueError, match="requires a weighted graph"):
         PullEngine(sg, _program(needs_dst=True, edge_value_from_dot=len),
                    device=CPU, pair_threshold=16)
     sg.local_parts = np.array([0])
@@ -575,3 +576,70 @@ def test_pair_not_ported_refusals():
         pr.plan_sharded_pairs(sg, 16)
     with pytest.raises(ValueError, match="min_fill must be"):
         pr.resolve_min_fill(2.5)
+
+
+# ---------------------------------------------------------------------
+# the SDDMM (dot-program) pair delivery
+
+
+def _msg_dot(s, dot, wt):
+    # colfilter's gradient: (w - <s, d>) * s
+    return (wt - dot)[..., None] * s
+
+
+@pytest.mark.parametrize("kdim", [1, 20])
+@pytest.mark.parametrize("num_parts", [1, 3])
+def test_pair_dot_exact_against_lux_tpu(lux_ref, relabelled, kdim,
+                                        num_parts):
+    """Integer-valued states and weights keep every f32 sum exact, so the
+    port's monolithic and streamed SDDMM deliveries equal lux_tpu's
+    pair_partial_dot and pair_partial_dot_streamed, the port's
+    stacked_pair_dot_numpy and the reference's, bit for bit, part by
+    part (tiny blocks force multi-block scans and remainders)."""
+    import jax.numpy as jnp
+    _g2, _perm, _starts, sg, _r2, rsg = relabelled(11, num_parts, 4, True)
+    sp, _res = pr.plan_sharded_pairs(sg, 4, min_fill=2)
+    rsp, _rres = lux_ref.pairs.plan_sharded_pairs(rsg, 4, min_fill=2)
+    assert sp is not None and len(sp.classes) > 1
+    state = np.random.default_rng(3).integers(
+        0, 4, (sg.num_parts * sg.vpad, kdim)).astype(np.float32)
+    a = {k: torch.from_numpy(v)
+         for k, v in pr.pair_graph_arrays(sp, dot=True,
+                                          vpad=sg.vpad).items()}
+    args = (sp, torch.from_numpy(state), a["pair_rowbind"], a["pair_rel"],
+            a["pair_weight"], a["pair_row_tile"], a["pair_tile_pos"],
+            a["pair_tile0"], _msg_dot)
+    mono = pr.pair_partial_dot(*args, block_rows=7).numpy()
+    strm = pr.pair_partial_dot_streamed(*args, block_bytes=1 << 16).numpy()
+    assert mono.shape == (sg.num_parts, sp.n_tiles * W, kdim)
+    assert len(pr.dot_stream_blocks(sp.classes, kdim, 1 << 16)) > len(
+        sp.classes) or num_parts > 1
+    np.testing.assert_array_equal(strm, mono)
+    for p in range(sg.num_parts):
+        t0 = p * (sg.vpad // W)
+        ref_args = (rsp, jnp.asarray(state), jnp.asarray(rsp.rowbind[p]),
+                    jnp.asarray(rsp.rel_dst[p]), jnp.asarray(rsp.weight[p]),
+                    jnp.asarray(rsp.row_tile[p]),
+                    jnp.asarray(rsp.tile_pos[p]), t0, _msg_dot)
+        want = np.asarray(lux_ref.pairs.pair_partial_dot(*ref_args))
+        np.testing.assert_array_equal(mono[p], want)
+        np.testing.assert_array_equal(
+            strm[p], np.asarray(lux_ref.pairs.pair_partial_dot_streamed(
+                *ref_args, block_bytes=1 << 16)))
+        oracle = pr.stacked_pair_dot_numpy(sp, p, state, t0, _msg_dot)
+        np.testing.assert_array_equal(oracle, want.astype(np.float64))
+        np.testing.assert_array_equal(
+            oracle, lux_ref.pairs.stacked_pair_dot_numpy(rsp, p, state, t0,
+                                                         _msg_dot))
+
+
+@pytest.mark.parametrize("pair_stream", [None, True, False])
+def test_resolve_pair_dot_stream_matches_lux_tpu(lux_ref, relabelled,
+                                                  pair_stream):
+    _g2, _perm, _starts, sg, _r2, _rsg = relabelled(10, 1, 4, True)
+    sp, _res = pr.plan_sharded_pairs(sg, 4)
+    for rows, kdim in ((1, 1), (1, 20), (4, 20), (1 << 10, 20)):
+        assert pr.resolve_pair_dot_stream(pair_stream, sp, rows, kdim) is \
+            lux_ref.pairs.resolve_pair_dot_stream(pair_stream, sp, rows,
+                                                  kdim)
+    assert pr.resolve_pair_dot_stream(pair_stream, None, 1, 20) is False
