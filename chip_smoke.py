@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
 1. env      torch / CUDA versions, the card's name and power limit
             (also printed raw, as nvidia-smi gives them);
 2. build    every kernel built from lux_tpu_torch/csrc (B1
-            chunk_partials, B2 lane_shuffle, and the probe kernels S7
+            chunk_partials and its batched form chunk_partials_batched,
+            B2 lane_shuffle, and the probe kernels S7
             carry, S8 fused_carry, S9 onehot_reduce, S3/S12
             transposed_reduce, S2/S11 sub_gather, S4/S5 elementwise, S6
             block_rowsum: every entry of _kernels.KERNELS), one nvcc per
@@ -168,7 +169,38 @@ Phases, each printing one JSON line:
             device ms (fetch, D, lane select, messages, one-hot reduce,
             combine_chunks, class combine, apply), device launches an
             iteration (torch.profiler) and the step at the default
-            blocks (1 GB of D a block) against the reference's.
+            blocks (1 GB of D a block) against the reference's;
+15. batch   kernel B1's batched form (csrc/chunk_partials_batched.cu,
+            [C, E, B] -> [C, W, B]) against its plain version on
+            synthetic shapes (B in {1, 3, 8, 64}, sorted and unsorted
+            rows, E % 4 != 0, C = 0, unaligned bases, lanes outside
+            [0, W), int32 extremes, NaN for min/max; f32 sums within
+            E * 2^-23 * max|v|, the rest bit-equal; three launches
+            bit-equal; a strided view refused); then bench.py's
+            ksssp-batch@8 and ppr-batch@8 (bench.py:941-976) uncut: R-MAT
+            one scale under --scale (20), --ef, --seed, one part, no
+            relabel, B = 8 sources from default_rng(7); ksssp through
+            sssp.build_engine(sources=...) to convergence, every
+            iteration dense, labels bit-equal to the numpy batched
+            oracle and two columns to single-source scalar runs, B1's
+            batched form launched once an iteration and the scalar B1
+            and B2 never, at most one host sync an iteration; ppr
+            through pagerank.build_engine(sources=...) for 20
+            iterations within rtol 5e-5 of the float64 oracle; for each,
+            times, GTEPS and query_gteps (B x GTEPS), host enqueue and
+            syncs an iteration, per-layer device ms (gather, batched
+            B1, combine, apply) and B1's batched form on the path's own
+            messages against its plain version (the kernels line's
+            chunk_partials_batched@ entries);
+16. serve   serve.Server on the same graph, batch 8, seg_iters 2,
+            deadline 0, bench.py's SLO targets: a warm-up query of each
+            kind, then 36 queries (12 sssp, 12 components, 12
+            pagerank, seeded order and sources) drained with every
+            launch count at 0; every answer against its oracle (BFS
+            levels and reachability, the float64 PageRank oracle at the
+            query's iterations), a boundary that retired and refilled,
+            serve_retired_total = 36, only B1's batched form launched;
+            p50 / p99 latency, per-kind iterations and segments.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -594,10 +626,19 @@ def phase_kernels(args, torch, eng):
 
 
 def zero_launches():
-    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    from lux_tpu_torch.ops.chunk_reduce import (chunk_partials,
+                                                chunk_partials_batched)
     from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
     chunk_partials.launches = 0
+    chunk_partials_batched.launches = 0
     lane_shuffle.launches = 0
+
+
+def batched_launches() -> int:
+    """B1's batched form's launch count (read_launches keeps the two
+    keys the single-query phases compare)."""
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials_batched
+    return chunk_partials_batched.launches
 
 
 def read_launches():
@@ -1367,25 +1408,37 @@ def dense_launches(eng) -> dict:
     return {"chunk_partials": 1 + pairs, "lane_shuffle": 0}
 
 
-def converge_counted(torch, eng):
-    """One converge from a fresh init_state with every launch count at 0
-    just before and read just after, and the host syncs it makes
-    counted by torch's sync debug mode -> (label, active, iterations,
-    launches, syncs, schedule)."""
+def counted_sync_run(torch, fn):
+    """``fn()`` with every launch count at 0 just before and read just
+    after, and the host syncs it makes counted by torch's sync debug
+    mode -> (result, launches incl. the batched form, syncs)."""
     import warnings
-    label, active = eng.init_state()
     torch.cuda.synchronize()
     zero_launches()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            label, active, it = eng.converge(label, active)
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
-    return label, active, it, read_launches(), syncs, list(eng.schedule)
+    counts = dict(read_launches(), chunk_partials_batched=batched_launches())
+    return out, counts, sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def converge_counted(torch, eng):
+    """One converge from a fresh init_state with every launch count at 0
+    just before and read just after, and the host syncs it makes
+    counted by torch's sync debug mode -> (label, active, iterations,
+    launches, syncs, schedule).  A single-query engine launches no
+    batched B1."""
+    label, active = eng.init_state()
+    (label, active, it), counts, syncs = counted_sync_run(
+        torch, lambda: eng.converge(label, active))
+    require(counts.pop("chunk_partials_batched") == 0,
+            "a single-query converge launched B1's batched form")
+    return label, active, it, counts, syncs, list(eng.schedule)
 
 
 def check_push_launches(eng, counts, schedule, what: str) -> dict:
@@ -3126,6 +3179,662 @@ def parts_colfilter(args, torch) -> dict:
     return {"nv": g.nv, "ne": g.ne, **out}
 
 
+# ---------------------------------------------------------------------
+# the query-batched engines and the Server (bench.py's ksssp-batch@8,
+# ppr-batch@8 and the serve-slo mix)
+
+BATCH_B = 8                 # bench.py's "@8" sweep point
+BATCH_SOURCE_SEED = 7       # bench.py:955-957: default_rng(7).choice
+PPR_ITERS = 20              # bench.py's -ni default (bench.py:1289)
+SERVE_QUERIES = 36          # bench.py's -serve-queries default
+SERVE_SEG_ITERS = 2         # serve-slo's Server(seg_iters=2)
+SERVE_SLO_MS = {"sssp": 250.0, "components": 250.0,
+                "pagerank": 1000.0}          # bench.py's -slo-ms default
+
+
+def _lane_abs_sums(torch, vals, rel, W):
+    """S[c, w, b]: the sum of |vals[c, e, b]| over the entries with
+    rel[c, e] == w, in float64."""
+    C, E, B = vals.shape
+    lane = rel.long()
+    lane = torch.where((lane >= 0) & (lane < W), lane, W)
+    idx = (torch.arange(C, device=vals.device)[:, None] * (W + 1) + lane)
+    out = torch.zeros((C * (W + 1), B), dtype=torch.float64,
+                      device=vals.device)
+    out.scatter_add_(0, idx.reshape(-1, 1).expand(C * E, B),
+                     vals.double().abs().reshape(C * E, B))
+    return out.view(C, W + 1, B)[:, :W]
+
+
+def _check_batched_case(torch, name, vals, rel, W, kind, plain_on=None):
+    """B1's batched form against its plain version (on ``plain_on``,
+    default the inputs' device): f32 sums element by element within E *
+    2^-23 * S[c, w, b], S the sum of |v| over the same lane in float64
+    (the kernel folds each lane in ascending e, the
+    plain scatter in another order; each order's error is under half
+    that), everything else bit-equal."""
+    from lux_tpu_torch.ops.chunk_reduce import (
+        chunk_partials_batched, chunk_partials_batched_plain)
+    plain_on = plain_on or vals.device
+    got = chunk_partials_batched(vals, rel, W, kind)
+    want = chunk_partials_batched_plain(
+        vals.to(plain_on), rel.to(plain_on), W, kind).to(vals.device)
+    torch.cuda.synchronize()
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name}: shape/dtype {got.shape}/{got.dtype} vs "
+            f"{want.shape}/{want.dtype}")
+    if vals.dtype == torch.int32 or kind != "sum":
+        ok, tol = same_bits(got, want), "bit-equal"
+        err = 0.0 if ok else float(
+            (got.double() - want.double()).abs().nan_to_num().max())
+    else:
+        E = vals.shape[1]
+        mag = _lane_abs_sums(torch, vals, rel, W)
+        diff = (got.double() - want.double()).abs()
+        bound = E * 2.0 ** -23 * mag
+        err = float(diff.max()) if got.numel() else 0.0
+        ok = bool((diff <= bound).all())
+        tol = "per element E * 2^-23 * sum|v| over the lane"
+    require(ok, f"batched B1 case {name} disagrees with the plain version "
+                f"(max abs err {err}, {tol})")
+    return {"case": name, "shape": list(vals.shape), "W": W,
+            "dtype": str(vals.dtype).replace("torch.", ""), "kind": kind,
+            "max_abs_err": err, "tolerance": tol}
+
+
+def check_batched_deterministic(torch, name, vals, rel, W, kind):
+    """Three launches on the same inputs give the same bits."""
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials_batched
+    outs = [chunk_partials_batched(vals, rel, W, kind) for _ in range(3)]
+    torch.cuda.synchronize()
+    require(_same_words(outs[0], outs[1]) and _same_words(outs[0], outs[2]),
+            f"batched B1 {name}: three launches differ in bits")
+    return {"case": f"{name}/deterministic", "shape": list(vals.shape),
+            "W": W, "dtype": str(vals.dtype).replace("torch.", ""),
+            "kind": kind, "max_abs_err": 0.0,
+            "tolerance": "bit-equal across three launches"}
+
+
+def b1_batched_cases(torch, gen, dev) -> list:
+    """B1's batched form against its plain version on the shapes its
+    design splits on: B in {1, 3, 8, 64} (the 16 B path where B % 4 ==
+    0, scalar loads else), sorted tiled-like rows with pads at the
+    tail, unsorted rows (the read-modify-write path), E in {1, 3, 33,
+    130} (E % 4 != 0), all-pad and empty-lane chunks, lanes outside [0,
+    W), unaligned value and lane bases, C = 0, int32 at INT32_MIN /
+    INT32_MAX and wrapping sums, NaN values for min and max; three
+    launches bit-equal; a strided view refused."""
+    from lux_tpu_torch.ops.chunk_reduce import (KernelInputError,
+                                                chunk_partials_batched)
+    W, cases = 128, []
+
+    def lanes(c, e, sort, w=W, lo=0):
+        r = torch.randint(lo, w, (c, e), generator=gen, device=dev)
+        if sort:
+            r = r.sort(dim=1).values
+        # pads: a random tail of each row (sorted) or ~10% anywhere
+        if sort:
+            n_live = torch.randint(0, e + 1, (c, 1), generator=gen,
+                                   device=dev)
+            r = torch.where(torch.arange(e, device=dev)[None, :] < n_live,
+                            r, -1)
+        else:
+            r = torch.where(torch.rand((c, e), generator=gen, device=dev)
+                            < 0.1, -1, r)
+        r[::7] = -1                                # all-pad chunks
+        return r.to(torch.int8).contiguous()
+
+    def values(c, e, b, dtype, offset=0):
+        n = c * e * b + offset
+        if dtype == torch.int32:
+            flat = torch.randint(-1000, 1000, (n,), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        else:
+            flat = torch.randn((n,), generator=gen, device=dev)
+        return flat[offset:].view(c, e, b)
+
+    C = 1001
+    for B in (1, 3, 8, 64):
+        for sort in (True, False):
+            e = 512 if sort else 128
+            rel = lanes(C if B < 64 else 203, e, sort)
+            for dtype in (torch.float32, torch.int32):
+                for kind in ("sum", "min", "max"):
+                    cases.append(_check_batched_case(
+                        torch, f"B{B}_{'sorted' if sort else 'unsorted'}/"
+                               f"{str(dtype)[6:]}_{kind}",
+                        values(rel.shape[0], e, B, dtype), rel, W, kind))
+    for e in (1, 3, 33, 130):
+        for B in (3, 8):
+            rel = lanes(C, e, e % 2 == 1)
+            for kind in ("sum", "min", "max"):
+                cases.append(_check_batched_case(
+                    torch, f"E{e}_B{B}/f32_{kind}",
+                    values(C, e, B, torch.float32), rel, W, kind))
+    for w in (100, 37):
+        rel = lanes(C, 256, False, w=128, lo=-128)
+        for kind in ("sum", "max"):
+            cases.append(_check_batched_case(
+                torch, f"lanes_outside_W{w}/int32_{kind}",
+                values(C, 256, 8, torch.int32), rel, w, kind))
+    # unaligned bases: values one element off 16 B (the scalar-load
+    # path at B = 8), lane ids one byte off 4 B
+    rel_buf = lanes(C * 512 + 1, 1, False).reshape(-1)
+    rel = rel_buf[1:].view(C, 512)
+    for kind in ("sum", "min"):
+        cases.append(_check_batched_case(
+            torch, f"unaligned_bases/f32_{kind}",
+            values(C, 512, 8, torch.float32, offset=1), rel, W, kind))
+    cases.append(_check_batched_case(
+        torch, "C0/f32_sum", values(0, 512, 8, torch.float32),
+        lanes(0, 512, True), W, "sum"))
+    # int32 extremes: the min/max identities are INT32_MAX / INT32_MIN
+    rel = lanes(C, 512, True)
+    v = values(C, 512, 8, torch.int32)
+    v[::3] = torch.iinfo(torch.int32).min
+    v[1::3] = torch.iinfo(torch.int32).max
+    for kind in ("sum", "min", "max"):
+        cases.append(_check_batched_case(torch, f"int32_extremes/{kind}", v,
+                                         rel, W, kind))
+    # NaN values: min and max propagate them (plain on the CPU, where
+    # scatter_reduce propagates NaN for certain)
+    rel = lanes(257, 512, True)
+    v = values(257, 512, 8, torch.float32)
+    v[::5, ::7] = float("nan")
+    for kind in ("min", "max"):
+        cases.append(_check_batched_case(torch, f"nan/{kind}", v, rel, W,
+                                         kind, plain_on="cpu"))
+    v = values(C, 512, 8, torch.float32)
+    cases.append(check_batched_deterministic(torch, "B8_sorted_sum", v,
+                                             lanes(C, 512, True), W, "sum"))
+    strided = values(C, 512, 16, torch.float32)[:, :, ::2]
+    try:
+        chunk_partials_batched(strided, lanes(C, 512, True), W, "sum")
+    except KernelInputError:
+        cases.append({"case": "strided_view_refused", "tolerance": "raises"})
+    else:
+        raise SmokeFailure("batched B1 took a strided view")
+    return cases
+
+
+def b1_batched_bound(torch, vals, rel, W) -> dict:
+    """The batched B1's least time on these inputs: bytes = every lane
+    id once + the B values of every entry that matches a lane (a pad's
+    values are never needed) + the output written once, at 3.35 TB/s;
+    operations = one combine per live value, at the f32 rate."""
+    C, E, B = vals.shape
+    live = int(((rel >= 0) & (rel.to(torch.int16) < W)).sum())
+    isz = vals.element_size()
+    bytes_moved = C * E + live * B * isz + C * W * B * isz
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = live * B / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_moved, "live_entries": live,
+            # every value read, pads included
+            "all_values_bytes": C * E * B * isz + C * E + C * W * B * isz}
+
+
+def ppr_oracle(g, resets, iters: int) -> np.ndarray:
+    """float64 personalized PageRank with the semantics of
+    apps/pagerank.reference_pagerank_batched (the same update, the
+    same degree normalization), each iteration's in-edge sums one
+    scipy sparse product for every column (duplicate edges add, as
+    the numpy oracle's bincount does): seconds where the numpy oracle
+    takes a minute at R-MAT 20."""
+    from scipy.sparse import csr_matrix
+    from lux_tpu_torch.apps.pagerank import ALPHA
+    src, dst = g.edge_arrays()
+    a = csr_matrix((np.ones(src.size), (dst, src)), shape=(g.nv, g.nv))
+    resets = np.asarray(resets, dtype=np.float64)
+    deg = g.out_degrees.astype(np.float64)[:, None]
+    state = np.where(deg > 0, resets / np.maximum(deg, 1), resets)
+    for _ in range(iters):
+        pr = (1.0 - ALPHA) * resets + ALPHA * (a @ state)
+        state = np.where(deg > 0, pr / np.maximum(deg, 1), pr)
+    return state
+
+
+def b1_batched_line(args, torch, vals, rel, W, name, kind):
+    """The kernels-line entry of B1's batched form on ``vals``/``rel``:
+    kernel, plain and one-``scatter_reduce`` times (over [C * (W + 1),
+    B]), the bound."""
+    from lux_tpu_torch.ops.chunk_reduce import (
+        chunk_partials_batched, chunk_partials_batched_plain)
+    from lux_tpu_torch.ops.segment import SCATTER_REDUCE, identity_for
+    reps = args.reps
+    C, E, B = vals.shape
+    ms = cuda_ms(lambda: chunk_partials_batched(vals, rel, W, kind), reps)
+    plain_ms = cuda_ms(
+        lambda: chunk_partials_batched_plain(vals, rel, W, kind), reps)
+    relw = rel.to(torch.int64)
+    idx = (torch.arange(C, device=vals.device)[:, None] * (W + 1)
+           + torch.where((relw >= 0) & (relw < W), relw, W)
+           ).reshape(-1, 1).expand(C * E, B)
+    del relw
+    base = torch.full((C * (W + 1), B), identity_for(kind, vals.dtype),
+                      dtype=vals.dtype, device=vals.device)
+    flat = vals.reshape(C * E, B)
+    library_ms = cuda_ms(lambda: base.scatter_reduce(
+        0, idx, flat, SCATTER_REDUCE[kind], include_self=True), reps)
+    del idx, base
+    got = chunk_partials_batched(vals, rel, W, kind)
+    want = chunk_partials_batched_plain(vals, rel, W, kind)
+    max_abs_err = float((got.double() - want.double()).abs().max())
+    del got, want
+    return {"name": name, "route": "cuda",
+            "source": "lux_tpu_torch/csrc/chunk_partials_batched.cu",
+            "replaces": "lux_tpu/ops/pallas_reduce.py:63",
+            "replaces_note": "B1 over a query axis: the reference's "
+                             "Pallas kernel is scalar; its vector payload "
+                             "runs XLA (lux_tpu/ops/tiled.py:357)",
+            "shape": [C, E, B, W], "kind": kind,
+            "dtype": str(vals.dtype).replace("torch.", ""), "launches": None,
+            "max_abs_err": max_abs_err, "ms": ms, "kernel_ms": ms,
+            "plain_ms": plain_ms, **b1_batched_bound(torch, vals, rel, W),
+            "library_ms": library_ms,
+            "library": "scatter_reduce over [C * (W + 1), B]"}
+
+
+def batch_graph(args):
+    """bench.py's ksssp-batch / ppr-batch graph: R-MAT one scale under
+    --scale (20 by default), --ef, --seed, one part, no relabel; and
+    its sources, bench.py's draw (bench.py:955-957)."""
+    from lux_tpu_torch.convert import rmat_edges
+    from lux_tpu_torch.graph import Graph
+    t0 = time.perf_counter()
+    src, dst, nv = rmat_edges(args.scale - 1, args.ef, seed=args.seed)
+    g = Graph.from_edges(src, dst, nv)
+    del src, dst
+    rng = np.random.default_rng(BATCH_SOURCE_SEED)
+    sources = sorted(int(x) for x in rng.choice(g.nv, size=BATCH_B,
+                                                replace=False))
+    return g, sources, time.perf_counter() - t0
+
+
+def batched_layers(args, torch, eng, state, active=None) -> dict:
+    """Device ms of each layer of one batched iteration on its own
+    input state: the gather (push: mask + gather + relax), B1's batched
+    form, the segmented combine, the apply / update; the whole
+    iteration alone and replayed from a CUDA graph of 3; its host
+    enqueue time."""
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials_batched
+    from lux_tpu_torch.ops.tiled import combine_partials
+    a, t, P, B = eng.arrays, eng.tiles, eng.num_parts, eng.batch
+    kind, reps = eng.program.reduce, args.reps
+    C = P * t.n_chunks
+    rel = a["rel_dst"].reshape(C, t.E)
+    if active is None:                       # pull
+        flat = state.reshape(-1, B)
+        msgs = eng._messages(flat)
+        gather = lambda: eng._messages(flat)            # noqa: E731
+        step = lambda: eng.step(state)                   # noqa: E731
+    else:                                    # push (dense only)
+        flat = eng._masked_flat(state, active)
+        msgs = eng._dense_cand(flat)
+        gather = lambda: eng._dense_cand(                # noqa: E731
+            eng._masked_flat(state, active))
+        step = lambda: eng._dense(state, active)         # noqa: E731
+    vals = msgs.reshape(C, t.E, B)
+    parts = chunk_partials_batched(vals, rel, t.W, kind)
+    red = combine_partials(parts, t, a["chunk_start"], a["last_chunk"],
+                           eng.vpad, kind, eng._plan)
+    if active is None:
+        apply = lambda: eng._apply_epilogue(state, red)  # noqa: E731
+    else:
+        apply = lambda: eng._dense_update(state, red)    # noqa: E731
+    out = {"gather_ms": cuda_ms(gather, reps),
+           # the same rows by plain index_select (engine/pull.gather_rows)
+           "index_select_ms": cuda_ms(
+               lambda: torch.index_select(flat, 0, eng._src), reps),
+           "chunk_partials_batched_ms": cuda_ms(
+               lambda: chunk_partials_batched(vals, rel, t.W, kind), reps),
+           "combine_ms": cuda_ms(lambda: combine_partials(
+               parts, t, a["chunk_start"], a["last_chunk"], eng.vpad, kind,
+               eng._plan), reps),
+           "apply_ms": cuda_ms(apply, reps),
+           "step_ms": cuda_ms(step, reps),
+           "step_graph_ms": graph_ms(torch, step, 3),
+           "step_host_ms": host_ms(torch, step, 10),
+           "chunks": C, "E": t.E, "W": t.W, "B": B,
+           "messages_bytes": vals.numel() * vals.element_size()}
+    out["layers_sum_ms"] = sum(out[k] for k in (
+        "gather_ms", "chunk_partials_batched_ms", "combine_ms", "apply_ms"))
+    return out, vals, rel
+
+
+def gather_width_sweep(args, torch, eng) -> dict:
+    """The batched source gather at widths B in {1, 2, 4, 8, 16}, on the
+    engine's own edge slots: ``torch.index_select`` of [N, B] rows beside
+    ``engine/pull.gather_rows`` (the rows read through a padded view),
+    whose result must be the same bits."""
+    from lux_tpu_torch.engine.pull import gather_rows
+    idx, out = eng._src, {}
+    gen = torch.Generator(device=idx.device).manual_seed(args.seed)
+    for B in (1, 2, 4, 8, 16):
+        table = torch.randn((eng.num_parts * eng.vpad, B), generator=gen,
+                            device=idx.device)
+        require(_same_words(gather_rows(table, idx),
+                            torch.index_select(table, 0, idx)),
+                f"gather_rows differs from index_select at B = {B}")
+        out[f"B{B}"] = {
+            "index_select_ms": cuda_ms(
+                lambda: torch.index_select(table, 0, idx), args.reps),
+            "gather_rows_ms": cuda_ms(lambda: gather_rows(table, idx),
+                                      args.reps)}
+    del table
+    return {"rows": idx.numel(), **out}
+
+
+def phase_ksssp_batch(args, torch, g, sources, card):
+    """bench.py's ksssp-batch@8 (bench.py:941-966): hop SSSP from the 8
+    sources on R-MAT 20, one part, no relabel, dense iterations only;
+    labels bit-equal to the port's numpy batched oracle
+    (sssp.reference_sssp_batched) and, for the two columns reaching the
+    most vertices, to single-source runs of the scalar engine; B1's
+    batched form launched once an iteration, the scalar B1 and B2
+    never; at most one host sync an iteration."""
+    from lux_tpu_torch.apps import sssp
+    t0 = time.perf_counter()
+    eng = sssp.build_engine(g, sources=sources, num_parts=1)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    eng.converge(*eng.init_state())                # warm-up run
+    torch.cuda.reset_peak_memory_stats()
+    lab0, act0 = eng.init_state()
+    (label, active, it), counts, syncs = counted_sync_run(
+        torch, lambda: eng.converge(lab0, act0))
+    peak = torch.cuda.max_memory_allocated()
+    schedule = list(eng.schedule)
+    require(schedule == ["dense"] * it and it > 1,
+            f"ksssp_batch: schedule {schedule}")
+    require(counts == {"chunk_partials": 0, "lane_shuffle": 0,
+                       "chunk_partials_batched": it},
+            f"ksssp_batch: launched {counts} in {it} dense iterations "
+            f"(want the batched B1 once an iteration, nothing else)")
+    require(syncs <= it, f"ksssp_batch: {syncs} host syncs in {it} "
+                         f"iterations")
+    got = eng.unpad(label)
+    require(got.shape == (g.nv, BATCH_B) and got.dtype == np.int32,
+            "ksssp_batch: labels are not int32 [nv, B]")
+    t0 = time.perf_counter()
+    want = sssp.reference_sssp_batched(g, sources)
+    t_oracle = time.perf_counter() - t0
+    require(np.array_equal(got.astype(np.int64), want),
+            f"ksssp_batch: labels differ from the numpy batched oracle at "
+            f"{int((got != want).sum())} (vertex, query) pairs")
+    reached = (want < sssp.HOP_INF).sum(axis=0)
+    single = {}
+    for q in np.argsort(-reached, kind="stable")[:2]:
+        one = sssp.build_engine(g, sources[q], num_parts=1)
+        lab1, it1 = one.run()
+        require(np.array_equal(lab1, got[:, q]),
+                f"ksssp_batch: column {q} differs from the single-source "
+                f"run from {sources[q]}")
+        single[int(sources[q])] = {"iterations": it1,
+                                   "schedule": list(one.schedule)}
+        del one
+    runs = timed_converges(torch, eng, 3)
+    wall = [r["wall_s"] for r in runs]
+    best = float(np.median(wall))
+    lab, act = eng.init_state()
+    for _ in range(2):                      # a state inside the run
+        lab, act, _c = eng.step(lab, act)
+    layers, vals, rel = batched_layers(args, torch, eng, lab, act)
+    profiled = converge_profile(torch, eng, best * 1e3)
+    gteps = g.ne * it / best / 1e9
+    emit({"phase": "ksssp_batch", "nv": g.nv, "ne": g.ne, "B": BATCH_B,
+          "sources": sources, "iterations": it, "schedule_dense": it,
+          "reached_per_query": [int(x) for x in reached],
+          "launches": counts, "host_syncs": syncs,
+          "host_syncs_per_iteration": syncs / it,
+          "converge_wall_s": wall,
+          "converge_event_s": [r["event_s"] for r in runs],
+          "ms_per_iter": best * 1e3 / it, "gteps": gteps,
+          "query_gteps": BATCH_B * gteps,
+          "gteps_note": "ne x iterations / median wall seconds of 3 "
+                        "converges (bench.py:333-335); query_gteps = B x "
+                        "gteps, as bench.py records it",
+          "host_enqueue_ms_per_iter": layers["step_host_ms"],
+          "layers": layers, "device_profile": profiled,
+          "peak_bytes": int(peak), "tile_e": eng.tiles.E,
+          "setup_seconds": round(t_setup, 3),
+          "oracle": "sssp.reference_sssp_batched (numpy) + 2 scalar runs",
+          "oracle_seconds": round(t_oracle, 3), "single_source": single,
+          "card": card})
+    cases = [_check_batched_case(torch, "ksssp_batch_own/min", vals, rel,
+                                 eng.tiles.W, "min"),
+             check_batched_deterministic(torch, "ksssp_batch_own", vals, rel,
+                                         eng.tiles.W, "min")]
+    line = b1_batched_line(args, torch, vals, rel, eng.tiles.W,
+                           "chunk_partials_batched@ksssp_batch", "min")
+    line["note"] = ("int32 compare-selects counted at the f32 rate (the "
+                    "data sheet gives no int32 rate); bytes bound it")
+    del eng, vals, rel
+    torch.cuda.empty_cache()
+    return line, counts["chunk_partials_batched"], cases
+
+
+def phase_ppr_batch(args, torch, g, sources, card):
+    """bench.py's ppr-batch@8 (bench.py:967-976): personalized PageRank
+    with one-hot resets at the 8 sources, PPR_ITERS iterations, one
+    part, no relabel; within rtol 5e-5 of the float64 oracle; B1's
+    batched form launched once an iteration, nothing else; no host sync
+    in the run."""
+    from lux_tpu_torch.apps import pagerank
+    t0 = time.perf_counter()
+    eng = pagerank.build_engine(g, 1, sources=sources)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    state, secs, counts, peak, host_s = timed_run(torch, eng, PPR_ITERS)
+    counts = dict(counts, chunk_partials_batched=batched_launches())
+    require(counts == {"chunk_partials": 0, "lane_shuffle": 0,
+                       "chunk_partials_batched": PPR_ITERS},
+            f"ppr_batch: launched {counts} in {PPR_ITERS} iterations")
+    got = eng.unpad(state)
+    require(got.shape == (g.nv, BATCH_B) and np.isfinite(got).all(),
+            "ppr_batch: state is not finite [nv, B]")
+    t0 = time.perf_counter()
+    want = ppr_oracle(g, pagerank.one_hot_resets(g.nv, sources), PPR_ITERS)
+    t_oracle = time.perf_counter() - t0
+    rel_err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    require(np.allclose(got, want, **MAIN_TOL),
+            f"ppr_batch: disagrees with the float64 oracle (max rel err "
+            f"{rel_err.max():.3e})")
+    st0 = eng.init_state()
+    _r, _c, syncs = counted_sync_run(torch,
+                                     lambda: eng.run(st0, PPR_ITERS))
+    repeats = []
+    for _ in range(2):
+        _s, r_secs, _c, _p, r_host = timed_run(torch, eng, PPR_ITERS)
+        repeats.append({"ms_per_iter": r_secs * 1e3 / PPR_ITERS,
+                        "host_enqueue_ms_per_iter":
+                            r_host * 1e3 / PPR_ITERS})
+    st = eng.run(eng.init_state(), 3)
+    layers, vals, rel = batched_layers(args, torch, eng, st)
+    layers["gather_by_width"] = gather_width_sweep(args, torch, eng)
+    gteps = g.ne * PPR_ITERS / secs / 1e9
+    emit({"phase": "ppr_batch", "nv": g.nv, "ne": g.ne, "B": BATCH_B,
+          "sources": sources, "iters": PPR_ITERS, "seconds": secs,
+          "ms_per_iter": secs * 1e3 / PPR_ITERS,
+          "host_enqueue_ms_per_iter": host_s * 1e3 / PPR_ITERS,
+          "host_syncs_per_iteration": syncs / PPR_ITERS,
+          "gteps": gteps, "query_gteps": BATCH_B * gteps,
+          "max_rel_err": float(rel_err.max()), "tolerance": MAIN_TOL,
+          "launches": counts, "repeats": repeats, "layers": layers,
+          "peak_bytes": int(peak),
+          "state_table_bytes": eng.num_parts * eng.vpad * 4 * BATCH_B,
+          "tile_e": eng.tiles.E, "setup_seconds": round(t_setup, 3),
+          "oracle": "ppr_oracle (float64, scipy sparse products)",
+          "oracle_seconds": round(t_oracle, 3), "card": card})
+    cases = [_check_batched_case(torch, "ppr_batch_own/sum", vals, rel,
+                                 eng.tiles.W, "sum"),
+             check_batched_deterministic(torch, "ppr_batch_own", vals, rel,
+                                         eng.tiles.W, "sum")]
+    line = b1_batched_line(args, torch, vals, rel, eng.tiles.W,
+                           "chunk_partials_batched@ppr_batch", "sum")
+    del eng, vals, rel
+    torch.cuda.empty_cache()
+    return line, counts["chunk_partials_batched"], cases
+
+
+def serve_stream(g, seed: int):
+    """SERVE_QUERIES queries, a third of each kind, in a seeded order
+    with seeded sources."""
+    rng = np.random.default_rng(seed + 1)
+    kinds = np.repeat(np.array(["sssp", "components", "pagerank"]),
+                      SERVE_QUERIES // 3)
+    kinds = kinds[rng.permutation(kinds.size)]
+    return [(str(k), int(rng.integers(0, g.nv))) for k in kinds]
+
+
+def serve_check(g, responses):
+    """Every answer against its oracle: hop counts and seeded
+    components from a numpy BFS per source (bfs_levels: the component
+    of a seed is what it reaches), PageRank from the float64 batched
+    oracle (ppr_oracle) at the query's own iterations (rtol 5e-5,
+    atol 1e-9)."""
+    from lux_tpu_torch.apps import pagerank
+    from lux_tpu_torch.apps.sssp import HOP_INF
+    levels, worst = {}, 0.0
+    for r in responses:
+        require(r.converged, f"serve: query {r.qid} retired unconverged")
+        if r.kind in ("sssp", "components"):
+            if r.source not in levels:
+                levels[r.source] = bfs_levels(g, r.source)
+            lv = levels[r.source]
+            want = lv if r.kind == "sssp" else \
+                np.where(lv < HOP_INF, r.source, -1).astype(np.int32)
+            require(r.answer.dtype == np.int32
+                    and np.array_equal(r.answer, want),
+                    f"serve: {r.kind} query {r.qid} from {r.source} differs "
+                    f"from the oracle")
+        else:
+            want = ppr_oracle(g, pagerank.one_hot_resets(g.nv, [r.source]),
+                              r.iters)[:, 0]
+            require(np.allclose(r.answer, want, **MAIN_TOL),
+                    f"serve: pagerank query {r.qid} differs from the "
+                    f"float64 oracle")
+            worst = max(worst, float((np.abs(r.answer - want) / np.maximum(
+                np.abs(want), 1e-30)).max()))
+    return worst
+
+
+def phase_serve(args, torch, g, card):
+    """The Server on the batch phases' graph: batch 8, seg_iters 2,
+    deadline 0, bench.py's SLO targets; a warm-up query of each kind
+    builds the three engines, then SERVE_QUERIES mixed queries drain
+    through continuous-batching refill with every launch count at 0
+    just before; every answer against its oracle, at least one boundary
+    that retired and refilled columns, serve_retired_total = 36, B1's
+    batched form launched, nothing else."""
+    from lux_tpu_torch import metrics, serve, telemetry
+    stream = serve_stream(g, args.seed)
+    t0 = time.perf_counter()
+    srv = serve.Server(g, batch=BATCH_B, seg_iters=SERVE_SEG_ITERS,
+                       deadline_s=0.0, slo_ms=SERVE_SLO_MS)
+    for kind in serve.KINDS:                 # builds the three engines
+        srv.submit(kind, source=stream[0][1])
+    srv.run()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    reg = metrics.Registry()
+    srv.set_metrics(reg)
+    for r in srv._runners.values():          # forget the warm-up's
+        r._slo_window.clear()
+        r.boundaries = r.refills = 0
+    ev = telemetry.EventLog()
+    for kind, s in stream:
+        srv.submit(kind, source=s)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    with telemetry.use(events=ev):
+        responses = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(read_launches(), chunk_partials_batched=batched_launches())
+    require(len(responses) == SERVE_QUERIES,
+            f"serve: {len(responses)} of {SERVE_QUERIES} answered")
+    require(counts["chunk_partials_batched"] > 0
+            and counts["chunk_partials"] == 0
+            and counts["lane_shuffle"] == 0,
+            f"serve: launched {counts} (want only B1's batched form)")
+    refills = [e for e in ev.events if e["kind"] == "serve_refill"
+               and e.get("retired") and e.get("filled")]
+    require(refills, "serve: no boundary retired and refilled columns")
+    retired = sum(reg.counter("serve_retired_total", kind=k).value
+                  for k in serve.KINDS)
+    require(retired == SERVE_QUERIES,
+            f"serve: serve_retired_total {retired} != {SERVE_QUERIES}")
+    t0 = time.perf_counter()
+    worst = serve_check(g, responses)
+    t_oracle = time.perf_counter() - t0
+    lat = np.array([r.latency_s for r in responses])
+    hist = metrics.Histogram()
+    for k in serve.KINDS:
+        hist = hist.merge(reg.histogram("serve_latency_seconds", kind=k))
+    per_kind = {}
+    for k in serve.KINDS:
+        rs = [r for r in responses if r.kind == k]
+        lk = np.array([r.latency_s for r in rs])
+        per_kind[k] = {
+            "queries": len(rs), "iters": [r.iters for r in rs],
+            "segments": [r.segments for r in rs],
+            "p50_ms": float(np.percentile(lk, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lk, 99)) * 1e3,
+            "slo_ms": SERVE_SLO_MS[k],
+            "slo_good": reg.counter("serve_slo_good_total", kind=k).value,
+            "slo_burn_rate": reg.gauge("serve_slo_burn_rate",
+                                       kind=k).value,
+            "boundaries": srv._runners[k].boundaries,
+            "refill_boundaries": srv._runners[k].refills}
+    emit({"phase": "serve", "nv": g.nv, "ne": g.ne, "B": BATCH_B,
+          "queries": SERVE_QUERIES, "seg_iters": SERVE_SEG_ITERS,
+          "deadline_s": 0.0, "wall_s": wall,
+          "qps": SERVE_QUERIES / wall,
+          "latency_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+          "latency_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+          "histogram_p50_ms": hist.quantile(0.5) * 1e3,
+          "histogram_p99_ms": hist.quantile(0.99) * 1e3,
+          "latency_note": "enqueue -> retire, all 36 queued at once "
+                          "(offline drain, deadline 0)",
+          "per_kind": per_kind, "refill_events": len(refills),
+          "serve_retired_total": retired, "launches": counts,
+          "pagerank_max_rel_err": worst,
+          "warmup_seconds": round(t_warm, 3),
+          "oracle_seconds": round(t_oracle, 3), "card": card})
+    del srv
+    torch.cuda.empty_cache()
+    return counts["chunk_partials_batched"]
+
+
+def phase_batch(args, torch, card):
+    """The batch phases: B1's batched form against its plain version on
+    synthetic shapes, then ksssp-batch@8, ppr-batch@8 and the Server on
+    one R-MAT 20 graph.  Returns (kernels-line entries, launches by
+    path)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    cases = b1_batched_cases(torch, gen, dev)
+    g, sources, t_graph = batch_graph(args)
+    emit({"phase": "batch_graph", "nv": g.nv, "ne": g.ne,
+          "scale": args.scale - 1, "edge_factor": args.ef, "seed": args.seed,
+          "B": BATCH_B, "sources": sources,
+          "graph_seconds": round(t_graph, 3)})
+    kline, n_k, own_k = phase_ksssp_batch(args, torch, g, sources, card)
+    pline, n_p, own_p = phase_ppr_batch(args, torch, g, sources, card)
+    cases += own_k + own_p
+    emit({"phase": "kernels", "kernel": "chunk_partials_batched",
+          "cases": len(cases), "all_pass": True, "detail": cases})
+    n_s = phase_serve(args, torch, g, card)
+    by_path = {"ksssp_batch": n_k, "ppr_batch": n_p, "serve": n_s}
+    for line, n in ((kline, n_k), (pline, n_p)):
+        line["launches"] = n
+        line["launches_by_path"] = by_path
+    return [pline, kline], by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=21)
@@ -3184,6 +3893,9 @@ def main(argv=None) -> int:
     # the colfilter paths launch no hand kernel (chip_smoke checks 0)
     for path, n in phase_colfilter(args, torch, card).items():
         by_path[path] = n
+    batch_lines, batch_paths = phase_batch(args, torch, card)
+    for path in batch_paths:            # the scalar B1 and B2: none
+        by_path[path] = {"chunk_partials": 0, "lane_shuffle": 0}
     by_path["pairs"] = pair_counts["streamed"]
     by_path["pairs_monolithic"] = pair_counts["monolithic"]
     for path, n in push_counts.items():
@@ -3202,7 +3914,8 @@ def main(argv=None) -> int:
         if line["name"].startswith("lane_shuffle@"):
             del line["launches_by_path"]["system paths"]
             line["launches_by_path"].update(b2["launches_by_path"])
-    emit({"kernels": [kline, *b1_lines.values(), b2, *probe_lines]})
+    emit({"kernels": [kline, *b1_lines.values(), *batch_lines, b2,
+                      *probe_lines]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,11 @@ KERNELS = {
                                [_P, _P, _P, _I64, _I64, _I64, _I32, _I32,
                                 _P]),
     }),
+    "chunk_partials_batched": ("chunk_partials_batched.cu", {
+        "lux_chunk_partials_batched": (ctypes.c_int,
+                                       [_P, _P, _P, _I64, _I64, _I64, _I64,
+                                        _I32, _I32, _P]),
+    }),
     "lane_shuffle": ("lane_shuffle.cu", {
         "lux_lane_shuffle": (ctypes.c_int, [_P, _P, _P, _I64, _P]),
     }),

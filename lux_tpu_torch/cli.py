@@ -4,11 +4,13 @@ lux_tpu/cli.py:69, :116, :165, :557 and :596-689, :864).
     python -m lux_tpu_torch.cli pagerank -file g.lux -ni 10 [-np N]
                                          [-gather flat|paged|pagemajor]
                                          [-pair T [-min-fill F]]
+                                         [-sources A,B,C | -batch B]
                                          [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli sssp -file g.lux [-start S] [-weighted]
                                      [-delta D|auto] [-np N]
                                      [-gather flat|paged|pagemajor]
                                      [-pair T [-min-fill F]]
+                                     [-sources A,B,C | -batch B]
                                      [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli components -file g.lux [-np N] [...]
     python -m lux_tpu_torch.cli colfilter -file w.lux -ni 10 [-np N]
@@ -35,6 +37,15 @@ a warm-up) and GTEPS over the iterations run; ``-start`` is an input
 vertex id, mapped through the relabelling under ``-pair``; ``-check``
 runs the on-device fixed-point audit (device_check.py) on the engine's
 device.  ``components`` expects an undirected (symmetrized) graph.
+
+``-sources A,B,C`` runs the query-batched engine of ``pagerank``
+(personalized, one-hot resets), ``sssp`` (k-source) or ``components``
+(seeded), one state column a query and one gather serving them all;
+``-batch B`` without ``-sources`` takes B evenly spaced vertices, and
+with it must match the list's length.  These runs also print ``BATCH =
+B queries; QUERY-GTEPS = ...`` (ne x iterations x B / seconds); ``-pair``
+and ``-delta`` are single-query machinery and refused with them, and
+``-check`` is skipped for them with a note, as in the reference.
 
 ``colfilter`` trains the K = 20 factorization on a weighted graph for
 ``-ni`` iterations and prints ``ELAPSED TIME``, ``GTEPS`` and ``RMSE``
@@ -69,6 +80,72 @@ def _relabel_for_pairs(args, g, num_parts):
     return pair_relabel(g, num_parts, pair_threshold=args.pair)
 
 
+def _add_batch_flags(ap) -> None:
+    ap.add_argument("-sources", default=None, metavar="A,B,C",
+                    help="comma list of query sources: runs the "
+                         "query-batched engine, one state column a "
+                         "query and one gather serving them all; -pair "
+                         "(and sssp's -delta) must be off")
+    ap.add_argument("-batch", type=int, default=0, metavar="B",
+                    help="without -sources: a B-query batch of evenly "
+                         "spaced source vertices; with -sources: must "
+                         "match the list's length")
+
+
+def _batched_sources(args, nv: int):
+    """None, or the query sources of -sources / -batch (the reference's
+    rules and errors, lux_tpu/cli.py:326-362; exit 2 on a bad list)."""
+    srcs = args.sources
+    B = int(args.batch or 0)
+    if srcs is None and not B:
+        return None
+    if args.pair is not None:
+        print("error: -pair is single-query machinery (pair delivery "
+              "reads scalar state); drop it for -sources/-batch runs",
+              file=sys.stderr)
+        raise SystemExit(2)
+    if srcs is not None:
+        try:
+            out = [int(s) for s in srcs.split(",") if s.strip()]
+        except ValueError:
+            print(f"error: -sources must be a comma list of vertex ids, "
+                  f"got {srcs!r}", file=sys.stderr)
+            raise SystemExit(2)
+        if not out:
+            print("error: -sources named no vertices", file=sys.stderr)
+            raise SystemExit(2)
+        if B and B != len(out):
+            print(f"error: -batch {B} != len(-sources) = {len(out)}",
+                  file=sys.stderr)
+            raise SystemExit(2)
+    else:
+        out = [int(x) for x in
+               np.linspace(0, nv - 1, B).round().astype(np.int64)]
+    for s in out:
+        if not 0 <= s < nv:
+            print(f"error: source vertex {s} out of range [0, {nv})",
+                  file=sys.stderr)
+            raise SystemExit(2)
+    return out
+
+
+def _print_batch(sources, ne, iters, elapsed) -> None:
+    """The batched runs' per-query delivered-rate line."""
+    B = len(sources)
+    if iters > 0 and elapsed > 0:
+        qg = ne * iters * B / elapsed / 1e9
+        print(f"BATCH = {B} queries; QUERY-GTEPS = {qg:.4f} "
+              f"({1.0 / qg:.1f} ns/edge/query delivered)")
+    else:
+        print(f"BATCH = {B} queries")
+
+
+def _batch_check_note() -> int:
+    print("note: -check does not support batched runs yet; skipped "
+          "(oracle proofs: tests/test_torch_batched.py)")
+    return 0
+
+
 def cmd_pagerank(argv) -> int:
     ap = argparse.ArgumentParser(prog="lux_tpu_torch pagerank")
     ap.add_argument("-file", required=True, help=".lux graph file")
@@ -92,6 +169,7 @@ def cmd_pagerank(argv) -> int:
                     help="with -pair: drop pair rows that would deliver "
                          "< F live lanes (their edges ride the residual "
                          "path); 'auto' is not ported")
+    _add_batch_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -111,14 +189,20 @@ def cmd_pagerank(argv) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     num_parts = max(1, args.np)
+    sources = _batched_sources(args, g.nv)
     g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
     eng = pagerank.build_engine(g_run, num_parts, device=args.device,
                                 gather=args.gather, starts=starts,
                                 pair_threshold=args.pair,
-                                pair_min_fill=args.min_fill)
+                                pair_min_fill=args.min_fill,
+                                sources=sources)
     state, elapsed = timed_fused_run(eng, args.ni)
     print(f"ELAPSED TIME = {elapsed:.7f} s")
     print(f"GTEPS = {g.ne * args.ni / elapsed / 1e9:.4f}")
+    if sources is not None:
+        _print_batch(sources, g.ne, args.ni, elapsed)
+        if args.check:
+            return _batch_check_note()
     if args.check:
         from lux_tpu_torch.check import check_pagerank
         ranks = eng.unpad(state)
@@ -148,6 +232,7 @@ def _push_app(argv, prog_name) -> int:
                     dest="min_fill", metavar="F",
                     help="with -pair: drop pair rows with < F live lanes; "
                          "'auto' is not ported")
+    _add_batch_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     if prog_name == "sssp":
         ap.add_argument("-start", type=int, default=0,
@@ -177,10 +262,11 @@ def _push_app(argv, prog_name) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     num_parts = max(1, args.np)
+    sources = _batched_sources(args, g.nv)
     g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
     opts = dict(num_parts=num_parts, starts=starts, gather=args.gather,
                 pair_threshold=args.pair, pair_min_fill=args.min_fill,
-                device=args.device)
+                sources=sources, device=args.device)
     if prog_name == "sssp":
         start = args.start
         if perm is not None and 0 <= start < g.nv:
@@ -190,6 +276,10 @@ def _push_app(argv, prog_name) -> int:
         delta = args.delta
         if delta is not None and delta != "auto":
             delta = float(delta)
+        if sources is not None and delta is not None:
+            print("error: -delta is single-query machinery; drop it for "
+                  "-sources/-batch runs", file=sys.stderr)
+            return 2
         eng = sssp.build_engine(g_run, start, weighted=weighted,
                                 delta=delta, **opts)
     else:
@@ -198,6 +288,10 @@ def _push_app(argv, prog_name) -> int:
     print(f"ELAPSED TIME = {elapsed:.7f} s ({iters} iterations)")
     if iters > 0:
         print(f"GTEPS = {g.ne * iters / elapsed / 1e9:.4f}")
+    if sources is not None:
+        _print_batch(sources, g.ne, iters, elapsed)
+        if args.check:
+            return _batch_check_note()
     if args.check:
         # labels are in g_run's order, which is the engine's; the
         # fixed-point properties do not depend on the numbering

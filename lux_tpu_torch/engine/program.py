@@ -24,11 +24,16 @@ class PartCtx:
     vmask  bool  [P, vpad]  True for real (non-padding) vertex slots
     nv     int              global vertex count
     ne     int              global edge count
+    extra  dict | None      the program's ``extra_arrays`` on the
+                            device, [P, vpad, ...] each (query-batch
+                            arrays such as personalized PageRank's
+                            reset vectors)
     """
     deg: Any
     vmask: Any
     nv: int
     ne: int
+    extra: Any = None
 
 
 def vmask_of(g: dict, vpad: int) -> torch.Tensor:
@@ -67,6 +72,17 @@ class PullProgram:
                 the exchange='auto' table-size estimate and the
                 streamed dot rule (None -> 4).
     name        optional app label.
+    extra_arrays
+                optional (sharded_graph) -> {name: [P, vpad, ...]
+                numpy}: per-part constants the apply epilogue needs
+                beyond deg/vmask.  The engine binds each as graph array
+                ``prog_<name>`` and hands them to ``apply`` as
+                ``ctx.extra``; ``PullEngine.update_program_arrays``
+                swaps them in place (same shape and dtype) — the
+                serving layer's refill path.
+    batch       query-batch width B when the state carries a trailing
+                query axis [P, vpad, B] (None = one query).  One
+                state-table gather then serves all B queries.
     """
     reduce: str
     edge_value: Callable
@@ -76,3 +92,5 @@ class PullProgram:
     edge_value_from_dot: Callable | None = None
     state_bytes: int | None = None
     name: str | None = None
+    extra_arrays: Callable | None = None
+    batch: int | None = None

@@ -5,7 +5,7 @@
 One iteration, every part at once (parts are a batch dimension):
 
 1. gather each edge's source state by its precomputed padded slot
-   (``index_select`` on the flat ``[P*vpad]`` state table);
+   (``gather_rows`` on the flat ``[P*vpad, ...]`` state table);
 2. per-edge message (``program.edge_value``);
 3. scatter-free segment reduction to each part's local destinations:
    the tiled layout (ops/tiled.py) runs kernel B1 over all ``P*C``
@@ -24,6 +24,14 @@ out of the tiled path into pair-lane rows (ops/pairs.py): an iteration
 runs the tiled path over the residual edges and the pair delivery
 (one launch of B1 over all [P*Rp, 128] pair rows, or one a block when
 streamed), combined per destination.
+
+Query-batched programs (``program.batch = B``; personalized PageRank)
+carry a trailing query axis: state [P, vpad, B], one source gather an
+edge serving all B queries, and kernel B1's batched form
+(ops/chunk_reduce.py ``chunk_partials_batched``) over the [P*C, E, B]
+messages.  A program's ``extra_arrays`` (the reset vectors) ride as
+graph arrays ``prog_<name>``, reach ``apply`` as ``ctx.extra`` and are
+swapped in place by ``update_program_arrays``.
 
 Programs whose destination dependence is only the inner product <src,
 dst> (``edge_value_from_dot``, colfilter) replace steps 1-3 on the
@@ -128,6 +136,23 @@ def _check_pair_program(layout: str, program) -> None:
                          "or on <src, dst> via edge_value_from_dot")
 
 
+def check_batched_gather(gather: str, program, refuse) -> None:
+    """Query-batched programs on the page-binned deliveries: their
+    vector rows through the lane shuffle come with ROADMAP A7b."""
+    if gather in ("paged", "pagemajor") and \
+            getattr(program, "batch", None) is not None:
+        refuse(f"query-batched programs with gather={gather!r} (vector "
+               f"rows through the paged lane resolve)", "A7b")
+
+
+def program_arrays(program, sg) -> dict:
+    """The program's ``extra_arrays`` as graph arrays ``prog_<name>``."""
+    fn = getattr(program, "extra_arrays", None)
+    if fn is None:
+        return {}
+    return {f"prog_{k}": np.asarray(v) for k, v in fn(sg).items()}
+
+
 def _outside(x: torch.Tensor, hi: int) -> bool:
     """Any entry of ``x`` outside [0, hi)."""
     return bool(x.numel()) and (int(x.min()) < 0 or int(x.max()) >= hi)
@@ -199,6 +224,32 @@ def device_arrays(arrays: dict, device) -> dict:
             v = v.view(np.int32)
         out[k] = torch.tensor(v, device=device)
     return out
+
+
+def padded_view(table: torch.Tensor) -> torch.Tensor:
+    """A copy of a [N, B] table as a view with one element of row
+    padding (row stride B + 1): the same values, rows that are no
+    longer a multiple of 16 bytes apart."""
+    padded = table.new_empty((table.shape[0], table.shape[1] + 1))
+    padded[:, :-1] = table
+    return padded[:, :-1]
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a [N] or [N, B] state table: the engines' one
+    state gather an edge.  On the card, torch's ``index_select`` of
+    rows whose bytes are a multiple of 16 takes a vectorized kernel
+    that costs about 0.6 ns a row whatever the row's width (11.34 ms
+    for the 18.9M rows of R-MAT 20 at B = 4, 8 or 16, against 0.13-0.15
+    ms at B = 1 or 2; NVIDIA H100 80GB HBM3, 700.00 W, torch 2.11).  The
+    same rows read through ``padded_view`` take its generic kernel:
+    0.31 / 0.57 / 1.00 ms at B = 4 / 8 / 16, the same bits (``chip_smoke.py``'s ppr_batch
+    ``gather_by_width``; PERF.md §5).  Other tables, and every table
+    on the CPU, go to ``index_select`` as they are."""
+    if (table.device.type == "cuda" and table.dim() == 2
+            and table.shape[1] * table.element_size() % 16 == 0):
+        table = padded_view(table)
+    return torch.index_select(table, 0, idx)
 
 
 def check_dense_arrays(a: dict, P: int, vpad: int, tiles, pages,
@@ -362,6 +413,7 @@ class PullEngine:
             _refuse("streamed chunk blocks (stream_msgs)", "A6")
         if pair_threshold is not None:
             _check_pair_program(layout, program)
+        check_batched_gather(gather, program, _refuse)
         resolve_exchange(exchange, sg, program)
         t0 = time.perf_counter()
         plan = engine_page_plan(sg, gather, program)
@@ -384,6 +436,7 @@ class PullEngine:
             if pairs is not None:
                 arrays.update(pair_graph_arrays(pairs, dot=dot,
                                                 vpad=sg.vpad))
+        arrays.update(program_arrays(program, sg))
         self._bind(program, arrays, tiles, nv=sg.nv, ne=sg.ne,
                    num_parts=sg.num_parts, vpad=sg.vpad, device=dev, sg=sg,
                    pages=plan, pairs=pairs, pair_stream=pair_stream,
@@ -407,7 +460,8 @@ class PullEngine:
         ops/pairs.PairGeometry.  Paged: keys pg_ids, pg_sl, pg_rel,
         pg_tp (+ pg_w, pg_vrs; + pg_rt, pg_t0 for dot programs), deg,
         nvp, ``tiles=None`` and ``pages`` an
-        ops/pagegather.PageGeometry."""
+        ops/pagegather.PageGeometry.  A program with ``extra_arrays``
+        takes them as keys ``prog_<name>``."""
         eng = cls.__new__(cls)
         eng._bind(program, arrays, tiles, nv=nv, ne=ne,
                   num_parts=num_parts, vpad=vpad,
@@ -475,9 +529,21 @@ class PullEngine:
         missing = [k for k in need if k not in arrays]
         if missing:
             raise KeyError(f"graph arrays lack {missing}")
+        self.batch = getattr(program, "batch", None)
+        if self.batch is not None:
+            if pairs is not None:
+                _check_pair_program("tiled", program)
+            if pages is not None:
+                check_batched_gather(pages.mode, program, _refuse)
         self.arrays = device_arrays(arrays, device)
         a, P = self.arrays, self.num_parts
         check_dense_arrays(a, P, self.vpad, tiles, pages, pairs)
+        for k, v in a.items():
+            if k.startswith("prog_") and tuple(v.shape[:2]) != (P,
+                                                               self.vpad):
+                raise ValueError(f"program array {k[5:]!r} "
+                                 f"{tuple(v.shape)} is not [num_parts, "
+                                 f"vpad, ...] = [{P}, {self.vpad}, ...]")
         if pages is not None:
             return
         self._src = a["src_slot"].reshape(-1)
@@ -513,6 +579,43 @@ class PullEngine:
                              "initialise from; pass the state in")
         return torch.as_tensor(self.program.init(self.sg)).to(self.device)
 
+    def place(self, state) -> torch.Tensor:
+        """A host state [P, vpad, ...] -> a tensor on the engine's
+        device (the serving layer's re-place after a refill)."""
+        st = torch.as_tensor(np.asarray(state)).to(self.device)
+        if tuple(st.shape[:2]) != (self.num_parts, self.vpad):
+            raise ValueError(f"state {tuple(st.shape)} is not [num_parts, "
+                             f"vpad, ...] = [{self.num_parts}, "
+                             f"{self.vpad}, ...]")
+        return st
+
+    def update_program_arrays(self, **host_arrays) -> None:
+        """Swap the program's ``extra_arrays`` (key ``<name>`` here is
+        graph array ``prog_<name>``) for host replacements of the SAME
+        shape and dtype; the next step reads them.  The serving layer's
+        refill path: a retired query column's reset vector is replaced
+        without rebuilding the engine (lux_tpu/engine/pull.py:499)."""
+        new = {}
+        for k, v in host_arrays.items():
+            key = f"prog_{k}"
+            if key not in self.arrays:
+                raise KeyError(
+                    f"engine has no program array {k!r} "
+                    f"(program.extra_arrays supplies "
+                    f"{[x[5:] for x in self.arrays if x.startswith('prog_')]})")
+            cur = self.arrays[key]
+            arr = np.asarray(v)
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if tuple(t.shape) != tuple(cur.shape) or t.dtype != cur.dtype:
+                raise ValueError(
+                    f"program array {k!r} must keep shape "
+                    f"{tuple(cur.shape)}/{cur.dtype} (got "
+                    f"{arr.shape}/{arr.dtype}) — shapes are fixed; "
+                    f"rebuild the engine to change B")
+            new[key] = t
+        for key, t in new.items():
+            self.arrays[key] = t.to(self.device)
+
     def unpad(self, state: torch.Tensor) -> np.ndarray:
         """Padded device state [P, vpad, ...] -> [nv, ...] user order
         (host)."""
@@ -525,8 +628,10 @@ class PullEngine:
 
     def _apply_epilogue(self, old, red):
         vm = vmask_of(self.arrays, self.vpad)
+        extra = {k[5:]: v for k, v in self.arrays.items()
+                 if k.startswith("prog_")}
         ctx = PartCtx(deg=self.arrays["deg"], vmask=vm, nv=self.nv,
-                      ne=self.ne)
+                      ne=self.ne, extra=extra or None)
         new = self.program.apply(old, red, ctx)
         # vector state: the [P, vpad] mask over its trailing dims
         keep = vm.reshape(tuple(vm.shape) + (1,) * (new.dim() - 2))
@@ -537,11 +642,10 @@ class PullEngine:
         it, destination) gather + message values."""
         shape = tuple(self.arrays["src_slot"].shape) + \
             tuple(flat_state.shape[1:])
-        src_vals = torch.index_select(flat_state, 0, self._src).view(shape)
+        src_vals = gather_rows(flat_state, self._src).view(shape)
         dst_vals = None
         if self._dst is not None:
-            dst_vals = torch.index_select(flat_state, 0,
-                                          self._dst).view(shape)
+            dst_vals = gather_rows(flat_state, self._dst).view(shape)
         return self.program.edge_value(src_vals, dst_vals,
                                        self.arrays.get("weight"))
 
@@ -554,14 +658,16 @@ class PullEngine:
             red = segment_reduce(msgs.reshape((-1,) + trail), self._seg,
                                  P * (vpad + 1), prog.reduce)
             return red.view((P, vpad + 1) + trail)[:, :vpad]
-        if msgs.dim() > 3:
-            # kernel B1 reduces scalars; vector programs reach the
-            # tiled layout through edge_value_from_dot (the dot path)
-            _refuse("vector messages on the tiled layout outside the "
-                    "dot path", "A7")
+        if msgs.dim() > 3 and (self.batch is None or msgs.dim() > 4):
+            # query-batched messages [P, C, E, B] take B1's batched
+            # form; other vector programs reach the tiled layout through
+            # edge_value_from_dot (the dot path)
+            _refuse("vector messages of unbatched programs on the tiled "
+                    "layout outside the dot path", "A7b")
         return tiled_segment_reduce(msgs, self.tiles, a["chunk_start"],
                                     a["last_chunk"], a["rel_dst"], vpad,
-                                    prog.reduce, self._plan)
+                                    prog.reduce, self._plan,
+                                    batch=self.batch)
 
     def _paged_red(self, flat_state):
         """Paged delivery + reduce for every part -> [P, vpad] (the

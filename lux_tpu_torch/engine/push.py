@@ -27,6 +27,15 @@ reads the bucket front's size and the active count as one [2] tensor),
 and nothing else in it syncs: queues are cumsum + searchsorted +
 scatter into fixed capacities, never ``nonzero`` or mask indexing.
 
+Query-batched programs (``program.batch = B``: k-source SSSP, seeded
+components) carry labels and active masks [P, vpad, B]: one masked
+gather an edge serves all B queries, kernel B1's batched form reduces
+the [P*C, E, B] candidates, and every iteration is dense (the
+reference's rule: sparse queues, delta buckets and pair rows are
+single-query machinery).  A column converges when its own frontier
+empties; the loop reads one int32 an iteration, the count of active
+(vertex, query) pairs.
+
 Options the port does not carry yet raise :class:`NotPortedError`
 naming the ROADMAP item that brings them.
 """
@@ -45,9 +54,11 @@ from lux_tpu_torch.engine import frontier as fr
 from lux_tpu_torch.engine.program import vmask_of
 from lux_tpu_torch.engine.pull import (NotPortedError, _outside,
                                        build_graph_arrays,
+                                       check_batched_gather,
                                        check_dense_arrays,
                                        common_graph_arrays, device_arrays,
-                                       flat_segments, resolve_exchange)
+                                       flat_segments, gather_rows,
+                                       resolve_exchange)
 from lux_tpu_torch.graph import ShardedGraph
 from lux_tpu_torch.ops.pagegather import (engine_page_plan, paged_partial,
                                           plan_graph_arrays)
@@ -68,9 +79,10 @@ SPARSE_KEYS = ("src_ids", "src_off", "ss_dst", "part_start")
 def _refuse(what: str, item: str):
     raise NotPortedError(f"{what} is not ported yet (ROADMAP {item}); "
                          f"the port's push engine runs one device, "
-                         f"single-query programs, layout 'tiled'/'flat', "
-                         f"gather 'flat'/'paged'/'pagemajor' or pair-lane "
-                         f"rows, exchange 'gather'")
+                         f"layout 'tiled'/'flat', gather "
+                         f"'flat'/'paged'/'pagemajor' or pair-lane rows "
+                         f"(query-batched programs: tiled or flat), "
+                         f"exchange 'gather'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +97,8 @@ class PushProgram:
     init      (sharded_graph) -> (label0 [P, vpad], active0 bool [P,
               vpad]) numpy.
     name      optional app label.
-    batch     query-batch width (not ported: ROADMAP A7).
+    batch     query-batch width B when labels and active masks carry a
+              trailing query axis [P, vpad, B] (None = one query).
     """
     reduce: str
     relax: Callable
@@ -126,7 +139,19 @@ class PushEngine:
         if stream_msgs:
             _refuse("streamed chunk blocks (stream_msgs)", "A6")
         if program.batch is not None:
-            _refuse("query-batched push programs (program.batch)", "A7")
+            # the reference's rule (lux_tpu/engine/push.py:131-146):
+            # dense masked iterations only
+            if delta is not None:
+                raise ValueError(
+                    "delta-stepping is single-query (one scalar bucket "
+                    "bound); build batched engines with delta=None")
+            if pair_threshold is not None:
+                raise ValueError(
+                    "pair_threshold does not support query-batched "
+                    "programs: pair delivery reads scalar vertex state "
+                    "(ops/pairs.pair_partial)")
+            check_batched_gather(gather, program, _refuse)
+            enable_sparse = False
         if health:
             _refuse("the device health watchdog (health=True)", "A9")
         if stats_cap is not None:
@@ -137,8 +162,11 @@ class PushEngine:
             _refuse("gather='auto' (it resolves through scalemodel, "
                     "whose constants were measured on the TPU)", "A10")
         fr.check_use_mxu(use_mxu)
+        # the auto-exchange estimate is the whole label table's bytes: a
+        # B-wide batch is B tables
         ident_dt = np.asarray(program.identity).dtype
-        resolve_exchange(exchange, sg, program, itemsize=ident_dt.itemsize)
+        resolve_exchange(exchange, sg, program,
+                         itemsize=ident_dt.itemsize * (program.batch or 1))
         if layout == "flat" and dev.type != "cpu":
             raise ValueError(
                 "layout='flat' is the scatter oracle over every edge and "
@@ -231,6 +259,12 @@ class PushEngine:
                     f"in label dtype {ldt}")
         if pairs is not None and tiles is None:
             raise ValueError("pair rows need the tiled layout")
+        self.batch = program.batch
+        if self.batch is not None and (enable_sparse or pairs is not None
+                                       or pages is not None):
+            raise ValueError("query-batched push engines run dense tiled "
+                             "or flat iterations only (no sparse queue, "
+                             "pair rows or paged rows)")
         self.program = program
         self.sg = sg
         self.tiles = tiles
@@ -337,14 +371,17 @@ class PushEngine:
 
     def _masked_flat(self, label, active):
         """Phase 1: inactive sources -> identity BEFORE the one gather,
-        as one flat [P*vpad] table."""
-        return torch.where(active, label, self._ident).reshape(-1)
+        as one flat [P*vpad] table ([P*vpad, B] batched: the same
+        gather fetches every query's column, and a retired column is
+        all-inactive, so it offers the identity)."""
+        masked = torch.where(active, label, self._ident)
+        return masked.reshape((-1,) + tuple(label.shape[2:]))
 
     def _dense_cand(self, flat):
         """Phase 2 (tiled / flat layouts): per-edge source gather +
-        candidates [P, C, E] or [P, epad]."""
-        vals = torch.index_select(flat, 0, self._src)
-        vals = vals.view(self.arrays["src_slot"].shape)
+        candidates [P, C, E] or [P, epad] (+ [B])."""
+        vals = gather_rows(flat, self._src).view(
+            tuple(self.arrays["src_slot"].shape) + tuple(flat.shape[1:]))
         return self._msg(vals, self.arrays.get("weight"))
 
     def _dense_red(self, flat, cand):
@@ -359,13 +396,14 @@ class PushEngine:
                 a.get("pg_w"), a["pg_tp"], kind, self._msg,
                 vrow_src=a.get("pg_vrs"))[:, :vpad]
         if self.tiles is None:
-            red = segment_reduce(cand.reshape(-1), self._seg,
+            trail = tuple(flat.shape[1:])
+            red = segment_reduce(cand.reshape((-1,) + trail), self._seg,
                                  P * (vpad + 1), kind)
-            red = red.view(P, vpad + 1)[:, :vpad]
+            red = red.view((P, vpad + 1) + trail)[:, :vpad]
         else:
             red = tiled_segment_reduce(cand, self.tiles, a["chunk_start"],
                                        a["last_chunk"], a["rel_dst"], vpad,
-                                       kind, self._plan)
+                                       kind, self._plan, batch=self.batch)
         if self.pairs is not None:
             red = combine_op(kind)(red, self._pair_red(flat))
         return red
@@ -379,8 +417,12 @@ class PushEngine:
                   self.program.reduce, self._msg)[:, :self.vpad]
 
     def _dense_update(self, label, red):
-        """Phase 4: keep improvements, flag the new frontier."""
-        improved = self.program.better(red, label) & self._vmask
+        """Phase 4: keep improvements, flag the new frontier (per query
+        on batched labels: the vertex mask broadcasts over the query
+        axis)."""
+        vm = self._vmask.reshape(tuple(self._vmask.shape)
+                                 + (1,) * (red.dim() - 2))
+        improved = self.program.better(red, label) & vm
         return torch.where(improved, red, label), improved
 
     def _dense(self, label, active):

@@ -70,6 +70,9 @@ def _geometry(arrays: dict, meta: dict):
             kw["pair_stream"] = meta.get("pair_stream")
             keys += PAIR_KEYS + ("pair_weight",) + PAIR_DOT_KEYS
     host = {k: np.asarray(arrays[k]) for k in keys if k in arrays}
+    # a query-batched program's extra arrays (the [P, vpad, B] resets)
+    host.update({k: np.asarray(v) for k, v in arrays.items()
+                 if k.startswith("prog_")})
     return host, kw
 
 
@@ -104,7 +107,9 @@ def from_reference(arrays: dict, state: np.ndarray, *, meta: dict,
 
     Programs reading the destination carry ``chunk_tile``; dot
     programs (colfilter) also pair_row_tile, pair_tile0 or pg_rt,
-    pg_t0, as the reference builds them."""
+    pg_t0, as the reference builds them.  A query-batched program
+    (``apps.pagerank.make_batched_program``) carries its extra arrays
+    ``prog_<name>`` ([P, vpad, B] each) and a [P, vpad, B] state."""
     host, kw = _geometry(arrays, meta)
     if program is None:
         program = make_program()
@@ -123,6 +128,7 @@ def push_from_reference(arrays: dict, label, active, *, meta: dict,
     engine has it) plus the engine's ``queue_cap``, ``edge_budget``,
     ``enable_sparse``, ``sparse_threshold`` and ``delta``; sparse
     engines carry src_ids, src_off, ss_dst, part_start (+ ss_weight).
+    A query-batched program's labels and active mask are [P, vpad, B].
     Returns (PushEngine, label tensor, active tensor)."""
     _require(meta, PUSH_META_KEYS)
     host, kw = _geometry(arrays, meta)

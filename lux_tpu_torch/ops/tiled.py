@@ -27,7 +27,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+from lux_tpu_torch.ops.chunk_reduce import (chunk_partials,
+                                            chunk_partials_batched)
 from lux_tpu_torch.ops.segment import identity_for
 
 
@@ -218,12 +219,22 @@ def combine_partials(partials, layout, chunk_start, last_chunk, vpad: int,
 
 def tiled_segment_reduce(vals, layout, chunk_start, last_chunk, rel_dst,
                          vpad: int, kind: str,
-                         plan: SegmentPlan | None = None):
+                         plan: SegmentPlan | None = None,
+                         batch: int | None = None):
     """Full scatter-free segment reduce: chunked messages [R*C, E]
     (or [C, E]) -> [R, vpad] (or [vpad]).  Drop-in for
     ``segment_reduce(msgs, dst_local, vpad+1, kind)[:vpad]``; the
-    per-chunk partials go through kernel B1 (ops/chunk_reduce.py)."""
-    partials = chunk_partials(vals.reshape(-1, layout.E),
-                              rel_dst.reshape(-1, layout.E), layout.W, kind)
+    per-chunk partials go through kernel B1 (ops/chunk_reduce.py).
+    ``batch=B``: messages with a trailing query axis [..., E, B] ->
+    [R, vpad, B], through B1's batched form (a strided view is made
+    contiguous first: the kernel takes contiguous rows only)."""
+    rel = rel_dst.reshape(-1, layout.E)
+    if batch is None:
+        partials = chunk_partials(vals.reshape(-1, layout.E), rel,
+                                  layout.W, kind)
+    else:
+        partials = chunk_partials_batched(
+            vals.reshape(-1, layout.E, batch).contiguous(), rel, layout.W,
+            kind)
     return combine_partials(partials, layout, chunk_start, last_chunk, vpad,
                             kind, plan)

@@ -105,3 +105,54 @@ def test_convert_bytes_match_lux_tpu(lux_ref, tmp_path, weighted):
                              theirs, "-nv", "64", *flag]) == 0
     with open(ours, "rb") as a, open(theirs, "rb") as b:
         assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("app,extra", [
+    ("pagerank", ["-ni", "3", "-sources", "1,5,9"]),
+    ("pagerank", ["-ni", "3", "-batch", "4", "-np", "2"]),
+    ("sssp", ["-sources", "1,5,9", "-np", "2"]),
+    ("sssp", ["-batch", "8"]),
+    ("components", ["-sources", "3,7", "-batch", "2"])])
+def test_batched_runs_print_query_rate(lux_file, app, extra):
+    proc = _run_cli(app, "-file", lux_file, "-device", "cpu", "-check",
+                    *extra)
+    assert proc.returncode == 0, proc.stderr
+    B = len(extra[extra.index("-sources") + 1].split(",")) \
+        if "-sources" in extra else int(extra[extra.index("-batch") + 1])
+    assert f"BATCH = {B} queries; QUERY-GTEPS = " in proc.stdout
+    assert "note: -check does not support batched runs yet" in proc.stdout
+
+
+def test_batched_sources_equal_lux_tpu(lux_ref):
+    """-batch B draws the reference's evenly spaced sources."""
+    import argparse
+    for B, nv in ((4, 512), (8, 1000), (1, 7)):
+        args = argparse.Namespace(sources=None, batch=B, pair=None)
+        assert cli._batched_sources(args, nv) == \
+            lux_ref.cli._batched_sources(args, nv)
+
+
+@pytest.mark.parametrize("app,extra,msg", [
+    ("sssp", ["-batch", "2", "-pair", "4"], "-pair is single-query"),
+    ("pagerank", ["-sources", "1,x"], "comma list"),
+    ("pagerank", ["-sources", ","], "named no vertices"),
+    ("components", ["-sources", "1,2", "-batch", "3"], "-batch 3 !="),
+    ("sssp", ["-sources", "1,99999"], "out of range"),
+    ("sssp", ["-batch", "2", "-delta", "auto"], "-delta is single-query")])
+def test_batched_errors_exit_2(lux_file, app, extra, msg):
+    proc = _run_cli(app, "-file", lux_file, "-device", "cpu", *extra)
+    assert proc.returncode == 2 and msg in proc.stderr, proc.stderr
+
+
+@pytest.mark.parametrize("module,args,want", [
+    ("lux_tpu_torch.serve", ["-device", "cpu", "-scale", "6", "-batch",
+                             "2", "-queries", "7", "-np", "1"],
+     "# all answers match their NumPy oracles"),
+    ("lux_tpu_torch.metrics", [], "")])
+def test_module_entry_points_exit_0(module, args, want):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-m", module, *args],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert want in proc.stdout

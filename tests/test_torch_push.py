@@ -261,14 +261,19 @@ def test_refused_calls_and_programs(graphs):
     with pytest.raises(NotPortedError, match="A10"):
         eng.timed_phases(*eng.init_state())
     g, _r, start = graphs["hops"]
+    # query-batched programs run (tests/test_torch_batched.py); their
+    # paged and page-major delivery is still to port
     batched = PushProgram(reduce="min", relax=lambda s, w: s + 1,
                           identity=sssp.HOP_INF, init=None, batch=4)
-    with pytest.raises(NotPortedError, match="A7"):
-        PushEngine(ShardedGraph.build(g, 1), batched, device=CPU)
-    with pytest.raises(NotPortedError, match="A7"):
-        sssp.build_engine(g, sources=[0, 1], device=CPU)
-    with pytest.raises(NotPortedError, match="A7"):
-        components.build_engine(g, sources=[0, 1], device=CPU)
+    sg = ShardedGraph.build(g, 1, vpad_align=128)
+    with pytest.raises(NotPortedError, match="A7b"):
+        PushEngine(sg, batched, device=CPU, gather="paged")
+    with pytest.raises(NotPortedError, match="A7b"):
+        sssp.build_engine(g, sources=[0, 1], gather="pagemajor", device=CPU)
+    with pytest.raises(NotPortedError, match="A7b"):
+        components.build_engine(g, sources=[0, 1], gather="paged",
+                                device=CPU)
+    assert PushEngine(sg, batched, device=CPU).batch == 4
 
 
 def test_invalid_configurations(graphs):
