@@ -73,7 +73,7 @@ Phases, each printing one JSON line:
 10. pairs   bench.py's pagerank config on the main graph: pair_relabel,
             pair_threshold 16, min_fill 24, tile_e 128, through
             pagerank.build_engine once with each pair_stream setting
-            (streamed, the default, then monolithic), 10 iterations
+            (monolithic, then streamed, the default), 10 iterations
             against the float64 oracle of the relabelled graph; B1
             launched once per iteration over the residual chunks plus
             once over the pair rows (monolithic) or once a block
@@ -177,7 +177,8 @@ Phases, each printing one JSON line:
             [0, W), int32 extremes, NaN for min/max; f32 sums within
             E * 2^-23 * max|v|, the rest bit-equal; three launches
             bit-equal; a strided view refused); then bench.py's
-            ksssp-batch@8 and ppr-batch@8 (bench.py:941-976) uncut: R-MAT
+            ksssp-batch@8 and ppr-batch@8 (bench.py:941-976; run ppr,
+            the serve phase, then ksssp, printed in that order) uncut: R-MAT
             one scale under --scale (20), --ef, --seed, one part, no
             relabel, B = 8 sources from default_rng(7); ksssp through
             sssp.build_engine(sources=...) to convergence, every
@@ -200,7 +201,41 @@ Phases, each printing one JSON line:
             levels and reachability, the float64 PageRank oracle at the
             query's iterations), a boundary that retired and refilled,
             serve_retired_total = 36, only B1's batched form launched;
-            p50 / p99 latency, per-kind iterations and segments.
+            p50 / p99 latency, per-kind iterations and segments;
+17. batch_paged  the batch phases' graph and sources degree-relabelled
+            (128-aligned) on gather="paged" and "pagemajor": ksssp-batch@8
+            labels bit-equal to the batch phase's and ppr-batch@8 within
+            rtol 5e-5, atol 1e-9 of its float64 oracle (both mapped
+            through the relabel); B1's batched form launched once an
+            iteration, B2 and the scalar B1 never, at most one host sync
+            an iteration; B1's batched form on the paths' own [Rp, 128,
+            8] rows against its plain version (int32 min bit-equal over
+            all rows, f32 sums per element on 2^18 rows), on the same
+            rows with NaN / int32-min in every dead lane, three launches
+            bit-equal (the kernels line's chunk_partials_batched@*_paged
+            entries); per-layer ms (page fetch, page-major lane-index
+            take, lane resolve, messages, B1 batched, class combine,
+            apply / update), step ms, query_gteps, peak, plan seconds;
+18. guarded the watchdog on the pairs phase's streamed engine (state
+            bit-equal to the plain run, B1's launches unchanged, at most
+            one host sync more, the word clean; plain and guarded step
+            ms in turns, host enqueue, the added ops alone), a NaN drill
+            after iteration 3 of 10 (HealthError nonfinite_state at
+            global iteration 3, part 0; one iteration executed, its
+            state kept), resilience.supervised_run in segments of 2
+            with a seeded crash and with a bit-flipped newest
+            checkpoint (bit-equal to the plain run; checkpoint bytes and
+            save ms), a DurationBudget of ~2.5 iterations (its lock,
+            bits unchanged); the sssp phase's converge_health (labels
+            bit-equal, one sync an iteration, converge ms in turns);
+            ksssp-batch@8 guarded (labels equal); ROADMAP A9's
+            livelock repro on the card: HealthError [frontier_stall] at
+            the CPU run's iteration.  The pairs, sssp and batch
+            phases return their engines and plain results; main runs
+            each engine's cases as its phase returns and frees it (held
+            to the end, the engines would count in later phases'
+            peaks); this phase runs the livelock repro and prints
+            every case.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -1247,12 +1282,13 @@ def phase_pairs(args, torch, g2, starts, t_relabel, card):
     """bench.py's pagerank config (bench.py:987-1011) on the main graph
     ``g2`` (pair_relabelled, with its cut points ``starts``), once with
     each pair_stream setting; returns (launches by setting, the
-    kernels-line entry of B1 on the pair rows)."""
+    kernels-line entry of B1 on the pair rows, the streamed engine's
+    guarded case: the engine, its plain state and its pair blocks)."""
     from lux_tpu_torch.apps import pagerank
     from lux_tpu_torch.ops.pairs import stream_blocks
     want = pagerank.reference_pagerank(g2, args.iters)
-    counts_by, b1 = {}, None
-    for stream in (True, False):
+    counts_by = {}
+    for stream in (False, True):
         label = "streamed" if stream else "monolithic"
         t0 = time.perf_counter()
         eng = pagerank.build_engine(g2, 1, pair_threshold=PAIR_THRESHOLD,
@@ -1307,15 +1343,15 @@ def phase_pairs(args, torch, g2, starts, t_relabel, card):
                        "longest_tile_chunks": eng._plan.max_len},
               "layers": layers, "card": card})
         counts_by[label] = counts
-        if stream:
-            # B1's own checks and timing at the pair rows, once (both
-            # settings deliver the same rows), before the monolithic
-            # engine is built so that nothing held here counts in its
-            # peak memory
-            b1 = check_pair_rows(args, torch, eng, vals, rel)
-        del eng, state, vals, rel
-        torch.cuda.empty_cache()
-    return counts_by, b1
+        if not stream:
+            del eng, state, vals, rel
+            torch.cuda.empty_cache()
+    # B1's own checks and timing at the pair rows, once (both settings
+    # deliver the same rows)
+    b1 = check_pair_rows(args, torch, eng, vals, rel)
+    del vals, rel
+    torch.cuda.empty_cache()
+    return counts_by, b1, (eng, state, blocks)
 
 
 def check_pair_rows(args, torch, eng, vals, rel):
@@ -1717,7 +1753,8 @@ def run_push_config(args, torch, eng, g, want, name: str, card, extra):
     engine's ids), both audits at 0, launches per iteration kind, at
     most one host sync an iteration; then timed runs, the stepwise
     launch check, per-layer times and B1 at the path's own inputs.
-    Returns (the kernels-line entry, B1 launches of the counted run)."""
+    Returns (the kernels-line entry, the counted run's launches, its
+    labels and iterations)."""
     from lux_tpu_torch import check, device_check
     prog = eng.program
     eng.converge(*eng.init_state())                # warm-up run
@@ -1776,14 +1813,16 @@ def run_push_config(args, torch, eng, g, want, name: str, card, extra):
           "audit_device": str(dev), "layers": layers, **extra,
           "card": card})
     line = push_b1(args, torch, eng, *dense_in, name)
-    return line, counts["chunk_partials"]
+    return line, counts, label, it
 
 
 def phase_sssp(args, torch, g, g2, perm, starts, card):
     """bench.py's sssp config (bench.py:1034-1077) on the main graph:
     pair_relabel (threshold 16), min_fill 24, hops, no delta, sparse
     iterations on, one part, started at the relabelled id of the
-    smallest input id with an out-edge (first_out_vertex)."""
+    smallest input id with an out-edge (first_out_vertex).  Returns
+    (the kernels-line entry, B1 launches, the guarded case: the engine,
+    its labels, iterations and launches)."""
     from lux_tpu_torch.apps import sssp
     v0 = first_out_vertex(g)
     start = relabelled_id(perm, v0)
@@ -1806,11 +1845,9 @@ def phase_sssp(args, torch, g, g2, perm, starts, card):
              "pair_plan_seconds": round(eng.plan_seconds, 3),
              "oracle": "level-synchronous numpy BFS",
              "oracle_seconds": round(t_oracle, 3)}
-    line, launches = run_push_config(args, torch, eng, g2, want, "sssp",
-                                     card, extra)
-    del eng
-    torch.cuda.empty_cache()
-    return line, launches
+    line, counts, label, it = run_push_config(args, torch, eng, g2, want,
+                                              "sssp", card, extra)
+    return line, counts["chunk_partials"], (eng, label, it, counts)
 
 
 def phase_cc(args, torch, card):
@@ -1853,11 +1890,11 @@ def phase_cc(args, torch, card):
              "pair_plan_seconds": round(eng.plan_seconds, 3),
              "oracle": "scipy connected_components, max id a component",
              "oracle_seconds": round(t_oracle, 3)}
-    line, launches = run_push_config(args, torch, eng, g2, want, "cc",
-                                     card, extra)
+    line, counts, _label, _it = run_push_config(args, torch, eng, g2, want,
+                                                "cc", card, extra)
     del eng, g2
     torch.cuda.empty_cache()
-    return line, launches
+    return line, counts["chunk_partials"]
 
 
 def parts_push(args, torch, g) -> dict:
@@ -3420,7 +3457,7 @@ def b1_batched_line(args, torch, vals, rel, W, name, kind):
     del idx, base
     got = chunk_partials_batched(vals, rel, W, kind)
     want = chunk_partials_batched_plain(vals, rel, W, kind)
-    max_abs_err = float((got.double() - want.double()).abs().max())
+    max_abs_err = max_abs_diff(got, want)
     del got, want
     return {"name": name, "route": "cuda",
             "source": "lux_tpu_torch/csrc/chunk_partials_batched.cu",
@@ -3434,6 +3471,15 @@ def b1_batched_line(args, torch, vals, rel, W, name, kind):
             "plain_ms": plain_ms, **b1_batched_bound(torch, vals, rel, W),
             "library_ms": library_ms,
             "library": "scatter_reduce over [C * (W + 1), B]"}
+
+
+def max_abs_diff(a, b, rows: int = 1 << 16) -> float:
+    """max |a - b| in float64, a block of leading rows at a time (the
+    paged rows' [Rp, 128, 8] outputs are 10 GB: a whole float64 copy
+    would not fit beside them)."""
+    return max((float((a[r:r + rows].double() - b[r:r + rows].double())
+                      .abs().max()) for r in range(0, a.shape[0], rows)),
+               default=0.0)
 
 
 def batch_graph(args):
@@ -3533,7 +3579,9 @@ def phase_ksssp_batch(args, torch, g, sources, card):
     (sssp.reference_sssp_batched) and, for the two columns reaching the
     most vertices, to single-source runs of the scalar engine; B1's
     batched form launched once an iteration, the scalar B1 and B2
-    never; at most one host sync an iteration."""
+    never; at most one host sync an iteration.  Returns (the
+    kernels-line entry, the launches, B1's own cases, the host labels,
+    the guarded case: the engine, its labels and iterations)."""
     from lux_tpu_torch.apps import sssp
     t0 = time.perf_counter()
     eng = sssp.build_engine(g, sources=sources, num_parts=1)
@@ -3610,9 +3658,9 @@ def phase_ksssp_batch(args, torch, g, sources, card):
                            "chunk_partials_batched@ksssp_batch", "min")
     line["note"] = ("int32 compare-selects counted at the f32 rate (the "
                     "data sheet gives no int32 rate); bytes bound it")
-    del eng, vals, rel
+    del vals, rel
     torch.cuda.empty_cache()
-    return line, counts["chunk_partials_batched"], cases
+    return line, counts, cases, got, (eng, label, it)
 
 
 def phase_ppr_batch(args, torch, g, sources, card):
@@ -3675,7 +3723,7 @@ def phase_ppr_batch(args, torch, g, sources, card):
                            "chunk_partials_batched@ppr_batch", "sum")
     del eng, vals, rel
     torch.cuda.empty_cache()
-    return line, counts["chunk_partials_batched"], cases
+    return line, counts, cases, want
 
 
 def serve_stream(g, seed: int):
@@ -3806,14 +3854,15 @@ def phase_serve(args, torch, g, card):
           "oracle_seconds": round(t_oracle, 3), "card": card})
     del srv
     torch.cuda.empty_cache()
-    return counts["chunk_partials_batched"]
+    return counts
 
 
 def phase_batch(args, torch, card):
     """The batch phases: B1's batched form against its plain version on
-    synthetic shapes, then ksssp-batch@8, ppr-batch@8 and the Server on
-    one R-MAT 20 graph.  Returns (kernels-line entries, launches by
-    path)."""
+    synthetic shapes, then ppr-batch@8, the Server and ksssp-batch@8 on
+    one R-MAT 20 graph (ksssp last: its engine is returned for the
+    guarded case).  Returns (kernels-line entries, launches by path,
+    what batch_paged reuses, the ksssp guarded case)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     cases = b1_batched_cases(torch, gen, dev)
@@ -3822,17 +3871,531 @@ def phase_batch(args, torch, card):
           "scale": args.scale - 1, "edge_factor": args.ef, "seed": args.seed,
           "B": BATCH_B, "sources": sources,
           "graph_seconds": round(t_graph, 3)})
-    kline, n_k, own_k = phase_ksssp_batch(args, torch, g, sources, card)
-    pline, n_p, own_p = phase_ppr_batch(args, torch, g, sources, card)
+    pline, n_p, own_p, ppr_want = phase_ppr_batch(args, torch, g, sources,
+                                                  card)
+    n_s = phase_serve(args, torch, g, card)
+    kline, n_k, own_k, k_labels, k_case = phase_ksssp_batch(
+        args, torch, g, sources, card)
     cases += own_k + own_p
     emit({"phase": "kernels", "kernel": "chunk_partials_batched",
           "cases": len(cases), "all_pass": True, "detail": cases})
-    n_s = phase_serve(args, torch, g, card)
     by_path = {"ksssp_batch": n_k, "ppr_batch": n_p, "serve": n_s}
+    batched = {k: v["chunk_partials_batched"] for k, v in by_path.items()}
     for line, n in ((kline, n_k), (pline, n_p)):
-        line["launches"] = n
-        line["launches_by_path"] = by_path
-    return [pline, kline], by_path
+        line["launches"] = n["chunk_partials_batched"]
+        line["launches_by_path"] = batched
+    return [pline, kline], by_path, (g, sources, k_labels, ppr_want), \
+        k_case
+
+
+# ---------------------------------------------------------------------
+# guarded execution and durability (ROADMAP A9): the watchdog, the
+# checkpoints, the supervisor and DurationBudget on the main engines
+
+# the supervisor's backoffs in the drills: short, the failures are
+# injected
+FAST_RETRY = dict(retries=3, backoff_s=0.01, max_backoff_s=0.05)
+
+
+def pull_watch_ops(torch, eng, old, new):
+    """The ops a guarded pull iteration adds to the plain one, on one
+    iteration's (old, new) states: the counters, the word and window
+    update, the where's that hold a tripped run and the buffer
+    writes."""
+    from lux_tpu_torch import health
+    h, win = health.init_word(old.device), health.init_window(old.device)
+    rb, cb, rbp, cbp = eng._stats_bufs()
+
+    def ops():
+        r, cnt, rp, cp = eng._iter_counters(new, old)
+        h2, w2 = health.pull_update(h, win, new, r)
+        ok = h[0] == 0
+        torch.where(ok, new, old)
+        torch.where(ok, h2, h)
+        torch.where(ok, w2, win)
+        rb[0] = torch.where(ok, r, rb[0])
+        cb[0] = torch.where(ok, cnt, cb[0])
+        rbp[0] = torch.where(ok, rp, rbp[0])
+        cbp[0] = torch.where(ok, cp, cbp[0])
+    return ops
+
+
+def seeded_crash_plan(seed: int, boundaries: int):
+    """The first FaultPlan.seeded(s) from ``seed`` on whose schedule
+    crashes at one of the run's ``boundaries`` segment boundaries."""
+    from lux_tpu_torch import faults
+    for s in range(seed, seed + 1000):
+        plan = faults.FaultPlan.seeded(s, n=boundaries, p_crash=0.3)
+        if plan.schedule:
+            return s, plan
+    raise SmokeFailure("no seeded crash plan in 1000 seeds")
+
+
+def guarded_pull(args, torch, eng, plain, blocks: int):
+    """The guarded cases on the pairs phase's streamed engine (bench.py's
+    pagerank config): the watchdog's run bit-equal to ``plain`` with
+    B1's launches unchanged and at most one host read more than the
+    plain run; its cost; the NaN drill; the supervisor with a seeded
+    crash and with a bit-flipped newest checkpoint; DurationBudget.
+    Returns the case's record."""
+    import tempfile
+
+    from lux_tpu_torch import (checkpoint, faults, health, resilience,
+                               segmented, telemetry)
+    iters, per = args.iters, 1 + blocks
+    init = eng.init_state()
+    want = {"chunk_partials": per * iters, "lane_shuffle": 0,
+            "chunk_partials_batched": 0}
+    eng.health = False
+    _s, counts, plain_syncs = counted_sync_run(torch,
+                                               lambda: eng.run(init, iters))
+    require(counts == want, f"guarded: plain run launched {counts}")
+    eng.health = True
+    state, counts, syncs = counted_sync_run(torch,
+                                            lambda: eng.run(init, iters))
+    require(counts == want, f"guarded: the guarded run launched {counts} "
+                            f"(want the plain run's {want})")
+    require(same_bits(state, plain), "guarded: the guarded PageRank state "
+                                     "is not bit-equal to the plain run's")
+    require(syncs - plain_syncs <= 1,
+            f"guarded: {syncs} host syncs against the plain run's "
+            f"{plain_syncs} (want at most one more: the word's decode)")
+    st, it, *_bufs, watch = eng.run_health(init, iters)
+    word = health.digest(watch, "pull")
+    require(int(it) == iters and not word["tripped"] and same_bits(st, plain),
+            f"guarded: run_health executed {int(it)} iterations, {word}")
+    # the watchdog's cost: device spans of the plain and guarded runs in
+    # turns, their host enqueue, and the added ops alone
+    reps = 3
+    spans = {"plain": [], "guarded": []}
+    for kind in ("plain", "guarded", "guarded", "plain"):
+        fn = (lambda: eng.run_health(init, iters)) if kind == "guarded" \
+            else (lambda: eng._run_plain(init, iters))
+        spans[kind].append(cuda_ms(fn, reps) / iters)
+    cost = {"plain_step_ms": spans["plain"],
+            "guarded_step_ms": spans["guarded"],
+            "plain_host_enqueue_ms": host_ms(
+                torch, lambda: eng._run_plain(init, iters), 2) / iters,
+            "guarded_host_enqueue_ms": host_ms(
+                torch, lambda: eng.run_health(init, iters), 2) / iters,
+            "watch_ops_ms": cuda_ms(pull_watch_ops(torch, eng, init, st),
+                                    args.reps),
+            "host_syncs_plain_run": plain_syncs,
+            "host_syncs_guarded_run": syncs}
+    # the NaN drill: a NaN poked into the state after iteration 3 of 10
+    s3 = eng.run(init, 3)
+    faults.nan_corrupt(s3, 1)
+    s3_copy = s3.clone()
+    try:
+        segmented.run_segments(eng, s3, iters, iters, start_iter=3)
+        raise SmokeFailure("guarded: the NaN drill did not trip")
+    except health.HealthError as e:
+        trip = {"checks": e.checks, "iteration": e.iteration,
+                "part": e.part, "count": e.count, "message": str(e)}
+    require("nonfinite_state" in trip["checks"] and trip["iteration"] == 3
+            and trip["part"] == 0,
+            f"guarded: the NaN drill's diagnosis is {trip}")
+    out, it, *_bufs, watch = eng.run_health(s3_copy, iters - 3)
+    require(int(it) == 1 and same_bits(out, eng._run_plain(s3_copy, 1)),
+            f"guarded: the NaN drill executed {int(it)} iterations or kept "
+            f"another state than the tripping iteration's")
+    trip["iters_executed"] = int(it)
+    tmp = tempfile.mkdtemp(prefix="lux_smoke_ckpt_")
+    path = os.path.join(tmp, "pagerank.npz")
+    policy = resilience.RetryPolicy(**FAST_RETRY)
+    seed, plan = seeded_crash_plan(args.seed, iters // 2 - 1)
+    ev = telemetry.EventLog()
+    t0 = time.perf_counter()
+    with telemetry.use(events=ev):
+        out, rep = resilience.supervised_run(eng, iters, path, segment=2,
+                                             faults=plan, policy=policy)
+    t_sup = time.perf_counter() - t0
+    require(same_bits(out, plain), "guarded: the supervised run with a "
+                                   "crash is not bit-equal to the plain run")
+    require(rep.attempts == len(plan.fired) + 1 and rep.resumed_from,
+            f"guarded: supervisor report {rep.as_dict()}")
+    saves = [{"iter": e["iter"], "bytes": e["staged_bytes"],
+              "save_ms": e["seconds"] * 1e3}
+             for e in ev.events if e["kind"] == "checkpoint_save"]
+    supervised = {"seed": seed, "schedule": plan.schedule,
+                  "fired": plan.fired, "report": rep.as_dict(),
+                  "wall_s": t_sup, "checkpoint_file_bytes":
+                      os.path.getsize(path), "saves": saves}
+    plan = faults.FaultPlan({2: faults.CKPT_BITFLIP})
+    ev = telemetry.EventLog()
+    with telemetry.use(events=ev):
+        out, rep = resilience.supervised_run(eng, iters, path, segment=2,
+                                             faults=plan, policy=policy)
+    require(same_bits(out, plain) and ev.counts().get("checkpoint_fallback")
+            and rep.resumed_from,
+            f"guarded: the bit-flip drill {rep.as_dict()} "
+            f"{ev.counts()}")
+    bitflip = {"report": rep.as_dict(), "events": ev.counts()}
+    # DurationBudget: a budget of about 2.5 iterations of the guarded
+    # run locks after its warm-up; the checkpoints land at that size
+    per_iter_s = max(max(spans["guarded"]), cost["guarded_host_enqueue_ms"]
+                     ) / 1e3
+    budget = segmented.DurationBudget(2.5 * per_iter_s / 0.8)
+    ev = telemetry.EventLog()
+    with telemetry.use(events=ev):
+        out = checkpoint.run_checkpointed(eng, init, iters, path,
+                                          segment=budget)
+    segs = [e["n"] for e in ev.events if e["kind"] == "segment"]
+    require(same_bits(out, plain) and budget.locked is not None
+            and len(segs) >= 3,
+            f"guarded: DurationBudget segments {segs}, lock "
+            f"{budget.locked}")
+    checkpoint.remove(path)
+    os.rmdir(tmp)
+    eng.health = False
+    return {
+        "engine": "bench.py pagerank config (pairs, streamed)",
+        "iters": iters, "bit_equal_plain": True, "word": word,
+        "launches": counts, **cost, "nan_drill": trip,
+        "supervised": supervised, "bitflip_fallback": bitflip,
+        "budget": {"budget_s": budget.budget_s, "locked": budget.locked,
+                   "per_iter_s": budget.per_iter, "segments": segs,
+                   "default_45s_locks_to": min(
+                       4096, int(0.8 * 45.0 / budget.per_iter))}}
+
+
+def wall_ms(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def guarded_push(torch, eng, label, it, counts):
+    """The sssp phase's engine under converge_health: labels bit-equal,
+    the same launches, the word clean, at most one host sync an
+    iteration; converge ms against the unguarded run, in turns.
+    Returns the case's record."""
+    from lux_tpu_torch import health
+    eng.converge_health(*eng.init_state())            # warm-up
+    l0, a0 = eng.init_state()
+    (lab, _act, it2, *_bufs, watch), c2, syncs = counted_sync_run(
+        torch, lambda: eng.converge_health(l0, a0))
+    word = health.digest(watch, "push")
+    require(it2 == it and torch.equal(lab, label) and not word["tripped"],
+            f"guarded sssp: {it2} iterations (plain {it}), word {word}")
+    require(c2 == dict(counts, chunk_partials_batched=0),
+            f"guarded sssp: launched {c2} (plain {counts})")
+    require(syncs <= it2, f"guarded sssp: {syncs} host syncs in {it2} "
+                          f"iterations")
+    ms = {"plain": [], "guarded": []}
+    for kind in ("plain", "guarded", "guarded", "plain"):
+        lab0, act0 = eng.init_state()
+        fn = (lambda: eng.converge_health(lab0, act0)) \
+            if kind == "guarded" else (lambda: eng.converge(lab0, act0))
+        ms[kind].append(wall_ms(torch, fn))
+    return {"engine": "bench.py sssp config (pairs, sparse on)",
+            "iterations": it2, "labels_bit_equal": True, "word": word,
+            "launches": c2, "host_syncs": syncs,
+            "host_syncs_per_iteration": syncs / it2,
+            "converge_ms_plain": ms["plain"],
+            "converge_ms_guarded": ms["guarded"]}
+
+
+def guarded_batch(torch, eng, label, it):
+    """ksssp-batch@8 on the batch phase's engine under converge_health:
+    labels equal to that phase's.  Returns the case's record."""
+    from lux_tpu_torch import health
+    l0, a0 = eng.init_state()
+    (lab, _a, it2, *_b, watch), counts, syncs = counted_sync_run(
+        torch, lambda: eng.converge_health(l0, a0))
+    word = health.digest(watch, "push")
+    require(it2 == it and torch.equal(lab, label) and not word["tripped"]
+            and syncs <= it2,
+            f"guarded ksssp_batch: {it2} iterations (plain {it}), {syncs} "
+            f"syncs, word {word}")
+    return {"iterations": it2, "labels_equal": True, "word": word,
+            "launches": counts, "host_syncs": syncs}
+
+
+def guarded_livelock(torch):
+    """ROADMAP A9's truncation livelock on the card: R-MAT 5 (ef 16,
+    seed 1), start vertex 28 (out-degree 37), edge_budget 22,
+    sparse_threshold 1, page-major: HealthError [frontier_stall] within
+    max_iters 64, at the iteration the same run trips on the CPU.
+    Returns the case's record."""
+    from lux_tpu_torch import health
+    from lux_tpu_torch.apps import sssp
+    from lux_tpu_torch.convert import rmat_edges
+    from lux_tpu_torch.engine.push import PushEngine
+    from lux_tpu_torch.graph import Graph, ShardedGraph
+    src, dst, nv = rmat_edges(5, 16, seed=1)
+    g = Graph.from_edges(src, dst, nv)
+    require(int(g.out_degrees[28]) == 37, "livelock repro: vertex 28's "
+                                          "out-degree is not 37")
+    sg = ShardedGraph.build(g, 1, vpad_align=128)
+
+    def trip(device):
+        eng = PushEngine(sg, sssp.make_program(28), gather="pagemajor",
+                         edge_budget=22, sparse_threshold=1, device=device,
+                         health=True)
+        try:
+            eng.run(max_iters=64)
+        except health.HealthError as e:
+            return e, len(eng.schedule)
+        raise SmokeFailure(f"livelock repro on {device}: no trip in 64 "
+                           f"iterations")
+
+    card, n_card = trip(None)
+    cpu, _n = trip("cpu")
+    require(card.checks == ["frontier_stall"]
+            and card.iteration == cpu.iteration,
+            f"livelock repro: card {card.checks} at {card.iteration}, "
+            f"CPU {cpu.checks} at {cpu.iteration}")
+    return {"checks": card.checks, "trip_iteration": card.iteration,
+            "iterations_run": n_card, "max_iters": 64,
+            "stall_n": health.STALL_N, "cpu_trip_iteration": cpu.iteration}
+
+
+def phase_guarded(torch, cases: dict, card) -> None:
+    """The guarded phase's line: the cases main ran on the engines the
+    pairs, sssp and batch phases returned (``cases``: pagerank, sssp,
+    ksssp_batch), and the livelock repro, run here."""
+    emit({"phase": "guarded", **cases, "livelock": guarded_livelock(torch),
+          "card": card})
+
+
+# ---------------------------------------------------------------------
+# batched paged and page-major delivery (ROADMAP A7b)
+
+
+PAGED_LAYERS = ("page_fetch_ms", "vrow_take_ms", "lane_resolve_ms",
+                "messages_ms", "chunk_partials_batched_ms",
+                "class_combine_ms")
+
+
+def batch_paged_layers(args, torch, eng, state, active=None):
+    """Device ms of each layer of one batched paged iteration on its own
+    input state, timed on the engine's own delivery: its paged reduce
+    stopped after each stage of ops/pagegather.PAGED_STAGES (page
+    fetch; + page-major lane-index take; + lane resolve; + messages;
+    + B1's batched form; + class combine), each layer the difference of
+    two cumulative spans; then the apply / update and the whole step.
+    Returns (layers, the messages of the rows, their rel)."""
+    from lux_tpu_torch.ops import pagegather as pg
+    reps = args.reps
+    if active is None:
+        flat = state.reshape(-1, eng.batch)
+        red_fn = eng._paged_red
+        apply = lambda red: eng._apply_epilogue(state, red)  # noqa: E731
+        step = lambda: eng.step(state)                      # noqa: E731
+    else:
+        flat = eng._masked_flat(state, active)
+        red_fn = lambda f, upto=None: eng._dense_red(f, None, upto)  # noqa
+        apply = lambda red: eng._dense_update(state, red)   # noqa: E731
+        step = lambda: eng._dense(state, active)            # noqa: E731
+    red = red_fn(flat)
+    cum = [cuda_ms(lambda u=u: red_fn(flat, upto=u), reps)
+           for u in pg.PAGED_STAGES]
+    out = dict(zip(PAGED_LAYERS, [cum[0]] + [b - a for a, b in
+                                             zip(cum, cum[1:])]))
+    out.update({"apply_ms": cuda_ms(lambda: apply(red), reps),
+                "step_ms": cuda_ms(step, reps),
+                "step_host_ms": host_ms(torch, step, 5)})
+    out["layers_sum_ms"] = cum[-1] + out["apply_ms"]
+    del red
+    msgs = red_fn(flat, upto="messages")
+    n = msgs.shape[0]
+    out.update({"rows": n, "blocks": -(-n // pg.paged_block_rows(flat)),
+                "B": eng.batch,
+                "messages_bytes": msgs.numel() * msgs.element_size(),
+                "note": "each layer the difference of two cumulative "
+                        "spans of the engine's paged reduce stopped after "
+                        "a stage (pagegather.PAGED_STAGES); vrow_take is "
+                        "the page-major take of each virtual row's lane "
+                        "index (0 for paged)"})
+    return out, msgs, eng.arrays["pg_rel"].reshape(-1, pg.W)
+
+
+def check_batch_paged_rows(torch, name, vals, rel, kind):
+    """B1's batched form on a batched paged path's own rows: against its
+    plain version (int32 min bit for bit over all rows; f32 sums by
+    _check_batched_case's bound on a slice of rows, whose float64
+    magnitudes would not fit at full size), on the same rows with
+    garbage in every dead lane (NaN for f32, int32 extremes for int32),
+    and three launches bit-equal."""
+    from lux_tpu_torch.ops.chunk_reduce import (
+        chunk_partials_batched, chunk_partials_batched_plain)
+    W = rel.shape[1]
+    sub = slice(0, min(vals.shape[0], 1 << 18))
+    cases = []
+    if kind == "sum":
+        cases.append(_check_batched_case(torch, f"{name}_own/{kind}",
+                                         vals[sub], rel[sub], W, kind))
+    else:
+        got = chunk_partials_batched(vals, rel, W, kind)
+        want = chunk_partials_batched_plain(vals, rel, W, kind)
+        require(torch.equal(got, want), f"batched B1 on {name}'s rows "
+                                        f"differs from its plain version")
+        del got, want
+        cases.append({"case": f"{name}_own/{kind}",
+                      "shape": list(vals.shape), "W": W, "kind": kind,
+                      "max_abs_err": 0.0, "tolerance": "bit-equal"})
+    dead = (rel[sub] < 0)[..., None].expand(-1, -1, vals.shape[2])
+    junk = vals[sub].clone()
+    if junk.is_floating_point():
+        junk[dead] = float("nan")
+    else:
+        junk[dead] = torch.iinfo(torch.int32).min
+    cases.append(_check_batched_case(torch, f"{name}_dead_lanes/{kind}",
+                                     junk, rel[sub], W, kind))
+    cases.append(check_batched_deterministic(torch, f"{name}_own",
+                                             vals[sub], rel[sub], W, kind))
+    return cases
+
+
+def batch_paged_ksssp(args, torch, g2, sg, src2, want, mode, card):
+    """ksssp-batch@8 on the relabelled graph with ``gather=mode``: labels
+    bit-equal to the batch phase's (mapped), B1's batched form once an
+    iteration and nothing else, at most one host sync an iteration."""
+    from lux_tpu_torch.apps import sssp
+    t0 = time.perf_counter()
+    eng = sssp.build_engine(g2, sources=src2, num_parts=1, sg=sg,
+                            gather=mode)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    require(eng.gather == mode and eng.batch == BATCH_B,
+            f"batch_paged {mode}: engine {eng.gather} B={eng.batch}")
+    eng.converge(*eng.init_state())                # warm-up run
+    torch.cuda.reset_peak_memory_stats()
+    l0, a0 = eng.init_state()
+    (label, active, it), counts, syncs = counted_sync_run(
+        torch, lambda: eng.converge(l0, a0))
+    peak = torch.cuda.max_memory_allocated()
+    require(counts == {"chunk_partials": 0, "lane_shuffle": 0,
+                       "chunk_partials_batched": it} and it > 1,
+            f"batch_paged {mode} ksssp: launched {counts} in {it} "
+            f"iterations (want B1's batched form once an iteration)")
+    require(syncs <= it, f"batch_paged {mode} ksssp: {syncs} host syncs "
+                         f"in {it} iterations")
+    got = eng.unpad(label)
+    require(np.array_equal(got, want),
+            f"batch_paged {mode} ksssp: labels differ from the batch "
+            f"phase's at {int((got != want).sum())} (vertex, query) pairs")
+    runs = timed_converges(torch, eng, 3)
+    wall = [r["wall_s"] for r in runs]
+    best = float(np.median(wall))
+    lab, act = eng.init_state()
+    for _ in range(2):
+        lab, act, _c = eng.step(lab, act)
+    layers, vals, rel = batch_paged_layers(args, torch, eng, lab, act)
+    pp = eng.page_plan
+    gteps = g2.ne * it / best / 1e9
+    res = {"app": "ksssp", "iterations": it, "launches": counts,
+           "host_syncs": syncs, "converge_wall_s": wall,
+           "ms_per_iter": best * 1e3 / it, "gteps": gteps,
+           "query_gteps": BATCH_B * gteps, "layers": layers,
+           "peak_bytes": int(peak), "setup_seconds": round(t_setup, 3),
+           "plan_seconds": round(eng.plan_seconds, 3),
+           "plan": {"R": pp.R, "Rp": pp.Rp, "Rg": pp.Rg or pp.Rp,
+                    "n_pages": pp.n_pages, "classes": len(pp.classes)},
+           "labels_bit_equal_batch_phase": True}
+    del eng
+    torch.cuda.empty_cache()
+    cases = check_batch_paged_rows(torch, f"ksssp_{mode}", vals, rel, "min")
+    line = b1_batched_line(args, torch, vals, rel, 128,
+                           f"chunk_partials_batched@ksssp_{mode}", "min")
+    line["launches"] = counts["chunk_partials_batched"]
+    line["note"] = ("the paged rows [Rp, 128, 8]: unsorted lanes, dead "
+                    "lanes rel == -1; int32 compare-selects counted at "
+                    "the f32 rate")
+    del vals, rel
+    torch.cuda.empty_cache()
+    return res, cases, line, counts
+
+
+def batch_paged_ppr(args, torch, g2, sg, src2, want, mode, card):
+    """ppr-batch@8 on the relabelled graph with ``gather=mode``, 20
+    iterations: within rtol 5e-5, atol 1e-9 of the batch phase's
+    float64 oracle (mapped); B1's batched form once an iteration."""
+    from lux_tpu_torch.apps import pagerank
+    t0 = time.perf_counter()
+    eng = pagerank.build_engine(g2, 1, sg=sg, sources=src2, gather=mode)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    state, secs, counts, peak, host_s = timed_run(torch, eng, PPR_ITERS)
+    counts = dict(counts, chunk_partials_batched=batched_launches())
+    require(counts == {"chunk_partials": 0, "lane_shuffle": 0,
+                       "chunk_partials_batched": PPR_ITERS},
+            f"batch_paged {mode} ppr: launched {counts} in {PPR_ITERS} "
+            f"iterations")
+    got = eng.unpad(state)
+    rel_err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    require(np.allclose(got, want, **MAIN_TOL),
+            f"batch_paged {mode} ppr: max rel err {rel_err.max():.3e}")
+    st0 = eng.init_state()
+    _r, _c, syncs = counted_sync_run(torch, lambda: eng.run(st0, PPR_ITERS))
+    st = eng.run(eng.init_state(), 3)
+    layers, vals, rel = batch_paged_layers(args, torch, eng, st)
+    gteps = g2.ne * PPR_ITERS / secs / 1e9
+    res = {"app": "ppr", "iters": PPR_ITERS, "seconds": secs,
+           "ms_per_iter": secs * 1e3 / PPR_ITERS,
+           "host_enqueue_ms_per_iter": host_s * 1e3 / PPR_ITERS,
+           "host_syncs_per_iteration": syncs / PPR_ITERS,
+           "gteps": gteps, "query_gteps": BATCH_B * gteps,
+           "max_rel_err": float(rel_err.max()), "tolerance": MAIN_TOL,
+           "launches": counts, "layers": layers, "peak_bytes": int(peak),
+           "setup_seconds": round(t_setup, 3),
+           "plan_seconds": round(eng.plan_seconds, 3)}
+    del eng, state, st
+    torch.cuda.empty_cache()
+    cases = check_batch_paged_rows(torch, f"ppr_{mode}", vals, rel, "sum")
+    line = b1_batched_line(args, torch, vals, rel, 128,
+                           f"chunk_partials_batched@ppr_{mode}", "sum")
+    line["launches"] = counts["chunk_partials_batched"]
+    line["note"] = ("the paged rows [Rp, 128, 8]: unsorted lanes, dead "
+                    "lanes rel == -1")
+    del vals, rel
+    torch.cuda.empty_cache()
+    return res, cases, line, counts
+
+
+def phase_batch_paged(args, torch, g, sources, k_labels, ppr_want, card):
+    """bench.py's ksssp-batch@8 and ppr-batch@8 graph and sources,
+    degree-relabelled with the 128-aligned layout, on gather="paged"
+    and "pagemajor": ksssp labels bit-equal to the batch phase's, PPR
+    within rtol 5e-5 of its float64 oracle (both mapped through the
+    relabel, not recomputed); B1's batched form on the paged rows
+    against its plain version; per-layer ms, totals.  Returns (the
+    kernels-line entries, the launches of each mode's two runs)."""
+    from lux_tpu_torch.graph import ShardedGraph, degree_relabel
+    t0 = time.perf_counter()
+    g2, perm = degree_relabel(g)
+    sg = ShardedGraph.build(g2, 1, vpad_align=128)
+    t_graph = time.perf_counter() - t0
+    rank = np.empty(g.nv, np.int64)
+    rank[perm] = np.arange(g.nv)
+    src2 = [int(rank[s]) for s in sources]
+    want_k, want_p = k_labels[perm], ppr_want[perm]
+    out, cases, lines, by_mode = {}, [], [], {}
+    for mode in ("paged", "pagemajor"):
+        k, kc, kl, kn = batch_paged_ksssp(args, torch, g2, sg, src2, want_k,
+                                          mode, card)
+        p, pc, pl, pn = batch_paged_ppr(args, torch, g2, sg, src2, want_p,
+                                        mode, card)
+        out[mode] = {"ksssp": k, "ppr": p}
+        cases += kc + pc
+        lines += [kl, pl]
+        by_mode[f"batch_{mode}"] = {key: kn[key] + pn[key] for key in kn}
+    emit({"phase": "kernels", "kernel": "chunk_partials_batched",
+          "path": "batch_paged", "cases": len(cases), "all_pass": True,
+          "detail": cases})
+    emit({"phase": "batch_paged", "nv": g2.nv, "ne": g2.ne, "B": BATCH_B,
+          "sources_input_ids": sources, "sources_relabelled": src2,
+          "graph_seconds": round(t_graph, 3), "vpad": sg.vpad,
+          "lane_shuffle_launches": sum(c["lane_shuffle"]
+                                       for c in by_mode.values()), **out,
+          "kernels": [{k: ln[k] for k in ("name", "shape", "ms",
+                                          "plain_ms", "bound_ms",
+                                          "library_ms", "launches")}
+                      for ln in lines], "card": card})
+    return lines, by_mode
 
 
 def main(argv=None) -> int:
@@ -3879,23 +4442,38 @@ def main(argv=None) -> int:
     b2 = lines["paged"]                 # B2 at the paged path's own rows
     phase_parts(args, torch)
     g2, perm, starts, t_relabel = pair_relabelled(g)
-    pair_counts, kpairs = phase_pairs(args, torch, g2, starts, t_relabel,
-                                      card)
+    pair_counts, kpairs, case = phase_pairs(args, torch, g2, starts,
+                                            t_relabel, card)
+    # the guarded cases run on each engine as its phase returns it
+    guarded = {"pagerank": guarded_pull(args, torch, *case)}
+    del case
+    torch.cuda.empty_cache()
     # the probes before the push phases: its torch.profiler count of S7
     # must be the process's first profiler session (a later session can
     # see a part of the device events)
     probe_lines = phase_probes(args, torch, g, card)
     push_counts = {}
-    b1_lines["sssp"], push_counts["sssp"] = phase_sssp(
+    b1_lines["sssp"], push_counts["sssp"], case = phase_sssp(
         args, torch, g, g2, perm, starts, card)
-    del g, g2, perm, starts
+    guarded["sssp"] = guarded_push(torch, *case)
+    del g, g2, perm, starts, case
+    torch.cuda.empty_cache()
     b1_lines["cc"], push_counts["cc"] = phase_cc(args, torch, card)
     # the colfilter paths launch no hand kernel (chip_smoke checks 0)
     for path, n in phase_colfilter(args, torch, card).items():
         by_path[path] = n
-    batch_lines, batch_paths = phase_batch(args, torch, card)
-    for path in batch_paths:            # the scalar B1 and B2: none
-        by_path[path] = {"chunk_partials": 0, "lane_shuffle": 0}
+    batch_lines, batch_paths, batch_ref, case = phase_batch(args, torch,
+                                                            card)
+    guarded["ksssp_batch"] = guarded_batch(torch, *case)
+    del case
+    torch.cuda.empty_cache()
+    paged_lines, paged_paths = phase_batch_paged(args, torch, *batch_ref,
+                                                 card)
+    batch_lines += paged_lines
+    del batch_ref
+    for path, n in {**batch_paths, **paged_paths}.items():
+        by_path[path] = {k: n[k] for k in ("chunk_partials", "lane_shuffle")}
+    phase_guarded(torch, guarded, card)
     by_path["pairs"] = pair_counts["streamed"]
     by_path["pairs_monolithic"] = pair_counts["monolithic"]
     for path, n in push_counts.items():

@@ -22,8 +22,17 @@ counterpart is easy to find:
   probes/         counterparts of the TPU probe scripts
                   (profile_kernel, profile_slotted, profile_v3)
   check.py        host correctness audit
-  cli.py          python -m lux_tpu_torch.cli {pagerank,convert}
-  interop.py      carry arrays and state across from the reference
+  cli.py          python -m lux_tpu_torch.cli {pagerank,sssp,components,
+                  colfilter,convert}
+  interop.py      carry arrays, state and health watches across from
+                  the reference
+  health.py       the device health watchdog word (guarded runs)
+  debug.py        host-side finite and stall guards
+  checkpoint.py   CRC-checked two-generation checkpoints (the
+                  reference's file format)
+  segmented.py    segmented drivers, DurationBudget
+  faults.py       deterministic fault injection
+  resilience.py   failure classification, supervised retry / resume
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"`` (device.py).  Host planning stays numpy, as in the

@@ -75,9 +75,10 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     ``gather="paged"`` and pair rows need.  ``tile_e`` defaults to 128
     with pairs and 512 without, as in the reference;
     ``dot_block_chunks`` / ``dot_block_rows`` size the dot path's
-    blocks (engine.pull.PullEngine).  Refused, naming their ROADMAP
-    item: ``use_mxu=True`` (A8), ``health=True`` (A9), ``audit`` (A12),
-    ``mesh`` (A6) and ``pair_min_fill="auto"`` (A10); gather
+    blocks (engine.pull.PullEngine).  ``health=True`` runs the
+    watchdog variants (lux_tpu_torch/health.py).  Refused, naming their
+    ROADMAP item: ``use_mxu=True`` (A8), ``audit`` (A12), ``mesh``
+    (A6) and ``pair_min_fill="auto"`` (A10); gather
     'pagemajor' raises the reference's ValueError."""
     dev = resolve_device(device)
     if g.weights is None:
@@ -87,8 +88,6 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                 "forms)", "A8")
     if use_mxu not in (False, "auto"):
         raise ValueError(f"unknown use_mxu {use_mxu!r}")
-    if health:
-        _refuse("the device health watchdog (health=True)", "A9")
     if audit is not None:
         _refuse("the static program audit (audit=)", "A12")
     if sg is None:
@@ -103,7 +102,8 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                       pair_threshold=pair_threshold,
                       pair_min_fill=pair_min_fill, pair_stream=pair_stream,
                       dot_block_chunks=dot_block_chunks,
-                      dot_block_rows=dot_block_rows, mesh=mesh)
+                      dot_block_rows=dot_block_rows, mesh=mesh,
+                      health=health)
 
 
 def run(g: Graph, num_iters: int, num_parts: int = 1, *,

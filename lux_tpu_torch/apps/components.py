@@ -90,9 +90,10 @@ def build_engine(g: Graph, num_parts: int = 1, mesh=None,
 
 
 def run(g: Graph, num_parts: int = 1, mesh=None, max_iters=None,
-        verbose: bool = False, *, device=None):
-    """Returns (labels [nv], iterations)."""
-    eng = build_engine(g, num_parts, mesh, device=device)
+        verbose: bool = False, *, device=None, health: bool = False):
+    """Returns (labels [nv], iterations).  With ``health`` a tripped
+    watchdog raises health.HealthError."""
+    eng = build_engine(g, num_parts, mesh, device=device, health=health)
     return eng.run(max_iters=max_iters, verbose=verbose)
 
 

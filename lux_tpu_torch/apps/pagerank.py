@@ -113,7 +113,8 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                  starts=None, tile_e: int | None = None,
                  layout: str = "tiled", exchange: str = "auto",
                  gather: str = "flat", mesh=None, sources=None,
-                 resets=None, dtype=np.float32) -> PullEngine:
+                 resets=None, dtype=np.float32,
+                 health: bool = False) -> PullEngine:
     """PageRank engine on ``device`` (None = the card; "cpu" when
     asked).  ``sg`` is a prebuilt layout of ``g``; without it the
     layout is built here, with ``starts`` as its cut points (e.g. from
@@ -130,7 +131,8 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     engine with one-hot resets (state [P, vpad, B], one gather serving
     every query); ``resets`` [nv, B] passes arbitrary per-query reset
     distributions instead.  Batched engines refuse pair_threshold
-    (pair rows read scalar state)."""
+    (pair rows read scalar state).  ``health=True`` runs the watchdog
+    variants (lux_tpu_torch/health.py)."""
     if sources is not None and resets is not None:
         raise ValueError("pass sources=[...] OR resets=[nv, B], "
                          "not both")
@@ -150,13 +152,14 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                       tile_e=tile_e, exchange=exchange, gather=gather,
                       pair_threshold=pair_threshold,
                       pair_min_fill=pair_min_fill, pair_stream=pair_stream,
-                      mesh=mesh)
+                      mesh=mesh, health=health)
 
 
 def run(g: Graph, num_iters: int, num_parts: int = 1, *,
-        device=None) -> np.ndarray:
-    """Run PageRank; returns degree-normalized ranks [nv] (host)."""
-    eng = build_engine(g, num_parts, device=device)
+        device=None, health: bool = False) -> np.ndarray:
+    """Run PageRank; returns degree-normalized ranks [nv] (host).  With
+    ``health`` a tripped watchdog raises health.HealthError."""
+    eng = build_engine(g, num_parts, device=device, health=health)
     return eng.unpad(eng.run(eng.init_state(), num_iters))
 
 

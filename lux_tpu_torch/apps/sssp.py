@@ -140,10 +140,11 @@ def build_engine(g: Graph, start_vertex: int | None = 0,
 
 def run(g: Graph, start_vertex: int = 0, num_parts: int = 1, mesh=None,
         weighted: bool = False, delta=None, max_iters=None,
-        verbose: bool = False, *, device=None):
-    """Returns (dist [nv], iterations)."""
+        verbose: bool = False, *, device=None, health: bool = False):
+    """Returns (dist [nv], iterations).  With ``health`` a tripped
+    watchdog raises health.HealthError."""
     eng = build_engine(g, start_vertex, num_parts, mesh, weighted,
-                       delta=delta, device=device)
+                       delta=delta, device=device, health=health)
     return eng.run(max_iters=max_iters, verbose=verbose)
 
 

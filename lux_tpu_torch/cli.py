@@ -51,6 +51,19 @@ and ``-delta`` are single-query machinery and refused with them, and
 ``-ni`` iterations and prints ``ELAPSED TIME``, ``GTEPS`` and ``RMSE``
 (over the edges of the graph it ran, relabelled under ``-pair``) as
 the reference does; ``-check`` runs the on-device RMSE audit.
+
+Every app but ``convert`` takes the guarded-execution flags
+(lux_tpu/cli.py:93-99, :180-209, :461-560): ``-health`` runs the
+device health watchdog (a trip exits with a typed HealthError);
+``-retries N``, ``-seg-budget S`` and ``-resume CKPT`` run under the
+supervisor (lux_tpu_torch/resilience.py): segmented, checkpointed
+after every segment, transient failures retried from the last
+checkpoint, ``-resume`` continuing a run a previous invocation (of
+either package) checkpointed.  The supervised path prints ``#
+supervisor: attempts=... segments=... resumed_from=[...]`` and, for a
+run the checkpoint already completed, ``GTEPS = n/a (run already
+complete in checkpoint)``.  ``-elastic`` (ROADMAP A6) and ``-flight``
+(A10) are refused (exit 2).
 """
 
 from __future__ import annotations
@@ -140,6 +153,113 @@ def _print_batch(sources, ne, iters, elapsed) -> None:
         print(f"BATCH = {B} queries")
 
 
+def _add_guard_flags(ap) -> None:
+    """The guarded-execution and durability flags (lux_tpu/cli.py:93-99,
+    :180-209)."""
+    ap.add_argument("-health", action="store_true",
+                    help="run under the device health watchdog "
+                         "(lux_tpu_torch/health.py): NaN/Inf state, "
+                         "divergent or oscillating residuals and "
+                         "frontier stalls fold into a health word on "
+                         "the device, decoded at run/segment "
+                         "boundaries; a trip raises a typed HealthError "
+                         "naming the check, part and iteration")
+    ap.add_argument("-retries", type=int, default=0, metavar="N",
+                    help="supervise the run (lux_tpu_torch.resilience): "
+                         "classify failures, retry transient ones up to "
+                         "N times with backoff, and resume from the "
+                         "last segment checkpoint")
+    ap.add_argument("-seg-budget", type=float, default=0.0,
+                    dest="seg_budget", metavar="S",
+                    help="run in duration-budgeted segments of about S "
+                         "seconds each (segmented.DurationBudget: on "
+                         "the card it bounds the work lost between two "
+                         "checkpoints); implies the supervised path")
+    ap.add_argument("-resume", default=None, metavar="CKPT",
+                    help="checkpoint file: save after every segment and "
+                         "resume from it if it exists; implies the "
+                         "supervised path (without it, -retries / "
+                         "-seg-budget checkpoint to a temporary file "
+                         "for in-run recovery only).  Supervised timing "
+                         "includes the checkpoint saves")
+    ap.add_argument("-elastic", action="store_true",
+                    help="not ported (ROADMAP A6: degraded-mesh "
+                         "recovery needs several devices)")
+    ap.add_argument("-flight", default=None, metavar="FILE",
+                    help="not ported (ROADMAP A10: the crash flight "
+                         "recorder)")
+
+
+def _refuse_unported_flags(args) -> None:
+    if args.elastic:
+        raise NotPortedError("-elastic (re-placement over the surviving "
+                             "devices after a topology fault) is not "
+                             "ported yet (ROADMAP A6)")
+    if args.flight:
+        raise NotPortedError("-flight (the crash flight recorder) is not "
+                             "ported yet (ROADMAP A10)")
+
+
+def _supervisor_opts(args, app):
+    """None, or (checkpoint path, supervised-run kwargs) when any of
+    -retries / -seg-budget / -resume asks for the supervisor
+    (lux_tpu/cli.py:461-495).  Without -resume the checkpoint is a
+    pid-qualified temporary file, removed after the run."""
+    if not (args.retries > 0 or args.seg_budget > 0 or args.resume):
+        return None
+    import tempfile
+
+    from lux_tpu_torch import resilience
+
+    path = args.resume or os.path.join(
+        tempfile.gettempdir(),
+        f"lux_torch_{app}_supervised.{os.getpid()}.ckpt.npz")
+    kw = dict(policy=resilience.RetryPolicy(retries=max(0, args.retries)),
+              seg_budget=args.seg_budget or None,
+              resume=args.resume is not None)
+    return path, kw
+
+
+def _run_supervised(eng, sup, args, ni=None):
+    """One supervised execution (pull fixed-``ni``, or push converge
+    when ni is None), printing the supervisor's report and removing the
+    temporary checkpoint (not a -resume one) on success and failure.
+    Returns (result, total_iters, elapsed, billed, mark): ``billed``
+    leaves out the iterations a previous invocation's -resume
+    checkpoint already did."""
+    import time
+
+    from lux_tpu_torch import checkpoint, resilience
+
+    path, kw = sup
+    t0 = time.perf_counter()
+    try:
+        if ni is not None:
+            result, report = resilience.supervised_run(eng, ni, path, **kw)
+            total = ni
+        else:
+            label, _active, total, report = \
+                resilience.supervised_converge(eng, path, **kw)
+            result = eng.unpad(label)
+        elapsed = time.perf_counter() - t0
+    finally:
+        if not args.resume:
+            checkpoint.remove(path)
+    print(f"# supervisor: attempts={report.attempts} "
+          f"segments={report.segments} "
+          f"resumed_from={report.resumed_from}")
+    billed = total - (report.initial_resume or 0)
+    return (result, total, elapsed, billed,
+            " (supervised; incl. checkpoint saves)")
+
+
+def _print_gteps(ne, iters, elapsed, mark="") -> None:
+    if iters > 0:
+        print(f"GTEPS = {ne * iters / elapsed / 1e9:.4f}{mark}")
+    else:
+        print("GTEPS = n/a (run already complete in checkpoint)")
+
+
 def _batch_check_note() -> int:
     print("note: -check does not support batched runs yet; skipped "
           "(oracle proofs: tests/test_torch_batched.py)")
@@ -170,6 +290,7 @@ def cmd_pagerank(argv) -> int:
                          "< F live lanes (their edges ride the residual "
                          "path); 'auto' is not ported")
     _add_batch_flags(ap)
+    _add_guard_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -180,6 +301,7 @@ def cmd_pagerank(argv) -> int:
     from lux_tpu_torch.timing import timed_fused_run
 
     resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
+    _refuse_unported_flags(args)
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
@@ -195,12 +317,18 @@ def cmd_pagerank(argv) -> int:
                                 gather=args.gather, starts=starts,
                                 pair_threshold=args.pair,
                                 pair_min_fill=args.min_fill,
-                                sources=sources)
-    state, elapsed = timed_fused_run(eng, args.ni)
+                                sources=sources, health=args.health)
+    sup = _supervisor_opts(args, "pagerank")
+    if sup is not None:
+        state, _total, elapsed, ni, mark = _run_supervised(
+            eng, sup, args, ni=args.ni)
+    else:
+        state, elapsed = timed_fused_run(eng, args.ni)
+        ni, mark = args.ni, ""
     print(f"ELAPSED TIME = {elapsed:.7f} s")
-    print(f"GTEPS = {g.ne * args.ni / elapsed / 1e9:.4f}")
+    _print_gteps(g.ne, ni, elapsed, mark)
     if sources is not None:
-        _print_batch(sources, g.ne, args.ni, elapsed)
+        _print_batch(sources, g.ne, ni, elapsed)
         if args.check:
             return _batch_check_note()
     if args.check:
@@ -233,6 +361,7 @@ def _push_app(argv, prog_name) -> int:
                     help="with -pair: drop pair rows with < F live lanes; "
                          "'auto' is not ported")
     _add_batch_flags(ap)
+    _add_guard_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     if prog_name == "sssp":
         ap.add_argument("-start", type=int, default=0,
@@ -252,6 +381,7 @@ def _push_app(argv, prog_name) -> int:
     from lux_tpu_torch.timing import timed_converge
 
     resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
+    _refuse_unported_flags(args)
     weighted = prog_name == "sssp" and args.weighted
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
@@ -266,7 +396,7 @@ def _push_app(argv, prog_name) -> int:
     g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
     opts = dict(num_parts=num_parts, starts=starts, gather=args.gather,
                 pair_threshold=args.pair, pair_min_fill=args.min_fill,
-                sources=sources, device=args.device)
+                sources=sources, device=args.device, health=args.health)
     if prog_name == "sssp":
         start = args.start
         if perm is not None and 0 <= start < g.nv:
@@ -284,12 +414,17 @@ def _push_app(argv, prog_name) -> int:
                                 delta=delta, **opts)
     else:
         eng = components.build_engine(g_run, **opts)
-    labels, iters, [elapsed] = timed_converge(eng)
+    sup = _supervisor_opts(args, prog_name)
+    if sup is not None:
+        labels, iters, elapsed, it_exec, mark = _run_supervised(eng, sup,
+                                                                args)
+    else:
+        labels, iters, [elapsed] = timed_converge(eng)
+        it_exec, mark = iters, ""
     print(f"ELAPSED TIME = {elapsed:.7f} s ({iters} iterations)")
-    if iters > 0:
-        print(f"GTEPS = {g.ne * iters / elapsed / 1e9:.4f}")
+    _print_gteps(g.ne, it_exec, elapsed, mark)
     if sources is not None:
-        _print_batch(sources, g.ne, iters, elapsed)
+        _print_batch(sources, g.ne, it_exec, elapsed)
         if args.check:
             return _batch_check_note()
     if args.check:
@@ -333,6 +468,7 @@ def cmd_colfilter(argv) -> int:
                     help="with -pair: drop pair rows with < F live lanes "
                          "(bench.py's colfilter config uses 22); 'auto' "
                          "is not ported")
+    _add_guard_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -344,6 +480,7 @@ def cmd_colfilter(argv) -> int:
     from lux_tpu_torch.timing import timed_fused_run
 
     resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
+    _refuse_unported_flags(args)
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
@@ -364,14 +501,20 @@ def cmd_colfilter(argv) -> int:
         eng = colfilter.build_engine(g_run, num_parts, device=args.device,
                                      sg=sg, gather=args.gather,
                                      pair_threshold=args.pair,
-                                     pair_min_fill=args.min_fill)
+                                     pair_min_fill=args.min_fill,
+                                     health=args.health)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    state, elapsed = timed_fused_run(eng, args.ni)
+    sup = _supervisor_opts(args, "colfilter")
+    if sup is not None:
+        state, _total, elapsed, ni, mark = _run_supervised(
+            eng, sup, args, ni=args.ni)
+    else:
+        state, elapsed = timed_fused_run(eng, args.ni)
+        ni, mark = args.ni, ""
     print(f"ELAPSED TIME = {elapsed:.7f} s")
-    if args.ni > 0:
-        print(f"GTEPS = {g.ne * args.ni / elapsed / 1e9:.4f}")
+    _print_gteps(g.ne, ni, elapsed, mark)
     out = eng.unpad(state)
     # out is in g_run's order; the RMSE runs over its edges, so the
     # relabelled graph is the matching choice

@@ -17,7 +17,8 @@ One iteration, every part at once (parts are a batch dimension):
 page-binned delivery (ops/pagegather.py): the plan IS the edge layout,
 so neither chunk arrays nor a per-edge gather exist; one iteration
 launches kernel B2 (lane shuffle) and kernel B1 (over [P*Rp, 128]
-rows) once each.
+rows) once each; a query-batched state's [rows, 128, B] values are
+resolved by ``torch.gather`` and reduced by B1's batched form.
 
 ``pair_threshold`` moves the edges of dense (src tile, dst tile) pairs
 out of the tiled path into pair-lane rows (ops/pairs.py): an iteration
@@ -45,7 +46,10 @@ chunk or class combine.  Other programs reading the destination
 (colfilter's [P, vpad, K]).
 
 The reference fuses a fixed-iteration run into one XLA program; here a
-run is a Python loop over ``step`` on the device's stream.  The
+run is a Python loop over ``step`` on the device's stream.  With
+``health=True`` a run takes the watchdog variant (``run_health``:
+lux_tpu_torch/health.py's word folded each iteration on the device,
+decoded once at the end).  The
 reference's exchange variants (owner), ``gather="auto"``, streamed
 chunk blocks and the mesh are refused with a typed
 :class:`NotPortedError` naming the ROADMAP item that brings them.
@@ -134,15 +138,6 @@ def _check_pair_program(layout: str, program) -> None:
         raise ValueError("pair_threshold supports programs whose "
                          "edge_value depends only on the source state, "
                          "or on <src, dst> via edge_value_from_dot")
-
-
-def check_batched_gather(gather: str, program, refuse) -> None:
-    """Query-batched programs on the page-binned deliveries: their
-    vector rows through the lane shuffle come with ROADMAP A7b."""
-    if gather in ("paged", "pagemajor") and \
-            getattr(program, "batch", None) is not None:
-        refuse(f"query-batched programs with gather={gather!r} (vector "
-               f"rows through the paged lane resolve)", "A7b")
 
 
 def program_arrays(program, sg) -> dict:
@@ -370,13 +365,29 @@ def check_pair_arrays(a: dict, P: int, vpad: int, sp) -> None:
                         "pair")
 
 
-class PullEngine:
+class Placement:
+    """The placement surface both engines share, which checkpoints and
+    the supervisor reason through (lux_tpu/engine/auditable.py:33-52):
+    ``ndev`` and ``placement_meta()``.  A resume must match num_parts /
+    vpad / exchange; ``ndev`` is 1 until the mesh lands (ROADMAP
+    A6)."""
+
+    ndev = 1
+    exchange = "gather"
+
+    def placement_meta(self) -> dict:
+        return {"ndev": self.ndev, "num_parts": self.num_parts,
+                "vpad": self.vpad, "exchange": self.exchange}
+
+
+class PullEngine(Placement):
     """Pull-model iterations for one ShardedGraph + program on one
     device (``device=None`` means the card; pass ``"cpu"`` for the
     plain PyTorch versions)."""
 
     plan_seconds = 0.0      # host seconds spent building the paged or
                             # pair plan
+    health = False          # run the watchdog variants (health.py)
 
     def __init__(self, sg: ShardedGraph, program: PullProgram, *,
                  device=None, layout: str = "tiled", tile_e: int = 512,
@@ -386,7 +397,8 @@ class PullEngine:
                  pair_stream: bool | None = None,
                  stream_msgs: bool | None = None, mesh=None,
                  dot_block_chunks: int | None = None,
-                 dot_block_rows: int | None = None):
+                 dot_block_rows: int | None = None,
+                 health: bool = False):
         """``pair_threshold``: serve the edges of (src tile, dst tile)
         pairs with at least this many edges by pair-lane rows
         (ops/pairs.py; needs vpad % 128 == 0), the rest by the tiled
@@ -398,7 +410,10 @@ class PullEngine:
         block of the dot path (None: 1 GB of the [B, E, W] f32 dot
         intermediate, ops/dot.DOT_BLOCK_BYTES; the reference's TPU
         blocks are 128 chunks and 256 rows); results do not depend on
-        them beyond the order of float sums."""
+        them beyond the order of float sums.
+        ``health=True``: ``run`` and the segmented drivers take the
+        watchdog variants (``run_health`` / ``run_until_health``,
+        lux_tpu_torch/health.py)."""
         dev = resolve_device(device)
         if mesh is not None:
             _refuse("a device mesh", "A6")
@@ -413,7 +428,6 @@ class PullEngine:
             _refuse("streamed chunk blocks (stream_msgs)", "A6")
         if pair_threshold is not None:
             _check_pair_program(layout, program)
-        check_batched_gather(gather, program, _refuse)
         resolve_exchange(exchange, sg, program)
         t0 = time.perf_counter()
         plan = engine_page_plan(sg, gather, program)
@@ -443,6 +457,7 @@ class PullEngine:
                    dot_block_chunks=dot_block_chunks,
                    dot_block_rows=dot_block_rows)
         self.plan_seconds = plan_seconds
+        self.health = bool(health)
 
     @classmethod
     def from_arrays(cls, program: PullProgram, arrays: dict, tiles, *,
@@ -533,8 +548,6 @@ class PullEngine:
         if self.batch is not None:
             if pairs is not None:
                 _check_pair_program("tiled", program)
-            if pages is not None:
-                check_batched_gather(pages.mode, program, _refuse)
         self.arrays = device_arrays(arrays, device)
         a, P = self.arrays, self.num_parts
         check_dense_arrays(a, P, self.vpad, tiles, pages, pairs)
@@ -658,29 +671,30 @@ class PullEngine:
             red = segment_reduce(msgs.reshape((-1,) + trail), self._seg,
                                  P * (vpad + 1), prog.reduce)
             return red.view((P, vpad + 1) + trail)[:, :vpad]
-        if msgs.dim() > 3 and (self.batch is None or msgs.dim() > 4):
-            # query-batched messages [P, C, E, B] take B1's batched
-            # form; other vector programs reach the tiled layout through
-            # edge_value_from_dot (the dot path)
-            _refuse("vector messages of unbatched programs on the tiled "
-                    "layout outside the dot path", "A7b")
-        return tiled_segment_reduce(msgs, self.tiles, a["chunk_start"],
-                                    a["last_chunk"], a["rel_dst"], vpad,
-                                    prog.reduce, self._plan,
-                                    batch=self.batch)
+        # vector messages [P, C, E, *trail] (a query axis, or the
+        # vector state of an unbatched program outside the dot path)
+        # take B1's batched form over the flattened trailing dims
+        trail = tuple(msgs.shape[3:])
+        red = tiled_segment_reduce(msgs, self.tiles, a["chunk_start"],
+                                   a["last_chunk"], a["rel_dst"], vpad,
+                                   prog.reduce, self._plan,
+                                   batch=int(np.prod(trail)) if trail
+                                   else None)
+        return red.reshape((P, vpad) + trail)
 
-    def _paged_red(self, flat_state):
+    def _paged_red(self, flat_state, upto: str | None = None):
         """Paged delivery + reduce for every part -> [P, vpad] (the
         plan serves every edge).  A page-major plan rides the same
         call: ``pg_vrs`` binds each virtual reduce row to its gather
-        row."""
+        row.  ``upto`` (profiling, vector states) returns what
+        ``paged_partial`` returns after that stage."""
         prog, a = self.program, self.arrays
         red = paged_partial(
             self.page_plan, flat_state, a["pg_ids"], a["pg_sl"],
             a["pg_rel"], a.get("pg_w"), a["pg_tp"], prog.reduce,
             lambda vals, w: prog.edge_value(vals, None, w),
-            vrow_src=a.get("pg_vrs"))
-        return red[:, :self.vpad]
+            vrow_src=a.get("pg_vrs"), upto=upto)
+        return red[:, :self.vpad] if upto is None else red
 
     def _pair_red(self, flat_state):
         """Pair-lane delivery + reduce for every part -> [P, vpad]
@@ -794,21 +808,152 @@ class PullEngine:
         """One iteration: [P, vpad, ...] -> [P, vpad, ...]."""
         return self._apply_epilogue(state, self.reduced(state))
 
-    def run(self, state: torch.Tensor, num_iters: int) -> torch.Tensor:
+    def run(self, state: torch.Tensor, num_iters: int,
+            seg_budget: float | None = None) -> torch.Tensor:
         """``num_iters`` iterations, enqueued on the device's stream
-        without host round-trips."""
+        without host round-trips.  With ``health`` set, the guarded
+        variant runs and its word is read once at the end
+        (``health.ensure_ok``: a trip raises HealthError).
+        ``seg_budget`` (seconds) runs duration-budgeted segments
+        instead (segmented.DurationBudget)."""
+        if seg_budget is not None:
+            from lux_tpu_torch.segmented import DurationBudget, run_segments
+            return run_segments(self, state, num_iters,
+                                DurationBudget(seg_budget))
+        if self.health:
+            from lux_tpu_torch import health as hw
+            state, _it, _rb, _cb, _rbp, _cbp, watch = self.run_health(
+                state, num_iters)
+            hw.ensure_ok(watch, engine="pull", where="pull run")
+            return state
+        return self._run_plain(state, num_iters)
+
+    def _run_plain(self, state: torch.Tensor, num_iters: int):
         for _ in range(num_iters):
             state = self.step(state)
         return state
+
+    # -- the health watchdog variants (lux_tpu_torch/health.py) ---------
+
+    def _iter_counters(self, new, old):
+        """One iteration's counters (the reference's ``_iter_counters``,
+        lux_tpu/engine/pull.py:964): the max-abs state change (the
+        residual), the count of vertices whose state changed, and both
+        per part ([P] float32 / int32).  The scalars are the max / sum
+        of the per-part rows."""
+        d = (new.to(torch.float32) - old.to(torch.float32)).abs()
+        P = d.shape[0]
+        res_p = d.reshape(P, -1).amax(1)
+        if d.dim() > 2:                         # vector payloads
+            d = d.reshape(P, d.shape[1], -1).amax(-1)
+        chg_p = (d > 0).sum(1, dtype=torch.int32)
+        return res_p.amax(), chg_p.sum(dtype=torch.int32), res_p, chg_p
+
+    def _stats_bufs(self):
+        """The per-iteration counter buffers: residual f32 [cap],
+        changed int32 [cap] and their per-part rows [cap, P] (the
+        reference's are uint32 counts; torch's uint32 has thin CUDA
+        coverage).  Writes past ``stats_cap`` drop."""
+        from lux_tpu_torch.telemetry import DEFAULT_STATS_CAP
+        cap, P, dev = DEFAULT_STATS_CAP, self.num_parts, self.device
+        return (torch.zeros((cap,), dtype=torch.float32, device=dev),
+                torch.zeros((cap,), dtype=torch.int32, device=dev),
+                torch.zeros((cap, P), dtype=torch.float32, device=dev),
+                torch.zeros((cap, P), dtype=torch.int32, device=dev))
+
+    def run_health(self, state: torch.Tensor, num_iters: int, watch=None):
+        """``num_iters`` iterations under the health watchdog: returns
+        (state, iters_executed, residual_buf, changed_buf,
+        residual_parts, changed_parts, watch) with watch = (word
+        int32[6], residual window f32[8]), as the reference's
+        (lux_tpu/engine/pull.py:1119-1180).  Pass the previous
+        segment's ``watch`` back in to keep the window's history.
+
+        No host read happens here.  The reference's loop exits the
+        iteration a check trips; here every later iteration is still
+        enqueued but keeps the tripped state, word, window and buffers
+        through a ``torch.where`` on the word's flags, so the returned
+        state, ``iters_executed`` (a device int32 scalar) and word are
+        the reference's.  A healthy run's state is the plain run's,
+        bit for bit (``where`` on True returns the new state).  Decode
+        the word once with ``health.ensure_ok(watch)``."""
+        from lux_tpu_torch import health as hw
+        h, win = watch if watch is not None else (
+            hw.init_word(self.device), hw.init_window(self.device))
+        rb, cb, rbp, cbp = self._stats_bufs()
+        cap = rb.shape[0]
+        it = torch.zeros((), dtype=torch.int32, device=self.device)
+        for i in range(num_iters):
+            ok = h[0] == 0
+            new = self.step(state)
+            r, cnt, rp, cp = self._iter_counters(new, state)
+            h2, win2 = hw.pull_update(h, win, new, r)
+            state = torch.where(ok, new, state)
+            h = torch.where(ok, h2, h)
+            win = torch.where(ok, win2, win)
+            if i < cap:
+                rb[i] = torch.where(ok, r, rb[i])
+                cb[i] = torch.where(ok, cnt, cb[i])
+                rbp[i] = torch.where(ok, rp, rbp[i])
+                cbp[i] = torch.where(ok, cp, cbp[i])
+            it = it + ok.to(torch.int32)
+        return state, it, rb, cb, rbp, cbp, (h, win)
+
+    def run_until_health(self, state: torch.Tensor, tol: float,
+                         max_iters: int = np.iinfo(np.int32).max):
+        """``run_until`` under the health watchdog: returns (state, it,
+        residual, residual_buf, changed_buf, residual_parts,
+        changed_parts, watch), as the reference's (:1220-1233).  The
+        loop reads one small tensor an iteration, the residual and the
+        word's flags together, and stops when the residual is <= tol
+        (never on a NaN residual), at max_iters, or the iteration a
+        check trips."""
+        guard = _PullGuard(self)
+        state, it, res = self._run_until(state, tol, max_iters, guard)
+        return (state, it, res, guard.rb, guard.cb, guard.rbp, guard.cbp,
+                (guard.h, guard.win))
 
     def run_until(self, state: torch.Tensor, tol: float,
                   max_iters: int = np.iinfo(np.int32).max):
         """Iterate until the max-abs change of the state is <= tol, or
         max_iters.  Returns (state, iterations, final residual).  A NaN
         residual never reports convergence (``not res <= tol``)."""
+        return self._run_until(state, tol, max_iters, None)
+
+    def _run_until(self, state, tol, max_iters, guard):
         it, res = 0, float("inf")
         while not res <= tol and it < max_iters:
             new = self.step(state)
-            res = float((new.float() - state.float()).abs().max())
+            if guard is None:
+                res = float((new.float() - state.float()).abs().max())
+                flags = 0
+            else:
+                res, flags = guard.record(it, new, state)  # the one read
             state, it = new, it + 1
+            if flags:
+                break
         return state, it, res
+
+
+class _PullGuard:
+    """The device-side state of one guarded ``run_until``: the health
+    word, the residual window and the counter buffers."""
+
+    def __init__(self, eng):
+        from lux_tpu_torch import health as hw
+        self.hw, self.eng = hw, eng
+        self.h, self.win = hw.init_word(eng.device), hw.init_window(
+            eng.device)
+        self.rb, self.cb, self.rbp, self.cbp = eng._stats_bufs()
+
+    def record(self, it: int, new, old):
+        """Fold iteration ``it`` into the word and the buffers; one host
+        read of [residual, flags]."""
+        r, cnt, rp, cp = self.eng._iter_counters(new, old)
+        self.h, self.win = self.hw.pull_update(self.h, self.win, new, r)
+        if it < self.rb.shape[0]:
+            self.rb[it], self.cb[it] = r, cnt
+            self.rbp[it], self.cbp[it] = rp, cp
+        pair = torch.stack([r.to(torch.float64),
+                            self.h[0].to(torch.float64)]).cpu()
+        return float(pair[0]), int(pair[1])

@@ -36,8 +36,11 @@ single-query machinery).  A column converges when its own frontier
 empties; the loop reads one int32 an iteration, the count of active
 (vertex, query) pairs.
 
-Options the port does not carry yet raise :class:`NotPortedError`
-naming the ROADMAP item that brings them.
+With ``health=True`` a converge takes the watchdog variant
+(``converge_health``): NaN labels and the truncation-livelock stall
+fold into lux_tpu_torch/health.py's word, whose flags ride the one read
+an iteration.  Options the port does not carry yet raise
+:class:`NotPortedError` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -52,9 +55,8 @@ import torch
 from lux_tpu_torch.device import resolve_device
 from lux_tpu_torch.engine import frontier as fr
 from lux_tpu_torch.engine.program import vmask_of
-from lux_tpu_torch.engine.pull import (NotPortedError, _outside,
+from lux_tpu_torch.engine.pull import (NotPortedError, Placement, _outside,
                                        build_graph_arrays,
-                                       check_batched_gather,
                                        check_dense_arrays,
                                        common_graph_arrays, device_arrays,
                                        flat_segments, gather_rows,
@@ -111,7 +113,7 @@ class PushProgram:
         return cand < old if self.reduce == "min" else cand > old
 
 
-class PushEngine:
+class PushEngine(Placement):
     """Frontier iterations for one ShardedGraph + PushProgram on one
     device (``device=None`` means the card; pass ``"cpu"`` for the
     plain PyTorch versions).  ``schedule`` lists the kind ("dense" or
@@ -119,6 +121,7 @@ class PushEngine:
 
     plan_seconds = 0.0      # host seconds spent building the paged or
                             # pair plan
+    health = False          # converge under the watchdog (health.py)
 
     def __init__(self, sg: ShardedGraph, program: PushProgram, *,
                  device=None, mesh=None, layout: str = "tiled",
@@ -150,10 +153,7 @@ class PushEngine:
                     "pair_threshold does not support query-batched "
                     "programs: pair delivery reads scalar vertex state "
                     "(ops/pairs.pair_partial)")
-            check_batched_gather(gather, program, _refuse)
             enable_sparse = False
-        if health:
-            _refuse("the device health watchdog (health=True)", "A9")
         if stats_cap is not None:
             _refuse("device-side iteration counters (stats_cap)", "A10")
         if audit is not None:
@@ -218,6 +218,7 @@ class PushEngine:
                    sparse_threshold=sparse_threshold, queue_cap=queue_cap,
                    edge_budget=eb, delta=delta)
         self.plan_seconds = plan_seconds
+        self.health = bool(health)
 
     @classmethod
     def from_arrays(cls, program: PushProgram, arrays: dict, tiles, *,
@@ -260,11 +261,10 @@ class PushEngine:
         if pairs is not None and tiles is None:
             raise ValueError("pair rows need the tiled layout")
         self.batch = program.batch
-        if self.batch is not None and (enable_sparse or pairs is not None
-                                       or pages is not None):
-            raise ValueError("query-batched push engines run dense tiled "
-                             "or flat iterations only (no sparse queue, "
-                             "pair rows or paged rows)")
+        if self.batch is not None and (enable_sparse or pairs is not None):
+            raise ValueError("query-batched push engines run dense "
+                             "iterations only (no sparse queue or pair "
+                             "rows)")
         self.program = program
         self.sg = sg
         self.tiles = tiles
@@ -384,17 +384,19 @@ class PushEngine:
             tuple(self.arrays["src_slot"].shape) + tuple(flat.shape[1:]))
         return self._msg(vals, self.arrays.get("weight"))
 
-    def _dense_red(self, flat, cand):
+    def _dense_red(self, flat, cand, upto: str | None = None):
         """Phase 3: per-destination reduce [P, vpad] (kernel B1 and the
         segmented combine, plus the pair rows; or the paged delivery,
-        which fetches and reduces in one go)."""
+        which fetches and reduces in one go; ``upto``, profiling, stops
+        a vector state's paged delivery after that stage)."""
         a, kind, P, vpad = self.arrays, self.program.reduce, \
             self.num_parts, self.vpad
         if self.page_plan is not None:
-            return paged_partial(
+            red = paged_partial(
                 self.page_plan, flat, a["pg_ids"], a["pg_sl"], a["pg_rel"],
                 a.get("pg_w"), a["pg_tp"], kind, self._msg,
-                vrow_src=a.get("pg_vrs"))[:, :vpad]
+                vrow_src=a.get("pg_vrs"), upto=upto)
+            return red[:, :vpad] if upto is None else red
         if self.tiles is None:
             trail = tuple(flat.shape[1:])
             red = segment_reduce(cand.reshape((-1,) + trail), self._seg,
@@ -518,16 +520,63 @@ class PushEngine:
 
     def converge(self, label, active, max_iters: int | None = None):
         """Iterate to an empty frontier (or ``max_iters``).  Returns
-        (label, active, iterations) with iterations a host int."""
+        (label, active, iterations) with iterations a host int.  With
+        ``health`` set the guarded converge runs and its word is decoded
+        once at the end (``health.ensure_ok``: a trip raises
+        HealthError)."""
+        if not self.health:
+            return self._converge(label, active, max_iters, None)
+        from lux_tpu_torch import health as hw
+        label, active, it, *_bufs, watch = self.converge_health(
+            label, active, max_iters)
+        hw.ensure_ok(watch, engine="push", where="push converge")
+        return label, active, it
+
+    def converge_health(self, label, active, max_iters: int | None = None,
+                        watch=None):
+        """``converge`` under the health watchdog
+        (lux_tpu/engine/push.py:651-1010): returns (label, active,
+        iters, frontier buf, edges buf, frontier-parts buf, edges-parts
+        buf, watch) with watch = (word int32[6], stall int32), as the
+        reference's.  NaN labels trip NONFINITE_STATE (+Inf never
+        does); a non-empty frontier with an unchanged count and
+        bit-identical labels for ``health.STALL_N`` steps trips
+        FRONTIER_STALL.  The loop stops the iteration a check trips.
+        The word's flags ride the one int32 read an iteration that
+        ``converge`` already makes (now [count, flags]), so the host
+        syncs once an iteration still.  Counters: frontier int32 and
+        out-edges int64 [stats_cap] and their per-part rows [stats_cap,
+        P] (classic: the frontier after each iteration and the entering
+        frontier's out-edges; delta: each relax step's bucket front);
+        writes past stats_cap drop.  Pass the previous segment's
+        ``watch`` back in so a stall spanning a boundary accumulates."""
+        guard = _PushGuard(self, active, watch)
+        label, active, it = self._converge(label, active, max_iters, guard)
+        return (label, active, it, guard.fsz, guard.fed, guard.fszp,
+                guard.fedp, (guard.h, guard.stall))
+
+    def _converge(self, label, active, max_iters, guard):
         cap = INT32_MAX if max_iters is None else int(max_iters)
         self.schedule = []
         if self.delta is not None:
-            return self._converge_delta(label, active, cap)
+            return self._converge_delta(label, active, cap, guard)
         it, cnt = 0, self._count(active)
         while cnt > 0 and it < cap:
-            label, active = self._body(label, active, cnt)
-            cnt = int(active.sum(dtype=torch.int32))    # the one read
+            if guard is None:
+                label, active = self._body(label, active, cnt)
+                cnt = int(active.sum(dtype=torch.int32))  # the one read
+                it += 1
+                continue
+            guard.enter(it, active)
+            nl, na = self._body(label, active, cnt)
+            ncnt = na.sum(dtype=torch.int32)
+            guard.frontier(it, na, ncnt)
+            guard.watch(label, nl, ncnt)
+            label, active = nl, na
             it += 1
+            cnt, flags = guard.read(ncnt)                 # the one read
+            if flags:
+                break
         return label, active, it
 
     def _bucket(self, label, active, B):
@@ -548,24 +597,36 @@ class PushEngine:
                               active.sum(dtype=torch.int32)])
         return front, B, counts
 
-    def _converge_delta(self, label, active, cap):
+    def _converge_delta(self, label, active, cap, guard=None):
         """Delta-stepping (Meyer & Sanders): relax only the bucket
         [*, B) until it empties, then raise B.  ``it`` counts relax
         iterations only; an advance relaxes nothing.  One read of
-        [front size, active count] per relax iteration, plus one
-        before the first."""
+        [front size, active count] (+ the health flags when guarded)
+        per relax iteration, plus one before the first."""
         am = torch.where(active, label, self._ident).amin()
         B = am + self._delta_t
         it = 0
         while it < cap:
             front, B, counts = self._bucket(label, active, B)
-            nf, cnt = counts.cpu().tolist()              # the one read
+            if guard is None:
+                nf, cnt = counts.cpu().tolist()          # the one read
+            else:
+                nf, cnt, flags = torch.cat(
+                    [counts, guard.h[:1]]).cpu().tolist()
+                if flags:
+                    break
             if cnt == 0:
                 break
             if nf == 0:
                 continue            # labels at the identity: advance on
+            if guard is not None:
+                guard.enter(it, front)
+                guard.frontier(it, front, counts[0])
             nl, na = self._body(label, front, nf)
             active = (active & ~front) | na
+            if guard is not None:
+                guard.cnt = counts[1]
+                guard.watch(label, nl, active.sum(dtype=torch.int32))
             label = nl
             it += 1
         return label, active, it
@@ -573,16 +634,75 @@ class PushEngine:
     def run(self, max_iters: int | None = None, verbose: bool = False,
             seg_budget: float | None = None):
         """init -> converge -> host labels [nv]; returns (labels,
-        iterations)."""
+        iterations).  ``seg_budget`` (seconds) converges in
+        duration-budgeted segments (segmented.DurationBudget)."""
         if verbose:
             _refuse("run(verbose=True) (it replays device-side iteration "
                     "counters)", "A10")
-        if seg_budget is not None:
-            _refuse("run(seg_budget=...) (duration-budgeted segments)",
-                    "A9")
         label, active = self.init_state()
-        label, active, it = self.converge(label, active, max_iters)
+        if seg_budget is not None:
+            from lux_tpu_torch.segmented import (DurationBudget,
+                                                 converge_segments)
+            label, active, it = converge_segments(
+                self, label, active,
+                DurationBudget(seg_budget),
+                max_iters)
+        else:
+            label, active, it = self.converge(label, active, max_iters)
         return self.unpad(label), it
 
     def timed_phases(self, label, active, iters: int = 1):
         _refuse("timed_phases (per-phase fenced programs)", "A10")
+
+
+class _PushGuard:
+    """The device-side state of one guarded converge: the health word,
+    the stall counter, the counter buffers and the entering frontier's
+    count as a device scalar."""
+
+    def __init__(self, eng, active, watch):
+        from lux_tpu_torch import health as hw
+        from lux_tpu_torch.telemetry import DEFAULT_STATS_CAP
+        dev, P, cap = eng.device, eng.num_parts, DEFAULT_STATS_CAP
+        self.hw = hw
+        self.h, self.stall = watch if watch is not None else (
+            hw.init_word(dev), hw.init_stall(dev))
+        self.fsz = torch.zeros((cap,), dtype=torch.int32, device=dev)
+        self.fed = torch.zeros((cap,), dtype=torch.int64, device=dev)
+        self.fszp = torch.zeros((cap, P), dtype=torch.int32, device=dev)
+        self.fedp = torch.zeros((cap, P), dtype=torch.int64, device=dev)
+        # out-degrees of the FULL graph: a pair residual's layout keeps
+        # them (PageRank's apply needs them), so the dense arrays' deg
+        self.deg = eng.arrays["deg"]
+        self.cnt = active.sum(dtype=torch.int32)
+
+    def enter(self, it: int, act) -> None:
+        """Out-edges of the frontier entering iteration ``it``, per part
+        (batched: of the union over the query axis — one gather an edge
+        serves every query)."""
+        if it >= self.fed.shape[0]:
+            return
+        if act.dim() > 2:
+            act = act.any(-1)
+        ep = torch.where(act, self.deg, 0).sum(1, dtype=torch.int64)
+        self.fed[it] = ep.sum()
+        self.fedp[it] = ep
+
+    def frontier(self, it: int, act, count) -> None:
+        """The frontier size (classic: after the iteration; delta: the
+        bucket front) and its per-part counts."""
+        if it >= self.fsz.shape[0]:
+            return
+        self.fsz[it] = count
+        self.fszp[it] = act.sum(dim=tuple(range(1, act.dim())),
+                                dtype=torch.int32)
+
+    def watch(self, old_label, new_label, new_cnt) -> None:
+        self.h, self.stall = self.hw.push_update(
+            self.h, self.stall, old_label, new_label, self.cnt, new_cnt)
+        self.cnt = new_cnt
+
+    def read(self, ncnt):
+        """One host read of [active count, flags]."""
+        cnt, flags = torch.stack([ncnt, self.h[0]]).cpu().tolist()
+        return cnt, flags

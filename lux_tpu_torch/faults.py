@@ -1,0 +1,283 @@
+"""Deterministic fault injection for the resilience layer (counterpart
+of the parts of lux_tpu/faults.py that the supervisor uses).
+
+Real failures — a dead worker, a slow segment, a corrupted state or
+checkpoint — do not come on demand, so the recovery paths that handle
+them would ship untested.  A :class:`FaultPlan` injects synthetic ones
+at SEGMENT BOUNDARIES on a deterministic schedule (explicit, or drawn
+from a seed):
+
+- CRASH raises :class:`InjectedWorkerCrash` (retryable) before the
+  segment's checkpoint save;
+- DELAY sleeps ``delay_s``;
+- NAN corrupts the state: NaN into the first floating leaf, or, for
+  integer labels, the program's identity (a lost update);
+- CKPT_BITFLIP / CKPT_TRUNCATE damage the newest checkpoint
+  generation, then crash, so the resume must fall back a generation;
+- DEVICE_LOSS raises :class:`InjectedDeviceLoss` (a topology fault:
+  fatal on one device, where there is no mesh to shrink).
+
+Faults key on a boundary COUNTER, not on iteration numbers: after a
+crash and resume the counter has moved past the fired fault, so a
+schedule never re-fires and every supervised run ends.
+
+State corruption pokes the state's own tensors IN PLACE (on the card,
+no copy through the host) and returns the state, which the supervisor
+continues with (the reference returns a corrupted host copy).  Not ported yet, each raising NotPortedError when named:
+the worker-process kill (``InjectedWorkerKill``, WORKER_KILL: ROADMAP
+A6, which brings several devices and processes) and the fleet and
+live-graph drills (``ReplicaKillPlan``, ``MutationFaultPlan``,
+``tear_wal``, ``InjectedFleetCrash``: A11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from lux_tpu_torch.debug import leaves
+
+CRASH = "crash"
+DELAY = "delay"
+NAN = "nan"
+CKPT_BITFLIP = "ckpt_bitflip"
+CKPT_TRUNCATE = "ckpt_truncate"
+DEVICE_LOSS = "device_loss"
+WORKER_KILL = "worker_kill"
+
+_NOT_PORTED = {
+    "InjectedWorkerKill": "A6", "ReplicaKillPlan": "A11",
+    "MutationFaultPlan": "A11", "tear_wal": "A11",
+    "InjectedFleetCrash": "A11",
+}
+
+
+def __getattr__(name: str):
+    """The reference's fleet, live-graph and multi-process drills are
+    refused by name until their ROADMAP item lands."""
+    item = _NOT_PORTED.get(name)
+    if item is None:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    from lux_tpu_torch.engine.pull import NotPortedError
+    raise NotPortedError(f"faults.{name} is not ported yet (ROADMAP "
+                         f"{item})")
+
+
+class InjectedWorkerCrash(RuntimeError):
+    """Synthetic transient worker death; resilience.classify treats it
+    as retryable."""
+
+
+class InjectedDeviceLoss(RuntimeError):
+    """Synthetic topology fault: named devices became unavailable.
+    Carries ``lost_devices``; resilience.classify treats it as
+    TOPOLOGY."""
+
+    def __init__(self, msg: str, lost_devices=()):
+        super().__init__(msg)
+        self.lost_devices = tuple(int(d) for d in lost_devices)
+
+
+@dataclasses.dataclass
+class FaultPlan:
+    """A deterministic boundary-counter -> action schedule
+    (lux_tpu/faults.py:163-283).  ``fire(state)`` is called by the
+    supervisor at every segment boundary and returns None (no change)
+    or the corrupted state; ``fired`` records what happened."""
+
+    schedule: dict
+    delay_s: float = 0.0
+    nan_count: int = 1
+    # sentinel poked into integer-labelled states by a NAN action when
+    # the caller passes none
+    int_value: int | None = None
+    # devices a DEVICE_LOSS takes: explicit ids, or the last N of the
+    # caller's device ids
+    lose: int | tuple = 1
+    boundaries: int = dataclasses.field(default=0, init=False)
+    fired: list = dataclasses.field(default_factory=list, init=False)
+    ckpt_path: str | None = dataclasses.field(default=None, init=False)
+
+    def __post_init__(self):
+        known = (CRASH, DELAY, NAN, CKPT_BITFLIP, CKPT_TRUNCATE,
+                 DEVICE_LOSS)
+        for i, a in self.schedule.items():
+            if a == WORKER_KILL:
+                from lux_tpu_torch.engine.pull import NotPortedError
+                raise NotPortedError("the WORKER_KILL fault (a whole "
+                                     "worker process dying) is not "
+                                     "ported yet (ROADMAP A6)")
+            if a not in known:
+                raise ValueError(f"schedule[{i}]: unknown fault action "
+                                 f"{a!r}")
+
+    @classmethod
+    def seeded(cls, seed: int, n: int = 16, p_crash: float = 0.25,
+               p_delay: float = 0.0, p_nan: float = 0.0,
+               delay_s: float = 0.0, nan_count: int = 1) -> "FaultPlan":
+        """A schedule over the first ``n`` boundaries drawn from a seed
+        — the reference's draw, so the same seed gives the same
+        schedule in both packages."""
+        rng = np.random.default_rng(seed)
+        schedule = {}
+        for i in range(n):
+            r = float(rng.random())
+            if r < p_crash:
+                schedule[i] = CRASH
+            elif r < p_crash + p_delay:
+                schedule[i] = DELAY
+            elif r < p_crash + p_delay + p_nan:
+                schedule[i] = NAN
+        return cls(schedule=schedule, delay_s=delay_s,
+                   nan_count=nan_count)
+
+    def bind_checkpoint(self, path: str) -> None:
+        """Point the CKPT_* actions at a run's checkpoint file (the
+        supervisor calls this with its checkpoint path)."""
+        self.ckpt_path = path
+
+    def _lost_ids(self, device_ids) -> tuple:
+        if isinstance(self.lose, (tuple, list)):
+            return tuple(int(d) for d in self.lose)
+        ids = tuple(int(d) for d in (device_ids or ()))
+        n = max(0, int(self.lose))
+        return ids[max(0, len(ids) - n):] if n and ids else ()
+
+    def fire(self, state, int_value: int | None = None,
+             device_ids=None):
+        import os
+
+        i = self.boundaries
+        self.boundaries += 1
+        action = self.schedule.get(i)
+        if action is None:
+            return None
+        self.fired.append((i, action))
+        if action == CRASH:
+            raise InjectedWorkerCrash(
+                f"injected worker crash at segment boundary {i}")
+        if action == DELAY:
+            time.sleep(self.delay_s)
+            return None
+        if action == NAN:
+            return corrupt_state(
+                state, self.nan_count,
+                int_value if int_value is not None else self.int_value)
+        if action == DEVICE_LOSS:
+            lost = self._lost_ids(device_ids)
+            raise InjectedDeviceLoss(
+                f"injected device loss at segment boundary {i}: "
+                f"devices {list(lost)} unavailable", lost)
+        # CKPT_BITFLIP / CKPT_TRUNCATE: the newest generation is damaged
+        # AND the worker dies; the retry's resume must detect it
+        if self.ckpt_path and os.path.exists(self.ckpt_path):
+            if action == CKPT_BITFLIP:
+                bitflip_checkpoint(self.ckpt_path)
+            else:
+                truncate_checkpoint(self.ckpt_path)
+        raise InjectedWorkerCrash(
+            f"injected worker crash after {action} at segment boundary "
+            f"{i}")
+
+
+def _kind(leaf) -> str:
+    """'float', 'int' or 'other' (bool and the rest) of a leaf."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype.is_floating_point:
+            return "float"
+        return "other" if (leaf.dtype == torch.bool
+                           or leaf.dtype.is_complex) else "int"
+    dt = np.asarray(leaf).dtype
+    if np.issubdtype(dt, np.floating):
+        return "float"
+    return "int" if np.issubdtype(dt, np.integer) else "other"
+
+
+def _poke(state, count: int, kind: str, value) -> bool:
+    """Write ``value`` into the first ``count`` cells of the first
+    non-empty leaf of ``kind`` in ``state``, in place (tensors on their
+    device; arrays must be contiguous).  False if there is none."""
+    for leaf in leaves(state):
+        if _kind(leaf) != kind:
+            continue
+        flat = leaf.view(-1) if isinstance(leaf, torch.Tensor) \
+            else np.asarray(leaf).reshape(-1)
+        if flat.shape[0]:
+            flat[:count] = value
+            return True
+    return False
+
+
+def nan_corrupt(state, count: int = 1):
+    """NaN into the first ``count`` cells of the first floating leaf of
+    ``state`` (a tensor, an array, or a tuple / list of them), in
+    place; returns ``state`` (what a corrupted segment output looks like
+    to debug.check_finite and the health watchdog)."""
+    if not _poke(state, count, "float", float("nan")):
+        raise ValueError(
+            "no floating leaf to NaN-corrupt (integer-labeled "
+            "programs: use int_corrupt / corrupt_state with the "
+            "program's identity sentinel)")
+    return state
+
+
+def int_corrupt(state, count: int = 1, value: int | None = None):
+    """``value`` (the program's identity / sentinel: a lost update, not
+    out-of-band garbage a max-program would propagate) into the first
+    ``count`` cells of the first integer leaf, in place; returns
+    ``state``."""
+    if value is None:
+        raise ValueError(
+            "int_corrupt needs the program's identity/sentinel value "
+            "(e.g. sssp.HOP_INF, components' -1)")
+    if not _poke(state, count, "int", int(value)):
+        raise ValueError("no integer leaf to corrupt")
+    return state
+
+
+def corrupt_state(state, count: int = 1, int_value: int | None = None):
+    """Type-appropriate corruption: NaN into the first float leaf when
+    one exists, else ``int_value`` into the first integer leaf."""
+    if any(_kind(x) == "float" for x in leaves(state)):
+        return nan_corrupt(state, count)
+    return int_corrupt(state, count, int_value)
+
+
+# -- checkpoint-file injectors -------------------------------------------
+
+def bitflip_checkpoint(path: str, leaf: int = 0, bit: int = 0) -> None:
+    """Flip one bit in ``leaf``'s payload INSIDE the npz container,
+    rewriting the zip so its own member CRC stays consistent — the
+    well-formed corruption only checkpoint.py's per-leaf CRC32 catches.
+    The flipped bit is in the last payload byte, past the .npy
+    header."""
+    import io
+    import zipfile
+
+    name = f"leaf_{leaf}.npy"
+    with zipfile.ZipFile(path, "r") as z:
+        items = [(zi.filename, z.read(zi.filename)) for zi in z.infolist()]
+    out = io.BytesIO()
+    with zipfile.ZipFile(out, "w", zipfile.ZIP_STORED) as z:
+        for fname, data in items:
+            if fname == name:
+                data = bytearray(data)
+                data[-1] ^= (1 << (bit & 7))
+                data = bytes(data)
+            z.writestr(fname, data)
+    with open(path, "wb") as f:
+        f.write(out.getvalue())
+
+
+def truncate_checkpoint(path: str, keep: float = 0.5) -> None:
+    """Truncate the file to ``keep`` of its size — the torn-write
+    corruption (an unreadable container)."""
+    import os
+
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(max(1, int(size * keep)))

@@ -5,7 +5,10 @@
 by the caller) and returns it with the state as a tensor, so both
 packages can iterate from the same bits; ``push_from_reference`` does
 the same for a ``lux_tpu`` push engine and its (label, active) state.
-Graph arrays are to this system what weights are to a model.  Nothing
+Graph arrays are to this system what weights are to a model.
+``watch_from_reference`` / ``watch_to_numpy`` carry a health WATCH
+(health.py) across in either direction; checkpoint files need no
+conversion (checkpoint.py writes the reference's format).  Nothing
 here imports the reference: the caller hands over plain numpy arrays
 and a dict of scalars.
 """
@@ -144,3 +147,26 @@ def push_from_reference(arrays: dict, label, active, *, meta: dict,
         delta=meta["delta"], device=device, **kw)
     return (eng, _state(label, eng, "label"),
             _state(np.asarray(active, bool), eng, "active"))
+
+
+def watch_from_reference(watch, device=None):
+    """A health WATCH of the reference — pull ``(word int32[6], window
+    float32[8])`` or push ``(word, stall int32)``, as numpy — as the
+    port's device tensors, bits kept, so a guarded run begun in
+    ``lux_tpu`` continues here with its window history and stall
+    count."""
+    word, aux = (np.asarray(x) for x in watch)
+    if word.shape != (6,) or word.dtype != np.int32:
+        raise ValueError(f"health word must be int32[6], got "
+                         f"{word.dtype}{word.shape}")
+    if aux.dtype not in (np.float32, np.int32):
+        raise ValueError(f"watch aux must be float32 (pull window) or "
+                         f"int32 (push stall), got {aux.dtype}")
+    return (torch.tensor(word, device=device),
+            torch.tensor(aux, device=device))
+
+
+def watch_to_numpy(watch):
+    """A port WATCH as numpy arrays (the reference's dtypes), for a
+    guarded run to continue in ``lux_tpu``."""
+    return tuple(x.detach().cpu().numpy() for x in watch)

@@ -34,6 +34,13 @@ kernel:
 5. ``partials = chunk_partials(msgs, rel)``       kernel B1, E = 128
 6. ``class_combine`` -> [P, n_tiles * 128]
 
+Query-batched states [P*vpad, B] (``_paged_partial_rows``) fetch the
+pages as [P*n_pages, 128, B], resolve the lanes by ``torch.gather``
+(the reference's ``take_along_axis``; B2 moves scalar rows), page-major
+rows through their gather row's lanes, all in blocks of rows under
+``PAGED_BLOCK_BYTES``; the [P*Rp, 128, B] messages are then reduced by
+ONE launch of B1's batched form (ops/chunk_reduce.py).
+
 Vector-state dot programs (colfilter) take ``paged_partial_dot``: the
 pair rows' SDDMM step (ops/dot.py) on page rows, each lane's source row
 selected from its page by an index gather; no hand kernel.
@@ -51,12 +58,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+from lux_tpu_torch.ops.chunk_reduce import (chunk_partials,
+                                            chunk_partials_batched)
 from lux_tpu_torch.ops.dot import DotBlock, blocks, run_blocks
 from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
 from lux_tpu_torch.ops.pairs import (DOT_BLOCK_ROWS, class_combine,
                                      dot_msgs_numpy, part_tile0,
                                      quantize_depths)
+from lux_tpu_torch.ops.segment import identity_for
 
 W = 128
 
@@ -637,33 +646,86 @@ def row_slots(slot_lane: torch.Tensor) -> torch.Tensor:
     return ((slot_lane[..., 0] >> 7) & SLOT_MASK).to(torch.int64)
 
 
+def lane_resolve(rows: torch.Tensor, slot_lane: torch.Tensor) -> torch.Tensor:
+    """Resolve each lane's value within its row's page:
+    ``out[r, c, ...] = rows[r, slot_lane[r, c] & 0x7F, ...]``.  Scalar
+    rows [R, 128] take kernel B2 (lane_shuffle); vector rows [R, 128,
+    *trail] (query-batched states) one ``torch.gather`` along dim 1
+    with the lane broadcast over the trailing dims — the reference's
+    ``take_along_axis`` for vector payloads, which its Pallas kernel
+    does not take either (lux_tpu/ops/pagegather.py:1068-1083)."""
+    if rows.dim() == 2:
+        return lane_shuffle(rows, slot_lane)
+    trail = tuple(rows.shape[2:])
+    lane = (slot_lane & 0x7F).to(torch.int64)
+    lane = lane.reshape(tuple(lane.shape) + (1,) * len(trail)).expand(
+        tuple(lane.shape) + trail)
+    return torch.gather(rows, 1, lane)
+
+
 def paged_values(flat_state: torch.Tensor, page_ids: torch.Tensor,
                  slot_lane: torch.Tensor) -> torch.Tensor:
     """The two-level gather for every part: unique-page row fetch (the
-    state-table access), buffer row fetch, lane shuffle (kernel B2).
-    ``flat_state`` [P*vpad], ``page_ids`` [P, n_pages], ``slot_lane``
-    int32 [P, Rg, 128] -> delivered values [P*Rg, 128]."""
+    state-table access), buffer row fetch, lane resolve (kernel B2 for
+    scalar rows).  ``flat_state`` [P*vpad, ...], ``page_ids`` [P,
+    n_pages], ``slot_lane`` int32 [P, Rg, 128] -> delivered values
+    [P*Rg, 128, ...]."""
     P, n_pages = page_ids.shape
-    s2d = flat_state.reshape(-1, W)
+    trail = tuple(flat_state.shape[1:])
+    s2d = flat_state.reshape((-1, W) + trail)
     pages = torch.index_select(s2d, 0,
                                page_ids.reshape(-1).to(torch.int64))
     base = torch.arange(P, device=slot_lane.device)[:, None] * n_pages
     rows = torch.index_select(pages, 0,
                               (row_slots(slot_lane) + base).reshape(-1))
-    return lane_shuffle(rows, slot_lane.reshape(-1, W))
+    return lane_resolve(rows, slot_lane.reshape(-1, W))
+
+
+# bytes of one [rows, 128, ...] intermediate of a block of vector rows
+# (``paged_partial`` on query-batched states): the messages of every
+# row are materialized once, for one launch of B1's batched form, while
+# the page fetch and lane resolve run block by block under this budget
+PAGED_BLOCK_BYTES = 1 << 30
+
+# the stages of ``_paged_partial_rows`` in order; ``upto`` stops after
+# one of them, so that a profile times the engine's own function layer
+# by layer (each layer the difference of two cumulative spans)
+PAGED_STAGES = ("fetch", "vrow_take", "lane_resolve", "messages",
+                "reduce", "combine")
+
+
+def paged_block_rows(flat_state: torch.Tensor) -> int:
+    """Reduce rows a block of ``_paged_partial_rows`` for the vector
+    state ``flat_state`` [P*vpad, *trail]: its [n, 128, *trail] values
+    stay under ``PAGED_BLOCK_BYTES``."""
+    width = int(np.prod(tuple(flat_state.shape[1:])))
+    return max(1, PAGED_BLOCK_BYTES
+               // (W * width * flat_state.element_size()))
 
 
 def paged_partial(pp, flat_state, page_ids, slot_lane, rel, weight,
-                  tile_pos, kind: str, msg_fn, vrow_src=None):
+                  tile_pos, kind: str, msg_fn, vrow_src=None,
+                  upto: str | None = None):
     """Full paged delivery + reduce for every part ->
-    ``[P, n_tiles * 128]`` (identity where no row delivers).  ``pp``
-    is a PagedPlan or PageGeometry; msg_fn(vals [P, Rp, 128], weight
-    [P, Rp, 128] | None) -> messages.  Dead lanes carry real values
-    that rel == -1 masks in kernel B1.
+    ``[P, n_tiles * 128, ...]`` (identity where no row delivers).
+    ``pp`` is a PagedPlan or PageGeometry; msg_fn(vals [..., 128,
+    *trail], weight [..., 128] | None) -> messages, elementwise.  Dead
+    lanes carry real values that rel == -1 masks in kernel B1.
 
     ``vrow_src`` [P, Rp] (page-major plans): ``slot_lane`` then holds
     the Rg gather rows, and each virtual reduce row takes its gather
-    row's delivered values (one row-granular index_select)."""
+    row's delivered values (one row-granular index_select).
+
+    Vector states ``flat_state`` [P*vpad, *trail] (a query axis) take
+    ``_paged_partial_rows``: the same values, reduced by B1's batched
+    form; ``upto`` (one of ``PAGED_STAGES``) stops that path after the
+    stage it names."""
+    if upto is not None and flat_state.dim() == 1:
+        raise ValueError("upto= stops the vector-state path only")
+    if flat_state.dim() > 1:
+        return _paged_partial_rows(pp, flat_state, page_ids, slot_lane,
+                                   rel, weight, tile_pos, kind, msg_fn,
+                                   vrow_src, upto)
     P = page_ids.shape[0]
     vals = paged_values(flat_state, page_ids, slot_lane)
     if vrow_src is not None:
@@ -677,6 +739,88 @@ def paged_partial(pp, flat_state, page_ids, slot_lane, rel, weight,
     red = class_combine(pp, partials.view(P, pp.Rp, W)[:, :pp.R],
                         tile_pos, kind)
     return red.reshape(P, pp.n_tiles * W)
+
+
+def paged_row_index(page_ids, slot_lane, vrow_src=None):
+    """Per reduce row of every part [P*Rp]: its row of the deduplicated
+    page buffer ``index_select(state [P*vpad/128, 128, ...],
+    page_ids)`` (int64) and its gather row of ``slot_lane`` (int64;
+    ``vrow_src`` + the part's base for page-major plans, the row itself
+    otherwise)."""
+    P, n_pages = page_ids.shape
+    Rg = slot_lane.shape[1]
+    dev = slot_lane.device
+    page_row = (row_slots(slot_lane)
+                + torch.arange(P, device=dev)[:, None] * n_pages
+                ).reshape(-1)
+    if vrow_src is None:
+        return page_row, None
+    grow = (vrow_src.to(torch.int64)
+            + torch.arange(P, device=dev)[:, None] * Rg).reshape(-1)
+    return page_row[grow], grow
+
+
+def _paged_partial_rows(pp, flat_state, page_ids, slot_lane, rel, weight,
+                        tile_pos, kind, msg_fn, vrow_src, upto=None):
+    """``paged_partial`` for vector states [P*vpad, *trail]: the page
+    fetch, lane resolve and messages run in blocks of reduce rows whose
+    [n, 128, *trail] values stay under ``PAGED_BLOCK_BYTES``; the
+    messages of all P*Rp rows are then reduced by ONE launch of B1's
+    batched form over the flattened trailing width, and the class
+    combine follows -> [P, n_tiles * 128, *trail].  Page-major rows
+    read their gather row's lanes: the reference's take of the
+    delivered values, done on the lane index instead.
+
+    ``upto`` (profiling) stops after the named stage of
+    ``PAGED_STAGES`` and returns None up to "lane_resolve", the
+    messages [P*Rp, 128, *trail] after "messages" and B1's partials
+    after "reduce"."""
+    stop = PAGED_STAGES.index(upto or "combine")
+    P, n_pages = page_ids.shape
+    trail = tuple(flat_state.shape[1:])
+    width = int(np.prod(trail))
+    n = P * pp.Rp
+    pages = torch.index_select(flat_state.reshape((-1, W) + trail), 0,
+                               page_ids.reshape(-1).to(torch.int64))
+    page_row, grow = paged_row_index(page_ids, slot_lane, vrow_src)
+    sl_flat = slot_lane.reshape(-1, W)
+    w_flat = None if weight is None else weight.reshape(-1, W)
+    step = paged_block_rows(flat_state)
+    msgs = None
+    for r0 in range(0, n, step):
+        sl = slice(r0, min(n, r0 + step))
+        rows = torch.index_select(pages, 0, page_row[sl])
+        if stop == 0:
+            continue
+        lanes = sl_flat[sl] if grow is None else \
+            torch.index_select(sl_flat, 0, grow[sl])
+        if stop == 1:
+            continue
+        vals = lane_resolve(rows, lanes)
+        if stop == 2:
+            continue
+        m = msg_fn(vals, None if w_flat is None else w_flat[sl])
+        if msgs is None:
+            msgs = torch.empty((n, W) + trail, dtype=m.dtype,
+                               device=m.device)
+        msgs[sl] = m
+        del rows, vals, m
+    if stop < 3:
+        return None
+    if msgs is None:                        # no rows: identity everywhere
+        return torch.full((P, pp.n_tiles * W) + trail,
+                          identity_for(kind, flat_state.dtype),
+                          dtype=flat_state.dtype, device=flat_state.device)
+    if stop == 3:
+        return msgs
+    partials = chunk_partials_batched(msgs.view(n, W, width),
+                                      rel.reshape(-1, W), W, kind)
+    del msgs
+    if stop == 4:
+        return partials
+    red = class_combine(pp, partials.view((P, pp.Rp, W) + trail)[:, :pp.R],
+                        tile_pos, kind)
+    return red.reshape((P, pp.n_tiles * W) + trail)
 
 
 def paged_dot_blocks(state, page_ids, slot_lane, rel, weight, row_tile,

@@ -36,8 +36,11 @@ servers would use).  Not ported yet, each raising NotPortedError:
 live graphs (``live=``, ``mutate``, ``refresh_live``,
 ``admission_epoch``, ``admit_query``: ROADMAP A11; with them the
 admission epochs that key the reference's answer cache), the memory
-trail (``mem=``: A10), the health watchdog (``health=True``: A9) and a
-device mesh (``mesh``: A6).
+trail (``mem=``: A10) and a device mesh (``mesh``: A6).
+``health=True`` builds every runner's engine with the watchdog
+(lux_tpu_torch/health.py): a tripped word raises HealthError out of
+the segmented driver rather than retiring a column with a corrupt
+answer.
 
 Smoke: ``python -m lux_tpu_torch.serve [-device cpu]`` builds a small
 random graph, enqueues 2B mixed queries, drains them through
@@ -535,7 +538,7 @@ class PushBatchRunner(_RunnerBase):
 
     def __init__(self, kind: str, g, B: int, *, num_parts: int = 1,
                  device=None, exchange: str = "auto",
-                 weighted: bool = False,
+                 health: bool = False, weighted: bool = False,
                  seg_iters: int = DEFAULT_SEG_ITERS,
                  max_segments: int = 10_000, metrics=None,
                  slo_ms: float | None = None, cache=None):
@@ -548,14 +551,15 @@ class PushBatchRunner(_RunnerBase):
             from lux_tpu_torch.apps import sssp as app
             self.eng = app.build_engine(
                 g, sources=placeholder, num_parts=num_parts,
-                weighted=self.weighted, exchange=exchange, device=device)
+                weighted=self.weighted, exchange=exchange, device=device,
+                health=health)
             self._inf = app.DIST_INF if self.weighted else app.HOP_INF
             self._dtype = np.float32 if self.weighted else np.int32
         elif kind == "components":
             from lux_tpu_torch.apps import components as app
             self.eng = app.build_engine(
                 g, sources=placeholder, num_parts=num_parts,
-                exchange=exchange, device=device)
+                exchange=exchange, device=device, health=health)
             self._inf = np.int32(-1)
             self._dtype = np.int32
         else:
@@ -633,6 +637,7 @@ class PullBatchRunner(_RunnerBase):
 
     def __init__(self, kind: str, g, B: int, *, num_parts: int = 1,
                  device=None, exchange: str = "auto",
+                 health: bool = False,
                  seg_iters: int = DEFAULT_SEG_ITERS, tol: float = 1e-8,
                  max_segments: int = 500, metrics=None,
                  slo_ms: float | None = None, cache=None):
@@ -649,7 +654,7 @@ class PullBatchRunner(_RunnerBase):
         self.resets = np.full((g.nv, B), 1.0 / g.nv, dtype=np.float32)
         self.eng = app.build_engine(g, num_parts=num_parts,
                                     resets=self.resets, exchange=exchange,
-                                    device=device)
+                                    device=device, health=health)
 
     def _col_reset(self, req: Request) -> np.ndarray:
         if req.reset is not None:
@@ -752,8 +757,6 @@ class Server:
             _refuse("live graphs (Server(live=...))", "A11")
         if mem is not None:
             _refuse("the memory trail (Server(mem=...))", "A10")
-        if health:
-            _refuse("the device health watchdog (health=True)", "A9")
         if mesh is not None:
             _refuse("a device mesh", "A6")
         self.g = g
@@ -767,8 +770,11 @@ class Server:
         self.on_boundary = on_boundary
         self.replica = replica
         self.batch = int(batch)
+        # health: every runner's engine runs the watchdog variants, so
+        # a tripped word raises HealthError out of the segmented driver
+        # instead of retiring a column with a corrupt answer
         self.opts = dict(num_parts=num_parts, exchange=exchange,
-                         device=self.device)
+                         device=self.device, health=bool(health))
         self.weighted = bool(weighted)
         self.seg_iters = int(seg_iters)
         self.tol = float(tol)

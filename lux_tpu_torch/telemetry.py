@@ -30,6 +30,10 @@ import time
 
 SCHEMA = 1
 
+# rows of the engines' per-iteration counter buffers (writes past it
+# drop), as the reference's
+DEFAULT_STATS_CAP = 4096
+
 # One id per PROCESS, minted at import: several processes may append
 # to one event file, wall clocks ("t") skew across hosts while
 # monotonic clocks ("tm") only order within a process, so (session,

@@ -50,8 +50,9 @@ def timed_fused_run(eng, num_iters: int):
 
 def timed_converge(eng, max_iters=None, repeats: int = 1):
     """Warm up a push engine with one untimed converge, then time
-    ``repeats`` converges, each from a fresh ``init_state`` whose
-    upload is fenced outside the timed region.  A converge reads a
+    ``repeats`` converges (guarded when ``eng.health``), each from a
+    fresh ``init_state`` whose upload is fenced outside the timed
+    region.  A converge reads a
     count to the host every iteration, so its host wall time, fenced
     at the end, is the run's time.  Returns (labels [nv] host,
     iterations, [seconds per repeat])."""

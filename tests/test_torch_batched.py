@@ -18,7 +18,7 @@ from lux_tpu_torch import interop
 from lux_tpu_torch.apps import components, pagerank, sssp
 from lux_tpu_torch.convert import rmat_edges
 from lux_tpu_torch.device import DeviceUnavailableError
-from lux_tpu_torch.engine.pull import NotPortedError, PullEngine
+from lux_tpu_torch.engine.pull import PullEngine
 from lux_tpu_torch.engine.push import PushEngine
 from lux_tpu_torch.graph import Graph, ShardedGraph
 from lux_tpu_torch.ops.chunk_reduce import (KernelInputError,
@@ -447,27 +447,6 @@ def test_guards(edges):
                               device=CPU)
     eng = sssp.build_engine(g, sources=SOURCES, num_parts=2, device=CPU)
     assert not eng.enable_sparse and eng.batch == len(SOURCES)
-    for gather in ("paged", "pagemajor"):
-        with pytest.raises(NotPortedError, match="A7b"):
-            sssp.build_engine(g, sources=SOURCES, gather=gather,
-                              device=CPU)
-        with pytest.raises(NotPortedError, match="A7b"):
-            pagerank.build_engine(g, sources=SOURCES, gather=gather,
-                                  device=CPU)
-
-
-def test_vector_messages_of_unbatched_programs_refused(edges):
-    """Only query-batched programs take B1's batched form on the tiled
-    layout; other vector messages outside the dot path stay refused."""
-    from lux_tpu_torch.engine.program import PullProgram
-    g = _graph(edges, 5)
-    prog = PullProgram(
-        reduce="sum", edge_value=lambda s, d, w: s,
-        apply=lambda old, red, ctx: red,
-        init=lambda sg: np.ones((sg.num_parts, sg.vpad, 2), np.float32))
-    eng = PullEngine(ShardedGraph.build(g, 1), prog, device=CPU)
-    with pytest.raises(NotPortedError, match="A7b"):
-        eng.step(eng.init_state())
 
 
 def test_default_device_is_the_card(edges):

@@ -156,3 +156,69 @@ def test_module_entry_points_exit_0(module, args, want):
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert want in proc.stdout
+
+
+# ---------------------------------------------------------------------
+# guarded execution and durability flags (lux_tpu/cli.py:93-99, :180-209,
+# :461-560)
+
+
+SUPERVISED = {"pagerank": ["-ni", "6"], "sssp": ["-start", "3"],
+              "components": [], "colfilter": ["-ni", "2"]}
+
+
+@pytest.mark.parametrize("app", list(SUPERVISED))
+def test_supervised_resume_flags(lux_file, weighted_lux_file, tmp_path,
+                                 capsys, app):
+    """-health -retries -resume: the supervised path prints its report;
+    run again on the finished checkpoint it resumes and bills nothing
+    ("GTEPS = n/a (run already complete in checkpoint)")."""
+    f = weighted_lux_file if app == "colfilter" else lux_file
+    ck = str(tmp_path / "ck.npz")
+    args = [app, "-file", f, "-device", "cpu", "-health", "-retries", "2",
+            "-resume", ck, *SUPERVISED[app]]
+    assert cli.main(args) == 0
+    out = capsys.readouterr().out
+    assert "# supervisor: attempts=1" in out
+    assert "(supervised; incl. checkpoint saves)" in out
+    assert os.path.exists(ck)
+    assert cli.main(args) == 0
+    out = capsys.readouterr().out
+    assert "resumed_from=[" in out and "resumed_from=[]" not in out
+    assert "GTEPS = n/a (run already complete in checkpoint)" in out
+
+
+@pytest.mark.parametrize("app", list(SUPERVISED))
+def test_seg_budget_runs_supervised(lux_file, weighted_lux_file, capsys,
+                                    app):
+    f = weighted_lux_file if app == "colfilter" else lux_file
+    assert cli.main([app, "-file", f, "-device", "cpu", "-seg-budget", "30",
+                     *SUPERVISED[app]]) == 0
+    out = capsys.readouterr().out
+    assert "# supervisor: attempts=1" in out and "GTEPS = " in out
+
+
+@pytest.mark.parametrize("flag,item", [(["-elastic"], "A6"),
+                                       (["-flight", "f.json"], "A10")])
+@pytest.mark.parametrize("app", list(SUPERVISED))
+def test_unported_guard_flags_exit_2(lux_file, weighted_lux_file, capsys,
+                                     app, flag, item):
+    f = weighted_lux_file if app == "colfilter" else lux_file
+    assert cli.main([app, "-file", f, "-device", "cpu", *flag]) == 2
+    assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_pagerank_resumes_a_reference_cli_checkpoint(lux_ref, lux_file,
+                                                     tmp_path, capsys):
+    """lux_tpu's CLI runs 4 iterations under -resume; the port's CLI
+    resumes the same file for 8: it bills the 4 left."""
+    ck = str(tmp_path / "x.npz")
+    assert lux_ref.cli.main(["pagerank", "-file", lux_file, "-ni", "4",
+                             "-np", "1", "-resume", ck]) == 0
+    capsys.readouterr()
+    assert cli.main(["pagerank", "-file", lux_file, "-ni", "8",
+                     "-device", "cpu", "-resume", ck]) == 0
+    out = capsys.readouterr().out
+    assert "resumed_from=[4]" in out
+    from lux_tpu_torch import checkpoint
+    assert checkpoint.load(ck)[1]["iter"] == 8

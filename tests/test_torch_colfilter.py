@@ -177,7 +177,6 @@ def test_pagemajor_and_unweighted_refused():
 @pytest.mark.parametrize("kwargs,item", [
     (dict(pair_threshold=4, pair_min_fill="auto"), "A10"),
     (dict(use_mxu=True), "A8"),
-    (dict(health=True), "A9"),
     (dict(audit="warn"), "A12"),
     (dict(mesh=object()), "A6"),
     (dict(gather="auto"), "A10"),
@@ -413,19 +412,17 @@ def test_pagerank_device_audit_matches_lux_tpu(lux_ref, num_parts):
 @pytest.mark.parametrize("kind", ["sum", "min"])
 def test_vector_messages_on_tiled_layout(lux_ref, kind):
     """A vector-state program that is not a dot program: the flat
-    layout reduces its [.., K] messages as lux_tpu does; the tiled
-    layout refuses them (kernel B1 reduces scalars), naming the item
-    that brings them."""
+    layout reduces its [.., K] messages as lux_tpu does, and the tiled
+    layout reduces them with B1's batched form over K to the same
+    values (sums and minima of small integers: exact)."""
     g = weighted_rmat(8, 8, seed=6)
     vals = np.random.default_rng(0).integers(0, 4, (g.nv, 3)).astype(
         np.float32)
     kw = dict(reduce=kind, edge_value=lambda s, d, w: s * w[..., None],
               apply=lambda o, r, c: r, init=lambda sg: sg.to_padded(vals),
               state_bytes=12)
-    eng = PullEngine(ShardedGraph.build(g, 2), PullProgram(**kw),
-                     device=CPU, tile_e=16)
-    with pytest.raises(NotPortedError, match="ROADMAP A7"):
-        eng.step(eng.init_state())
+    tiled = PullEngine(ShardedGraph.build(g, 2), PullProgram(**kw),
+                       device=CPU, tile_e=16)
     eng = PullEngine(ShardedGraph.build(g, 2), PullProgram(**kw),
                      device=CPU, layout="flat")
     ref = lux_ref.pull.PullEngine(
@@ -433,3 +430,5 @@ def test_vector_messages_on_tiled_layout(lux_ref, kind):
         lux_ref.pull.PullProgram(**kw), layout="flat")
     got = eng.unpad(eng.step(eng.init_state()))
     np.testing.assert_array_equal(got, ref.unpad(ref.step(ref.init_state())))
+    np.testing.assert_array_equal(
+        tiled.unpad(tiled.step(tiled.init_state())), got)

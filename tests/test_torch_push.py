@@ -244,7 +244,7 @@ def _engine(graphs, **kw):
 
 @pytest.mark.parametrize("opts,item", [
     (dict(mesh=object()), "A6"), (dict(exchange="owner"), "A6"),
-    (dict(stream_msgs=True), "A6"), (dict(health=True), "A9"),
+    (dict(stream_msgs=True), "A6"),
     (dict(stats_cap=64), "A10"), (dict(audit="warn"), "A12"),
     (dict(use_mxu=True), "A8"), (dict(gather="auto"), "A10")])
 def test_refused_options(graphs, opts, item):
@@ -256,24 +256,17 @@ def test_refused_calls_and_programs(graphs):
     eng = _engine(graphs)
     with pytest.raises(NotPortedError, match="A10"):
         eng.run(verbose=True)
-    with pytest.raises(NotPortedError, match="A9"):
-        eng.run(seg_budget=10.0)
     with pytest.raises(NotPortedError, match="A10"):
         eng.timed_phases(*eng.init_state())
     g, _r, start = graphs["hops"]
-    # query-batched programs run (tests/test_torch_batched.py); their
-    # paged and page-major delivery is still to port
+    # query-batched programs run on every dense delivery
+    # (tests/test_torch_batched.py, tests/test_torch_batched_paged.py)
     batched = PushProgram(reduce="min", relax=lambda s, w: s + 1,
                           identity=sssp.HOP_INF, init=None, batch=4)
     sg = ShardedGraph.build(g, 1, vpad_align=128)
-    with pytest.raises(NotPortedError, match="A7b"):
-        PushEngine(sg, batched, device=CPU, gather="paged")
-    with pytest.raises(NotPortedError, match="A7b"):
-        sssp.build_engine(g, sources=[0, 1], gather="pagemajor", device=CPU)
-    with pytest.raises(NotPortedError, match="A7b"):
-        components.build_engine(g, sources=[0, 1], gather="paged",
-                                device=CPU)
     assert PushEngine(sg, batched, device=CPU).batch == 4
+    assert PushEngine(sg, batched, device=CPU,
+                      gather="paged").page_plan is not None
 
 
 def test_invalid_configurations(graphs):

@@ -96,6 +96,57 @@ def test_server_matches_lux_tpu(lux_ref, edges, B, n):
             "metrics_snapshot"} <= kinds
 
 
+@pytest.mark.parametrize("B,n", [(1, 5), (3, 14), (8, 30)])
+def test_server_health_matches_lux_tpu(lux_ref, edges, B, n):
+    """Server(health=True): every runner's engine runs the watchdog;
+    the same stream gives lux_tpu's answers, iterations and segments
+    (min/max bit for bit, PageRank within rtol 5e-5) and the same
+    answers as an unguarded Server, and no word trips."""
+    src, dst, nv = edges[8]
+    stream = _stream(nv, n, seed=B + 100)
+    ev = telemetry.EventLog()
+    with telemetry.use(events=ev):
+        srv, mine = _serve(serve.Server, Graph.from_edges(src, dst, nv),
+                           stream, batch=B, num_parts=2, seg_iters=2,
+                           device=CPU, health=True)
+    assert all(r.eng.health for r in srv._runners.values())
+    assert "health_trip" not in {e["kind"] for e in ev.events}
+    _p, plain = _serve(serve.Server, Graph.from_edges(src, dst, nv),
+                       stream, batch=B, num_parts=2, seg_iters=2,
+                       device=CPU)
+    _rsrv, theirs = _serve(lux_ref.serve.Server,
+                           lux_ref.graph.Graph.from_edges(src, dst, nv),
+                           stream, batch=B, num_parts=2, seg_iters=2,
+                           health=True)
+    ref = {r.qid: r for r in theirs}
+    same = {r.qid: r for r in plain}
+    for r in mine:
+        t = ref[r.qid]
+        assert (r.iters, r.segments) == (t.iters, t.segments), r.qid
+        np.testing.assert_array_equal(r.answer, same[r.qid].answer)
+        if r.kind == "pagerank":
+            np.testing.assert_allclose(r.answer, np.asarray(t.answer),
+                                       rtol=5e-5, atol=1e-9)
+        else:
+            np.testing.assert_array_equal(r.answer, np.asarray(t.answer))
+
+
+def test_server_health_trip_raises(g):
+    """A corrupt column (a NaN in the idle column's reset vector) makes
+    the segmented driver raise HealthError at the first boundary,
+    instead of the run going on with a NaN column beside the served
+    ones."""
+    from lux_tpu_torch import health
+    srv = serve.Server(g, batch=3, seg_iters=2, device=CPU, health=True)
+    srv.submit("pagerank", source=1)
+    srv.submit("pagerank", source=2)
+    runner = srv._runner("pagerank")
+    runner.resets[5, 2] = np.nan                 # column 2 stays idle
+    with pytest.raises(health.HealthError, match="nonfinite") as ei:
+        srv.run()
+    assert ei.value.iteration == 0 and runner.boundaries == 0
+
+
 def test_pagerank_converges_to_oracle(g):
     _srv, rs = _serve(serve.Server, g, [("pagerank", s)
                                         for s in (3, 17, 40)],
@@ -484,16 +535,19 @@ def test_segmented_drivers(g):
         segmented.run_segments(peng, peng.init_state(), 4, 2)
     assert [e["done"] for e in ev.events if e["kind"] == "segment"] \
         == [2, 4]
-    with pytest.raises(NotPortedError, match="A9"):
-        segmented.DurationBudget(45.0)
     with pytest.raises(NotPortedError, match="A10"):
         segmented.run_segments(peng, peng.init_state(), 2, 1, mem=object())
+    # a DurationBudget as the segment: the same bits as int segments
+    st = segmented.run_segments(peng, peng.init_state(), 7,
+                                segmented.DurationBudget(45.0))
+    np.testing.assert_array_equal(
+        st.numpy(), peng.run(peng.init_state(), 7).numpy())
 
 
 def test_refusals(g):
     for kw, item in ((dict(live=object()), "A11"), (dict(mem=object()),
                                                     "A10"),
-                     (dict(health=True), "A9"), (dict(mesh=object()), "A6")):
+                     (dict(mesh=object()), "A6")):
         with pytest.raises(NotPortedError, match=item):
             serve.Server(g, device=CPU, **kw)
     srv = serve.Server(g, device=CPU)
