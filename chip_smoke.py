@@ -6,8 +6,11 @@
 Phases, each printing one JSON line:
 
 1. env      torch / CUDA versions, the card's name and power limit
-            (also printed raw, as nvidia-smi gives them);
-2. build    every kernel built from lux_tpu_torch/csrc (B1
+            (also printed raw, as nvidia-smi gives them), the host's
+            CPU model and the CPUs this process may use (nproc);
+2. build    the native host library and converter built with g++ from
+            lux_tpu_torch/native (their compiler seconds), beside
+            every kernel built from lux_tpu_torch/csrc (B1
             chunk_partials and its batched form chunk_partials_batched,
             B2 lane_shuffle, and the probe kernels S7
             carry, S8 fused_carry, S9 onehot_reduce, S3/S12
@@ -16,7 +19,17 @@ Phases, each printing one JSON line:
             source started together, build seconds;
 3. graph    the main path's graph: R-MAT scale 21, edge factor 16
             (2,097,152 vertices, 33,554,432 edges), made from --seed,
-            and its PageRank engine on the card;
+            and its PageRank engine on the card; its build with every
+            sort site (edges_to_csc's) run both ways on the same keys,
+            numpy's stable sort on copies then native.sort_kv, keys and
+            payloads required equal (SortSites), each site's seconds
+            both ways, the build's measured wall time (graph_seconds
+            holds it: both ways' sorts included) and its set-up
+            seconds each way, derived, not timed alone (the wall less
+            the other way's sorts and copies); and
+            native.rmat_csc at the same scale beside rmat_edges, a
+            measurement only (another RNG stream: the smoke's graphs
+            stay numpy's);
 4. kernels  kernel B1 (chunk_partials) against its plain PyTorch
             version on the card: the main path's own chunks, plus
             {f32, int32} x {sum, min, max} cases with pads, empty lanes,
@@ -54,7 +67,7 @@ Phases, each printing one JSON line:
 8. pagemajor the same with gather="pagemajor" (B2 over the gather rows,
             B1 over the virtual rows), its own rows checked the same way
             (the kernels line's chunk_partials@pagemajor entry);
-9. parts    R-MAT scale 18 with 4 parts on one card and a chunk width
+9. parts    R-MAT scale 17 with 4 parts on one card and a chunk width
             that needs the segmented combine, then the same graph
             relabelled with 4 parts paged and page-major, then
             pair_relabel'd with 4 parts and pair-lane rows (streamed and
@@ -65,7 +78,7 @@ Phases, each printing one JSON line:
             page-major and pair rows streamed and monolithic, labels
             bit-equal to the oracle, kernels launched only by dense
             iterations (B2 once each on the paged paths); then
-            colfilter (R-MAT 18, ef 16, weighted) with 4 parts tiled (E
+            colfilter (R-MAT 17, ef 16, weighted) with 4 parts tiled (E
             128), flat, pair rows monolithic and streamed and paged,
             each within rtol 1e-5 of the float64 oracle with no hand
             kernel launched, and page-major refused with the
@@ -84,7 +97,11 @@ Phases, each printing one JSON line:
             bit-equal) and on the residual chunks, its times on the pair
             rows (the kernels line's chunk_partials@pairs entry), and
             how many 32-lane steps of those rows take B1's sorted path
-            and how many its __match_any_sync path;
+            and how many its __match_any_sync path; the pair set-up
+            (pair_relabel, then the monolithic engine's build: layout,
+            plan_sharded_pairs, upload) with every sort site both ways,
+            as the graph phase's build (the streamed engine's build is
+            native only);
 11. probes  the TPU probe scripts' counterparts (lux_tpu_torch/probes:
             profile_kernel --3d, profile_slotted on the main graph's
             in-degrees, profile_v3, profile_true, profile_shuffle,
@@ -129,7 +146,10 @@ Phases, each printing one JSON line:
             unique bytes: an aliased input is read once); S3/S12 once
             at each of wg 8, 16, 32 and W; S7 also replayed from a CUDA
             graph of 20 calls, and torch.cumsum(part, 0) beside it (the
-            same bytes, not the same function);
+            same bytes, not the same function); and B1 itself at
+            profile_kernel's shape: its time, plain and scatter_reduce
+            times and bound (the kernels line's
+            chunk_partials@profile_kernel entry);
 12. sssp    bench.py's sssp config on the pairs phase's relabelled
             graph: pair_threshold 16, min_fill 24, hops, no delta,
             sparse iterations on, one part, through
@@ -235,7 +255,29 @@ Phases, each printing one JSON line:
             each engine's cases as its phase returns and frees it (held
             to the end, the engines would count in later phases'
             peaks); this phase runs the livelock repro and prints
-            every case.
+            every case;
+19. reorder (runs after pagemajor) bench.py's gather-ab path on its
+            community shape (bench.py:798-869), uncut:
+            community_graph(scale 21, edge factor 16, community_scale
+            8, p_in 0.98, --seed, scrambled) and three sides: "none"
+            (degree_relabel), page_reorder "native" and "hillclimb";
+            each side's reorder seconds a candidate and the candidates'
+            padded_fill / page_ratio / rows (hillclimb's chosen fill no
+            lower than any candidate's), the paged plan's seconds (the
+            hillclimb side's engine build with its sort sites both
+            ways) and Rp; on the native and hillclimb sides B2 against
+            its plain version bit for bit on the engine's own rows, and
+            after the run B1 on the path's own rows (two launches
+            bit-equal), each with its kernels-line entry
+            (lane_shuffle@reorder_<side>, chunk_partials@reorder_<side>);
+            PageRank gather="paged", 10 iterations against the float64
+            oracle of that side's graph with B2 and B1 launched once an
+            iteration each; the step ms, the layers (page fetch, B2, B1,
+            class combine, apply) and peak memory; gather="flat" on the
+            hillclimb graph as the yardstick (B1 once an iteration, B2
+            never); the .perm sidecar round trip (write_perm_sidecar,
+            then Graph.from_file(reorder=True), mmap and native loader,
+            equal to the hillclimb graph).
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -341,15 +383,59 @@ def phase_env(torch):
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(), "nvidia_smi": card})
+          "count": torch.cuda.device_count(), "nvidia_smi": card,
+          "cpu_model": cpu_model(), "nproc": len(os.sched_getaffinity(0)),
+          "cpu_count": os.cpu_count()})
     return card
 
 
+def cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo gives it: its "model name", and
+    where a sandboxed kernel hides that ("unknown"), the vendor, family,
+    model number and MHz."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break                    # the first CPU only
+                k, _, v = line.partition(":")
+                info[k.strip()] = v.strip()
+    except OSError:
+        return "unknown"
+    name = info.get("model name", "unknown")
+    if name != "unknown":
+        return name
+    return (f"{info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')}"
+            f" ({info.get('cpu MHz', '?')} MHz; model name unknown)")
+
+
 def phase_build():
-    from lux_tpu_torch import _kernels
+    import threading
+
+    from lux_tpu_torch import _kernels, native
     t0 = time.perf_counter()
+    host = {}
+
+    def build_native():
+        try:
+            host["report"] = native.build()
+        except Exception as e:            # re-raised below
+            host["error"] = e
+
+    th = threading.Thread(target=build_native)
+    th.start()                         # g++ beside the nvcc processes
     rep = _kernels.build()
+    th.join()
+    if "error" in host:
+        raise host["error"]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "native": {"compiler": native.compiler(),
+                     "library": native.library_path().name,
+                     "library_seconds": round(host["report"]["library"], 3),
+                     "converter_seconds":
+                         round(host["report"]["converter"], 3)},
           "kernels": {k: {"seconds": round(v["seconds"], 3),
                           "ptxas": [ln.strip() for ln in
                                     v["ptxas"].splitlines()
@@ -357,15 +443,111 @@ def phase_build():
                       for k, v in rep.items()}})
 
 
+class SortSites:
+    """While active, every ``native.sort_kv`` call of the port runs
+    both ways on the same inputs: numpy's stable sort on copies, then
+    the native sort in place, each timed; the keys and every payload
+    must come out equal (a stable sort's permutation is unique).  The
+    seconds are kept by call site (the caller's file and function)."""
+
+    def __init__(self):
+        self.sites = {}
+
+    def __enter__(self):
+        from lux_tpu_torch import native
+        self.native = native          # every site calls native.sort_kv
+        self.orig = native.sort_kv
+        native.sort_kv = self._sort_kv
+        return self
+
+    def __exit__(self, *exc):
+        self.native.sort_kv = self.orig
+
+    def _sort_kv(self, keys, payloads=(), threads=None, native=None):
+        if native is False:
+            return self.orig(keys, payloads, threads, native=False)
+        frame = sys._getframe(1)
+        while frame.f_code.co_filename.endswith(
+                os.path.join("native", "__init__.py")):
+            frame = frame.f_back
+        path = frame.f_code.co_filename
+        site = (f"{os.path.basename(os.path.dirname(path))}/"
+                f"{os.path.basename(path)}:{frame.f_code.co_name}")
+        t0 = time.perf_counter()
+        k_np = keys.copy()
+        p_np = tuple(p.copy() for p in payloads)
+        t_copy = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.orig(k_np, p_np, threads, native=False)
+        t_np = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.orig(keys, payloads, threads, native=True)
+        t_nat = time.perf_counter() - t0
+        require(np.array_equal(keys, k_np)
+                and all(np.array_equal(a, b)
+                        for a, b in zip(payloads, p_np)),
+                f"sort site {site}: native.sort_kv and numpy disagree "
+                f"on {keys.size} keys")
+        rec = self.sites.setdefault(site, {"calls": 0, "keys": 0,
+                                           "payloads": 0, "numpy_s": 0.0,
+                                           "native_s": 0.0, "copy_s": 0.0})
+        rec["calls"] += 1
+        rec["keys"] += int(keys.size)
+        rec["payloads"] += len(payloads)
+        rec["numpy_s"] += t_np
+        rec["native_s"] += t_nat
+        rec["copy_s"] += t_copy
+
+    def report(self) -> dict:
+        return {k: {**v, **{t: round(v[t], 3) for t in (
+                    "numpy_s", "native_s", "copy_s")}, "equal": True}
+                for k, v in self.sites.items()}
+
+
+def setup_both_ways(build):
+    """``build()`` once under SortSites: every sort site sorts both
+    ways, required equal.  ``wall_seconds`` is the run's measured wall
+    time (both ways' sorts and the copies included); the set-up's
+    seconds each way are DERIVED from it, not timed alone: the wall
+    time less the other way's sorts and the copies.  Returns (the
+    result, the report)."""
+    with SortSites() as sites:
+        t0 = time.perf_counter()
+        out = build()
+        wall = time.perf_counter() - t0
+    return out, both_ways_report(wall, sites.report())
+
+
+def both_ways_report(wall: float, sites: dict) -> dict:
+    tot = {k: sum(v[k] for v in sites.values())
+           for k in ("numpy_s", "native_s", "copy_s")}
+    return {"native_seconds_derived": round(wall - tot["numpy_s"]
+                                            - tot["copy_s"], 3),
+            "numpy_seconds_derived": round(wall - tot["native_s"]
+                                           - tot["copy_s"], 3),
+            "wall_seconds": round(wall, 3), "equal": True, "sites": sites}
+
+
 def phase_graph(args, torch):
+    from lux_tpu_torch import native
     from lux_tpu_torch.apps import pagerank
     from lux_tpu_torch.convert import rmat_edges
     from lux_tpu_torch.graph import Graph
     t0 = time.perf_counter()
     src, dst, nv = rmat_edges(args.scale, args.ef, seed=args.seed)
-    g = Graph.from_edges(src, dst, nv)
+    t_draws = time.perf_counter() - t0
+    g, csc = setup_both_ways(lambda: Graph.from_edges(src, dst, nv))
     del src, dst
-    t_graph = time.perf_counter() - t0
+    t_graph = t_draws + csc["wall_seconds"]     # both ways' sorts included
+    # the native generator at the same scale: a measurement only
+    t0 = time.perf_counter()
+    rp, col, deg = native.rmat_csc(args.scale, args.ef, seed=args.seed)
+    t_rmat_csc = time.perf_counter() - t0
+    rmat_native = {"seconds": round(t_rmat_csc, 3), "ne": int(col.size),
+                   "max_out_degree": int(deg.max()),
+                   "max_in_degree": int(np.diff(rp.astype(np.int64),
+                                                prepend=0).max())}
+    del rp, col, deg
     t0 = time.perf_counter()
     eng = pagerank.build_engine(g, num_parts=1)
     torch.cuda.synchronize()
@@ -376,6 +558,11 @@ def phase_graph(args, torch):
           "W": eng.tiles.W, "needs_scan": eng.tiles.needs_scan,
           "longest_tile_chunks": eng._plan.max_len,
           "graph_seconds": round(t_graph, 3),
+          "rmat_edges_seconds": round(t_draws, 3),
+          "csc_sort": csc,
+          "rmat_csc_native": rmat_native,
+          "max_out_degree": int(g.out_degrees.max()),
+          "max_in_degree": int(g.in_degrees().max()),
           "engine_seconds": round(t_engine, 3)})
     return g, eng
 
@@ -540,16 +727,21 @@ def b1_bound(torch, vals, rel, W) -> dict:
     once, the value of every entry that matches a lane (in the 32 B
     sectors the card reads: the sectors holding at least one such
     entry; a pad's value is never needed), the output written once.
-    Operations: one combine per live entry."""
+    Operations: one combine per live entry.  Counted in blocks of
+    entries (a reorder side's rows hold 4.3G entries)."""
     C, E = vals.shape
-    live = (rel >= 0) & (rel.to(torch.int16) < W)
-    ops = int(live.sum())
     per = 32 // vals.element_size()          # entries in a 32 B sector
-    flat = live.reshape(-1)
-    pad = -flat.numel() % per
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    sectors = int(flat.view(-1, per).any(dim=1).sum())
+    flat_rel = rel.reshape(-1)
+    step = per << 24                         # a whole number of sectors
+    ops = sectors = 0
+    for i in range(0, flat_rel.numel(), step):
+        r = flat_rel[i:i + step]
+        live = (r >= 0) & (r.to(torch.int16) < W)
+        ops += int(live.sum())
+        pad = -live.numel() % per
+        if pad:
+            live = torch.cat([live, live.new_zeros(pad)])
+        sectors += int(live.view(-1, per).any(dim=1).sum())
     bytes_moved = C * E + sectors * 32 + C * W * vals.element_size()
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -971,9 +1163,12 @@ def b2_line(args, torch, rows, sl):
                                   reps)}
 
 
-def paged_layers(args, torch, eng):
+def paged_layers(args, torch, eng, keep_rows: bool = True):
     """Device ms of each layer of one paged iteration, each timed
-    alone on the engine's own arrays."""
+    alone on the engine's own arrays, holding no more than two
+    [Rp, 128] intermediates at a time (one reorder side's rows take 17
+    GB each).  Returns (times, B1's input rows and rel ids, or None
+    and None when not ``keep_rows``)."""
     from lux_tpu_torch.ops.chunk_reduce import chunk_partials
     from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
     from lux_tpu_torch.ops.pagegather import W, row_slots
@@ -991,11 +1186,12 @@ def paged_layers(args, torch, eng):
         return torch.index_select(pages, 0,
                                   (row_slots(a["pg_sl"]) + base).reshape(-1))
 
-    rows = fetch()
-    vals = lane_shuffle(rows, sl)
     reps = args.reps
-    out = {"page_fetch_ms": cuda_ms(fetch, reps),
-           "lane_shuffle_ms": cuda_ms(lambda: lane_shuffle(rows, sl), reps)}
+    out = {"page_fetch_ms": cuda_ms(fetch, reps)}
+    rows = fetch()
+    out["lane_shuffle_ms"] = cuda_ms(lambda: lane_shuffle(rows, sl), reps)
+    vals = lane_shuffle(rows, sl)
+    del rows
     vrs = a.get("pg_vrs")
     if vrs is not None:
         vidx = (vrs.long() + torch.arange(P, device=flat.device)[:, None]
@@ -1004,18 +1200,21 @@ def paged_layers(args, torch, eng):
             lambda: torch.index_select(vals, 0, vidx), reps)
         vals = torch.index_select(vals, 0, vidx)
     rel = a["pg_rel"].reshape(-1, W)
-    partials = chunk_partials(vals, rel, W, "sum")
     out["chunk_partials_ms"] = cuda_ms(
         lambda: chunk_partials(vals, rel, W, "sum"), reps)
+    partials = chunk_partials(vals, rel, W, "sum")
     # byte bounds at these shapes: B2 reads rows and slot_lane and
     # writes out (12 B a lane); B1 as b1_bound counts it
     out["lane_shuffle_bound_ms"] = sl.numel() * 12 / HBM_BYTES_PER_S * 1e3
     out["chunk_partials_bound_ms"] = b1_bound(torch, vals, rel,
                                               W)["bound_ms"]
+    if not keep_rows:
+        vals = rel = None
     part3 = partials.view(P, pp.Rp, W)[:, :pp.R]
     out["class_combine_ms"] = cuda_ms(
         lambda: class_combine(pp, part3, a["pg_tp"], "sum"), reps)
     red = class_combine(pp, part3, a["pg_tp"], "sum").reshape(P, -1)
+    del part3, partials
     out["apply_ms"] = cuda_ms(lambda: eng._apply_epilogue(state, red), reps)
     out["step_ms"] = cuda_ms(lambda: eng.step(state), reps)
     return out, vals, rel
@@ -1084,12 +1283,184 @@ def phase_paged(args, torch, g2, sg, mode: str, want, card):
     return counts, line, b1
 
 
+# bench.py's gather-ab on its community shape: community_graph's
+# defaults (lux_tpu/convert.py:176) and the sides the reorder token
+# takes (bench.py:822-835)
+COMMUNITY_SCALE, COMMUNITY_P_IN = 8, 0.98
+REORDER_SIDES = ("none", "native", "hillclimb")
+
+
+def reorder_side(g, side: str):
+    """One side's vertex order: "none" is bench.py's degree_relabel,
+    the others page_reorder's methods.  Returns (graph, perm, report
+    or None, seconds, seconds a candidate)."""
+    from lux_tpu_torch.graph import degree_relabel
+    from lux_tpu_torch.reorder import page_reorder
+    timings = {}
+    t0 = time.perf_counter()
+    if side == "none":
+        g2, perm = degree_relabel(g)
+        rep = None
+    else:
+        g2, perm, rep = page_reorder(g, method=side, timings=timings)
+    secs = time.perf_counter() - t0
+    if rep is not None:
+        chosen = rep["chosen_fill"]
+        worst = [t for t, c in rep["candidates"].items()
+                 if c["padded_fill"] > chosen]
+        require(not worst, f"reorder {side}: chosen padded_fill {chosen} "
+                           f"below candidate(s) {worst}")
+    return g2, perm, rep, secs, {k: round(v, 3) for k, v in timings.items()}
+
+
+def phase_reorder(args, torch, card):
+    """bench.py's gather-ab path on the community graph (the module
+    docstring's phase 19).  On the native and hillclimb sides B2 and
+    B1 are held against their plain versions on the engine's own rows
+    (the none side's rows, [35.9M, 128] at scale 21, take 17 GB each:
+    its check would hold three beside the engine).  Returns (the
+    launches by path, B1's and B2's kernels-line entries by path)."""
+    import tempfile
+
+    from lux_tpu_torch import format as luxfmt
+    from lux_tpu_torch.apps import pagerank
+    from lux_tpu_torch.convert import community_graph
+    from lux_tpu_torch.graph import Graph, ShardedGraph
+    t0 = time.perf_counter()
+    g = community_graph(scale=args.scale, edge_factor=args.ef,
+                        community_scale=COMMUNITY_SCALE,
+                        p_in=COMMUNITY_P_IN, seed=args.seed)
+    t_graph = time.perf_counter() - t0
+    counts_by, steps, b1_lines, b2_lines = {}, {}, {}, {}
+    for side in REORDER_SIDES:
+        path = f"reorder_{side}"
+        g2, perm, rep, t_reorder, timings = reorder_side(g, side)
+        sg = ShardedGraph.build(g2, 1, vpad_align=128)
+        want = pagerank.reference_pagerank(g2, args.iters)
+
+        def build():
+            e = pagerank.build_engine(g2, sg=sg, gather="paged")
+            torch.cuda.synchronize()
+            return e
+
+        plan_setup = None
+        if side == "hillclimb":
+            # the engine's build (the paged plan's sort sites) both
+            # ways, where its rows are few (the "none" side's plan
+            # alone takes tens of GB)
+            eng, plan_setup = setup_both_ways(build)
+            t_engine = plan_setup["wall_seconds"]
+        else:
+            t0 = time.perf_counter()
+            eng = build()
+            t_engine = time.perf_counter() - t0
+        checked = side != "none"
+        if checked:
+            rows, sl = check_b2(args, torch, eng, path, synthetic=False)
+            b2_lines[path] = b2_line(args, torch, rows, sl)
+            b2_lines[path]["name"] = f"lane_shuffle@{path}"
+            del rows, sl
+        state, secs, counts, peak, host_s = timed_run(torch, eng, args.iters)
+        err = check_pagerank(g2, eng.unpad(state), want, f"reorder {side}")
+        require(counts == {"chunk_partials": args.iters,
+                           "lane_shuffle": args.iters},
+                f"reorder {side}: launched {counts} in {args.iters} "
+                f"iterations (want B2 and B1 once an iteration)")
+        layers, vals, rel = paged_layers(args, torch, eng,
+                                         keep_rows=checked)
+        pp = eng.page_plan
+        steps[side] = layers["step_ms"]
+        emit({"phase": "reorder", "side": side, "app": "pagerank",
+              "gather": "paged", "nv": g2.nv, "ne": g2.ne,
+              "iters": args.iters, "seconds": secs,
+              "ms_per_iter": secs * 1e3 / args.iters,
+              "host_enqueue_ms_per_iter": host_s * 1e3 / args.iters,
+              "gteps": g2.ne * args.iters / secs / 1e9,
+              "peak_bytes": int(peak), "max_rel_err": err,
+              "tolerance": MAIN_TOL, "launches": counts,
+              "reorder_seconds": round(t_reorder, 3),
+              "candidate_seconds": timings,
+              "trail": None if rep is None else rep["candidates"],
+              "chosen_fill": None if rep is None else rep["chosen_fill"],
+              "baseline_fill": None if rep is None else rep["baseline_fill"],
+              "engine_seconds": round(t_engine, 3),
+              "plan_seconds": round(eng.plan_seconds, 3),
+              "plan_setup": plan_setup,
+              "host_peak_rss_bytes":
+                  resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+              "plan": {"R": pp.R, "Rp": pp.Rp, "n_pages": pp.n_pages,
+                       "classes": len(pp.classes),
+                       **{k: pp.stats[k] for k in (
+                           "rows", "fill", "padded_fill", "page_ratio",
+                           "unique_pages", "lane_inflation")}},
+              "layers": layers, "card": card})
+        counts_by[path] = counts
+        del eng, state
+        torch.cuda.empty_cache()
+        if checked:
+            b1_lines[path] = check_b1_rows(args, torch, vals, rel, path)
+            del vals, rel
+            torch.cuda.empty_cache()
+        if side != "hillclimb":
+            del g2, sg, perm, want
+    # the yardstick: the flat gather on the hillclimb graph and layout
+    eng = pagerank.build_engine(g2, sg=sg, gather="flat")
+    state, secs, counts, peak, host_s = timed_run(torch, eng, args.iters)
+    err = check_pagerank(g2, eng.unpad(state), want, "reorder flat")
+    require(counts == {"chunk_partials": args.iters, "lane_shuffle": 0},
+            f"reorder flat: launched {counts} in {args.iters} iterations "
+            f"(want B1 once an iteration, B2 never)")
+    state = eng.init_state()
+    flat_step = cuda_ms(lambda: eng.step(state), args.reps)
+    counts_by["reorder_flat"] = counts
+    del eng, state
+    torch.cuda.empty_cache()
+    # the .perm sidecar round trip on the hillclimb perm
+    with tempfile.TemporaryDirectory() as tmp:
+        lux = os.path.join(tmp, "community.lux")
+        luxfmt.write_lux(lux, g.row_ptrs, g.col_idx,
+                         degrees=g.out_degrees)
+        luxfmt.write_perm_sidecar(lux, perm)
+        sidecar_bytes = os.path.getsize(luxfmt.perm_sidecar_path(lux))
+        for use_native in (False, True):
+            g3 = Graph.from_file(lux, reorder=True, use_native=use_native)
+            require((g3.nv, g3.ne) == (g2.nv, g2.ne) and all(
+                np.array_equal(getattr(g3, f), getattr(g2, f))
+                for f in ("row_ptrs", "col_idx", "out_degrees")),
+                f"the .perm sidecar round trip (use_native={use_native}) "
+                f"is not the hillclimb graph")
+            del g3
+    emit({"phase": "reorder", "side": "flat", "app": "pagerank",
+          "gather": "flat", "graph": "hillclimb", "nv": g2.nv, "ne": g2.ne,
+          "iters": args.iters, "seconds": secs,
+          "ms_per_iter": secs * 1e3 / args.iters,
+          "host_enqueue_ms_per_iter": host_s * 1e3 / args.iters,
+          "gteps": g2.ne * args.iters / secs / 1e9, "step_ms": flat_step,
+          "peak_bytes": int(peak), "max_rel_err": err,
+          "tolerance": MAIN_TOL, "launches": counts,
+          "community_graph": {"scale": args.scale, "edge_factor": args.ef,
+                              "community_scale": COMMUNITY_SCALE,
+                              "p_in": COMMUNITY_P_IN, "seed": args.seed,
+                              "scrambled": True,
+                              "seconds": round(t_graph, 3)},
+          "paged_step_ms": steps,
+          "paged_beats_flat": {k: v < flat_step for k, v in steps.items()},
+          "sidecar_round_trip": True, "sidecar_bytes": sidecar_bytes,
+          "card": card})
+    return counts_by, b1_lines, b2_lines
+
+
+# the parts phase's R-MAT scale: 17, one under its earlier 18, to keep
+# the whole smoke well inside its time limit with the reorder phase
+PARTS_SCALE = 17
+
+
 def phase_parts(args, torch):
     from lux_tpu_torch.apps import pagerank
     from lux_tpu_torch.convert import rmat_edges
     from lux_tpu_torch.graph import Graph, degree_relabel, pair_relabel
     from lux_tpu_torch.ops.pairs import stream_blocks
-    src, dst, nv = rmat_edges(18, 16, seed=args.seed + 1)
+    src, dst, nv = rmat_edges(PARTS_SCALE, 16, seed=args.seed + 1)
     g = Graph.from_edges(src, dst, nv)
     eng = pagerank.build_engine(g, num_parts=4, tile_e=128)
     require(eng.tiles.needs_scan, "parts phase must need the segmented "
@@ -1271,17 +1642,21 @@ def pair_layers(args, torch, eng):
 
 def pair_relabelled(g):
     """bench.py's preprocessing for its pair configs: pair_relabel with
-    one part -> (relabelled graph, perm, starts, seconds)."""
+    one part, every sort both ways -> (relabelled graph, perm, starts,
+    the relabel's SortSites report)."""
     from lux_tpu_torch.graph import pair_relabel
-    t0 = time.perf_counter()
-    g2, perm, starts = pair_relabel(g, 1, pair_threshold=PAIR_THRESHOLD)
-    return g2, perm, starts, time.perf_counter() - t0
+    (g2, perm, starts), setup = setup_both_ways(
+        lambda: pair_relabel(g, 1, pair_threshold=PAIR_THRESHOLD))
+    return g2, perm, starts, setup
 
 
-def phase_pairs(args, torch, g2, starts, t_relabel, card):
+def phase_pairs(args, torch, g2, starts, relabel, card):
     """bench.py's pagerank config (bench.py:987-1011) on the main graph
-    ``g2`` (pair_relabelled, with its cut points ``starts``), once with
-    each pair_stream setting; returns (launches by setting, the
+    ``g2`` (pair_relabelled, with its cut points ``starts``; ``relabel``
+    the relabel's SortSites report), once with each pair_stream
+    setting.  The monolithic engine's build (layout, pair plan, upload)
+    runs under SortSites too: with the relabel it is the set-up both
+    ways, printed on the first line.  Returns (launches by setting, the
     kernels-line entry of B1 on the pair rows, the streamed engine's
     guarded case: the engine, its plain state and its pair blocks)."""
     from lux_tpu_torch.apps import pagerank
@@ -1290,12 +1665,26 @@ def phase_pairs(args, torch, g2, starts, t_relabel, card):
     counts_by = {}
     for stream in (False, True):
         label = "streamed" if stream else "monolithic"
-        t0 = time.perf_counter()
-        eng = pagerank.build_engine(g2, 1, pair_threshold=PAIR_THRESHOLD,
-                                    pair_min_fill=PAIR_MIN_FILL,
-                                    starts=starts, pair_stream=stream)
-        torch.cuda.synchronize()
-        t_engine = time.perf_counter() - t0
+
+        def build():
+            e = pagerank.build_engine(g2, 1, pair_threshold=PAIR_THRESHOLD,
+                                      pair_min_fill=PAIR_MIN_FILL,
+                                      starts=starts, pair_stream=stream)
+            torch.cuda.synchronize()
+            return e
+
+        setup = None
+        if stream:
+            t0 = time.perf_counter()
+            eng = build()
+            t_engine = time.perf_counter() - t0
+        else:
+            eng, built = setup_both_ways(build)
+            t_engine = built["wall_seconds"]
+            setup = both_ways_report(
+                relabel["wall_seconds"] + t_engine,
+                {**{f"relabel {k}": v for k, v in relabel["sites"].items()},
+                 **{f"engine {k}": v for k, v in built["sites"].items()}})
         require(eng.pair_stream is stream and eng.tiles.E == 128,
                 f"pairs {label}: engine resolved stream={eng.pair_stream} "
                 f"E={eng.tiles.E}")
@@ -1327,8 +1716,9 @@ def phase_pairs(args, torch, g2, starts, t_relabel, card):
               "repeats": repeats, "peak_bytes": int(peak),
               "engine_bytes": int(engine_bytes), "max_rel_err": err,
               "tolerance": MAIN_TOL, "launches": counts,
-              "relabel_seconds": round(t_relabel, 3),
+              "relabel_seconds": relabel["wall_seconds"],
               "pair_plan_seconds": round(eng.plan_seconds, 3),
+              **({} if stream else {"setup_both_ways": setup}),
               "engine_seconds": round(t_engine, 3),
               "host_peak_rss_bytes":
                   resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
@@ -2780,6 +3170,15 @@ def phase_probes(args, torch, g, card):
         *gather_specs(torch, full, err), *vpu_specs(torch, full, err),
     ]
     lines = [probe_line(args, torch, dev, spec, counts) for spec in specs]
+    # B1 itself at profile_kernel's shape (--3d), beside its probes:
+    # its bound, plain and scatter_reduce times there
+    rel8 = torch.where((rel >= 0) & (rel < W), rel, -1).to(torch.int8)
+    b1 = b1_line(args, torch, vals, rel8, W, "chunk_partials@profile_kernel")
+    del rel8
+    b1["launches"] = sum(c["chunk_partials"] for c in counts.values())
+    b1["launches_by_path"] = {k: c["chunk_partials"]
+                              for k, c in counts.items()}
+    lines.append(b1)
     emit({"phase": "probes_fusion",
           **fusion_answers(args, torch, dev, vals, rel, start, W),
           "card": card})
@@ -3167,13 +3566,14 @@ def phase_colfilter(args, torch, card) -> dict:
 
 
 def parts_colfilter(args, torch) -> dict:
-    """ColFilter at R-MAT 18, ef 16, seed --seed + 1, weighted, 4 parts:
+    """ColFilter at R-MAT PARTS_SCALE, ef 16, seed --seed + 1, weighted,
+    4 parts:
     tiled E 128, flat, pair rows monolithic and streamed, paged; each
     against the float64 oracle at CF_TOL with no hand kernel launched;
     page-major must raise the reference's ValueError."""
     from lux_tpu_torch.apps import colfilter
     from lux_tpu_torch.graph import pair_relabel
-    g = weighted_rmat(18, 16, args.seed + 1)
+    g = weighted_rmat(PARTS_SCALE, 16, args.seed + 1)
     want = colfilter.reference_colfilter(g, args.iters)
     g3, perm, starts = pair_relabel(g, 4, pair_threshold=PAIR_THRESHOLD)
     runs = {"tiled": (g, want, dict(tile_e=128)),
@@ -4440,10 +4840,13 @@ def main(argv=None) -> int:
             args, torch, g2, sg, mode, want, card)
     del g2, sg, want
     b2 = lines["paged"]                 # B2 at the paged path's own rows
+    reorder_counts, reorder_b1, reorder_b2 = phase_reorder(args, torch, card)
+    by_path.update(reorder_counts)
+    b1_lines.update(reorder_b1)
     phase_parts(args, torch)
-    g2, perm, starts, t_relabel = pair_relabelled(g)
+    g2, perm, starts, relabel = pair_relabelled(g)
     pair_counts, kpairs, case = phase_pairs(args, torch, g2, starts,
-                                            t_relabel, card)
+                                            relabel, card)
     # the guarded cases run on each engine as its phase returns it
     guarded = {"pagerank": guarded_pull(args, torch, *case)}
     del case
@@ -4488,12 +4891,15 @@ def main(argv=None) -> int:
     b2["launches"] = by_path["paged"]["lane_shuffle"]
     b2["launches_by_path"] = {k: v["lane_shuffle"]
                               for k, v in by_path.items()}
+    for path, line in reorder_b2.items():   # B2 at each reorder side's rows
+        line["launches"] = by_path[path]["lane_shuffle"]
+        line["launches_by_path"] = b2["launches_by_path"]
     for line in probe_lines:           # B2 at S1's shape: its system paths
         if line["name"].startswith("lane_shuffle@"):
             del line["launches_by_path"]["system paths"]
             line["launches_by_path"].update(b2["launches_by_path"])
     emit({"kernels": [kline, *b1_lines.values(), *batch_lines, b2,
-                      *probe_lines]})
+                      *reorder_b2.values(), *probe_lines]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

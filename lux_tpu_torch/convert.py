@@ -1,10 +1,15 @@
-"""Edge list -> .lux conversion and the R-MAT generator (counterpart of
-lux_tpu/convert.py:22, :60, :80, :107).
+"""Edge list -> .lux conversion and the synthetic generators
+(counterpart of lux_tpu/convert.py: ``edges_to_csc`` :22,
+``convert_edge_list`` :60, ``rmat_edges`` :80, ``rmat_graph`` :107,
+``netflix_like_edges`` :128, ``community_edges`` :176,
+``community_graph`` :224).
 
 ``edges_to_csc`` produces the same canonical (dst, src) order as the
-reference: one stable numpy sort of the packed u64 key ``dst << 32 |
-src`` (the reference's numpy fallback for its native radix sort), so
-both packages write byte-identical files for the same edges.
+reference: one stable sort of the packed u64 key ``dst << 32 | src``
+carrying the weights (``native.sort_kv``; under
+``native.numpy_versions()``: numpy's stable argsort, the same
+permutation), so both packages write byte-identical files for the same
+edges.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from lux_tpu_torch import format as luxfmt
+from lux_tpu_torch import native as _native
 
 
 def edges_to_csc(src, dst, nv: int, weights=None):
@@ -26,13 +32,14 @@ def edges_to_csc(src, dst, nv: int, weights=None):
     key = dst.astype(np.uint64)
     key <<= np.uint64(32)
     np.bitwise_or(key, src, out=key)
-    order = np.argsort(key, kind="stable")
-    col_idx = key[order].astype(np.uint32)   # truncation keeps src
-    del key
     w_sorted = None
     if weights is not None:
-        w_sorted = np.ascontiguousarray(np.asarray(weights)[order])
-    del order
+        w_sorted = np.ascontiguousarray(weights)
+        if np.shares_memory(w_sorted, weights):   # sort_kv permutes
+            w_sorted = w_sorted.copy()            # in place
+    _native.sort_kv(key, () if w_sorted is None else (w_sorted,))
+    col_idx = key.astype(np.uint32)   # truncation keeps src
+    del key
     counts = np.bincount(dst, minlength=nv).astype(np.uint64)
     row_ptrs = np.cumsum(counts, dtype=np.uint64)
     out_degrees = np.bincount(src, minlength=nv).astype(np.uint32)
@@ -84,13 +91,113 @@ def rmat_edges(scale: int, edge_factor: int = 16, seed: int = 0):
     return perm[src.astype(np.uint32)], perm[dst.astype(np.uint32)], nv
 
 
-def rmat_graph(scale: int, edge_factor: int = 16, seed: int = 0):
-    """An R-MAT Graph through the numpy path (``rmat_edges`` +
-    ``edges_to_csc``)."""
+def rmat_graph(scale: int, edge_factor: int = 16, seed: int = 0,
+               native: bool = False):
+    """An R-MAT Graph.  ``native=False`` (the default): ``rmat_edges``'
+    draws, the reference's graph for the same seed, sorted into CSC by
+    ``edges_to_csc``.  ``native=True``: ``native.rmat_csc`` generates
+    and sorts in C++, from another RNG stream: the same distribution,
+    another graph."""
     from lux_tpu_torch.graph import Graph
 
+    if native:
+        row_ptrs, col_idx, degrees = _native.rmat_csc(scale, edge_factor,
+                                                      seed)
+        return Graph(nv=1 << scale, ne=int(col_idx.shape[0]),
+                     row_ptrs=row_ptrs, col_idx=col_idx, weights=None,
+                     out_degrees=degrees)
     src, dst, nv = rmat_edges(scale, edge_factor, seed)
     return Graph.from_edges(src, dst, nv)
+
+
+def netflix_like_edges(n_users: int = 480_000, n_items: int = 17_700,
+                       n_ratings: int = 100_000_000, seed: int = 0,
+                       user_skew: float = 0.6, item_skew: float = 0.9):
+    """A NetFlix-shaped weighted bipartite rating set (the reference's
+    ColFilter workload): users [0, n_users), items [n_users, n_users +
+    n_items), Zipf-like popularity on both sides, (user, item) pairs
+    deduplicated, integer ratings 1..5 with the public dataset's
+    marginal.  Every rating is an edge in both directions.  Returns
+    (src, dst, weights, nv); the same draws as the reference's for the
+    same arguments."""
+    rng = np.random.default_rng(seed)
+
+    def sample(n, skew, count):
+        w = (np.arange(1, n + 1, dtype=np.float64)) ** -skew
+        cdf = np.cumsum(w)
+        cdf /= cdf[-1]
+        return np.searchsorted(cdf, rng.random(count)).astype(np.uint32)
+
+    users = sample(n_users, user_skew, n_ratings)
+    items = sample(n_items, item_skew, n_ratings)
+    # dedup (user, item) pairs: one u64 key sort + a boundary pass
+    key = users.astype(np.uint64)
+    key *= np.uint64(n_items)
+    key += items
+    _native.sort_kv(key, ())
+    keep = np.ones(len(key), bool)
+    keep[1:] = key[1:] != key[:-1]
+    key = key[keep]
+    users = (key // np.uint64(n_items)).astype(np.uint32)
+    items = (key % np.uint64(n_items)).astype(np.uint32) + n_users
+    w = rng.choice(np.arange(1, 6, dtype=np.int32), size=len(users),
+                   p=[0.05, 0.10, 0.23, 0.34, 0.28])
+    src = np.concatenate([users, items])
+    dst = np.concatenate([items, users])
+    weights = np.concatenate([w, w])
+    return src, dst, weights, n_users + n_items
+
+
+def community_edges(scale: int, edge_factor: int = 16,
+                    community_scale: int = 8, p_in: float = 0.98,
+                    seed: int = 0, scrambled: bool = True,
+                    weighted: bool = False):
+    """Planted-partition edge list: 2^scale vertices in communities of
+    2^community_scale; each vertex draws ``edge_factor`` out-edges, a
+    fraction ``p_in`` inside its own community, the rest uniform.  The
+    locality-rich counterpart of R-MAT: under perfect clustering a
+    paged row holds about 128 / (p_in + 128 (1 - p_in)) live lanes (~36
+    at 0.98, ~10 at 0.9).  ``scrambled`` (default) relabels the
+    vertices at random, so recovering the communities is the reorder
+    pass's job (reorder.py); ``scrambled=False`` keeps them contiguous.
+    Returns (src, dst, weights | None, nv) uint32 edge arrays; the same
+    draws as the reference's for the same arguments."""
+    if not 0.0 <= p_in <= 1.0:
+        raise ValueError(f"p_in must be in [0, 1], got {p_in}")
+    if community_scale > scale:
+        raise ValueError(f"community_scale {community_scale} > "
+                         f"scale {scale}")
+    rng = np.random.default_rng(seed)
+    nv = 1 << scale
+    csize = 1 << community_scale
+    ne = nv * edge_factor
+    src = np.repeat(np.arange(nv, dtype=np.int64), edge_factor)
+    comm = src // csize
+    inside = rng.random(ne) < p_in
+    dst = np.where(
+        inside,
+        comm * csize + rng.integers(0, csize, size=ne),
+        rng.integers(0, nv, size=ne))
+    if scrambled:
+        shuf = rng.permutation(nv)
+        src = shuf[src]
+        dst = shuf[dst]
+    w = (rng.integers(1, 6, size=ne).astype(np.int32)
+         if weighted else None)
+    return src.astype(np.uint32), dst.astype(np.uint32), w, nv
+
+
+def community_graph(scale: int, edge_factor: int = 16,
+                    community_scale: int = 8, p_in: float = 0.98,
+                    seed: int = 0, scrambled: bool = True,
+                    weighted: bool = False):
+    """``community_edges`` as a Graph (dst-sorted CSC)."""
+    from lux_tpu_torch.graph import Graph
+
+    src, dst, w, nv = community_edges(
+        scale, edge_factor, community_scale, p_in, seed,
+        scrambled=scrambled, weighted=weighted)
+    return Graph.from_edges(src, dst, nv, weights=w)
 
 
 def uniform_random_edges(nv: int, ne: int, seed: int = 0):

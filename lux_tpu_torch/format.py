@@ -1,5 +1,6 @@
-"""The .lux binary CSC graph file format (counterpart of
-lux_tpu/format.py:51-258 and :479, byte-for-byte the same format).
+"""The .lux binary CSC graph file format and its permutation sidecar
+(counterpart of lux_tpu/format.py:51-335 and :479, byte-for-byte the
+same formats).
 
 Layout (little-endian):
 
@@ -12,8 +13,15 @@ Layout (little-endian):
     ...        : degrees   uint32[nv]  optional trailing out-degrees
 
 The file does not say whether weights/degrees are present; the layout
-is inferred from the file size, with explicit overrides.  The perm,
-WAL and journal sidecars of the reference are not ported yet.
+is inferred from the file size, with explicit overrides.
+
+The ``.perm`` sidecar (``<file>.lux.perm``) holds a vertex
+permutation beside the file instead of rewriting its edge sections:
+magic ``LUXP``, uint32 nv, then uint32[nv] ``perm`` with perm[new] =
+old (reorder.py writes it, ``Graph.from_file(reorder=...)`` applies
+it).  A truncated or non-bijective sidecar raises a typed
+GraphFormatError.  The WAL and journal sidecars of the reference are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ class GraphFormatError(ValueError):
     validation.  ``check`` names the violated invariant (header,
     section_size, weighted_mismatch, ambiguous_layout,
     row_ptrs_monotone, row_ptrs_total, col_idx_range, degrees_length,
-    degrees_consistent, partition_edges)."""
+    degrees_consistent, partition_edges, perm_header, perm_length,
+    perm_bijection)."""
 
     def __init__(self, path: str, check: str, detail: str):
         super().__init__(f"{path}: invalid graph [{check}] — {detail}")
@@ -189,6 +198,83 @@ def read_lux(path: str, weighted: bool | None = None,
         validate_graph(hdr.nv, hdr.ne, row_ptrs, col_idx,
                        degrees=degrees, path=path)
     return hdr, row_ptrs, col_idx, weights, degrees
+
+
+PERM_MAGIC = b"LUXP"
+PERM_SUFFIX = ".perm"
+
+
+def perm_sidecar_path(lux_path: str) -> str:
+    return lux_path + PERM_SUFFIX
+
+
+def validate_perm(perm, nv: int, path: str = "<perm>") -> None:
+    """The sidecar's invariants: length nv (``perm_length``) and a
+    bijection of [0, nv) (``perm_bijection``)."""
+    perm = np.asarray(perm)
+    if perm.ndim != 1 or perm.shape[0] != nv:
+        raise GraphFormatError(
+            path, "perm_length",
+            f"{perm.shape} permutation for nv={nv}")
+    if nv:
+        p64 = perm.astype(np.int64, copy=False)
+        seen = np.zeros(nv, bool)
+        bad = (p64 < 0) | (p64 >= nv)
+        if bad.any():
+            at = int(np.argmax(bad))
+            raise GraphFormatError(
+                path, "perm_bijection",
+                f"perm[{at}]={int(p64[at])} outside [0, {nv})")
+        seen[p64] = True
+        if not seen.all():
+            at = int(np.argmax(~seen))
+            raise GraphFormatError(
+                path, "perm_bijection",
+                f"vertex {at} never appears (duplicate entries "
+                f"elsewhere) — not a bijection of [0, {nv})")
+
+
+def write_perm_sidecar(lux_path: str, perm, path: str | None = None) -> str:
+    """Write ``perm`` (perm[new] = old) beside ``lux_path``, validated
+    first: a corrupt sidecar is never written, only detected.  Returns
+    the sidecar's path."""
+    perm = np.ascontiguousarray(perm, dtype=V_DTYPE)
+    out = path or perm_sidecar_path(lux_path)
+    validate_perm(perm, perm.shape[0], out)
+    with open(out, "wb") as f:
+        f.write(PERM_MAGIC)
+        f.write(np.array([perm.shape[0]], V_DTYPE).tobytes())
+        f.write(perm.tobytes())
+    return out
+
+
+def read_perm_sidecar(lux_path: str, nv: int | None = None,
+                      path: str | None = None) -> np.ndarray:
+    """Read and validate the sidecar beside ``lux_path``.  ``nv`` (the
+    .lux header's vertex count) must match the sidecar's: a sidecar of
+    another graph raises instead of relabelling."""
+    p = path or perm_sidecar_path(lux_path)
+    with open(p, "rb") as f:
+        head = f.read(8)
+        if len(head) != 8 or head[:4] != PERM_MAGIC:
+            raise GraphFormatError(
+                p, "perm_header",
+                f"bad magic {head[:4]!r} (a .perm sidecar starts "
+                f"with {PERM_MAGIC!r})")
+        n = int(np.frombuffer(head, V_DTYPE, count=1, offset=4)[0])
+        perm = np.frombuffer(f.read(), V_DTYPE)
+    if perm.shape[0] != n:
+        raise GraphFormatError(
+            p, "perm_length",
+            f"header says nv={n} but payload holds {perm.shape[0]} "
+            f"entries — truncated or torn sidecar?")
+    if nv is not None and n != nv:
+        raise GraphFormatError(
+            p, "perm_length",
+            f"sidecar nv={n} does not match the graph's nv={nv} — "
+            f"sidecar from a different graph?")
+    validate_perm(perm, n, p)
+    return perm
 
 
 def write_lux(path: str, row_ptrs, col_idx, weights=None, degrees=None):

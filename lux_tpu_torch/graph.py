@@ -16,16 +16,21 @@ the per-iteration device work is nothing but gathers and reductions:
   point at the trash segment ``vpad`` and their sources at slot 0.
 
 The arrays stay host numpy; engines move them onto the device.
-Local-parts (multi-host) builds are not ported yet.
+``Graph.from_file`` reads through the mmap path or the native pthread
+loader (``use_native=True``) and applies a ``.perm`` sidecar
+(``reorder=``); ``ShardedGraph.build_from_file`` builds every part on
+one host.  Local-parts (multi-host) builds are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
 from lux_tpu_torch import format as luxfmt
+from lux_tpu_torch import native as _native
 from lux_tpu_torch.partition import edge_balanced_bounds, part_edge_counts
 
 
@@ -77,17 +82,54 @@ class Graph:
 
     @classmethod
     def from_file(cls, path: str, weighted: bool | None = None,
-                  validate: bool = False) -> "Graph":
-        """Load a .lux file (memory-mapped).  validate=True runs
-        format.validate_graph and raises a typed GraphFormatError on a
-        malformed file.  Out-degrees are recomputed when the file has
-        no degree section."""
-        hdr, row_ptrs, col_idx, weights, degrees = luxfmt.read_lux(
-            path, weighted, validate=validate)
+                  use_native: bool = False, validate: bool = False,
+                  reorder: bool | str = False) -> "Graph":
+        """Load a .lux file: memory-mapped, or with ``use_native=True``
+        read whole by the native pthread pread loader
+        (``native.load_partition``; out-degrees counted from the loaded
+        sources).  validate=True runs format.validate_graph and raises
+        a typed GraphFormatError on a malformed file.  Out-degrees are
+        recomputed when the file has no degree section.
+
+        reorder: apply the ``.perm`` sidecar beside the file
+        (format.read_perm_sidecar; written by reorder.page_reorder's
+        caller through format.write_perm_sidecar).  True requires it
+        (GraphFormatError [perm_header] when it is missing), "auto"
+        applies it when it exists; the returned graph is relabelled
+        with perm[new] = old."""
+        if reorder not in (False, True, "auto"):
+            raise ValueError(f"reorder={reorder!r} must be False, "
+                             f"True or 'auto'")
+        if use_native:
+            hdr = luxfmt.peek_lux(path, weighted)
+            row_ptrs, col_idx, weights, _ = _native.load_partition(
+                path, hdr.nv, hdr.ne, 0, hdr.nv, weighted=hdr.has_weights,
+                weight_dtype=luxfmt.W_DTYPE)
+            if validate:
+                luxfmt.validate_graph(hdr.nv, hdr.ne, row_ptrs, col_idx,
+                                      path=path)
+            degrees = None
+        else:
+            hdr, row_ptrs, col_idx, weights, degrees = luxfmt.read_lux(
+                path, weighted, validate=validate)
         if degrees is None:
             degrees = np.bincount(col_idx, minlength=hdr.nv).astype(np.uint32)
-        return cls(nv=hdr.nv, ne=hdr.ne, row_ptrs=row_ptrs, col_idx=col_idx,
-                   weights=weights, out_degrees=degrees)
+        g = cls(nv=hdr.nv, ne=hdr.ne, row_ptrs=row_ptrs, col_idx=col_idx,
+                weights=weights, out_degrees=degrees)
+        if reorder:
+            sidecar = luxfmt.perm_sidecar_path(path)
+            if not os.path.exists(sidecar):
+                if reorder == "auto":
+                    return g
+                raise luxfmt.GraphFormatError(
+                    sidecar, "perm_header",
+                    "reorder=True but no .perm sidecar exists (write one "
+                    "with format.write_perm_sidecar from "
+                    "reorder.page_reorder's perm, or pass reorder='auto')")
+            perm = luxfmt.read_perm_sidecar(path, nv=g.nv)
+            from lux_tpu_torch.reorder import apply_perm
+            return apply_perm(g, perm)
+        return g
 
     @classmethod
     def from_edges(cls, src, dst, nv: int, weights=None) -> "Graph":
@@ -163,9 +205,11 @@ def pair_relabel(g: Graph, num_parts: int = 1, pair_threshold: int = 16):
         rank0[by_deg] = np.arange(g.nv, dtype=np.uint32)
         d2t = (rank0[dst] // Wt).astype(np.int32)
         key = (rank0[src] // Wt).astype(np.int64) * np.int64(n_tiles) + d2t
-        # pair multiplicity of every edge: group the sorted keys
-        order = np.argsort(key, kind="stable")
-        key = key[order]
+        # pair multiplicity of every edge: group the sorted keys, the
+        # edge index riding the sort
+        order = np.arange(len(key), dtype=np.uint32 if len(key) < 2**32
+                          else np.int64)
+        _native.sort_kv(key, (order,))
         newg = np.ones(len(key), bool)
         newg[1:] = key[1:] != key[:-1]
         del key
@@ -329,6 +373,26 @@ class ShardedGraph:
                    weighted=g.weights is not None,
                    max_out_degree=int(g.out_degrees.max(initial=0)))
 
+    @classmethod
+    def build_from_file(cls, path: str, num_parts: int, parts=None,
+                        vpad_align: int = VPAD_ALIGN,
+                        starts: np.ndarray | None = None,
+                        weighted: bool | None = None) -> "ShardedGraph":
+        """Every part of a .lux file on this host: the graph read by
+        the native pthread loader (under ``native.numpy_versions()``:
+        the mmap path), then ``build``.  ``parts``, a subset of the parts for a
+        process of a multi-host run, is not ported (ROADMAP A6)."""
+        if parts is not None and sorted(int(p) for p in parts) != list(
+                range(num_parts)):
+            from lux_tpu_torch.engine.pull import NotPortedError
+            raise NotPortedError(
+                "ShardedGraph.build_from_file with a subset of the parts "
+                "(a multi-host build) is not ported yet (ROADMAP A6); "
+                "pass parts=None to build every part on this host")
+        g = Graph.from_file(path, weighted,
+                            use_native=not _native.numpy_only())
+        return cls.build(g, num_parts, vpad_align=vpad_align, starts=starts)
+
     def to_padded(self, x: np.ndarray) -> np.ndarray:
         """[nv, ...] user order -> [num_parts, vpad, ...] padded."""
         x = np.asarray(x)
@@ -367,8 +431,8 @@ class ShardedGraph:
                 slot = self.src_slot[p, :nep].astype(np.int64)
                 sp = slot // self.vpad
                 src = self.starts[sp] + (slot - sp * self.vpad)
-                order = np.argsort(src, kind="stable")
-                uniq, counts = np.unique(src[order], return_counts=True)
+                src_sorted, order = _native.stable_sort(src)
+                uniq, counts = np.unique(src_sorted, return_counts=True)
                 if counts.size:
                     max_deg = max(max_deg, int(counts.max()))
                 ids_l.append(uniq.astype(np.int32))

@@ -20,9 +20,10 @@ rows to pages first; the reduce runs over VIRTUAL rows (one per
 (gather row, dst tile) run), each picking its gather row through
 ``vrow_src``.
 
-Every sort is a stable numpy argsort — the same permutation as the
-reference's stable radix ``native.sort_kv`` — so the plans are
-array-equal to the reference's, padding shapes included.
+The binning sorts are the reference's stable radix ``native.sort_kv``
+(under ``native.numpy_versions()``: numpy's stable argsort, the same
+permutation), so the plans are array-equal to the reference's,
+padding shapes included.
 
 Device side (``paged_partial``), every part in one launch of each
 kernel:
@@ -58,6 +59,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from lux_tpu_torch import native as _native
 from lux_tpu_torch.ops.chunk_reduce import (chunk_partials,
                                             chunk_partials_batched)
 from lux_tpu_torch.ops.dot import DotBlock, blocks, run_blocks
@@ -138,13 +140,6 @@ class PageGeometry:
 # ---------------------------------------------------------------------
 
 
-def _stable_sort(key: np.ndarray):
-    """(sorted key, permutation): the reference's stable radix
-    ``native.sort_kv(key, (arange,))`` as a stable argsort."""
-    order = np.argsort(key, kind="stable")
-    return key[order], order
-
-
 def _part_rows(src_idx, dst_tile, dst_rel, n_dst_tiles: int,
                n_src_rows: int, weights=None):
     """Bin one part's edges by (dst tile, source page) and lay each
@@ -163,8 +158,8 @@ def _part_rows(src_idx, dst_tile, dst_rel, n_dst_tiles: int,
     page = src_idx // W
     lane = (src_idx % W).astype(np.int8)
     rel8 = np.asarray(dst_rel, np.int64).astype(np.int8)
-    key, idx = _stable_sort(np.asarray(dst_tile, np.int64)
-                            * np.int64(n_src_rows) + page)
+    key, idx = _native.stable_sort(
+        np.asarray(dst_tile, np.int64) * np.int64(n_src_rows) + page)
     newg = np.ones(ne, bool)
     newg[1:] = key[1:] != key[:-1]
     bstart = np.nonzero(newg)[0]
@@ -323,7 +318,7 @@ def _pm_layout(src_idx, dst_local, n_dst_tiles: int, n_src_rows: int):
     page = src_idx // W
     lane = (src_idx % W).astype(np.int8)
     D = np.int64(n_dst_tiles) * W
-    key, idx = _stable_sort(page * D + dst)
+    key, idx = _native.stable_sort(page * D + dst)
     p_key = key // D
     dst_s = key % D
     newp = np.ones(ne, bool)
@@ -509,8 +504,8 @@ def _part_bin_stats(src_idx, dst_tile, n_dst_tiles: int,
     if ne == 0:
         return np.zeros(n_dst_tiles, np.int64), 0, 0
     page = np.asarray(src_idx, np.int64) // W
-    key = np.sort(np.asarray(dst_tile, np.int64) * np.int64(n_src_rows)
-                  + page, kind="stable")
+    key = np.asarray(dst_tile, np.int64) * np.int64(n_src_rows) + page
+    _native.sort_kv(key, ())
     newg = np.ones(ne, bool)
     newg[1:] = key[1:] != key[:-1]
     bstart = np.nonzero(newg)[0]

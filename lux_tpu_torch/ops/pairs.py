@@ -16,10 +16,10 @@ the elementwise-max profile).  A tile's rows reduce with one static
 reshape-reduce per class; ``tile_pos`` then maps each tile to its slot
 (tiles without rows point at a trailing identity slot).
 
-Host planning is numpy.  Every sort is a stable numpy sort — the same
-permutation as the reference's stable radix ``native.sort_kv`` — so
-the plans are array-equal to the reference's.  Device side
-(``pair_partial``), every part at once:
+Host planning is numpy around the reference's stable radix
+``native.sort_kv`` (under ``native.numpy_versions()``: numpy's stable
+sorts, the same permutations), so the plans are array-equal to the
+reference's.  Device side (``pair_partial``), every part at once:
 
 1. ``vals = index_select(state2d, rowbind)``   [P*Rp, 128] rows
 2. ``partials = chunk_partials(msgs, rel)``    kernel B1, E = 128
@@ -43,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from lux_tpu_torch import native as _native
 from lux_tpu_torch.ops.chunk_reduce import chunk_partials
 from lux_tpu_torch.ops.dot import (DOT_BLOCK_BYTES, STREAM_MSG_BYTES,
                                    DotBlock, blocks, run_blocks)
@@ -97,14 +98,16 @@ class PairPlan:
 def occurrence_index(pair: np.ndarray, slot: np.ndarray) -> np.ndarray:
     """Per-element occurrence counter within each (pair, slot) group:
     the o-th edge of a (pair id, source slot) group, in edge order,
-    gets o.  One stable lexicographic sort (slot minor, pair major) —
-    never a packed ``pair * 2^32 + slot`` key, which wraps at large
-    scale and would alias distinct groups."""
-    kp = np.asarray(pair, np.int64)
-    ks = np.asarray(slot, np.int64)
+    gets o.  Two stable sorts (slot minor, pair major), each carrying
+    the other key and the edge index — never a packed ``pair * 2^32 +
+    slot`` key, which wraps at large scale and would alias distinct
+    groups."""
+    ks = np.array(slot, dtype=np.int64)     # copies: sorted in place
+    kp = np.array(pair, dtype=np.int64)
     n = len(ks)
-    idx = np.lexsort((ks, kp))
-    kp, ks = kp[idx], ks[idx]
+    idx = np.arange(n, dtype=np.int64)
+    _native.sort_kv(ks, (kp, idx))   # stable by slot
+    _native.sort_kv(kp, (ks, idx))   # then stable by pair
     newg = np.ones(n, bool)
     newg[1:] = (kp[1:] != kp[:-1]) | (ks[1:] != ks[:-1])
     pos = np.arange(n)
@@ -118,8 +121,9 @@ def fill_histogram(pidx: np.ndarray, occ: np.ndarray):
     """Per-(pair, occurrence level) fill counts, sorted by (pair, occ):
     returns (gp, go, fill) — pair id, occurrence level and the number
     of edges at that level (= the live-lane count of that pair row)."""
-    key = np.sort((np.asarray(pidx, np.int64) << np.int64(32))
-                  | np.asarray(occ, np.int64))
+    key = ((np.asarray(pidx, np.int64) << np.int64(32))
+           | np.asarray(occ, np.int64))
+    _native.sort_kv(key, ())
     newg = np.ones(len(key), bool)
     newg[1:] = key[1:] != key[:-1]
     gidx = np.nonzero(newg)[0]
@@ -205,8 +209,7 @@ def analyze_pairs(src_slot: np.ndarray, dst_local: np.ndarray,
     dst_local = np.asarray(dst_local, np.int64)
 
     pair = (src_slot // W) * n_tiles + dst_local // W
-    order = np.argsort(pair, kind="stable")
-    pp = pair[order]
+    pp, order = _native.stable_sort(pair)
     # a part with zero edges has zero pairs (starts must then be [0])
     starts = (np.concatenate(
         ([0], np.nonzero(pp[1:] != pp[:-1])[0] + 1, [ne]))
@@ -257,7 +260,7 @@ def analyze_pairs(src_slot: np.ndarray, dst_local: np.ndarray,
 
     # pairs ordered by dst tile (the per-tile combine), then src tile
     pair_dt = pp[starts[:-1]][sel_pair] % n_tiles
-    tile_sort = np.argsort(pair_dt, kind="stable")
+    tile_sort = _native.stable_sort(pair_dt)[1]
     rows_by_tile = np.zeros(n_tiles, np.int64)
     np.add.at(rows_by_tile, pair_dt, nrows_pair)
     t_order = np.argsort(-rows_by_tile, kind="stable")
