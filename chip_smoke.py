@@ -277,7 +277,41 @@ Phases, each printing one JSON line:
             hillclimb graph as the yardstick (B1 once an iteration, B2
             never); the .perm sidecar round trip (write_perm_sidecar,
             then Graph.from_file(reorder=True), mmap and native loader,
-            equal to the hillclimb graph).
+            equal to the hillclimb graph);
+20. observe (ROADMAP A10a; printed after guarded, gathered as the
+            phases hand their engines over; the pairs engine is kept
+            through the probes phase, so the profiler sessions below
+            follow the probes' S7 count) timed_phases(state, 3) on
+            main, pairs (monolithic
+            and streamed) and paged, and on every sssp iteration: the
+            reference's phase names in order, the state bit-equal to
+            run's (push: converge's), each phase's ms beside the plain
+            step's; on the pairs cell (streamed) run_stats(state, 10):
+            the state bit-equal to run's, every counter row equal to the
+            stepwise counters, max / sum over parts equal to the scalars
+            bitwise, zero host syncs before the fetch, its ms and host
+            enqueue against run in turns and the aten ops it adds an
+            iteration (a TorchDispatchMode count); one profiling.trace
+            session over 10 iterations (10 lux_exchange / lux_gather /
+            lux_reduce / lux_apply host ranges in the Chrome trace; the
+            pull idle share from the trace's kernels, copies and fills);
+            the plain run's host enqueue with the ranges entered and
+            without, in turns; a supervised run (segments of 2,
+            checkpointed) under an EventLog whose trace_export passes
+            validate_trace with no error, RunReport.counters the
+            digest; the NaN fault under a flight recorder: FLIGHT.json
+            read back with its reason and the health_trip word; on the
+            sssp cell converge_stats: every frontier size, out-edge sum
+            and per-part row equal, bit for bit, to what the engine's
+            own steps give one at a time (the BFS level sizes beside
+            them: a sparse queue past its edge budget keeps its
+            unexpanded suffix active, so the two part), the same host
+            syncs as converge, its cost in turns;
+            MemoryLedger.for_engine of the pairs and ksssp_batch engines
+            against the allocator's peak over a run (verdicts printed,
+            not raised); on the serve phase's drain a MemoryTrail
+            (Server.mem): every sample graded measured, its peak equal
+            to max_memory_allocated over the drain.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -1275,6 +1309,8 @@ def phase_paged(args, torch, g2, sg, mode: str, want, card):
           "lane_shuffle": {k: line[k] for k in (
               "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
           "card": card})
+    if mode == "paged":
+        observed(observe_pull_split, torch, eng, "paged", "paged")
     del eng, state, rows, sl
     torch.cuda.empty_cache()
     b1 = check_b1_rows(args, torch, b1_vals, b1_rel, mode)
@@ -1733,6 +1769,7 @@ def phase_pairs(args, torch, g2, starts, relabel, card):
                        "longest_tile_chunks": eng._plan.max_len},
               "layers": layers, "card": card})
         counts_by[label] = counts
+        observed(observe_pull_split, torch, eng, f"pairs_{label}")
         if not stream:
             del eng, state, vals, rel
             torch.cuda.empty_cache()
@@ -4176,7 +4213,7 @@ def phase_serve(args, torch, g, card):
     just before; every answer against its oracle, at least one boundary
     that retired and refilled columns, serve_retired_total = 36, B1's
     batched form launched, nothing else."""
-    from lux_tpu_torch import metrics, serve, telemetry
+    from lux_tpu_torch import memwatch, metrics, serve, telemetry
     stream = serve_stream(g, args.seed)
     t0 = time.perf_counter()
     srv = serve.Server(g, batch=BATCH_B, seg_iters=SERVE_SEG_ITERS,
@@ -4194,13 +4231,43 @@ def phase_serve(args, torch, g, card):
     ev = telemetry.EventLog()
     for kind, s in stream:
         srv.submit(kind, source=s)
+    # the memory trail (ROADMAP A10a) on the measured drain: sampled at
+    # every boundary, its window opened by the peak reset
+    trail = memwatch.MemoryTrail()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv.mem = trail
     zero_launches()
     t0 = time.perf_counter()
     with telemetry.use(events=ev):
         responses = srv.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    trail.sample("final")
+    window_peak = torch.cuda.max_memory_allocated()
+    srv.mem = None
+    require(trail.count == sum(r.boundaries for r in srv._runners.values())
+            + 1 and trail.grade == memwatch.GRADE_MEASURED
+            and all(x.grade == memwatch.GRADE_MEASURED
+                    for x in trail.samples),
+            f"serve: the trail took {trail.count} samples graded "
+            f"{trail.grade}")
+    require(trail.peak_bytes == window_peak,
+            f"serve: the trail's peak {trail.peak_bytes} != "
+            f"max_memory_allocated {window_peak} over the drain")
+    led = memwatch.MemoryLedger.for_server(srv, "serve")
+    OBSERVE["trail"] = {
+        "cell": "serve (ksssp_batch graph, 36 queries)",
+        "samples": trail.count, "grade": trail.grade,
+        "peak_bytes": trail.peak_bytes,
+        "max_memory_allocated": window_peak,
+        "live_bytes": [x.live_bytes for x in trail.samples],
+        "events": {k: v for k, v in ev.counts().items()
+                   if k.startswith("mem_")},
+        "server_ledger_bytes": led.total_bytes,
+        "verdict": memwatch.drift_verdict(
+            trail.peak_bytes, led.total_bytes,
+            grade=memwatch.GRADE_MEASURED, where="serve")}
     counts = dict(read_launches(), chunk_partials_batched=batched_launches())
     require(len(responses) == SERVE_QUERIES,
             f"serve: {len(responses)} of {SERVE_QUERIES} answered")
@@ -4798,6 +4865,418 @@ def phase_batch_paged(args, torch, g, sources, k_labels, ppr_want, card):
     return lines, by_mode
 
 
+# ---------------------------------------------------------------------
+# run-time observability (ROADMAP A10a): the iteration counters, the
+# phase split, the profiler ranges, span export and the flight recorder,
+# and the memory trail, on the engines the earlier phases build
+
+# what the observe phase gathers as the phases hand their engines over;
+# printed at the end (phase_observe)
+OBSERVE: dict = {}
+OBS_PHASE_ITERS = 3          # timed_phases iterations a cell
+OBS_ITERS = 10               # run_stats / profiler iterations
+
+PULL_SPLIT = {"tiled": ["exchange", "gather", "reduce", "apply"],
+              "paged": ["exchange", "gather_reduce", "apply"]}
+PUSH_DENSE = ["frontier", "exchange", "relax", "reduce", "update"]
+
+
+def _split_summary(report, step_ms: float) -> dict:
+    """Per phase: ms of each iteration; the sum a split iteration
+    takes; the plain step's ms beside them."""
+    meta = ("frontier", "bucket", "advances")
+    names = list(dict.fromkeys(k for t in report for k in t
+                               if k not in meta))
+    per = {k: [t[k] * 1e3 for t in report if k in t] for k in names}
+    sums = [sum(v * 1e3 for k, v in t.items() if k not in meta)
+            for t in report]
+    return {"names": [list(t) for t in report], "phase_ms": per,
+            "split_sum_ms": sums, "plain_step_ms": step_ms}
+
+
+def observe_pull_split(torch, eng, name: str, kind: str = "tiled"):
+    """timed_phases(state, 3): the reference's names in order, the state
+    bit-equal to run(state, 3), each phase's ms beside the plain step's
+    (CUDA events over 5 steps)."""
+    init = eng.init_state()
+    want = eng.run(init, OBS_PHASE_ITERS)
+    state, report = eng.timed_phases(init, OBS_PHASE_ITERS)
+    require(same_bits(state, want),
+            f"observe {name}: timed_phases' state is not run's")
+    require(all(list(t) == PULL_SPLIT[kind] for t in report),
+            f"observe {name}: phases {[list(t) for t in report]} (want "
+            f"{PULL_SPLIT[kind]} each iteration)")
+    OBSERVE.setdefault("phases", {})[name] = _split_summary(
+        report, cuda_ms(lambda: eng.step(init), 5))
+
+
+def observe_push_split(torch, eng, name: str, iters: int):
+    """timed_phases(label, active, iters) against converge(max_iters=
+    iters): labels and active masks bit-equal; dense iterations split
+    into the reference's phases, sparse ones one entry; the plain
+    converge's ms an iteration beside them.  The sssp cell runs all its
+    iterations: its first three may all be sparse."""
+    l0, a0 = eng.init_state()
+    wl, wa, it = eng.converge(l0, a0, max_iters=iters)
+    lab, act, report = eng.timed_phases(l0, a0, iters)
+    require(torch.equal(lab, wl) and torch.equal(act, wa),
+            f"observe {name}: timed_phases' labels are not converge's")
+    kinds = [list(t) for t in report]
+    require(all(k in (PUSH_DENSE, ["frontier", "sparse"]) for k in kinds)
+            and PUSH_DENSE in kinds,
+            f"observe {name}: phases {kinds}")
+    step = wall_ms(torch, lambda: eng.converge(l0, a0, max_iters=iters))
+    out = _split_summary([{k: v for k, v in t.items()} for t in report],
+                         step / max(it, 1))
+    out["frontier"] = [t["frontier"] for t in report]
+    OBSERVE.setdefault("phases", {})[name] = out
+
+
+class OpCount:
+    """Counts the aten operations dispatched inside the block (a
+    TorchDispatchMode): ``ops`` all of them, ``compute`` those that are
+    not views or metadata (an upper bound on the kernels launched)."""
+
+    VIEWS = ("view", "_unsafe_view", "select", "slice", "reshape",
+             "as_strided", "expand", "alias", "unsqueeze", "squeeze",
+             "detach", "t", "permute", "_to_copy")
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.__name__.split(".")[0]
+                outer.ops += 1
+                if name not in OpCount.VIEWS:
+                    outer.compute += 1
+                return func(*args, **(kwargs or {}))
+
+        self.ops = self.compute = 0
+        self._mode = _Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def ops_per_iter(fn, iters: int) -> dict:
+    with OpCount() as c:
+        fn()
+    return {"aten_ops": c.ops / iters, "non_view_ops": c.compute / iters}
+
+
+def observe_counters_pull(args, torch, eng):
+    """run_stats(state, 10) on the pairs cell: the state bit-equal to
+    run's (``plain``), every counter row equal to _iter_counters of the
+    states step gives one at a time, max and sum over parts equal to the
+    scalars bitwise, zero host syncs before the fetch; its cost against
+    run in turns and the ops it adds an iteration."""
+    from lux_tpu_torch import telemetry
+    n = OBS_ITERS
+    init = eng.init_state()
+    plain = eng.run(init, n)
+    eng.run_stats(init, 1)                          # warm-up
+    (state, rb, cb, rbp, cbp), counts, syncs = counted_sync_run(
+        torch, lambda: eng.run_stats(init, n))
+    require(same_bits(state, plain), "observe: run_stats' state is not "
+                                     "run's")
+    require(syncs == 0, f"observe: run_stats made {syncs} host syncs "
+                        f"before the fetch (want 0)")
+    from lux_tpu_torch.ops.pairs import stream_blocks
+    per = 1 + (len(stream_blocks(eng.pairs.classes)) if eng.pair_stream
+               else 1)
+    require(counts == {"chunk_partials": per * n, "lane_shuffle": 0,
+                       "chunk_partials_batched": 0},
+            f"observe: run_stats launched {counts} (want run's: B1 "
+            f"{per} an iteration)")
+    s = init
+    for i in range(n):
+        new = eng.step(s)
+        r, c, rp, cp = eng._iter_counters(new, s)
+        require(same_bits(rb[i], r) and torch.equal(cb[i], c)
+                and same_bits(rbp[i], rp) and torch.equal(cbp[i], cp),
+                f"observe: run_stats' row {i} differs from the stepwise "
+                f"counters")
+        s = new
+    require(same_bits(rbp[:n].amax(1), rb[:n])
+            and torch.equal(cbp[:n].sum(1, dtype=torch.int32), cb[:n]),
+            "observe: max / sum over parts differ from the scalars")
+    st = telemetry.IterStats()
+    st.extend_pull(rb, cb, n, rbp, cbp)
+    ms = {"run": [], "run_stats": []}
+    host = {"run": [], "run_stats": []}
+    for kind in ("run", "run_stats", "run_stats", "run"):
+        fn = (lambda: eng.run_stats(init, n)) if kind == "run_stats" \
+            else (lambda: eng.run(init, n))
+        ms[kind].append(cuda_ms(fn, 2) / n)
+        host[kind].append(host_ms(torch, fn, 2) / n)
+    ops = {k: ops_per_iter(fn, n) for k, fn in (
+        ("run", lambda: eng.run(init, n)),
+        ("run_stats", lambda: eng.run_stats(init, n)))}
+    OBSERVE["run_stats"] = {
+        "cell": "pairs (streamed)", "iters": n, "host_syncs": syncs,
+        "launches": counts, "digest": st.summary(),
+        "residual": st.residual, "changed": st.changed,
+        "ms_per_iter": ms, "host_enqueue_ms_per_iter": host,
+        "ops_per_iter": ops,
+        "ops_added_per_iter": ops["run_stats"]["non_view_ops"]
+        - ops["run"]["non_view_ops"]}
+
+
+def observe_counters_push(args, torch, eng, label, it):
+    """converge_stats on the sssp cell: every counter equal, bit for
+    bit, to what the engine's own steps give one at a time (frontier:
+    the active count after the step; out-edges: the out-degree sum of
+    the frontier entering it; per part and their sums); the same host
+    syncs as converge (one an iteration); the BFS level sizes beside
+    the frontier (they differ where a sparse iteration's queue passes
+    its edge budget: the unexpanded suffix stays active); its cost
+    against converge in turns and the ops it adds an iteration."""
+    from lux_tpu_torch.apps.sssp import HOP_INF
+    l0, a0 = eng.init_state()
+    (lab, _a, it2, fsz, fed, fszp, fedp), counts, syncs = counted_sync_run(
+        torch, lambda: eng.converge_stats(l0, a0))
+    _l, _a, _it, _c, plain_syncs, _sch = converge_counted(torch, eng)
+    require(it2 == it and torch.equal(lab, label),
+            f"observe sssp: converge_stats ran {it2} iterations (plain "
+            f"{it}) or other labels")
+    require(syncs == plain_syncs <= it,
+            f"observe sssp: {syncs} host syncs (converge: {plain_syncs}, "
+            f"iterations {it})")
+    deg = eng.sg.deg_padded.astype(np.int64)           # [P, vpad]
+    lab_s, act_s = eng.init_state()
+    want_f, want_e, want_fp = [], [], []
+    for _ in range(it):
+        act_h = act_s.cpu().numpy()
+        want_e.append(int((deg * act_h).sum()))
+        lab_s, act_s, cnt = eng.step(lab_s, act_s)
+        want_f.append(int(cnt))
+        want_fp.append(act_s.sum(1, dtype=torch.int32).cpu().tolist())
+    require(torch.equal(lab_s, label), "observe sssp: the stepwise labels "
+                                       "are not converge's")
+    got_f = fsz[:it].cpu().numpy().astype(np.int64).tolist()
+    got_e = fed[:it].cpu().numpy().astype(np.int64).tolist()
+    require(got_f == want_f and got_e == want_e
+            and fszp[:it].cpu().tolist() == want_fp,
+            f"observe sssp: counters frontier {got_f} edges {got_e} != "
+            f"the stepwise {want_f} / {want_e}")
+    require(torch.equal(fszp[:it].sum(1, dtype=torch.int32), fsz[:it])
+            and torch.equal(fedp[:it].sum(1), fed[:it]),
+            "observe sssp: per-part rows do not sum to the scalars")
+    levels = eng.unpad(label)
+    sizes = np.bincount(levels[levels < HOP_INF]).astype(np.int64)
+    ms = {"converge": [], "converge_stats": []}
+    for kind in ("converge", "converge_stats", "converge_stats",
+                 "converge"):
+        fn = (lambda: eng.converge_stats(l0, a0)) \
+            if kind == "converge_stats" else (lambda: eng.converge(l0, a0))
+        ms[kind].append(wall_ms(torch, fn) / it)
+    ops = {"converge": ops_per_iter(lambda: eng.converge(l0, a0), it),
+           "converge_stats": ops_per_iter(
+               lambda: eng.converge_stats(l0, a0), it)}
+    OBSERVE["converge_stats"] = {
+        "cell": "sssp", "iterations": it2, "host_syncs": syncs,
+        "frontier": got_f, "edges": got_e,
+        "bfs_level_sizes": sizes.tolist(),
+        "queue_cap": eng.queue_cap, "edge_budget": eng.edge_budget,
+        "schedule": list(eng.schedule), "launches": counts,
+        "ms_per_iter": ms, "ops_per_iter": ops,
+        "ops_added_per_iter": ops["converge_stats"]["non_view_ops"]
+        - ops["converge"]["non_view_ops"]}
+
+
+def observe_profiler(args, torch, eng):
+    """One profiling.trace session over 10 iterations of the pairs cell:
+    the Chrome trace holds 10 lux_gather / lux_reduce / lux_apply /
+    lux_exchange ranges; the pull engine's idle share from its device
+    time (as converge_profile reckons it); the plain run's host enqueue
+    an iteration with the ranges entered and without, in turns."""
+    import tempfile
+
+    from lux_tpu_torch import profiling
+    n = OBS_ITERS
+    init = eng.init_state()
+    eng.run(init, 2)
+    walls = sorted(wall_ms(torch, lambda: eng.run(init, n))
+                   for _ in range(3))
+    tmp = tempfile.mkdtemp(prefix="lux_smoke_trace_")
+    with profiling.trace(tmp):
+        t0 = time.perf_counter()
+        eng.run(init, n)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(tmp, profiling.TRACE_FILE)
+    evs = [e for e in json.load(open(path)).get("traceEvents", [])
+           if e.get("ph") == "X"]
+    # host ranges are "user_annotation"; the card's copy of a range
+    # ("gpu_user_annotation") is not counted
+    names = [e.get("name") for e in evs if e.get("cat") == "user_annotation"]
+    ranges = {r: names.count(r) for r in (
+        "lux_exchange", "lux_gather", "lux_reduce", "lux_apply",
+        "lux_pagerank", "lux_gather_reduce")}
+    for r in ("lux_exchange", "lux_gather", "lux_reduce", "lux_apply"):
+        require(ranges[r] == n, f"observe: the trace holds {ranges[r]} "
+                                f"{r} ranges (want {n})")
+    # device time: the trace's kernels, copies and fills
+    dev = [e for e in evs if e.get("cat") in ("kernel", "gpu_memcpy",
+                                              "gpu_memset")]
+    busy = sum(e.get("dur", 0) for e in dev) / 1e3
+    by_name: dict = {}
+    for e in dev:
+        by_name[e["name"][:80]] = by_name.get(e["name"][:80], 0.0) \
+            + e.get("dur", 0) / 1e3
+    rows = sorted(([k, v] for k, v in by_name.items()),
+                  key=lambda r: -r[1])
+    trace_bytes = os.path.getsize(path)
+    os.remove(path)
+    os.rmdir(tmp)
+    # record_function is a dispatcher op: enqueue with the ranges
+    # entered (profiling.active forced on, no profiler) and without
+    real = profiling.active
+    enq = {"without": [], "with": []}
+    for kind in ("without", "with", "with", "without"):
+        profiling.active = (lambda: True) if kind == "with" else real
+        try:
+            enq[kind].append(host_ms(torch, lambda: eng.run(init, n), 2) / n)
+        finally:
+            profiling.active = real
+    OBSERVE["profiler"] = {
+        "cell": "pairs (streamed)", "iters": n, "ranges": ranges,
+        "trace_bytes": trace_bytes, "device_ms": busy,
+        "profiled_wall_ms": prof_wall, "plain_wall_ms": walls,
+        "idle_share_profiled": 1 - busy / prof_wall if busy else None,
+        "idle_share": 1 - busy / walls[1] if busy else None,
+        "device_events": len(dev), "top": rows[:8],
+        "host_enqueue_ms_per_iter": enq}
+
+
+def observe_spans(args, torch, eng):
+    """A supervised PageRank run of the pairs cell (segments of 2,
+    checkpointed) under an EventLog and IterStats: its state bit-equal
+    to the plain run, RunReport.counters the digest, trace_export then
+    validate_trace -> []; then, under a flight recorder, the NaN fault
+    of tests/test_tracing.py: FLIGHT.json written, read back with its
+    reason and the last health word."""
+    import tempfile
+
+    from lux_tpu_torch import (faults, health, resilience, telemetry,
+                               tracing)
+    n = OBS_ITERS
+    plain = eng.run(eng.init_state(), n)
+    tmp = tempfile.mkdtemp(prefix="lux_smoke_spans_")
+    ck = os.path.join(tmp, "pairs.npz")
+    ev = telemetry.EventLog(os.path.join(tmp, "events.jsonl"))
+    st = telemetry.IterStats()
+    with telemetry.use(events=ev, iter_stats=st) as tel:
+        tel.emit("run_start", schema=telemetry.SCHEMA, app="pagerank",
+                 config="pairs")
+        tel.emit("header", schema=telemetry.SCHEMA,
+                 **eng.sg.telemetry_header())
+        t0 = time.perf_counter()
+        out, rep = resilience.supervised_run(eng, n, ck, segment=2)
+        tel.emit("run_done", seconds=round(time.perf_counter() - t0, 6),
+                 iters=n)
+        tel.emit("iter_stats", **{("engine" if k == "kind" else k): v
+                                  for k, v in st.summary().items()})
+    ev.close()
+    require(same_bits(out, plain), "observe: the supervised run is not "
+                                   "bit-equal to the plain run")
+    require(rep.counters == st.summary() and rep.counters["iters"] == n,
+            f"observe: RunReport.counters {rep.counters}")
+    events, errs = tracing.load_events(os.path.join(tmp, "events.jsonl"))
+    trace = tracing.trace_export(events)
+    verrs = tracing.validate_trace(trace)
+    require(not errs and verrs == [],
+            f"observe: the supervised run's trace: {errs + verrs}")
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    # the flight recorder on an injected NaN (guarded engine)
+    flight = os.path.join(tmp, "FLIGHT.json")
+    rec = tracing.install_flight_recorder(flight, capacity=64)
+    plan = faults.FaultPlan(schedule={1: faults.NAN})
+    eng.health = True
+    try:
+        with telemetry.use(events=telemetry.EventLog()):
+            resilience.supervised_run(
+                eng, n, ck, segment=2, faults=plan, guard=False,
+                policy=resilience.RetryPolicy(retries=2,
+                                              sleep=lambda s: None))
+        raise SmokeFailure("observe: the NaN fault did not trip")
+    except health.HealthError:
+        pass
+    finally:
+        eng.health = False
+        tracing.uninstall_flight_recorder()
+    doc = tracing.load_flight(flight)
+    require(rec.dumps == 1 and doc["classification"] == "fatal"
+            and "HealthError" in doc["reason"]
+            and doc["health"]["kind"] == "health_trip"
+            and "nonfinite_state" in doc["health"]["flags"],
+            f"observe: FLIGHT.json {doc.get('reason')} {doc.get('health')}")
+    OBSERVE["spans"] = {
+        "cell": "pairs (streamed)", "events": len(events),
+        "kinds": ev.counts(), "trace_spans": len(spans),
+        "validate_trace": verrs, "counters": rep.counters,
+        "flight": {"reason": doc["reason"], "health": {
+            k: doc["health"].get(k) for k in ("flags", "iteration", "part")},
+            "ring": len(doc["events"]), "bytes": os.path.getsize(flight)}}
+    for f in os.listdir(tmp):
+        os.remove(os.path.join(tmp, f))
+    os.rmdir(tmp)
+
+
+def observe_ledger(torch, eng, name: str, run) -> None:
+    """MemoryLedger.for_engine against the measured bytes: the
+    allocator's peak over ``run()`` (torch.cuda.max_memory_allocated
+    after reset_peak_memory_stats; everything the process holds then
+    counts) and the engine's own argument bytes (engine_verdict).  A
+    verdict outside MEM_TOL is printed and recorded, not raised."""
+    from lux_tpu_torch import memwatch
+    led = memwatch.MemoryLedger.for_engine(eng, name)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    OBSERVE.setdefault("ledger", {})[name] = {
+        "terms": led.terms, "ledger_bytes": led.total_bytes,
+        "argument_bytes": led.argument_bytes(),
+        "allocated_before_run": before, "measured_peak_bytes": peak,
+        "peak_verdict": memwatch.drift_verdict(
+            peak, led.total_bytes, grade=memwatch.GRADE_MEASURED,
+            where=name),
+        "engine_verdict": memwatch.engine_verdict(eng, ledger=led)}
+
+
+def observed(fn, *args):
+    """Run one observe step, adding its wall seconds to the phase's."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    secs = OBSERVE.setdefault("seconds", {})
+    secs[fn.__name__] = secs.get(fn.__name__, 0.0) + round(
+        time.perf_counter() - t0, 3)
+    return out
+
+
+def phase_observe(card) -> None:
+    """Print what the observe steps gathered, one line each, then the
+    seconds each step took (the phase's share of the smoke)."""
+    for key in ("run_stats", "converge_stats", "phases", "profiler",
+                "spans", "ledger", "trail"):
+        require(key in OBSERVE, f"observe: no {key} record")
+        emit({"phase": "observe", "what": key, key: OBSERVE[key],
+              "card": card})
+    secs = OBSERVE.get("seconds", {})
+    emit({"phase": "observe", "what": "seconds", "seconds": secs,
+          "total_s": round(sum(secs.values()), 3), "card": card})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=21)
@@ -4828,6 +5307,7 @@ def main(argv=None) -> int:
     kline = phase_kernels(args, torch, eng)
     kline["launches"] = phase_main(args, torch, g, eng, card)
     phase_layers(args, torch, eng)
+    observed(observe_pull_split, torch, eng, "main")
     del eng
     torch.cuda.empty_cache()
     g2, sg = phase_paged_graph(args, torch, g)
@@ -4847,18 +5327,31 @@ def main(argv=None) -> int:
     g2, perm, starts, relabel = pair_relabelled(g)
     pair_counts, kpairs, case = phase_pairs(args, torch, g2, starts,
                                             relabel, card)
-    # the guarded cases run on each engine as its phase returns it
+    # the guarded and observe cases run on each engine as its phase
+    # returns it
     guarded = {"pagerank": guarded_pull(args, torch, *case)}
+    pair_eng = case[0]
     del case
     torch.cuda.empty_cache()
-    # the probes before the push phases: its torch.profiler count of S7
-    # must be the process's first profiler session (a later session can
-    # see a part of the device events)
+    # the probes before the push phases and the pairs engine's observe
+    # steps: its torch.profiler count of S7 must be the process's first
+    # profiler session (a later session can see a part of the device
+    # events); in the one run that had the probes before the pairs
+    # phase, that phase's host enqueue doubled (PERF.md §6, PR 15)
     probe_lines = phase_probes(args, torch, g, card)
+    observed(observe_counters_pull, args, torch, pair_eng)
+    observed(observe_profiler, args, torch, pair_eng)
+    observed(observe_spans, args, torch, pair_eng)
+    observed(observe_ledger, torch, pair_eng, "pairs_streamed",
+             lambda: pair_eng.run(pair_eng.init_state(), args.iters))
+    del pair_eng
+    torch.cuda.empty_cache()
     push_counts = {}
     b1_lines["sssp"], push_counts["sssp"], case = phase_sssp(
         args, torch, g, g2, perm, starts, card)
     guarded["sssp"] = guarded_push(torch, *case)
+    observed(observe_counters_push, args, torch, case[0], case[1], case[2])
+    observed(observe_push_split, torch, case[0], "sssp", case[2])
     del g, g2, perm, starts, case
     torch.cuda.empty_cache()
     b1_lines["cc"], push_counts["cc"] = phase_cc(args, torch, card)
@@ -4868,6 +5361,8 @@ def main(argv=None) -> int:
     batch_lines, batch_paths, batch_ref, case = phase_batch(args, torch,
                                                             card)
     guarded["ksssp_batch"] = guarded_batch(torch, *case)
+    observed(observe_ledger, torch, case[0], "ksssp_batch",
+             lambda: case[0].converge(*case[0].init_state()))
     del case
     torch.cuda.empty_cache()
     paged_lines, paged_paths = phase_batch_paged(args, torch, *batch_ref,
@@ -4877,6 +5372,7 @@ def main(argv=None) -> int:
     for path, n in {**batch_paths, **paged_paths}.items():
         by_path[path] = {k: n[k] for k in ("chunk_partials", "lane_shuffle")}
     phase_guarded(torch, guarded, card)
+    phase_observe(card)
     by_path["pairs"] = pair_counts["streamed"]
     by_path["pairs_monolithic"] = pair_counts["monolithic"]
     for path, n in push_counts.items():

@@ -16,7 +16,8 @@ counterpart is easy to find:
                   the probe kernels carry / fused_carry, onehot_reduce
                   and transposed_reduce (csrc/carry.cu, fused_carry.cu,
                   onehot_mma.cu, transposed_reduce.cu)
-  engine/         vertex-program bundle and the pull engine
+  engine/         vertex-program bundle, the pull and push engines,
+                  phased.py (timed_phases' PhaseTimer)
   apps/           PageRank
   timing.py       CUDA-event timed runs, loop_bench, median_mad
   probes/         counterparts of the TPU probe scripts
@@ -33,6 +34,10 @@ counterpart is easy to find:
   segmented.py    segmented drivers, DurationBudget
   faults.py       deterministic fault injection
   resilience.py   failure classification, supervised retry / resume
+  telemetry.py    event log, iteration counters (IterStats), observers
+  profiling.py    torch.profiler traces and the engines' named ranges
+  tracing.py      span export (Chrome trace) and the flight recorder
+  memwatch.py     memory trail, byte ledger, drift verdicts
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"`` (device.py).  Host planning stays numpy, as in the

@@ -78,7 +78,7 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     blocks (engine.pull.PullEngine).  ``health=True`` runs the
     watchdog variants (lux_tpu_torch/health.py).  Refused, naming their
     ROADMAP item: ``use_mxu=True`` (A8), ``audit`` (A12), ``mesh``
-    (A6) and ``pair_min_fill="auto"`` (A10); gather
+    (A6) and ``pair_min_fill="auto"`` (A10b); gather
     'pagemajor' raises the reference's ValueError."""
     dev = resolve_device(device)
     if g.weights is None:

@@ -250,11 +250,17 @@ def _check_placement(used: str, meta: dict, eng, kind: str) -> None:
 
 
 def _timed_save(path, state, meta):
-    """save() under a profiler range and a ``checkpoint_save`` event
-    (its staged bytes and seconds)."""
+    """save() under a ``lux_checkpoint_save`` profiler range and a
+    ``checkpoint_save`` event (its staged bytes and seconds); the staged
+    bytes are the memory ledger's ``checkpoint_staging`` term
+    (memwatch.note_staging)."""
+    from lux_tpu_torch import memwatch
+    from lux_tpu_torch.profiling import annotation
+
     t0 = time.perf_counter()
-    with torch.autograd.profiler.record_function("lux_checkpoint_save"):
+    with annotation("lux_checkpoint_save"):
         staged = save(path, state, meta)
+    memwatch.note_staging(staged)
     telemetry.current().emit(
         "checkpoint_save", iter=int(meta.get("iter", 0)),
         engine=meta.get("kind"), path=path, staged_bytes=int(staged),

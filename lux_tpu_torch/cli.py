@@ -62,15 +62,34 @@ checkpoint, ``-resume`` continuing a run a previous invocation (of
 either package) checkpointed.  The supervised path prints ``#
 supervisor: attempts=... segments=... resumed_from=[...]`` and, for a
 run the checkpoint already completed, ``GTEPS = n/a (run already
-complete in checkpoint)``.  ``-elastic`` (ROADMAP A6) and ``-flight``
-(A10) are refused (exit 2).
+complete in checkpoint)``.  ``-elastic`` (ROADMAP A6) is refused (exit
+2).
+
+Every app but ``convert`` takes the observability flags
+(lux_tpu/cli.py:84, :113, :210-244, :288-330, :395-445):
+``-verbose`` prints the load line, the memory advisor's estimate
+(ShardedGraph.memory_report) and, for ``sssp`` / ``components``, the
+converge's per-iteration ``iter i: frontier=F edges=E`` lines replayed
+from its device-side counters; ``-phases N`` runs N more iterations
+phase by phase after the timed run and prints ``iter i: ...
+gather=...ms`` (push: ``frontier=F`` and the dense phases, or
+``sparse``); ``-profile DIR`` writes the timed run's profiler trace to
+``DIR/trace.json``; ``-events FILE`` writes the run's telemetry events
+as JSONL (``python -m lux_tpu_torch.tracing FILE`` exports them);
+``-iter-stats`` records the timed run's per-iteration counters and
+prints them after it; ``-flight FILE`` installs the crash flight
+recorder, which the supervisor dumps to FILE on a fatal failure.
+``-calibrate`` (the session-calibration probe) waits for ROADMAP A10b
+and is refused (exit 2).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -90,6 +109,8 @@ def _relabel_for_pairs(args, g, num_parts):
     if args.pair is None:
         return g, None, None
     from lux_tpu_torch.graph import pair_relabel
+    if getattr(args, "verbose", False):
+        print(f"pair-lane: degree relabel + threshold {args.pair}")
     return pair_relabel(g, num_parts, pair_threshold=args.pair)
 
 
@@ -186,8 +207,39 @@ def _add_guard_flags(ap) -> None:
                     help="not ported (ROADMAP A6: degraded-mesh "
                          "recovery needs several devices)")
     ap.add_argument("-flight", default=None, metavar="FILE",
-                    help="not ported (ROADMAP A10: the crash flight "
-                         "recorder)")
+                    help="install the crash flight recorder "
+                         "(lux_tpu_torch/tracing.py): a bounded ring of "
+                         "recent telemetry events, the last health word "
+                         "and placement metadata, dumped atomically to "
+                         "FILE by the supervisor on a fatal failure")
+
+
+def _add_observe_flags(ap) -> None:
+    """The observability flags (lux_tpu/cli.py:84, :113, :210-244)."""
+    ap.add_argument("-verbose", action="store_true",
+                    help="print the load line, the memory advisor's "
+                         "estimate and (push apps) the per-iteration "
+                         "frontier series replayed from the converge's "
+                         "device-side counters")
+    ap.add_argument("-phases", type=int, default=0, metavar="N",
+                    help="after the timed run, run N iterations phase by "
+                         "phase (each fenced) and print the split; read "
+                         "relative weights, not GTEPS")
+    ap.add_argument("-profile", default=None, metavar="DIR",
+                    help="write a profiler trace of the timed run to "
+                         "DIR/trace.json (chrome://tracing, Perfetto)")
+    ap.add_argument("-events", default=None, metavar="FILE",
+                    help="append the run's telemetry events to FILE as "
+                         "JSONL (export: python -m lux_tpu_torch.tracing "
+                         "FILE)")
+    ap.add_argument("-iter-stats", action="store_true", dest="iter_stats",
+                    help="record the timed run's per-iteration counters "
+                         "on the device (push: frontier and edges "
+                         "relaxed; pull: residual and changed vertices) "
+                         "and print them after it")
+    ap.add_argument("-calibrate", action="store_true",
+                    help="not ported (ROADMAP A10b: the session "
+                         "calibration probe)")
 
 
 def _refuse_unported_flags(args) -> None:
@@ -195,9 +247,85 @@ def _refuse_unported_flags(args) -> None:
         raise NotPortedError("-elastic (re-placement over the surviving "
                              "devices after a topology fault) is not "
                              "ported yet (ROADMAP A6)")
+    if getattr(args, "calibrate", False):
+        raise NotPortedError("-calibrate (the session calibration probe "
+                             "and its fingerprint) is not ported yet "
+                             "(ROADMAP A10b)")
+
+
+@contextlib.contextmanager
+def _telemetry(args, app):
+    """The run's telemetry sinks from -events / -iter-stats, and the
+    flight recorder from -flight (lux_tpu/cli.py:395-420).  Without
+    them the handle is the null one."""
+    from lux_tpu_torch import telemetry, tracing
+
     if args.flight:
-        raise NotPortedError("-flight (the crash flight recorder) is not "
-                             "ported yet (ROADMAP A10)")
+        tracing.install_flight_recorder(args.flight)
+    ev = telemetry.EventLog(args.events) if args.events else None
+    st = telemetry.IterStats() if args.iter_stats else None
+    try:
+        with telemetry.use(events=ev, iter_stats=st) as tel:
+            tel.emit("run_start", schema=telemetry.SCHEMA, app=app,
+                     file=args.file, np=args.np)
+            yield tel
+    finally:
+        if ev is not None:
+            ev.close()
+        if args.flight:
+            tracing.uninstall_flight_recorder()
+
+
+def _finish_run(tel, elapsed, iters) -> None:
+    """``run_done``, and the -iter-stats replay with its per-part table
+    (lux_tpu/cli.py:424-445)."""
+    tel.emit("run_done", seconds=round(elapsed, 6), iters=iters)
+    st = tel.iter_stats
+    if st is None or st.kind is None:
+        return
+    print("# iter-stats (device-side counters, fused run):")
+    for line in st.replay_lines():
+        print(line)
+    for line in st.parts_lines():
+        print(f"# {line}")
+    tel.emit("iter_stats", **{("engine" if k == "kind" else k): v
+                              for k, v in st.summary().items()})
+
+
+def _print_phases(report, tel=None) -> None:
+    """The per-iteration phase table (lux_tpu/cli.py:307-323), also
+    emitted as one ``phases`` event."""
+    META = ("frontier", "bucket", "advances")
+    for i, t in enumerate(report):
+        extra = "".join(f" {k}={t[k]:g}" for k in META if k in t)
+        split = "  ".join(f"{k}={v * 1e3:7.2f}ms" for k, v in t.items()
+                          if k not in META)
+        print(f"iter {i}:{extra}  {split}")
+    if tel is not None:
+        tel.emit("phases", iters=len(report),
+                 report=[{k: (v if k in META else round(v, 6))
+                          for k, v in t.items()} for t in report])
+
+
+def _print_loaded(args, g, seconds: float) -> None:
+    if args.verbose:
+        print(f"loaded nv={g.nv} ne={g.ne} weighted={g.weights is not None}"
+              f" ({seconds:.2f}s)")
+
+
+def _print_memory(args, eng, num_parts: int) -> None:
+    """-verbose: the memory advisor's estimate of the engine's layout
+    (reference cli.py:586-592)."""
+    from lux_tpu_torch import telemetry
+    telemetry.current().emit("header", schema=telemetry.SCHEMA,
+                             **eng.sg.telemetry_header())
+    if args.verbose:
+        rep = eng.sg.memory_report()
+        print(f"memory: {rep['total_bytes'] / 1e6:.1f} MB total over "
+              f"{num_parts} part(s) "
+              f"({rep['edge_bytes_per_part'] / 1e6:.1f} MB edges + "
+              f"{rep['vertex_bytes_per_part'] / 1e6:.1f} MB vertices "
+              f"per part)")
 
 
 def _supervisor_opts(args, app):
@@ -210,6 +338,14 @@ def _supervisor_opts(args, app):
     import tempfile
 
     from lux_tpu_torch import resilience
+
+    if getattr(args, "profile", None):
+        print("note: -profile is ignored on the supervised path "
+              "(segments are separate runs)")
+    if getattr(args, "verbose", False):
+        print("note: -verbose is ignored on the supervised path; "
+              "-iter-stats records per-iteration counters across "
+              "segments instead")
 
     path = args.resume or os.path.join(
         tempfile.gettempdir(),
@@ -291,9 +427,15 @@ def cmd_pagerank(argv) -> int:
                          "path); 'auto' is not ported")
     _add_batch_flags(ap)
     _add_guard_flags(ap)
+    _add_observe_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    _refuse_unported_flags(args)
+    with _telemetry(args, "pagerank") as tel:
+        return _pagerank(args, tel)
 
+
+def _pagerank(args, tel) -> int:
     from lux_tpu_torch.apps import pagerank
     from lux_tpu_torch.format import GraphFormatError
     from lux_tpu_torch.graph import Graph
@@ -301,15 +443,16 @@ def cmd_pagerank(argv) -> int:
     from lux_tpu_torch.timing import timed_fused_run
 
     resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
-    _refuse_unported_flags(args)
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     try:
         g = Graph.from_file(args.file)
     except GraphFormatError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    _print_loaded(args, g, time.perf_counter() - t0)
     num_parts = max(1, args.np)
     sources = _batched_sources(args, g.nv)
     g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
@@ -318,15 +461,22 @@ def cmd_pagerank(argv) -> int:
                                 pair_threshold=args.pair,
                                 pair_min_fill=args.min_fill,
                                 sources=sources, health=args.health)
+    _print_memory(args, eng, num_parts)
     sup = _supervisor_opts(args, "pagerank")
     if sup is not None:
-        state, _total, elapsed, ni, mark = _run_supervised(
+        state, total, elapsed, ni, mark = _run_supervised(
             eng, sup, args, ni=args.ni)
     else:
-        state, elapsed = timed_fused_run(eng, args.ni)
-        ni, mark = args.ni, ""
+        state, elapsed = timed_fused_run(eng, args.ni,
+                                         trace_dir=args.profile)
+        total = ni = args.ni
+        mark = ""
     print(f"ELAPSED TIME = {elapsed:.7f} s")
     _print_gteps(g.ne, ni, elapsed, mark)
+    _finish_run(tel, elapsed, total)
+    if args.phases:
+        _state, rep = eng.timed_phases(eng.init_state(), args.phases)
+        _print_phases(rep, tel)
     if sources is not None:
         _print_batch(sources, g.ne, ni, elapsed)
         if args.check:
@@ -363,6 +513,7 @@ def _push_app(argv, prog_name) -> int:
     _add_batch_flags(ap)
     _add_guard_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
+    _add_observe_flags(ap)
     if prog_name == "sssp":
         ap.add_argument("-start", type=int, default=0,
                         help="start vertex (input id)")
@@ -372,6 +523,12 @@ def _push_app(argv, prog_name) -> int:
                         help="delta-stepping bucket width (a number or "
                              "'auto'; default: off)")
     args = ap.parse_args(argv)
+    _refuse_unported_flags(args)
+    with _telemetry(args, prog_name) as tel:
+        return _push_run(args, tel, prog_name)
+
+
+def _push_run(args, tel, prog_name) -> int:
 
     from lux_tpu_torch import device_check
     from lux_tpu_torch.apps import components, sssp
@@ -381,16 +538,17 @@ def _push_app(argv, prog_name) -> int:
     from lux_tpu_torch.timing import timed_converge
 
     resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
-    _refuse_unported_flags(args)
     weighted = prog_name == "sssp" and args.weighted
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     try:
         g = Graph.from_file(args.file, weighted=weighted or None)
     except GraphFormatError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    _print_loaded(args, g, time.perf_counter() - t0)
     num_parts = max(1, args.np)
     sources = _batched_sources(args, g.nv)
     g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
@@ -414,15 +572,22 @@ def _push_app(argv, prog_name) -> int:
                                 delta=delta, **opts)
     else:
         eng = components.build_engine(g_run, **opts)
+    _print_memory(args, eng, num_parts)
     sup = _supervisor_opts(args, prog_name)
     if sup is not None:
         labels, iters, elapsed, it_exec, mark = _run_supervised(eng, sup,
                                                                 args)
     else:
-        labels, iters, [elapsed] = timed_converge(eng)
+        labels, iters, [elapsed] = timed_converge(
+            eng, verbose=args.verbose, trace_dir=args.profile)
         it_exec, mark = iters, ""
     print(f"ELAPSED TIME = {elapsed:.7f} s ({iters} iterations)")
     _print_gteps(g.ne, it_exec, elapsed, mark)
+    _finish_run(tel, elapsed, iters)
+    if args.phases:
+        lab0, act0 = eng.init_state()
+        _l, _a, rep = eng.timed_phases(lab0, act0, args.phases)
+        _print_phases(rep, tel)
     if sources is not None:
         _print_batch(sources, g.ne, it_exec, elapsed)
         if args.check:
@@ -469,9 +634,15 @@ def cmd_colfilter(argv) -> int:
                          "(bench.py's colfilter config uses 22); 'auto' "
                          "is not ported")
     _add_guard_flags(ap)
+    _add_observe_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    _refuse_unported_flags(args)
+    with _telemetry(args, "colfilter") as tel:
+        return _colfilter(args, tel)
 
+
+def _colfilter(args, tel) -> int:
     from lux_tpu_torch import device_check
     from lux_tpu_torch.apps import colfilter
     from lux_tpu_torch.format import GraphFormatError
@@ -480,15 +651,16 @@ def cmd_colfilter(argv) -> int:
     from lux_tpu_torch.timing import timed_fused_run
 
     resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
-    _refuse_unported_flags(args)
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     try:
         g = Graph.from_file(args.file, weighted=True)
     except GraphFormatError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    _print_loaded(args, g, time.perf_counter() - t0)
     num_parts = max(1, args.np)
     g_run, _perm, starts = _relabel_for_pairs(args, g, num_parts)
     # the whole graph's layout: the audit reads every edge, while a
@@ -506,15 +678,22 @@ def cmd_colfilter(argv) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    _print_memory(args, eng, num_parts)
     sup = _supervisor_opts(args, "colfilter")
     if sup is not None:
-        state, _total, elapsed, ni, mark = _run_supervised(
+        state, total, elapsed, ni, mark = _run_supervised(
             eng, sup, args, ni=args.ni)
     else:
-        state, elapsed = timed_fused_run(eng, args.ni)
-        ni, mark = args.ni, ""
+        state, elapsed = timed_fused_run(eng, args.ni,
+                                         trace_dir=args.profile)
+        total = ni = args.ni
+        mark = ""
     print(f"ELAPSED TIME = {elapsed:.7f} s")
     _print_gteps(g.ne, ni, elapsed, mark)
+    _finish_run(tel, elapsed, total)
+    if args.phases:
+        _state, rep = eng.timed_phases(eng.init_state(), args.phases)
+        _print_phases(rep, tel)
     out = eng.unpad(state)
     # out is in g_run's order; the RMSE runs over its edges, so the
     # relabelled graph is the matching choice

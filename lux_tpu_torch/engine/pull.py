@@ -49,8 +49,20 @@ The reference fuses a fixed-iteration run into one XLA program; here a
 run is a Python loop over ``step`` on the device's stream.  With
 ``health=True`` a run takes the watchdog variant (``run_health``:
 lux_tpu_torch/health.py's word folded each iteration on the device,
-decoded once at the end).  The
-reference's exchange variants (owner), ``gather="auto"``, streamed
+decoded once at the end).
+
+Observability (lux_tpu/engine/pull.py:964-1110, :1244-1432):
+``run_stats`` / ``run_until_stats`` write each iteration's residual and
+changed-vertex counts (and their per-part rows) into device buffers of
+``stats_cap`` rows at the host-known iteration index, so ``run_stats``
+reads nothing to the host until the caller fetches the buffers;
+``timed_phases`` runs the step's phases (``exchange``, then ``gather``
+and ``reduce``, or ``gather_reduce`` on paged rows, or ``dot_reduce``
+on the dot path, then ``apply``) one at a time, fenced, through the
+same methods ``step`` calls; and ``step`` names its phases as profiler
+ranges (profiling.annotation: entered only while a profiler records).
+
+The reference's exchange variants (owner), ``gather="auto"``, streamed
 chunk blocks and the mesh are refused with a typed
 :class:`NotPortedError` naming the ROADMAP item that brings them.
 """
@@ -84,6 +96,8 @@ from lux_tpu_torch.ops.segment import segment_reduce
 from lux_tpu_torch.ops.tiled import (TiledLayout, combine_op,
                                      combine_partials, segment_plan,
                                      tiled_segment_reduce)
+from lux_tpu_torch.profiling import annotation, device_fence
+from lux_tpu_torch.telemetry import DEFAULT_STATS_CAP
 
 # exchange="auto" picks the owner exchange once the flat state table
 # passes this many bytes — the reference's rule (engine/pull.py:80)
@@ -388,6 +402,7 @@ class PullEngine(Placement):
     plan_seconds = 0.0      # host seconds spent building the paged or
                             # pair plan
     health = False          # run the watchdog variants (health.py)
+    stats_cap = DEFAULT_STATS_CAP   # rows of the counter buffers
 
     def __init__(self, sg: ShardedGraph, program: PullProgram, *,
                  device=None, layout: str = "tiled", tile_e: int = 512,
@@ -398,7 +413,7 @@ class PullEngine(Placement):
                  stream_msgs: bool | None = None, mesh=None,
                  dot_block_chunks: int | None = None,
                  dot_block_rows: int | None = None,
-                 health: bool = False):
+                 health: bool = False, stats_cap: int | None = None):
         """``pair_threshold``: serve the edges of (src tile, dst tile)
         pairs with at least this many edges by pair-lane rows
         (ops/pairs.py; needs vpad % 128 == 0), the rest by the tiled
@@ -413,13 +428,16 @@ class PullEngine(Placement):
         them beyond the order of float sums.
         ``health=True``: ``run`` and the segmented drivers take the
         watchdog variants (``run_health`` / ``run_until_health``,
-        lux_tpu_torch/health.py)."""
+        lux_tpu_torch/health.py).  ``stats_cap``: rows of the
+        per-iteration counter buffers (default
+        telemetry.DEFAULT_STATS_CAP); writes past it drop."""
         dev = resolve_device(device)
         if mesh is not None:
             _refuse("a device mesh", "A6")
         if gather == "auto":
             _refuse("gather='auto' (it resolves through scalemodel, "
-                    "whose constants were measured on the TPU)", "A10")
+                    "whose constants are the TPU's until the card's own "
+                    "are measured)", "A10b")
         if gather in ("paged", "pagemajor") and pair_threshold is not None:
             raise ValueError(
                 f"gather={gather!r} subsumes pair delivery (both are "
@@ -458,6 +476,10 @@ class PullEngine(Placement):
                    dot_block_rows=dot_block_rows)
         self.plan_seconds = plan_seconds
         self.health = bool(health)
+        if stats_cap is not None:
+            if int(stats_cap) < 1:
+                raise ValueError(f"stats_cap must be >= 1, got {stats_cap}")
+            self.stats_cap = int(stats_cap)
 
     @classmethod
     def from_arrays(cls, program: PullProgram, arrays: dict, tiles, *,
@@ -784,29 +806,97 @@ class PullEngine(Placement):
             red = red + self._pair_dot_red(flat_state)
         return red
 
+    # -- the phases of one iteration (the reference's names) -----------
+
+    def _phase_exchange(self, state):
+        """exchange: the flat [P*vpad, ...] state table every part reads
+        (one device: a view of the state)."""
+        return state.reshape((-1,) + tuple(state.shape[2:]))
+
+    def _phase_gather(self, flat):
+        """gather: per-edge source (and destination) values -> the
+        messages."""
+        return self._messages(flat)
+
+    def _phase_reduce(self, flat, msgs):
+        """reduce: the residual's per-vertex reduction, then the pair
+        rows' delivery and reduction combined into it, as the reference
+        combines them (engine/pull.py:591)."""
+        red = self._reduce(msgs)
+        if self.pairs is not None:
+            red = combine_op(self.program.reduce)(red, self._pair_red(flat))
+        return red
+
+    def _phase_gather_reduce(self, flat):
+        """gather_reduce: the paged delivery, which fetches and reduces
+        in one go."""
+        return self._paged_red(flat)
+
+    def _phase_dot_reduce(self, flat, state):
+        """dot_reduce: the blocked SDDMM delivery and its combine."""
+        if self.page_plan is not None:
+            return self._paged_dot_red(flat)
+        return self._dot_red(state, flat)
+
+    def _phase_apply(self, state, red):
+        """apply: the per-vertex epilogue."""
+        return self._apply_epilogue(state, red)
+
+    def _delivery(self, state, flat):
+        """The phases between exchange and apply, each under its
+        profiler range."""
+        if self.dot:
+            with annotation("lux_dot_reduce"):
+                return self._phase_dot_reduce(flat, state)
+        if self.page_plan is not None:
+            with annotation("lux_gather_reduce"):
+                return self._phase_gather_reduce(flat)
+        with annotation("lux_gather"):
+            msgs = self._phase_gather(flat)
+        with annotation("lux_reduce"):
+            return self._phase_reduce(flat, msgs)
+
     # -- the step -------------------------------------------------------
 
     def reduced(self, state: torch.Tensor) -> torch.Tensor:
         """One iteration's delivery and reduce, before the apply
         epilogue: [P, vpad, ...] -> the per-vertex reductions [P, vpad,
         ...] (the reduce identity where no edge arrives)."""
-        flat = state.reshape((-1,) + tuple(state.shape[2:]))
-        if self.page_plan is not None:
-            if self.dot:
-                return self._paged_dot_red(flat)
-            return self._paged_red(flat)
-        if self.dot:
-            return self._dot_red(state, flat)
-        red = self._reduce(self._messages(flat))
-        if self.pairs is not None:
-            # the residual's reduction, then the pair rows', as the
-            # reference combines them (engine/pull.py:591)
-            red = combine_op(self.program.reduce)(red, self._pair_red(flat))
-        return red
+        return self._delivery(state, self._phase_exchange(state))
 
     def step(self, state: torch.Tensor) -> torch.Tensor:
         """One iteration: [P, vpad, ...] -> [P, vpad, ...]."""
-        return self._apply_epilogue(state, self.reduced(state))
+        with annotation(f"lux_{self.program.name or 'pull'}"):
+            with annotation("lux_exchange"):
+                flat = self._phase_exchange(state)
+            red = self._delivery(state, flat)
+            with annotation("lux_apply"):
+                return self._phase_apply(state, red)
+
+    def timed_phases(self, state: torch.Tensor, iters: int = 1):
+        """``iters`` iterations run phase by phase, each fenced (a
+        device synchronize on the card) -> (state, [{phase: seconds}])
+        (lux_tpu/engine/pull.py:1397).  The phases are the methods
+        ``step`` calls, in its order, so the state is ``run``'s.  The
+        fences and host returns between phases are not in a plain run:
+        read the split for relative weight, not for the rate."""
+        from lux_tpu_torch.engine.phased import PhaseTimer
+        fence = device_fence(self.device)
+        fence()             # the caller's queued work is no phase's
+        report = []
+        for _ in range(int(iters)):
+            pt = PhaseTimer(fence)
+            flat = pt("exchange", self._phase_exchange, state)
+            if self.dot:
+                red = pt("dot_reduce", self._phase_dot_reduce, flat, state)
+            elif self.page_plan is not None:
+                red = pt("gather_reduce", self._phase_gather_reduce, flat)
+            else:
+                msgs = pt("gather", self._phase_gather, flat)
+                red = pt("reduce", self._phase_reduce, flat, msgs)
+            state = pt("apply", self._phase_apply, state, red)
+            report.append(pt.t)
+        return state, report
 
     def run(self, state: torch.Tensor, num_iters: int,
             seg_budget: float | None = None) -> torch.Tensor:
@@ -854,12 +944,39 @@ class PullEngine(Placement):
         changed int32 [cap] and their per-part rows [cap, P] (the
         reference's are uint32 counts; torch's uint32 has thin CUDA
         coverage).  Writes past ``stats_cap`` drop."""
-        from lux_tpu_torch.telemetry import DEFAULT_STATS_CAP
-        cap, P, dev = DEFAULT_STATS_CAP, self.num_parts, self.device
+        cap, P, dev = self.stats_cap, self.num_parts, self.device
         return (torch.zeros((cap,), dtype=torch.float32, device=dev),
                 torch.zeros((cap,), dtype=torch.int32, device=dev),
                 torch.zeros((cap, P), dtype=torch.float32, device=dev),
                 torch.zeros((cap, P), dtype=torch.int32, device=dev))
+
+    def run_stats(self, state: torch.Tensor, num_iters: int):
+        """``run`` plus the per-iteration counters -> (state, residual
+        f32 [stats_cap], changed int32 [stats_cap], residual per part
+        f32 [stats_cap, P], changed per part int32 [stats_cap, P])
+        (lux_tpu/engine/pull.py:1012): residual[i] is iteration i's
+        max-abs state change, changed[i] the vertices it changed; the
+        scalars are the max / sum of the per-part rows.  Each counter is
+        written at the host-known index ``i``: no host read happens
+        until the caller fetches the buffers (telemetry.IterStats).
+        Iterations past ``stats_cap`` run and record nothing.  The state
+        is ``run``'s, bit for bit."""
+        bufs = _PullCounters(self)
+        for i in range(num_iters):
+            new = self.step(state)
+            bufs.write(i, new, state)
+            state = new
+        return state, bufs.rb, bufs.cb, bufs.rbp, bufs.cbp
+
+    def run_until_stats(self, state: torch.Tensor, tol: float,
+                        max_iters: int = np.iinfo(np.int32).max):
+        """``run_until`` plus ``run_stats``'s counters -> (state, it,
+        residual, residual_buf, changed_buf, residual_parts,
+        changed_parts) (lux_tpu/engine/pull.py:1097).  The loop keeps
+        ``run_until``'s one small read an iteration, the residual."""
+        bufs = _PullCounters(self)
+        state, it, res = self._run_until(state, tol, max_iters, bufs)
+        return state, it, res, bufs.rb, bufs.cb, bufs.rbp, bufs.cbp
 
     def run_health(self, state: torch.Tensor, num_iters: int, watch=None):
         """``num_iters`` iterations under the health watchdog: returns
@@ -935,16 +1052,44 @@ class PullEngine(Placement):
         return state, it, res
 
 
-class _PullGuard:
+class _PullCounters:
+    """The counter buffers of one pull run, written at host-known
+    iteration indices."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.rb, self.cb, self.rbp, self.cbp = eng._stats_bufs()
+
+    def write(self, it: int, new, old):
+        """Iteration ``it``'s counters into row ``it`` (dropped past the
+        buffers' end) -> the residual (a device scalar), or None when
+        dropped."""
+        if it >= self.rb.shape[0]:
+            return None
+        r, cnt, rp, cp = self.eng._iter_counters(new, old)
+        self.rb[it], self.cb[it] = r, cnt
+        self.rbp[it], self.cbp[it] = rp, cp
+        return r
+
+    def record(self, it: int, new, old):
+        """``write`` plus the one host read of the residual -> (residual,
+        flags=0)."""
+        r = self.write(it, new, old)
+        if r is None:
+            r = (new.float() - old.float()).abs().max()
+        return float(r), 0
+
+
+class _PullGuard(_PullCounters):
     """The device-side state of one guarded ``run_until``: the health
     word, the residual window and the counter buffers."""
 
     def __init__(self, eng):
         from lux_tpu_torch import health as hw
-        self.hw, self.eng = hw, eng
+        super().__init__(eng)
+        self.hw = hw
         self.h, self.win = hw.init_word(eng.device), hw.init_window(
             eng.device)
-        self.rb, self.cb, self.rbp, self.cbp = eng._stats_bufs()
 
     def record(self, it: int, new, old):
         """Fold iteration ``it`` into the word and the buffers; one host

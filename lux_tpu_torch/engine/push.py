@@ -39,12 +39,27 @@ empties; the loop reads one int32 an iteration, the count of active
 With ``health=True`` a converge takes the watchdog variant
 (``converge_health``): NaN labels and the truncation-livelock stall
 fold into lux_tpu_torch/health.py's word, whose flags ride the one read
-an iteration.  Options the port does not carry yet raise
-:class:`NotPortedError` naming the ROADMAP item that brings them.
+an iteration.
+
+Observability (lux_tpu/engine/push.py:1075-1160, :1182-1432):
+``converge_stats`` records each iteration's frontier size and the
+out-edges it relaxes (and their per-part rows) into device buffers of
+``stats_cap`` rows, with no read beyond the converge's one int32 an
+iteration; ``run(verbose=True)`` replays them; ``timed_phases`` runs
+dense iterations phase by phase (``exchange``, ``relax``, ``reduce``
+or, on paged rows, ``relax_reduce``, then ``update``), fenced, through
+the methods a converge calls, sparse ones as one ``sparse`` entry, and
+a delta engine's actual bucket schedule; and every iteration names its
+work as profiler ranges (``lux_dense`` / ``lux_sparse`` and the
+phases inside; profiling.annotation).
+
+Options the port does not carry yet raise :class:`NotPortedError`
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable
@@ -71,6 +86,8 @@ from lux_tpu_torch.ops.segment import segment_reduce
 from lux_tpu_torch.ops.tiled import (combine_op, segment_plan,
                                      tiled_segment_reduce)
 from lux_tpu_torch.partition import frontier_capacity
+from lux_tpu_torch.profiling import annotation, device_fence
+from lux_tpu_torch.telemetry import DEFAULT_STATS_CAP
 
 INT32_MAX = int(np.iinfo(np.int32).max)
 
@@ -122,6 +139,7 @@ class PushEngine(Placement):
     plan_seconds = 0.0      # host seconds spent building the paged or
                             # pair plan
     health = False          # converge under the watchdog (health.py)
+    stats_cap = DEFAULT_STATS_CAP   # rows of the counter buffers
 
     def __init__(self, sg: ShardedGraph, program: PushProgram, *,
                  device=None, mesh=None, layout: str = "tiled",
@@ -154,13 +172,14 @@ class PushEngine(Placement):
                     "programs: pair delivery reads scalar vertex state "
                     "(ops/pairs.pair_partial)")
             enable_sparse = False
-        if stats_cap is not None:
-            _refuse("device-side iteration counters (stats_cap)", "A10")
+        if stats_cap is not None and int(stats_cap) < 1:
+            raise ValueError(f"stats_cap must be >= 1, got {stats_cap}")
         if audit is not None:
             _refuse("the static program audit (audit=)", "A12")
         if gather == "auto":
             _refuse("gather='auto' (it resolves through scalemodel, "
-                    "whose constants were measured on the TPU)", "A10")
+                    "whose constants are the TPU's until the card's own "
+                    "are measured)", "A10b")
         fr.check_use_mxu(use_mxu)
         # the auto-exchange estimate is the whole label table's bytes: a
         # B-wide batch is B tables
@@ -219,6 +238,8 @@ class PushEngine(Placement):
                    edge_budget=eb, delta=delta)
         self.plan_seconds = plan_seconds
         self.health = bool(health)
+        if stats_cap is not None:
+            self.stats_cap = int(stats_cap)
 
     @classmethod
     def from_arrays(cls, program: PushProgram, arrays: dict, tiles, *,
@@ -427,11 +448,30 @@ class PushEngine(Placement):
         improved = self.program.better(red, label) & vm
         return torch.where(improved, red, label), improved
 
+    # the phases of a dense iteration (the reference's names)
+    _phase_exchange = _masked_flat
+    _phase_relax = _dense_cand
+    _phase_reduce = _dense_red
+    _phase_update = _dense_update
+
+    def _phase_relax_reduce(self, flat):
+        """relax_reduce: the paged delivery, which relaxes and reduces
+        in one go."""
+        return self._dense_red(flat, None)
+
     def _dense(self, label, active):
-        flat = self._masked_flat(label, active)
-        cand = None if self.page_plan is not None else \
-            self._dense_cand(flat)
-        return self._dense_update(label, self._dense_red(flat, cand))
+        with annotation("lux_exchange"):
+            flat = self._phase_exchange(label, active)
+        if self.page_plan is not None:
+            with annotation("lux_reduce"):
+                red = self._phase_relax_reduce(flat)
+        else:
+            with annotation("lux_relax"):
+                cand = self._phase_relax(flat)
+            with annotation("lux_reduce"):
+                red = self._phase_reduce(flat, cand)
+        with annotation("lux_update"):
+            return self._phase_update(label, red)
 
     # -- sparse iteration ----------------------------------------------
 
@@ -504,11 +544,14 @@ class PushEngine(Placement):
     def _body(self, label, active, count: int):
         """One iteration of ``active`` (host count ``count``)."""
         use_sparse, limit = self._sparse_mode()
-        if use_sparse and count <= limit:
-            self.schedule.append("sparse")
-            return self._sparse(label, active)
-        self.schedule.append("dense")
-        return self._dense(label, active)
+        with annotation(f"lux_{self.program.name or 'push'}"):
+            if use_sparse and count <= limit:
+                self.schedule.append("sparse")
+                with annotation("lux_sparse"):
+                    return self._sparse(label, active)
+            self.schedule.append("dense")
+            with annotation("lux_dense"):
+                return self._dense(label, active)
 
     # -- public API ----------------------------------------------------
 
@@ -531,6 +574,22 @@ class PushEngine(Placement):
             label, active, max_iters)
         hw.ensure_ok(watch, engine="push", where="push converge")
         return label, active, it
+
+    def converge_stats(self, label, active, max_iters: int | None = None):
+        """``converge`` plus the per-iteration counters -> (label,
+        active, iters, frontier int32 [stats_cap], edges int64
+        [stats_cap], frontier per part int32 [stats_cap, P], edges per
+        part int64 [stats_cap, P]) (lux_tpu/engine/push.py:1078).
+        Classic engines record the frontier after each iteration and
+        the out-edges of the frontier entering it; delta engines each
+        relax step's bucket front and its out-edges.  Each scalar is the
+        sum of its per-part row; writes past ``stats_cap`` drop, rows
+        past ``iters`` are zero (the reference's edges are uint32).  The
+        loop reads the same one int32 an iteration as ``converge``."""
+        stats = _PushStats(self, active)
+        label, active, it = self._converge(label, active, max_iters, stats)
+        return (label, active, it, stats.fsz, stats.fed, stats.fszp,
+                stats.fedp)
 
     def converge_health(self, label, active, max_iters: int | None = None,
                         watch=None):
@@ -611,8 +670,7 @@ class PushEngine(Placement):
             if guard is None:
                 nf, cnt = counts.cpu().tolist()          # the one read
             else:
-                nf, cnt, flags = torch.cat(
-                    [counts, guard.h[:1]]).cpu().tolist()
+                nf, cnt, flags = guard.read_bucket(counts)
                 if flags:
                     break
             if cnt == 0:
@@ -625,8 +683,7 @@ class PushEngine(Placement):
             nl, na = self._body(label, front, nf)
             active = (active & ~front) | na
             if guard is not None:
-                guard.cnt = counts[1]
-                guard.watch(label, nl, active.sum(dtype=torch.int32))
+                guard.watch_bucket(label, nl, counts, active)
             label = nl
             it += 1
         return label, active, it
@@ -635,38 +692,134 @@ class PushEngine(Placement):
             seg_budget: float | None = None):
         """init -> converge -> host labels [nv]; returns (labels,
         iterations).  ``seg_budget`` (seconds) converges in
-        duration-budgeted segments (segmented.DurationBudget)."""
-        if verbose:
-            _refuse("run(verbose=True) (it replays device-side iteration "
-                    "counters)", "A10")
+        duration-budgeted segments (segmented.DurationBudget).
+        ``verbose=True`` replays the converge's device-side counters,
+        one ``iter i: frontier=F edges=E`` line an iteration (a delta
+        engine's relax steps), also under ``seg_budget``, where the
+        counters accumulate across segments (lux_tpu/engine/push.py:
+        1121-1173).  Under an active ``telemetry.use(iter_stats=)`` the
+        counters land there."""
+        from lux_tpu_torch import telemetry
         label, active = self.init_state()
-        if seg_budget is not None:
-            from lux_tpu_torch.segmented import (DurationBudget,
-                                                 converge_segments)
-            label, active, it = converge_segments(
-                self, label, active,
-                DurationBudget(seg_budget),
-                max_iters)
-        else:
-            label, active, it = self.converge(label, active, max_iters)
+        tel = telemetry.current()
+        st = tel.iter_stats
+        ctx = contextlib.nullcontext()
+        if verbose and st is None:
+            st = telemetry.IterStats()
+            ctx = telemetry.use(events=tel.events, iter_stats=st)
+        with ctx:
+            if seg_budget is not None:
+                from lux_tpu_torch.segmented import (DurationBudget,
+                                                     converge_segments)
+                label, active, it = converge_segments(
+                    self, label, active, DurationBudget(seg_budget),
+                    max_iters)
+            elif self.health:
+                from lux_tpu_torch import health as hw
+                label, active, it, fsz, fed, fszp, fedp, watch = \
+                    self.converge_health(label, active, max_iters)
+                if st is not None:
+                    st.begin_run()
+                    st.extend_push(fsz, fed, it, fszp, fedp)
+                hw.ensure_ok(watch, engine="push", where="push converge")
+            elif st is not None:
+                st.begin_run()
+                label, active, it, fsz, fed, fszp, fedp = \
+                    self.converge_stats(label, active, max_iters)
+                st.extend_push(fsz, fed, it, fszp, fedp)
+            else:
+                label, active, it = self.converge(label, active, max_iters)
+        if verbose:
+            for line in st.replay_lines():
+                print(line)
         return self.unpad(label), it
 
+    # -- per-iteration phases -------------------------------------------
+
     def timed_phases(self, label, active, iters: int = 1):
-        _refuse("timed_phases (per-phase fenced programs)", "A10")
+        """``iters`` iterations, dense ones phase by phase, each phase
+        fenced (a device synchronize on the card) -> (label, active,
+        [{phase: seconds, "frontier": count}])
+        (lux_tpu/engine/push.py:1327).  Dense iterations split into
+        exchange / relax / reduce / update (relax_reduce on paged
+        rows); those the engine runs sparse are one ``sparse`` entry.
+        A delta engine runs its actual bucket schedule, each entry also
+        carrying the bucket bound and the advances before it.  The
+        phases are the methods a converge calls, in its order: the
+        labels are a converge's of the same iterations."""
+        device_fence(self.device)()   # the caller's queued work is no phase's
+        if self.delta is not None:
+            return self._timed_phases_delta(label, active, int(iters))
+        self.schedule = []
+        report = []
+        cnt = self._count(active)
+        for _ in range(int(iters)):
+            t = {"frontier": cnt}
+            label, active, cnt = self._relax_once(label, active, cnt, t)
+            report.append(t)
+        return label, active, report
+
+    def _relax_once(self, label, active, cnt: int, t: dict):
+        """One iteration of ``active`` (host count ``cnt``), its phase
+        seconds into ``t`` -> (label, improved mask, its count)."""
+        from lux_tpu_torch.engine.phased import PhaseTimer
+        fence = device_fence(self.device)
+        use_sparse, limit = self._sparse_mode()
+        if use_sparse and cnt <= limit:
+            self.schedule.append("sparse")
+            t0 = time.perf_counter()
+            label, na = self._sparse(label, active)
+            fence()
+            t["sparse"] = time.perf_counter() - t0
+            return label, na, int(na.sum(dtype=torch.int32))
+        self.schedule.append("dense")
+        pt = PhaseTimer(fence)
+        pt.t = t
+        flat = pt("exchange", self._phase_exchange, label, active)
+        if self.page_plan is not None:
+            red = pt("relax_reduce", self._phase_relax_reduce, flat)
+        else:
+            cand = pt("relax", self._phase_relax, flat)
+            red = pt("reduce", self._phase_reduce, flat, cand)
+        label, na = pt("update", self._phase_update, label, red)
+        return label, na, int(na.sum(dtype=torch.int32))
+
+    def _timed_phases_delta(self, label, active, iters: int):
+        """The delta-stepping schedule of ``_converge_delta``, each relax
+        step timed by phase (lux_tpu/engine/push.py:1355).  One read a
+        bucket test: [front size, active count, advanced, bound]."""
+        self.schedule = []
+        report = []
+        am = torch.where(active, label, self._ident).amin()
+        B = am + self._delta_t
+        it = n_adv = 0
+        while it < iters:
+            old = B
+            front, B, counts = self._bucket(label, active, B)
+            nf, cnt, moved, bound = torch.cat(
+                [counts.double(), (B != old).double().reshape(1),
+                 B.double().reshape(1)]).cpu().tolist()
+            nf, cnt = int(nf), int(cnt)
+            n_adv += int(moved)
+            if cnt == 0:
+                break
+            if nf == 0:
+                continue            # labels at the identity: advance on
+            t = {"frontier": nf, "bucket": bound, "advances": n_adv}
+            n_adv = 0
+            label, na, _c = self._relax_once(label, front, nf, t)
+            active = (active & ~front) | na
+            report.append(t)
+            it += 1
+        return label, active, report
 
 
-class _PushGuard:
-    """The device-side state of one guarded converge: the health word,
-    the stall counter, the counter buffers and the entering frontier's
-    count as a device scalar."""
+class _PushStats:
+    """The counter buffers of one converge, written at host-known
+    iteration indices; its read is the converge's one int32."""
 
-    def __init__(self, eng, active, watch):
-        from lux_tpu_torch import health as hw
-        from lux_tpu_torch.telemetry import DEFAULT_STATS_CAP
-        dev, P, cap = eng.device, eng.num_parts, DEFAULT_STATS_CAP
-        self.hw = hw
-        self.h, self.stall = watch if watch is not None else (
-            hw.init_word(dev), hw.init_stall(dev))
+    def __init__(self, eng, active):
+        dev, P, cap = eng.device, eng.num_parts, eng.stats_cap
         self.fsz = torch.zeros((cap,), dtype=torch.int32, device=dev)
         self.fed = torch.zeros((cap,), dtype=torch.int64, device=dev)
         self.fszp = torch.zeros((cap, P), dtype=torch.int32, device=dev)
@@ -674,7 +827,6 @@ class _PushGuard:
         # out-degrees of the FULL graph: a pair residual's layout keeps
         # them (PageRank's apply needs them), so the dense arrays' deg
         self.deg = eng.arrays["deg"]
-        self.cnt = active.sum(dtype=torch.int32)
 
     def enter(self, it: int, act) -> None:
         """Out-edges of the frontier entering iteration ``it``, per part
@@ -698,11 +850,50 @@ class _PushGuard:
                                 dtype=torch.int32)
 
     def watch(self, old_label, new_label, new_cnt) -> None:
+        """The health watch's hook (a guard's); counters keep none."""
+
+    def watch_bucket(self, old_label, new_label, counts, active) -> None:
+        """The delta loop's watch hook (a guard's)."""
+
+    def read(self, ncnt):
+        """One host read: the active count (flags 0)."""
+        return int(ncnt), 0
+
+    def read_bucket(self, counts):
+        """One host read of [front size, active count] (flags 0)."""
+        nf, cnt = counts.cpu().tolist()
+        return nf, cnt, 0
+
+
+class _PushGuard(_PushStats):
+    """The device-side state of one guarded converge: the health word,
+    the stall counter, the counter buffers and the entering frontier's
+    count as a device scalar."""
+
+    def __init__(self, eng, active, watch):
+        from lux_tpu_torch import health as hw
+        super().__init__(eng, active)
+        self.hw = hw
+        self.h, self.stall = watch if watch is not None else (
+            hw.init_word(eng.device), hw.init_stall(eng.device))
+        self.cnt = active.sum(dtype=torch.int32)
+
+    def watch(self, old_label, new_label, new_cnt) -> None:
         self.h, self.stall = self.hw.push_update(
             self.h, self.stall, old_label, new_label, self.cnt, new_cnt)
         self.cnt = new_cnt
+
+    def watch_bucket(self, old_label, new_label, counts, active) -> None:
+        """A relax step of the bucket schedule: the stall watch compares
+        the active count entering the bucket test with the one after."""
+        self.cnt = counts[1]
+        self.watch(old_label, new_label, active.sum(dtype=torch.int32))
 
     def read(self, ncnt):
         """One host read of [active count, flags]."""
         cnt, flags = torch.stack([ncnt, self.h[0]]).cpu().tolist()
         return cnt, flags
+
+    def read_bucket(self, counts):
+        """One host read of [front size, active count, flags]."""
+        return tuple(torch.cat([counts, self.h[:1]]).cpu().tolist())

@@ -33,6 +33,10 @@ from lux_tpu_torch import format as luxfmt
 from lux_tpu_torch import native as _native
 from lux_tpu_torch.partition import edge_balanced_bounds, part_edge_counts
 
+# the streamed SDDMM pair block the reference's advisor prices
+# (lux_tpu/ops/pairs.py:916)
+PAIR_DOT_BLOCK_BYTES = 64 << 20
+
 
 VPAD_ALIGN = 8      # default: padded vertices per part, a multiple of this
 EPAD_ALIGN = 128    # padded edges per part: a multiple of this
@@ -414,6 +418,109 @@ class ShardedGraph:
             v0, v1 = int(self.starts[p]), int(self.starts[p + 1])
             out[v0:v1] = x[p, :v1 - v0]
         return out
+
+    # ---- the memory advisor ----------------------------------------
+
+    def memory_report(self, *, exchange: str = "gather",
+                      push_sparse: bool = False, pairs=None,
+                      pair_kdim: int = 1, pair_stream: bool | None = None,
+                      page_plan=None, query_batch: int = 1) -> dict:
+        """Device bytes of an engine's edge layout and state, per part,
+        as named terms (lux_tpu/graph.py:730 ``memory_report``, priced
+        with the dtypes the port's engines hold, which for these arrays
+        are the reference's): ``edge`` (src_slot int32 + rel int8 + f32
+        weights over epad: a lower bound, chunk padding sits above it;
+        or a paged plan's arrays, which replace the layout),
+        ``push_sparse`` (the src-sorted view), ``pair`` (the pair rows'
+        arrays), ``pair_temp`` (one streamed block, or the monolithic
+        values and partials), ``page_buffer`` / ``page_temp`` (the paged
+        delivery's per-iteration page and row buffers), ``mxu_temp``
+        (0: the port has no MXU path) and ``vertex`` (state + degrees;
+        batched: a 4-byte label and a 1-byte mask per query).
+        ``total_bytes`` is num_parts times the terms' sum.  Only the
+        gather exchange is priced: the owner exchange is ROADMAP A6."""
+        if exchange != "gather":
+            from lux_tpu_torch.engine.pull import NotPortedError
+            raise NotPortedError(f"memory_report(exchange={exchange!r}) is "
+                                 f"not ported yet (ROADMAP A6)")
+        if query_batch < 1:
+            raise ValueError(f"query_batch must be >= 1, got "
+                             f"{query_batch}")
+        w = 4 if self.weighted else 0
+        page_buf = page_temp = 0
+        if page_plan is not None:
+            pp = page_plan
+            resident = sum(int(a.nbytes) for a in (
+                pp.slot_lane, pp.rel_dst, pp.row_tile, pp.tile_pos,
+                pp.page_ids, pp.weight, getattr(pp, "vrow_src", None))
+                if a is not None)
+            edge_bytes = resident // max(1, pp.slot_lane.shape[0])
+            wide = max(1, pair_kdim) * query_batch
+            page_buf = pp.n_pages * 128 * 4 * wide
+            page_temp = (2 * pp.Rp + getattr(pp, "Rg", 0)) * 128 * 4 * wide
+        else:
+            edge_bytes = self.epad * (4 + 1 + w)
+        sparse_bytes = 0
+        if push_sparse:
+            S = (self.src_unique_max()
+                 if self._src_sorted_cache is not None
+                 else min(self.num_parts * self.vpad, self.epad))
+            sparse_bytes = 4 * (2 * S + 1) + self.epad * (4 + w)
+        pair_bytes = pair_temp = 0
+        if pairs is not None:
+            from lux_tpu_torch.ops.pairs import (PAIR_STREAM_BLOCK_BYTES,
+                                                 W as PW,
+                                                 resolve_pair_dot_stream,
+                                                 resolve_pair_stream)
+            Rp = int(pairs.Rp)
+            wlane = PW * 4 if pairs.weight is not None else 0
+            pair_bytes = Rp * (4 + PW + wlane) + pairs.tile_pos.shape[1] * 4
+            if pair_kdim > 1:
+                pair_bytes += Rp * 4                        # row_tile
+                streamed = resolve_pair_dot_stream(
+                    pair_stream, pairs, self.num_parts, pair_kdim)
+                pair_temp = (PAIR_DOT_BLOCK_BYTES if streamed
+                             else 2 * Rp * PW * pair_kdim * 4)
+            else:
+                streamed = resolve_pair_stream(pair_stream, pairs)
+                pair_temp = (PAIR_STREAM_BLOCK_BYTES if streamed
+                             else 2 * Rp * PW * 4)
+        if query_batch == 1:
+            vert_bytes = self.vpad * (4 + 4)
+        else:
+            vert_bytes = self.vpad * (5 * query_batch + 4)
+        terms = {"edge": edge_bytes, "push_sparse": sparse_bytes,
+                 "pair": pair_bytes, "pair_temp": pair_temp,
+                 "page_buffer": page_buf, "page_temp": page_temp,
+                 "mxu_temp": 0, "vertex": vert_bytes}
+        return {
+            "num_parts": self.num_parts,
+            "query_batch": query_batch,
+            "edge_bytes_per_part": edge_bytes,
+            "push_sparse_bytes_per_part": sparse_bytes,
+            "pair_bytes_per_part": pair_bytes,
+            "pair_temp_bytes_per_part": pair_temp,
+            "page_buffer_bytes_per_part": page_buf,
+            "page_temp_bytes_per_part": page_temp,
+            "mxu_temp_bytes_per_part": 0,
+            "vertex_bytes_per_part": vert_bytes,
+            "owner_msg_bytes_per_part": 0,
+            "terms_per_part": terms,
+            "total_bytes": self.num_parts * sum(terms.values()),
+        }
+
+    def telemetry_header(self, **memory_kwargs) -> dict:
+        """Graph shape and the memory advisor's per-part bytes, the
+        payload of an event log's ``header`` event."""
+        return {
+            "nv": int(self.nv), "ne": int(self.ne),
+            "weighted": bool(self.weighted),
+            "num_parts": int(self.num_parts),
+            "vpad": int(self.vpad), "epad": int(self.epad),
+            "memory": {k: int(v) for k, v in
+                       self.memory_report(**memory_kwargs).items()
+                       if not isinstance(v, dict)},
+        }
 
     # ---- push-model (src-sorted) edge view ---------------------------
 

@@ -48,7 +48,7 @@ selected from its page by an index gather; no hand kernel.
 
 On the device ``slot_lane`` rides as int32 with the uint32's bits;
 page slots decode as ``(x >> 7) & 0x1FFFFFF``, lanes as ``x & 0x7F``.
-The owner-exchange plans (ROADMAP A6) and ``gather="auto"`` (A10,
+The owner-exchange plans (ROADMAP A6) and ``gather="auto"`` (A10b,
 priced by TPU-measured constants) are not ported.
 """
 
@@ -571,7 +571,7 @@ def plan_paged_stats(sg, pagemajor: bool = False) -> dict:
 def resolve_gather(gather: str) -> str:
     """'flat', 'paged' or 'pagemajor'.  The reference's 'auto' prices
     the modes with TPU-measured constants; the engines refuse it
-    before they get here (ROADMAP A10)."""
+    before they get here (ROADMAP A10b)."""
     if gather not in GATHER_MODES:
         raise ValueError(f"unknown gather {gather!r} (one of "
                          f"{', '.join(map(repr, GATHER_MODES))})")

@@ -171,11 +171,11 @@ def resolve_min_fill(min_fill) -> int | None:
     """Integers and None pass through unchanged.  The reference's
     ``"auto"`` resolves through scalemodel's break-even fill, whose
     per-row and per-edge costs were measured on the TPU: refused until
-    the port measures its own (ROADMAP A10)."""
+    the port measures its own (ROADMAP A10b)."""
     if min_fill == "auto":
         from lux_tpu_torch.engine.pull import NotPortedError
         raise NotPortedError(
-            "min_fill='auto' is not ported yet (ROADMAP A10): it "
+            "min_fill='auto' is not ported yet (ROADMAP A10b): it "
             "resolves through a cost model measured on the TPU; pass "
             "an int (bench.py's pagerank config uses 24, its colfilter "
             "config 22, what the reference resolves 'auto' to at K = "

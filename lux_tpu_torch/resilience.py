@@ -20,12 +20,14 @@ lux_tpu/resilience.py:106-722).
   collapsed samples.
 
 A supervisor retries only what ``classify`` calls RETRYABLE, on the
-engine's own device: it never falls back to the CPU.  Not ported yet:
-the elastic path (a TOPOLOGY fault re-placing the run on the surviving
-devices, ``elastic=`` / the CLI's ``-elastic``: ROADMAP A6), the
-heartbeat sync (``heartbeat=``: A6) and the crash flight recorder
-(``tracing.flight_dump`` / ``-flight``: A10); each raises
-NotPortedError when asked for.
+engine's own device: it never falls back to the CPU.  A fatal failure
+or a topology fault dumps the installed crash flight recorder
+(tracing.flight_dump: ``FLIGHT.json``), and a supervised run under
+``telemetry.use(iter_stats=)`` carries the counters' digest in
+``RunReport.counters``.  Not ported yet: the elastic path (a TOPOLOGY
+fault re-placing the run on the surviving devices, ``elastic=`` / the
+CLI's ``-elastic``: ROADMAP A6) and the heartbeat sync (``heartbeat=``:
+A6); each raises NotPortedError when asked for.
 """
 
 from __future__ import annotations
@@ -235,7 +237,7 @@ class RunReport:
     total_iters: int = 0
     segments: int = 0
     counters: dict | None = None
-    #           ^ device-side iteration-counter digest (ROADMAP A10)
+    #           ^ the iteration counters' digest (IterStats.summary)
     topology: list = dataclasses.field(default_factory=list)
     #           ^ one entry per elastic mesh shrink (ROADMAP A6)
 
@@ -247,6 +249,25 @@ class RunReport:
                     total_iters=self.total_iters,
                     counters=self.counters,
                     topology=[dict(t) for t in self.topology])
+
+
+def _flight_dump(exc: BaseException, kind: str) -> None:
+    """Dump the installed flight recorder (tracing.py) with the failure
+    as its reason; best effort: a postmortem writer must never mask the
+    fault it records (lux_tpu/resilience.py:298-309)."""
+    try:
+        from lux_tpu_torch import tracing
+        tracing.flight_dump(reason=f"{type(exc).__name__}: {exc}"[:300],
+                            classification=kind)
+    except Exception:           # noqa: BLE001 — see docstring
+        pass
+
+
+def _attach_counters(report) -> None:
+    """The active iter-stats digest into ``report.counters``."""
+    st = telemetry.current().iter_stats
+    if st is not None:
+        report.counters = st.summary()
 
 
 def supervise(attempt: Callable, policy: RetryPolicy | None = None,
@@ -275,12 +296,16 @@ def supervise(attempt: Callable, policy: RetryPolicy | None = None,
                 tel.emit("topology_fault", attempt=k,
                          error=type(e).__name__, message=str(e)[:200],
                          handled=handled)
+                # after the event, so the ring holds it
+                _flight_dump(e, kind)
             fatal = (kind == FATAL
                      or (kind == TOPOLOGY and not handled)
                      or k >= policy.retries)
             if fatal:
                 tel.emit("failure", attempt=k, error=type(e).__name__,
                          message=str(e)[:200], classification=kind)
+                if kind != TOPOLOGY:        # topology already dumped
+                    _flight_dump(e, kind)
                 raise
             if kind == TOPOLOGY:
                 continue            # re-placed: retry at once
@@ -389,6 +414,7 @@ def supervised_run(eng, num_iters: int, path: str, *,
 
     state, report = supervise(attempt, policy, report)
     report.total_iters = num_iters
+    _attach_counters(report)
     return state, report
 
 
@@ -441,6 +467,7 @@ def supervised_converge(eng, path: str, *,
 
     (label, active, total), report = supervise(attempt, policy, report)
     report.total_iters = total
+    _attach_counters(report)
     return label, active, total, report
 
 

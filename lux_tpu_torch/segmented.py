@@ -24,9 +24,14 @@ duration budgeting) compose.
 
 With an active telemetry handle (telemetry.use) every slice emits a
 ``segment`` event with its seconds, and budget decisions emit
-``budget_lock`` / ``budget_halve`` / ``budget_reset``.  Not ported
-yet: the memory trail (``mem=``, ROADMAP A10) and the device-side
-iteration-stats accumulation (``telemetry.use(iter_stats=)``, A10).
+``budget_lock`` / ``budget_halve`` / ``budget_reset``.  With
+``iter_stats`` a slice runs the engine's counter variant (``run_stats``
+/ ``converge_stats``; the guarded variants carry the same buffers) and
+its counters are fetched once a boundary, after the hook (a checkpoint
+save) survives, and accumulated across slices; a run from
+``start_iter`` 0 starts a fresh series, a resume keeps accumulating.
+Every slice runs under a ``lux_segment#i`` profiler range.  ``mem`` (a
+memwatch.MemoryTrail) is sampled at every boundary, before the hook.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import numpy as np
 import torch
 
 from lux_tpu_torch import telemetry
-from lux_tpu_torch.engine.pull import NotPortedError
+from lux_tpu_torch.profiling import step_annotation
 
 
 class DurationBudget:
@@ -119,10 +124,7 @@ class DurationBudget:
                 budget_s=self.budget_s)
 
 
-def _check(segment, mem):
-    if mem is not None:
-        raise NotPortedError("the memory trail (mem=) is not ported yet "
-                             "(ROADMAP A10)")
+def _check(segment):
     if isinstance(segment, DurationBudget):
         return segment
     if isinstance(segment, bool) or not isinstance(segment,
@@ -152,10 +154,14 @@ def run_segments(eng, state, num_iters: int, segment,
     """Run a pull engine to ``num_iters`` iterations in slices
     (``segment``: int size or DurationBudget), from ``start_iter``.
     ``on_segment(state, done_iters)`` runs after each slice and may
-    return a replacement state.  Returns the state."""
-    seg = _check(segment, mem)
+    return a replacement state.  ``mem`` (memwatch.MemoryTrail) is
+    sampled at every boundary.  Returns the state."""
+    seg = _check(segment)
     tel = telemetry.current()
+    st = tel.iter_stats
     guarded = getattr(eng, "health", False)
+    if st is not None and start_iter == 0:
+        st.begin_run()          # a resume keeps accumulating
     budget = seg if isinstance(seg, DurationBudget) else None
     timed = budget is not None or tel.events is not None
     done = int(start_iter)
@@ -164,13 +170,15 @@ def run_segments(eng, state, num_iters: int, segment,
     while done < num_iters:
         n = _next_n(seg, num_iters - done)
         t0 = time.perf_counter()
-        if guarded:
-            state, _it, _rb, _cb, _rbp, _cbp, watch = eng.run_health(
-                state, n, watch)
-        else:
-            state = eng.run(state, n)
-        if timed:
-            _fence(state)
+        with step_annotation("lux_segment", seg_idx):
+            if guarded:
+                state, _it, *bufs, watch = eng.run_health(state, n, watch)
+            elif st is not None:
+                state, *bufs = eng.run_stats(state, n)
+            else:
+                state = eng.run(state, n)
+            if timed:
+                _fence(state)
         dt = time.perf_counter() - t0
         if guarded:
             # a tripped watchdog raises BEFORE the hook: a corrupted
@@ -185,10 +193,16 @@ def run_segments(eng, state, num_iters: int, segment,
             tel.emit("segment", engine="pull", n=n, done=done,
                      seconds=round(dt, 6))
         seg_idx += 1
+        if mem is not None:
+            mem.sample(where=f"segment:{done}")
         if on_segment is not None:
             res = on_segment(state, done)
             if res is not None:
                 state = res
+        # the counters land only after the hook (a checkpoint save)
+        # survives: a retry re-runs a slice whose save failed
+        if st is not None:
+            st.extend_pull(bufs[0], bufs[1], n, bufs[2], bufs[3])
     return state
 
 
@@ -201,10 +215,14 @@ def converge_segments(eng, label, active, segment,
     active_count)`` runs after each slice and may return a replacement
     ``(label, active)`` or raise to stop.  Convergence is read from the
     active mask (one int32 read a slice), never from iteration counts.
+    ``mem`` (memwatch.MemoryTrail) is sampled at every boundary.
     Returns (label, active, total_iters)."""
-    seg = _check(segment, mem)
+    seg = _check(segment)
     tel = telemetry.current()
+    st = tel.iter_stats
     guarded = getattr(eng, "health", False)
+    if st is not None and start_iter == 0:
+        st.begin_run()
     budget = seg if isinstance(seg, DurationBudget) else None
     total = int(start_iter)
     seg_idx = 0
@@ -213,12 +231,16 @@ def converge_segments(eng, label, active, segment,
     while total < cap:
         n = _next_n(seg, cap - total)
         t0 = time.perf_counter()
-        if guarded:
-            label, active, it, *_bufs, watch = eng.converge_health(
-                label, active, n, watch)
-        else:
-            label, active, it = eng.converge(label, active, n)
-        cnt = int(active.sum(dtype=torch.int32))    # the fence, O(1) B
+        with step_annotation("lux_segment", seg_idx):
+            if guarded:
+                label, active, it, *bufs, watch = eng.converge_health(
+                    label, active, n, watch)
+            elif st is not None:
+                label, active, it, *bufs = eng.converge_stats(label,
+                                                              active, n)
+            else:
+                label, active, it = eng.converge(label, active, n)
+            cnt = int(active.sum(dtype=torch.int32))  # the fence, O(1) B
         dt = time.perf_counter() - t0
         if guarded:
             from lux_tpu_torch import health
@@ -230,11 +252,15 @@ def converge_segments(eng, label, active, segment,
         tel.emit("segment", engine="push", iters=it, total=total,
                  active=cnt, seconds=round(dt, 6))
         seg_idx += 1
+        if mem is not None:
+            mem.sample(where=f"segment:{total}")
         if on_segment is not None:
             res = on_segment(label, active, total, cnt)
             if res is not None:
                 label, active = res
                 cnt = int(active.sum(dtype=torch.int32))
+        if st is not None:
+            st.extend_push(bufs[0], bufs[1], it, bufs[2], bufs[3])
         if cnt == 0:
             break
     return label, active, total

@@ -32,11 +32,12 @@ continuous-batching layer above them:
 
 ``on_boundary(runner)`` fires at the top of every boundary and
 ``replica`` labels a runner's events and gauges (the hooks a fleet of
-servers would use).  Not ported yet, each raising NotPortedError:
-live graphs (``live=``, ``mutate``, ``refresh_live``,
-``admission_epoch``, ``admit_query``: ROADMAP A11; with them the
-admission epochs that key the reference's answer cache), the memory
-trail (``mem=``: A10) and a device mesh (``mesh``: A6).
+servers would use).  ``mem`` (memwatch.MemoryTrail) is sampled at every
+boundary, right after the hook (reference serve.py:813-814,
+:1002-1003).  Not ported yet, each raising NotPortedError: live graphs
+(``live=``, ``mutate``, ``refresh_live``, ``admission_epoch``,
+``admit_query``: ROADMAP A11; with them the admission epochs that key
+the reference's answer cache) and a device mesh (``mesh``: A6).
 ``health=True`` builds every runner's engine with the watchdog
 (lux_tpu_torch/health.py): a tripped word raises HealthError out of
 the segmented driver rather than retiring a column with a corrupt
@@ -387,6 +388,8 @@ class _RunnerBase:
         # segment boundary (an exception raised there leaves drain())
         self.replica: str | None = None
         self.on_boundary: Callable | None = None
+        # the memory trail sampled at every boundary (memwatch.py)
+        self.mem = None
         # rolling SLO window: True per retirement = a violation
         self._slo_window = collections.deque(maxlen=SLO_WINDOW)
         self.boundaries = 0         # segment boundaries seen
@@ -487,6 +490,8 @@ class _RunnerBase:
         self.boundaries += 1
         if self.on_boundary is not None:
             self.on_boundary(self)
+        if self.mem is not None:
+            self.mem.sample(where=f"{self.kind}:boundary")
         for s in self.slots:
             if s is not None:
                 s.segments += 1
@@ -755,8 +760,6 @@ class Server:
                  cache=False, mem=None):
         if live is not None:
             _refuse("live graphs (Server(live=...))", "A11")
-        if mem is not None:
-            _refuse("the memory trail (Server(mem=...))", "A10")
         if mesh is not None:
             _refuse("a device mesh", "A6")
         self.g = g
@@ -769,6 +772,11 @@ class Server:
             self.cache = None
         self.on_boundary = on_boundary
         self.replica = replica
+        self._runners: dict[str, _RunnerBase] = {}
+        # a memwatch.MemoryTrail the runners sample at every boundary
+        # (assignable after construction: the setter reaches the
+        # runners built so far, and later ones take it at their build)
+        self.mem = mem
         self.batch = int(batch)
         # health: every runner's engine runs the watchdog variants, so
         # a tripped word raises HealthError out of the segmented driver
@@ -796,8 +804,17 @@ class Server:
         self.snapshot_every_s = float(snapshot_every_s)
         self._last_snapshot = 0.0
         self._collectors: dict[str, BatchCollector] = {}
-        self._runners: dict[str, _RunnerBase] = {}
         self._next_qid = 0
+
+    @property
+    def mem(self):
+        return self._mem
+
+    @mem.setter
+    def mem(self, trail) -> None:
+        self._mem = trail
+        for runner in self._runners.values():
+            runner.mem = trail
 
     def _collector(self, kind: str) -> BatchCollector:
         if kind not in KINDS:
@@ -819,6 +836,7 @@ class Server:
                                          weighted=self.weighted, **mkw)
             runner.on_boundary = self.on_boundary
             runner.replica = self.replica
+            runner.mem = self.mem
             self._runners[kind] = runner
         return self._runners[kind]
 

@@ -2,6 +2,7 @@
 end, and ``convert`` writing the same bytes as lux_tpu's converter."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -199,7 +200,7 @@ def test_seg_budget_runs_supervised(lux_file, weighted_lux_file, capsys,
 
 
 @pytest.mark.parametrize("flag,item", [(["-elastic"], "A6"),
-                                       (["-flight", "f.json"], "A10")])
+                                       (["-calibrate"], "A10b")])
 @pytest.mark.parametrize("app", list(SUPERVISED))
 def test_unported_guard_flags_exit_2(lux_file, weighted_lux_file, capsys,
                                      app, flag, item):
@@ -222,3 +223,95 @@ def test_pagerank_resumes_a_reference_cli_checkpoint(lux_ref, lux_file,
     assert "resumed_from=[4]" in out
     from lux_tpu_torch import checkpoint
     assert checkpoint.load(ck)[1]["iter"] == 8
+
+
+# ---------------------------------------------------------------------
+# the observability flags (ROADMAP A10a)
+
+def _iter_lines(out: str) -> list:
+    return [ln for ln in out.splitlines() if ln.startswith("iter ")]
+
+
+@pytest.mark.parametrize("app", ["sssp", "components"])
+def test_push_verbose_replays_the_reference_series(lux_ref, lux_file,
+                                                   capsys, app):
+    """-verbose prints the load line, the memory advisor's line and
+    the converge's frontier series, the reference's lines for the same
+    file (its ``-check`` audit line aside)."""
+    assert cli.main([app, "-file", lux_file, "-device", "cpu",
+                     "-verbose"]) == 0
+    out = capsys.readouterr().out
+    assert lux_ref.cli.main([app, "-file", lux_file, "-verbose"]) == 0
+    ref = capsys.readouterr().out
+    assert _iter_lines(out) == _iter_lines(ref) and _iter_lines(out)
+    for head in ("loaded nv=", "memory: "):
+        ours = [ln for ln in out.splitlines() if ln.startswith(head)]
+        theirs = [ln for ln in ref.splitlines() if ln.startswith(head)]
+        assert len(ours) == len(theirs) == 1
+        if head == "memory: ":
+            assert ours == theirs
+
+
+@pytest.mark.parametrize("app,args,names", [
+    ("pagerank", ["-ni", "2"], {"exchange", "gather", "reduce", "apply"}),
+    ("pagerank", ["-ni", "2", "-gather", "paged"],
+     {"exchange", "gather_reduce", "apply"}),
+    ("sssp", ["-start", "1"], {"sparse"}),
+    ("colfilter", ["-ni", "2"], {"exchange", "dot_reduce", "apply"})])
+def test_phases_flag_prints_the_split(lux_file, weighted_lux_file, capsys,
+                                      app, args, names):
+    f = weighted_lux_file if app == "colfilter" else lux_file
+    assert cli.main([app, "-file", f, "-device", "cpu", "-phases", "3",
+                     *args]) == 0
+    lines = _iter_lines(capsys.readouterr().out)
+    assert len(lines) == 3
+    found = {m for ln in lines
+             for m in re.findall(r"(\w+)=\s*[\d.]+ms", ln)}
+    assert names <= found
+
+
+def test_profile_events_and_iter_stats(lux_file, tmp_path, capsys):
+    """-profile writes DIR/trace.json with the engines' ranges; -events
+    writes the JSONL that tracing exports; -iter-stats prints the
+    counters' replay and per-part table."""
+    import json
+
+    from lux_tpu_torch import tracing
+    ev = str(tmp_path / "ev.jsonl")
+    assert cli.main(["pagerank", "-file", lux_file, "-ni", "3", "-np", "2",
+                     "-device", "cpu", "-profile", str(tmp_path / "p"),
+                     "-events", ev, "-iter-stats", "-phases", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "# iter-stats (device-side counters, fused run):" in out
+    assert "iter 3: residual=" in out and "# per-part changed" in out
+    doc = json.load(open(tmp_path / "p" / "trace.json"))
+    names = [e.get("name") for e in doc["traceEvents"]]
+    assert names.count("lux_gather") == 3
+    assert names.count("lux_timed_run#0") == 1
+    events, errs = tracing.load_events(ev)
+    kinds = [e["kind"] for e in events]
+    assert not errs and kinds[0] == "run_start"
+    assert {"header", "timed_run", "run_done", "iter_stats",
+            "phases"} <= set(kinds)
+    trace = tracing.trace_export(events)
+    assert tracing.validate_trace(trace) == []
+
+
+def test_flight_flag_dumps_on_a_fatal_failure(lux_file, tmp_path, capsys,
+                                              monkeypatch):
+    """-flight FILE installs the recorder; a fatal failure of the
+    supervised run leaves FILE behind, with its reason."""
+    from lux_tpu_torch import checkpoint, tracing
+
+    def boom(*a, **k):
+        raise ValueError("deterministic failure")
+    monkeypatch.setattr(checkpoint, "run_checkpointed", boom)
+    flight = str(tmp_path / "FLIGHT.json")
+    with pytest.raises(ValueError, match="deterministic"):
+        cli.main(["pagerank", "-file", lux_file, "-ni", "2", "-device",
+                  "cpu", "-retries", "1", "-flight", flight])
+    doc = tracing.load_flight(flight)
+    assert doc["classification"] == "fatal"
+    assert "deterministic failure" in doc["reason"]
+    assert {"run_start", "failure"} <= {e["kind"] for e in doc["events"]}
+    assert tracing.flight_recorder() is None      # uninstalled after

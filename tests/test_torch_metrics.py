@@ -146,10 +146,12 @@ def test_event_log_file(tmp_path):
 
 
 def test_iter_stats_not_ported():
-    from lux_tpu_torch.engine.pull import NotPortedError
-    with pytest.raises(NotPortedError, match="A10"):
-        with telemetry.use(iter_stats=object()):
-            pass
+    """use(iter_stats=) no longer refuses (ROADMAP A10a): the handle
+    carries the accumulator (tests/test_torch_telemetry.py)."""
+    st = telemetry.IterStats()
+    with telemetry.use(iter_stats=st) as tel:
+        assert tel.iter_stats is st
+    assert telemetry.current().iter_stats is None
 
 
 def test_emit_sampled_throttles():

@@ -535,8 +535,11 @@ def test_segmented_drivers(g):
         segmented.run_segments(peng, peng.init_state(), 4, 2)
     assert [e["done"] for e in ev.events if e["kind"] == "segment"] \
         == [2, 4]
-    with pytest.raises(NotPortedError, match="A10"):
-        segmented.run_segments(peng, peng.init_state(), 2, 1, mem=object())
+    # mem= samples the trail at every boundary (ROADMAP A10a)
+    from lux_tpu_torch import memwatch
+    trail = memwatch.MemoryTrail(device=CPU)
+    segmented.run_segments(peng, peng.init_state(), 2, 1, mem=trail)
+    assert trail.count == 2
     # a DurationBudget as the segment: the same bits as int segments
     st = segmented.run_segments(peng, peng.init_state(), 7,
                                 segmented.DurationBudget(45.0))
@@ -545,11 +548,12 @@ def test_segmented_drivers(g):
 
 
 def test_refusals(g):
-    for kw, item in ((dict(live=object()), "A11"), (dict(mem=object()),
-                                                    "A10"),
+    for kw, item in ((dict(live=object()), "A11"),
                      (dict(mesh=object()), "A6")):
         with pytest.raises(NotPortedError, match=item):
             serve.Server(g, device=CPU, **kw)
+    # mem= is taken (ROADMAP A10a; tests/test_torch_memwatch.py)
+    assert serve.Server(g, device=CPU, mem="trail").mem == "trail"
     srv = serve.Server(g, device=CPU)
     with pytest.raises(NotPortedError, match="A11"):
         srv.mutate([0], [1])
