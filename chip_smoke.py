@@ -182,7 +182,8 @@ Phases, each printing one JSON line:
             512; (c) gather="paged" on the degree-relabelled graph; each
             through colfilter.build_engine and run, 10 iterations: TF32
             off, the state within rtol 1e-5, atol 1e-8 of the float64
-            oracle, three runs bit-equal, B1 and B2 launched 0 times,
+            oracle (colfilter_oracle: the numpy oracle's recurrence in
+            float64 on the card), three runs bit-equal, B1 and B2 launched 0 times,
             both audits at 0 (RMSE does not rise), the reduce from a
             state in {-1, 0, 1} bit-equal to the int64 oracle; times,
             GTEPS, host enqueue, peak memory, set-up seconds, per-layer
@@ -202,8 +203,8 @@ Phases, each printing one JSON line:
             one scale under --scale (20), --ef, --seed, one part, no
             relabel, B = 8 sources from default_rng(7); ksssp through
             sssp.build_engine(sources=...) to convergence, every
-            iteration dense, labels bit-equal to the numpy batched
-            oracle and two columns to single-source scalar runs, B1's
+            iteration dense, labels bit-equal to a numpy BFS from
+            each source and two columns to single-source scalar runs, B1's
             batched form launched once an iteration and the scalar B1
             and B2 never, at most one host sync an iteration; ppr
             through pagerank.build_engine(sources=...) for 20
@@ -311,7 +312,39 @@ Phases, each printing one JSON line:
             against the allocator's peak over a run (verdicts printed,
             not raised); on the serve phase's drain a MemoryTrail
             (Server.mem): every sample graded measured, its peak equal
-            to max_memory_allocated over the drain.
+            to max_memory_allocated over the drain;
+21. pricing (ROADMAP A10b; printed after observe, gathered as the
+            phases run) observe.calibrate() on the card (its
+            fingerprint; canonical on the constants' own card); a
+            gather over float32 state tables of 8-256 MB (33,554,432
+            random ids: the flat rates and the table-size step);
+            observe.decompose on main, pairs (monolithic), sssp and
+            colfilter (pairs, monolithic) at their cells' sizes: each
+            phase's ms beside the model, its verdict, the share of the
+            split the verdicts cover; gather="auto" on the paged cell's
+            R-MAT 21 graph and the reorder cell's hillclimb graph, which
+            must resolve to the mode the smoke measured fastest there;
+            pair_min_fill="auto" on bench.py's pagerank config beside a
+            sweep of at most four fills (24 and the resolved one among
+            them): each a monolithic engine's step ms and rows; every
+            figure of scalemodel.CardConstants as measured here (from
+            these and the phases' own layer times, as
+            scalemodel.H100_SOURCES names them) beside the package's
+            table, with the combine timed both ways on main's and
+            colfilter's partials; the memory ledger's new ratios (pairs streamed,
+            ksssp_batch, the Server) with their verdicts at MEM_TOL;
+22. mxu     (ROADMAP A8) use_mxu=True against use_mxu=False: main
+            PageRank through kernel S9 (one launch an iteration, B1
+            none; rtol 2e-5 of the B1 path, MAIN_TOL of the oracle; S9
+            against its plain version on the path's chunks at rtol
+            1e-5 and an atol scaled to the largest partial, raising on
+            lanes it does not take, and its kernels-line entry
+            onehot_reduce@main_mxu), ppr_batch (B = 8, rtol 5e-5),
+            colfilter (rtol 1e-5), sssp and cc (labels and iterations
+            bit-equal); each side's step (push: converge) ms, what
+            use_mxu="auto" resolved to and, on main and colfilter, the
+            model's price of each side and whether "auto" took the
+            faster.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -890,9 +923,11 @@ def zero_launches():
     from lux_tpu_torch.ops.chunk_reduce import (chunk_partials,
                                                 chunk_partials_batched)
     from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
+    from lux_tpu_torch.ops.onehot_reduce import onehot_reduce
     chunk_partials.launches = 0
     chunk_partials_batched.launches = 0
     lane_shuffle.launches = 0
+    onehot_reduce.launches = 0      # kernel S9 (a system path: use_mxu)
 
 
 def batched_launches() -> int:
@@ -971,6 +1006,7 @@ def phase_main(args, torch, g, eng, card):
           "state_table_bytes": eng.num_parts * eng.vpad * 4,
           "note": "the f32 state table fits in the card's 50 MB L2",
           "card": card})
+    PRICED["main_answer"] = (got, want)
     return launches
 
 
@@ -1076,6 +1112,8 @@ def phase_layers(args, torch, eng):
         **carry_layer(args, torch, eng, partials, red),
     }
     emit({"phase": "layers", **out})
+    PRICED["main"] = dict(out, chunks=C, E=t.E,
+                          padded_vertices=eng.num_parts * eng.vpad)
 
 
 def check_pagerank(g, got, want, what: str) -> float:
@@ -1311,7 +1349,14 @@ def phase_paged(args, torch, g2, sg, mode: str, want, card):
           "card": card})
     if mode == "paged":
         observed(observe_pull_split, torch, eng, "paged", "paged")
-    del eng, state, rows, sl
+    flat = eng.init_state().reshape(-1)
+    PRICED[mode] = {"layers": layers, "P": eng.num_parts, "Rp": pp.Rp,
+                    "Rg": pp.Rg or pp.Rp, "n_pages": pp.n_pages,
+                    "unique_pages": int(pp.stats["unique_pages"]),
+                    "ne": g2.ne,
+                    "delivery_ms": cuda_ms(lambda: eng._paged_red(flat),
+                                           args.reps)}
+    del eng, state, rows, sl, flat
     torch.cuda.empty_cache()
     b1 = check_b1_rows(args, torch, b1_vals, b1_rel, mode)
     del b1_vals, b1_rel
@@ -1451,6 +1496,8 @@ def phase_reorder(args, torch, card):
     counts_by["reorder_flat"] = counts
     del eng, state
     torch.cuda.empty_cache()
+    priced(pricing_gather_auto, args, torch, g2, sg, "community_hillclimb",
+           {"flat": flat_step, "paged": steps["hillclimb"]})
     # the .perm sidecar round trip on the hillclimb perm
     with tempfile.TemporaryDirectory() as tmp:
         lux = os.path.join(tmp, "community.lux")
@@ -2274,6 +2321,13 @@ def phase_sssp(args, torch, g, g2, perm, starts, card):
              "oracle_seconds": round(t_oracle, 3)}
     line, counts, label, it = run_push_config(args, torch, eng, g2, want,
                                               "sssp", card, extra)
+    priced(pricing_decompose, torch, eng, "sssp", it)
+    em = sssp.build_engine(g2, start, 1, pair_threshold=PAIR_THRESHOLD,
+                           pair_min_fill=PAIR_MIN_FILL, starts=starts,
+                           use_mxu=True)
+    priced(mxu_push, torch, "sssp", eng, em, label, it)
+    del em
+    torch.cuda.empty_cache()
     return line, counts["chunk_partials"], (eng, label, it, counts)
 
 
@@ -2317,9 +2371,13 @@ def phase_cc(args, torch, card):
              "pair_plan_seconds": round(eng.plan_seconds, 3),
              "oracle": "scipy connected_components, max id a component",
              "oracle_seconds": round(t_oracle, 3)}
-    line, counts, _label, _it = run_push_config(args, torch, eng, g2, want,
-                                                "cc", card, extra)
-    del eng, g2
+    line, counts, label, it = run_push_config(args, torch, eng, g2, want,
+                                              "cc", card, extra)
+    em = components.build_engine(g2, 1, pair_threshold=PAIR_THRESHOLD,
+                                 pair_min_fill=PAIR_MIN_FILL, starts=starts,
+                                 use_mxu=True)
+    priced(mxu_push, torch, "cc", eng, em, label, it)
+    del eng, em, g2
     torch.cuda.empty_cache()
     return line, counts["chunk_partials"]
 
@@ -3334,8 +3392,8 @@ def cf_layers(args, torch, eng) -> dict:
     """Device ms of each layer of one colfilter iteration on the
     engine's own arrays and blocks: per delivery the fetch, D, lane
     select, messages and one-hot reduce (ops/dot.py, summed over the
-    blocks), then combine_chunks, the class combine, the pair merge and
-    apply; the whole step, its host enqueue and its device launches
+    blocks), then combine_chunks (as the engine runs it), the class
+    combine, the pair merge and apply; the whole step, its host enqueue and its device launches
     (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -3351,11 +3409,13 @@ def cf_layers(args, torch, eng) -> dict:
         times, parts = dot_stage_ms(args, torch, chunk, fn, "chunk_")
         out.update(times)
         partials = torch.cat(parts)
+        # the engine's own combine: the scan as matmuls under use_mxu
         out["combine_chunks_ms"] = cuda_ms(lambda: combine_partials(
             partials, eng.tiles, a["chunk_start"], a["last_chunk"],
-            eng.vpad, "sum", eng._plan), reps)
+            eng.vpad, "sum", eng._plan, eng.use_mxu), reps)
         red = combine_partials(partials, eng.tiles, a["chunk_start"],
-                               a["last_chunk"], eng.vpad, "sum", eng._plan)
+                               a["last_chunk"], eng.vpad, "sum", eng._plan,
+                               eng.use_mxu)
         del partials, parts
     geo, rows = None, None
     if pairs:
@@ -3514,7 +3574,7 @@ def phase_colfilter(args, torch, card) -> dict:
     g = weighted_rmat(CF_SCALE, CF_EF, args.seed)
     t_graph = time.perf_counter() - t0
     t0 = time.perf_counter()
-    want = colfilter.reference_colfilter(g, args.iters).astype(np.float32)
+    want = colfilter_oracle(torch, g, args.iters).astype(np.float32)
     t_oracle = time.perf_counter() - t0
     t0 = time.perf_counter()
     int_state = np.random.default_rng(args.seed).integers(
@@ -3563,6 +3623,11 @@ def phase_colfilter(args, torch, card) -> dict:
             args, torch, eng, g3, sg, want[perm],
             (int_state[perm], int_red[perm]), f"pairs_{label}", card,
             extra)
+        if not stream:
+            priced(cf_pricing, args, torch, eng, lambda um: colfilter.
+                   build_engine(g3, 1, sg=sg, pair_threshold=PAIR_THRESHOLD,
+                                pair_min_fill=CF_MIN_FILL, pair_stream=None,
+                                use_mxu=um))
         del eng, sg
         torch.cuda.empty_cache()
     del g3, perm, starts
@@ -3597,6 +3662,12 @@ def phase_colfilter(args, torch, card) -> dict:
              plan_seconds=round(eng.plan_seconds, 3),
              plan={"R": pp.R, "Rp": pp.Rp, "classes": len(pp.classes),
                    "n_pages": pp.n_pages}))
+    flat = eng.init_state().reshape(eng.num_parts * eng.vpad, -1)
+    PRICED["colfilter_paged"] = {
+        "delivery_ms": cuda_ms(lambda: eng._paged_dot_red(flat), args.reps),
+        "rows": eng.num_parts * pp.Rp, "K": colfilter.K,
+        "unique_pages": int(pp.stats["unique_pages"])}
+    del flat
     del eng, sg
     torch.cuda.empty_cache()
     return counts
@@ -3611,7 +3682,7 @@ def parts_colfilter(args, torch) -> dict:
     from lux_tpu_torch.apps import colfilter
     from lux_tpu_torch.graph import pair_relabel
     g = weighted_rmat(PARTS_SCALE, 16, args.seed + 1)
-    want = colfilter.reference_colfilter(g, args.iters)
+    want = colfilter_oracle(torch, g, args.iters)
     g3, perm, starts = pair_relabel(g, 4, pair_threshold=PAIR_THRESHOLD)
     runs = {"tiled": (g, want, dict(tile_e=128)),
             "flat": (g, want, dict(layout="flat")),
@@ -3849,17 +3920,46 @@ def b1_batched_bound(torch, vals, rel, W) -> dict:
             "all_values_bytes": C * E * B * isz + C * E + C * W * B * isz}
 
 
-def ppr_oracle(g, resets, iters: int) -> np.ndarray:
+def colfilter_oracle(torch, g, iters: int, device="cuda") -> np.ndarray:
+    """float64 ColFilter with the semantics of
+    apps/colfilter.reference_colfilter (the same update from the
+    uniform init), run on ``device`` in float64, each destination's
+    gradient sums one ``index_add_`` (the numpy oracle's bincount a
+    column): a second where the numpy oracle takes a minute at R-MAT 16
+    ef 128."""
+    from lux_tpu_torch.apps.colfilter import GAMMA, K, LAMBDA
+    src, dst = (torch.as_tensor(np.asarray(a, np.int64), device=device)
+                for a in g.edge_arrays()[:2])
+    w = torch.as_tensor(np.asarray(g.weights, np.float64), device=device)
+    state = torch.full((g.nv, K), np.sqrt(1.0 / K), dtype=torch.float64,
+                       device=device)
+    for _ in range(iters):
+        s = state[src]
+        s *= (w - (s * state[dst]).sum(1))[:, None]
+        acc = torch.zeros_like(state).index_add_(0, dst, s)
+        state = state + GAMMA * (acc - LAMBDA * state)
+    return state.cpu().numpy()
+
+
+def in_edge_matrix(g):
+    """The [nv, nv] in-edge matrix A[d, s] (duplicate edges add) that
+    ppr_oracle multiplies by, built once a graph."""
+    from scipy.sparse import csr_matrix
+    src, dst = g.edge_arrays()
+    return csr_matrix((np.ones(src.size), (dst, src)), shape=(g.nv, g.nv))
+
+
+def ppr_oracle(g, resets, iters: int, a=None) -> np.ndarray:
     """float64 personalized PageRank with the semantics of
     apps/pagerank.reference_pagerank_batched (the same update, the
     same degree normalization), each iteration's in-edge sums one
     scipy sparse product for every column (duplicate edges add, as
     the numpy oracle's bincount does): seconds where the numpy oracle
-    takes a minute at R-MAT 20."""
-    from scipy.sparse import csr_matrix
+    takes a minute at R-MAT 20.  ``a``: in_edge_matrix(g), when the
+    caller holds it."""
     from lux_tpu_torch.apps.pagerank import ALPHA
-    src, dst = g.edge_arrays()
-    a = csr_matrix((np.ones(src.size), (dst, src)), shape=(g.nv, g.nv))
+    if a is None:
+        a = in_edge_matrix(g)
     resets = np.asarray(resets, dtype=np.float64)
     deg = g.out_degrees.astype(np.float64)[:, None]
     state = np.where(deg > 0, resets / np.maximum(deg, 1), resets)
@@ -4012,8 +4112,8 @@ def gather_width_sweep(args, torch, eng) -> dict:
 def phase_ksssp_batch(args, torch, g, sources, card):
     """bench.py's ksssp-batch@8 (bench.py:941-966): hop SSSP from the 8
     sources on R-MAT 20, one part, no relabel, dense iterations only;
-    labels bit-equal to the port's numpy batched oracle
-    (sssp.reference_sssp_batched) and, for the two columns reaching the
+    labels bit-equal to a numpy BFS from each source (bfs_levels) and,
+    for the two columns reaching the
     most vertices, to single-source runs of the scalar engine; B1's
     batched form launched once an iteration, the scalar B1 and B2
     never; at most one host sync an iteration.  Returns (the
@@ -4043,10 +4143,11 @@ def phase_ksssp_batch(args, torch, g, sources, card):
     require(got.shape == (g.nv, BATCH_B) and got.dtype == np.int32,
             "ksssp_batch: labels are not int32 [nv, B]")
     t0 = time.perf_counter()
-    want = sssp.reference_sssp_batched(g, sources)
+    want = np.stack([bfs_levels(g, s) for s in sources],
+                    axis=1).astype(np.int64)
     t_oracle = time.perf_counter() - t0
     require(np.array_equal(got.astype(np.int64), want),
-            f"ksssp_batch: labels differ from the numpy batched oracle at "
+            f"ksssp_batch: labels differ from the numpy BFS oracle at "
             f"{int((got != want).sum())} (vertex, query) pairs")
     reached = (want < sssp.HOP_INF).sum(axis=0)
     single = {}
@@ -4084,7 +4185,7 @@ def phase_ksssp_batch(args, torch, g, sources, card):
           "layers": layers, "device_profile": profiled,
           "peak_bytes": int(peak), "tile_e": eng.tiles.E,
           "setup_seconds": round(t_setup, 3),
-          "oracle": "sssp.reference_sssp_batched (numpy) + 2 scalar runs",
+          "oracle": "bfs_levels (numpy BFS a source) + 2 scalar runs",
           "oracle_seconds": round(t_oracle, 3), "single_source": single,
           "card": card})
     cases = [_check_batched_case(torch, "ksssp_batch_own/min", vals, rel,
@@ -4138,6 +4239,8 @@ def phase_ppr_batch(args, torch, g, sources, card):
     st = eng.run(eng.init_state(), 3)
     layers, vals, rel = batched_layers(args, torch, eng, st)
     layers["gather_by_width"] = gather_width_sweep(args, torch, eng)
+    PRICED["gather_by_width"] = layers["gather_by_width"]
+    priced(mxu_ppr, args, torch, g, sources, eng, got, want)
     gteps = g.ne * PPR_ITERS / secs / 1e9
     emit({"phase": "ppr_batch", "nv": g.nv, "ne": g.ne, "B": BATCH_B,
           "sources": sources, "iters": PPR_ITERS, "seconds": secs,
@@ -4182,6 +4285,7 @@ def serve_check(g, responses):
     from lux_tpu_torch.apps import pagerank
     from lux_tpu_torch.apps.sssp import HOP_INF
     levels, worst = {}, 0.0
+    a = in_edge_matrix(g)
     for r in responses:
         require(r.converged, f"serve: query {r.qid} retired unconverged")
         if r.kind in ("sssp", "components"):
@@ -4196,7 +4300,7 @@ def serve_check(g, responses):
                     f"from the oracle")
         else:
             want = ppr_oracle(g, pagerank.one_hot_resets(g.nv, [r.source]),
-                              r.iters)[:, 0]
+                              r.iters, a)[:, 0]
             require(np.allclose(r.answer, want, **MAIN_TOL),
                     f"serve: pagerank query {r.qid} differs from the "
                     f"float64 oracle")
@@ -5254,11 +5358,12 @@ def observe_ledger(torch, eng, name: str, run) -> None:
         "engine_verdict": memwatch.engine_verdict(eng, ledger=led)}
 
 
-def observed(fn, *args):
-    """Run one observe step, adding its wall seconds to the phase's."""
+def observed(fn, *args, book=None):
+    """Run one observe step, adding its wall seconds to the phase's
+    (``book``: another phase's record, the pricing line's)."""
     t0 = time.perf_counter()
     out = fn(*args)
-    secs = OBSERVE.setdefault("seconds", {})
+    secs = (OBSERVE if book is None else book).setdefault("seconds", {})
     secs[fn.__name__] = secs.get(fn.__name__, 0.0) + round(
         time.perf_counter() - t0, 3)
     return out
@@ -5275,6 +5380,542 @@ def phase_observe(card) -> None:
     secs = OBSERVE.get("seconds", {})
     emit({"phase": "observe", "what": "seconds", "seconds": secs,
           "total_s": round(sum(secs.values()), 3), "card": card})
+
+
+# -- pricing (ROADMAP A10b) and the matrix-unit forms (A8) -----------
+
+# what the phases measured that the pricing line derives the card's
+# constants from, and what it prints
+PRICED = {}
+PRICING = {"decompose": {}, "gather_auto": {}, "seconds": {}}
+MXU = {}
+
+# the gather sweep's state tables (MB) and ids (R-MAT 21's edges)
+GATHER_TABLE_MB = (8, 16, 32, 64, 128, 256)
+GATHER_SWEEP_IDS = 1 << 25
+# the min_fill sweep's points beside "auto" and bench.py's 24 (at most
+# four fills in all)
+MIN_FILL_SWEEP = (12, 48)
+
+
+def priced(fn, *args):
+    """Run one pricing step, adding its wall seconds to the line's."""
+    return observed(fn, *args, book=PRICING)
+
+
+def pricing_calibrate(torch):
+    """observe.calibrate() on the card: the fingerprint and its grade,
+    which must be canonical on the constants' own card."""
+    from lux_tpu_torch import observe, scalemodel
+    fp = observe.calibrate()
+    PRICING["fingerprint"] = fp.digest()
+    PRICING["canonical_figures"] = fp.canonical
+    name = torch.cuda.get_device_name(0)
+    if name == scalemodel.H100.card:
+        require(fp.grade == "canonical",
+                f"pricing: the session graded {fp.grade} (deviation "
+                f"{fp.deviation:.3f}) on {name}")
+    return fp
+
+
+def pricing_decompose(torch, eng, name: str, iters: int = 3):
+    """observe.decompose on an engine at its cell's size over ``iters``
+    iterations (a push cell: its whole converge, dense and sparse): each
+    phase's measured ms beside the model and its verdict, and the share
+    of the split the verdicts cover (the modeled phases' medians over
+    all)."""
+    from lux_tpu_torch import observe
+    d = observe.decompose(eng, name, iters=iters,
+                          fingerprint=observe.calibrate())
+    total = sum(p.median_s for p in d.phases)
+    covered = sum(p.median_s for p in d.phases if p.predicted_s)
+    PRICING["decompose"][name] = {
+        "ne": d.ne, "nv": d.nv, "scale": d.scale,
+        "phases": [{"phase": p.phase, "median_ms": p.median_s * 1e3,
+                    "mad_ms": p.mad_s * 1e3,
+                    "model_ms": None if p.predicted_s is None
+                    else p.predicted_s * 1e3,
+                    "ratio": p.ratio, "verdict": p.verdict}
+                   for p in d.phases],
+        "modeled_share": covered / total if total else None}
+    return d
+
+
+def gather_table_sweep(args, torch) -> dict:
+    """index_select of GATHER_SWEEP_IDS random ids from float32 state
+    tables of GATHER_TABLE_MB: ns an edge at each size; the small rate
+    (the smallest table), the big rate (the largest), and the step
+    between them (the largest table still under 1.5x the small rate;
+    past the sweep when every one is)."""
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    out = {}
+    for mb in GATHER_TABLE_MB:
+        n = mb * (1 << 20) // 4
+        table = torch.rand(n, generator=gen, device="cuda")
+        idx = torch.randint(0, n, (GATHER_SWEEP_IDS,), generator=gen,
+                            device="cuda")
+        ms = cuda_ms(lambda: torch.index_select(table, 0, idx), args.reps)
+        out[mb] = ms * 1e6 / GATHER_SWEEP_IDS
+        del table, idx
+    torch.cuda.empty_cache()
+    small = out[GATHER_TABLE_MB[0]]
+    step = next((mb for mb in GATHER_TABLE_MB if out[mb] > 1.5 * small),
+                None)
+    big = out[GATHER_TABLE_MB[-1]]
+    prev = GATHER_TABLE_MB[GATHER_TABLE_MB.index(step) - 1] if step else None
+    PRICED["gather_sweep"] = {
+        "ns_per_edge_by_table_mb": out, "step_mb": step,
+        "big_table_bytes": (GATHER_TABLE_MB[-1] if step is None
+                            else prev) * (1 << 20),
+        "gather_small_ns": small, "gather_big_ns": big}
+    return out
+
+
+def pricing_gather_auto(args, torch, g2, sg, label: str, steps: dict):
+    """gather="auto" through pagerank.build_engine on a cell's graph and
+    layout: the resolved mode beside the steps (ms) the smoke measured
+    there for each mode; it must be the fastest of them."""
+    from lux_tpu_torch.apps import pagerank
+    t0 = time.perf_counter()
+    eng = pagerank.build_engine(g2, sg=sg, gather="auto")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    best = min(steps, key=steps.get)
+    PRICING["gather_auto"][label] = {
+        "resolved": eng.gather, "measured_step_ms": steps,
+        "fastest": best, "build_seconds": round(secs, 3)}
+    require(eng.gather == best,
+            f"gather='auto' on {label} resolved {eng.gather}, but the "
+            f"smoke measured {steps} ms")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def pricing_min_fill(args, torch, g2, starts):
+    """pair_min_fill="auto" on bench.py's pagerank config beside a sweep
+    of at most four fills (24, the resolved one, MIN_FILL_SWEEP): each
+    a monolithic pair engine's step ms and rows.  At 24 (bench.py's
+    fill) the pair delivery and the residual path are timed whole, the
+    pair_row_ns / residual_edge_ns figures, and the engine is
+    decomposed (the pairs cell)."""
+    from lux_tpu_torch.apps import pagerank
+    from lux_tpu_torch.ops.pairs import resolve_min_fill
+    auto = resolve_min_fill("auto")
+    fills = sorted({auto, PAIR_MIN_FILL, *MIN_FILL_SWEEP})
+    rows = {}
+    for f in fills:
+        t0 = time.perf_counter()
+        eng = pagerank.build_engine(
+            g2, 1, pair_threshold=PAIR_THRESHOLD, starts=starts,
+            pair_min_fill="auto" if f == auto else f, pair_stream=False)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        sp = eng.pairs
+        state = eng.init_state()
+        flat = state.reshape(-1)
+        rec = {"fill": f, "auto": f == auto,
+               "step_ms": cuda_ms(lambda: eng.step(state), args.reps),
+               "pair_rows": eng.num_parts * sp.Rp, "real_rows": sp.R,
+               "coverage": sp.stats["coverage"],
+               "residual_chunks": eng.tiles.n_chunks,
+               "setup_seconds": round(setup, 3)}
+        if f == PAIR_MIN_FILL:
+            rec["pair_delivery_ms"] = cuda_ms(lambda: eng._pair_red(flat),
+                                              args.reps)
+            rec["residual_ms"] = cuda_ms(
+                lambda: eng._reduce(eng._messages(flat)), args.reps)
+            rec["ne"] = int(sp.stats["ne"])
+            PRICED["pairs_monolithic"] = rec
+            pricing_decompose(torch, eng, "pairs_monolithic")
+        rows[f] = rec
+        del eng, state, flat
+        torch.cuda.empty_cache()
+    best = min(rows.values(), key=lambda r: r["step_ms"])
+    PRICING["min_fill"] = {
+        "resolved": auto, "sweep": list(rows.values()),
+        "best_fill": best["fill"],
+        "resolved_over_best": rows[auto]["step_ms"] / best["step_ms"]}
+
+
+# S9 against its plain version on the main path's chunks: rtol 1e-5,
+# atol this fraction of the largest plain partial
+S9_ATOL_OF_MAX = 1e-6
+
+
+def mxu_s9_line(args, torch, msgs, rel8, W, launches: int) -> dict:
+    """Kernel S9 on the main path's own chunks: against its plain
+    version, its times, bound and library time (the probes' S9 entry's
+    measures), with the main path's launches under use_mxu=True."""
+    from lux_tpu_torch.ops.chunk_reduce import KernelInputError
+    from lux_tpu_torch.ops.onehot_reduce import (MMA_OPS, mma_count,
+                                                 onehot_reduce,
+                                                 onehot_reduce_plain)
+    dev = msgs.device
+    rel = rel8.to(torch.int32)
+    C, E = msgs.shape
+    got = onehot_reduce(msgs, rel, W)
+    want = onehot_reduce_plain(msgs, rel, W)
+    err = float((got - want).abs().max())
+    # scaled to the data: PageRank's messages are (1/nv)/deg, about
+    # 5e-7 at R-MAT 21, so a fixed atol would pass a kernel writing
+    # zeros; S9's three bf16 parts keep float32's accuracy
+    scale = float(want.abs().max())
+    require(scale > 0 and torch.allclose(got, want, rtol=1e-5,
+                                         atol=S9_ATOL_OF_MAX * scale),
+            f"S9 on the main path's chunks: max abs err {err} against "
+            f"max |plain| {scale} (rtol 1e-5, atol {S9_ATOL_OF_MAX} of "
+            f"max |plain|)")
+    # no fallback on the card: a lane dtype S9 does not take raises
+    try:
+        onehot_reduce(msgs, rel8, W)
+        raised = False
+    except KernelInputError:
+        raised = True
+    require(raised, "S9 took int8 lanes on the card without raising")
+    lane = torch.where((rel >= 0) & (rel < W), rel, W).long()
+    flat_idx = (torch.arange(C, device=dev)[:, None] * (W + 1)
+                + lane).reshape(-1)
+    base = torch.zeros(C * (W + 1), device=dev)
+    flat_vals = msgs.reshape(-1)
+    mmas = mma_count(rel, W)
+    n_bytes = C * (8 * E + 4 * W)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mmas * MMA_OPS / BF16_TC_OPS_PER_S * 1e3
+    line = {"name": "onehot_reduce@main_mxu", "route": "cuda",
+            "source": "lux_tpu_torch/csrc/onehot_mma.cu",
+            "replaces": "scripts/profile_kernel.py:123",
+            "launches": launches, "shape": [C, E, W], "max_abs_err": err,
+            "max_abs_plain": scale, "err_of_max": err / scale,
+            "ms": cuda_ms(lambda: onehot_reduce(msgs, rel, W), args.reps),
+            "plain_ms": cuda_ms(lambda: onehot_reduce_plain(msgs, rel, W),
+                                args.reps),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "operations": mmas * MMA_OPS,
+            "library_ms": cuda_ms(
+                lambda: base.scatter_add(0, flat_idx, flat_vals),
+                args.reps),
+            "launches_by_path": {"main_mxu": launches},
+            "raises_on_int8_lanes": raised}
+    PRICED["s9"] = {"ms": line["ms"], "rows": C * E / 128}
+    return line
+
+
+def combine_times(args, eng, partials, wide: int) -> dict:
+    """combine_chunks on an engine's own partials, the doubling and the
+    scan as matmuls (use_mxu), each timed whole: the combine figures of
+    scalemodel."""
+    from lux_tpu_torch import scalemodel
+    from lux_tpu_torch.ops.tiled import combine_chunks
+    a = eng.arrays
+
+    def run(um):
+        return combine_chunks(partials, eng.tiles, a["chunk_start"],
+                              a["last_chunk"], "sum", eng._plan, um)
+    max_len = eng._plan.max_len
+    return {"doubling_ms": cuda_ms(lambda: run(False), args.reps),
+            "matmul_ms": cuda_ms(lambda: run(True), args.reps),
+            "chunks": int(partials.shape[0]), "W": eng.tiles.W,
+            "wide": wide, "max_len": max_len,
+            "passes": scalemodel.combine_passes(max_len)}
+
+
+def mxu_model(eng) -> dict:
+    """Each side's tiled reduce as scalemodel prices it on the engine's
+    own layout (the prices use_mxu="auto" compared), in ms."""
+    from lux_tpu_torch import scalemodel
+    from lux_tpu_torch.engine.pull import mxu_wide_of
+    p, t = eng.program, eng.tiles
+    layout = scalemodel.ReduceLayout(eng.num_parts * t.n_chunks, t.E, t.W,
+                                     eng._plan.max_len)
+    kw = dict(kind=p.reduce, wide=mxu_wide_of(p),
+              scalar_f32=eng.scalar_f32_sum,
+              dot=p.edge_value_from_dot is not None)
+    return {"layout": layout._asdict(),
+            "mxu_ms": scalemodel.reduce_ns(True, layout, **kw) * 1e-6,
+            "plain_ms": scalemodel.reduce_ns(False, layout, **kw) * 1e-6}
+
+
+def mxu_main(args, torch, g, eng):
+    """use_mxu=True on the main path (R-MAT 21 PageRank): kernel S9
+    launched once an iteration, B1 never; within rtol 2e-5 of the B1
+    path's ranks and MAIN_TOL of the float64 oracle; each side's step
+    ms; what "auto" resolved to.  Returns S9's kernels-line entry."""
+    from lux_tpu_torch.apps import pagerank
+    from lux_tpu_torch.ops.onehot_reduce import onehot_reduce
+    got_b1, want = PRICED.pop("main_answer")
+    em = pagerank.build_engine(g, use_mxu=True)
+    require(em.use_mxu, "use_mxu=True did not engage")
+    state, secs, counts, _peak, _h = timed_run(torch, em, args.iters)
+    s9 = onehot_reduce.launches
+    require(s9 == args.iters * em.num_parts
+            and counts["chunk_partials"] == 0,
+            f"main mxu: S9 launched {s9}, B1 {counts['chunk_partials']} "
+            f"times in {args.iters} iterations (want S9 one an iteration, "
+            f"B1 none)")
+    got = em.unpad(state)
+    vs_b1 = float(np.max(np.abs(got - got_b1) / np.maximum(
+        np.abs(got_b1), 1e-30)))
+    require(np.allclose(got, got_b1, rtol=2e-5, atol=1e-9),
+            f"main mxu: {vs_b1:.3e} from the B1 path (rtol 2e-5)")
+    vs_oracle = float(np.max(np.abs(got - want) / np.maximum(
+        np.abs(want), 1e-30)))
+    require(np.allclose(got, want, **MAIN_TOL),
+            f"main mxu: {vs_oracle:.3e} from the float64 oracle")
+    st = em.init_state()
+    t = em.tiles
+    msgs = em._messages(st.reshape(-1)).reshape(-1, t.E)
+    rel8 = em.arrays["rel_dst"].reshape(-1, t.E)
+    MXU["main"] = {
+        "shape": [em.num_parts * t.n_chunks, t.E, t.W],
+        "s9_launches": s9, "iters": args.iters,
+        "mxu_step_ms": cuda_ms(lambda: em.step(st), args.reps),
+        "b1_step_ms": cuda_ms(lambda: eng.step(st), args.reps),
+        "ms_per_iter": secs * 1e3 / args.iters,
+        "max_rel_err_vs_b1": vs_b1, "max_rel_err_vs_oracle": vs_oracle,
+        "auto_resolved": eng.use_mxu, "model": mxu_model(eng)}
+    MXU["main"]["auto_is_faster"] = eng.use_mxu is (
+        MXU["main"]["mxu_step_ms"] < MXU["main"]["b1_step_ms"])
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    PRICED["combine_main"] = combine_times(
+        args, eng, chunk_partials(msgs, rel8, t.W, "sum"), 1)
+    line = mxu_s9_line(args, torch, msgs.contiguous(), rel8.contiguous(),
+                       t.W, s9)
+    del em, st, msgs
+    torch.cuda.empty_cache()
+    return line
+
+
+def mxu_ppr(args, torch, g, sources, eng, got_b1, want):
+    """use_mxu=True on ppr_batch: the one-hot sum (torch.bmm over
+    [C, E, 8] in full float32) in place of B1's batched form; within
+    rtol 5e-5 of the B1 path and of the float64 oracle; the one-hot
+    sum's ms at the path's own messages, eight columns and one (the
+    onehot_tile_ns / mxu_tile_ns figures)."""
+    from lux_tpu_torch.apps import pagerank
+    from lux_tpu_torch.ops.tiled import chunk_partials_mxu
+    em = pagerank.build_engine(g, 1, sources=sources, use_mxu=True)
+    state, secs, counts, _p, _h = timed_run(torch, em, PPR_ITERS)
+    require(batched_launches() == 0 and counts["chunk_partials"] == 0,
+            "ppr mxu: a B1 form launched under use_mxu=True")
+    got = em.unpad(state)
+    for what, ref, tol in (("the B1 path", got_b1, dict(rtol=5e-5,
+                                                         atol=1e-9)),
+                           ("the float64 oracle", want, MAIN_TOL)):
+        require(np.allclose(got, ref, **tol),
+                f"ppr mxu: disagrees with {what}")
+    st = em.init_state()
+    t = em.tiles
+    msgs = em._messages(st.reshape(-1, st.shape[-1])).reshape(
+        -1, t.E, st.shape[-1]).contiguous()
+    rel8 = em.arrays["rel_dst"].reshape(-1, t.E)
+    onehot_ms = cuda_ms(lambda: chunk_partials_mxu(msgs, rel8, t.W, "sum"),
+                        max(3, args.reps // 4))
+    one = msgs[..., :1].contiguous()
+    onehot_1_ms = cuda_ms(lambda: chunk_partials_mxu(one, rel8, t.W, "sum"),
+                          max(3, args.reps // 4))
+    del one
+    PRICED["onehot_sum"] = {"ms_b8": onehot_ms, "ms_b1": onehot_1_ms,
+                            "rows": msgs.shape[0] * t.E / 128}
+    MXU["ppr_batch"] = {
+        "B": st.shape[-1], "iters": PPR_ITERS,
+        "mxu_step_ms": cuda_ms(lambda: em.step(st), max(3, args.reps // 4)),
+        "b1_step_ms": cuda_ms(lambda: eng.step(st), args.reps),
+        "onehot_sum_ms": onehot_ms, "onehot_sum_one_column_ms": onehot_1_ms,
+        "max_rel_err_vs_b1": float(np.max(np.abs(got - got_b1) / np.maximum(
+            np.abs(got_b1), 1e-30))),
+        "auto_resolved": eng.use_mxu}
+    del em, st, msgs
+    torch.cuda.empty_cache()
+
+
+def mxu_colfilter(args, torch, eng, build):
+    """use_mxu=True against use_mxu=False on colfilter's pairs
+    (monolithic) cell, ``eng`` (built "auto") one of the two: the
+    residual's segmented combine as matmuls; within rtol 1e-5 of the
+    plain run."""
+    em = eng if eng.use_mxu else build(True)
+    ev = build(False) if eng.use_mxu else eng
+    state, secs, _c, _p, _h = timed_run(torch, em, args.iters)
+    got = em.unpad(state)
+    ref = ev.unpad(ev.run(ev.init_state(), args.iters))
+    require(np.allclose(got, ref, rtol=1e-5, atol=1e-8),
+            "colfilter mxu: disagrees with the plain run (rtol 1e-5)")
+    st = em.init_state()
+    case = {
+        "mxu_step_ms": cuda_ms(lambda: em.step(st), max(3, args.reps // 4)),
+        "b1_step_ms": cuda_ms(lambda: ev.step(st), max(3, args.reps // 4)),
+        "max_abs_diff": float(np.max(np.abs(got - ref))),
+        "auto_resolved": eng.use_mxu, "model": mxu_model(eng)}
+    case["auto_is_faster"] = eng.use_mxu is (case["mxu_step_ms"]
+                                             < case["b1_step_ms"])
+    MXU["colfilter"] = case
+    del em, ev, st
+    torch.cuda.empty_cache()
+
+
+def mxu_push(torch, name: str, eng, em, label, it):
+    """use_mxu=True on a push cell (the tournament for the dense min /
+    max, the cumsum as matmuls for the sparse expansion): labels and
+    iterations bit-equal to the plain converge's; each converge's
+    wall ms."""
+    lm, _am, itm = em.converge(*em.init_state())
+    require(itm == it and torch.equal(lm, label),
+            f"{name} mxu: labels or iterations ({itm} vs {it}) differ from "
+            f"use_mxu=False")
+    MXU[name] = {"iterations": it, "labels_bit_equal": True,
+                 "mxu_converge_ms": wall_ms(
+                     torch, lambda: em.converge(*em.init_state())),
+                 "b1_converge_ms": wall_ms(
+                     torch, lambda: eng.converge(*eng.init_state())),
+                 "auto_resolved": eng.use_mxu}
+
+
+def cf_pricing(args, torch, eng, build):
+    """On colfilter's pairs (monolithic) cell: the pair rows' dot
+    delivery and the residual's dot blocks and combine, each timed
+    whole (the per-K figures), the cell decomposed, and the mxu case
+    (``build(use_mxu)`` builds the engine)."""
+    from lux_tpu_torch.apps import colfilter
+    from lux_tpu_torch.ops.tiled import combine_partials
+    a = eng.arrays
+    state = eng.init_state()
+    flat = state.reshape(eng.num_parts * eng.vpad, -1)
+    PRICED["colfilter_pairs_monolithic"] = {
+        "pair_ms": cuda_ms(lambda: eng._pair_dot_red(flat), args.reps),
+        "pair_rows": eng.num_parts * eng.pairs.Rp,
+        "residual_ms": cuda_ms(lambda: combine_partials(
+            eng.dot_chunk_partials(state), eng.tiles, a["chunk_start"],
+            a["last_chunk"], eng.vpad, "sum", eng._plan), args.reps),
+        "residual_edges": int(eng.sg.ne), "K": colfilter.K}
+    del flat
+    PRICED["combine_colfilter"] = combine_times(
+        args, eng, eng.dot_chunk_partials(state), colfilter.K)
+    pricing_decompose(torch, eng, "colfilter")
+    mxu_colfilter(args, torch, eng, build)
+
+
+def card_constants() -> dict:
+    """The card's figures from what the phases measured (PRICED), each
+    as scalemodel.H100_SOURCES names it."""
+    P = PRICED
+    gs = P["gather_sweep"]
+    pm = P["pairs_monolithic"]
+    pair_row = pm["pair_delivery_ms"] * 1e6 / pm["pair_rows"]
+    residual = pm["residual_ms"] * 1e6 / (pm["ne"] * (1 - pm["coverage"]))
+    pg = P["paged"]
+    fetch_rows = pg["P"] * (pg["n_pages"] + pg["Rg"])
+    F = pg["layers"]["page_fetch_ms"] * 1e6 / fetch_rows
+    paged_row = (pg["delivery_ms"] * 1e6 - pg["unique_pages"] * F) / (
+        pg["P"] * pg["Rp"])
+    pmj = P["pagemajor"]
+    lay = pmj["layers"]
+    vrow = (lay["vrow_take_ms"] + lay["chunk_partials_ms"]
+            + lay["class_combine_ms"]) * 1e6 / (pmj["P"] * pmj["Rp"]) - F
+    cf = P["colfilter_pairs_monolithic"]
+    pair_k = (cf["pair_ms"] * 1e6 / cf["pair_rows"] - pair_row) / cf["K"]
+    res_k = (cf["residual_ms"] * 1e6 / cf["residual_edges"]
+             - residual) / cf["K"]
+    cp = P["colfilter_paged"]
+    paged_k = ((cp["delivery_ms"] * 1e6 - cp["unique_pages"] * F)
+               / cp["rows"] - paged_row) / cp["K"]
+    mn = P["main"]
+    vpu = mn["chunk_partials_ms"] * 1e6 / (mn["chunks"] * mn["E"] / 128)
+    oh = P["onehot_sum"]
+    b1 = oh["ms_b1"] * 1e6 / oh["rows"]
+    mxu_tile = (oh["ms_b8"] * 1e6 / oh["rows"] - b1) / 7
+    wb = P["gather_by_width"]
+    lane = (wb["B8"]["gather_rows_ms"] - wb["B1"]["gather_rows_ms"]) \
+        * 1e6 / 7 / wb["rows"]
+    apply_ms = next(p["median_ms"] for p in
+                    PRICING["decompose"]["main"]["phases"]
+                    if p["phase"] == "apply")
+    s9 = P["s9"]
+    cm, cc = P["combine_main"], P["combine_colfilter"]
+    passes = [r["chunks"] * r["W"] * r["wide"] * r["passes"]
+              for r in (cm, cc)]
+    scan = [r["matmul_ms"] * 1e6 / (r["chunks"] * r["W"]) for r in (cm, cc)]
+    scan_slice = (scan[1] - scan[0]) / (cc["wide"] - cm["wide"])
+    fp = PRICING["fingerprint"]["probe"]
+    return {
+        "gather_small_ns": gs["gather_small_ns"],
+        "gather_big_ns": gs["gather_big_ns"],
+        "big_table_bytes": float(gs["big_table_bytes"]),
+        "pair_row_ns": pair_row, "pair_dot_row_k_ns": pair_k,
+        "residual_edge_ns": residual, "residual_dot_k_ns": res_k,
+        "page_row_fetch_ns": F,
+        "lane_shuffle_ns": pg["layers"]["lane_shuffle_ms"] * 1e6 / (
+            pg["P"] * pg["Rg"] * 128),
+        "paged_row_ns": paged_row, "paged_dot_row_k_ns": paged_k,
+        "vrow_reduce_ns": vrow, "vpu_row_ns": vpu,
+        "onehot_tile_ns": b1 - mxu_tile, "mxu_tile_ns": mxu_tile,
+        "batch_lane_ns": lane,
+        "state_ns_per_vertex": apply_ms * 1e6 / mn["padded_vertices"],
+        "probe_gather_ns": fp["gather_small_ns"],
+        "probe_pair_dot_row_ns": fp["pair_dot_row_ns"],
+        "probe_page_row_ns": fp["page_gather_row_ns"],
+        "s9_row_ns": s9["ms"] * 1e6 / s9["rows"],
+        "combine_pass_ns": (cm["doubling_ms"] + cc["doubling_ms"]) * 1e6
+        / sum(passes),
+        "segscan_lane_ns": scan[0] - scan_slice * cm["wide"],
+        "segscan_slice_ns": scan_slice}
+
+
+def phase_pricing(card) -> None:
+    """Print the pricing line: the fingerprint, the card's constants as
+    measured here beside the package's table, the decompositions, the
+    min_fill sweep, gather="auto" on its two graphs, the memory ratios
+    and the seconds each step took."""
+    import dataclasses
+
+    from lux_tpu_torch import memwatch, scalemodel
+    measured = card_constants()
+    baked = dataclasses.asdict(scalemodel.H100)
+    emit({"phase": "pricing", "what": "calibration",
+          "fingerprint": PRICING["fingerprint"],
+          "canonical_figures": PRICING["canonical_figures"], "card": card})
+    emit({"phase": "pricing", "what": "constants", "measured": measured,
+          "table": baked,
+          "measured_over_table": {k: measured[k] / baked[k]
+                                  if baked[k] else None for k in measured},
+          "sources": scalemodel.H100_SOURCES,
+          "gather_sweep": PRICED["gather_sweep"],
+          "combine": {k: PRICED[f"combine_{k}"]
+                      for k in ("main", "colfilter")}, "card": card})
+    emit({"phase": "pricing", "what": "decompose",
+          "decompose": PRICING["decompose"], "card": card})
+    emit({"phase": "pricing", "what": "min_fill",
+          "min_fill": PRICING["min_fill"], "card": card})
+    emit({"phase": "pricing", "what": "gather_auto",
+          "gather_auto": PRICING["gather_auto"], "card": card})
+    mem = {}
+    for name, rec in OBSERVE.get("ledger", {}).items():
+        v = rec["peak_verdict"]
+        mem[name] = {"ratio": v["ratio"], "errors": v["errors"],
+                     "tol": memwatch.MEM_TOL, "ledger_bytes": v[
+                         "ledger_bytes"], "peak_bytes": v["peak_bytes"],
+                     "port_terms": {k: t for k, t in rec["terms"].items()
+                                    if k.startswith("port_")}}
+    tr = OBSERVE.get("trail")
+    if tr is not None:
+        mem["serve"] = {"ratio": tr["verdict"]["ratio"],
+                        "errors": tr["verdict"]["errors"],
+                        "tol": memwatch.MEM_TOL,
+                        "ledger_bytes": tr["server_ledger_bytes"],
+                        "peak_bytes": tr["peak_bytes"]}
+    emit({"phase": "pricing", "what": "memory", "memory": mem,
+          "card": card})
+    secs = PRICING["seconds"]
+    emit({"phase": "pricing", "what": "seconds", "seconds": secs,
+          "total_s": round(sum(secs.values()), 3), "card": card})
+
+
+def phase_mxu(card) -> None:
+    """Print the mxu line: use_mxu=True against use_mxu=False on the
+    main, ppr_batch, colfilter, sssp and cc cells."""
+    for key in ("main", "ppr_batch", "colfilter", "sssp", "cc"):
+        require(key in MXU, f"mxu: no {key} case")
+    emit({"phase": "mxu", "cases": MXU, "card": card})
 
 
 def main(argv=None) -> int:
@@ -5303,11 +5944,15 @@ def main(argv=None) -> int:
     from lux_tpu_torch.apps import pagerank
     card = phase_env(torch)
     phase_build()
+    priced(pricing_calibrate, torch)
+    priced(gather_table_sweep, args, torch)
     g, eng = phase_graph(args, torch)
     kline = phase_kernels(args, torch, eng)
     kline["launches"] = phase_main(args, torch, g, eng, card)
     phase_layers(args, torch, eng)
     observed(observe_pull_split, torch, eng, "main")
+    priced(pricing_decompose, torch, eng, "main")
+    main_eng = eng          # the mxu case holds its B1 twin to it
     del eng
     torch.cuda.empty_cache()
     g2, sg = phase_paged_graph(args, torch, g)
@@ -5318,6 +5963,10 @@ def main(argv=None) -> int:
     for mode in ("paged", "pagemajor"):
         by_path[mode], lines[mode], b1_lines[mode] = phase_paged(
             args, torch, g2, sg, mode, want, card)
+    priced(pricing_gather_auto, args, torch, g2, sg, "rmat_paged_cell",
+           {"flat": PRICED["main"]["step_ms"],
+            **{m: PRICED[m]["layers"]["step_ms"]
+               for m in ("paged", "pagemajor")}})
     del g2, sg, want
     b2 = lines["paged"]                 # B2 at the paged path's own rows
     reorder_counts, reorder_b1, reorder_b2 = phase_reorder(args, torch, card)
@@ -5333,12 +5982,18 @@ def main(argv=None) -> int:
     pair_eng = case[0]
     del case
     torch.cuda.empty_cache()
+    priced(pricing_min_fill, args, torch, g2, starts)
     # the probes before the push phases and the pairs engine's observe
     # steps: its torch.profiler count of S7 must be the process's first
     # profiler session (a later session can see a part of the device
     # events); in the one run that had the probes before the pairs
     # phase, that phase's host enqueue doubled (PERF.md §6, PR 15)
     probe_lines = phase_probes(args, torch, g, card)
+    # the first system path of kernel S9, after the probes' check that
+    # no system path launched a probe kernel
+    s9_line = priced(mxu_main, args, torch, g, main_eng)
+    del main_eng
+    torch.cuda.empty_cache()
     observed(observe_counters_pull, args, torch, pair_eng)
     observed(observe_profiler, args, torch, pair_eng)
     observed(observe_spans, args, torch, pair_eng)
@@ -5373,6 +6028,8 @@ def main(argv=None) -> int:
         by_path[path] = {k: n[k] for k in ("chunk_partials", "lane_shuffle")}
     phase_guarded(torch, guarded, card)
     phase_observe(card)
+    phase_pricing(card)
+    phase_mxu(card)
     by_path["pairs"] = pair_counts["streamed"]
     by_path["pairs_monolithic"] = pair_counts["monolithic"]
     for path, n in push_counts.items():
@@ -5394,8 +6051,11 @@ def main(argv=None) -> int:
         if line["name"].startswith("lane_shuffle@"):
             del line["launches_by_path"]["system paths"]
             line["launches_by_path"].update(b2["launches_by_path"])
+    for line in probe_lines:           # S9's system path beside its probe
+        if line["name"] == "onehot_reduce":
+            line["launches_by_path"]["system paths"] = s9_line["launches"]
     emit({"kernels": [kline, *b1_lines.values(), *batch_lines, b2,
-                      *reorder_b2.values(), *probe_lines]})
+                      *reorder_b2.values(), *probe_lines, s9_line]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

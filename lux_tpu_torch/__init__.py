@@ -15,7 +15,9 @@ counterpart is easy to find:
                   (csrc/lane_shuffle.cu) and the row-class combine;
                   the probe kernels carry / fused_carry, onehot_reduce
                   and transposed_reduce (csrc/carry.cu, fused_carry.cu,
-                  onehot_mma.cu, transposed_reduce.cu)
+                  onehot_mma.cu, transposed_reduce.cu); the matrix-unit
+                  (use_mxu) forms in tiled.py, onehot_reduce on a
+                  system path
   engine/         vertex-program bundle, the pull and push engines,
                   phased.py (timed_phases' PhaseTimer)
   apps/           PageRank
@@ -38,6 +40,9 @@ counterpart is easy to find:
   profiling.py    torch.profiler traces and the engines' named ranges
   tracing.py      span export (Chrome trace) and the flight recorder
   memwatch.py     memory trail, byte ledger, drift verdicts
+  scalemodel.py   the cost model on the card's measured constants
+  observe.py      session calibration, phase attribution, perf ledger
+                  (python -m lux_tpu_torch.observe)
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"`` (device.py).  Host planning stays numpy, as in the

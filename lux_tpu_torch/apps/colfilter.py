@@ -76,18 +76,15 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     with pairs and 512 without, as in the reference;
     ``dot_block_chunks`` / ``dot_block_rows`` size the dot path's
     blocks (engine.pull.PullEngine).  ``health=True`` runs the
-    watchdog variants (lux_tpu_torch/health.py).  Refused, naming their
-    ROADMAP item: ``use_mxu=True`` (A8), ``audit`` (A12), ``mesh``
-    (A6) and ``pair_min_fill="auto"`` (A10b); gather
-    'pagemajor' raises the reference's ValueError."""
+    watchdog variants (lux_tpu_torch/health.py).  ``use_mxu=True``
+    runs the segmented combine as matmuls (the dot path's one-hot
+    reduce is a ``torch.bmm`` either way); ``"auto"`` resolves through
+    scalemodel at K = 20, as does ``pair_min_fill="auto"``.  Refused,
+    naming their ROADMAP item: ``audit`` (A12) and ``mesh`` (A6);
+    gather 'pagemajor' raises the reference's ValueError."""
     dev = resolve_device(device)
     if g.weights is None:
         raise ValueError("collaborative filtering needs a weighted graph")
-    if use_mxu is True:
-        _refuse("use_mxu=True (the MXU one-hot and scan-as-matmul "
-                "forms)", "A8")
-    if use_mxu not in (False, "auto"):
-        raise ValueError(f"unknown use_mxu {use_mxu!r}")
     if audit is not None:
         _refuse("the static program audit (audit=)", "A12")
     if sg is None:
@@ -103,7 +100,7 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                       pair_min_fill=pair_min_fill, pair_stream=pair_stream,
                       dot_block_chunks=dot_block_chunks,
                       dot_block_rows=dot_block_rows, mesh=mesh,
-                      health=health)
+                      health=health, use_mxu=use_mxu)
 
 
 def run(g: Graph, num_iters: int, num_parts: int = 1, *,

@@ -114,7 +114,8 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                  layout: str = "tiled", exchange: str = "auto",
                  gather: str = "flat", mesh=None, sources=None,
                  resets=None, dtype=np.float32,
-                 health: bool = False) -> PullEngine:
+                 health: bool = False,
+                 use_mxu: bool | str = "auto") -> PullEngine:
     """PageRank engine on ``device`` (None = the card; "cpu" when
     asked).  ``sg`` is a prebuilt layout of ``g``; without it the
     layout is built here, with ``starts`` as its cut points (e.g. from
@@ -123,8 +124,11 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     ``pair_threshold`` / ``pair_min_fill`` / ``pair_stream``: pair-lane
     delivery (engine.pull.PullEngine).  ``tile_e``, the chunk width,
     defaults to 128 with pairs (the residual edges are sparse) and 512
-    without, as in the reference.  Options the port does not carry yet
-    (owner, gather="auto", mesh, min_fill="auto") raise
+    without, as in the reference.  ``gather="auto"``,
+    ``pair_min_fill="auto"`` and ``use_mxu="auto"`` (the default)
+    resolve through scalemodel; ``use_mxu=True`` takes the one-hot
+    forms of the tiled reduce (kernel S9 for this float32 sum).
+    Options the port does not carry yet (owner, mesh) raise
     engine.pull.NotPortedError.
 
     ``sources=[a, b, ...]`` builds the query-batched personalized
@@ -152,7 +156,7 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                       tile_e=tile_e, exchange=exchange, gather=gather,
                       pair_threshold=pair_threshold,
                       pair_min_fill=pair_min_fill, pair_stream=pair_stream,
-                      mesh=mesh, health=health)
+                      mesh=mesh, health=health, use_mxu=use_mxu)
 
 
 def run(g: Graph, num_iters: int, num_parts: int = 1, *,

@@ -2,20 +2,23 @@
 lux_tpu/cli.py:69, :116, :165, :557 and :596-689, :864).
 
     python -m lux_tpu_torch.cli pagerank -file g.lux -ni 10 [-np N]
-                                         [-gather flat|paged|pagemajor]
-                                         [-pair T [-min-fill F]]
+                                         [-gather flat|paged|pagemajor|auto]
+                                         [-pair T [-min-fill F|auto]]
+                                         [-mxu auto|mxu|vpu] [-calibrate]
                                          [-sources A,B,C | -batch B]
                                          [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli sssp -file g.lux [-start S] [-weighted]
                                      [-delta D|auto] [-np N]
-                                     [-gather flat|paged|pagemajor]
-                                     [-pair T [-min-fill F]]
+                                     [-gather flat|paged|pagemajor|auto]
+                                     [-pair T [-min-fill F|auto]]
+                                     [-mxu auto|mxu|vpu] [-calibrate]
                                      [-sources A,B,C | -batch B]
                                      [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli components -file g.lux [-np N] [...]
     python -m lux_tpu_torch.cli colfilter -file w.lux -ni 10 [-np N]
-                                          [-gather flat|paged]
-                                          [-pair T [-min-fill F]]
+                                          [-gather flat|paged|auto]
+                                          [-pair T [-min-fill F|auto]]
+                                          [-mxu auto|mxu|vpu] [-calibrate]
                                           [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli convert -input edges.txt -output g.lux
                                         -nv N [-weighted]
@@ -25,11 +28,16 @@ one warm-up run) and ``GTEPS = ne * iterations / seconds / 1e9``, like
 the reference.  The default device is the card; ``-device cpu`` runs
 the plain PyTorch versions on the host.  ``-gather paged|pagemajor``
 runs the page-binned delivery (ops/pagegather.py); ``-gather auto``
-is refused (exit 2) until its cost model is measured on the card.
-``-pair T`` relabels the graph (graph.pair_relabel) and serves dense
-tile pairs by pair-lane rows (ops/pairs.py); the ranks go back to the
-input's vertex order before ``-check``.  ``-min-fill auto`` is refused
-(exit 2) like ``-gather auto``.
+picks flat, paged or page-major by scalemodel's break-even on the
+plan's counted stats (the card's measured constants).  ``-pair T``
+relabels the graph (graph.pair_relabel) and serves dense tile pairs by
+pair-lane rows (ops/pairs.py); the ranks go back to the input's vertex
+order before ``-check``.  ``-min-fill auto`` resolves to scalemodel's
+break-even fill for the program's K.  ``-mxu auto|mxu|vpu`` picks the
+tiled reduce: 'mxu' the one-hot (matrix-unit) forms (kernel S9 for a
+scalar float32 sum, the tournament for min/max, the segmented sum as
+matmuls), 'vpu' kernel B1, 'auto' (default) by scalemodel's break-even
+width.
 
 ``sssp`` and ``components`` run the push engine to convergence and
 print ``ELAPSED TIME = ... s (N iterations)`` (one timed converge after
@@ -79,8 +87,9 @@ as JSONL (``python -m lux_tpu_torch.tracing FILE`` exports them);
 ``-iter-stats`` records the timed run's per-iteration counters and
 prints them after it; ``-flight FILE`` installs the crash flight
 recorder, which the supervisor dumps to FILE on a fatal failure.
-``-calibrate`` (the session-calibration probe) waits for ROADMAP A10b
-and is refused (exit 2).
+``-calibrate`` runs the session-calibration probes (observe.py) before
+the run, prints the fingerprint header and emits the ``calibration``
+event.
 """
 
 from __future__ import annotations
@@ -98,8 +107,37 @@ from lux_tpu_torch.engine.pull import NotPortedError
 
 
 def _min_fill_arg(v: str):
-    """-min-fill value: an int, or 'auto' (not ported)."""
+    """-min-fill value: an int, or 'auto'."""
     return "auto" if v == "auto" else int(v)
+
+
+def _mxu_arg(args):
+    """-mxu auto|mxu|vpu -> the engines' use_mxu value."""
+    return {"auto": "auto", "mxu": True, "vpu": False}[args.mxu]
+
+
+def _add_mxu_flag(ap) -> None:
+    ap.add_argument("-mxu", default="auto", choices=["auto", "mxu", "vpu"],
+                    help="tiled reduce: 'mxu' the one-hot (matrix-unit) "
+                         "forms, 'vpu' kernel B1, 'auto' (default) by "
+                         "scalemodel's break-even on the K x B width")
+
+
+def _maybe_calibrate(args) -> None:
+    """-calibrate: run (or reuse) the session probes on the run's
+    device and print the fingerprint header; the ``calibration`` event
+    lands in the run's telemetry (observe.calibrate emits it)."""
+    if not getattr(args, "calibrate", False):
+        return
+    from lux_tpu_torch import observe
+    fp = observe.calibrate(device=args.device)
+    print(f"# calibration: session {fp.session} {fp.platform}/"
+          f"{fp.backend} {fp.device_name} ndev={fp.ndev} grade={fp.grade}"
+          f" -- gather {fp.probe['gather_small_ns']:.4f} ns/elem "
+          f"({fp.deviation:.2f}x the card's figure)")
+    if fp.grade == "degraded":
+        print("# WARNING: DEGRADED session -- numbers from this process "
+              "are labeled, not trusted")
 
 
 def _relabel_for_pairs(args, g, num_parts):
@@ -238,8 +276,9 @@ def _add_observe_flags(ap) -> None:
                          "relaxed; pull: residual and changed vertices) "
                          "and print them after it")
     ap.add_argument("-calibrate", action="store_true",
-                    help="not ported (ROADMAP A10b: the session "
-                         "calibration probe)")
+                    help="run the session-calibration probes "
+                         "(lux_tpu_torch/observe.py) before the run and "
+                         "print / emit the fingerprint")
 
 
 def _refuse_unported_flags(args) -> None:
@@ -247,10 +286,6 @@ def _refuse_unported_flags(args) -> None:
         raise NotPortedError("-elastic (re-placement over the surviving "
                              "devices after a topology fault) is not "
                              "ported yet (ROADMAP A6)")
-    if getattr(args, "calibrate", False):
-        raise NotPortedError("-calibrate (the session calibration probe "
-                             "and its fingerprint) is not ported yet "
-                             "(ROADMAP A10b)")
 
 
 @contextlib.contextmanager
@@ -414,7 +449,7 @@ def cmd_pagerank(argv) -> int:
                     help="state-table delivery: the per-edge gather "
                          "('flat'), page rows + lane shuffle ('paged'), "
                          "or full gather rows bound to pages first "
-                         "('pagemajor'); 'auto' is not ported")
+                         "('pagemajor'); 'auto' picks by scalemodel")
     ap.add_argument("-pair", type=int, default=None, metavar="T",
                     help="pair-lane delivery with threshold T (relabels "
                          "the graph internally; ranks are mapped back "
@@ -424,7 +459,8 @@ def cmd_pagerank(argv) -> int:
                     dest="min_fill", metavar="F",
                     help="with -pair: drop pair rows that would deliver "
                          "< F live lanes (their edges ride the residual "
-                         "path); 'auto' is not ported")
+                         "path); 'auto' is scalemodel's break-even")
+    _add_mxu_flag(ap)
     _add_batch_flags(ap)
     _add_guard_flags(ap)
     _add_observe_flags(ap)
@@ -442,10 +478,11 @@ def _pagerank(args, tel) -> int:
     from lux_tpu_torch.ops.pairs import resolve_min_fill
     from lux_tpu_torch.timing import timed_fused_run
 
-    resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
+    resolve_min_fill(args.min_fill)     # a bad value fails before any work
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
+    _maybe_calibrate(args)
     t0 = time.perf_counter()
     try:
         g = Graph.from_file(args.file)
@@ -460,7 +497,8 @@ def _pagerank(args, tel) -> int:
                                 gather=args.gather, starts=starts,
                                 pair_threshold=args.pair,
                                 pair_min_fill=args.min_fill,
-                                sources=sources, health=args.health)
+                                sources=sources, health=args.health,
+                                use_mxu=_mxu_arg(args))
     _print_memory(args, eng, num_parts)
     sup = _supervisor_opts(args, "pagerank")
     if sup is not None:
@@ -509,7 +547,8 @@ def _push_app(argv, prog_name) -> int:
     ap.add_argument("-min-fill", type=_min_fill_arg, default=None,
                     dest="min_fill", metavar="F",
                     help="with -pair: drop pair rows with < F live lanes; "
-                         "'auto' is not ported")
+                         "'auto' is scalemodel's break-even")
+    _add_mxu_flag(ap)
     _add_batch_flags(ap)
     _add_guard_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
@@ -537,11 +576,12 @@ def _push_run(args, tel, prog_name) -> int:
     from lux_tpu_torch.ops.pairs import resolve_min_fill
     from lux_tpu_torch.timing import timed_converge
 
-    resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
+    resolve_min_fill(args.min_fill)     # a bad value fails before any work
     weighted = prog_name == "sssp" and args.weighted
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
+    _maybe_calibrate(args)
     t0 = time.perf_counter()
     try:
         g = Graph.from_file(args.file, weighted=weighted or None)
@@ -554,7 +594,8 @@ def _push_run(args, tel, prog_name) -> int:
     g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
     opts = dict(num_parts=num_parts, starts=starts, gather=args.gather,
                 pair_threshold=args.pair, pair_min_fill=args.min_fill,
-                sources=sources, device=args.device, health=args.health)
+                sources=sources, device=args.device, health=args.health,
+                use_mxu=_mxu_arg(args))
     if prog_name == "sssp":
         start = args.start
         if perm is not None and 0 <= start < g.nv:
@@ -624,7 +665,7 @@ def cmd_colfilter(argv) -> int:
     ap.add_argument("-gather", default="flat",
                     choices=["flat", "paged", "pagemajor", "auto"],
                     help="delivery (as for pagerank; 'pagemajor' is "
-                         "refused for the dot path, 'auto' not ported)")
+                         "refused for the dot path)")
     ap.add_argument("-pair", type=int, default=None, metavar="T",
                     help="pair-lane SDDMM delivery with threshold T "
                          "(relabels the graph internally)")
@@ -632,7 +673,8 @@ def cmd_colfilter(argv) -> int:
                     dest="min_fill", metavar="F",
                     help="with -pair: drop pair rows with < F live lanes "
                          "(bench.py's colfilter config uses 22); 'auto' "
-                         "is not ported")
+                         "is scalemodel's break-even at K = 20")
+    _add_mxu_flag(ap)
     _add_guard_flags(ap)
     _add_observe_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
@@ -650,10 +692,11 @@ def _colfilter(args, tel) -> int:
     from lux_tpu_torch.ops.pairs import resolve_min_fill
     from lux_tpu_torch.timing import timed_fused_run
 
-    resolve_min_fill(args.min_fill)     # refuse 'auto' before any work
+    resolve_min_fill(args.min_fill)     # a bad value fails before any work
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
+    _maybe_calibrate(args)
     t0 = time.perf_counter()
     try:
         g = Graph.from_file(args.file, weighted=True)
@@ -674,7 +717,8 @@ def _colfilter(args, tel) -> int:
                                      sg=sg, gather=args.gather,
                                      pair_threshold=args.pair,
                                      pair_min_fill=args.min_fill,
-                                     health=args.health)
+                                     health=args.health,
+                                     use_mxu=_mxu_arg(args))
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

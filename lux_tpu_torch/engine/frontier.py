@@ -13,9 +13,11 @@ int32, as in the reference, and every index is clamped into range
 before it is used (torch raises on the CPU and faults on the card
 where jnp would clamp or drop).
 
-The reference's MXU form of the expansion (``use_mxu=True``, a blocked
-triangular-matmul cumsum) is not ported (ROADMAP A8); ``"auto"`` and
-False take the plain form, which is what ``"auto"`` resolves to here.
+``use_mxu=True`` takes the reference's matrix-unit form of the
+expansion (lux_tpu/engine/frontier.py:40-64, :130-148): the queue
+indices' deltas scattered by addition, then an inclusive cumsum as
+blocked lower-triangular matmuls (``_cumsum_matmul``) in place of the
+running max; bit-equal to the plain form.
 """
 
 from __future__ import annotations
@@ -25,14 +27,45 @@ import torch
 from lux_tpu_torch.ops.segment import SCATTER_REDUCE
 
 
+# block length of the cumsum as matmuls: one [256, 256] lower-triangular
+# matrix (lux_tpu/engine/frontier.py:34)
+FRONTIER_MXU_BLOCK = 256
+
+
+def _cumsum_matmul(x: torch.Tensor,
+                   block: int = FRONTIER_MXU_BLOCK) -> torch.Tensor:
+    """Inclusive cumsum of an int32 [..., N] along the last axis as
+    blocked lower-triangular matmuls: per block ``x_b @ L^T`` with L[i,
+    j] = (i >= j), then each block adds the total of the blocks before
+    it, itself this cumsum one level up.  The products are exact
+    (ops/tiled._matmul_exact: byte planes in float32; cuBLAS has no
+    int32 GEMM), so the result is ``torch.cumsum``'s, wrap-around
+    included."""
+    from lux_tpu_torch.ops.tiled import _matmul_exact
+    lead = tuple(x.shape[:-1])
+    N = x.shape[-1]
+    if N == 0:
+        return x.clone()
+    nB = -(-N // block)
+    Np = nB * block
+    if Np != N:
+        x = torch.cat([x, x.new_zeros(lead + (Np - N,))], -1)
+    ii = torch.arange(block, device=x.device)
+    L = (ii[:, None] >= ii[None, :]).to(torch.float32)
+    xb = x.reshape(lead + (nB, block, 1))
+    out = _matmul_exact(L, xb)[..., 0]              # [..., nB, block]
+    if nB > 1:
+        tot = _cumsum_matmul(out[..., -1], block)   # inclusive over blocks
+        before = torch.cat([tot.new_zeros(lead + (1,)), tot[..., :-1]], -1)
+        out = out + before[..., None]
+    return out.reshape(lead + (Np,))[..., :N]
+
+
 def check_use_mxu(use_mxu) -> None:
-    """``"auto"`` and False run the plain cumsum; True is refused."""
-    if use_mxu is True:
-        from lux_tpu_torch.engine.pull import NotPortedError
-        raise NotPortedError("use_mxu=True (the frontier's triangular-"
-                             "matmul cumsum, engine/frontier.py:40) is "
-                             "not ported yet (ROADMAP A8)")
-    if use_mxu not in (False, "auto"):
+    """The expansion's ``use_mxu``: a bool (an engine's resolved flag)
+    or ``"auto"``, which takes the plain form here (the engines resolve
+    "auto" through scalemodel before they get here)."""
+    if use_mxu not in (False, True, "auto"):
         raise ValueError(f"unknown use_mxu {use_mxu!r}")
 
 
@@ -106,10 +139,22 @@ def expand_frontier(ids, vals, src_ids, src_off, nv: int,
     # the cummax - 1 maps it back to no owner)
     qidx = torch.arange(1, Q + 1, dtype=torch.int32, device=dev)
     marks = torch.zeros(lead + (EB + 1,), dtype=torch.int32, device=dev)
-    marks.scatter_reduce_(-1, start.clamp(max=EB).to(torch.int64),
-                          torch.where(deg > 0, qidx, 0), "amax",
-                          include_self=True)
-    owner = torch.cummax(marks[..., :EB], -1).values - 1
+    at = start.clamp(max=EB).to(torch.int64)
+    if use_mxu is True:
+        # items with deg > 0 have increasing starts and queue indices,
+        # so the running max of their scattered indices is the running
+        # sum of the index deltas (they telescope; the clamped slot EB
+        # is never read)
+        qm = torch.where(deg > 0, qidx, 0)
+        run = torch.cummax(qm, -1).values               # cheap, [.., Q]
+        prev = torch.cat([torch.zeros_like(run[..., :1]), run[..., :-1]],
+                         -1)
+        marks.scatter_add_(-1, at, torch.where(deg > 0, qidx - prev, 0))
+        owner = _cumsum_matmul(marks[..., :EB]) - 1
+    else:
+        marks.scatter_reduce_(-1, at, torch.where(deg > 0, qidx, 0), "amax",
+                              include_self=True)
+        owner = torch.cummax(marks[..., :EB], -1).values - 1
     owner = owner.clamp(min=0)
     slot = torch.arange(EB, dtype=torch.int32, device=dev)
     in_range = slot < torch.clamp(total, max=EB).unsqueeze(-1)

@@ -62,9 +62,18 @@ on the dot path, then ``apply``) one at a time, fenced, through the
 same methods ``step`` calls; and ``step`` names its phases as profiler
 ranges (profiling.annotation: entered only while a profiler records).
 
-The reference's exchange variants (owner), ``gather="auto"``, streamed
-chunk blocks and the mesh are refused with a typed
-:class:`NotPortedError` naming the ROADMAP item that brings them.
+``use_mxu`` (lux_tpu/engine/pull.py:111-139; default ``"auto"``,
+resolved through scalemodel from the program's K x B payload width
+and the tiled layout, each side priced by the mechanism it runs) takes the matrix-unit forms of the tiled path's reduce
+(ops/tiled.chunk_partials_mxu: kernel S9 for a scalar float32 sum) and
+of a sum's segmented combine (the scan as matmuls); pair and paged rows
+keep kernel B1, as in the reference.  ``gather="auto"`` resolves flat,
+paged or page-major through scalemodel's break-even on the plan's
+counted stats (ops/pagegather.resolve_gather).
+
+The reference's exchange variants (owner), streamed chunk blocks and
+the mesh are refused with a typed :class:`NotPortedError` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -97,10 +106,14 @@ from lux_tpu_torch.ops.tiled import (TiledLayout, combine_op,
                                      combine_partials, segment_plan,
                                      tiled_segment_reduce)
 from lux_tpu_torch.profiling import annotation, device_fence
+from lux_tpu_torch.scalemodel import ReduceLayout
 from lux_tpu_torch.telemetry import DEFAULT_STATS_CAP
 
 # exchange="auto" picks the owner exchange once the flat state table
-# passes this many bytes — the reference's rule (engine/pull.py:80)
+# passes this many bytes: the reference's figure (engine/pull.py:80), a
+# TPU measurement, kept only as the bound past which "auto" refuses
+# until the owner exchange is ported and the card's own step measured
+# (ROADMAP A6)
 OWNER_AUTO_BYTES = 96 << 20
 
 TILED_KEYS = ("src_slot", "rel_dst", "chunk_start", "last_chunk", "deg",
@@ -114,6 +127,49 @@ def dot_kdim(program) -> int:
     if getattr(program, "edge_value_from_dot", None) is None:
         return 1
     return max(1, (getattr(program, "state_bytes", None) or 4) // 4)
+
+
+def mxu_wide_of(program) -> int:
+    """K x B payload width of a program's state: the free minor
+    dimension the one-hot reduce amortizes its toll over
+    (lux_tpu/engine/pull.py:111).  ``state_bytes`` covers the whole
+    trailing row (colfilter's 4 K, batched pagerank's 4 B)."""
+    sb = getattr(program, "state_bytes", None)
+    if sb is not None:
+        return max(1, sb // 4)
+    return int(getattr(program, "batch", None) or 1)
+
+
+def resolve_use_mxu(use_mxu, program, constants=None, *, layout=None,
+                    scalar_f32: bool = False) -> bool:
+    """``use_mxu="auto"`` engages the matrix-unit forms where
+    scalemodel.resolve_use_mxu (under ``constants``) prices them cheaper
+    for the program's reduce kind and K x B width, on the engine's tiled
+    ``layout`` (a scalemodel.ReduceLayout) with S9 serving a
+    ``scalar_f32`` sum; True / False force either path
+    (lux_tpu/engine/pull.py:125)."""
+    if isinstance(use_mxu, bool):
+        return use_mxu
+    if use_mxu != "auto":
+        raise ValueError(f"unknown use_mxu {use_mxu!r}")
+    from lux_tpu_torch import scalemodel
+    kind = getattr(program, "reduce", "sum")
+    dot = getattr(program, "edge_value_from_dot", None) is not None
+    return scalemodel.resolve_use_mxu(kind, mxu_wide_of(program),
+                                      constants=constants,
+                                      scalar_f32=scalar_f32, dot=dot,
+                                      layout=layout)
+
+
+def scalar_f32_sum(program, sg) -> bool:
+    """Whether the program reduces scalar float32 sums, the one reduce
+    kernel S9 serves under ``use_mxu``: read from its initial state's
+    dtype (an engine built from arrays has no graph: False)."""
+    if sg is None or getattr(program, "reduce", "sum") != "sum" \
+            or mxu_wide_of(program) != 1 \
+            or getattr(program, "edge_value_from_dot", None) is not None:
+        return False
+    return np.asarray(program.init(sg)).dtype == np.float32
 
 
 def uses_dst(program) -> bool:
@@ -413,7 +469,8 @@ class PullEngine(Placement):
                  stream_msgs: bool | None = None, mesh=None,
                  dot_block_chunks: int | None = None,
                  dot_block_rows: int | None = None,
-                 health: bool = False, stats_cap: int | None = None):
+                 health: bool = False, stats_cap: int | None = None,
+                 use_mxu: bool | str = "auto"):
         """``pair_threshold``: serve the edges of (src tile, dst tile)
         pairs with at least this many edges by pair-lane rows
         (ops/pairs.py; needs vpad % 128 == 0), the rest by the tiled
@@ -430,14 +487,13 @@ class PullEngine(Placement):
         watchdog variants (``run_health`` / ``run_until_health``,
         lux_tpu_torch/health.py).  ``stats_cap``: rows of the
         per-iteration counter buffers (default
-        telemetry.DEFAULT_STATS_CAP); writes past it drop."""
+        telemetry.DEFAULT_STATS_CAP); writes past it drop.
+        ``use_mxu``: the one-hot forms of the tiled reduce (True / False,
+        or "auto" through scalemodel); ``gather="auto"`` picks the
+        delivery by scalemodel's break-even on the plan's stats."""
         dev = resolve_device(device)
         if mesh is not None:
             _refuse("a device mesh", "A6")
-        if gather == "auto":
-            _refuse("gather='auto' (it resolves through scalemodel, "
-                    "whose constants are the TPU's until the card's own "
-                    "are measured)", "A10b")
         if gather in ("paged", "pagemajor") and pair_threshold is not None:
             raise ValueError(
                 f"gather={gather!r} subsumes pair delivery (both are "
@@ -453,7 +509,8 @@ class PullEngine(Placement):
         if pair_threshold is not None:
             # the tiled path runs on the residual of the pair plan
             pairs, sg = plan_sharded_pairs(sg, pair_threshold,
-                                           min_fill=pair_min_fill)
+                                           min_fill=pair_min_fill,
+                                           kdim=dot_kdim(program))
         plan_seconds = time.perf_counter() - t0
         dot = getattr(program, "edge_value_from_dot", None) is not None
         if plan is not None:
@@ -473,7 +530,7 @@ class PullEngine(Placement):
                    num_parts=sg.num_parts, vpad=sg.vpad, device=dev, sg=sg,
                    pages=plan, pairs=pairs, pair_stream=pair_stream,
                    dot_block_chunks=dot_block_chunks,
-                   dot_block_rows=dot_block_rows)
+                   dot_block_rows=dot_block_rows, use_mxu=use_mxu)
         self.plan_seconds = plan_seconds
         self.health = bool(health)
         if stats_cap is not None:
@@ -485,7 +542,8 @@ class PullEngine(Placement):
     def from_arrays(cls, program: PullProgram, arrays: dict, tiles, *,
                     nv: int, ne: int, num_parts: int, vpad: int,
                     device=None, pages=None, pairs=None, pair_stream=None,
-                    dot_block_chunks=None, dot_block_rows=None):
+                    dot_block_chunks=None, dot_block_rows=None,
+                    use_mxu=False):
         """An engine on given per-part arrays and their geometry — how
         interop.from_reference carries a reference engine's arrays
         across bit for bit.  Tiled: keys src_slot, rel_dst,
@@ -505,12 +563,12 @@ class PullEngine(Placement):
                   device=resolve_device(device), sg=None, pages=pages,
                   pairs=pairs, pair_stream=pair_stream,
                   dot_block_chunks=dot_block_chunks,
-                  dot_block_rows=dot_block_rows)
+                  dot_block_rows=dot_block_rows, use_mxu=use_mxu)
         return eng
 
     def _bind(self, program, arrays, tiles, *, nv, ne, num_parts, vpad,
               device, sg, pages=None, pairs=None, pair_stream=None,
-              dot_block_chunks=None, dot_block_rows=None):
+              dot_block_chunks=None, dot_block_rows=None, use_mxu=False):
         self.program = program
         self.sg = sg
         self.tiles = tiles
@@ -579,11 +637,22 @@ class PullEngine(Placement):
                 raise ValueError(f"program array {k[5:]!r} "
                                  f"{tuple(v.shape)} is not [num_parts, "
                                  f"vpad, ...] = [{P}, {self.vpad}, ...]")
+        layout = None
+        if tiles is not None:
+            self._plan = segment_plan(a["chunk_start"], a["last_chunk"])
+            layout = ReduceLayout(P * tiles.n_chunks, tiles.E, tiles.W,
+                                  self._plan.max_len)
+        self.scalar_f32_sum = scalar_f32_sum(program, sg)
+        self.use_mxu = resolve_use_mxu(use_mxu, program, layout=layout,
+                                       scalar_f32=self.scalar_f32_sum)
         if pages is not None:
             return
         self._src = a["src_slot"].reshape(-1)
+        self._rel32 = None
         if tiles is not None:
-            self._plan = segment_plan(a["chunk_start"], a["last_chunk"])
+            if self.use_mxu and not self.dot and program.reduce == "sum":
+                # kernel S9 takes int32 lanes
+                self._rel32 = a["rel_dst"].to(torch.int32)
         else:
             self._seg = flat_segments(a["dst_local"], self.vpad)
         self._dst = None
@@ -701,7 +770,8 @@ class PullEngine(Placement):
                                    a["last_chunk"], a["rel_dst"], vpad,
                                    prog.reduce, self._plan,
                                    batch=int(np.prod(trail)) if trail
-                                   else None)
+                                   else None, use_mxu=self.use_mxu,
+                                   rel32=self._rel32)
         return red.reshape((P, vpad) + trail)
 
     def _paged_red(self, flat_state, upto: str | None = None):
@@ -801,7 +871,7 @@ class PullEngine(Placement):
         a = self.arrays
         red = combine_partials(self.dot_chunk_partials(state), self.tiles,
                                a["chunk_start"], a["last_chunk"],
-                               self.vpad, "sum", self._plan)
+                               self.vpad, "sum", self._plan, self.use_mxu)
         if self.pairs is not None:
             red = red + self._pair_dot_red(flat_state)
         return red

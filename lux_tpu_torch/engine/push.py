@@ -53,6 +53,14 @@ a delta engine's actual bucket schedule; and every iteration names its
 work as profiler ranges (``lux_dense`` / ``lux_sparse`` and the
 phases inside; profiling.annotation).
 
+``use_mxu`` (default ``"auto"``, resolved by the pull engine's rule on
+the partial rows alone: scalemodel.resolve_use_mxu with no layout) takes
+the matrix-unit forms (lux_tpu/engine/push.py:184): the dense
+residual's min / max by the one-hot tournament (ops/tiled.py) and the
+sparse expansion's running owner by the cumsum as matmuls
+(engine/frontier.py); ``gather="auto"`` picks the dense delivery by
+scalemodel (ops/pagegather.resolve_gather).
+
 Options the port does not carry yet raise :class:`NotPortedError`
 naming the ROADMAP item that brings them.
 """
@@ -75,7 +83,7 @@ from lux_tpu_torch.engine.pull import (NotPortedError, Placement, _outside,
                                        check_dense_arrays,
                                        common_graph_arrays, device_arrays,
                                        flat_segments, gather_rows,
-                                       resolve_exchange)
+                                       resolve_exchange, resolve_use_mxu)
 from lux_tpu_torch.graph import ShardedGraph
 from lux_tpu_torch.ops.pagegather import (engine_page_plan, paged_partial,
                                           plan_graph_arrays)
@@ -176,10 +184,6 @@ class PushEngine(Placement):
             raise ValueError(f"stats_cap must be >= 1, got {stats_cap}")
         if audit is not None:
             _refuse("the static program audit (audit=)", "A12")
-        if gather == "auto":
-            _refuse("gather='auto' (it resolves through scalemodel, "
-                    "whose constants are the TPU's until the card's own "
-                    "are measured)", "A10b")
         fr.check_use_mxu(use_mxu)
         # the auto-exchange estimate is the whole label table's bytes: a
         # B-wide batch is B tables
@@ -235,7 +239,7 @@ class PushEngine(Placement):
                    pages=plan, pairs=pairs, pair_stream=pair_stream,
                    enable_sparse=enable_sparse,
                    sparse_threshold=sparse_threshold, queue_cap=queue_cap,
-                   edge_budget=eb, delta=delta)
+                   edge_budget=eb, delta=delta, use_mxu=use_mxu)
         self.plan_seconds = plan_seconds
         self.health = bool(health)
         if stats_cap is not None:
@@ -247,7 +251,7 @@ class PushEngine(Placement):
                     queue_cap: int, edge_budget: int,
                     enable_sparse: bool = True, sparse_threshold: int = 16,
                     delta=None, device=None, pages=None, pairs=None,
-                    pair_stream=None):
+                    pair_stream=None, use_mxu=False):
         """An engine on given per-part arrays and their geometry — how
         interop.push_from_reference carries a reference engine's
         arrays across bit for bit.  The dense keys are
@@ -260,12 +264,13 @@ class PushEngine(Placement):
                   pairs=pairs, pair_stream=pair_stream,
                   enable_sparse=enable_sparse,
                   sparse_threshold=sparse_threshold, queue_cap=queue_cap,
-                  edge_budget=edge_budget, delta=delta)
+                  edge_budget=edge_budget, delta=delta, use_mxu=use_mxu)
         return eng
 
     def _bind(self, program, arrays, tiles, *, nv, ne, num_parts, vpad,
               device, sg, pages, pairs, pair_stream, enable_sparse,
-              sparse_threshold, queue_cap, edge_budget, delta):
+              sparse_threshold, queue_cap, edge_budget, delta,
+              use_mxu=False):
         if program.reduce not in ("min", "max"):
             raise ValueError(f"push programs reduce by 'min' or 'max', "
                              f"not {program.reduce!r}")
@@ -287,6 +292,9 @@ class PushEngine(Placement):
                              "iterations only (no sparse queue or pair "
                              "rows)")
         self.program = program
+        # the one-hot tournament for the dense reduce, and the cumsum as
+        # matmuls for the sparse expansion (lux_tpu/engine/push.py:184)
+        self.use_mxu = resolve_use_mxu(use_mxu, program)
         self.sg = sg
         self.tiles = tiles
         self.page_plan = pages
@@ -426,7 +434,8 @@ class PushEngine(Placement):
         else:
             red = tiled_segment_reduce(cand, self.tiles, a["chunk_start"],
                                        a["last_chunk"], a["rel_dst"], vpad,
-                                       kind, self._plan, batch=self.batch)
+                                       kind, self._plan, batch=self.batch,
+                                       use_mxu=self.use_mxu)
         if self.pairs is not None:
             red = combine_op(kind)(red, self._pair_red(flat))
         return red
@@ -489,7 +498,7 @@ class PushEngine(Placement):
         a = self.arrays
         edge_idx, src_val, in_range, _total, off = fr.expand_frontier(
             gids.reshape(-1), vals.reshape(-1), a["src_ids"], a["src_off"],
-            self.nv, self.edge_budget)
+            self.nv, self.edge_budget, use_mxu=self.use_mxu)
         return edge_idx, src_val, in_range, off
 
     def _sparse_relax(self, label, edge_idx, src_val, in_range):

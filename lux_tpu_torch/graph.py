@@ -424,7 +424,9 @@ class ShardedGraph:
     def memory_report(self, *, exchange: str = "gather",
                       push_sparse: bool = False, pairs=None,
                       pair_kdim: int = 1, pair_stream: bool | None = None,
-                      page_plan=None, query_batch: int = 1) -> dict:
+                      page_plan=None, query_batch: int = 1,
+                      use_mxu: bool = False,
+                      mxu_tile_e: int = 512) -> dict:
         """Device bytes of an engine's edge layout and state, per part,
         as named terms (lux_tpu/graph.py:730 ``memory_report``, priced
         with the dtypes the port's engines hold, which for these arrays
@@ -435,8 +437,13 @@ class ShardedGraph:
         arrays), ``pair_temp`` (one streamed block, or the monolithic
         values and partials), ``page_buffer`` / ``page_temp`` (the paged
         delivery's per-iteration page and row buffers), ``mxu_temp``
-        (0: the port has no MXU path) and ``vertex`` (state + degrees;
-        batched: a 4-byte label and a 1-byte mask per query).
+        (``use_mxu``: the reference's price of the one-hot reduce's live
+        lane matrix, one byte an (edge, lane) over a streamed block of
+        ``mxu_tile_e``-edge chunks; lux_tpu/graph.py:898-905) and
+        ``vertex`` (state + degrees; batched: a 4-byte label and a
+        1-byte mask per query).  What the port's eager forms allocate
+        beyond these terms, memwatch's ledger prices as ``port_*``
+        terms.
         ``total_bytes`` is num_parts times the terms' sum.  Only the
         gather exchange is priced: the owner exchange is ROADMAP A6."""
         if exchange != "gather":
@@ -489,10 +496,15 @@ class ShardedGraph:
             vert_bytes = self.vpad * (4 + 4)
         else:
             vert_bytes = self.vpad * (5 * query_batch + 4)
+        mxu_temp = 0
+        if use_mxu and page_plan is None:
+            from lux_tpu_torch.ops.tiled import STREAM_BLOCK_CHUNKS
+            mxu_temp = min(self.epad,
+                           STREAM_BLOCK_CHUNKS * int(mxu_tile_e)) * 128
         terms = {"edge": edge_bytes, "push_sparse": sparse_bytes,
                  "pair": pair_bytes, "pair_temp": pair_temp,
                  "page_buffer": page_buf, "page_temp": page_temp,
-                 "mxu_temp": 0, "vertex": vert_bytes}
+                 "mxu_temp": mxu_temp, "vertex": vert_bytes}
         return {
             "num_parts": self.num_parts,
             "query_batch": query_batch,
@@ -502,7 +514,7 @@ class ShardedGraph:
             "pair_temp_bytes_per_part": pair_temp,
             "page_buffer_bytes_per_part": page_buf,
             "page_temp_bytes_per_part": page_temp,
-            "mxu_temp_bytes_per_part": 0,
+            "mxu_temp_bytes_per_part": mxu_temp,
             "vertex_bytes_per_part": vert_bytes,
             "owner_msg_bytes_per_part": 0,
             "terms_per_part": terms,

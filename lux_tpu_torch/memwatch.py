@@ -65,7 +65,9 @@ ANSWER_BYTES_PER_VERTEX = 8
 # ledger terms that price per-iteration temporaries, not resident
 # arrays (subtracted for the argument-side comparison)
 TEMP_TERMS = ("graph_pair_temp", "graph_page_buffer", "graph_page_temp",
-              "graph_mxu_temp")
+              "graph_mxu_temp", "port_messages", "port_candidates",
+              "port_partials", "port_combine", "port_mxu",
+              "port_host_roundtrip")
 
 # torch.cuda.memory_stats keys of the allocator's live and peak bytes
 CUDA_CURRENT = "allocated_bytes.all.current"
@@ -177,6 +179,10 @@ def report_kwargs(eng) -> dict:
     if is_push:
         kw["push_sparse"] = bool(eng.enable_sparse)
         kw["query_batch"] = int(getattr(eng, "batch", None) or 1)
+    if getattr(eng, "use_mxu", False):
+        kw["use_mxu"] = True
+        if eng.tiles is not None:
+            kw["mxu_tile_e"] = int(eng.tiles.E)
     return kw
 
 
@@ -209,6 +215,70 @@ def port_index_tensors(eng) -> list:
     return out
 
 
+def _state_nbytes(eng) -> int:
+    """Bytes of one state tensor set: pull [P, vpad, ...] of the
+    program's ``state_bytes`` a vertex; push labels and the active mask
+    [P, vpad, B]."""
+    from lux_tpu_torch.engine.push import PushEngine
+    n = eng.num_parts * eng.vpad
+    if isinstance(eng, PushEngine):
+        isz = np.asarray(eng.program.identity).dtype.itemsize
+        return n * (eng.batch or 1) * (isz + 1)
+    return n * (getattr(eng.program, "state_bytes", None) or 4)
+
+
+def eager_terms(eng) -> dict:
+    """The per-iteration temporaries the port's eager tiled step
+    allocates beyond the reference's terms, priced from the engine's
+    shapes (bytes, whole engine):
+
+    - ``port_messages``: the gathered source rows (the messages of a
+      program whose edge value is the source value) over every chunk
+      slot, [P*C*E, K*B];
+    - ``port_candidates`` (push): the relaxed candidates and the
+      activity mask beside the gathered labels, [P*C*E, B];
+    - ``port_partials``: kernel B1's [P*C, W, K*B] partials;
+    - ``port_combine``: the doubling combine's buffers when a tile
+      spans chunks (the combined values, the masked select and the
+      concatenation live beside the partials: three of them);
+    - ``port_mxu`` (``use_mxu``): kernel S9's int32 lanes (resident),
+      or the one-hot forms' blocks (ops/tiled.MXU_BLOCK_BYTES).
+
+    Paged and pair rows are priced by the reference's own terms
+    (page_temp, pair_temp); the dot path's blocks by ops/dot's budget
+    under pair_temp.  Returns {} for those layouts."""
+    tiles = getattr(eng, "tiles", None)
+    if tiles is None or getattr(eng, "dot", False):
+        return {}
+    from lux_tpu_torch.engine.push import PushEngine
+    is_push = isinstance(eng, PushEngine)
+    if is_push:
+        wide = int(eng.batch or 1)
+        isz = int(np.asarray(eng.program.identity).dtype.itemsize)
+    else:
+        sb = getattr(eng.program, "state_bytes", None) or 4
+        wide, isz = max(1, sb // 4), 4
+    rows = eng.num_parts * tiles.n_chunks
+    slots = rows * tiles.E
+    partials = rows * tiles.W * wide * isz
+    terms = {"port_messages": slots * wide * isz,
+             "port_partials": partials}
+    if is_push:
+        terms["port_candidates"] = slots * wide * (isz + 1)
+    plan = getattr(eng, "_plan", None)
+    if plan is not None and plan.max_len > 1:
+        terms["port_combine"] = 3 * partials
+    if getattr(eng, "use_mxu", False):
+        rel32 = getattr(eng, "_rel32", None)
+        if rel32 is not None:
+            terms["port_mxu"] = rel32.numel() * 4
+        else:
+            from lux_tpu_torch.ops.tiled import MXU_BLOCK_BYTES
+            terms["port_mxu"] = min(MXU_BLOCK_BYTES,
+                                    rows * tiles.E * tiles.W * 4)
+    return terms
+
+
 class MemoryLedger:
     """Named integer byte terms -> one total.  ``argument_bytes``
     leaves out the per-iteration temporaries (TEMP_TERMS)."""
@@ -235,7 +305,8 @@ class MemoryLedger:
         num_parts (``graph_<term>``), the program's wider state
         (``program_state``: state_bytes - 4 a vertex) and extra arrays
         (``program_extra``, the bytes of the engine's own ``prog_*``
-        tensors), and ``port_index`` (port_index_tensors)."""
+        tensors), ``port_index`` (port_index_tensors) and the eager
+        step's temporaries (``eager_terms``)."""
         if eng.sg is None:
             raise ValueError("an engine built from arrays has no graph "
                              "to price")
@@ -252,22 +323,33 @@ class MemoryLedger:
         idx = _tensor_bytes(port_index_tensors(eng))
         if idx:
             terms["port_index"] = idx
+        terms.update(eager_terms(eng))
         return cls(terms, where or type(eng).__name__)
 
     @classmethod
     def for_server(cls, server, where: str | None = None
                    ) -> "MemoryLedger":
-        """A serving tier's ledger: every built runner engine's terms
-        (prefixed by its kind) and the dynamic consumers (the answer
-        cache, checkpoint staging)."""
+        """A serving tier's ledger: every built runner engine's resident
+        terms (prefixed by its kind), the per-iteration temporaries of
+        the runner with the most of them (the runners step one at a
+        time, so theirs never coexist), among them its host round trip
+        (a boundary re-places the [P, vpad, B] state on the card beside
+        the one it replaces: two states, ``port_host_roundtrip``), and
+        the dynamic consumers (the answer cache, checkpoint staging)."""
         terms: dict = {}
+        temps: dict = {}
         for kind, runner in sorted((getattr(server, "_runners", None)
                                     or {}).items()):
             eng = getattr(runner, "eng", None)
             if eng is None:
                 continue
-            for k, v in cls.for_engine(eng).terms.items():
-                terms[f"{kind}_{k}"] = v
+            own = dict(cls.for_engine(eng).terms,
+                       port_host_roundtrip=2 * _state_nbytes(eng))
+            for k, v in own.items():
+                (temps.setdefault(kind, {}) if k in TEMP_TERMS
+                 else terms)[f"{kind}_{k}"] = v
+        if temps:
+            terms.update(max(temps.values(), key=lambda t: sum(t.values())))
         terms.update(consumer_terms(cache=getattr(server, "cache", None)))
         return cls(terms, where or type(server).__name__)
 

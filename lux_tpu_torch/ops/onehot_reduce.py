@@ -14,8 +14,10 @@ columns, the values split into three bf16 parts (see there).
 ``onehot_reduce`` launches that kernel for tensors on the card and
 takes ``onehot_reduce_plain`` only for tensors on the CPU — there is
 no fallback from the card to the plain version.
-``onehot_reduce.launches`` counts kernel launches.  No system path
-calls it: the probe lux_tpu_torch/probes/profile_kernel.py does.
+``onehot_reduce.launches`` counts kernel launches.  Its system path is
+the scalar float32 sum under ``use_mxu=True``
+(ops/tiled.chunk_partials_mxu, PageRank's reduce); the probe
+lux_tpu_torch/probes/profile_kernel.py calls it too.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from lux_tpu_torch.ops.chunk_reduce import (KernelInputError,
                                             check_int32_lanes)
+from lux_tpu_torch.ops.tiled import full_fp32
 
 PLAIN_BLOCK = 1024          # chunks a bmm of the plain version
 K_STEP = 16                 # entries an mma k-step (m16n8k16)
@@ -35,22 +38,17 @@ def onehot_reduce_plain(vals: torch.Tensor, rel: torch.Tensor,
                         W: int) -> torch.Tensor:
     """The plain PyTorch version: the one-hot contraction
     vals[c, 1, E] @ onehot(rel)[c, E, W], PLAIN_BLOCK chunks a ``bmm``
-    (at [81,920 x 512] the whole one-hot would take 21 GB).  TF32 is
-    off for the call (it keeps about three decimal digits): full
-    float32 products."""
+    (at [81,920 x 512] the whole one-hot would take 21 GB), in full
+    float32 (``tiled.full_fp32``)."""
     check_int32_lanes(vals, rel, W, "[C, E]", 1)
     C, E = vals.shape
     out = torch.empty((C, W), dtype=torch.float32, device=vals.device)
     lanes = torch.arange(W, device=vals.device, dtype=torch.int32)
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_fp32():
         for c0 in range(0, C, PLAIN_BLOCK):
             c1 = c0 + PLAIN_BLOCK
             onehot = (rel[c0:c1, :, None] == lanes).to(torch.float32)
             out[c0:c1] = torch.bmm(vals[c0:c1, None, :], onehot)[:, 0]
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
     return out
 
 

@@ -48,8 +48,9 @@ selected from its page by an index gather; no hand kernel.
 
 On the device ``slot_lane`` rides as int32 with the uint32's bits;
 page slots decode as ``(x >> 7) & 0x1FFFFFF``, lanes as ``x & 0x7F``.
-The owner-exchange plans (ROADMAP A6) and ``gather="auto"`` (A10b,
-priced by TPU-measured constants) are not ported.
+``gather="auto"`` resolves flat, paged or page-major through
+scalemodel's break-even on the counted plan stats (``resolve_gather``).
+The owner-exchange plans (ROADMAP A6) are not ported.
 """
 
 from __future__ import annotations
@@ -568,24 +569,75 @@ def plan_paged_stats(sg, pagemajor: bool = False) -> dict:
     return stats
 
 
-def resolve_gather(gather: str) -> str:
-    """'flat', 'paged' or 'pagemajor'.  The reference's 'auto' prices
-    the modes with TPU-measured constants; the engines refuse it
-    before they get here (ROADMAP A10b)."""
-    if gather not in GATHER_MODES:
-        raise ValueError(f"unknown gather {gather!r} (one of "
-                         f"{', '.join(map(repr, GATHER_MODES))})")
-    return gather
+def resolve_gather(gather: str, stats: dict | None = None,
+                   table_bytes: float = 0, kdim: int = 1,
+                   exchange: str = "gather", constants=None) -> str:
+    """'flat', 'paged' and 'pagemajor' pass through; 'auto' arbitrates
+    three ways by scalemodel under ``constants`` (the card's by default)
+    on the plan's counted ``stats`` (plan_paged_stats), as the
+    reference does (lux_tpu/ops/pagegather.py:981-1024): paged wins
+    when its delivered ns an edge undercuts the flat gather's rate for
+    a ``table_bytes`` state table (the residual path's for ``kdim`` > 1),
+    page-major (scalar programs, stats with ``pm_*`` keys) when it
+    undercuts both.  The owner exchange's baseline waits for ROADMAP
+    A6."""
+    if gather in GATHER_MODES:
+        return gather
+    if gather != "auto":
+        raise ValueError(f"unknown gather {gather!r} (one of 'paged', "
+                         f"'pagemajor', 'flat', 'auto')")
+    from lux_tpu_torch import scalemodel as sm
+    if exchange == "owner":
+        from lux_tpu_torch.engine.pull import NotPortedError
+        raise NotPortedError("gather='auto' against the owner exchange "
+                             "is not ported yet (ROADMAP A6)")
+    if stats is None:
+        raise ValueError("gather='auto' resolves from the plan's stats "
+                         "(plan_paged_stats)")
+    paged = sm.page_gather_ns(stats["page_ratio"],
+                              stats.get("padded_fill", stats["fill"]), kdim,
+                              constants)
+    if kdim > 1:
+        baseline = sm.residual_edge_ns(kdim, constants)
+    else:
+        baseline = sm.flat_gather_ns(table_bytes, constants)
+    best, best_ns = "flat", baseline
+    if paged < best_ns:
+        best, best_ns = "paged", paged
+    if kdim <= 1 and "pm_padded_vfill" in stats:
+        pm = sm.pagemajor_gather_ns(stats["page_ratio"],
+                                    stats["pm_g_padded_fill"],
+                                    stats["pm_padded_vfill"],
+                                    constants=constants)
+        if pm < best_ns:
+            best = "pagemajor"
+    return best
+
+
+def state_table_bytes(sg, program) -> int:
+    """Bytes of the flat state table an engine's gather reads: the
+    program's ``state_bytes`` a vertex, else its identity's itemsize
+    times the query batch (lux_tpu/ops/pagegather.py:957-963)."""
+    itemsize = getattr(program, "state_bytes", None)
+    if itemsize is None:
+        ident = getattr(program, "identity", None)
+        itemsize = (np.asarray(ident).dtype.itemsize
+                    if ident is not None else 4)
+        itemsize *= getattr(program, "batch", None) or 1
+    return sg.num_parts * sg.vpad * itemsize
 
 
 def engine_page_plan(sg, gather: str, program) -> PagedPlan | None:
     """The engines' plan-or-not resolution (lux_tpu/ops/pagegather.py:
-    925-951): the paged or page-major plan of a dense (gather-exchange)
+    925-975): the paged or page-major plan of a dense (gather-exchange)
     engine, None for the flat gather.  Dot programs
-    (``edge_value_from_dot``) take gather='paged' only.  Raises
-    ValueError, with the reference's messages, on configurations the
-    plans do not support."""
-    gather = resolve_gather(gather)
+    (``edge_value_from_dot``) take gather='paged' only.  An explicit
+    'paged' / 'pagemajor' raises ValueError, with the reference's
+    messages, on configurations the plans do not support; 'auto' stays
+    flat there, and elsewhere resolves from the counting pass alone
+    (``resolve_gather``), so a flat answer builds no plan arrays."""
+    if gather not in GATHER_MODES + ("auto",):
+        resolve_gather(gather)              # the typed ValueError
     if gather == "flat":
         return None
     dot = getattr(program, "edge_value_from_dot", None) is not None
@@ -600,7 +652,18 @@ def engine_page_plan(sg, gather: str, program) -> PagedPlan | None:
         why = ("page-major rows split the reduce from the MXU dot "
                "pipeline; K-dim (SDDMM) programs keep gather='paged'")
     if why is not None:
+        if gather == "auto":
+            return None
         raise ValueError(f"gather={gather!r}: {why}")
+    if gather == "auto":
+        kdim = 1
+        if dot:
+            kdim = max(1, (getattr(program, "state_bytes", None) or 4) // 4)
+        stats = plan_paged_stats(sg, pagemajor=not dot)
+        gather = resolve_gather("auto", stats,
+                                state_table_bytes(sg, program), kdim)
+        if gather == "flat":
+            return None
     return plan_pagemajor(sg) if gather == "pagemajor" \
         else plan_paged_gather(sg)
 

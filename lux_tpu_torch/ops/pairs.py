@@ -167,19 +167,16 @@ class PairAnalysis:
     depth_sorted: np.ndarray   # int64 [n_tiles] descending
 
 
-def resolve_min_fill(min_fill) -> int | None:
-    """Integers and None pass through unchanged.  The reference's
-    ``"auto"`` resolves through scalemodel's break-even fill, whose
-    per-row and per-edge costs were measured on the TPU: refused until
-    the port measures its own (ROADMAP A10b)."""
+def resolve_min_fill(min_fill, kdim: int = 1,
+                     constants=None) -> int | None:
+    """The K-aware min_fill (lux_tpu/ops/pairs.py:160-172): ``"auto"``
+    resolves to scalemodel's break-even fill for ``kdim``-wide rows
+    under ``constants`` (the card's by default): a row's whole-path
+    cost over a residual edge's.  Integers and None pass through
+    unchanged."""
     if min_fill == "auto":
-        from lux_tpu_torch.engine.pull import NotPortedError
-        raise NotPortedError(
-            "min_fill='auto' is not ported yet (ROADMAP A10b): it "
-            "resolves through a cost model measured on the TPU; pass "
-            "an int (bench.py's pagerank config uses 24, its colfilter "
-            "config 22, what the reference resolves 'auto' to at K = "
-            "20) or None")
+        from lux_tpu_torch.scalemodel import break_even_fill
+        return break_even_fill(kdim, constants=constants)
     if min_fill is not None and not isinstance(min_fill, (int,
                                                           np.integer)):
         raise ValueError(f"min_fill must be an int, None or 'auto', "
@@ -189,7 +186,8 @@ def resolve_min_fill(min_fill) -> int | None:
 
 def analyze_pairs(src_slot: np.ndarray, dst_local: np.ndarray,
                   vpad: int, threshold: int = 8,
-                  min_fill: int | str | None = None) -> PairAnalysis:
+                  min_fill: int | str | None = None,
+                  kdim: int = 1) -> PairAnalysis:
     """The sorting and selection half of build_pair_plan.
 
     A pair with >= ``threshold`` edges is covered; each covered edge
@@ -199,7 +197,7 @@ def analyze_pairs(src_slot: np.ndarray, dst_local: np.ndarray,
     with occurrence depth within a pair, so the dropped rows are each
     pair's occurrence tail — a per-pair cap from one (pidx, occ)
     histogram."""
-    min_fill = resolve_min_fill(min_fill)
+    min_fill = resolve_min_fill(min_fill, kdim)
     if vpad % W:
         raise ValueError(f"pair planning needs vpad % {W} == 0, got "
                          f"vpad={vpad}")
@@ -277,7 +275,8 @@ def build_pair_plan(src_slot: np.ndarray, dst_local: np.ndarray,
                     weights: np.ndarray | None = None,
                     slot_depths: np.ndarray | None = None,
                     analysis: PairAnalysis | None = None,
-                    min_fill: int | str | None = None) -> PairPlan:
+                    min_fill: int | str | None = None,
+                    kdim: int = 1) -> PairPlan:
     """One part's plan.  src_slot: int [ne] global padded state slots
     (state2d row = slot // 128); dst_local: int [ne] part-local dst in
     [0, vpad); weights (optional, [ne]) are laid out per lane.
@@ -288,7 +287,8 @@ def build_pair_plan(src_slot: np.ndarray, dst_local: np.ndarray,
     analysis: a precomputed analyze_pairs result for these arrays."""
     if analysis is None:
         analysis = analyze_pairs(src_slot, dst_local, vpad,
-                                 threshold=threshold, min_fill=min_fill)
+                                 threshold=threshold, min_fill=min_fill,
+                                 kdim=kdim)
     a = analysis
     ne, n_tiles = a.ne, a.n_tiles
     src_slot = np.asarray(src_slot, np.int64)
@@ -509,7 +509,7 @@ def cost_balanced_starts(g, num_parts: int, threshold: int) -> np.ndarray:
 
 
 def plan_sharded_pairs(sg, threshold: int,
-                       min_fill: int | str | None = None):
+                       min_fill: int | str | None = None, kdim: int = 1):
     """Per-part pair plans for a ShardedGraph and the RESIDUAL
     ShardedGraph (uncovered edges, re-padded) the tiled gather path
     runs on.  Returns (StackedPairPlan | None, residual_sg); None when
@@ -518,14 +518,16 @@ def plan_sharded_pairs(sg, threshold: int,
 
     With several parts, every part is analysed once, then laid out
     against the elementwise-max depth profile so classes are identical
-    across parts.  Multi-host local-parts builds are not ported."""
+    across parts.  Multi-host local-parts builds are not ported.
+    ``min_fill="auto"`` resolves for ``kdim``-wide rows
+    (resolve_min_fill)."""
     if getattr(sg, "local_parts", None) is not None:
         from lux_tpu_torch.engine.pull import NotPortedError
         raise NotPortedError(
             "pair planning of a local-parts (multi-host) build is not "
             "ported yet (ROADMAP A6): it agrees on the depth profile "
             "across processes")
-    min_fill = resolve_min_fill(min_fill)
+    min_fill = resolve_min_fill(min_fill, kdim)
     if sg.vpad % W:
         raise ValueError("pair delivery needs vpad % 128 == 0; build "
                          "the ShardedGraph with vpad_align=128")

@@ -15,13 +15,32 @@ bound to output vertex tiles:
 
 The arrays are array-equal to the reference's for the same graph: the
 chunk count is padded to a multiple of 8 (pad chunks are isolated
-identity segments, owned by the pad tile ``n_tiles``).  The MXU forms
-of the reference (one-hot contraction, scan-as-matmul) are not ported
-yet.
+identity segments, owned by the pad tile ``n_tiles``).
+
+The matrix-unit forms (``use_mxu=True``; lux_tpu/ops/tiled.py:174-352,
+:404-415, :481-535) reduce by contracting against a one-hot lane
+matrix instead of kernel B1:
+
+- a scalar float32 sum is kernel S9 (ops/onehot_reduce.py,
+  csrc/onehot_mma.cu: ``mma.sync`` on the tensor cores);
+- every other contraction is a ``torch.bmm`` / ``torch.matmul`` whose
+  result is exact: float sums in full float32, integer sums through
+  byte planes, the min/max tournament's 0/1 counts in float16;
+- the segmented sum combine is the scan-as-matmul recurrence.
+
+Exactness traps these forms step around (each named where it bites):
+cuBLAS has no int32 GEMM (``torch._int_mm`` takes 2-D int8 only, m >
+16 and k, n multiples of 8), so integer sums go through float32 byte
+planes, exact while a plane's sum stays below 2^24; a bfloat16 product
+rounds counts above 256, so the tournament counts in float16 (exact to
+2,048); and every float32 product here runs with TF32 off
+(``full_fp32``).  The one-hot is blocked by bytes (``MXU_BLOCK_BYTES``):
+whole, it would be 4.8 GB of int8 at the main path's [73,712, 512, 128].
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -143,6 +162,311 @@ def combine_op(kind: str):
             "max": torch.maximum}[kind]
 
 
+# ---------------------------------------------------------------------
+# the matrix-unit forms (use_mxu=True)
+
+# bytes of the one-hot (or byte-plane) operands one contraction block
+# holds; the reference streams STREAM_BLOCK_CHUNKS (1,024) chunks
+MXU_BLOCK_BYTES = 1 << 30
+# chunks of a streamed block in the reference (lux_tpu/ops/tiled.py:533),
+# which memory_report's ``mxu_temp`` prices the one-hot over
+STREAM_BLOCK_CHUNKS = 1024
+# block length of the scan-as-matmul combine: one [256, 256] segment
+# matrix a block of chunks (lux_tpu/ops/tiled.py:475)
+MXU_SCAN_BLOCK = 256
+# the float16 tournament counts are exact while a count stays <= 2,048
+_F16_EXACT = 2048
+
+
+class MXUUnsupportedError(ValueError):
+    """A (kind, dtype) the one-hot forms do not cover: they serve sum,
+    min and max over <= 32-bit int, uint and float payloads."""
+
+    def __init__(self, kind: str, dtype, why: str):
+        self.kind = kind
+        self.dtype = dtype
+        super().__init__(f"MXU one-hot path does not support kind={kind!r} "
+                         f"on dtype {dtype}: {why}")
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Float32 products in full float32: TF32 off for cuBLAS
+    (``torch.backends.cuda.matmul.allow_tf32``) and cuDNN
+    (``torch.backends.cudnn.allow_tf32``), restored after.  TF32 keeps
+    about three decimal digits, which no sum here may lose."""
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = (mm.allow_tf32, dnn.allow_tf32)
+    mm.allow_tf32 = dnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        mm.allow_tf32, dnn.allow_tf32 = prev
+
+
+def _lane_onehot(rel_dst: torch.Tensor, W: int,
+                 dtype=torch.float32) -> torch.Tensor:
+    """[..., E] lanes -> [..., E, W] lane membership: row e is one-hot at
+    rel_dst[..., e], all zero for a pad lane (-1 matches no lane)."""
+    lanes = torch.arange(W, device=rel_dst.device, dtype=rel_dst.dtype)
+    return (rel_dst[..., None] == lanes).to(dtype)
+
+
+def _check_mxu_dtype(kind: str, dtype: torch.dtype) -> None:
+    if dtype.is_complex or dtype == torch.bool or dtype.itemsize > 4:
+        raise MXUUnsupportedError(
+            kind, dtype, "payload has no MXU contraction (only <= 32-bit "
+            "int/uint/float states)")
+
+
+def _order_bits(dtype: torch.dtype) -> int:
+    """Tournament rounds for a payload dtype (bits of its order
+    encoding); the typed error for what has none."""
+    if dtype.is_complex or dtype == torch.bool:
+        raise MXUUnsupportedError(
+            "min/max", dtype, "no order-preserving bit encoding (only "
+            "int/uint/float payloads reduce by comparison)")
+    if dtype.itemsize > 4:
+        raise MXUUnsupportedError(
+            "min/max", dtype, "64-bit payloads violate the 4-byte dtype "
+            "discipline (no order encoding fits 32 bits)")
+    return dtype.itemsize * 8
+
+
+_UINT_VIEW = {2: torch.int16, 4: torch.int32}
+
+
+def _unsigned_bits(x: torch.Tensor) -> torch.Tensor:
+    """A float payload's bit pattern as int64 in [0, 2^bits)."""
+    bits = x.dtype.itemsize * 8
+    return x.view(_UINT_VIEW[x.dtype.itemsize]).to(torch.int64) & (
+        (1 << bits) - 1)
+
+
+def _order_encode(x: torch.Tensor) -> torch.Tensor:
+    """Payload -> int64 in [0, 2^bits) whose order matches the payload
+    order (the reference's uint32 values): unsigned ints as they are,
+    signed ints biased by their minimum, floats by the IEEE-754
+    sign-magnitude fold (negative: every bit flipped; else the sign bit
+    set) -- a total order agreeing with < on non-NaN values, -0.0 below
+    +0.0."""
+    bits = _order_bits(x.dtype)
+    if not x.dtype.is_floating_point:
+        if x.dtype.is_signed:
+            return x.to(torch.int64) - torch.iinfo(x.dtype).min
+        return x.to(torch.int64)
+    u = _unsigned_bits(x)
+    sign, mask = 1 << (bits - 1), (1 << bits) - 1
+    return torch.where((u & sign) != 0, (~u) & mask, u | sign)
+
+
+def _order_decode(m: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of _order_encode (int64 -> the payload dtype)."""
+    bits = _order_bits(dtype)
+    if not dtype.is_floating_point:
+        if dtype.is_signed:
+            return (m + torch.iinfo(dtype).min).to(dtype)
+        return m.to(dtype)
+    sign, mask = 1 << (bits - 1), (1 << bits) - 1
+    u = torch.where((m & sign) != 0, m ^ sign, (~m) & mask)
+    u = u - ((u >> (bits - 1)) << bits)          # two's complement
+    return u.to(_UINT_VIEW[dtype.itemsize]).view(dtype)
+
+
+def _wrap(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int64 sums -> ``dtype`` with the integer wrap-around of a sum in
+    that dtype (the reference's einsum accumulates in the payload
+    dtype)."""
+    bits = dtype.itemsize * 8
+    v = total & ((1 << bits) - 1)
+    if dtype.is_signed:
+        v = v - ((v >> (bits - 1)) << bits)
+    return v.to(dtype)
+
+
+def _byte_planes(x: torch.Tensor) -> torch.Tensor:
+    """An integer tensor's low 32 bits as four float32 byte planes
+    [4, ...]: each plane's values are 0..255, so a 0/1 contraction of
+    up to 65,793 of them stays below 2^24, where float32 is exact.
+    cuBLAS has no int32 GEMM, and ``torch._int_mm`` takes 2-D int8 with
+    m > 16 and k, n multiples of 8: byte planes are the exact route."""
+    u = x.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([((u >> (8 * b)) & 0xFF).to(torch.float32)
+                        for b in range(4)])
+
+
+def _from_planes(sums: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Contracted byte planes [4, ...] (exact integers in float32) -> the
+    integer sum, wrapped to ``dtype``."""
+    s = sums.round().to(torch.int64)
+    total = s[0] + (s[1] << 8) + (s[2] << 16) + (s[3] << 24)
+    return _wrap(total, dtype)
+
+
+def _block_rows(n: int, row_bytes: int) -> int:
+    """Rows of a contraction block: MXU_BLOCK_BYTES of operand."""
+    return max(1, min(n, MXU_BLOCK_BYTES // max(1, row_bytes)))
+
+
+def _onehot_sum(vals: torch.Tensor, rel: torch.Tensor, W: int):
+    """[C, E, T] payload -> [C, W, T] sums by ``torch.bmm`` against the
+    one-hot, in blocks: floats in full float32 (float16 / bfloat16
+    payloads widened, the result narrowed back), integers through byte
+    planes."""
+    C, E, T = vals.shape
+    is_int = not vals.dtype.is_floating_point
+    out = torch.empty((C, W, T), dtype=vals.dtype, device=vals.device)
+    planes = 4 if is_int else 1
+    step = _block_rows(C, E * (W + planes * T) * 4)
+    with full_fp32():
+        for c0 in range(0, C, step):
+            sl = slice(c0, c0 + step)
+            ohT = _lane_onehot(rel[sl], W).transpose(1, 2)   # [b, W, E]
+            if is_int:
+                x = _byte_planes(vals[sl])                  # [4, b, E, T]
+                out[sl] = _from_planes(torch.matmul(ohT, x), vals.dtype)
+            else:
+                out[sl] = torch.bmm(ohT, vals[sl].to(torch.float32)).to(
+                    vals.dtype)
+    return out
+
+
+def _mxu_compare_reduce(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
+                        kind: str) -> torch.Tensor:
+    """min/max per-chunk partials as one-hot contractions: a radix
+    tournament over the payload's order encoding, most significant bit
+    first (lux_tpu/ops/tiled.py:269-323).  Each bit plane takes two
+    contractions against the shared one-hot: a vote (does a
+    still-candidate lane of the slot carry the bit?) and the route-back
+    that narrows each lane's candidacy to its slot's winning prefix.
+    Bit-equal to kernel B1 for integers; floats take the encoding's
+    total order.  Pad lanes have all-zero one-hot rows, so they never
+    vote; a slot no live lane maps to gets the identity.
+
+    The counts are exact small integers (a vote counts at most E lanes,
+    a route-back is 0 or 1), contracted in float16 on the card -- exact
+    to 2,048, where bfloat16 would round counts past 256 -- and in
+    float32 on the CPU or when E > 2,048."""
+    if kind not in ("min", "max"):
+        raise MXUUnsupportedError(kind, vals.dtype,
+                                  "unknown compare-reduce kind")
+    bits = _order_bits(vals.dtype)
+    mask = (1 << bits) - 1
+    C, E = vals.shape[:2]
+    trail = tuple(vals.shape[2:])
+    T = int(np.prod(trail)) if trail else 1
+    m = _order_encode(vals).reshape(C, E, T)
+    if kind == "min":                 # min is max of the complement
+        m = (~m) & mask
+    cdt = (torch.float16 if vals.device.type == "cuda"
+           and E <= _F16_EXACT else torch.float32)
+    res = torch.empty((C, W, T), dtype=torch.int64, device=vals.device)
+    occ = torch.empty((C, W, 1), dtype=torch.bool, device=vals.device)
+    step = _block_rows(C, E * W * cdt.itemsize + E * T * 24)
+    with full_fp32():
+        for c0 in range(0, C, step):
+            sl = slice(c0, c0 + step)
+            oh = _lane_onehot(rel_dst[sl], W, cdt)          # [b, E, W]
+            ohT = oh.transpose(1, 2)
+            b = oh.shape[0]
+            occ[sl] = torch.bmm(ohT, oh.new_ones((b, E, 1))) > 0
+            mb = m[sl]
+            cand = torch.ones((b, E, T), dtype=torch.bool,
+                              device=vals.device)
+            r = torch.zeros((b, W, T), dtype=torch.int64,
+                            device=vals.device)
+            for sh in range(bits - 1, -1, -1):
+                bit = ((mb >> sh) & 1).bool()
+                cnt = torch.bmm(ohT, (bit & cand).to(cdt))  # [b, W, T]
+                has = cnt > 0
+                r |= has.to(torch.int64) << sh
+                back = torch.bmm(oh, has.to(cdt))           # [b, E, T]
+                cand &= (back > 0) == bit
+            res[sl] = r
+    if kind == "min":
+        res = (~res) & mask
+    out = _order_decode(res, vals.dtype).reshape((C, W) + trail)
+    ident = torch.full((), identity_for(kind, vals.dtype), dtype=vals.dtype,
+                       device=vals.device)
+    occb = occ.reshape((C, W) + (1,) * len(trail))
+    return torch.where(occb, out, ident)
+
+
+def chunk_partials_mxu(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
+                       kind: str, rel32: torch.Tensor | None = None):
+    """Per-chunk partials [C, E, ...] -> [C, W, ...] by the one-hot
+    forms (the reference's ``chunk_partials(use_mxu=True)``).  A scalar
+    float32 sum is kernel S9 (``rel32``: the lanes as int32, S9's
+    dtype; made here when not given); other sums a ``torch.bmm``
+    against the one-hot; min/max the tournament."""
+    _check_mxu_dtype(kind, vals.dtype)
+    if kind == "sum":
+        if vals.dim() == 2 and vals.dtype == torch.float32 \
+                and vals.shape[1] > 0:
+            from lux_tpu_torch.ops.onehot_reduce import onehot_reduce
+            if rel32 is None:
+                rel32 = rel_dst.to(torch.int32)
+            return onehot_reduce(vals.contiguous(), rel32.contiguous(), W)
+        C, E = vals.shape[:2]
+        trail = tuple(vals.shape[2:])
+        out = _onehot_sum(vals.reshape(C, E, -1), rel_dst, W)
+        return out.reshape((C, W) + trail)
+    if kind in ("min", "max"):
+        return _mxu_compare_reduce(vals, rel_dst, W, kind)
+    raise MXUUnsupportedError(kind, vals.dtype, "unknown reduce kind")
+
+
+def _matmul_exact(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` for a 0/1 float32 matrix ``A`` [..., n, n] (at most
+    256 wide) and a payload ``x`` [..., n, T]: floats in full float32,
+    integers through byte planes (exact: 255 * 256 < 2^24), wrapped to
+    x's dtype."""
+    with full_fp32():
+        if x.dtype.is_floating_point:
+            return torch.matmul(A, x.to(torch.float32)).to(x.dtype)
+        return _from_planes(torch.matmul(A, _byte_planes(x)), x.dtype)
+
+
+def _segscan_matmul(partials: torch.Tensor, chunk_start: torch.Tensor,
+                    block: int | None = None) -> torch.Tensor:
+    """Segmented inclusive SUM scan along axis 0 as blocked matrix
+    products (lux_tpu/ops/tiled.py:481-535): per block the
+    lower-triangular same-segment matrix T[i, j] = (i >= j) & (seg i ==
+    seg j), built from cumsum(flags), gives every prefix in the block in
+    one contraction; rows before a block's first flag then add the
+    running value carried from the blocks before, itself the same scan
+    one level up over the blocks' last rows.  Integer payloads are
+    bit-equal to the flag-reset scan."""
+    block = MXU_SCAN_BLOCK if block is None else int(block)
+    flags = chunk_start.reshape(-1).to(torch.bool)
+    C = partials.shape[0]
+    trail = tuple(partials.shape[1:])
+    if C == 0:
+        return partials
+    nB = _ceil_div(C, block)
+    Cp = nB * block
+    x = partials.reshape(C, -1)
+    if Cp != C:             # pad chunks: isolated identity segments
+        x = torch.cat([x, x.new_zeros((Cp - C, x.shape[1]))])
+        flags = torch.cat([flags, flags.new_ones(Cp - C)])
+    x = x.reshape(nB, block, -1)
+    f = flags.reshape(nB, block)
+    sid = torch.cumsum(f.to(torch.int32), 1)
+    ii = torch.arange(block, device=x.device)
+    T = ((ii[:, None] >= ii[None, :])[None]
+         & (sid[:, :, None] == sid[:, None, :])).to(torch.float32)
+    out = _matmul_exact(T, x)
+    if nB > 1:
+        # the value running into block b: the inclusive scan, reset at
+        # every block holding a flag, of the blocks' last rows, shifted
+        last = _segscan_matmul(out[:, -1], f.any(1), block)
+        carry = torch.cat([last.new_zeros((1,) + tuple(last.shape[1:])),
+                           last[:-1]])
+        absorb = (sid == 0)[..., None]
+        out = torch.where(absorb, out + carry[:, None], out)
+    return out.reshape((Cp,) + trail)[:C]
+
+
 @dataclasses.dataclass(frozen=True)
 class SegmentPlan:
     """Device-side plan of the segmented chunk combine, computed once
@@ -177,7 +501,8 @@ def segment_plan(chunk_start: torch.Tensor,
 
 def combine_chunks(partials: torch.Tensor, layout, chunk_start,
                    last_chunk, kind: str,
-                   plan: SegmentPlan | None = None) -> torch.Tensor:
+                   plan: SegmentPlan | None = None,
+                   use_mxu: bool = False) -> torch.Tensor:
     """Segmented combine of per-chunk partials [R*C, W, ...] (or
     [C, W, ...]) into tile results [R, n_tiles, W, ...] (or
     [n_tiles, W, ...], following ``last_chunk``'s shape).
@@ -186,13 +511,18 @@ def combine_chunks(partials: torch.Tensor, layout, chunk_start,
     segment passes; none when every tile fits in one chunk), then each
     tile's last chunk is taken; edge-less tiles get the identity and
     pad chunks (tile ``n_tiles``) are never taken.  Deterministic: the
-    combine order is fixed by the layout."""
+    combine order is fixed by the layout.  ``use_mxu`` runs a sum's
+    scan as ``_segscan_matmul``; min/max keep the doubling (a prefix
+    min has no matmul form: each output would need its own vote)."""
     if plan is None:
         plan = segment_plan(chunk_start, last_chunk)
     comb = combine_op(kind)
     trail = tuple(partials.shape[1:])
     x = partials.reshape((-1,) + trail)
     d = 1
+    if use_mxu and kind == "sum" and plan.max_len > 1:
+        x = _segscan_matmul(x, chunk_start)
+        d = plan.max_len
     while d < plan.max_len:
         m = (plan.pos[d:] >= d).reshape((-1,) + (1,) * len(trail))
         x = torch.cat([x[:d], torch.where(m, comb(x[:-d], x[d:]), x[d:])])
@@ -206,11 +536,12 @@ def combine_chunks(partials: torch.Tensor, layout, chunk_start,
 
 
 def combine_partials(partials, layout, chunk_start, last_chunk, vpad: int,
-                     kind: str, plan: SegmentPlan | None = None):
+                     kind: str, plan: SegmentPlan | None = None,
+                     use_mxu: bool = False):
     """Per-chunk partials -> per-vertex results [R, vpad, ...] (or
     [vpad, ...] for one part)."""
     tiles = combine_chunks(partials, layout, chunk_start, last_chunk, kind,
-                           plan)
+                           plan, use_mxu)
     lead = tuple(last_chunk.shape[:-1])
     flat = tiles.reshape(lead + (layout.n_tiles * layout.W,) +
                          tuple(tiles.shape[len(lead) + 2:]))
@@ -220,16 +551,24 @@ def combine_partials(partials, layout, chunk_start, last_chunk, vpad: int,
 def tiled_segment_reduce(vals, layout, chunk_start, last_chunk, rel_dst,
                          vpad: int, kind: str,
                          plan: SegmentPlan | None = None,
-                         batch: int | None = None):
+                         batch: int | None = None, use_mxu: bool = False,
+                         rel32: torch.Tensor | None = None):
     """Full scatter-free segment reduce: chunked messages [R*C, E]
     (or [C, E]) -> [R, vpad] (or [vpad]).  Drop-in for
     ``segment_reduce(msgs, dst_local, vpad+1, kind)[:vpad]``; the
     per-chunk partials go through kernel B1 (ops/chunk_reduce.py).
     ``batch=B``: messages with a trailing query axis [..., E, B] ->
     [R, vpad, B], through B1's batched form (a strided view is made
-    contiguous first: the kernel takes contiguous rows only)."""
+    contiguous first: the kernel takes contiguous rows only).
+    ``use_mxu``: the partials and a sum's combine by the one-hot forms
+    (``chunk_partials_mxu``; ``rel32`` the lanes as int32 for S9)."""
     rel = rel_dst.reshape(-1, layout.E)
-    if batch is None:
+    if use_mxu:
+        shape = (-1, layout.E) + (() if batch is None else (batch,))
+        partials = chunk_partials_mxu(
+            vals.reshape(shape), rel, layout.W, kind,
+            None if rel32 is None else rel32.reshape(-1, layout.E))
+    elif batch is None:
         partials = chunk_partials(vals.reshape(-1, layout.E), rel,
                                   layout.W, kind)
     else:
@@ -237,4 +576,4 @@ def tiled_segment_reduce(vals, layout, chunk_start, last_chunk, rel_dst,
             vals.reshape(-1, layout.E, batch).contiguous(), rel, layout.W,
             kind)
     return combine_partials(partials, layout, chunk_start, last_chunk, vpad,
-                            kind, plan)
+                            kind, plan, use_mxu)

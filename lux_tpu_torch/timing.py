@@ -164,7 +164,7 @@ def median_mad(xs):
     return m, statistics.median(abs(x - m) for x in xs)
 
 
-def loop_bench(fn, k: int, repeats: int = 3, device=None):
+def loop_bench(fn, k: int, repeats: int = 3, device=None, clock=None):
     """Seconds per call of ``fn()``: one warm-up call, then ``repeats``
     samples of ``k`` calls each, on ``device`` (None means the card, as
 everywhere in the port) (counterpart of lux_tpu/timing.py:69
@@ -172,8 +172,10 @@ everywhere in the port) (counterpart of lux_tpu/timing.py:69
     through one ``fori_loop`` so that XLA cannot hoist the work; eager
     PyTorch hoists nothing, so ``k`` plain calls stand in for it.  On
     the card each sample is two CUDA events around the ``k`` calls; on
-    the CPU the host clock.  Returns the list of per-call seconds, one
-    entry a sample."""
+    the CPU the host clock.  ``clock`` (a host clock, e.g. a
+    deterministic one in tests) times every sample instead, the device
+    fenced before each reading.  Returns the list of per-call seconds,
+    one entry a sample."""
     dev = resolve_device(device)
     if k < 1 or repeats < 1:
         raise ValueError(f"loop_bench needs k >= 1 and repeats >= 1 "
@@ -182,7 +184,13 @@ everywhere in the port) (counterpart of lux_tpu/timing.py:69
     fence(dev)
     samples = []
     for _ in range(repeats):
-        if dev.type == "cuda":
+        if clock is not None:
+            t0 = clock()
+            for _ in range(k):
+                fn()
+            fence(dev)
+            samples.append((clock() - t0) / k)
+        elif dev.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()

@@ -71,8 +71,15 @@ def test_colfilter_cpu_check(weighted_lux_file, extra):
     (["-gather", "pagemajor"], "keep gather='paged'"),
     (["-pair", "4", "-min-fill", "auto"], "ROADMAP A10")])
 def test_colfilter_refusals_exit_2(weighted_lux_file, extra, msg):
+    """-gather pagemajor exits 2 with the reference's message;
+    -min-fill auto (once refused naming A10) resolves at K = 20 and
+    runs."""
     proc = _run_cli("colfilter", "-file", weighted_lux_file, "-ni", "1",
                     "-device", "cpu", *extra)
+    if msg == "ROADMAP A10":
+        assert proc.returncode == 0, proc.stderr
+        assert "RMSE = " in proc.stdout
+        return
     assert proc.returncode == 2 and msg in proc.stderr
 
 
@@ -204,7 +211,17 @@ def test_seg_budget_runs_supervised(lux_file, weighted_lux_file, capsys,
 @pytest.mark.parametrize("app", list(SUPERVISED))
 def test_unported_guard_flags_exit_2(lux_file, weighted_lux_file, capsys,
                                      app, flag, item):
+    """-elastic (A6) exits 2; -calibrate (A10b, once refused) runs the
+    session probes first and prints the fingerprint header."""
     f = weighted_lux_file if app == "colfilter" else lux_file
+    extra = ["-ni", "1"] if app in ("pagerank", "colfilter") else []
+    if item == "A10b":
+        assert cli.main([app, "-file", f, "-device", "cpu", *extra,
+                         *flag]) == 0
+        out = capsys.readouterr().out
+        assert "# calibration: session" in out
+        assert "grade=uncalibrated" in out and "ELAPSED TIME" in out
+        return
     assert cli.main([app, "-file", f, "-device", "cpu", *flag]) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
 

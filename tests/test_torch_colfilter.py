@@ -182,16 +182,45 @@ def test_pagemajor_and_unweighted_refused():
     (dict(gather="auto"), "A10"),
 ])
 def test_unported_options_refused(kwargs, item):
+    """A12 and A6 stay refused; the options A10b and A8 brought (once
+    refused naming A10 / A8) now build and run, within TOL of the
+    engine without them."""
     g = weighted_rmat(7, 8, seed=2)
+    if item in ("A10", "A8"):
+        if "pair_threshold" in kwargs:
+            g3, _perm, starts = pair_relabel(g, 1, pair_threshold=4)
+            kw = dict(kwargs, starts=starts)
+            base = dict(pair_threshold=4, starts=starts)
+        else:
+            g3, kw, base = g, kwargs, {}
+        eng = colfilter.build_engine(g3, device=CPU, **kw)
+        plain = colfilter.build_engine(g3, device=CPU, use_mxu=False,
+                                       **base)
+        np.testing.assert_allclose(
+            eng.unpad(eng.run(eng.init_state(), 2)),
+            plain.unpad(plain.run(plain.init_state(), 2)), **TOL)
+        return
     with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
         colfilter.build_engine(g, device=CPU, **kwargs)
 
 
 def test_min_fill_auto_names_colfilter_fill():
+    """min_fill="auto" resolves K-aware: at colfilter's K = 20 to
+    scalemodel's break-even fill for 20-wide rows."""
+    from lux_tpu_torch import scalemodel
+    from lux_tpu_torch.ops.pairs import resolve_min_fill
     g = weighted_rmat(7, 8, seed=2)
-    with pytest.raises(NotPortedError, match="colfilter config 22"):
-        colfilter.build_engine(g, device=CPU, pair_threshold=4,
-                               pair_min_fill="auto")
+    g3, _perm, starts = pair_relabel(g, 1, pair_threshold=4)
+    fill = resolve_min_fill("auto", colfilter.K)
+    assert fill == scalemodel.break_even_fill(colfilter.K)
+    auto = colfilter.build_engine(g3, device=CPU, pair_threshold=4,
+                                  starts=starts, pair_min_fill="auto")
+    fixed = colfilter.build_engine(g3, device=CPU, pair_threshold=4,
+                                   starts=starts, pair_min_fill=fill)
+    if auto.pairs is None:
+        assert fixed.pairs is None
+    else:
+        assert np.array_equal(auto.pairs.rowbind, fixed.pairs.rowbind)
 
 
 def test_default_device_is_the_card():

@@ -104,14 +104,18 @@ def test_ledger_terms_equal_reference(lux_ref, graph, name):
     led = memwatch.MemoryLedger.for_engine(eng)
     rled = lux_ref.memwatch.MemoryLedger.for_engine(ref)
     ours = dict(led.terms)
-    idx = ours.pop("port_index", 0)
+    port = {k: ours.pop(k) for k in list(ours) if k.startswith("port_")}
+    idx = port.pop("port_index", 0)
     assert ours == rled.terms               # every shared term, bitwise
     want = sum(t.untyped_storage().nbytes()
                for t in memwatch.port_index_tensors(eng))
     assert idx == want
     if eng.page_plan is None:
         assert idx > 0                      # the tiled combine plan
-    assert led.total_bytes == rled.total_bytes + idx
+    # the eager step's temporaries, priced beside the reference's terms
+    assert port == memwatch.eager_terms(eng)
+    assert set(port) <= set(memwatch.TEMP_TERMS)
+    assert led.total_bytes == rled.total_bytes + idx + sum(port.values())
     assert led.argument_bytes() == rled.argument_bytes() + idx
     # the memory advisor itself: the same report
     kw = memwatch.report_kwargs(eng)

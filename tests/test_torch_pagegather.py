@@ -339,9 +339,12 @@ def test_cli_paged_cpu_check(tmp_path):
                               cwd=REPO, timeout=120)
         assert proc.returncode == 0, proc.stderr
         assert "[PASS] pagerank residual" in proc.stdout
-    proc = subprocess.run(base + ["-gather", "auto"], capture_output=True,
-                          text=True, env=env, cwd=REPO, timeout=120)
-    assert proc.returncode == 2 and "ROADMAP A10" in proc.stderr
+    # -gather auto resolves through scalemodel (the card's constants)
+    proc = subprocess.run(base + ["-gather", "auto", "-check"],
+                          capture_output=True, text=True, env=env,
+                          cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "[PASS] pagerank residual" in proc.stdout
 
 
 def _small_graph():
@@ -355,8 +358,19 @@ def _small_graph():
     (dict(gather="pagemajor", exchange="owner"), "A6"),
 ])
 def test_paged_options_refused(kwargs, item):
+    """What A6 brings is refused naming it; gather='auto' (A10b, once
+    refused naming A10) builds the mode scalemodel picks from the
+    counted plan stats."""
+    g = _small_graph()
+    if item == "A10":
+        eng = pagerank.build_engine(g, device=CPU, **kwargs)
+        sg = ShardedGraph.build(g, 1, vpad_align=128)
+        want = pg.resolve_gather("auto", pg.plan_paged_stats(
+            sg, pagemajor=True), 4 * sg.vpad)
+        assert eng.gather == want
+        return
     with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
-        pagerank.build_engine(_small_graph(), device=CPU, **kwargs)
+        pagerank.build_engine(g, device=CPU, **kwargs)
 
 
 def test_paged_value_errors():

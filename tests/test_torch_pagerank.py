@@ -207,5 +207,24 @@ def test_default_device_is_the_card(small_graph):
     (dict(mesh=object()), "A6"),
 ])
 def test_unported_options_refused(small_graph, kwargs, item):
-    with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
-        pagerank.build_engine(small_graph, device=CPU, **kwargs)
+    """A6 stays refused; the "auto" options A10b brought (once refused
+    naming A10) build and run, within rtol 2e-5 of the explicit
+    choice they resolve to."""
+    if item != "A10":
+        with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
+            pagerank.build_engine(small_graph, device=CPU, **kwargs)
+        return
+    from lux_tpu_torch.graph import pair_relabel
+    from lux_tpu_torch.ops.pairs import resolve_min_fill
+    g, kw, explicit = small_graph, dict(kwargs), {}
+    if "pair_threshold" in kw:
+        g, _perm, starts = pair_relabel(small_graph, 1, pair_threshold=16)
+        kw["starts"] = starts
+        explicit = dict(kw, pair_min_fill=resolve_min_fill("auto"))
+    eng = pagerank.build_engine(g, device=CPU, **kw)
+    if not explicit:
+        explicit = dict(gather=eng.gather)
+    ref = pagerank.build_engine(g, device=CPU, **explicit)
+    np.testing.assert_allclose(eng.unpad(eng.run(eng.init_state(), 3)),
+                               ref.unpad(ref.run(ref.init_state(), 3)),
+                               rtol=2e-5, atol=1e-9)

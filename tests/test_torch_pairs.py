@@ -528,9 +528,12 @@ def test_cli_pair_cpu_check(tmp_path):
                               cwd=REPO, timeout=120)
         assert proc.returncode == 0, proc.stderr
         assert "[PASS] pagerank residual" in proc.stdout
-    proc = subprocess.run(base + ["-min-fill", "auto"], capture_output=True,
-                          text=True, env=env, cwd=REPO, timeout=120)
-    assert proc.returncode == 2 and "ROADMAP A10" in proc.stderr
+    # -min-fill auto resolves to scalemodel's break-even fill
+    proc = subprocess.run(base + ["-min-fill", "auto", "-check"],
+                          capture_output=True, text=True, env=env,
+                          cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "[PASS] pagerank residual" in proc.stdout
 
 
 # ---------------------------------------------------------------------
@@ -564,9 +567,14 @@ def test_pair_value_errors(kwargs, match):
 
 def test_pair_not_ported_refusals():
     sg = _sg()
-    with pytest.raises(NotPortedError, match="ROADMAP A10"):
-        PullEngine(sg, pagerank.make_program(), device=CPU,
-                   pair_threshold=16, pair_min_fill="auto")
+    # min_fill="auto" (A10b) resolves to the card's break-even fill
+    auto = PullEngine(sg, pagerank.make_program(), device=CPU,
+                      pair_threshold=16, pair_min_fill="auto")
+    fixed = PullEngine(sg, pagerank.make_program(), device=CPU,
+                       pair_threshold=16,
+                       pair_min_fill=pr.resolve_min_fill("auto"))
+    assert auto.pairs.Rp == fixed.pairs.Rp
+    assert np.array_equal(auto.pairs.rowbind, fixed.pairs.rowbind)
     # dot programs ride pair rows since A5, on weighted graphs only
     with pytest.raises(ValueError, match="requires a weighted graph"):
         PullEngine(sg, _program(needs_dst=True, edge_value_from_dot=len),

@@ -248,6 +248,14 @@ def _engine(graphs, **kw):
     (dict(audit="warn"), "A12"),
     (dict(use_mxu=True), "A8"), (dict(gather="auto"), "A10b")])
 def test_refused_options(graphs, opts, item):
+    """A6 and A12 stay refused; use_mxu=True (A8) and gather="auto"
+    (A10b), once refused, converge to the plain engine's labels."""
+    if item in ("A8", "A10b"):
+        eng, plain = _engine(graphs, **opts), _engine(graphs)
+        got = eng.converge(*eng.init_state())
+        want = plain.converge(*plain.init_state())
+        assert torch.equal(got[0], want[0]) and got[2] == want[2]
+        return
     with pytest.raises(NotPortedError, match=item):
         _engine(graphs, **opts)
 

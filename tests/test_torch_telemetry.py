@@ -490,16 +490,20 @@ def test_observers_see_events_with_and_without_a_sink():
 
 
 def test_retired_refusals_now_run(graphs):
-    """What refused naming ROADMAP A10 runs; the pricing half (A10b)
-    and the mesh (A6) still refuse with their items."""
+    """What refused naming ROADMAP A10 runs, the pricing half (A10b)
+    too: its "auto" options build; the mesh (A6) still refuses."""
     g = graphs["g"]
     base = sssp.build_engine(g, graphs["start"], device=CPU)
     assert PushEngine(base.sg, base.program, device=CPU,
                       stats_cap=8).stats_cap == 8
     with telemetry.use(iter_stats=telemetry.IterStats()) as tel:
         assert isinstance(tel.iter_stats, telemetry.IterStats)
-    for kw, item in ((dict(gather="auto"), "A10b"),
-                     (dict(pair_threshold=4, pair_min_fill="auto"),
-                      "A10b"), (dict(mesh=object()), "A6")):
-        with pytest.raises(NotPortedError, match=item):
-            pagerank.build_engine(g, device=CPU, **kw)
+    from lux_tpu_torch.graph import pair_relabel
+    g3, _perm, starts = pair_relabel(g, 1, pair_threshold=4)
+    assert pagerank.build_engine(g, device=CPU, gather="auto").gather in (
+        "flat", "paged", "pagemajor")
+    assert pagerank.build_engine(g3, device=CPU, pair_threshold=4,
+                                 starts=starts,
+                                 pair_min_fill="auto").pairs is not None
+    with pytest.raises(NotPortedError, match="A6"):
+        pagerank.build_engine(g, device=CPU, mesh=object())
