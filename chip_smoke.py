@@ -27,7 +27,7 @@ Phases, each printing one JSON line:
             holds it: both ways' sorts included) and its set-up
             seconds each way, derived, not timed alone (the wall less
             the other way's sorts and copies); and
-            native.rmat_csc at the same scale beside rmat_edges, a
+            native.rmat_csc two scales under (its seconds), a
             measurement only (another RNG stream: the smoke's graphs
             stay numpy's);
 4. kernels  kernel B1 (chunk_partials) against its plain PyTorch
@@ -259,9 +259,11 @@ Phases, each printing one JSON line:
             every case;
 19. reorder (runs after pagemajor) bench.py's gather-ab path on its
             community shape (bench.py:798-869), uncut:
-            community_graph(scale 21, edge factor 16, community_scale
-            8, p_in 0.98, --seed, scrambled) and three sides: "none"
-            (degree_relabel), page_reorder "native" and "hillclimb";
+            community_graph(one scale under --scale: 20, edge factor
+            16, community_scale 8, p_in 0.98, --seed, scrambled) and
+            three sides: "none" (degree_relabel), page_reorder "native"
+            and "hillclimb" (continuing the native side's order:
+            page_reorder(start=));
             each side's reorder seconds a candidate and the candidates'
             padded_fill / page_ratio / rows (hillclimb's chosen fill no
             lower than any candidate's), the paged plan's seconds (the
@@ -324,9 +326,9 @@ Phases, each printing one JSON line:
             split the verdicts cover; gather="auto" on the paged cell's
             R-MAT 21 graph and the reorder cell's hillclimb graph, which
             must resolve to the mode the smoke measured fastest there;
-            pair_min_fill="auto" on bench.py's pagerank config beside a
-            sweep of at most four fills (24 and the resolved one among
-            them): each a monolithic engine's step ms and rows; every
+            pair_min_fill="auto" on bench.py's pagerank config beside
+            bench.py's fill 24: each a monolithic engine's step ms and
+            rows; every
             figure of scalemodel.CardConstants as measured here (from
             these and the phases' own layer times, as
             scalemodel.H100_SOURCES names them) beside the package's
@@ -344,7 +346,32 @@ Phases, each printing one JSON line:
             bit-equal); each side's step (push: converge) ms, what
             use_mxu="auto" resolved to and, on main and colfilter, the
             model's price of each side and whether "auto" took the
-            faster.
+            faster;
+23. live    (ROADMAP A11a; after batch_paged) bench.py's serve-live
+            traffic (bench.py:527-700) on the batch phases' R-MAT 20
+            graph with integer weights 1..5 (float32): a LiveGraph of
+            65,536 delta slots (compact_threshold 0.75, a WAL in a
+            temporary directory), Server(batch=4, seg_iters=2,
+            weighted=True, live=, cache=True) over sssp, components and
+            pagerank, a CompactionScheduler on the Server's SLO burn;
+            six phases of an append batch (12,288 edges) and two waves
+            of 3 queries (the second repeating the first's sources at
+            the same epoch), a deletion and the honest re-seed on
+            phases 2 and 4, a reweight on the others, the scheduler's
+            fold at each boundary; a forced fold, LiveGraph.recover
+            from the WAL and a tear_wal drill.  Required: all 36
+            answers equal to the numpy oracles at their admission
+            epochs (livegraph.check_live_answers, on a host thread
+            beside the traffic), each re-seed equal to the engine's full
+            recompute and to the numpy oracle, the recovered state and
+            the torn replay bit-equal, epochs monotone, the delta step
+            on the card bit-equal to the CPU's once a phase, B1 launched
+            by the re-seeds and B1's batched form by the runners
+            (counted, the checks' own runs left out).  Printed only:
+            the scheduler's decisions, drag samples, cache hits,
+            latencies, SLO burn and qps (the host's clock decides them);
+            the delta step's ms at a full block and a revalidate over
+            it.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -396,6 +423,20 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+# timing repetitions of the phases whose timed calls take tens of ms
+# (the colfilter steps and their stages; the batched paged stages and
+# B1's batched form over 2.5M rows): at --reps 20 their timings took
+# ~60 s of the smoke's time limit
+CF_REPS = 5
+BATCH_PAGED_REPS = 5
+
+
+def fewer_reps(args, reps: int):
+    """``args`` with at most ``reps`` timing repetitions."""
+    return argparse.Namespace(**{**vars(args),
+                                 "reps": min(args.reps, reps)})
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -606,11 +647,13 @@ def phase_graph(args, torch):
     g, csc = setup_both_ways(lambda: Graph.from_edges(src, dst, nv))
     del src, dst
     t_graph = t_draws + csc["wall_seconds"]     # both ways' sorts included
-    # the native generator at the same scale: a measurement only
+    # the native generator two scales under (a measurement only; at the
+    # graph's own scale it took 16 s of the smoke's time limit)
     t0 = time.perf_counter()
-    rp, col, deg = native.rmat_csc(args.scale, args.ef, seed=args.seed)
+    rp, col, deg = native.rmat_csc(args.scale - 2, args.ef, seed=args.seed)
     t_rmat_csc = time.perf_counter() - t0
-    rmat_native = {"seconds": round(t_rmat_csc, 3), "ne": int(col.size),
+    rmat_native = {"scale": args.scale - 2,
+                   "seconds": round(t_rmat_csc, 3), "ne": int(col.size),
                    "max_out_degree": int(deg.max()),
                    "max_in_degree": int(np.diff(rp.astype(np.int64),
                                                 prepend=0).max())}
@@ -1368,13 +1411,19 @@ def phase_paged(args, torch, g2, sg, mode: str, want, card):
 # defaults (lux_tpu/convert.py:176) and the sides the reorder token
 # takes (bench.py:822-835)
 COMMUNITY_SCALE, COMMUNITY_P_IN = 8, 0.98
+# the community graph's scale under --scale: one (R-MAT 20's size), the
+# "none" side's 35.9M-row plan and the two reorder passes at scale 21
+# took 213 s of the smoke's time limit
+REORDER_SCALE_UNDER = 1
 REORDER_SIDES = ("none", "native", "hillclimb")
 
 
-def reorder_side(g, side: str):
+def reorder_side(g, side: str, start=None):
     """One side's vertex order: "none" is bench.py's degree_relabel,
-    the others page_reorder's methods.  Returns (graph, perm, report
-    or None, seconds, seconds a candidate)."""
+    the others page_reorder's methods (hillclimb continuing from the
+    native side's ``start``, whose candidates it would score again).
+    Returns (graph, perm, report or None, seconds, seconds a
+    candidate)."""
     from lux_tpu_torch.graph import degree_relabel
     from lux_tpu_torch.reorder import page_reorder
     timings = {}
@@ -1383,7 +1432,8 @@ def reorder_side(g, side: str):
         g2, perm = degree_relabel(g)
         rep = None
     else:
-        g2, perm, rep = page_reorder(g, method=side, timings=timings)
+        g2, perm, rep = page_reorder(g, method=side, timings=timings,
+                                     start=start)
     secs = time.perf_counter() - t0
     if rep is not None:
         chosen = rep["chosen_fill"]
@@ -1408,14 +1458,19 @@ def phase_reorder(args, torch, card):
     from lux_tpu_torch.convert import community_graph
     from lux_tpu_torch.graph import Graph, ShardedGraph
     t0 = time.perf_counter()
-    g = community_graph(scale=args.scale, edge_factor=args.ef,
+    scale = args.scale - REORDER_SCALE_UNDER
+    g = community_graph(scale=scale, edge_factor=args.ef,
                         community_scale=COMMUNITY_SCALE,
                         p_in=COMMUNITY_P_IN, seed=args.seed)
     t_graph = time.perf_counter() - t0
     counts_by, steps, b1_lines, b2_lines = {}, {}, {}, {}
+    start = None
     for side in REORDER_SIDES:
         path = f"reorder_{side}"
-        g2, perm, rep, t_reorder, timings = reorder_side(g, side)
+        g2, perm, rep, t_reorder, timings = reorder_side(
+            g, side, start if side == "hillclimb" else None)
+        if side == "native":
+            start = (g2, perm, rep)
         sg = ShardedGraph.build(g2, 1, vpad_align=128)
         want = pagerank.reference_pagerank(g2, args.iters)
 
@@ -1484,6 +1539,7 @@ def phase_reorder(args, torch, card):
             torch.cuda.empty_cache()
         if side != "hillclimb":
             del g2, sg, perm, want
+    del start
     # the yardstick: the flat gather on the hillclimb graph and layout
     eng = pagerank.build_engine(g2, sg=sg, gather="flat")
     state, secs, counts, peak, host_s = timed_run(torch, eng, args.iters)
@@ -1521,7 +1577,7 @@ def phase_reorder(args, torch, card):
           "gteps": g2.ne * args.iters / secs / 1e9, "step_ms": flat_step,
           "peak_bytes": int(peak), "max_rel_err": err,
           "tolerance": MAIN_TOL, "launches": counts,
-          "community_graph": {"scale": args.scale, "edge_factor": args.ef,
+          "community_graph": {"scale": scale, "edge_factor": args.ef,
                               "community_scale": COMMUNITY_SCALE,
                               "p_in": COMMUNITY_P_IN, "seed": args.seed,
                               "scrambled": True,
@@ -1868,17 +1924,33 @@ def first_out_vertex(g) -> int:
     return int(has[0])
 
 
+# host threads for the smoke's numpy oracles of many sources (their
+# large array operations release the GIL)
+ORACLE_THREADS = max(1, min(8, os.cpu_count() or 1))
+
+
+def bfs_many(g, sources) -> dict:
+    """bfs_levels from each of ``sources``, on ORACLE_THREADS threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    edges = g.edge_arrays()
+    srcs = sorted({int(s) for s in sources})
+    with ThreadPoolExecutor(max_workers=ORACLE_THREADS) as ex:
+        return dict(zip(srcs, ex.map(lambda s: bfs_levels(g, s, edges),
+                                     srcs)))
+
+
 def relabelled_id(perm, v: int) -> int:
     """The new id of input vertex ``v`` under ``perm`` (perm[new] =
     old)."""
     return int(np.flatnonzero(np.asarray(perm) == v)[0])
 
 
-def bfs_levels(g, start: int) -> np.ndarray:
+def bfs_levels(g, start: int, edges=None) -> np.ndarray:
     """Level-synchronous BFS over the edge list -> int32 hop counts,
-    HOP_INF where unreached: the hop SSSP's exact fixed point."""
+    HOP_INF where unreached: the hop SSSP's exact fixed point.
+    ``edges``: g.edge_arrays(), when the caller holds them."""
     from lux_tpu_torch.apps.sssp import HOP_INF
-    src, dst = g.edge_arrays()
+    src, dst = g.edge_arrays() if edges is None else edges
     dist = np.full(g.nv, HOP_INF, np.int32)
     dist[start] = 0
     level = 0
@@ -2343,6 +2415,8 @@ def phase_cc(args, torch, card):
     t0 = time.perf_counter()
     scale = args.scale - 1
     src, dst, nv = rmat_edges(scale, args.ef, seed=args.seed)
+    # the batch phases draw the same edges: kept for them
+    RMAT_KEPT[(scale, args.ef, args.seed)] = (src, dst, nv)
     s, d = components.symmetrize(src, dst)
     del src, dst
     g = Graph.from_edges(s, d, nv)
@@ -3570,6 +3644,7 @@ def phase_colfilter(args, torch, card) -> dict:
     degree-relabelled, 128-aligned graph.  Returns launches by path."""
     from lux_tpu_torch.apps import colfilter
     from lux_tpu_torch.graph import ShardedGraph, degree_relabel, pair_relabel
+    args = fewer_reps(args, CF_REPS)
     t0 = time.perf_counter()
     g = weighted_rmat(CF_SCALE, CF_EF, args.seed)
     t_graph = time.perf_counter() - t0
@@ -3969,6 +4044,29 @@ def ppr_oracle(g, resets, iters: int, a=None) -> np.ndarray:
     return state
 
 
+def ppr_oracle_at(g, sources, iters) -> dict:
+    """ppr_oracle of one-hot resets at ``sources``, each column read at
+    its own iteration count: one run of max(iters) iterations over all
+    the columns (each column's recurrence is its own) ->
+    {(source, iters): [nv]}."""
+    from lux_tpu_torch.apps.pagerank import ALPHA, one_hot_resets
+    if not sources:
+        return {}
+    a = in_edge_matrix(g)
+    resets = one_hot_resets(g.nv, sources).astype(np.float64)
+    deg = g.out_degrees.astype(np.float64)[:, None]
+    state = np.where(deg > 0, resets / np.maximum(deg, 1), resets)
+    out = {(s, n): state[:, q].copy()
+           for q, (s, n) in enumerate(zip(sources, iters)) if n == 0}
+    for t in range(1, max(iters) + 1):
+        pr = (1.0 - ALPHA) * resets + ALPHA * (a @ state)
+        state = np.where(deg > 0, pr / np.maximum(deg, 1), pr)
+        for q, (s, n) in enumerate(zip(sources, iters)):
+            if n == t:
+                out[(s, n)] = state[:, q].copy()
+    return out
+
+
 def b1_batched_line(args, torch, vals, rel, W, name, kind):
     """The kernels-line entry of B1's batched form on ``vals``/``rel``:
     kernel, plain and one-``scatter_reduce`` times (over [C * (W + 1),
@@ -4019,6 +4117,11 @@ def max_abs_diff(a, b, rows: int = 1 << 16) -> float:
                default=0.0)
 
 
+# R-MAT edges one phase draws and a later one draws again, by (scale,
+# ef, seed): the cc phase's for the batch phases
+RMAT_KEPT: dict = {}
+
+
 def batch_graph(args):
     """bench.py's ksssp-batch / ppr-batch graph: R-MAT one scale under
     --scale (20 by default), --ef, --seed, one part, no relabel; and
@@ -4026,7 +4129,9 @@ def batch_graph(args):
     from lux_tpu_torch.convert import rmat_edges
     from lux_tpu_torch.graph import Graph
     t0 = time.perf_counter()
-    src, dst, nv = rmat_edges(args.scale - 1, args.ef, seed=args.seed)
+    key = (args.scale - 1, args.ef, args.seed)
+    src, dst, nv = RMAT_KEPT.pop(key, None) or rmat_edges(*key[:2],
+                                                          seed=key[2])
     g = Graph.from_edges(src, dst, nv)
     del src, dst
     rng = np.random.default_rng(BATCH_SOURCE_SEED)
@@ -4143,7 +4248,8 @@ def phase_ksssp_batch(args, torch, g, sources, card):
     require(got.shape == (g.nv, BATCH_B) and got.dtype == np.int32,
             "ksssp_batch: labels are not int32 [nv, B]")
     t0 = time.perf_counter()
-    want = np.stack([bfs_levels(g, s) for s in sources],
+    levels = bfs_many(g, sources)
+    want = np.stack([levels[int(s)] for s in sources],
                     axis=1).astype(np.int64)
     t_oracle = time.perf_counter() - t0
     require(np.array_equal(got.astype(np.int64), want),
@@ -4282,15 +4388,15 @@ def serve_check(g, responses):
     of a seed is what it reaches), PageRank from the float64 batched
     oracle (ppr_oracle) at the query's own iterations (rtol 5e-5,
     atol 1e-9)."""
-    from lux_tpu_torch.apps import pagerank
     from lux_tpu_torch.apps.sssp import HOP_INF
-    levels, worst = {}, 0.0
-    a = in_edge_matrix(g)
+    worst = 0.0
+    levels = bfs_many(g, [r.source for r in responses
+                          if r.kind in ("sssp", "components")])
+    pr = [r for r in responses if r.kind == "pagerank"]
+    ppr = ppr_oracle_at(g, [r.source for r in pr], [r.iters for r in pr])
     for r in responses:
         require(r.converged, f"serve: query {r.qid} retired unconverged")
         if r.kind in ("sssp", "components"):
-            if r.source not in levels:
-                levels[r.source] = bfs_levels(g, r.source)
             lv = levels[r.source]
             want = lv if r.kind == "sssp" else \
                 np.where(lv < HOP_INF, r.source, -1).astype(np.int32)
@@ -4299,8 +4405,7 @@ def serve_check(g, responses):
                     f"serve: {r.kind} query {r.qid} from {r.source} differs "
                     f"from the oracle")
         else:
-            want = ppr_oracle(g, pagerank.one_hot_resets(g.nv, [r.source]),
-                              r.iters, a)[:, 0]
+            want = ppr[(r.source, r.iters)]
             require(np.allclose(r.answer, want, **MAIN_TOL),
                     f"serve: pagerank query {r.qid} differs from the "
                     f"float64 oracle")
@@ -4457,6 +4562,403 @@ def phase_batch(args, torch, card):
         line["launches_by_path"] = batched
     return [pline, kline], by_path, (g, sources, k_labels, ppr_want), \
         k_case
+
+
+# ---------------------------------------------------------------------
+# live graphs (ROADMAP A11a): bench.py's serve-live traffic on the
+# Server phase's graph
+
+LIVE_CAPACITY = 65536           # delta slots
+LIVE_THRESHOLD = 0.75           # bench.py:583
+LIVE_PHASES = 6                 # bench.py:625
+LIVE_B = 4                      # Server(batch=4)
+LIVE_DELETE_PHASES = (2, 4)     # bench.py:632
+LIVE_TRAFFIC_SEED = 7           # bench.py's one_step: default_rng(7)
+LIVE_WEIGHT_SEED = 1            # bench.py:199-200
+LIVE_STEP_REPS = 20             # timed delta steps at a full block
+
+
+def live_graph(g):
+    """bench.py's weighted serve-live graph (bench.py:191-204, 569-572):
+    ``g`` with integer weights 1..5 from default_rng(1) in edge order,
+    as float32 (integer-valued: every distance sum is exact)."""
+    import dataclasses
+    w = np.random.default_rng(LIVE_WEIGHT_SEED).integers(
+        1, 6, size=g.ne).astype(np.float32)
+    return dataclasses.replace(g, weights=w)
+
+
+class Uncounted:
+    """Keep the launch counts as they were across a block: the live
+    phase's checks run engines that are not its traffic."""
+
+    def __enter__(self):
+        from lux_tpu_torch.ops.chunk_reduce import (chunk_partials,
+                                                    chunk_partials_batched)
+        from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
+        from lux_tpu_torch.ops.onehot_reduce import onehot_reduce
+        self.fns = (chunk_partials, chunk_partials_batched, lane_shuffle,
+                    onehot_reduce)
+        self.saved = [f.launches for f in self.fns]
+        return self
+
+    def __exit__(self, *exc):
+        for f, n in zip(self.fns, self.saved):
+            f.launches = n
+        return False
+
+
+def live_state(lv) -> tuple:
+    """What a recovery must reproduce, bit for bit."""
+    return (lv.base.row_ptrs, lv.base.col_idx, lv.base.weights,
+            lv.base.out_degrees, lv.d_src, lv.d_dst, lv.d_w, lv.d_kind,
+            lv.d_epoch, lv.count, lv.epoch, lv.base_epoch, lv.generation,
+            lv.mutations, lv.deletions, lv.reweights, list(lv._anti))
+
+
+def same_state(a, b) -> bool:
+    return all(np.array_equal(x, y) if isinstance(x, np.ndarray)
+               else x == y for x, y in zip(a, b))
+
+
+def live_converged(eng, nv: int, sources):
+    """A batched sssp engine's converged state from one source a column
+    (the engine's own init seeds its placeholder sources)."""
+    from lux_tpu_torch.apps.sssp import DIST_INF
+    lab = np.full((nv, len(sources)), DIST_INF, np.float32)
+    act = np.zeros((nv, len(sources)), bool)
+    for q, s in enumerate(sources):
+        lab[s, q], act[s, q] = 0.0, True
+    with Uncounted():
+        lab, act, _ = eng.converge(*eng.place(eng.sg.to_padded(lab),
+                                              eng.sg.to_padded(act)))
+    return lab, act
+
+
+def live_step_check(torch, lv, eng, sources) -> dict:
+    """The delta step on the card against the same step on the CPU, on
+    one label, active mask, delta block and column epochs (the engine's
+    converged state from ``sources``, its columns pinned to
+    [base_epoch, view, epoch, epoch]): labels, active masks and the
+    improved count bit-equal."""
+    step = lv.delta_step(eng)
+    args = lv.delta_tensors(eng)
+    ce = lv.col_epochs(eng, np.array(
+        [lv.base_epoch, lv.view_epoch(), lv.epoch, lv.epoch][:LIVE_B],
+        np.int32))
+    lab, act = live_converged(eng, lv.base.nv, sources)
+    torch.cuda.synchronize()
+    got = step(lab, act, *args, ce)
+    want = step(lab.cpu(), act.cpu(), *(a.cpu() for a in args), ce.cpu())
+    ok = (same_bits(got[0].cpu(), want[0])
+          and torch.equal(got[1].cpu(), want[1])
+          and int(got[2]) == int(want[2]))
+    require(ok, f"live: the delta step on the card differs from the CPU's "
+                f"at epoch {lv.epoch} ({lv.count} slots)")
+    return {"slots": int(lv.count), "improved": int(got[2]),
+            "col_epoch": ce.cpu().tolist(), "bit_equal": ok}
+
+
+def live_reseed(torch, lv, target: int, source: int, checker):
+    """bench.py's reseed_honest (bench.py:639-671) from ``source``:
+    converge over the graph before the deletion, repair that state to
+    ``target`` on an engine over graph_at(target) (LiveGraph.revalidate:
+    the re-seed), and require it bit-equal to the engine's own full
+    recompute and (on the ``checker`` thread) to the numpy oracle.
+    Returns (the record, the oracle's future, (graph_at(target), its
+    engine, the re-seeded label))."""
+    from lux_tpu_torch.apps import sssp
+    t0 = time.perf_counter()
+    pre = lv.graph_at(target - 1)
+    g_t = lv.graph_at(target)
+    t_graphs = time.perf_counter() - t0
+    eng0 = sssp.build_engine(pre, source, weighted=True)
+    lab, act, it0 = eng0.converge(*eng0.init_state())
+    host = eng0.unpad(lab)
+    del eng0, lab, act
+    eng1 = sssp.build_engine(g_t, source, weighted=True)
+    lab1, act1 = eng1.place(eng1.sg.to_padded(host),
+                            eng1.sg.to_padded(np.zeros(g_t.nv, bool)))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fallbacks = lv.reseed_fallbacks
+    lab1, act1, it = lv.revalidate(eng1, lab1, act1)
+    torch.cuda.synchronize()
+    t_reseed = time.perf_counter() - t1
+    got = eng1.unpad(lab1)
+    with Uncounted():
+        full = eng1.unpad(eng1.converge(*eng1.init_state())[0])
+    require(np.array_equal(got, full),
+            f"live: the re-seed at epoch {target} differs from the engine's "
+            f"full recompute")
+
+    def oracle():
+        t = time.perf_counter()
+        want = sssp.reference_sssp_batched(g_t, [source], weighted=True)
+        return (np.array_equal(got.astype(np.float64), want[:, 0]),
+                round(time.perf_counter() - t, 3))
+
+    return ({"target": target, "source": source, "pre_iterations": it0,
+             "iterations": it, "fallback": lv.reseed_fallbacks > fallbacks,
+             "reached": int(np.isfinite(got).sum()),
+             "cone_note": "a fallback re-seeds from init (cone > cone_cap nv)",
+             "reseed_seconds": round(t_reseed, 4),
+             "graph_at_seconds": round(t_graphs, 3),
+             "seconds": round(time.perf_counter() - t0, 3),
+             "equals_engine_full_recompute": True},
+            checker.submit(oracle), (g_t, eng1, lab1))
+
+
+def live_full_block(args, torch, g, eng_b, eng_1, label_1, sources) -> dict:
+    """The delta step's ms at a full block (LIVE_CAPACITY appends, one
+    epoch, over ``g``) on the Server's batched sssp engine (its state
+    converged from ``sources``) and on a one-source engine over ``g``
+    (``label_1``, its fixed point), and a revalidate of that state over
+    it (its iterations and wall ms)."""
+    from lux_tpu_torch.livegraph import LiveGraph
+    rng = np.random.default_rng(args.seed + 11)
+    lv = LiveGraph(g, capacity=LIVE_CAPACITY)
+    lv.append_edges(rng.integers(g.nv, size=LIVE_CAPACITY),
+                    rng.integers(g.nv, size=LIVE_CAPACITY),
+                    rng.integers(1, 6, size=LIVE_CAPACITY).astype(np.float32))
+    out = {"slots": int(lv.count)}
+    for name, eng in (("batched_B4", eng_b), ("one_source", eng_1)):
+        step = lv.delta_step(eng)
+        dargs = lv.delta_tensors(eng)
+        ce = lv.col_epochs(eng, lv.epoch)
+        if eng is eng_1:
+            lab = label_1
+            act = torch.zeros_like(lab, dtype=torch.bool)
+        else:
+            lab, act = live_converged(eng, g.nv, sources)
+        out[f"improved_{name}"] = int(step(lab, act, *dargs, ce)[2])
+        out[f"delta_step_ms_{name}"] = cuda_ms(
+            lambda: step(lab, act, *dargs, ce), LIVE_STEP_REPS)
+    act = torch.zeros_like(label_1, dtype=torch.bool)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _lab, _act, it = lv.revalidate(eng_1, label_1, act)
+    torch.cuda.synchronize()
+    out.update(revalidate_ms=(time.perf_counter() - t0) * 1e3,
+               revalidate_iterations=it)
+    return out
+
+
+def phase_live(args, torch, g0, card):
+    """ROADMAP A11a on the card, shaped like bench.py's serve-live
+    (bench.py:527-700) at the Server phase's width: the batch phases'
+    R-MAT 20 graph weighted 1..5, a LiveGraph (65,536 delta slots,
+    compact_threshold 0.75, a WAL in a temporary directory),
+    Server(batch=4, seg_iters=2, weighted=True, live=, cache=True) and
+    a CompactionScheduler on its SLO burn.  The re-seeds start from the
+    smallest id with an out-edge (bench.py's vertex 0 has none in this
+    graph).  Six phases, each an append
+    batch of ceil(0.75 * 65,536 / 4) edges and two query waves (the
+    second repeats the first's hot sources at the same epoch), deletions
+    with the honest re-seed on phases 2 and 4, a reweight on the others,
+    the scheduler's fold at each phase boundary; then a forced fold, a
+    recovery from the WAL and a tear_wal drill.  Required: every answer
+    equal to its numpy oracle at its admission epoch
+    (livegraph.check_live_answers), each re-seed equal to the full
+    recompute, the recovered state bit-equal, epochs monotone, the delta
+    step on the card bit-equal to the CPU's once a phase, B1 (both
+    forms) launched.  Printed only: what the clock decides (the
+    scheduler's decisions, drag samples, cache hits, latencies, SLO
+    counts, qps).  The numpy oracles run on a thread beside the traffic,
+    each phase's answers as soon as they are in.  Returns the launches
+    (scalar B1, B2, batched B1)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lux_tpu_torch import faults, livegraph, serve
+    t_phase = time.perf_counter()
+    g = live_graph(g0)
+    nv = g.nv
+    source = first_out_vertex(g)
+    checker = ThreadPoolExecutor(max_workers=1)
+    workers = max(1, min(4, (os.cpu_count() or 2) // 2))
+    checks = []
+    tmp = tempfile.mkdtemp(prefix="lux_live_")
+    wal = os.path.join(tmp, "live.wal")
+    lv = livegraph.LiveGraph(g, capacity=LIVE_CAPACITY,
+                             compact_threshold=LIVE_THRESHOLD, wal_path=wal)
+    srv = serve.Server(g, batch=LIVE_B, seg_iters=SERVE_SEG_ITERS,
+                       slo_ms=SERVE_SLO_MS, weighted=True, live=lv,
+                       cache=True)
+    sc = livegraph.CompactionScheduler(lv, burn=srv.slo_burn)
+    kinds = list(serve.KINDS)
+    t0 = time.perf_counter()
+    for kind in kinds:                      # bench.py: loadgen.warm
+        srv.submit(kind, source=0)
+    srv.run()
+    t_warm = time.perf_counter() - t0
+    per = max(len(kinds), SERVE_QUERIES // (2 * LIVE_PHASES))
+    per_mut = int(np.ceil(LIVE_THRESHOLD * LIVE_CAPACITY
+                          / max(1, LIVE_PHASES - 2)))
+    rng = np.random.default_rng(LIVE_TRAFFIC_SEED)
+    tracked, responses, phases, reseeds, steps = [], [], [], [], []
+    epochs = [lv.epoch]
+    eng_b = last_reseed = None
+    zero_launches()
+    t_traffic = time.perf_counter()
+    for phase in range(LIVE_PHASES):
+        t_p = time.perf_counter()
+        s_new = rng.integers(nv, size=per_mut)
+        d_new = rng.integers(nv, size=per_mut)
+        w_new = rng.integers(1, 6, size=per_mut).astype(np.float32)
+        t0 = time.perf_counter()
+        srv.mutate(s_new, d_new, w_new)
+        t_mut = time.perf_counter() - t0
+        tracked.append((int(s_new[0]), int(d_new[0])))
+        if phase in LIVE_DELETE_PHASES and len(tracked) > 1:
+            es, ed = tracked.pop(0)
+            srv.mutate([es], [ed], op="delete")
+            *rec_, last_reseed = live_reseed(torch, lv, lv.epoch, source,
+                                             checker)
+            reseeds.append(rec_)
+        elif phase and tracked:
+            rs, rd = tracked[-1]
+            srv.mutate([rs], [rd], weights=[float(rng.integers(1, 6))],
+                       op="reweight")
+        epochs.append(lv.epoch)
+        hot = {k: int(rng.integers(nv)) for k in kinds}
+        view = lv.view_epoch()
+        t0 = time.perf_counter()
+        out = []
+        for _wave in range(2):
+            for i in range(per):
+                kind = kinds[i % len(kinds)]
+                srv.submit(kind, source=hot[kind] if i < len(kinds)
+                           else int(rng.integers(nv)))
+            out += srv.run()
+        t_serve = time.perf_counter() - t0
+        responses += out
+        checks.append(checker.submit(livegraph.check_live_answers, lv, out,
+                                     True, workers))
+        col_src = [source, *hot.values()][:LIVE_B]
+        steps.append(live_step_check(torch, lv, srv._runner("sssp").eng,
+                                     col_src))
+        if phase == LIVE_PHASES - 1:
+            eng_b = srv._runner("sssp").eng       # kept for the timings
+        t0 = time.perf_counter()
+        decision = sc.maybe_compact(server=srv)
+        t_fold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if phase < LIVE_PHASES - 1:         # the new generation's engines
+            with ThreadPoolExecutor(max_workers=len(kinds)) as ex:
+                list(ex.map(srv._runner, kinds))
+        t_adopt = time.perf_counter() - t0
+        phases.append({
+            "phase": phase, "epoch": lv.epoch, "view_epoch": view,
+            "mutate_seconds": round(t_mut, 3),
+            "serve_seconds": round(t_serve, 3),
+            "decision": decision["action"], "reason": decision["reason"],
+            "generation": decision.get("generation"),
+            "fold_seconds": round(t_fold, 3),
+            "refresh_live_seconds": round(t_adopt, 3),
+            "seconds": round(time.perf_counter() - t_p, 3)})
+    torch.cuda.synchronize()
+    traffic_s = time.perf_counter() - t_traffic
+    counts = dict(read_launches(), chunk_partials_batched=batched_launches())
+    require(counts["chunk_partials"] > 0
+            and counts["chunk_partials_batched"] > 0
+            and counts["lane_shuffle"] == 0,
+            f"live: launched {counts} (want B1 in the re-seeds' dense "
+            f"iterations and B1's batched form in the runners)")
+    require(len(responses) == 2 * per * LIVE_PHASES,
+            f"live: {len(responses)} of {2 * per * LIVE_PHASES} answered")
+    require(all(a <= b for a, b in zip(epochs, epochs[1:]))
+            and all(r.epoch is not None and r.epoch <= lv.epoch
+                    for r in responses),
+            f"live: epochs not monotone: {epochs}")
+    require(all(s["bit_equal"] for s in steps) and len(steps) == LIVE_PHASES,
+            "live: a delta step check is missing")
+    require(len(reseeds) == len(LIVE_DELETE_PHASES),
+            f"live: {len(reseeds)} re-seeds")
+    # the delta step at a full block, and a revalidate over it, on the
+    # last re-seed's graph, engine and state (a fixed point there)
+    with Uncounted():
+        full = live_full_block(args, torch, *last_reseed[:1], eng_b,
+                               *last_reseed[1:],
+                               [source, *hot.values()][:LIVE_B])
+    del eng_b, last_reseed
+    # a forced fold (one more append, so there is a delta to fold), then
+    # recovery from the WAL and the tear drill
+    srv.mutate([int(rng.integers(nv))], [int(rng.integers(nv))], [3.0])
+    t0 = time.perf_counter()
+    gen = lv.compact(force=True)
+    t_forced = time.perf_counter() - t0
+    require(gen is not None and lv.compactions >= 1,
+            "live: the forced compaction folded nothing")
+    srv.refresh_live()
+    live_now = live_state(lv)
+    lv.close()
+    t0 = time.perf_counter()
+    rec = livegraph.LiveGraph.recover(g, wal)
+    t_recover = time.perf_counter() - t0
+    require(same_state(live_now, live_state(rec)),
+            "live: the recovered state differs from the live one")
+    pre = live_state(rec)
+    size = os.path.getsize(wal)
+    rec.close()
+    faults.tear_wal(wal, 9)
+    rec2 = livegraph.LiveGraph.recover(g, wal)
+    rec2.close()
+    require(same_state(pre, live_state(rec2)) and os.path.getsize(wal) == size,
+            "live: the torn tail's replay is not the pre-append state")
+    shutil.rmtree(tmp, ignore_errors=True)
+    # the answers against their oracles at each admission epoch, and the
+    # re-seeds against theirs (the checker thread's results)
+    t0 = time.perf_counter()
+    bad = sum(f.result() for f in checks)
+    for rec_, fut in reseeds:
+        ok, secs = fut.result()
+        require(ok, f"live: the re-seed at epoch {rec_['target']} differs "
+                    f"from the numpy oracle")
+        rec_.update(equals_numpy_oracle=True, oracle_seconds=secs)
+    checker.shutdown()
+    t_check = time.perf_counter() - t0
+    require(bad == 0, f"live: {bad} answer(s) differ from the numpy oracle "
+                      f"at their admission epoch")
+    reseeds = [r for r, _f in reseeds]
+    cache = srv.cache
+    lat = {k: [r.latency_s * 1e3 for r in responses if r.kind == k]
+           for k in kinds}
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "live", "nv": nv, "ne": g.ne, "capacity": LIVE_CAPACITY,
+          "compact_threshold": LIVE_THRESHOLD, "batch": LIVE_B,
+          "seg_iters": SERVE_SEG_ITERS, "per_mutation_batch": per_mut,
+          "queries": len(responses), "answers_checked": len(responses),
+          "answers_bad": bad, "check_wait_seconds": round(t_check, 3),
+          "oracle_workers": workers, "reseed_source": source,
+          "epochs": epochs, "mutations": lv.mutations,
+          "deletions": lv.deletions, "reweights": lv.reweights,
+          "reseeds": reseeds, "delta_step_checks": steps,
+          "full_block": full, "launches": counts,
+          "forced_fold": {"generation": gen, "seconds": round(t_forced, 3)},
+          "recover": {"seconds": round(t_recover, 3), "bit_equal": True,
+                      "records_bytes": size},
+          "tear_drill": {"torn_bytes": 9, "pre_append_state": True},
+          "printed_only": {
+              "phases": phases,
+              "scheduler_compactions": sc.scheduler_compactions,
+              "deferrals": sc.deferrals, "compactions": lv.compactions,
+              "drag_samples": len(lv._drag_samples),
+              "economics": lv.compact_economics(),
+              "cache_hits": cache.hits, "cache_misses": cache.misses,
+              "cache_hit_fraction": cache.hit_fraction(),
+              "latency_ms": {k: {"p50": float(np.percentile(v, 50)),
+                                 "p99": float(np.percentile(v, 99))}
+                             for k, v in lat.items() if v},
+              "slo_burn": srv.slo_burn(),
+              "qps": len(responses) / traffic_s,
+              "traffic_seconds": round(traffic_s, 3)},
+          "warmup_seconds": round(t_warm, 3), "wall_s": round(wall, 3),
+          "card": card})
+    del srv, lv, rec, rec2
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------
@@ -4936,6 +5438,7 @@ def phase_batch_paged(args, torch, g, sources, k_labels, ppr_want, card):
     against its plain version; per-layer ms, totals.  Returns (the
     kernels-line entries, the launches of each mode's two runs)."""
     from lux_tpu_torch.graph import ShardedGraph, degree_relabel
+    args = fewer_reps(args, BATCH_PAGED_REPS)
     t0 = time.perf_counter()
     g2, perm = degree_relabel(g)
     sg = ShardedGraph.build(g2, 1, vpad_align=128)
@@ -5393,9 +5896,10 @@ MXU = {}
 # the gather sweep's state tables (MB) and ids (R-MAT 21's edges)
 GATHER_TABLE_MB = (8, 16, 32, 64, 128, 256)
 GATHER_SWEEP_IDS = 1 << 25
-# the min_fill sweep's points beside "auto" and bench.py's 24 (at most
-# four fills in all)
-MIN_FILL_SWEEP = (12, 48)
+# fills the min_fill sweep adds beside bench.py's 24 and the resolved
+# one: none (its two other pair engines, 12 and 48, took ~30 s of the
+# smoke's time limit; PERF.md keeps their figures)
+MIN_FILL_SWEEP = ()
 
 
 def priced(fn, *args):
@@ -5493,7 +5997,8 @@ def pricing_gather_auto(args, torch, g2, sg, label: str, steps: dict):
 
 def pricing_min_fill(args, torch, g2, starts):
     """pair_min_fill="auto" on bench.py's pagerank config beside a sweep
-    of at most four fills (24, the resolved one, MIN_FILL_SWEEP): each
+    of at most two fills (24 and the resolved one; MIN_FILL_SWEEP adds
+    none now): each
     a monolithic pair engine's step ms and rows.  At 24 (bench.py's
     fill) the pair delivery and the residual path are timed whole, the
     pair_row_ns / residual_edge_ns figures, and the engine is
@@ -6023,9 +6528,13 @@ def main(argv=None) -> int:
     paged_lines, paged_paths = phase_batch_paged(args, torch, *batch_ref,
                                                  card)
     batch_lines += paged_lines
+    live_counts = phase_live(args, torch, batch_ref[0], card)
     del batch_ref
-    for path, n in {**batch_paths, **paged_paths}.items():
+    for path, n in {**batch_paths, **paged_paths, "live": live_counts}.items():
         by_path[path] = {k: n[k] for k in ("chunk_partials", "lane_shuffle")}
+    for line in batch_lines:    # B1's batched form on the live path
+        line.setdefault("launches_by_path", {})["live"] = \
+            live_counts["chunk_partials_batched"]
     phase_guarded(torch, guarded, card)
     phase_observe(card)
     phase_pricing(card)

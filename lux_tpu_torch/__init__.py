@@ -43,6 +43,12 @@ counterpart is easy to find:
   scalemodel.py   the cost model on the card's measured constants
   observe.py      session calibration, phase attribution, perf ledger
                   (python -m lux_tpu_torch.observe)
+  livegraph.py    live graphs: the mutation log (WAL), epochs and delta
+                  blocks, the delta relax, re-seed, compaction, recovery
+
+Not ported yet: the serving fleet and its admission journal
+(``lux_tpu_torch.fleet`` / ``.journal`` raise NotPortedError naming
+ROADMAP A11b).
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"`` (device.py).  Host planning stays numpy, as in the
@@ -57,3 +63,16 @@ from lux_tpu_torch.graph import Graph, ShardedGraph
 
 __all__ = ["DeviceUnavailableError", "GraphFormatError", "Graph",
            "ShardedGraph", "resolve_device"]
+
+# the reference's modules that have no counterpart yet
+_NOT_PORTED = {"fleet": "A11b", "journal": "A11b"}
+
+
+def __getattr__(name: str):
+    item = _NOT_PORTED.get(name)
+    if item is None:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    from lux_tpu_torch.engine.pull import NotPortedError
+    raise NotPortedError(f"lux_tpu_torch.{name} (lux_tpu/{name}.py) is not "
+                         f"ported yet (ROADMAP {item})")

@@ -118,6 +118,48 @@ def reference_components(g: Graph) -> np.ndarray:
         labels = new
 
 
+def reference_components_incremental(g_new: Graph, labels_old: np.ndarray,
+                                     new_src, new_dst) -> np.ndarray:
+    """NumPy incremental oracle of live graphs
+    (lux_tpu/apps/components.py:138): appends only raise a max fixed
+    point, so pushing improvements from the new edges over ``g_new``
+    from the old fixed point reaches ``reference_components(g_new)``."""
+    src, dst = g_new.edge_arrays()
+    labels = np.asarray(labels_old, dtype=np.int64).copy()
+    frontier = np.zeros(g_new.nv, dtype=bool)
+    for s, d in zip(np.asarray(new_src, np.int64),
+                    np.asarray(new_dst, np.int64)):
+        if labels[s] > labels[d]:
+            labels[d] = labels[s]
+            frontier[d] = True
+    while frontier.any():
+        on = frontier[src]
+        new = labels.copy()
+        np.maximum.at(new, dst[on], labels[src[on]])
+        frontier = new > labels
+        labels = new
+    return labels
+
+
+def reference_components_decremental(g_new: Graph, labels_old: np.ndarray,
+                                     touched_dst) -> np.ndarray:
+    """NumPy decremental oracle (lux_tpu/apps/components.py:167): after
+    deletions the cone reachable in ``g_new`` from the deleted edges'
+    destinations restarts from its own ids, and max propagation reaches
+    ``reference_components(g_new)``."""
+    from lux_tpu_torch.apps.sssp import _cone
+    src, dst = g_new.edge_arrays()
+    labels = np.asarray(labels_old, dtype=np.int64).copy()
+    cone = _cone(g_new, touched_dst)
+    labels[cone] = np.arange(g_new.nv, dtype=np.int64)[cone]
+    while True:
+        new = labels.copy()
+        np.maximum.at(new, dst, labels[src])
+        if np.array_equal(new, labels):
+            return labels
+        labels = new
+
+
 def reference_components_batched(g: Graph, seeds) -> np.ndarray:
     """NumPy seeded-propagation oracle -> [nv, B] int64 labels: column
     q is ``seeds[q]`` where the vertex is reachable from the seed, -1

@@ -176,6 +176,89 @@ def reference_sssp(g: Graph, start_vertex: int = 0,
     return dist
 
 
+def _cone(g_new: Graph, touched_dst) -> np.ndarray:
+    """Forward reachability over ``g_new`` from ``touched_dst``: the
+    vertices an anti-monotone mutation can change."""
+    src, dst = g_new.edge_arrays()
+    cone = np.zeros(g_new.nv, dtype=bool)
+    cone[np.asarray(touched_dst, np.int64)] = True
+    while True:
+        add = np.zeros(g_new.nv, dtype=bool)
+        add[dst[cone[src]]] = True
+        add &= ~cone
+        if not add.any():
+            return cone
+        cone |= add
+
+
+def reference_sssp_incremental(g_new: Graph, dist_old: np.ndarray,
+                               new_src, new_dst, new_w=None,
+                               weighted: bool = False) -> np.ndarray:
+    """NumPy incremental oracle of live graphs
+    (lux_tpu/apps/sssp.py:216): ``g_new`` is the base plus the appended
+    edges (new_src, new_dst[, new_w]), ``dist_old`` the fixed point on
+    the base.  Appends only lower a min fixed point, so relaxing the
+    new edges against the old fixed point and propagating only from
+    the improved vertices reaches ``reference_sssp(g_new, ...)``
+    exactly.  int64 hops or float64 distances."""
+    src, dst = g_new.edge_arrays()
+    if weighted:
+        if new_w is None:
+            raise ValueError("weighted incremental oracle needs new_w for "
+                             "every appended edge")
+        w = np.asarray(g_new.weights, dtype=np.float64)
+        dist = np.asarray(dist_old, dtype=np.float64).copy()
+        nw = np.asarray(new_w, np.float64)
+    else:
+        w = np.ones(g_new.ne, dtype=np.int64)
+        dist = np.asarray(dist_old, dtype=np.int64).copy()
+        nw = np.ones(len(new_src), dtype=np.int64)
+    frontier = np.zeros(g_new.nv, dtype=bool)
+    cand = dist[np.asarray(new_src, np.int64)] + nw
+    for d, c in zip(np.asarray(new_dst, np.int64), cand):
+        if c < dist[d]:
+            dist[d] = c
+            frontier[d] = True
+    while frontier.any():
+        on = frontier[src]
+        cand = dist[src[on]] + w[on]
+        new = dist.copy()
+        np.minimum.at(new, dst[on], cand)
+        frontier = new < dist
+        dist = new
+    return dist
+
+
+def reference_sssp_decremental(g_new: Graph, dist_old: np.ndarray,
+                               touched_dst, start_vertex: int = 0,
+                               weighted: bool = False) -> np.ndarray:
+    """NumPy decremental oracle (lux_tpu/apps/sssp.py:269): repair the
+    fixed point ``dist_old`` of the graph before deletions / reweights
+    whose destinations are ``touched_dst``.  Every vertex whose
+    distance can change is reachable in ``g_new`` from a touched
+    destination, so the cone restarts from the identity (the source at
+    0) and Bellman-Ford over ``g_new`` reaches ``reference_sssp(g_new)``
+    exactly."""
+    src, dst = g_new.edge_arrays()
+    if weighted:
+        w = np.asarray(g_new.weights, dtype=np.float64)
+        dist = np.asarray(dist_old, dtype=np.float64).copy()
+        inf = np.inf
+    else:
+        w = np.ones(g_new.ne, dtype=np.int64)
+        dist = np.asarray(dist_old, dtype=np.int64).copy()
+        inf = np.int64(int(HOP_INF))
+    dist[_cone(g_new, touched_dst)] = inf
+    dist[start_vertex] = 0
+    while True:
+        cand = dist[src] + w
+        new = dist.copy()
+        np.minimum.at(new, dst, cand)
+        if np.array_equal(new, dist):
+            return dist
+        dist = new
+
+
 def _by_dst(g: Graph):
     """(src, weights index, segment starts, destinations) of ``g``'s
     edges in destination order: the batched oracles' min/max per

@@ -23,11 +23,16 @@ schedule never re-fires and every supervised run ends.
 
 State corruption pokes the state's own tensors IN PLACE (on the card,
 no copy through the host) and returns the state, which the supervisor
-continues with (the reference returns a corrupted host copy).  Not ported yet, each raising NotPortedError when named:
-the worker-process kill (``InjectedWorkerKill``, WORKER_KILL: ROADMAP
-A6, which brings several devices and processes) and the fleet and
-live-graph drills (``ReplicaKillPlan``, ``MutationFaultPlan``,
-``tear_wal``, ``InjectedFleetCrash``: A11).
+continues with (the reference returns a corrupted host copy).
+
+Live graphs (livegraph.py) have their own counters in a
+:class:`MutationFaultPlan`: MUT_CRASH, WAL_TORN and the op-asserting
+MUT_DELETE / MUT_REWEIGHT at a mutation index, COMPACT_CRASH at a
+compaction, RESEED_CRASH at a re-seed; ``tear_wal`` damages a log at
+rest.  Not ported yet, each raising NotPortedError when named: the
+worker-process kill (``InjectedWorkerKill``, WORKER_KILL: ROADMAP A6,
+which brings several devices and processes) and the fleet drills
+(``ReplicaKillPlan``, ``InjectedFleetCrash``: A11b).
 """
 
 from __future__ import annotations
@@ -48,16 +53,23 @@ CKPT_TRUNCATE = "ckpt_truncate"
 DEVICE_LOSS = "device_loss"
 WORKER_KILL = "worker_kill"
 
+# live graphs (livegraph.py): the mutation-scoped actions
+MUT_CRASH = "mut_crash"          # die before the WAL record lands
+WAL_TORN = "wal_torn"            # die mid-append: a record prefix lands
+COMPACT_CRASH = "compact_crash"  # die between COMPACT_START and the swap
+MUT_DELETE = "mut_delete"        # MUT_CRASH that asserts a deletion
+MUT_REWEIGHT = "mut_reweight"    # MUT_CRASH that asserts a reweight
+RESEED_CRASH = "reseed_crash"    # die between the cone and the converge
+
 _NOT_PORTED = {
-    "InjectedWorkerKill": "A6", "ReplicaKillPlan": "A11",
-    "MutationFaultPlan": "A11", "tear_wal": "A11",
-    "InjectedFleetCrash": "A11",
+    "InjectedWorkerKill": "A6", "ReplicaKillPlan": "A11b",
+    "InjectedFleetCrash": "A11b",
 }
 
 
 def __getattr__(name: str):
-    """The reference's fleet, live-graph and multi-process drills are
-    refused by name until their ROADMAP item lands."""
+    """The reference's fleet and multi-process drills are refused by
+    name until their ROADMAP item lands."""
     item = _NOT_PORTED.get(name)
     if item is None:
         raise AttributeError(f"module {__name__!r} has no attribute "
@@ -245,6 +257,102 @@ def corrupt_state(state, count: int = 1, int_value: int | None = None):
     if any(_kind(x) == "float" for x in leaves(state)):
         return nan_corrupt(state, count)
     return int_corrupt(state, count, int_value)
+
+
+@dataclasses.dataclass
+class MutationFaultPlan:
+    """The live graph's fault schedule (lux_tpu/faults.py:393-505),
+    three deterministic counters: ``schedule`` maps a mutation index to
+    MUT_CRASH (nothing reaches the WAL), WAL_TORN (a strict prefix of
+    the record reaches it) or MUT_DELETE / MUT_REWEIGHT (MUT_CRASH, but
+    the firing mutation's op must match: ValueError otherwise);
+    ``compact_schedule`` a compaction index to COMPACT_CRASH;
+    ``reseed_schedule`` a re-seed index to RESEED_CRASH.  Each fires as
+    InjectedWorkerCrash, once (the counters move past it); ``fired``
+    records what fired."""
+
+    schedule: dict = dataclasses.field(default_factory=dict)
+    compact_schedule: dict = dataclasses.field(default_factory=dict)
+    reseed_schedule: dict = dataclasses.field(default_factory=dict)
+    mutations: int = dataclasses.field(default=0, init=False)
+    compactions: int = dataclasses.field(default=0, init=False)
+    reseeds: int = dataclasses.field(default=0, init=False)
+    fired: list = dataclasses.field(default_factory=list, init=False)
+
+    _OP_BY_ACTION = {MUT_DELETE: "delete", MUT_REWEIGHT: "reweight"}
+
+    def __post_init__(self):
+        for i, a in self.schedule.items():
+            if a not in (MUT_CRASH, WAL_TORN, MUT_DELETE, MUT_REWEIGHT):
+                raise ValueError(
+                    f"MutationFaultPlan schedule[{i}] must be MUT_CRASH, "
+                    f"WAL_TORN, MUT_DELETE, or MUT_REWEIGHT, got {a!r}")
+        for i, a in self.compact_schedule.items():
+            if a != COMPACT_CRASH:
+                raise ValueError(f"MutationFaultPlan compact_schedule[{i}] "
+                                 f"must be COMPACT_CRASH, got {a!r}")
+        for i, a in self.reseed_schedule.items():
+            if a != RESEED_CRASH:
+                raise ValueError(f"MutationFaultPlan reseed_schedule[{i}] "
+                                 f"must be RESEED_CRASH, got {a!r}")
+
+    def fire_append(self, wal, record: bytes, op: str = "append") -> None:
+        """Called by LiveGraph._publish before the record is written
+        (``wal`` None: nothing to tear, the crash still fires)."""
+        i = self.mutations
+        self.mutations += 1
+        action = self.schedule.get(i)
+        if action is None:
+            return
+        want = self._OP_BY_ACTION.get(action)
+        if want is not None and op != want:
+            raise ValueError(
+                f"MutationFaultPlan schedule[{i}] = {action} expects a "
+                f"{want!r} mutation at index {i}, but a {op!r} fired — "
+                f"the drill's mutation stream is not the one the plan "
+                f"was written against")
+        self.fired.append((i, action))
+        if action == WAL_TORN and wal is not None:
+            wal.write_torn(record)
+        how = ("mid-append (torn WAL write)" if action == WAL_TORN
+               else "before the WAL record landed")
+        raise InjectedWorkerCrash(f"injected {action} at mutation {i} "
+                                  f"(op={op}): worker died {how}")
+
+    def fire_compact(self) -> None:
+        """Called by LiveGraph.compact between COMPACT_START and the
+        generation swap."""
+        i = self.compactions
+        self.compactions += 1
+        if self.compact_schedule.get(i) != COMPACT_CRASH:
+            return
+        self.fired.append((i, COMPACT_CRASH))
+        raise InjectedWorkerCrash(
+            f"injected compact_crash at compaction {i}: worker died after "
+            f"COMPACT_START, before the generation swap")
+
+    def fire_reseed(self) -> None:
+        """Called by LiveGraph._revalidate_anti between the cone and the
+        converge."""
+        i = self.reseeds
+        self.reseeds += 1
+        if self.reseed_schedule.get(i) != RESEED_CRASH:
+            return
+        self.fired.append((i, RESEED_CRASH))
+        raise InjectedWorkerCrash(
+            f"injected reseed_crash at re-seed {i}: worker died after the "
+            f"affected-cone computation, before the re-converge")
+
+
+def tear_wal(path: str, keep_bytes: int = 7) -> None:
+    """Append ``keep_bytes`` of a garbage partial record to a mutation
+    log at rest (what a power loss mid-append leaves), clamped below
+    the record size: a whole garbage record would read as hard
+    crc_chain corruption, not a torn tail."""
+    from lux_tpu_torch import format as luxfmt
+    with open(path, "ab") as f:
+        f.write(b"\x7f" * min(max(1, int(keep_bytes)),
+                               luxfmt.WAL_RECORD_SIZE - 1))
 
 
 # -- checkpoint-file injectors -------------------------------------------

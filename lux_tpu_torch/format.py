@@ -1,5 +1,5 @@
 """The .lux binary CSC graph file format and its permutation sidecar
-(counterpart of lux_tpu/format.py:51-335 and :479, byte-for-byte the
+(counterpart of lux_tpu/format.py:51-400 and :479, byte-for-byte the
 same formats).
 
 Layout (little-endian):
@@ -20,8 +20,14 @@ permutation beside the file instead of rewriting its edge sections:
 magic ``LUXP``, uint32 nv, then uint32[nv] ``perm`` with perm[new] =
 old (reorder.py writes it, ``Graph.from_file(reorder=...)`` applies
 it).  A truncated or non-bijective sidecar raises a typed
-GraphFormatError.  The WAL and journal sidecars of the reference are
-not ported yet.
+GraphFormatError.
+
+The mutation-log (WAL) header of live graphs (livegraph.py): a 16-byte
+header (magic ``LUXW``, uint32 version, uint32 nv, uint32 delta
+capacity) before the log's 24-byte chained records.  A log of another
+graph (nv mismatch) or a foreign file raises a typed GraphFormatError
+instead of replaying wrong mutations.  The fleet's journal header is
+not ported yet (ROADMAP A11b).
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ class GraphFormatError(ValueError):
     section_size, weighted_mismatch, ambiguous_layout,
     row_ptrs_monotone, row_ptrs_total, col_idx_range, degrees_length,
     degrees_consistent, partition_edges, perm_header, perm_length,
-    perm_bijection)."""
+    perm_bijection, wal_header, wal_version, wal_capacity)."""
 
     def __init__(self, path: str, check: str, detail: str):
         super().__init__(f"{path}: invalid graph [{check}] — {detail}")
@@ -275,6 +281,64 @@ def read_perm_sidecar(lux_path: str, nv: int | None = None,
             f"sidecar from a different graph?")
     validate_perm(perm, n, p)
     return perm
+
+
+# ---------------------------------------------------------------------
+# the mutation-log (WAL) header of live graphs
+
+WAL_MAGIC = b"LUXW"
+# v1: append-only (record kinds EDGE / COMPACT_START / COMPACT_DONE);
+# v2: the full mutation algebra (DELETE and REWEIGHT join).  The record
+# layout is the same, so a v2 reader replays v1 logs bit for bit; a v2
+# kind inside a v1 header is typed corruption (livegraph.MutationLog).
+WAL_VERSION = 2
+WAL_KNOWN_VERSIONS = (1, 2)
+WAL_HEADER_SIZE = 16
+WAL_RECORD_SIZE = 24
+WAL_SUFFIX = ".wal"
+
+
+def wal_sidecar_path(lux_path: str) -> str:
+    return lux_path + WAL_SUFFIX
+
+
+def pack_wal_header(nv: int, capacity: int,
+                    version: int = WAL_VERSION) -> bytes:
+    if version not in WAL_KNOWN_VERSIONS:
+        raise ValueError(f"unknown WAL version {version} "
+                         f"(known: {WAL_KNOWN_VERSIONS})")
+    return WAL_MAGIC + np.array([version, nv, capacity], V_DTYPE).tobytes()
+
+
+def read_wal_header(path: str, nv: int | None = None,
+                    head: bytes | None = None):
+    """Read and validate a mutation-log header; returns (nv, capacity,
+    version).  ``nv``, when given, must match the header's.  ``head``
+    skips the file read (the replay already holds the bytes)."""
+    if head is None:
+        with open(path, "rb") as f:
+            head = f.read(WAL_HEADER_SIZE)
+    if len(head) != WAL_HEADER_SIZE or head[:4] != WAL_MAGIC:
+        raise GraphFormatError(
+            path, "wal_header",
+            f"bad magic/length {head[:4]!r} ({len(head)} bytes) — a "
+            f"mutation log starts with {WAL_MAGIC!r} and a "
+            f"{WAL_HEADER_SIZE}-byte header")
+    ver, hnv, cap = (int(x) for x in
+                     np.frombuffer(head, V_DTYPE, count=3, offset=4))
+    if ver not in WAL_KNOWN_VERSIONS:
+        raise GraphFormatError(
+            path, "wal_version",
+            f"log version {ver}, this build reads {WAL_KNOWN_VERSIONS}")
+    if cap < 1:
+        raise GraphFormatError(
+            path, "wal_capacity", f"delta capacity {cap} must be >= 1")
+    if nv is not None and hnv != nv:
+        raise GraphFormatError(
+            path, "wal_header",
+            f"log written for nv={hnv} but the graph has nv={nv} — "
+            f"mutation log from a different graph?")
+    return hnv, cap, ver
 
 
 def write_lux(path: str, row_ptrs, col_idx, weights=None, degrees=None):

@@ -31,8 +31,9 @@ argument side.
 query columns; :class:`MemoryForecaster` projects time to full from
 the trail's growth rate.
 
-Live-graph consumer terms and fleet replica ledgers refuse, naming
-ROADMAP A11.
+The live graph's consumer terms (``consumer_terms(live=)``,
+``LiveGraph.memory_terms``) join the Server's ledger; fleet replica
+ledgers refuse, naming ROADMAP A11b.
 """
 
 from __future__ import annotations
@@ -101,10 +102,10 @@ class MemoryStatsUnavailable(RuntimeError):
     off as the card's own count."""
 
 
-def _refuse_live(what: str):
+def _refuse_fleet(what: str):
     from lux_tpu_torch.engine.pull import NotPortedError
-    raise NotPortedError(f"{what} is not ported yet (ROADMAP A11: live "
-                         f"graphs and the serving fleet)")
+    raise NotPortedError(f"{what} is not ported yet (ROADMAP A11b: the "
+                         f"serving fleet)")
 
 
 # ---------------------------------------------------------------------
@@ -335,7 +336,8 @@ class MemoryLedger:
         time, so theirs never coexist), among them its host round trip
         (a boundary re-places the [P, vpad, B] state on the card beside
         the one it replaces: two states, ``port_host_roundtrip``), and
-        the dynamic consumers (the answer cache, checkpoint staging)."""
+        the dynamic consumers (the answer cache, the live graph,
+        checkpoint staging)."""
         terms: dict = {}
         temps: dict = {}
         for kind, runner in sorted((getattr(server, "_runners", None)
@@ -350,18 +352,20 @@ class MemoryLedger:
                  else terms)[f"{kind}_{k}"] = v
         if temps:
             terms.update(max(temps.values(), key=lambda t: sum(t.values())))
-        terms.update(consumer_terms(cache=getattr(server, "cache", None)))
+        terms.update(consumer_terms(cache=getattr(server, "cache", None),
+                                    live=getattr(server, "live", None)))
         return cls(terms, where or type(server).__name__)
 
 
 def consumer_terms(cache=None, live=None) -> dict:
-    """The dynamic consumer terms: the answer cache's own byte count
-    and the last checkpoint staging buffer."""
-    if live is not None:
-        _refuse_live("the live-graph consumer terms (live=)")
+    """The dynamic consumer terms: the answer cache's own byte count,
+    the live graph's terms (LiveGraph.memory_terms) and the last
+    checkpoint staging buffer."""
     terms: dict = {}
     if cache is not None:
         terms["cache"] = int(cache.bytes)
+    if live is not None:
+        terms.update(live.memory_terms())
     if _STAGING_BYTES:
         terms["checkpoint_staging"] = _STAGING_BYTES
     return terms
@@ -369,7 +373,7 @@ def consumer_terms(cache=None, live=None) -> dict:
 
 def replica_ledger(fleet, rep) -> MemoryLedger:
     """A fleet replica's ledger (lux_tpu/memwatch.py:295): refused."""
-    _refuse_live("the fleet replica ledger (replica_ledger)")
+    _refuse_fleet("the fleet replica ledger (replica_ledger)")
 
 
 # ---------------------------------------------------------------------

@@ -94,7 +94,7 @@ def _dominant_tile_regroup(g: Graph) -> np.ndarray:
 def page_reorder(g: Graph, method: str = "hillclimb", num_parts: int = 1,
                  exchange: str = "gather", passes: int = 8,
                  verbose: bool = False,
-                 timings: dict | None = None):
+                 timings: dict | None = None, start=None):
     """Reorder ``g``'s vertices for page locality.
 
     method:
@@ -111,10 +111,17 @@ def page_reorder(g: Graph, method: str = "hillclimb", num_parts: int = 1,
     and clusters with the numpy versions (the clustering's orders differ
     from the C++ pass's).  ``timings``, when given, receives each
     candidate's host seconds (its order, relabel and scoring) under its
-    report tag."""
+    report tag.  ``start``: the ``(g2, perm, report)`` of method
+    "native" on the same ``g``, ``num_parts`` and ``exchange``;
+    "hillclimb" then regroups from its choice instead of scoring the same
+    candidates again (the same result, their timings left out)."""
     if method not in METHODS:
         raise ValueError(f"unknown reorder method {method!r} "
                          f"(one of {', '.join(METHODS)})")
+    if start is not None and (method != "hillclimb"
+                              or start[2].get("method") != "native"):
+        raise ValueError("start= takes a 'native' result and continues "
+                         "it with method='hillclimb'")
 
     def score(g2):
         return page_fill_stats(g2, num_parts, exchange)
@@ -123,6 +130,17 @@ def page_reorder(g: Graph, method: str = "hillclimb", num_parts: int = 1,
         if timings is not None:
             timings[tag] = time.perf_counter() - t0
 
+    if start is not None:
+        g2, perm, rep0 = start
+        report = {"method": method, "num_parts": num_parts,
+                  "exchange": exchange,
+                  "candidates": dict(rep0["candidates"])}
+        t0 = time.perf_counter()
+        st = score(g2)
+        timed("start", t0)
+        best = _regroup(g, g2, perm, st, passes, score, timed, report,
+                        verbose)
+        return _chosen(best, rep0["baseline_fill"], report)
     t0 = time.perf_counter()
     base = score(g)
     timed("none", t0)
@@ -163,25 +181,33 @@ def page_reorder(g: Graph, method: str = "hillclimb", num_parts: int = 1,
             best = (g2, perm, st)
 
     if method == "hillclimb":
-        g2, perm, st = best
-        for i in range(passes):
-            t0 = time.perf_counter()
-            cand_perm = perm[_dominant_tile_regroup(g2)]
-            g3 = apply_perm(g, cand_perm)
-            st3 = score(g3)
-            timed(f"regroup{i}", t0)
-            report["candidates"][f"regroup{i}"] = _digest(st3)
-            if verbose:
-                print(f"# reorder regroup{i}: padded_fill "
-                      f"{st3['padded_fill']:.2f}", flush=True)
-            if st3["padded_fill"] <= st["padded_fill"]:
-                break                       # hill-climb: accept only up
-            g2, perm, st = g3, cand_perm, st3
-        best = (g2, perm, st)
+        best = _regroup(g, *best, passes, score, timed, report, verbose)
+    return _chosen(best, round(float(base["padded_fill"]), 3), report)
 
+
+def _regroup(g, g2, perm, st, passes, score, timed, report, verbose):
+    """Hillclimb's dominant-tile regroup passes from (g2, perm, its
+    stats), each kept only if the measured ``padded_fill`` rises."""
+    for i in range(passes):
+        t0 = time.perf_counter()
+        cand_perm = perm[_dominant_tile_regroup(g2)]
+        g3 = apply_perm(g, cand_perm)
+        st3 = score(g3)
+        timed(f"regroup{i}", t0)
+        report["candidates"][f"regroup{i}"] = _digest(st3)
+        if verbose:
+            print(f"# reorder regroup{i}: padded_fill "
+                  f"{st3['padded_fill']:.2f}", flush=True)
+        if st3["padded_fill"] <= st["padded_fill"]:
+            break                       # hill-climb: accept only up
+        g2, perm, st = g3, cand_perm, st3
+    return g2, perm, st
+
+
+def _chosen(best, baseline_fill: float, report: dict):
     g2, perm, st = best
     report["chosen_fill"] = round(float(st["padded_fill"]), 3)
-    report["baseline_fill"] = round(float(base["padded_fill"]), 3)
+    report["baseline_fill"] = baseline_fill
     report["chosen"] = _digest(st)
     return g2, perm, report
 

@@ -111,7 +111,7 @@ def classify(exc: BaseException) -> str:
     corrupt checkpoint; then the message scans, a sticky CUDA error
     (FATAL) before the transient words.  The types that come with later
     items (the fleet's AdmissionError, the audit's AuditError, the
-    heartbeat's WorkerLostError: ROADMAP A11, A12, A6) are not
+    heartbeat's WorkerLostError: ROADMAP A11b, A12, A6) are not
     classified here until those items land."""
     from lux_tpu_torch import checkpoint, debug, faults, health
 

@@ -34,10 +34,20 @@ continuous-batching layer above them:
 ``replica`` labels a runner's events and gauges (the hooks a fleet of
 servers would use).  ``mem`` (memwatch.MemoryTrail) is sampled at every
 boundary, right after the hook (reference serve.py:813-814,
-:1002-1003).  Not ported yet, each raising NotPortedError: live graphs
-(``live=``, ``mutate``, ``refresh_live``, ``admission_epoch``,
-``admit_query``: ROADMAP A11; with them the admission epochs that key
-the reference's answer cache) and a device mesh (``mesh``: A6).
+:1002-1003).
+
+Live graphs (``live=``, livegraph.LiveGraph; reference serve.py:319-367,
+:595-609, :860-1121, :1286-1389): ``submit`` admits each query at the
+live view's epoch (``admit_query``: the epoch stamp and the admission
+ledger under one lock) and ``run`` releases it when its answer leaves.
+Push runners apply the delta-relax step at every boundary, each column
+masked to its own admission epoch; pull runners normalize by the
+column's effective out-degree (``deg_corr``) and add the delta appends'
+rank mass on the host between iterations (seg_iters 1), together one
+exact iteration over ``graph_at(column epoch)``.  Resident queries pin
+the generation; ``mutate`` publishes, ``refresh_live`` adopts a
+compacted base, and the answer cache keys entries by epoch.  Not ported
+yet: a device mesh (``mesh``: NotPortedError, A6).
 ``health=True`` builds every runner's engine with the watchdog
 (lux_tpu_torch/health.py): a tripped word raises HealthError out of
 the segmented driver rather than retiring a column with a corrupt
@@ -72,11 +82,14 @@ KINDS = ("sssp", "components", "pagerank")
 # SLO_WINDOW retirements of a kind
 SLO_WINDOW = 64
 
+# live graphs: every DRAG_SAMPLE_N-th delta application is fenced and
+# timed for the compaction scheduler (LiveGraph.record_drag_sample)
+DRAG_SAMPLE_N = 8
+
 
 def _refuse(what: str, item: str):
     raise NotPortedError(f"{what} is not ported yet (ROADMAP {item}); the "
-                         f"port's Server serves a static graph on one "
-                         f"device")
+                         f"port's Server serves one device")
 
 
 @dataclasses.dataclass
@@ -93,6 +106,9 @@ class Request:
     t_enqueue: float = 0.0
     priority: int = 0
     deadline_s: float | None = None
+    # live graphs: the epoch the query was admitted at, pinned for its
+    # whole life (None: a static graph)
+    epoch: int | None = None
 
 
 @dataclasses.dataclass
@@ -106,6 +122,7 @@ class Response:
     latency_s: float            # enqueue -> retire
     wait_s: float               # enqueue -> column assignment
     converged: bool = True      # False: retired on the segment cap
+    epoch: int | None = None    # admission epoch (live graphs)
     cached: bool = False        # served from the answer cache
 
 
@@ -148,6 +165,11 @@ class BatchCollector:
 
     def __len__(self) -> int:
         return self._q.qsize()
+
+    def pending_requests(self) -> list:
+        """The queued requests, not consumed (refresh_live's check)."""
+        with self._q.mutex:
+            return list(self._q.queue)
 
     def _observe_wait(self, out: list) -> None:
         if self.metrics is None:
@@ -204,6 +226,10 @@ class PriorityCollector(BatchCollector):
         with self._cv:
             return len(self._items)
 
+    def pending_requests(self) -> list:
+        with self._cv:
+            return list(self._items)
+
     def _key(self, idx: int, req: Request, now: float):
         aged = (req.deadline_s is not None
                 and now - req.t_enqueue >= 0.5 * req.deadline_s)
@@ -244,16 +270,17 @@ CACHE_MAX_BYTES = 256 * 1024 * 1024
 class _CacheEntry:
     answer: np.ndarray
     iters: int
+    epoch: int
     t: float
 
 
 class AnswerCache:
-    """(kind, source or reset digest) -> answer cache for a static
-    graph (the reference keys live graphs' entries by admission epoch
-    too: ROADMAP A11).  ``ttl_s`` per kind bounds an entry's age; least
-    recently used entries go past ``max_entries`` or ``max_bytes``.
-    Thread-safe (submit threads look up while the drain thread
-    inserts)."""
+    """(kind, source or reset digest, epoch) -> answer cache.  The
+    epoch is part of the key, so a query admitted after a mutation
+    misses; ``sweep`` drops the entries of epochs no view exposes any
+    more.  ``ttl_s`` per kind bounds an entry's age; least recently used
+    entries go past ``max_entries`` or ``max_bytes``.  Thread-safe
+    (submit threads look up while the drain thread inserts)."""
 
     def __init__(self, ttl_s: dict | None = None,
                  max_entries: int = CACHE_MAX_ENTRIES,
@@ -315,7 +342,7 @@ class AnswerCache:
 
     def get(self, kind: str, req: Request,
             now: float) -> _CacheEntry | None:
-        key = (kind, self.query_key(req))
+        key = (kind, self.query_key(req), req.epoch or 0)
         ttl = self.ttl_s.get(kind)
         with self._lock:
             ent = self._d.get(key)
@@ -330,9 +357,12 @@ class AnswerCache:
             return ent
 
     def put(self, kind: str, req: Request, answer: np.ndarray, iters: int,
-            now: float) -> None:
-        key = (kind, self.query_key(req))
-        ent = _CacheEntry(np.asarray(answer).copy(), int(iters), now)
+            epoch: int | None = 0, now: float | None = None) -> None:
+        if now is None:
+            now = time.monotonic()
+        key = (kind, self.query_key(req), epoch or 0)
+        ent = _CacheEntry(np.asarray(answer).copy(), int(iters),
+                          int(epoch or 0), now)
         with self._lock:
             old = self._d.get(key)
             if old is not None:
@@ -345,15 +375,53 @@ class AnswerCache:
                                         or self.bytes > self.max_bytes):
                 self._pop(next(iter(self._d)))
 
+    def sweep(self, live_epochs: dict) -> int:
+        """Drop the entries whose (kind, epoch) is no longer that kind's
+        view epoch; returns how many."""
+        with self._lock:
+            dead = [k for k in self._d if k[0] in live_epochs
+                    and k[2] != (live_epochs[k[0]] or 0)]
+            for k in dead:
+                self._pop(k)
+        return len(dead)
 
-def admission_epoch(live, kind: str):
-    """The epoch a query would pin on a live graph: ROADMAP A11."""
-    _refuse("live graphs (admission_epoch)", "A11")
+    def hit_fraction(self) -> float | None:
+        n = self.hits + self.misses
+        return None if n == 0 else self.hits / n
 
 
-def admit_query(live, kind: str):
-    """Atomic admission on a live graph: ROADMAP A11."""
-    _refuse("live graphs (admit_query)", "A11")
+def _engine_family(kind: str) -> str:
+    """The one kind -> family rule: push kinds see base + delta through
+    the delta relax, pull kinds through the degree correction."""
+    return "pull" if kind == "pagerank" else "push"
+
+
+def admission_epoch(live, kind: str) -> int | None:
+    """READ the epoch a query of ``kind`` would pin (cache sweeps).
+    Admission itself goes through ``admit_query``."""
+    if live is None:
+        return None
+    return live.view_epoch(_engine_family(kind))
+
+
+def _epoch_reproducible(live, req) -> bool:
+    """Can the current generation still serve a query pinned at
+    ``req.epoch``?  Both families replay any epoch in [base_epoch,
+    epoch]: the delta holds exactly the mutations past base_epoch, and
+    admission never pins past a pending anti-monotone op.  The one
+    staleness rule of refresh_live."""
+    if req.epoch is None:
+        return False
+    return req.epoch >= int(live.base_epoch)
+
+
+def admit_query(live, kind: str) -> int | None:
+    """Atomic admission: the ledger entry and the epoch stamp under one
+    lock (LiveGraph.admit); paired with one ``live.release()`` when the
+    answer leaves."""
+    if live is None:
+        return None
+    return live.admit(_engine_family(kind))
 
 
 @dataclasses.dataclass
@@ -373,7 +441,7 @@ class _RunnerBase:
 
     def __init__(self, kind: str, B: int, seg_iters: int,
                  max_segments: int, metrics=None,
-                 slo_ms: float | None = None, cache=None):
+                 slo_ms: float | None = None, live=None, cache=None):
         self.kind = kind
         self.B = int(B)
         self.seg_iters = int(seg_iters)
@@ -382,7 +450,12 @@ class _RunnerBase:
         self.responses: list[Response] = []
         self.metrics = metrics
         self.slo_ms = None if slo_ms is None else float(slo_ms)
+        # the shared LiveGraph (resident queries pin its generation) and
+        # the epoch-keyed answer cache
+        self.live = live
         self.cache = cache
+        # each column's admission epoch (live graphs)
+        self._col_epoch = np.zeros(self.B, np.int32)
         # serving-tier hooks: ``replica`` labels the runner's events and
         # gauges; ``on_boundary(runner)`` fires at the top of every
         # segment boundary (an exception raised there leaves drain())
@@ -404,12 +477,23 @@ class _RunnerBase:
     def _occupied(self):
         return [c for c, s in enumerate(self.slots) if s is not None]
 
+    def _answer_epoch(self, col: int) -> int | None:
+        """The epoch the answer in ``col`` was computed at, from the
+        mechanism (the column's mask epoch), never copied from the
+        request: the torn-epoch audit compares the two."""
+        if self.live is None:
+            return None
+        return int(self._col_epoch[col])
+
     def _start(self, col: int, req: Request, total_iters: int):
         now = time.monotonic()
         self.slots[col] = _Slot(req=req, t_start=now,
                                 iter_start=total_iters)
+        if self.live is not None:
+            self.live.pin()
+        ep = {} if req.epoch is None else {"epoch": req.epoch}
         _emit("query_start", qid=req.qid, query_kind=self.kind, col=col,
-              wait_s=round(now - req.t_enqueue, 6), **self._rep())
+              wait_s=round(now - req.t_enqueue, 6), **ep, **self._rep())
 
     def _account(self, resp: Response, converged: bool) -> dict:
         """The latency histogram, retirement counters and SLO series
@@ -435,26 +519,37 @@ class _RunnerBase:
     def _retire(self, col: int, answer: np.ndarray, total_iters: int,
                 converged: bool = True):
         slot = self.slots[col]
+        answer_epoch = self._answer_epoch(col)
         self.slots[col] = None
+        if self.live is not None:
+            self.live.unpin()
         now = time.monotonic()
         resp = Response(
             qid=slot.req.qid, kind=self.kind, source=slot.req.source,
             answer=answer, iters=total_iters - slot.iter_start,
             segments=slot.segments, latency_s=now - slot.req.t_enqueue,
-            wait_s=slot.t_start - slot.req.t_enqueue, converged=converged)
+            wait_s=slot.t_start - slot.req.t_enqueue, converged=converged,
+            epoch=slot.req.epoch)
         self.responses.append(resp)
         if self.cache is not None and converged:
-            self.cache.put(self.kind, slot.req, answer, resp.iters, now)
+            self.cache.put(self.kind, slot.req, answer, resp.iters,
+                           (answer_epoch if answer_epoch is not None
+                            else slot.req.epoch or 0), now)
         slo = self._account(resp, converged)
         if self.metrics is not None and self.slo_ms is not None:
             burn = sum(self._slo_window) / max(1, len(self._slo_window))
             self.metrics.gauge("serve_slo_burn_rate",
                                kind=self.kind).set(burn)
+        ep = {}
+        if resp.epoch is not None:
+            ep = {"epoch": resp.epoch,
+                  "answer_epoch": (answer_epoch if answer_epoch is not None
+                                   else resp.epoch)}
         _emit("query_done", qid=resp.qid, query_kind=self.kind, col=col,
               iters=resp.iters, segments=resp.segments,
               latency_s=round(resp.latency_s, 6),
-              wait_s=round(resp.wait_s, 6), converged=converged, **slo,
-              **self._rep())
+              wait_s=round(resp.wait_s, 6), converged=converged, **ep,
+              **slo, **self._rep())
         return resp
 
     def _serve_cached(self, req: Request) -> bool:
@@ -474,14 +569,16 @@ class _RunnerBase:
             qid=req.qid, kind=self.kind, source=req.source,
             answer=ent.answer.copy(), iters=ent.iters, segments=0,
             latency_s=now - req.t_enqueue, wait_s=now - req.t_enqueue,
-            converged=True, cached=True)
+            converged=True, epoch=req.epoch, cached=True)
         self.responses.append(resp)
         slo = self._account(resp, True)
+        ep = {} if req.epoch is None else \
+            {"epoch": req.epoch, "answer_epoch": ent.epoch}
         _emit("query_done", qid=resp.qid, query_kind=self.kind, col=-1,
               iters=resp.iters, segments=0,
               latency_s=round(resp.latency_s, 6),
               wait_s=round(resp.wait_s, 6), converged=True, cached=True,
-              **slo, **self._rep())
+              **ep, **slo, **self._rep())
         return True
 
     def _boundary(self) -> None:
@@ -530,6 +627,7 @@ class _RunnerBase:
                 if self._serve_cached(req):
                     continue
                 col = free.pop(0)
+                self._col_epoch[col] = req.epoch or 0
                 init_col(col, req)
                 self._start(col, req, total_iters)
                 filled += 1
@@ -546,10 +644,11 @@ class PushBatchRunner(_RunnerBase):
                  health: bool = False, weighted: bool = False,
                  seg_iters: int = DEFAULT_SEG_ITERS,
                  max_segments: int = 10_000, metrics=None,
-                 slo_ms: float | None = None, cache=None):
+                 slo_ms: float | None = None, live=None, cache=None):
         super().__init__(kind, B, seg_iters, max_segments, metrics=metrics,
-                         slo_ms=slo_ms, cache=cache)
+                         slo_ms=slo_ms, live=live, cache=cache)
         self.g = g
+        self._delta_n = 0           # delta applications (drag cadence)
         self.weighted = bool(weighted and kind == "sssp")
         placeholder = [0] * self.B
         if kind == "sssp":
@@ -604,6 +703,12 @@ class PushBatchRunner(_RunnerBase):
 
         def hook(label, active, total, cnt):
             self._boundary()
+            if self.live is not None:
+                # the delta relax, each column masked to its own epoch: a
+                # column retires when its frontier is empty AND the delta
+                # improved nothing, at the fixed point of base +
+                # delta@epoch
+                label, active = self._apply_delta(label, active)
             # per-column active counts: B integers to the host
             counts = active.reshape(-1, B).sum(dim=0).cpu().numpy()
             done = [c for c in self._occupied()
@@ -612,7 +717,8 @@ class PushBatchRunner(_RunnerBase):
             want_fill = len(collector) > 0 and (done or self._free_cols())
             if not done and not want_fill:
                 self._boundary_metrics(0, 0, len(collector))
-                return None
+                # the delta step may have changed the state
+                return (label, active) if self.live is not None else None
             lab = sg.from_padded(label.cpu().numpy())
             act = sg.from_padded(active.cpu().numpy())
             lab_h[...], act_h[...] = lab, act
@@ -632,6 +738,25 @@ class PushBatchRunner(_RunnerBase):
                           on_segment=hook)
         return self.responses[n0:]
 
+    def _apply_delta(self, label, active):
+        """One delta-relax application (LiveGraph.delta_step, cached per
+        engine) on the device state at a boundary; every
+        DRAG_SAMPLE_N-th one is fenced, timed and fed to the scheduler's
+        economics as a measured drag sample."""
+        args = self.live.delta_tensors(self.eng)
+        n_slots = int(self.live.count)
+        self._delta_n += 1
+        sample = n_slots > 0 and self._delta_n % DRAG_SAMPLE_N == 1
+        t0 = time.perf_counter()
+        label, active, _imp = self.live.delta_step(self.eng)(
+            label, active, *args, self.live.col_epochs(self.eng,
+                                                       self._col_epoch))
+        if sample:
+            from lux_tpu_torch.segmented import _fence
+            _fence(label)
+            self.live.record_drag_sample(time.perf_counter() - t0, n_slots)
+        return label, active
+
 
 class PullBatchRunner(_RunnerBase):
     """Continuous batching for personalized PageRank: one batched
@@ -645,15 +770,24 @@ class PullBatchRunner(_RunnerBase):
                  health: bool = False,
                  seg_iters: int = DEFAULT_SEG_ITERS, tol: float = 1e-8,
                  max_segments: int = 500, metrics=None,
-                 slo_ms: float | None = None, cache=None):
+                 slo_ms: float | None = None, live=None, cache=None):
         super().__init__(kind, B, seg_iters, max_segments, metrics=metrics,
-                         slo_ms=slo_ms, cache=cache)
+                         slo_ms=slo_ms, live=live, cache=cache)
         if kind != "pagerank":
             raise ValueError(f"unknown pull kind {kind!r}")
         from lux_tpu_torch.apps import pagerank as app
         self.g = g
         self.app = app
         self.tol = float(tol)
+        # live graphs: each column runs at its own admission epoch; the
+        # engine normalizes by the column's effective out-degree (base +
+        # its delta appends', ``deg_corr``) and the boundary adds the
+        # delta appends' rank mass on the host, together one exact
+        # iteration over graph_at(column epoch); the correction is per
+        # iteration, so live serving runs segments of one
+        self.deg_corr = np.zeros((g.nv, B), np.float32)
+        if live is not None:
+            self.seg_iters = 1
         # idle columns iterate the uniform reset, refilled before they
         # matter
         self.resets = np.full((g.nv, B), 1.0 / g.nv, dtype=np.float32)
@@ -670,8 +804,10 @@ class PullBatchRunner(_RunnerBase):
             return r
         return self.app.one_hot_resets(self.g.nv, [int(req.source)])[:, 0]
 
-    def _col_init(self, reset: np.ndarray) -> np.ndarray:
-        deg = np.asarray(self.g.out_degrees, np.float32)
+    def _col_init(self, reset: np.ndarray, col: int) -> np.ndarray:
+        # normalized by the degree the engine's apply uses
+        deg = np.asarray(self.g.out_degrees, np.float32) \
+            + self.deg_corr[:, col]
         return np.where(deg > 0, reset / np.maximum(deg, 1),
                         reset).astype(np.float32)
 
@@ -686,7 +822,14 @@ class PullBatchRunner(_RunnerBase):
         def init_col(col, req):
             reset = self._col_reset(req)
             self.resets[:, col] = reset
-            state_h[:, col] = self._col_init(reset)
+            if self.live is not None:
+                # the column's delta-append out-degree, fixed while it is
+                # resident (later appends carry later epochs)
+                e = int(req.epoch or 0)
+                self.deg_corr[:, col] = 0.0
+                ds, _dd, _dw, de = self.live.append_deltas()
+                np.add.at(self.deg_corr[:, col], ds[de <= e], 1.0)
+            state_h[:, col] = self._col_init(reset, col)
 
         if not self._fill(collector, 0, deadline_s, init_col):
             return self.responses[n0:]       # cache hits took no column
@@ -698,6 +841,9 @@ class PullBatchRunner(_RunnerBase):
             nonlocal prev
             self._boundary()
             new = sg.from_padded(state.cpu().numpy())
+            corrected = False
+            if self.live is not None:
+                new, corrected = self._correct(prev, new)
             # per-query convergence: the max-abs change over the whole
             # segment (a bound on its last iteration's)
             res = np.max(np.abs(new - prev), axis=0)
@@ -722,6 +868,9 @@ class PullBatchRunner(_RunnerBase):
             if n_filled:
                 self._push_resets()
                 return eng.place(sg.to_padded(state_h))
+            if corrected:
+                # the next iteration starts from the corrected state
+                return eng.place(sg.to_padded(state_h))
             return None
 
         try:
@@ -731,9 +880,31 @@ class PullBatchRunner(_RunnerBase):
             pass
         return self.responses[n0:]
 
+    def _correct(self, prev, new):
+        """The host half of a live pull iteration: the engine produced
+        the base iteration of ``prev`` normalized by the effective
+        degree; one exact iteration over graph_at(column epoch) also
+        adds ``ALPHA * prev[src]`` at each delta append's destination,
+        with the same normalization, each column masked to its own
+        epoch."""
+        ds, dd, _dw, de = self.live.append_deltas()
+        if not len(ds):
+            return new, False
+        mask = de[:, None] <= self._col_epoch[None, :]
+        if not mask.any():
+            return new, False
+        acc = np.zeros_like(new)
+        np.add.at(acc, dd, prev[ds] * mask)
+        deg_eff = np.asarray(self.g.out_degrees,
+                             np.float32)[:, None] + self.deg_corr
+        new = new + self.app.ALPHA * acc / np.maximum(deg_eff, 1.0)
+        return new.astype(np.float32), True
+
     def _push_resets(self):
-        self.eng.update_program_arrays(
-            reset=self.eng.sg.to_padded(self.resets))
+        kw = {"reset": self.eng.sg.to_padded(self.resets)}
+        if self.live is not None:
+            kw["deg_corr"] = self.eng.sg.to_padded(self.deg_corr)
+        self.eng.update_program_arrays(**kw)
 
 
 class Server:
@@ -748,7 +919,9 @@ class Server:
     counters and the burn-rate gauge); ``metrics`` is a
     metrics.Registry to share, None for a private one, or False for
     none.  ``cache=True`` builds an AnswerCache (``AnswerCache.from_slo``)
-    or takes the one given."""
+    or takes the one given.  ``live`` (livegraph.LiveGraph) serves a
+    graph that mutates under the queries; ``g`` must then be
+    ``live.base``."""
 
     def __init__(self, g, batch: int = 4, *, num_parts: int = 1,
                  device=None, mesh=None, exchange: str = "auto",
@@ -758,10 +931,13 @@ class Server:
                  metrics=None, snapshot_every_s: float = 1.0,
                  on_boundary=None, replica: str | None = None, live=None,
                  cache=False, mem=None):
-        if live is not None:
-            _refuse("live graphs (Server(live=...))", "A11")
         if mesh is not None:
             _refuse("a device mesh", "A6")
+        self.live = live
+        if live is not None and g is not live.base:
+            raise ValueError(
+                "Server(live=...) requires g to be live.base — the engines "
+                "must serve the live graph's own base generation")
         self.g = g
         self.device = resolve_device(device)
         if cache is True:
@@ -826,8 +1002,8 @@ class Server:
     def _runner(self, kind: str) -> _RunnerBase:
         if kind not in self._runners:
             mkw = dict(metrics=self.metrics, slo_ms=self.slo_ms.get(kind),
-                       cache=self.cache, seg_iters=self.seg_iters,
-                       **self.opts)
+                       live=self.live, cache=self.cache,
+                       seg_iters=self.seg_iters, **self.opts)
             if kind == "pagerank":
                 runner = PullBatchRunner(kind, self.g, self.batch,
                                          tol=self.tol, **mkw)
@@ -864,13 +1040,17 @@ class Server:
                deadline_s: float | None = None) -> int:
         qid = self._next_qid
         self._next_qid += 1
+        self._collector(kind)       # an unknown kind raises before admission
         req = Request(qid=qid, kind=kind,
                       source=None if source is None else int(source),
                       reset=(None if reset is None
                              else np.asarray(reset, np.float32)),
                       t_enqueue=time.monotonic(), priority=int(priority),
                       deadline_s=(None if deadline_s is None
-                                  else float(deadline_s)))
+                                  else float(deadline_s)),
+                      # the stamp and the admission ledger in one lock:
+                      # released when the answer leaves run()
+                      epoch=admit_query(self.live, kind))
         if self.metrics is not None:
             self.metrics.counter("serve_queries_total", kind=kind).inc()
         self._collector(kind).put(req)
@@ -879,21 +1059,78 @@ class Server:
         return qid
 
     def mutate(self, src, dst, weights=None, op: str = "append") -> int:
-        _refuse("live graphs (Server.mutate)", "A11")
+        """Publish one mutation batch into the live graph (WAL first,
+        one new epoch): ``op`` "append", "delete" (weights ignored) or
+        "reweight" (weights are the new values).  DeltaFullError when
+        ingest has outrun compaction."""
+        if self.live is None:
+            raise ValueError("mutate() needs a live graph "
+                             "(Server(live=LiveGraph(...)))")
+        if op == "append":
+            return self.live.append_edges(src, dst, weights)
+        if op == "delete":
+            return self.live.delete_edges(src, dst)
+        if op == "reweight":
+            return self.live.reweight_edges(src, dst, weights)
+        raise ValueError(f"unknown mutation op {op!r}; choose from "
+                         f"('append', 'delete', 'reweight')")
+
+    def slo_burn(self) -> float:
+        """The worst rolling SLO burn over the runners (0.0 before any
+        SLO accounting): the CompactionScheduler's back-off input."""
+        worst = 0.0
+        for r in self._runners.values():
+            if r._slo_window:
+                worst = max(worst, sum(r._slo_window) / len(r._slo_window))
+        return worst
 
     def refresh_live(self) -> None:
-        _refuse("live graphs (Server.refresh_live)", "A11")
+        """Adopt the live graph's new generation after a compaction: drop
+        the runners, so the next drain builds engines over the new base.
+        Refused while a column is resident or a queued query pins an
+        epoch the new base cannot reproduce (one older than base_epoch,
+        folded away)."""
+        if self.live is None:
+            return
+        for kind, coll in list(self._collectors.items()):
+            stale = [req for req in coll.pending_requests()
+                     if not _epoch_reproducible(self.live, req)]
+            if stale:
+                raise RuntimeError(
+                    f"refresh_live with {len(stale)} {kind!r} query(ies) "
+                    f"queued at an epoch the new generation cannot "
+                    f"reproduce — drain first")
+        for kind, r in self._runners.items():
+            if r._occupied():
+                raise RuntimeError(f"refresh_live with resident {kind!r} "
+                                   f"columns — drain first")
+        self.g = self.live.base
+        self._runners.clear()
 
     def run(self) -> list[Response]:
         """Drain every kind's queue; returns the responses in
         retirement order (later queries refill columns freed by
         earlier retirements).  Publishes a ``metrics_snapshot`` event
-        at most once per ``snapshot_every_s`` of non-empty drains."""
+        at most once per ``snapshot_every_s`` of non-empty drains.  On
+        a live graph it refuses a stale generation (call refresh_live
+        after a compaction), sweeps the cache of dead epochs first and
+        releases each answer's admission."""
+        if self.live is not None and self.g is not self.live.base:
+            # serving the old base after a fold would converge old base
+            # + an empty delta: a wrong answer at the right epoch
+            raise RuntimeError("live graph compacted to a new generation "
+                               "— call refresh_live() before serving")
+        if self.cache is not None and self.live is not None:
+            self.cache.sweep({k: admission_epoch(self.live, k)
+                              for k in KINDS})
         out: list[Response] = []
         # list(): a submitter thread may add a kind's collector meanwhile
         for kind, coll in list(self._collectors.items()):
             while len(coll):
                 out += self._runner(kind).drain(coll, self.deadline_s)
+        if self.live is not None:
+            for _ in out:
+                self.live.release()
         now = time.monotonic()
         if out and now - self._last_snapshot >= self.snapshot_every_s:
             self._last_snapshot = now

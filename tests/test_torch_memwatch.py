@@ -21,7 +21,8 @@ ShardedGraph.memory_report) against lux_tpu's.
   ``measured`` from ``torch.cuda.memory_stats`` and a device whose
   stats lack the current / peak keys raises (mocked here: no card).
 - ``Server(mem=trail)`` and the segmented drivers sample at every
-  boundary; live-graph terms and fleet ledgers refuse, naming A11.
+  boundary; the live graph's terms equal the reference's, and fleet
+  ledgers refuse, naming A11b.
 """
 
 import numpy as np
@@ -296,10 +297,20 @@ def test_server_and_drivers_sample_at_boundaries(graph):
     assert t2.count == -(-total // 2)
 
 
-def test_a11_refusals():
-    with pytest.raises(NotPortedError, match="A11"):
-        memwatch.consumer_terms(live=object())
-    with pytest.raises(NotPortedError, match="A11"):
+def test_a11_refusals(lux_ref, graph):
+    """The live graph's consumer terms are ported (ROADMAP A11a) and
+    equal the reference's; the fleet replica ledger refuses (A11b)."""
+    from lux_tpu_torch.livegraph import LiveGraph
+    lv = LiveGraph(graph, capacity=8)
+    rlv = lux_ref.livegraph.LiveGraph(lux_ref.graph.Graph.from_edges(
+        *graph.edge_arrays(), graph.nv), capacity=8)
+    for x in (lv, rlv):
+        x.append_edges([1, 2], [3, 4])
+        x.delete_edges([1], [3])
+    assert memwatch.consumer_terms(live=lv) \
+        == lux_ref.memwatch.consumer_terms(live=rlv)
+    assert memwatch.consumer_terms(live=lv)["live_multiset"] > 0
+    with pytest.raises(NotPortedError, match="A11b"):
         memwatch.replica_ledger(object(), object())
 
 

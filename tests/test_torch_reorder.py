@@ -320,3 +320,21 @@ def test_reordered_pagerank_matches_lux_tpu(ref, gather):
     np.testing.assert_allclose(got[np.argsort(perm)],
                                pagerank.reference_pagerank(g, 6),
                                rtol=5e-5, atol=1e-9)
+
+
+def test_hillclimb_from_a_native_start_is_hillclimb(comm12):
+    """page_reorder(..., start=) continues a "native" result with the
+    regroup passes: the same graph, perm and chosen fill as a hillclimb
+    from scratch, every candidate of its report included."""
+    whole = page_reorder(comm12, method="hillclimb")
+    timings = {}
+    cont = page_reorder(comm12, method="hillclimb", timings=timings,
+                        start=page_reorder(comm12, method="native"))
+    np.testing.assert_array_equal(cont[1], whole[1])
+    for f in ("row_ptrs", "col_idx", "out_degrees"):
+        np.testing.assert_array_equal(getattr(cont[0], f),
+                                      getattr(whole[0], f))
+    assert cont[2] == whole[2] and "start" in timings
+    with pytest.raises(ValueError, match="start="):
+        page_reorder(comm12, method="native",
+                     start=page_reorder(comm12, method="native"))

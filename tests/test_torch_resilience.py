@@ -159,12 +159,14 @@ def test_seeded_plans_equal_reference(lux_ref):
 
 
 def test_unported_drills_refused_by_name():
-    for name, item in (("ReplicaKillPlan", "A11"),
-                       ("MutationFaultPlan", "A11"), ("tear_wal", "A11"),
-                       ("InjectedFleetCrash", "A11"),
+    for name, item in (("ReplicaKillPlan", "A11b"),
+                       ("InjectedFleetCrash", "A11b"),
                        ("InjectedWorkerKill", "A6")):
         with pytest.raises(NotPortedError, match=item):
             getattr(faults, name)
+    # the live-graph drills are ported (ROADMAP A11a;
+    # tests/test_torch_livegraph.py)
+    assert callable(faults.MutationFaultPlan) and callable(faults.tear_wal)
     with pytest.raises(NotPortedError, match="A6"):
         faults.FaultPlan({0: faults.WORKER_KILL})
     eng = object()

@@ -548,21 +548,27 @@ def test_segmented_drivers(g):
 
 
 def test_refusals(g):
-    for kw, item in ((dict(live=object()), "A11"),
-                     (dict(mesh=object()), "A6")):
-        with pytest.raises(NotPortedError, match=item):
-            serve.Server(g, device=CPU, **kw)
-    # mem= is taken (ROADMAP A10a; tests/test_torch_memwatch.py)
+    with pytest.raises(NotPortedError, match="A6"):
+        serve.Server(g, device=CPU, mesh=object())
+    # mem= is taken (ROADMAP A10a; tests/test_torch_memwatch.py); live=
+    # too (ROADMAP A11a; tests/test_torch_livegraph.py), but only over
+    # the live graph's own base
     assert serve.Server(g, device=CPU, mem="trail").mem == "trail"
+    from lux_tpu_torch.livegraph import LiveGraph
+    lv = LiveGraph(g, capacity=4)
+    assert serve.Server(g, device=CPU, live=lv).live is lv
+    with pytest.raises(ValueError, match="live.base"):
+        serve.Server(g, device=CPU, live=LiveGraph(Graph.from_edges(
+            *g.edge_arrays(), g.nv)))
     srv = serve.Server(g, device=CPU)
-    with pytest.raises(NotPortedError, match="A11"):
+    # without a live graph: mutate refuses, the rest are no-ops
+    with pytest.raises(ValueError, match="needs a live graph"):
         srv.mutate([0], [1])
-    with pytest.raises(NotPortedError, match="A11"):
-        srv.refresh_live()
-    with pytest.raises(NotPortedError, match="A11"):
-        serve.admit_query(object(), "sssp")
-    with pytest.raises(NotPortedError, match="A11"):
-        serve.admission_epoch(object(), "pagerank")
+    assert srv.refresh_live() is None
+    assert serve.admit_query(None, "sssp") is None
+    assert serve.admission_epoch(None, "pagerank") is None
+    assert (serve.admission_epoch(lv, "pagerank"),
+            serve.admit_query(lv, "sssp"), lv.admitted) == (0, 0, 1)
     with pytest.raises(ValueError, match="unknown kind"):
         serve.Server(g, slo_ms={"bogus": 1.0}, device=CPU)
     with pytest.raises(ValueError, match="unknown query kind"):
