@@ -371,7 +371,33 @@ Phases, each printing one JSON line:
             the scheduler's decisions, drag samples, cache hits,
             latencies, SLO burn and qps (the host's clock decides them);
             the delta step's ms at a full block and a revalidate over
-            it.
+            it;
+24. fleet   (ROADMAP A11b; after live, before guarded) bench.py's
+            serve-chaos (bench.py:405-491) on the same R-MAT 20 graph:
+            FleetServer(replicas=2, batch=4, seg_iters=2, the SLO
+            targets, RetryPolicy(3, 0.01, 0.1, jitter_seed=0)) over
+            the serve phase's 36-query stream, checked against the
+            serve phase's kept oracle answers.  Drill 1: a journal,
+            heal=True (respawn jitter_seed 1), warm every (replica,
+            kind), a ReplicaKillPlan on the routing target at its
+            boundary 1, one run(); drill 2: a fresh fleet and journal
+            dies whole (FLEET_CRASH at its first loaded boundary, armed
+            on both replicas), then FleetServer.recover and one run();
+            drill 3: one in-process replica and a subprocess replica
+            (python -m lux_tpu_torch.fleet -worker on the same card,
+            spawned at the phase's start beside drills 1-2, armed to
+            hard-kill itself at its boundary 1) sent a third of the
+            stream directly.  Required: the kill and the crash fired,
+            failovers >= 1, one respawn, no quarantine, no shed, every
+            admitted query retired once with its oracle's answer, the
+            journal's open admits re-dispatched exactly, the worker's
+            exit HARD_KILL_CODE and its queries failed over to r0,
+            B1's batched form launched in every drill and equal to its
+            plain version on a replica's own rows at B = 4 (int32 min
+            bit for bit, f32 sum within the batch tolerance; the
+            kernels line's chunk_partials_batched@fleet_* entries).
+            Printed only: the walls, MTTR, latencies, SLO good counts,
+            qps, beat ages, the routing pick.
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -4382,36 +4408,47 @@ def serve_stream(g, seed: int):
     return [(str(k), int(rng.integers(0, g.nv))) for k in kinds]
 
 
-def serve_check(g, responses):
+# the oracle answers of the serve stream, kept for the fleet phase,
+# which serves the same stream on the same graph: BFS levels by source,
+# PageRank by (source, iterations)
+SERVE_ORACLE: dict = {"bfs": {}, "ppr": {}}
+
+
+def serve_check(g, responses, what: str = "serve"):
     """Every answer against its oracle: hop counts and seeded
     components from a numpy BFS per source (bfs_levels: the component
     of a seed is what it reaches), PageRank from the float64 batched
     oracle (ppr_oracle) at the query's own iterations (rtol 5e-5,
-    atol 1e-9)."""
+    atol 1e-9).  The oracles run only for what SERVE_ORACLE lacks;
+    returns (the worst PageRank relative error, how many oracle answers
+    were computed)."""
     from lux_tpu_torch.apps.sssp import HOP_INF
     worst = 0.0
-    levels = bfs_many(g, [r.source for r in responses
-                          if r.kind in ("sssp", "components")])
-    pr = [r for r in responses if r.kind == "pagerank"]
-    ppr = ppr_oracle_at(g, [r.source for r in pr], [r.iters for r in pr])
+    bfs, ppr = SERVE_ORACLE["bfs"], SERVE_ORACLE["ppr"]
+    need = {r.source for r in responses
+            if r.kind in ("sssp", "components")} - set(bfs)
+    bfs.update(bfs_many(g, need))
+    pr = sorted({(r.source, r.iters) for r in responses
+                 if r.kind == "pagerank"} - set(ppr))
+    ppr.update(ppr_oracle_at(g, [s for s, _ in pr], [n for _, n in pr]))
     for r in responses:
-        require(r.converged, f"serve: query {r.qid} retired unconverged")
+        require(r.converged, f"{what}: query {r.qid} retired unconverged")
         if r.kind in ("sssp", "components"):
-            lv = levels[r.source]
+            lv = bfs[r.source]
             want = lv if r.kind == "sssp" else \
                 np.where(lv < HOP_INF, r.source, -1).astype(np.int32)
             require(r.answer.dtype == np.int32
                     and np.array_equal(r.answer, want),
-                    f"serve: {r.kind} query {r.qid} from {r.source} differs "
-                    f"from the oracle")
+                    f"{what}: {r.kind} query {r.qid} from {r.source} "
+                    f"differs from the oracle")
         else:
             want = ppr[(r.source, r.iters)]
             require(np.allclose(r.answer, want, **MAIN_TOL),
-                    f"serve: pagerank query {r.qid} differs from the "
+                    f"{what}: pagerank query {r.qid} differs from the "
                     f"float64 oracle")
             worst = max(worst, float((np.abs(r.answer - want) / np.maximum(
                 np.abs(want), 1e-30)).max()))
-    return worst
+    return worst, len(need) + len(pr)
 
 
 def phase_serve(args, torch, g, card):
@@ -4492,7 +4529,7 @@ def phase_serve(args, torch, g, card):
     require(retired == SERVE_QUERIES,
             f"serve: serve_retired_total {retired} != {SERVE_QUERIES}")
     t0 = time.perf_counter()
-    worst = serve_check(g, responses)
+    worst, _n = serve_check(g, responses)
     t_oracle = time.perf_counter() - t0
     lat = np.array([r.latency_s for r in responses])
     hist = metrics.Histogram()
@@ -4959,6 +4996,358 @@ def phase_live(args, torch, g0, card):
     del srv, lv, rec, rec2
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------
+# the serving fleet (ROADMAP A11b): bench.py's serve-chaos shape on the
+# batch phases' graph
+
+FLEET_REPLICAS = 2          # bench.py's -serve-replicas default
+FLEET_B = 4                 # bench.py's -serve-batch default
+FLEET_KILL_BOUNDARY = 1     # bench.py's -kill-boundary default
+FLEET_RETRY = dict(retries=3, backoff_s=0.01, max_backoff_s=0.1)
+FLEET_SPAWN_BUDGET_S = 240.0
+
+
+def fleet_server(g, recover: str | None = None, **kw):
+    """bench.py's serve-chaos FleetServer (bench.py:405-415) at the
+    serving phases' width, on the card; with ``recover``, the one
+    FleetServer.recover brings back from that journal."""
+    from lux_tpu_torch import fleet, resilience
+    kw = {"replicas": FLEET_REPLICAS, "batch": FLEET_B,
+          "seg_iters": SERVE_SEG_ITERS, "slo_ms": SERVE_SLO_MS,
+          "retry": resilience.RetryPolicy(**FLEET_RETRY, jitter_seed=0),
+          **kw}
+    if recover is not None:
+        return fleet.FleetServer.recover(g, recover, **kw)
+    return fleet.FleetServer(g, **kw)
+
+
+def fleet_summary(flt, responses, wall: float) -> dict:
+    """What the clock decides, printed only: latencies and SLO good
+    counts per kind, qps, beat ages."""
+    out = {"qps": len(responses) / wall if wall else None,
+           "beat_age_s": {r.name: flt.board.age(r.name)
+                          for r in flt._replicas}}
+    for k in sorted({r.kind for r in responses}):
+        lat = np.array([r.latency_s for r in responses if r.kind == k])
+        out[k] = {"p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                  "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                  "slo_ms": SERVE_SLO_MS[k],
+                  "slo_good": (flt.metrics.counter(
+                      "serve_slo_good_total", kind=k).value
+                      if flt.metrics is not None else None)}
+    return out
+
+
+def retired_once(responses, admitted, what: str) -> None:
+    qids = [r.qid for r in responses]
+    require(len(set(qids)) == len(qids),
+            f"fleet {what}: a qid retired twice")
+    require(set(qids) == set(admitted),
+            f"fleet {what}: retired {len(set(qids))} of {len(admitted)} "
+            f"admitted queries")
+
+
+def fleet_rows(torch, eng, sources=None):
+    """(vals [C, E, B], rel [C, E]) of one batched iteration of a fleet
+    runner's engine, the messages B1's batched form reduces: push from
+    one source a column after two steps, pull after three iterations."""
+    t, a, B = eng.tiles, eng.arrays, eng.batch
+    C = eng.num_parts * t.n_chunks
+    if sources is None:                     # pull
+        state = eng.run(eng.init_state(), 3)
+        msgs = eng._messages(state.reshape(-1, B))
+    else:                                   # push, hop sssp
+        from lux_tpu_torch.apps.sssp import HOP_INF
+        nv = eng.sg.nv
+        lab = np.full((nv, B), HOP_INF, np.int32)
+        act = np.zeros((nv, B), bool)
+        for q, s in enumerate(sources[:B]):
+            lab[s, q], act[s, q] = 0, True
+        lab, act = eng.place(eng.sg.to_padded(lab), eng.sg.to_padded(act))
+        for _ in range(2):
+            lab, act, _c = eng.step(lab, act)
+        msgs = eng._dense_cand(eng._masked_flat(lab, act))
+    return msgs.reshape(C, t.E, B), a["rel_dst"].reshape(C, t.E)
+
+
+def fleet_kernels(args, torch, flt, stream) -> tuple:
+    """B1's batched form against its plain version on a live replica's
+    own rows at B = 4: int32 min from the sssp runner bit for bit, f32
+    sum from the pagerank runner within the batch line's tolerance; and
+    its kernels-line entries at those shapes (the checks' launches are
+    not counted)."""
+    rep = next(r for r in flt._replicas
+               if {"sssp", "pagerank"} <= set(r._runners))
+    cases, lines = [], []
+    with Uncounted():
+        for kind, op in (("sssp", "min"), ("pagerank", "sum")):
+            eng = rep.runner(kind).eng
+            srcs = [s for k, s in stream if k == "sssp"] \
+                if kind == "sssp" else None
+            vals, rel = fleet_rows(torch, eng, srcs)
+            cases.append(_check_batched_case(
+                torch, f"fleet_{kind}/{op}", vals, rel, eng.tiles.W, op))
+            line = b1_batched_line(args, torch, vals, rel, eng.tiles.W,
+                                   f"chunk_partials_batched@fleet_{kind}",
+                                   op)
+            if op == "min":
+                line["note"] = ("int32 compare-selects counted at the f32 "
+                                "rate (the data sheet gives no int32 "
+                                "rate); bytes bound it")
+            lines.append(line)
+            del vals, rel
+    torch.cuda.empty_cache()
+    return cases, lines
+
+
+def fleet_chaos(args, torch, g, stream, tmp) -> tuple:
+    """Drill 1, bench.py's serve-chaos: warm every (replica, kind), arm
+    the kill on the routing target at its first loaded boundary past
+    warm-up, one run() of the 36 queries with healing on."""
+    from lux_tpu_torch import faults, resilience, serve
+    kinds = list(serve.KINDS)
+    flt = fleet_server(
+        g, journal_path=os.path.join(tmp, "chaos.journal"),
+        board_path=os.path.join(tmp, "board-chaos"), heal=True,
+        respawn_retry=resilience.RetryPolicy(**FLEET_RETRY, jitter_seed=1))
+    t0 = time.perf_counter()
+    n_warm = flt.warm(kinds)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    victim = flt.routing_target(kinds[0])
+    plan = faults.ReplicaKillPlan({victim: FLEET_KILL_BOUNDARY})
+    flt.set_fault(plan)
+    qids = [flt.submit(k, source=s) for k, s in stream]
+    t0 = time.perf_counter()
+    responses = flt.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(plan.fired and plan.fired[0][0] == victim,
+            f"fleet chaos: the kill on {victim} never fired")
+    require(flt.failovers >= 1 and flt.respawns == 1
+            and flt.quarantines == 0,
+            f"fleet chaos: failovers {flt.failovers}, respawns "
+            f"{flt.respawns}, quarantines {flt.quarantines}")
+    require(not flt.shed_records and flt.journal_replayed == 0,
+            f"fleet chaos: {len(flt.shed_records)} shed, journal replayed "
+            f"{flt.journal_replayed}")
+    retired_once(responses, qids, "chaos")
+    require(all(r.state == "up" for r in flt._replicas),
+            "fleet chaos: the pool is not whole after run()")
+    return flt, responses, {
+        "warm_responses": n_warm, "warm_seconds": round(t_warm, 3),
+        "drain_seconds": round(wall, 3), "victim": victim,
+        "kill": [list(f) for f in plan.fired], "failovers": flt.failovers,
+        "respawns": flt.respawns, "quarantines": flt.quarantines,
+        "shed": len(flt.shed_records), "dup_dropped": flt.dup_dropped,
+        "journal_replayed": flt.journal_replayed,
+        "printed_only": {"mttr_s": flt.mttr_s,
+                         **fleet_summary(flt, responses, wall)}}
+
+
+def fleet_crash(args, torch, g, stream, tmp) -> tuple:
+    """Drill 2: a fresh fleet on a fresh journal dies whole at its
+    first loaded boundary (FLEET_CRASH armed on every replica: before
+    any drain the routing pick follows beat ages microseconds apart, so
+    a plan on ``routing_target`` alone could wait on a replica that
+    never drains); the journal's admitted-unretired queries come back
+    through FleetServer.recover and one run()."""
+    from lux_tpu_torch import faults, journal
+    jpath = os.path.join(tmp, "crash.journal")
+    flt = fleet_server(g, journal_path=jpath,
+                       board_path=os.path.join(tmp, "board-crash"))
+    qids = [flt.submit(k, source=s) for k, s in stream]
+    plan = faults.ReplicaKillPlan({r: 0 for r in flt.replica_names},
+                                  action=faults.FLEET_CRASH)
+    flt.set_fault(plan)
+    t0 = time.perf_counter()
+    crashed = None
+    try:
+        flt.run()
+    except faults.InjectedFleetCrash as e:
+        crashed = e
+    t_crash = time.perf_counter() - t0
+    require(crashed is not None and plan.fired,
+            "fleet crash: the whole-fleet crash never fired")
+    flt.close()
+    # the crashed fleet's engines are gone with it
+    pre = {rep.name: sorted(rep._runners) for rep in flt._replicas}
+    del flt
+    torch.cuda.empty_cache()
+    opens, retired, _hnv, torn = journal.AdmissionJournal.scan(jpath,
+                                                               nv=g.nv)
+    open_qids = [r.qid for r in opens]
+    require(opens and torn == 0
+            and set(open_qids) | set(retired) == set(qids),
+            f"fleet crash: the journal holds {len(opens)} open and "
+            f"{len(retired)} retired of {len(qids)} admitted")
+    t0 = time.perf_counter()
+    rec = fleet_server(g, recover=jpath,
+                       board_path=os.path.join(tmp, "board-recover"))
+    require(rec.journal_replayed == len(opens),
+            f"fleet crash: recover re-dispatched {rec.journal_replayed} of "
+            f"{len(opens)} open admits")
+    responses = rec.run()
+    torch.cuda.synchronize()
+    t_recover = time.perf_counter() - t0
+    rec.close()
+    retired_once(responses, open_qids, "recover")
+    final, fretired, _h, _t = journal.AdmissionJournal.scan(jpath, nv=g.nv)
+    require(not final and set(fretired) == set(qids)
+            and all(c == "answered" for c in fretired.values()),
+            "fleet crash: the journal is not closed answered after the "
+            "recovered drain")
+    return rec, responses, {
+        "crash": [list(f) for f in plan.fired],
+        "crash_seconds": round(t_crash, 3), "engines_at_crash": pre,
+        "admitted": len(qids), "retired_before_crash": len(retired),
+        "open_at_crash": len(opens), "recovered": rec.journal_replayed,
+        "recover_seconds": round(t_recover, 3),
+        "dup_dropped": rec.dup_dropped,
+        "printed_only": fleet_summary(rec, responses, t_recover)}
+
+
+def fleet_subprocess(args, torch, flt, spawned, stream) -> tuple:
+    """Drill 3: one in-process replica and a subprocess replica on the
+    same card (spawned beside drills 1 and 2), armed to hard-kill itself
+    at its second boundary; a third of the stream goes to it directly,
+    the rest through run()."""
+    from lux_tpu_torch import faults, telemetry
+    rep, t_spawn, log = spawned
+    if rep is None:
+        with open(log) as f:
+            raise SmokeFailure(f"fleet subprocess: no worker beat within "
+                               f"{FLEET_SPAWN_BUDGET_S} s; its log ends: "
+                               f"{f.read()[-2000:]}")
+    qids = [flt.submit(k, source=s) for k, s in stream]
+    sent = set(qids[::3])
+    for q in flt._queues.values():           # a third of the stream
+        for req in q.collect(len(q)):
+            if req.qid in sent:
+                flt._assign(rep, req)
+            else:
+                q.put(req)
+    ev = telemetry.EventLog()
+    t0 = time.perf_counter()
+    with telemetry.use(events=ev):
+        responses = flt.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rc = rep.proc.wait(timeout=60)
+    require(rc == faults.HARD_KILL_CODE and rep.state == "lost",
+            f"fleet subprocess: the worker exited {rc}, state {rep.state}")
+    moved = [e for e in ev.events if e["kind"] == "failover"]
+    by_worker = {e["qid"] for e in ev.events if e["kind"] == "query_done"
+                 and e.get("replica") == rep.name}
+    require(moved and all(e["from_replica"] == rep.name
+                          and e["to_replica"] == "r0" for e in moved)
+            and sent <= {e["qid"] for e in moved} | by_worker,
+            f"fleet subprocess: {len(moved)} failovers for {len(sent)} "
+            f"queries sent to the worker")
+    retired_once(responses, qids, "subprocess")
+    return responses, {
+        "spawn_seconds": round(t_spawn, 3), "sent_to_worker": len(sent),
+        "answered_by_worker": len(by_worker), "failovers": len(moved),
+        "worker_exit": rc, "drain_seconds": round(wall, 3),
+        "printed_only": fleet_summary(flt, responses, wall)}
+
+
+def phase_fleet(args, torch, g, card):
+    """ROADMAP A11b on the card, shaped like bench.py's serve-chaos
+    (bench.py:405-491) at the serving phases' width: the batch phases'
+    R-MAT 20 graph, FleetServer(replicas=2, batch=4, seg_iters=2,
+    bench.py's SLO targets, RetryPolicy(3, 0.01, 0.1, jitter_seed=0)),
+    the serve phase's 36-query stream and its oracle answers.  Three
+    drills: the chaos drain (journal, heal=True, respawn jitter_seed 1,
+    the kill on the routing target), the whole-fleet crash and its
+    recovery from the journal, and a subprocess replica (``python -m
+    lux_tpu_torch.fleet -worker``, spawned at the phase's start beside
+    the first two drills) that hard-kills itself mid-drain.  Required:
+    what the inputs decide (the kill and crash fired, failovers,
+    respawns, quarantines, sheds, exactly-once retirement, the journal's
+    counts, the worker's exit code, every answer equal to its oracle,
+    B1's batched form launched and equal to its plain version on a
+    replica's own rows at B = 4).  Printed only: what the clock decides
+    (walls, MTTR, latencies, SLO good counts, qps, beat ages, the
+    routing pick).  Returns (the launches, the kernels-line entries)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    stream = serve_stream(g, args.seed)
+    tmp = tempfile.mkdtemp(prefix="lux_fleet_")
+    spec = {"kind": "rmat", "scale": args.scale - 1, "ef": args.ef,
+            "seed": args.seed}
+    # drill 3's fleet and its worker first: the worker builds its graph
+    # while drills 1 and 2 run
+    flt3 = fleet_server(g, replicas=1, replica_deadline_s=120.0,
+                        board_path=os.path.join(tmp, "board-sub"))
+
+    def spawn():
+        t0 = time.perf_counter()
+        spool = os.path.join(tmp, "spool")
+        rep = flt3.add_subprocess_replica(
+            spec, workdir=spool, kill_boundary=1,
+            spawn_budget_s=FLEET_SPAWN_BUDGET_S)
+        # the worker is r1 beside the in-process r0
+        return rep, time.perf_counter() - t0, os.path.join(
+            spool, "worker_r1.log")
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    spawned = pool.submit(spawn)
+    drills, launches = {}, {}
+    try:
+        zero_launches()
+        n0 = 0
+        for name, drill in (("chaos", fleet_chaos), ("crash", fleet_crash)):
+            flt, responses, drills[name] = drill(args, torch, g, stream, tmp)
+            launches[name] = batched_launches() - n0
+            n0 = batched_launches()
+            t0 = time.perf_counter()
+            _w, computed = serve_check(g, responses, f"fleet {name}")
+            drills[name]["oracle_check_seconds"] = round(
+                time.perf_counter() - t0, 3)
+            drills[name]["oracle_answers_computed"] = computed
+            if name == "chaos":
+                cases, lines = fleet_kernels(args, torch, flt, stream)
+            del flt, responses
+            torch.cuda.empty_cache()
+        responses, drills["subprocess"] = fleet_subprocess(
+            args, torch, flt3, spawned.result(), stream)
+        launches["subprocess"] = batched_launches() - n0
+        counts = dict(read_launches(),
+                      chunk_partials_batched=batched_launches())
+        _w, computed = serve_check(g, responses, "fleet subprocess")
+        drills["subprocess"]["oracle_answers_computed"] = computed
+    finally:
+        # the worker stops with its fleet, whatever failed above
+        pool.shutdown(wait=True)
+        flt3.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(counts["chunk_partials_batched"] > 0
+            and all(n > 0 for n in launches.values())
+            and counts["chunk_partials"] == 0
+            and counts["lane_shuffle"] == 0,
+            f"fleet: launched {counts}, batched by drill {launches} (want "
+            f"only B1's batched form, in every drill)")
+    for line in lines:
+        line["launches"] = counts["chunk_partials_batched"]
+    del flt3
+    torch.cuda.empty_cache()
+    emit({"phase": "fleet", "nv": g.nv, "ne": g.ne,
+          "replicas": FLEET_REPLICAS, "batch": FLEET_B,
+          "seg_iters": SERVE_SEG_ITERS, "queries": SERVE_QUERIES,
+          "slo_ms": SERVE_SLO_MS, "retry": FLEET_RETRY,
+          "worker_graph": spec, "drills": drills,
+          "launches": counts, "batched_launches_by_drill": launches,
+          "kernel_checks": cases, "wall_s": round(
+              time.perf_counter() - t_phase, 3), "card": card})
+    SERVE_ORACLE["bfs"].clear()
+    SERVE_ORACLE["ppr"].clear()
+    return counts, lines
 
 
 # ---------------------------------------------------------------------
@@ -6529,12 +6918,16 @@ def main(argv=None) -> int:
                                                  card)
     batch_lines += paged_lines
     live_counts = phase_live(args, torch, batch_ref[0], card)
+    fleet_counts, fleet_lines = phase_fleet(args, torch, batch_ref[0], card)
     del batch_ref
-    for path, n in {**batch_paths, **paged_paths, "live": live_counts}.items():
+    for path, n in {**batch_paths, **paged_paths, "live": live_counts,
+                    "fleet": fleet_counts}.items():
         by_path[path] = {k: n[k] for k in ("chunk_partials", "lane_shuffle")}
-    for line in batch_lines:    # B1's batched form on the live path
-        line.setdefault("launches_by_path", {})["live"] = \
-            live_counts["chunk_partials_batched"]
+    batch_lines += fleet_lines
+    for line in batch_lines:    # B1's batched form on the live and fleet
+        line.setdefault("launches_by_path", {}).update(      # paths
+            live=live_counts["chunk_partials_batched"],
+            fleet=fleet_counts["chunk_partials_batched"])
     phase_guarded(torch, guarded, card)
     phase_observe(card)
     phase_pricing(card)

@@ -45,10 +45,12 @@ counterpart is easy to find:
                   (python -m lux_tpu_torch.observe)
   livegraph.py    live graphs: the mutation log (WAL), epochs and delta
                   blocks, the delta relax, re-seed, compaction, recovery
-
-Not ported yet: the serving fleet and its admission journal
-(``lux_tpu_torch.fleet`` / ``.journal`` raise NotPortedError naming
-ROADMAP A11b).
+  heartbeat.py    the replica board and the workers' heartbeat sync
+  journal.py      the fleet's durable admission journal (LUXJ)
+  fleet.py        the serving fleet: replicas (in-process and
+                  subprocess), admission and typed sheds, failover,
+                  brownout, self-healing, whole-fleet crash recovery
+                  (python -m lux_tpu_torch.fleet)
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"`` (device.py).  Host planning stays numpy, as in the
@@ -63,16 +65,3 @@ from lux_tpu_torch.graph import Graph, ShardedGraph
 
 __all__ = ["DeviceUnavailableError", "GraphFormatError", "Graph",
            "ShardedGraph", "resolve_device"]
-
-# the reference's modules that have no counterpart yet
-_NOT_PORTED = {"fleet": "A11b", "journal": "A11b"}
-
-
-def __getattr__(name: str):
-    item = _NOT_PORTED.get(name)
-    if item is None:
-        raise AttributeError(f"module {__name__!r} has no attribute "
-                             f"{name!r}")
-    from lux_tpu_torch.engine.pull import NotPortedError
-    raise NotPortedError(f"lux_tpu_torch.{name} (lux_tpu/{name}.py) is not "
-                         f"ported yet (ROADMAP {item})")

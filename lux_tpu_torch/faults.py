@@ -29,10 +29,18 @@ Live graphs (livegraph.py) have their own counters in a
 :class:`MutationFaultPlan`: MUT_CRASH, WAL_TORN and the op-asserting
 MUT_DELETE / MUT_REWEIGHT at a mutation index, COMPACT_CRASH at a
 compaction, RESEED_CRASH at a re-seed; ``tear_wal`` damages a log at
-rest.  Not ported yet, each raising NotPortedError when named: the
-worker-process kill (``InjectedWorkerKill``, WORKER_KILL: ROADMAP A6,
-which brings several devices and processes) and the fleet drills
-(``ReplicaKillPlan``, ``InjectedFleetCrash``: A11b).
+rest.
+
+The serving fleet (fleet.py) has its own: a :class:`ReplicaKillPlan`
+maps a replica NAME to the boundary at which it dies, counted over all
+of that replica's runners.  Its actions: WORKER_KILL
+(:class:`InjectedWorkerKill`, or with ``hard_kill`` a real
+``os._exit(HARD_KILL_CODE)`` in a subprocess replica), DEVICE_LOSS,
+FLEET_CRASH (the whole fleet: :class:`InjectedFleetCrash`, a
+BaseException) and REPLICA_FLAP (the one action that fires again, at
+every later boundary, until quarantine stops it).  Not ported yet:
+``FaultPlan``'s own WORKER_KILL, a worker process of a device mesh
+dying (NotPortedError naming ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -61,22 +69,13 @@ MUT_DELETE = "mut_delete"        # MUT_CRASH that asserts a deletion
 MUT_REWEIGHT = "mut_reweight"    # MUT_CRASH that asserts a reweight
 RESEED_CRASH = "reseed_crash"    # die between the cone and the converge
 
-_NOT_PORTED = {
-    "InjectedWorkerKill": "A6", "ReplicaKillPlan": "A11b",
-    "InjectedFleetCrash": "A11b",
-}
+# the serving fleet's whole-fleet and flapping-replica drills
+FLEET_CRASH = "fleet_crash"      # the whole fleet dies, coordinator too
+REPLICA_FLAP = "replica_flap"    # the same replica dies at every boundary
 
-
-def __getattr__(name: str):
-    """The reference's fleet and multi-process drills are refused by
-    name until their ROADMAP item lands."""
-    item = _NOT_PORTED.get(name)
-    if item is None:
-        raise AttributeError(f"module {__name__!r} has no attribute "
-                             f"{name!r}")
-    from lux_tpu_torch.engine.pull import NotPortedError
-    raise NotPortedError(f"faults.{name} is not ported yet (ROADMAP "
-                         f"{item})")
+# the exit code of a hard kill: nonzero and outside the shell's and the
+# signals' ranges
+HARD_KILL_CODE = 113
 
 
 class InjectedWorkerCrash(RuntimeError):
@@ -92,6 +91,30 @@ class InjectedDeviceLoss(RuntimeError):
     def __init__(self, msg: str, lost_devices=()):
         super().__init__(msg)
         self.lost_devices = tuple(int(d) for d in lost_devices)
+
+
+class InjectedWorkerKill(RuntimeError):
+    """Synthetic topology fault: a whole worker (a serving replica)
+    died, taking its devices with it; the message mimics the
+    coordination-service heartbeat signature real deaths surface as.
+    Carries ``lost_devices``; resilience.classify treats it as
+    TOPOLOGY."""
+
+    def __init__(self, msg: str, lost_devices=()):
+        super().__init__(msg)
+        self.lost_devices = tuple(int(d) for d in lost_devices)
+
+
+class InjectedFleetCrash(BaseException):
+    """Synthetic whole-fleet death: the coordinator and every replica
+    at once.  Nothing survives to fail over to, so it subclasses
+    BaseException: no ``except Exception`` in the dispatcher may swallow
+    it.  The only continuation is ``FleetServer.recover`` over the
+    durable journals.  Carries ``replica``, where it fired."""
+
+    def __init__(self, msg: str, replica: str = ""):
+        super().__init__(msg)
+        self.replica = replica
 
 
 @dataclasses.dataclass
@@ -257,6 +280,82 @@ def corrupt_state(state, count: int = 1, int_value: int | None = None):
     if any(_kind(x) == "float" for x in leaves(state)):
         return nan_corrupt(state, count)
     return int_corrupt(state, count, int_value)
+
+
+@dataclasses.dataclass
+class ReplicaKillPlan:
+    """Replica-scoped kill schedule for the serving fleet
+    (lux_tpu/faults.py:285-400): ``schedule`` maps a replica NAME to its
+    segment-boundary index at which it dies.  The fleet's boundary hook
+    calls ``fire(name)`` at every boundary of every runner the replica
+    owns (one counter per replica, all kinds), so the kill lands
+    mid-drain with queries resident in columns.
+
+    ``action`` is WORKER_KILL (InjectedWorkerKill, or with
+    ``hard_kill`` a real ``os._exit(HARD_KILL_CODE)``: a subprocess
+    replica's death that only its exit code and the board's stale beat
+    show), DEVICE_LOSS, FLEET_CRASH (InjectedFleetCrash, or with
+    ``hard_kill`` a real exit) or REPLICA_FLAP, which fires at EVERY
+    boundary from the scheduled index on (at most ``flap_count`` times,
+    None: until quarantine stops the replica's boundaries).  Every other
+    entry fires once.  ``fired`` records (replica, boundary, action).
+    Arm a schedule on ``FleetServer.routing_target``: routing is a
+    positive-feedback loop, so a fixed replica is a coin flip."""
+
+    schedule: dict
+    action: str = WORKER_KILL
+    hard_kill: bool = False
+    flap_count: int | None = None
+    boundaries: dict = dataclasses.field(default_factory=dict, init=False)
+    fired: list = dataclasses.field(default_factory=list, init=False)
+
+    def __post_init__(self):
+        if self.action not in (WORKER_KILL, DEVICE_LOSS, FLEET_CRASH,
+                               REPLICA_FLAP):
+            raise ValueError(
+                f"ReplicaKillPlan action must be WORKER_KILL, DEVICE_LOSS, "
+                f"FLEET_CRASH, or REPLICA_FLAP, got {self.action!r}")
+
+    def fire(self, replica: str) -> None:
+        import os
+
+        i = int(self.boundaries.get(replica, 0))
+        self.boundaries[replica] = i + 1
+        due = self.schedule.get(replica)
+        if due is None:
+            return
+        if self.action == REPLICA_FLAP:
+            if i < int(due):
+                return
+            shots = sum(1 for r, _, _ in self.fired if r == replica)
+            if self.flap_count is not None and shots >= self.flap_count:
+                return
+            self.fired.append((replica, i, self.action))
+            raise InjectedWorkerKill(
+                f"injected replica flap on serving replica {replica!r} at "
+                f"its boundary {i} (death {shots + 1}): coordination "
+                f"service heartbeat to the replica timed out", ())
+        if i != int(due):
+            return
+        self.fired.append((replica, i, self.action))
+        if self.action == FLEET_CRASH:
+            if self.hard_kill:
+                os._exit(HARD_KILL_CODE)
+            raise InjectedFleetCrash(
+                f"injected fleet crash at replica {replica!r} boundary "
+                f"{i}: coordinator and all replicas died — recover from "
+                f"the admission journal + mutation WAL", replica)
+        if self.action == DEVICE_LOSS:
+            raise InjectedDeviceLoss(
+                f"injected device loss on serving replica {replica!r} at "
+                f"its boundary {i}: devices unavailable", ())
+        if self.hard_kill:
+            # a real death mid-drain: no exception, no cleanup
+            os._exit(HARD_KILL_CODE)
+        raise InjectedWorkerKill(
+            f"injected worker death on serving replica {replica!r} at its "
+            f"boundary {i}: coordination service heartbeat to the replica "
+            f"timed out", ())
 
 
 @dataclasses.dataclass

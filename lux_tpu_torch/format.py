@@ -26,8 +26,13 @@ The mutation-log (WAL) header of live graphs (livegraph.py): a 16-byte
 header (magic ``LUXW``, uint32 version, uint32 nv, uint32 delta
 capacity) before the log's 24-byte chained records.  A log of another
 graph (nv mismatch) or a foreign file raises a typed GraphFormatError
-instead of replaying wrong mutations.  The fleet's journal header is
-not ported yet (ROADMAP A11b).
+instead of replaying wrong mutations.
+
+The serving fleet's admission-journal header (journal.py): 16 bytes
+(magic ``LUXJ``, uint32 version, uint32 nv, uint32 reserved) before the
+journal's 48-byte chained records.  The nv binds the journal to its
+graph: a journal of another graph, a foreign file or an unknown version
+raises a typed GraphFormatError instead of re-dispatching queries.
 """
 
 from __future__ import annotations
@@ -50,7 +55,8 @@ class GraphFormatError(ValueError):
     section_size, weighted_mismatch, ambiguous_layout,
     row_ptrs_monotone, row_ptrs_total, col_idx_range, degrees_length,
     degrees_consistent, partition_edges, perm_header, perm_length,
-    perm_bijection, wal_header, wal_version, wal_capacity)."""
+    perm_bijection, wal_header, wal_version, wal_capacity,
+    journal_header, journal_version)."""
 
     def __init__(self, path: str, check: str, detail: str):
         super().__init__(f"{path}: invalid graph [{check}] — {detail}")
@@ -340,6 +346,58 @@ def read_wal_header(path: str, nv: int | None = None,
             f"mutation log from a different graph?")
     return hnv, cap, ver
 
+
+
+# ---------------------------------------------------------------------
+# the admission-journal header of the serving fleet
+
+JOURNAL_MAGIC = b"LUXJ"
+JOURNAL_VERSION = 1
+JOURNAL_KNOWN_VERSIONS = (1,)
+JOURNAL_HEADER_SIZE = 16
+JOURNAL_RECORD_SIZE = 48
+JOURNAL_SUFFIX = ".journal"
+
+
+def journal_sidecar_path(lux_path: str) -> str:
+    return lux_path + JOURNAL_SUFFIX
+
+
+def pack_journal_header(nv: int, version: int = JOURNAL_VERSION) -> bytes:
+    if version not in JOURNAL_KNOWN_VERSIONS:
+        raise ValueError(f"unknown journal version {version} "
+                         f"(known: {JOURNAL_KNOWN_VERSIONS})")
+    return JOURNAL_MAGIC + np.array([version, nv, 0], V_DTYPE).tobytes()
+
+
+def read_journal_header(path: str, nv: int | None = None,
+                        head: bytes | None = None):
+    """Read and validate an admission-journal header; returns (nv,
+    version).  ``nv``, when given, must match the header's: a journal
+    copied from another graph would re-dispatch sources and epochs it
+    was never admitted for.  ``head`` skips the file read."""
+    if head is None:
+        with open(path, "rb") as f:
+            head = f.read(JOURNAL_HEADER_SIZE)
+    if len(head) != JOURNAL_HEADER_SIZE or head[:4] != JOURNAL_MAGIC:
+        raise GraphFormatError(
+            path, "journal_header",
+            f"bad magic/length {head[:4]!r} ({len(head)} bytes) — an "
+            f"admission journal starts with {JOURNAL_MAGIC!r} and a "
+            f"{JOURNAL_HEADER_SIZE}-byte header")
+    ver, hnv, _rsvd = (int(x) for x in
+                       np.frombuffer(head, V_DTYPE, count=3, offset=4))
+    if ver not in JOURNAL_KNOWN_VERSIONS:
+        raise GraphFormatError(
+            path, "journal_version",
+            f"journal version {ver}, this build reads "
+            f"{JOURNAL_KNOWN_VERSIONS}")
+    if nv is not None and hnv != nv:
+        raise GraphFormatError(
+            path, "journal_header",
+            f"journal written for nv={hnv} but the graph has nv={nv} — "
+            f"admission journal from a different graph?")
+    return hnv, ver
 
 def write_lux(path: str, row_ptrs, col_idx, weights=None, degrees=None):
     """Write a .lux file from CSC arrays (row_ptrs are END offsets)."""

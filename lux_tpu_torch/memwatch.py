@@ -32,8 +32,9 @@ query columns; :class:`MemoryForecaster` projects time to full from
 the trail's growth rate.
 
 The live graph's consumer terms (``consumer_terms(live=)``,
-``LiveGraph.memory_terms``) join the Server's ledger; fleet replica
-ledgers refuse, naming ROADMAP A11b.
+``LiveGraph.memory_terms``) join the Server's ledger, and
+``replica_ledger`` prices one fleet replica the same way (fleet.py's
+memory admission).
 """
 
 from __future__ import annotations
@@ -100,12 +101,6 @@ class MemoryStatsUnavailable(RuntimeError):
     """A CUDA device's allocator stats lack the current / peak keys: a
     measured sample is impossible, and a modeled one would pass a model
     off as the card's own count."""
-
-
-def _refuse_fleet(what: str):
-    from lux_tpu_torch.engine.pull import NotPortedError
-    raise NotPortedError(f"{what} is not ported yet (ROADMAP A11b: the "
-                         f"serving fleet)")
 
 
 # ---------------------------------------------------------------------
@@ -338,10 +333,17 @@ class MemoryLedger:
         the one it replaces: two states, ``port_host_roundtrip``), and
         the dynamic consumers (the answer cache, the live graph,
         checkpoint staging)."""
+        return cls._runners_ledger(
+            getattr(server, "_runners", None) or {},
+            getattr(server, "cache", None), getattr(server, "live", None),
+            where or type(server).__name__)
+
+    @classmethod
+    def _runners_ledger(cls, runners: dict, cache, live,
+                        where: str) -> "MemoryLedger":
         terms: dict = {}
         temps: dict = {}
-        for kind, runner in sorted((getattr(server, "_runners", None)
-                                    or {}).items()):
+        for kind, runner in sorted(runners.items()):
             eng = getattr(runner, "eng", None)
             if eng is None:
                 continue
@@ -352,9 +354,8 @@ class MemoryLedger:
                  else terms)[f"{kind}_{k}"] = v
         if temps:
             terms.update(max(temps.values(), key=lambda t: sum(t.values())))
-        terms.update(consumer_terms(cache=getattr(server, "cache", None),
-                                    live=getattr(server, "live", None)))
-        return cls(terms, where or type(server).__name__)
+        terms.update(consumer_terms(cache=cache, live=live))
+        return cls(terms, where)
 
 
 def consumer_terms(cache=None, live=None) -> dict:
@@ -372,8 +373,14 @@ def consumer_terms(cache=None, live=None) -> dict:
 
 
 def replica_ledger(fleet, rep) -> MemoryLedger:
-    """A fleet replica's ledger (lux_tpu/memwatch.py:295): refused."""
-    _refuse_fleet("the fleet replica ledger (replica_ledger)")
+    """One fleet replica's ledger (lux_tpu/memwatch.py:295): its built
+    runners' terms as ``MemoryLedger.for_server`` prices a Server's, plus
+    the fleet-shared cache and live graph, which every in-process
+    replica's budget must absorb.  A subprocess replica prices only what
+    the parent sees: the shared consumers."""
+    return MemoryLedger._runners_ledger(
+        getattr(rep, "_runners", None) or {}, fleet.cache, fleet.live,
+        f"replica:{rep.name}")
 
 
 # ---------------------------------------------------------------------

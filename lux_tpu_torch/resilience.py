@@ -26,8 +26,9 @@ or a topology fault dumps the installed crash flight recorder
 ``telemetry.use(iter_stats=)`` carries the counters' digest in
 ``RunReport.counters``.  Not ported yet: the elastic path (a TOPOLOGY
 fault re-placing the run on the surviving devices, ``elastic=`` / the
-CLI's ``-elastic``: ROADMAP A6) and the heartbeat sync (``heartbeat=``:
-A6); each raises NotPortedError when asked for.
+CLI's ``-elastic``: ROADMAP A6) and the supervisor's per-segment
+heartbeat sync across a mesh (``heartbeat=``: A6; the board itself,
+heartbeat.py, is ported); each raises NotPortedError when asked for.
 """
 
 from __future__ import annotations
@@ -109,16 +110,22 @@ def classify(exc: BaseException) -> str:
     outrank every message scan: first the injected faults, the port's
     and torch's own errors (FATAL), the watchdog and guard errors and a
     corrupt checkpoint; then the message scans, a sticky CUDA error
-    (FATAL) before the transient words.  The types that come with later
-    items (the fleet's AdmissionError, the audit's AuditError, the
-    heartbeat's WorkerLostError: ROADMAP A11b, A12, A6) are not
-    classified here until those items land."""
-    from lux_tpu_torch import checkpoint, debug, faults, health
+    (FATAL) before the transient words.  A lost replica or peer
+    (InjectedWorkerKill, heartbeat.WorkerLostError) is TOPOLOGY; the
+    fleet's typed shed (fleet.AdmissionError) is FATAL before any scan:
+    a shed is a decision, and retrying it would re-admit a query the
+    tier rejected (its message says 'deadline').  The audit's
+    AuditError comes with ROADMAP A12 and is not classified here."""
+    from lux_tpu_torch import (checkpoint, debug, faults, fleet, health,
+                               heartbeat)
 
-    if isinstance(exc, faults.InjectedDeviceLoss):
+    if isinstance(exc, (faults.InjectedDeviceLoss, faults.InjectedWorkerKill,
+                        heartbeat.WorkerLostError)):
         return TOPOLOGY
     if isinstance(exc, faults.InjectedWorkerCrash):
         return RETRYABLE
+    if isinstance(exc, fleet.AdmissionError):
+        return FATAL
     if isinstance(exc, _fatal_types()):
         return FATAL
     if isinstance(exc, health.HealthError):

@@ -96,19 +96,24 @@ def _refuse(what: str, item: str):
 class Request:
     """One query: ``source`` for sssp/components (and one-hot
     pagerank); ``reset`` [nv] overrides it for personalized pagerank.
-    ``priority`` / ``deadline_s`` are admission fields
-    (``PriorityCollector`` orders by them; a plain Server ignores
-    them)."""
+    ``tenant`` / ``priority`` / ``deadline_s`` are admission fields (the
+    fleet quotes quotas per tenant; ``PriorityCollector`` orders by
+    priority and deadline; a plain Server ignores them)."""
     qid: int
     kind: str
     source: int | None = None
     reset: np.ndarray | None = None
     t_enqueue: float = 0.0
+    tenant: str = "default"
     priority: int = 0
     deadline_s: float | None = None
     # live graphs: the epoch the query was admitted at, pinned for its
     # whole life (None: a static graph)
     epoch: int | None = None
+    # skip the answer-cache lookup (retirement still fills the cache):
+    # the fleet's warm and canary queries must run their replica's own
+    # engine, not a sibling's cached answer
+    no_cache: bool = False
 
 
 @dataclasses.dataclass
@@ -555,7 +560,7 @@ class _RunnerBase:
     def _serve_cached(self, req: Request) -> bool:
         """Answer ``req`` from the answer cache when it can, with no
         column and no engine work."""
-        if self.cache is None:
+        if self.cache is None or req.no_cache:
             return False
         now = time.monotonic()
         ent = self.cache.get(self.kind, req, now)

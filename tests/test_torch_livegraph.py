@@ -16,8 +16,10 @@ mutation streams, made from numpy seeds, on the CPU:
   generation;
 - a live Server drain with mutations between waves equal to the
   reference Server's, admission epochs included;
-- the new oracles equal the reference's, and the names still refused
-  name ROADMAP A11b or A12.
+- the new oracles equal the reference's, the names ROADMAP A11b lifted
+  (the fleet, the journal, the kill plan, the fleet crash, the replica
+  ledger) equal the reference's, and the name still refused names
+  ROADMAP A12.
 
 Graphs are R-MAT 8 and 9 (edge factor 8), one or two parts; weights
 are integer-valued float32 (1..5), so every distance is exact."""
@@ -742,24 +744,104 @@ def test_oracles_equal_reference(lux_ref, pair, oracle):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("name,item", [
-    ("fleet", "A11b"), ("journal", "A11b"), ("ReplicaKillPlan", "A11b"),
-    ("InjectedFleetCrash", "A11b"), ("replica_ledger", "A11b"),
-    ("register_audit", "A12")])
+@pytest.mark.parametrize("name,item", [("register_audit", "A12")])
 def test_remaining_refusals(pair, name, item):
-    import lux_tpu_torch
-    from lux_tpu_torch import memwatch
     g, _rg = pair[False]
     with pytest.raises(NotPortedError, match=item):
-        if name in ("fleet", "journal"):
-            getattr(lux_tpu_torch, name)
-        elif name == "replica_ledger":
-            memwatch.replica_ledger(object(), object())
-        elif name == "register_audit":
-            LiveGraph(g).register_audit(
-                sssp.build_engine(g, 0, device=CPU))
-        else:
-            getattr(faults, name)
+        LiveGraph(g).register_audit(sssp.build_engine(g, 0, device=CPU))
+
+
+def _kill_trace(mod, action):
+    """Every replica boundary of a ReplicaKillPlan -> what it raised."""
+    plan = mod.ReplicaKillPlan({"r0": 2, "r1": 1}, action=action,
+                               flap_count=2)
+    out = []
+    for name in ("r0", "r1", "r0", "r1", "r0", "r0", "r1", "r0"):
+        try:
+            plan.fire(name)
+            out.append(None)
+        except BaseException as e:          # InjectedFleetCrash too
+            out.append((type(e).__name__, getattr(e, "replica", None)))
+    return out, plan.fired, plan.boundaries
+
+
+@pytest.mark.parametrize("name", ["fleet", "journal", "ReplicaKillPlan",
+                                  "InjectedFleetCrash", "replica_ledger"])
+def test_lifted_fleet_names_equal_reference(lux_ref, pair, tmp_path, name):
+    """The five names ROADMAP A11b lifted, each held to the reference:
+    the fleet's shed vocabulary on a live fleet, the journal's bytes,
+    the kill plan's firing schedule, the fleet crash's type and verdict,
+    and a live replica's ledger."""
+    from lux_tpu_torch import fleet, journal, memwatch, resilience
+    g, rg = pair[False]
+    if name == "fleet":
+        for k in ("SHED_NO_CAPACITY", "SHED_BROWNOUT", "SHED_QUOTA",
+                  "SHED_QUEUE_FULL", "SHED_DEADLINE", "SHED_RETRIES",
+                  "SHED_DELTA_FULL", "SHED_MEMORY", "SHED_RESET_UNAVAILABLE",
+                  "SHED_EPOCH_FOLDED", "BURN_WEIGHT", "REMOTE_POLL_S",
+                  "REMOTE_QUEUE_FACTOR"):
+            assert getattr(fleet, k) == getattr(lux_ref.fleet, k)
+        errs = []
+        for mod, lg_mod, graph in ((fleet, livegraph, g),
+                                   (lux_ref.fleet, lux_ref.livegraph, rg)):
+            lv = lg_mod.LiveGraph(graph, capacity=4)
+            kw = {"device": CPU} if mod is fleet else {}
+            flt = mod.FleetServer(graph, replicas=1, batch=2, live=lv, **kw)
+            flt.mutate([1, 2, 3], [4, 5, 6])
+            with pytest.raises(mod.AdmissionError) as ei:
+                flt.mutate([1, 2], [7, 8])          # the block is full
+            errs.append((str(ei.value), ei.value.reason,
+                         [(e.qid, e.kind, e.reason) for e in flt.shed_records]))
+        assert errs[0] == errs[1]
+        assert errs[0][1] == fleet.SHED_DELTA_FULL
+    elif name == "journal":
+        files = []
+        for jmod, smod in ((journal, serve), (lux_ref.journal, lux_ref.serve)):
+            path = str(tmp_path / f"{len(files)}.journal")
+            j = jmod.AdmissionJournal(path, nv=g.nv)
+            j.append_admit(smod.Request(qid=0, kind="sssp", source=4,
+                                        epoch=2, tenant="paid"))
+            j.append_retire(0, "shed")
+            j.close()
+            files.append(open(path, "rb").read())
+        assert files[0] == files[1]
+    elif name == "ReplicaKillPlan":
+        for k in ("WORKER_KILL", "DEVICE_LOSS", "FLEET_CRASH",
+                  "REPLICA_FLAP"):
+            assert getattr(faults, k) == getattr(lux_ref.faults, k)
+            assert _kill_trace(faults, getattr(faults, k)) \
+                == _kill_trace(lux_ref.faults, getattr(faults, k))
+        assert faults.HARD_KILL_CODE == lux_ref.faults.HARD_KILL_CODE
+        with pytest.raises(ValueError):
+            faults.ReplicaKillPlan({"r0": 1}, action=faults.CRASH)
+    elif name == "InjectedFleetCrash":
+        err = faults.InjectedFleetCrash("x", replica="r1")
+        ref = lux_ref.faults.InjectedFleetCrash("x", replica="r1")
+        assert not isinstance(err, Exception)
+        assert isinstance(err, BaseException) and err.replica == "r1"
+        assert resilience.classify(err) == lux_ref.resilience.classify(ref)
+        kill = faults.InjectedWorkerKill("replica died", (2,))
+        assert kill.lost_devices == (2,)
+        assert resilience.classify(kill) == resilience.TOPOLOGY \
+            == lux_ref.resilience.classify(
+                lux_ref.faults.InjectedWorkerKill("replica died", (2,)))
+    else:
+        leds = []
+        for mod, lg_mod, mw, graph in (
+                (fleet, livegraph, memwatch, g),
+                (lux_ref.fleet, lux_ref.livegraph, lux_ref.memwatch, rg)):
+            lv = lg_mod.LiveGraph(graph, capacity=16)
+            lv.append_edges([1, 2], [3, 4])
+            kw = {"device": CPU} if mod is fleet else {}
+            flt = mod.FleetServer(graph, replicas=1, batch=2, live=lv, **kw)
+            flt.warm(["sssp"])
+            leds.append(mw.replica_ledger(flt, flt._replicas[0]))
+        ours, theirs = leds
+        assert ours.where == theirs.where == "replica:r0"
+        shared = {k: v for k, v in ours.terms.items() if "_port_" not in k}
+        assert shared == theirs.terms
+        assert any(k.startswith("live_") for k in shared)
+        assert any(k.startswith("sssp_port_") for k in ours.terms)
 
 
 def test_wal_header_matches_reference(lux_ref, tmp_path):

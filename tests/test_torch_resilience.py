@@ -64,13 +64,22 @@ def _shared_cases(mod):
         mod.faults.InjectedDeviceLoss("devices [3] unavailable", [3]),
         RuntimeError("device 3 lost during execution"),
         RuntimeError("heartbeat deadline exceeded for task 2"),
+        # the serving fleet's (ROADMAP A11b): a lost replica is
+        # TOPOLOGY, a typed shed FATAL before the scan can read
+        # 'deadline' in its message
+        mod.faults.InjectedWorkerKill("replica r1 died", [0]),
+        mod.heartbeat.WorkerLostError([1], 4, 3.0),
+        mod.fleet.AdmissionError(3, "sssp", "free", "deadline",
+                                 projected_wait_s=2.0, deadline_s=0.5),
     ]
 
 
-@pytest.mark.parametrize("i", range(22))
+@pytest.mark.parametrize("i", range(25))
 def test_classify_equals_reference(lux_ref, i):
+    from lux_tpu_torch import fleet, heartbeat
     port = _shared_cases(__import__("types").SimpleNamespace(
-        faults=faults, debug=debug, checkpoint=checkpoint, health=health))
+        faults=faults, debug=debug, checkpoint=checkpoint, health=health,
+        heartbeat=heartbeat, fleet=fleet))
     ref = _shared_cases(lux_ref)
     assert resilience.classify(port[i]) == lux_ref.resilience.classify(
         ref[i]), repr(port[i])
@@ -159,14 +168,13 @@ def test_seeded_plans_equal_reference(lux_ref):
 
 
 def test_unported_drills_refused_by_name():
-    for name, item in (("ReplicaKillPlan", "A11b"),
-                       ("InjectedFleetCrash", "A11b"),
-                       ("InjectedWorkerKill", "A6")):
-        with pytest.raises(NotPortedError, match=item):
-            getattr(faults, name)
-    # the live-graph drills are ported (ROADMAP A11a;
-    # tests/test_torch_livegraph.py)
+    # the live-graph and fleet drills are ported (ROADMAP A11a, A11b;
+    # tests/test_torch_livegraph.py, tests/test_torch_fleet.py)
     assert callable(faults.MutationFaultPlan) and callable(faults.tear_wal)
+    assert callable(faults.ReplicaKillPlan)
+    assert issubclass(faults.InjectedFleetCrash, BaseException)
+    assert issubclass(faults.InjectedWorkerKill, RuntimeError)
+    # a worker process of a device mesh dying stays refused (A6)
     with pytest.raises(NotPortedError, match="A6"):
         faults.FaultPlan({0: faults.WORKER_KILL})
     eng = object()
