@@ -193,11 +193,16 @@ Phases, each printing one JSON line:
             blocks (1 GB of D a block) against the reference's;
 15. batch   kernel B1's batched form (csrc/chunk_partials_batched.cu,
             [C, E, B] -> [C, W, B]) against its plain version on
-            synthetic shapes (B in {1, 3, 8, 64}, sorted and unsorted
-            rows, E % 4 != 0, C = 0, unaligned bases, lanes outside
-            [0, W), int32 extremes, NaN for min/max; f32 sums within
-            E * 2^-23 * max|v|, the rest bit-equal; three launches
-            bit-equal; a strided view refused); then bench.py's
+            synthetic shapes (B in {1, 2, 3, 4, 8, 9, 16, 64}: each
+            column group and a partial one; sorted and unsorted rows,
+            paged-like E = 128 rows at ~95% pads with whole all-pad
+            steps, rows switching between sorted and unsorted steps,
+            threads whose entries descend, E % 4 != 0, C = 0,
+            unaligned bases, lanes outside [0, W), int32 extremes, NaN
+            for min/max; f32 sums within E * 2^-23 * sum|v| over the
+            lane, the rest bit-equal; three launches bit-equal at B = 4
+            and 8 sorted and on the paged-like rows; a strided view
+            refused); then bench.py's
             ksssp-batch@8 and ppr-batch@8 (bench.py:941-976; run ppr,
             the serve phase, then ksssp, printed in that order) uncut: R-MAT
             one scale under --scale (20), --ef, --seed, one part, no
@@ -3838,29 +3843,17 @@ SERVE_SLO_MS = {"sssp": 250.0, "components": 250.0,
                 "pagerank": 1000.0}          # bench.py's -slo-ms default
 
 
-def _lane_abs_sums(torch, vals, rel, W):
-    """S[c, w, b]: the sum of |vals[c, e, b]| over the entries with
-    rel[c, e] == w, in float64."""
-    C, E, B = vals.shape
-    lane = rel.long()
-    lane = torch.where((lane >= 0) & (lane < W), lane, W)
-    idx = (torch.arange(C, device=vals.device)[:, None] * (W + 1) + lane)
-    out = torch.zeros((C * (W + 1), B), dtype=torch.float64,
-                      device=vals.device)
-    out.scatter_add_(0, idx.reshape(-1, 1).expand(C * E, B),
-                     vals.double().abs().reshape(C * E, B))
-    return out.view(C, W + 1, B)[:, :W]
-
-
 def _check_batched_case(torch, name, vals, rel, W, kind, plain_on=None):
     """B1's batched form against its plain version (on ``plain_on``,
     default the inputs' device): f32 sums element by element within E *
     2^-23 * S[c, w, b], S the sum of |v| over the same lane in float64
     (the kernel folds each lane in ascending e, the
     plain scatter in another order; each order's error is under half
-    that), everything else bit-equal."""
+    that; ``chunk_partials_batched_sum_tolerance``), everything else
+    bit-equal."""
     from lux_tpu_torch.ops.chunk_reduce import (
-        chunk_partials_batched, chunk_partials_batched_plain)
+        chunk_partials_batched, chunk_partials_batched_plain,
+        chunk_partials_batched_sum_tolerance)
     plain_on = plain_on or vals.device
     got = chunk_partials_batched(vals, rel, W, kind)
     want = chunk_partials_batched_plain(
@@ -3874,10 +3867,8 @@ def _check_batched_case(torch, name, vals, rel, W, kind, plain_on=None):
         err = 0.0 if ok else float(
             (got.double() - want.double()).abs().nan_to_num().max())
     else:
-        E = vals.shape[1]
-        mag = _lane_abs_sums(torch, vals, rel, W)
         diff = (got.double() - want.double()).abs()
-        bound = E * 2.0 ** -23 * mag
+        bound = chunk_partials_batched_sum_tolerance(vals, rel, W)
         err = float(diff.max()) if got.numel() else 0.0
         ok = bool((diff <= bound).all())
         tol = "per element E * 2^-23 * sum|v| over the lane"
@@ -3903,13 +3894,18 @@ def check_batched_deterministic(torch, name, vals, rel, W, kind):
 
 def b1_batched_cases(torch, gen, dev) -> list:
     """B1's batched form against its plain version on the shapes its
-    design splits on: B in {1, 3, 8, 64} (the 16 B path where B % 4 ==
-    0, scalar loads else), sorted tiled-like rows with pads at the
-    tail, unsorted rows (the read-modify-write path), E in {1, 3, 33,
-    130} (E % 4 != 0), all-pad and empty-lane chunks, lanes outside [0,
-    W), unaligned value and lane bases, C = 0, int32 at INT32_MIN /
-    INT32_MAX and wrapping sums, NaN values for min and max; three
-    launches bit-equal; a strided view refused."""
+    design splits on: B in {1, 2, 3, 4, 8, 9, 16, 64} (column groups of
+    1, 2, 4 and 8 with vector loads where whole, a partial last group
+    at B = 3 and 9, several groups at 9, 16 and 64), sorted tiled-like
+    rows with pads at the tail (the scan), unsorted rows (the match
+    groups), paged-like E = 128 rows at ~95% pads with whole all-pad
+    steps, rows whose steps switch between sorted and unsorted, rows
+    whose threads' entries descend (1, 0, 1, 0, ...), E in
+    {1, 3, 33, 130} (a partial step), all-pad and empty-lane chunks,
+    lanes outside [0, W), unaligned value and lane bases, C = 0, int32
+    at INT32_MIN / INT32_MAX and wrapping sums, NaN values for min and
+    max; three launches bit-equal at B = 4 and 8 sorted and on the
+    paged-like rows; a strided view refused."""
     from lux_tpu_torch.ops.chunk_reduce import (KernelInputError,
                                                 chunk_partials_batched)
     W, cases = 128, []
@@ -3990,9 +3986,69 @@ def b1_batched_cases(torch, gen, dev) -> list:
     for kind in ("min", "max"):
         cases.append(_check_batched_case(torch, f"nan/{kind}", v, rel, W,
                                          kind, plain_on="cpu"))
+    # the fleet's regime (B = 4, 2 on sorted E = 512 rows), a column
+    # group with a one-column remainder (B = 9) and two whole groups (16)
+    for B in (2, 4, 9, 16):
+        for sort in ((True,) if B < 8 else (True, False)):
+            e = 512 if sort else 128
+            rel = lanes(C if B < 16 else 503, e, sort)
+            for dtype in (torch.float32, torch.int32):
+                for kind in ("sum", "min", "max"):
+                    cases.append(_check_batched_case(
+                        torch, f"B{B}_{'sorted' if sort else 'unsorted'}/"
+                               f"{str(dtype)[6:]}_{kind}",
+                        values(rel.shape[0], e, B, dtype), rel, W, kind))
+
+    def paged_like(c):
+        # the paged rows' regime: E = W = 128, lanes in source order,
+        # ~95% pads, whole all-pad steps (every other row's second and
+        # fourth steps), a row with one live entry
+        r = torch.randint(0, W, (c, 128), generator=gen, device=dev)
+        r = torch.where(torch.rand((c, 128), generator=gen, device=dev)
+                        < 0.95, -1, r)
+        r[::2, 32:64] = -1
+        r[::2, 96:] = -1
+        r[1::9] = -1
+        r[1::9, 77] = 3
+        return r.to(torch.int8).contiguous()
+
+    rel_paged = paged_like(C)
+    for B in (4, 8):
+        for dtype in (torch.float32, torch.int32):
+            for kind in ("sum", "min", "max"):
+                cases.append(_check_batched_case(
+                    torch, f"paged_like_B{B}/{str(dtype)[6:]}_{kind}",
+                    values(C, 128, B, dtype), rel_paged, W, kind))
+    # sorted rows whose odd steps are reversed: steps switch between the
+    # scan and the match groups within a row
+    rel = lanes(C, 512, True).view(C, 16, 32)
+    rel[:, 1::2] = rel[:, 1::2].flip(2)
+    rel = rel.reshape(C, 512).contiguous()
+    for B in (4, 8):
+        for kind in ("sum", "min", "max"):
+            cases.append(_check_batched_case(
+                torch, f"mixed_steps_B{B}/f32_{kind}",
+                values(C, 512, B, torch.float32), rel, W, kind))
+    # lanes 1, 0, 1, 0, ... over a row's first 64 entries: a thread's
+    # entries descend (B <= 4 holds several) though no thread's first
+    # lane falls below the tail below it
+    rel = lanes(C, 128, False)
+    rel[::3, :64] = (1 - torch.arange(64, device=dev) % 2).to(torch.int8)
+    for B in (1, 2, 4):
+        for dtype, kind in ((torch.float32, "sum"), (torch.float32, "min"),
+                            (torch.int32, "sum")):
+            cases.append(_check_batched_case(
+                torch, f"descending_pairs_B{B}/{str(dtype)[6:]}_{kind}",
+                values(C, 128, B, dtype), rel, W, kind))
     v = values(C, 512, 8, torch.float32)
     cases.append(check_batched_deterministic(torch, "B8_sorted_sum", v,
                                              lanes(C, 512, True), W, "sum"))
+    cases.append(check_batched_deterministic(
+        torch, "B4_sorted_sum", values(C, 512, 4, torch.float32),
+        lanes(C, 512, True), W, "sum"))
+    cases.append(check_batched_deterministic(
+        torch, "paged_like_B8_sum", values(C, 128, 8, torch.float32),
+        rel_paged, W, "sum"))
     strided = values(C, 512, 16, torch.float32)[:, :, ::2]
     try:
         chunk_partials_batched(strided, lanes(C, 512, True), W, "sum")
@@ -4007,18 +4063,15 @@ def b1_batched_bound(torch, vals, rel, W) -> dict:
     """The batched B1's least time on these inputs: bytes = every lane
     id once + the B values of every entry that matches a lane (a pad's
     values are never needed) + the output written once, at 3.35 TB/s;
-    operations = one combine per live value, at the f32 rate."""
-    C, E, B = vals.shape
-    live = int(((rel >= 0) & (rel.to(torch.int16) < W)).sum())
-    isz = vals.element_size()
-    bytes_moved = C * E + live * B * isz + C * W * B * isz
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = live * B / FP32_OPS_PER_S * 1e3
+    operations = one combine per live value, at the f32 rate
+    (``chunk_partials_batched_traffic`` counts the bytes)."""
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials_batched_traffic
+    traffic = chunk_partials_batched_traffic(vals, rel, W)
+    t_bytes = traffic["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = traffic["live_entries"] * vals.shape[2] / FP32_OPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": bytes_moved, "live_entries": live,
-            # every value read, pads included
-            "all_values_bytes": C * E * B * isz + C * E + C * W * B * isz}
+            **traffic}
 
 
 def colfilter_oracle(torch, g, iters: int, device="cuda") -> np.ndarray:

@@ -10,7 +10,7 @@ loaded.  Nothing is built or imported when this module is imported:
 the CPU tests import every module, and there is no ``nvcc`` there.
 
 ``build()`` compiles every kernel not built yet, one ``nvcc`` per
-source, all started together; ``load(name)`` builds on demand and
+source (per part of a source in ``PARTS``), all started together; ``load(name)`` builds on demand and
 returns the library with ``argtypes``/``restype`` set on every C
 function (without them ctypes would pass a Python int as 32 bits and
 cut a pointer); ``launch(name, *args)`` calls kernel ``name``'s
@@ -26,6 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -33,6 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a part's object: the same flags, compiled only
+PART_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -85,6 +88,13 @@ KERNELS = {
 }
 
 
+# kernel name -> parts: its source is compiled that many times at once,
+# with -DLUX_PART=0, 1, ..., and the objects are linked into its library
+# (the source says what each part holds).  A source with many template
+# forms is otherwise the build's longest nvcc.
+PARTS = {"chunk_partials_batched": 3}
+
+
 class KernelBuildError(RuntimeError):
     """nvcc is missing, or it refused a kernel source."""
 
@@ -115,13 +125,16 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    if name in PARTS:
+        h.update(f"parts {PARTS[name]}".encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names=None) -> dict:
     """Compile the kernels in ``names`` (default: all) that are not
-    built yet, one nvcc process per source, all started together.
+    built yet, one nvcc process per source (per part of a source in
+    ``PARTS``, whose objects are then linked), all started together.
     Returns {name: {"seconds", "path", "ptxas"}} (seconds 0.0 and no
     compiler output for a kernel that was already built)."""
     names = list(KERNELS if names is None else names)
@@ -133,23 +146,57 @@ def build(names=None) -> dict:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / KERNELS[name][0])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, out, time.perf_counter())
+        src = str(CSRC / KERNELS[name][0])
+        if name in PARTS:
+            objs = [out.with_name(f"{out.stem}.part{k}.{os.getpid()}.o")
+                    for k in range(PARTS[name])]
+            cmds = [[nvcc_path(), *PART_FLAGS, f"-DLUX_PART={k}", "-o",
+                     str(obj), src] for k, obj in enumerate(objs)]
+        else:
+            objs = []
+            cmds = [[nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), src]]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        running[name] = (procs, objs, tmp, out, time.perf_counter())
     failed = []
-    for name, (proc, tmp, out, t0) in running.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)          # atomic: readers never see a partial
-        report[name] = {"seconds": secs, "path": str(out), "ptxas": log}
+    # each kernel is waited for (and its parts linked) on its own thread,
+    # so that its seconds end when its own nvcc processes do
+    with ThreadPoolExecutor(max(1, len(running))) as pool:
+        done = {name: pool.submit(_finish, *job)
+                for name, job in running.items()}
+    for name, fut in done.items():
+        secs, log, code, out = fut.result()
+        if code != 0:
+            failed.append(f"{name} (exit {code}):\n{log}")
+        else:
+            report[name] = {"seconds": secs, "path": str(out), "ptxas": log}
     if failed:
         raise KernelBuildError("nvcc failed for " + "\n".join(failed))
     return report
+
+
+def _finish(procs, objs, tmp, out, t0):
+    """Wait for one kernel's nvcc processes, link its parts' objects if
+    it has parts, and move the library into place.  Returns (seconds,
+    compiler output, exit code, library path)."""
+    logs, code = [], 0
+    for proc in procs:
+        log, _ = proc.communicate()
+        logs.append(log)
+        code = code or proc.returncode
+    if objs and code == 0:
+        link = subprocess.run([nvcc_path(), "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+        code = link.returncode
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    secs = time.perf_counter() - t0
+    if code == 0:
+        os.replace(tmp, out)          # atomic: readers never see a partial
+    return secs, "".join(logs), code, out
 
 
 def load(name: str) -> ctypes.CDLL:

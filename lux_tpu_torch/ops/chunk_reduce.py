@@ -215,3 +215,38 @@ def chunk_partials_batched(vals: torch.Tensor, rel_dst: torch.Tensor,
 
 
 chunk_partials_batched.launches = 0
+
+
+def chunk_partials_batched_traffic(vals: torch.Tensor, rel_dst: torch.Tensor,
+                                   W: int) -> dict:
+    """The bytes the batched reduce must move on these inputs (its byte
+    bound): every lane id once, the B values of every entry whose lane
+    is in [0, W) (a pad's values are never needed) and the output once.
+    Also the live entries, and the bytes with every value read, pads
+    included."""
+    C, E, B = vals.shape
+    live = int(((rel_dst >= 0) & (rel_dst.to(torch.int16) < W)).sum())
+    isz = vals.element_size()
+    out_bytes = C * W * B * isz
+    return {"bytes": C * E + live * B * isz + out_bytes,
+            "live_entries": live,
+            "all_values_bytes": C * E + C * E * B * isz + out_bytes}
+
+
+def chunk_partials_batched_sum_tolerance(vals: torch.Tensor,
+                                         rel_dst: torch.Tensor,
+                                         W: int) -> torch.Tensor:
+    """Per element of a float32 ``sum`` [C, W, B], the error allowed
+    against another fold order: E * 2^-23 times the sum of |v| over
+    the entries of that lane and column, in float64 (an f32 sum of n
+    values in any order is within (n - 1) * 2^-24 of that sum, so two
+    orders differ by less)."""
+    C, E, B = vals.shape
+    lane = rel_dst.long()
+    lane = torch.where((lane >= 0) & (lane < W), lane, W)
+    idx = torch.arange(C, device=vals.device)[:, None] * (W + 1) + lane
+    mag = torch.zeros((C * (W + 1), B), dtype=torch.float64,
+                      device=vals.device)
+    mag.scatter_add_(0, idx.reshape(-1, 1).expand(C * E, B),
+                     vals.double().abs().reshape(C * E, B))
+    return E * 2.0 ** -23 * mag.view(C, W + 1, B)[:, :W]

@@ -1,7 +1,7 @@
-"""The B1 A/B tool's variants stay in step with the kernel source:
-each variant's edits apply exactly once to csrc/chunk_partials.cu,
-and an edit whose anchor has gone raises instead of timing the source
-unchanged."""
+"""The B1 A/B tool's variants stay in step with the kernel sources:
+each variant's edits apply exactly once to csrc/chunk_partials.cu (and,
+for ``--batched``, to csrc/chunk_partials_batched.cu), and an edit
+whose anchor has gone raises instead of timing the source unchanged."""
 
 from pathlib import Path
 
@@ -9,15 +9,21 @@ import pytest
 
 from lux_tpu_torch.tools import b1_ab
 
-SOURCE = (Path(__file__).resolve().parent.parent / "lux_tpu_torch" / "csrc"
-          / "chunk_partials.cu").read_text()
+CSRC = Path(__file__).resolve().parent.parent / "lux_tpu_torch" / "csrc"
+SOURCE = (CSRC / "chunk_partials.cu").read_text()
+BATCHED_SOURCE = (CSRC / "chunk_partials_batched.cu").read_text()
+
+CASES = ([pytest.param(SOURCE, b1_ab.VARIANTS[n], id=n)
+          for n in sorted(b1_ab.VARIANTS)]
+         + [pytest.param(BATCHED_SOURCE, b1_ab.BATCHED_VARIANTS[n],
+                         id=f"batched_{n}")
+            for n in sorted(b1_ab.BATCHED_VARIANTS)])
 
 
-@pytest.mark.parametrize("name", sorted(b1_ab.VARIANTS))
-def test_variant_applies_once(name):
-    edits = b1_ab.VARIANTS[name]
-    out = b1_ab.variant_source(SOURCE, edits)
-    assert (out == SOURCE) == (edits == [])
+@pytest.mark.parametrize("source, edits", CASES)
+def test_variant_applies_once(source, edits):
+    out = b1_ab.variant_source(source, edits)
+    assert (out == source) == (edits == [])
     for anchor, repl in edits:
         assert repl in out
 
