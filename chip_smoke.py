@@ -82,7 +82,34 @@ Phases, each printing one JSON line:
             128), flat, pair rows monolithic and streamed and paged,
             each within rtol 1e-5 of the float64 oracle with no hand
             kernel launched, and page-major refused with the
-            reference's ValueError;
+            reference's ValueError; and exchange="owner": PageRank (B1
+            once a step over every part's owner chunks), hop and
+            weighted SSSP, components with pair rows, and the batched
+            k-source SSSP and personalized PageRank (B1's batched form
+            once a dense iteration), each against its oracle;
+9b. owner   the exchange sweep: the PageRank pull step with
+            exchange="gather" and "owner" in turns on R-MAT --scale with
+            1 part (the main engine) and 4 parts and on R-MAT --scale + 2
+            with 4 parts, beside what exchange="auto" resolves to, three
+            iterations of each agreeing; the streamed forms against
+            their monolithic runs (stream_msgs on the pull and push
+            tiled paths of the main graph, B1 a block of 1,024 chunks;
+            the 4-part owner layout's fused streamed combine with
+            ops/owner.STREAM_MSG_BYTES lowered, then restored); then
+            bench.py's pagerank-mp (R-MAT --scale + 2, ef 16, 4 parts,
+            pair_relabel, pair rows at threshold 16, min_fill 24,
+            exchange="owner"; 10 iterations against the float64 oracle
+            at MAIN_TOL, B1 once over the owner chunks plus once a pair
+            block each step; layout stats and build seconds, step and
+            host enqueue ms, layer times with both owner gather forms in
+            turns, peak memory against memwatch's ledger) and sssp-mp
+            on the same relabelled graph (hop SSSP from input vertex 0,
+            or the smallest input id with an out-edge, labels bit-equal
+            to a BFS, B1 only in dense iterations, host syncs counted);
+            B1 at the owner chunks (f32 sum; sssp-mp's int32 min) and at
+            one streamed block against its plain version, two launches
+            bit-equal (the kernels line's chunk_partials@owner,
+            @owner_sssp, @owner_block entries);
 10. pairs   bench.py's pagerank config on the main graph: pair_relabel,
             pair_threshold 16, min_fill 24, tile_e 128, through
             pagerank.build_engine once with each pair_stream setting
@@ -169,7 +196,8 @@ Phases, each printing one JSON line:
             B1 on the path's own int32 residual chunks and pair rows
             (min) against its plain version, two launches bit-equal (the
             kernels line's chunk_partials@sssp entry);
-13. cc      bench.py's cc config: R-MAT one scale under --scale,
+13. cc      bench.py's cc config: R-MAT two scales under --scale (19;
+            bench.py's cc runs 20),
             symmetrized, pair_relabel, pair_threshold 16, min_fill 24,
             one part, through components.build_engine(...); the same
             checks with max, labels bit-equal to scipy's components
@@ -264,7 +292,7 @@ Phases, each printing one JSON line:
             every case;
 19. reorder (runs after pagemajor) bench.py's gather-ab path on its
             community shape (bench.py:798-869), uncut:
-            community_graph(one scale under --scale: 20, edge factor
+            community_graph(three scales under --scale: 18, edge factor
             16, community_scale 8, p_in 0.98, --seed, scrambled) and
             three sides: "none" (degree_relabel), page_reorder "native"
             and "hillclimb" (continuing the native side's order:
@@ -283,7 +311,11 @@ Phases, each printing one JSON line:
             iteration each; the step ms, the layers (page fetch, B2, B1,
             class combine, apply) and peak memory; gather="flat" on the
             hillclimb graph as the yardstick (B1 once an iteration, B2
-            never); the .perm sidecar round trip (write_perm_sidecar,
+            never); flat and paged on the hillclimb graph timed on the
+            card alone (``device_ms``: the host's enqueue held off the
+            clock; both steps are host bound here) in turns, three
+            rounds, and gather="auto" required to resolve the faster by
+            median; the .perm sidecar round trip (write_perm_sidecar,
             then Graph.from_file(reorder=True), mmap and native loader,
             equal to the hillclimb graph);
 20. observe (ROADMAP A10a; printed after guarded, gathered as the
@@ -484,6 +516,54 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, hold_ms: float = 40.0) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls after one warm-up,
+    with the host's enqueue off the clock: a spin kernel holds the
+    stream while the calls are enqueued behind it, and the events time
+    the card's work alone from the hold's end (``cuda_ms`` of a step
+    bound by the host's launches times the launches).  The hold must
+    outlast the enqueue; it is doubled until it does, at most thrice."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(10 ** 6)
+    ev[1].record()
+    ev[1].synchronize()
+    cycles_per_ms = 10 ** 6 / ev[0].elapsed_time(ev[1])
+    for _ in range(4):
+        ev[0].record()
+        torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        held_ms = ev[0].elapsed_time(ev[1])
+        if enqueue_ms < 0.8 * held_ms:
+            return ev[1].elapsed_time(ev[2]) / reps
+        hold_ms = 2 * max(hold_ms, enqueue_ms)
+    require(False, f"device_ms: the host took {enqueue_ms:.3f} ms to "
+                   f"enqueue {reps} calls behind a {held_ms:.3f} ms hold")
+
+
+def step_ms_in_turns(args, torch, engs: dict, state,
+                     rounds: int = 3) -> dict:
+    """Two engines' device ms a step on one state (``device_ms`` over
+    ``--reps`` steps), timed in turns (a, b, b, a) ``rounds`` times:
+    the samples by name."""
+    a, b = engs
+    ms = {a: [], b: []}
+    for _ in range(rounds):
+        for name in (a, b, b, a):
+            eng = engs[name]
+            ms[name].append(device_ms(torch, lambda eng=eng: eng.step(state),
+                                      args.reps))
+    return ms
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -999,6 +1079,7 @@ def zero_launches():
     from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
     from lux_tpu_torch.ops.onehot_reduce import onehot_reduce
     chunk_partials.launches = 0
+    chunk_partials.launches_by_e = {}
     chunk_partials_batched.launches = 0
     lane_shuffle.launches = 0
     onehot_reduce.launches = 0      # kernel S9 (a system path: use_mxu)
@@ -1009,6 +1090,13 @@ def batched_launches() -> int:
     keys the single-query phases compare)."""
     from lux_tpu_torch.ops.chunk_reduce import chunk_partials_batched
     return chunk_partials_batched.launches
+
+
+def b1_launches_at(E: int) -> int:
+    """B1's launches at chunk length ``E`` since the counts were last
+    zeroed."""
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    return chunk_partials.launches_by_e.get(E, 0)
 
 
 def read_launches():
@@ -1442,10 +1530,10 @@ def phase_paged(args, torch, g2, sg, mode: str, want, card):
 # defaults (lux_tpu/convert.py:176) and the sides the reorder token
 # takes (bench.py:822-835)
 COMMUNITY_SCALE, COMMUNITY_P_IN = 8, 0.98
-# the community graph's scale under --scale: one (R-MAT 20's size), the
-# "none" side's 35.9M-row plan and the two reorder passes at scale 21
-# took 213 s of the smoke's time limit
-REORDER_SCALE_UNDER = 1
+# the community graph's scale under --scale: three (R-MAT 18's size;
+# one, R-MAT 20's, took 85-99 s, and scale 21 213 s, of the smoke's
+# time limit, which the owner phase needed)
+REORDER_SCALE_UNDER = 3
 REORDER_SIDES = ("none", "native", "hillclimb")
 
 
@@ -1581,10 +1669,19 @@ def phase_reorder(args, torch, card):
     state = eng.init_state()
     flat_step = cuda_ms(lambda: eng.step(state), args.reps)
     counts_by["reorder_flat"] = counts
-    del eng, state
+    # gather="auto" is held to the faster of flat and paged on this
+    # graph.  Both steps are bound by the host's launches here (enqueue
+    # ms = step ms: the two windows above time the host, and one stall
+    # of it decided a comparison), and the rule prices the card's work:
+    # the two are timed on the card alone, in turns, and the medians
+    # compared
+    paged = pagerank.build_engine(g2, sg=sg, gather="paged")
+    turns = step_ms_in_turns(args, torch,
+                             {"flat": eng, "paged": paged}, state)
+    del eng, paged, state
     torch.cuda.empty_cache()
     priced(pricing_gather_auto, args, torch, g2, sg, "community_hillclimb",
-           {"flat": flat_step, "paged": steps["hillclimb"]})
+           {k: float(np.median(v)) for k, v in turns.items()})
     # the .perm sidecar round trip on the hillclimb perm
     with tempfile.TemporaryDirectory() as tmp:
         lux = os.path.join(tmp, "community.lux")
@@ -1615,6 +1712,7 @@ def phase_reorder(args, torch, card):
                               "seconds": round(t_graph, 3)},
           "paged_step_ms": steps,
           "paged_beats_flat": {k: v < flat_step for k, v in steps.items()},
+          "hillclimb_device_step_ms_in_turns": turns,
           "sidecar_round_trip": True, "sidecar_bytes": sidecar_bytes,
           "card": card})
     return counts_by, b1_lines, b2_lines
@@ -1688,13 +1786,72 @@ def phase_parts(args, torch):
             "Rp": peng.pairs.Rp, "classes": len(peng.pairs.classes),
             "max_rel_err": err, "launches": pcounts}
     del peng
+    owner = parts_owner(args, torch, g, want)
     push = parts_push(args, torch, g)
     cf = parts_colfilter(args, torch)
     emit({"phase": "parts", "nv": g.nv, "ne": g.ne, "num_parts": 4,
           "tile_e": 128, "chunks": eng.num_parts * eng.tiles.n_chunks,
           "iters": args.iters, "max_rel_err": float(rel_err.max()),
           "chunk_partials_launches": launches, "paged": paged,
-          "pairs": pairs, "push": push, "colfilter": cf})
+          "pairs": pairs, "owner": owner, "push": push, "colfilter": cf})
+
+
+def parts_owner(args, torch, g, want) -> dict:
+    """exchange="owner" on the parts phase's graph ``g`` with 4 parts:
+    PageRank against ``want``, its float64 oracle (B1 once a step over
+    every part's owner chunks), then the query-batched engines, k-source
+    SSSP (labels bit-equal to a BFS a column) and personalized PageRank
+    (MAIN_TOL against the float64 oracle), each through B1's batched
+    form once a dense iteration and the scalar B1 never."""
+    from lux_tpu_torch.apps import pagerank, sssp
+    out = {}
+    eng = pagerank.build_engine(g, num_parts=4, exchange="owner")
+    (state, counts, _syncs) = counted_sync_run(
+        torch, lambda: eng.run(eng.init_state(), args.iters))
+    err = check_pagerank(g, eng.unpad(state), want, "4-part owner run")
+    require(counts == {"chunk_partials": args.iters, "lane_shuffle": 0,
+                       "chunk_partials_batched": 0},
+            f"4-part owner run launched {counts}")
+    out["pagerank"] = {"owner_chunks": 4 * eng.owner.n_chunks,
+                       "owner_stats": eng.owner.stats, "max_rel_err": err,
+                       "launches": counts}
+    del eng
+    sources = sorted(int(v) for v in np.random.default_rng(
+        BATCH_SOURCE_SEED).choice(g.nv, BATCH_B, replace=False))
+    eng = sssp.build_engine(g, sources=sources, num_parts=4,
+                            exchange="owner")
+    lab0, act0 = eng.init_state()
+    (label, _act, it), counts, _syncs = counted_sync_run(
+        torch, lambda: eng.converge(lab0, act0))
+    levels = bfs_many(g, sources)
+    got = eng.unpad(label)
+    for q, v in enumerate(sources):
+        require(np.array_equal(got[:, q], levels[v]),
+                f"4-part owner ksssp column {q} (source {v}) differs "
+                f"from its BFS")
+    require(counts == {"chunk_partials": 0, "lane_shuffle": 0,
+                       "chunk_partials_batched": it},
+            f"4-part owner ksssp launched {counts} in {it} iterations")
+    out["ksssp_batch"] = {"B": BATCH_B, "iterations": it,
+                          "launches": counts}
+    del eng, label
+    eng = pagerank.build_engine(g, 4, sources=sources, exchange="owner")
+    (state, counts, _syncs) = counted_sync_run(
+        torch, lambda: eng.run(eng.init_state(), args.iters))
+    ref = ppr_oracle(g, pagerank.one_hot_resets(g.nv, sources), args.iters)
+    got = eng.unpad(state)
+    rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)
+    require(np.isfinite(got).all() and np.allclose(got, ref, **MAIN_TOL),
+            f"4-part owner ppr disagrees with the float64 oracle "
+            f"({rel.max():.3e})")
+    require(counts == {"chunk_partials": 0, "lane_shuffle": 0,
+                       "chunk_partials_batched": args.iters},
+            f"4-part owner ppr launched {counts}")
+    out["ppr_batch"] = {"B": BATCH_B, "max_rel_err": float(rel.max()),
+                        "launches": counts}
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def b1_step_paths(rel, W) -> dict:
@@ -2011,11 +2168,19 @@ def components_oracle(g):
 
 def dense_launches(eng) -> dict:
     """Kernel launches of one dense push iteration: B1 once over the
-    chunks (or the paged rows) plus once a pair block; B2 once on the
-    paged paths."""
+    chunks (the tiled or owner chunks, or the paged rows; an owner
+    layout past the stream budget once a block of each part) plus once
+    a pair block; B2 once on the paged paths."""
     from lux_tpu_torch.ops.pairs import stream_blocks
     if eng.page_plan is not None:
         return {"chunk_partials": 1, "lane_shuffle": 1}
+    lay = getattr(eng, "owner", None)
+    if lay is not None and "own_ep" in eng.arrays:   # fused streamed
+        import math
+
+        from lux_tpu_torch.ops.tiled import STREAM_BLOCK_CHUNKS
+        return {"chunk_partials": eng.num_parts * math.ceil(
+            lay.n_chunks / STREAM_BLOCK_CHUNKS), "lane_shuffle": 0}
     pairs = 0 if eng.pairs is None else (
         len(stream_blocks(eng.pairs.classes)) if eng.pair_stream else 1)
     return {"chunk_partials": 1 + pairs, "lane_shuffle": 0}
@@ -2434,9 +2599,15 @@ def phase_sssp(args, torch, g, g2, perm, starts, card):
     return line, counts["chunk_partials"], (eng, label, it, counts)
 
 
+# the cc phase's R-MAT scale under --scale: bench.py's cc runs one under
+# its sssp (R-MAT 20); two (R-MAT 19) give the owner phase the ~25 s it
+# took
+CC_SCALE_UNDER = 2
+
+
 def phase_cc(args, torch, card):
-    """bench.py's cc config (bench.py:1038-1053): R-MAT one scale under
-    --scale (20 by default, as bench.py's cc runs one under its sssp),
+    """bench.py's cc config (bench.py:1038-1053) at R-MAT CC_SCALE_UNDER
+    scales under --scale (19 by default; bench.py runs 20),
     --ef, --seed, symmetrized, pair_relabel (threshold 16), min_fill 24,
     one part; labels held to scipy's components (each one's largest
     relabelled id)."""
@@ -2444,10 +2615,8 @@ def phase_cc(args, torch, card):
     from lux_tpu_torch.convert import rmat_edges
     from lux_tpu_torch.graph import Graph, pair_relabel
     t0 = time.perf_counter()
-    scale = args.scale - 1
+    scale = args.scale - CC_SCALE_UNDER
     src, dst, nv = rmat_edges(scale, args.ef, seed=args.seed)
-    # the batch phases draw the same edges: kept for them
-    RMAT_KEPT[(scale, args.ef, args.seed)] = (src, dst, nv)
     s, d = components.symmetrize(src, dst)
     del src, dst
     g = Graph.from_edges(s, d, nv)
@@ -2530,6 +2699,16 @@ def parts_push(args, torch, g) -> dict:
                 gp, P, starts=starts_p, pair_threshold=16),
                 dict(pair_threshold=16, pair_min_fill=24,
                      pair_stream=False))}
+        # the owner exchange: hop and weighted SSSP on the plain layout,
+        # components with pair rows
+        if app == "cc":
+            variants["owner_pairs"] = (gp, perm_p, ShardedGraph.build(
+                gp, P, starts=starts_p, pair_threshold=16),
+                dict(pair_threshold=16, pair_min_fill=24,
+                     exchange="owner"))
+        else:
+            variants["owner"] = (G, None, ShardedGraph.build(G, P),
+                                 dict(exchange="owner"))
         for vname, (Gv, perm, sg, opts) in variants.items():
             if app == "cc":
                 prog, delta = components.make_program(), None
@@ -2567,6 +2746,459 @@ def parts_push(args, torch, g) -> dict:
             del eng, label, active
         torch.cuda.empty_cache()
     return out
+
+
+# bench.py's pagerank-mp / sssp-mp (bench.py:987-1011, :1056-1077):
+# R-MAT two scales over --scale (23 by default), 4 parts, the exchange
+# pinned to "owner"; the exchange sweep's (scale over --scale, parts)
+OWNER_SCALE_OVER = 2
+OWNER_PARTS = 4
+OWNER_SWEEP = ((0, 1), (0, 4), (OWNER_SCALE_OVER, OWNER_PARTS))
+W_LANES = 128
+
+
+def owner_sweep_case(args, torch, g, P, gather_eng=None,
+                     keep_owner=False) -> tuple:
+    """The PageRank pull step with exchange="gather" and "owner" on one
+    ShardedGraph of ``g`` with ``P`` parts, timed in turns (gather,
+    owner, owner, gather), beside what exchange="auto" resolves to;
+    three iterations of each from the same state agree within rtol
+    2e-5.  ``gather_eng``: a gather engine of ``g`` already built.
+    Returns (the case, the owner engine when ``keep_owner``)."""
+    from lux_tpu_torch.apps import pagerank
+    from lux_tpu_torch.engine.pull import OWNER_AUTO_BYTES, resolve_exchange
+    from lux_tpu_torch.graph import ShardedGraph
+    build = {}
+    engs = {}
+    t0 = time.perf_counter()
+    sg = gather_eng.sg if gather_eng is not None else \
+        ShardedGraph.build(g, P)
+    build["sharded_graph"] = round(time.perf_counter() - t0, 3)
+    for ex in ("gather", "owner"):
+        if ex == "gather" and gather_eng is not None:
+            engs[ex] = gather_eng
+            continue
+        t0 = time.perf_counter()
+        engs[ex] = pagerank.build_engine(g, P, sg=sg, exchange=ex)
+        torch.cuda.synchronize()
+        build[ex] = round(time.perf_counter() - t0, 3)
+    st = engs["gather"].init_state()
+    ms = {"gather": [], "owner": []}
+    for ex in ("gather", "owner", "owner", "gather"):
+        eng = engs[ex]
+        ms[ex].append(cuda_ms(lambda eng=eng: eng.step(st), args.reps))
+    a = engs["gather"].run(st, 3)
+    b = engs["owner"].run(st, 3)
+    torch.cuda.synchronize()
+    rel = float(((a - b).abs() / a.abs().clamp(min=1e-30)).max())
+    require(torch.allclose(a, b, rtol=2e-5, atol=1e-9),
+            f"exchange sweep P={P}: owner and gather disagree ({rel:.3e})")
+    gather_ms, owner_ms = (float(np.mean(ms[k])) for k in ("gather",
+                                                           "owner"))
+    lay = engs["owner"].owner
+    out = {"nv": g.nv, "ne": g.ne, "parts": P,
+           "table_bytes": P * sg.vpad * 4,
+           "auto": resolve_exchange("auto", sg, pagerank.make_program(),
+                                    device=st.device),
+           "auto_off_card": resolve_exchange("auto", sg,
+                                             pagerank.make_program()),
+           "owner_auto_bytes": OWNER_AUTO_BYTES,
+           "gather_step_ms": ms["gather"], "owner_step_ms": ms["owner"],
+           "owner_over_gather": owner_ms / gather_ms,
+           "owner_chunks": P * lay.n_chunks, "owner_stats": lay.stats,
+           "build_seconds": build, "max_rel_diff_3_iters": rel}
+    kept = engs["owner"] if keep_owner else None
+    del engs, a, b
+    torch.cuda.empty_cache()
+    return out, kept
+
+
+def owner_gather_global(torch, state, src):
+    """The gather form the engines do not take, timed beside theirs:
+    one ``index_select`` over the part-major global ids ``s * vpad +
+    src`` on the flat [P * vpad] table (the engines gather a source part
+    at a time from its own shard, ops/owner.gather_messages)."""
+    from lux_tpu_torch.engine.pull import gather_rows
+    P, vpad = state.shape[:2]
+    trail = tuple(state.shape[2:])
+    base = (torch.arange(P, dtype=torch.int32, device=src.device)
+            * vpad).reshape(P, 1, 1)
+    return gather_rows(state.reshape((P * vpad,) + trail),
+                       (src + base).reshape(-1)).view((P, -1) + trail)
+
+
+def owner_layers(args, torch, eng) -> dict:
+    """One owner iteration's layers on the engine's own arrays, each
+    timed alone (CUDA events): the packed slots' decode, the gather in
+    both forms in turns (one index_select a source part, one over the
+    part-major global ids: ``owner_gather_ab``), kernel B1 over every
+    part's owner chunks, the segmented combine, the fold across source
+    parts, the pair rows, the apply, and the whole step with its host
+    enqueue."""
+    from lux_tpu_torch.ops import owner as om
+    from lux_tpu_torch.ops.tiled import combine_chunks, reduce_partials
+    a, lay, reps = eng.arrays, eng.owner, args.reps
+    P, C, E, W = eng.num_parts, lay.n_chunks, lay.E, lay.W
+    kind = eng.program.reduce
+    state = eng.init_state()
+    out = {"decode_ms": cuda_ms(lambda: om.decoded_slots(a), reps)}
+    src, rel = om.decoded_slots(a)
+    forms = {"per_part": lambda: om.gather_messages(state, src),
+             "global": lambda: owner_gather_global(torch, state, src)}
+    ab = {"per_part": [], "global": []}
+    for form in ("per_part", "global", "global", "per_part"):
+        ab[form].append(cuda_ms(forms[form], reps))
+    vals = om.gather_messages(state, src)
+    require(torch.equal(vals, forms["global"]()),
+            "owner gather: the two forms give other messages")
+    out["owner_gather_ab"] = ab
+    out["gather_ms"] = float(np.mean(ab["per_part"]))
+    msgs = eng.program.edge_value(vals.view(P, C, E), None,
+                                  a.get("own_w")).reshape(P * C, E)
+    rel2 = rel.reshape(P * C, E)
+    out["b1_ms"] = cuda_ms(lambda: reduce_partials(msgs, rel2, W, kind),
+                           reps)
+    partials = reduce_partials(msgs, rel2, W, kind)
+    out["segmented_combine_ms"] = cuda_ms(lambda: combine_chunks(
+        partials, lay, a["own_cs"], a["own_lc"], kind, eng._plan), reps)
+    tiles = combine_chunks(partials, lay, a["own_cs"], a["own_lc"], kind,
+                           eng._plan)
+    out["fold_ms"] = cuda_ms(lambda: om.fold_parts(tiles, P, kind), reps)
+    red = om.fold_parts(tiles, P, kind)[:, :eng.vpad]
+    if eng.pairs is not None:
+        flat = state.reshape(-1)
+        out["pair_rows_ms"] = cuda_ms(lambda: eng._pair_red(flat), reps)
+    out["apply_ms"] = cuda_ms(lambda: eng._apply_epilogue(state, red), reps)
+    out["step_ms"] = cuda_ms(lambda: eng.step(state), reps)
+    out["step_host_ms"] = host_ms(torch, lambda: eng.step(state), reps)
+    return out
+
+
+def pagerank_oracle_card(torch, g, iters: int,
+                         device="cuda") -> np.ndarray:
+    """apps/pagerank.reference_pagerank's recurrence in float64 on the
+    card, each iteration's in-edge sums one ``index_add_`` (the numpy
+    oracle's bincount): a second where the numpy oracle takes ~27 s at
+    R-MAT 23."""
+    from lux_tpu_torch.apps.pagerank import ALPHA
+    src, dst = (torch.as_tensor(np.asarray(a, np.int64), device=device)
+                for a in g.edge_arrays())
+    deg = torch.as_tensor(g.out_degrees.astype(np.float64), device=device)
+    nv = g.nv
+    live = deg > 0
+    state = torch.where(live, (1.0 / nv) / deg.clamp(min=1), 1.0 / nv)
+    for _ in range(iters):
+        acc = torch.zeros_like(state).index_add_(0, dst, state[src])
+        pr = (1.0 - ALPHA) / nv + ALPHA * acc
+        state = torch.where(live, pr / deg.clamp(min=1), pr)
+    return state.cpu().numpy()
+
+
+def bfs_levels_card(torch, g, start: int, device="cuda") -> np.ndarray:
+    """bfs_levels on the card: the same level-synchronous BFS over the
+    edge list (int32 hop counts, HOP_INF where unreached)."""
+    from lux_tpu_torch.apps.sssp import HOP_INF
+    src, dst = (torch.as_tensor(np.asarray(a, np.int64), device=device)
+                for a in g.edge_arrays())
+    dist = torch.full((g.nv,), HOP_INF, dtype=torch.int32, device=device)
+    dist[start] = 0
+    level = 0
+    while True:
+        reach = dst[dist[src] == level]
+        reach = reach[dist[reach] == HOP_INF]
+        if reach.numel() == 0:
+            return dist.cpu().numpy()
+        level += 1
+        dist[reach] = level
+
+
+class SharedPairPlans:
+    """Within the block, every engine built on one ShardedGraph takes
+    one pair plan: ``plan_sharded_pairs`` as the engines import it,
+    memoized on (ShardedGraph, threshold, min_fill, kdim) and restored
+    after (the pair plan of R-MAT 23 with 4 parts takes ~47 s on the
+    card's host; pagerank-mp and sssp-mp plan the same)."""
+
+    def __enter__(self):
+        from lux_tpu_torch.engine import pull, push
+        self.mods = (pull, push)
+        self.real = pull.plan_sharded_pairs
+        memo = {}
+
+        def shared(sg, threshold, min_fill=None, kdim=1):
+            key = (id(sg), threshold, min_fill, kdim)
+            if key not in memo:
+                memo[key] = (sg, self.real(sg, threshold, min_fill=min_fill,
+                                           kdim=kdim))
+            return memo[key][1]
+
+        for m in self.mods:
+            m.plan_sharded_pairs = shared
+        self.memo = memo
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.plan_sharded_pairs = self.real
+        self.memo.clear()
+
+
+def owner_b1(args, torch, eng, msgs, rel, name, kind) -> tuple:
+    """B1 at an owner path's own chunks: held against its plain version
+    (``_check_case``), two launches bit-equal, and its kernels-line
+    entry (``b1_line``)."""
+    cases = [_check_case(torch, name, msgs, rel, eng.owner.W, kind),
+             check_deterministic(torch, name, msgs, rel, eng.owner.W, kind)]
+    line = b1_line(args, torch, msgs, rel, eng.owner.W,
+                   f"chunk_partials@{name}", kind)
+    return cases, line
+
+
+def owner_streamed(args, torch, g, main_eng, owner4) -> dict:
+    """The streamed forms on the card, each against its monolithic run:
+    ``stream_msgs`` on the pull engine's tiled path (the main engine,
+    its switch flipped; f32 at MAIN_TOL, its bits reported) and on the
+    push engine's (hop SSSP on the main graph, labels and iterations
+    bit-equal), and the owner layout's fused streamed combine
+    (``owner4``, the sweep's 4-part owner engine, with
+    ops/owner.STREAM_MSG_BYTES lowered under one part's messages, the
+    extraction plan its build would add, then both restored): B1 a
+    block of STREAM_BLOCK_CHUNKS chunks."""
+    import math
+
+    from lux_tpu_torch.apps import sssp
+    from lux_tpu_torch.engine.push import PushEngine
+    from lux_tpu_torch.ops import owner as om
+    from lux_tpu_torch.ops.tiled import STREAM_BLOCK_CHUNKS
+    out = {}
+    t = main_eng.tiles
+    blocks = math.ceil(main_eng.num_parts * t.n_chunks / STREAM_BLOCK_CHUNKS)
+    want = main_eng.run(main_eng.init_state(), args.iters)
+    main_eng.stream_chunks = True
+    try:
+        state, counts, _s = counted_sync_run(
+            torch, lambda: main_eng.run(main_eng.init_state(), args.iters))
+        ms = cuda_ms(lambda: main_eng.step(want), args.reps)
+    finally:
+        main_eng.stream_chunks = False
+    require(counts["chunk_partials"] == blocks * args.iters,
+            f"streamed pull launched {counts} (want {blocks} a step)")
+    require(torch.allclose(state, want, **MAIN_TOL),
+            "streamed pull disagrees with the monolithic run")
+    out["pull"] = {"blocks_per_iter": blocks, "launches": counts,
+                   "bit_equal": bool(torch.equal(state, want)),
+                   "step_ms": ms,
+                   "monolithic_step_ms": cuda_ms(
+                       lambda: main_eng.step(want), args.reps)}
+    v0 = first_out_vertex(g)
+    eng = PushEngine(main_eng.sg, sssp.make_program(v0))
+    label, _a, it, counts, _syncs, sched = converge_counted(torch, eng)
+    eng.stream_chunks = True
+    label2, _a2, it2, counts2, _s2, sched2 = converge_counted(torch, eng)
+    require(it == it2 and sched == sched2 and torch.equal(label, label2),
+            "streamed push converge differs from the monolithic one")
+    require(counts2["chunk_partials"] == blocks * sched2.count("dense"),
+            f"streamed push launched {counts2}")
+    out["push"] = {"iterations": it, "dense": sched.count("dense"),
+                   "launches": counts2, "monolithic_launches": counts}
+    del eng, label, label2
+    lay, a = owner4.owner, owner4.arrays
+    budget = om.STREAM_MSG_BYTES
+    want = owner4.run(owner4.init_state(), args.iters)
+    om.STREAM_MSG_BYTES = lay.n_chunks * lay.E * 4 - 1
+    try:
+        require(lay.streams(), "the lowered budget must stream the layout")
+        ep, et = lay.extract_plan()
+        a["own_ep"] = torch.tensor(ep, device=want.device)
+        a["own_et"] = torch.tensor(et, device=want.device)
+        state, counts, _s = counted_sync_run(
+            torch, lambda: owner4.run(owner4.init_state(), args.iters))
+        ms = cuda_ms(lambda: owner4.step(want), args.reps)
+        src, rel = om.decoded_slots({k: v[0] for k, v in a.items()
+                                     if k in ("own_sr", "own_nv",
+                                              "own_src", "own_rel")})
+    finally:
+        om.STREAM_MSG_BYTES = budget
+        a.pop("own_ep", None)
+        a.pop("own_et", None)
+    nb = math.ceil(lay.n_chunks / STREAM_BLOCK_CHUNKS)
+    require(counts["chunk_partials"] == owner4.num_parts * nb * args.iters,
+            f"fused streamed owner run launched {counts}")
+    require(torch.allclose(state, want, **MAIN_TOL),
+            "fused streamed owner run disagrees with the monolithic one")
+    out["owner_fused"] = {"parts": owner4.num_parts, "blocks_per_part": nb,
+                          "extract_width": int(ep.shape[-1]),
+                          "launches": counts, "step_ms": ms,
+                          "bit_equal": bool(torch.equal(state, want))}
+    st = owner4.init_state()[0]
+    block = owner4.program.edge_value(
+        st[src[:STREAM_BLOCK_CHUNKS].long()], None, None).contiguous()
+    return out, block, rel[:STREAM_BLOCK_CHUNKS].contiguous(), counts
+
+
+def phase_owner(args, torch, g, main_eng, card):
+    """bench.py's pagerank-mp and sssp-mp on the owner exchange, the
+    exchange sweep and the streamed forms (see the module docstring),
+    the two configs' engines on one ShardedGraph and one pair plan
+    (SharedPairPlans).  Returns (the kernels-line entries of B1 at the
+    owner shapes, the owner paths' launches)."""
+    with SharedPairPlans():
+        return _phase_owner(args, torch, g, main_eng, card)
+
+
+def _phase_owner(args, torch, g, main_eng, card):
+    from lux_tpu_torch import memwatch
+    from lux_tpu_torch.apps import pagerank, sssp
+    from lux_tpu_torch.convert import rmat_graph
+    from lux_tpu_torch.engine.pull import OWNER_AUTO_BYTES
+    from lux_tpu_torch.graph import ShardedGraph, pair_relabel
+    from lux_tpu_torch.ops import owner as om
+    from lux_tpu_torch.ops.pairs import stream_blocks
+    scale = args.scale + OWNER_SCALE_OVER
+    seconds = {}
+    t0 = time.perf_counter()
+    g23 = rmat_graph(scale, args.ef, seed=args.seed)
+    seconds["rmat_graph"] = round(time.perf_counter() - t0, 3)
+    sweep = []
+    owner4 = None
+    for over, P in OWNER_SWEEP:
+        G = g if over == 0 else g23
+        case, kept = owner_sweep_case(
+            args, torch, G, P, main_eng if (over, P) == (0, 1) else None,
+            keep_owner=(over, P) == (0, OWNER_PARTS))
+        case["scale"] = args.scale + over
+        sweep.append(case)
+        owner4 = kept or owner4
+    emit({"phase": "owner_sweep", "owner_auto_bytes": OWNER_AUTO_BYTES,
+          "cases": sweep, "card": card})
+    streamed, block, block_rel, fused_counts = owner_streamed(
+        args, torch, g, main_eng, owner4)
+    del owner4
+    torch.cuda.empty_cache()
+    emit({"phase": "owner_streamed", **streamed})
+    # pagerank-mp: one relabelled graph and ShardedGraph for both configs
+    t0 = time.perf_counter()
+    g3, perm, starts = pair_relabel(g23, OWNER_PARTS,
+                                    pair_threshold=PAIR_THRESHOLD)
+    seconds["pair_relabel"] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
+    sg = ShardedGraph.build(g3, OWNER_PARTS, starts=starts,
+                            pair_threshold=PAIR_THRESHOLD)
+    seconds["sharded_graph"] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
+    eng = pagerank.build_engine(g3, OWNER_PARTS, sg=sg,
+                                pair_threshold=PAIR_THRESHOLD,
+                                pair_min_fill=PAIR_MIN_FILL,
+                                exchange="owner")
+    torch.cuda.synchronize()
+    seconds["pagerank_engine"] = round(time.perf_counter() - t0, 3)
+    lay = eng.owner
+    t0 = time.perf_counter()
+    want = pagerank_oracle_card(torch, g3, args.iters)
+    seconds["pagerank_oracle"] = round(time.perf_counter() - t0, 3)
+    state, secs, counts, peak, host_s = timed_run(torch, eng, args.iters)
+    own_launches = b1_launches_at(lay.E)
+    per_iter = 1 + len(stream_blocks(eng.pairs.classes))
+    require(counts == {"chunk_partials": per_iter * args.iters,
+                       "lane_shuffle": 0},
+            f"pagerank-mp launched {counts} (want {per_iter} B1 a step)")
+    require(own_launches == args.iters,
+            f"pagerank-mp launched B1 {own_launches} times on its owner "
+            f"chunks (want one a step)")
+    err = check_pagerank(g3, eng.unpad(state), want, "pagerank-mp")
+    del want, state
+    layers = owner_layers(args, torch, eng)
+    ledger = memwatch.MemoryLedger.for_engine(eng, "pagerank-mp")
+    src, rel = om.decoded_slots(eng.arrays)
+    P, C, E = OWNER_PARTS, lay.n_chunks, lay.E
+    msgs = om.gather_messages(eng.init_state(), src).reshape(P * C, E)
+    cases, line = owner_b1(args, torch, eng, msgs, rel.reshape(P * C, E),
+                           "owner", "sum")
+    line["launches"] = own_launches
+    del msgs, src, rel
+    emit({"phase": "owner", "config": "pagerank-mp", "scale": scale,
+          "ef": args.ef, "nv": g3.nv, "ne": g3.ne, "parts": OWNER_PARTS,
+          "pair_threshold": PAIR_THRESHOLD, "min_fill": PAIR_MIN_FILL,
+          "exchange": eng.exchange, "owner_tile_e": lay.E,
+          "owner_chunks": P * C, "owner_stats": lay.stats,
+          "pair_rows": eng.pairs.Rp, "pair_blocks": per_iter - 1,
+          "plan_seconds": round(eng.plan_seconds, 3), "seconds": seconds,
+          "iters": args.iters, "step_ms": secs * 1e3 / args.iters,
+          "host_enqueue_ms_per_iter": host_s * 1e3 / args.iters,
+          "gteps": g3.ne * args.iters / secs / 1e9,
+          "max_rel_err": err, "launches": counts,
+          "owner_chunk_launches": own_launches,
+          "pair_block_launches": counts["chunk_partials"] - own_launches,
+          "b1_launches_per_iter": per_iter, "layers": layers,
+          "peak_bytes": peak, "ledger_bytes": ledger.total_bytes,
+          "ledger_over_peak": ledger.total_bytes / peak,
+          "ledger_terms": ledger.terms, "kernel_cases": cases,
+          "card": card})
+    del eng
+    torch.cuda.empty_cache()
+    # sssp-mp on the same relabelled graph, ShardedGraph and pair plan
+    v0 = 0 if g23.out_degrees[0] > 0 else first_out_vertex(g23)
+    start = relabelled_id(perm, v0)
+    t0 = time.perf_counter()
+    eng = sssp.build_engine(g3, start, OWNER_PARTS, sg=sg,
+                            pair_threshold=PAIR_THRESHOLD,
+                            pair_min_fill=PAIR_MIN_FILL, exchange="owner")
+    torch.cuda.synchronize()
+    seconds["sssp_engine"] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
+    want = bfs_levels_card(torch, g3, start)
+    t_oracle = time.perf_counter() - t0
+    label, _act, it, scounts, syncs, sched = converge_counted(torch, eng)
+    sown = b1_launches_at(eng.owner.E)
+    require(np.array_equal(eng.unpad(label), want),
+            "sssp-mp labels differ from the BFS oracle")
+    check_push_launches(eng, scounts, sched, "sssp-mp")
+    require(sown == sched.count("dense"),
+            f"sssp-mp launched B1 {sown} times on its owner chunks (want "
+            f"one a dense iteration)")
+    walls = []
+    for _ in range(3):
+        lab0, act0 = eng.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.converge(lab0, act0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ssrc, srel = om.decoded_slots(eng.arrays)
+    lay = eng.owner
+    P, C, E = OWNER_PARTS, lay.n_chunks, lay.E
+    vals = om.gather_messages(label, ssrc).reshape(P * C, E)
+    cand = eng._msg(vals, None).contiguous()
+    del ssrc, vals
+    scases, sline = owner_b1(args, torch, eng, cand, srel.reshape(P * C, E),
+                             "owner_sssp", "min")
+    sline["launches"] = sown
+    del cand, srel
+    emit({"phase": "owner", "config": "sssp-mp", "scale": scale,
+          "parts": OWNER_PARTS, "start_input_id": v0,
+          "input_vertex_0_out_degree": int(g23.out_degrees[0]),
+          "start_relabelled_id": start,
+          "reached": int((want < sssp.HOP_INF).sum()),
+          "iterations": it, "dense": sched.count("dense"),
+          "sparse": sched.count("sparse"), "host_syncs": syncs,
+          "converge_ms": walls, "launches": scounts,
+          "owner_chunk_launches": sown,
+          "pair_block_launches": scounts["chunk_partials"] - sown,
+          "setup_seconds": seconds["sssp_engine"],
+          "oracle": "level-synchronous BFS on the card",
+          "oracle_seconds": round(t_oracle, 3), "kernel_cases": scases,
+          "card": card})
+    del eng, label, want
+    torch.cuda.empty_cache()
+    bcase = [_check_case(torch, "owner_block", block, block_rel, W_LANES,
+                         "sum")]
+    bline = b1_line(args, torch, block, block_rel, W_LANES,
+                    "chunk_partials@owner_block")
+    bline["launches"] = fused_counts["chunk_partials"]
+    bline["cases"] = bcase
+    paths = {"owner": counts, "owner_sssp": scounts,
+             "owner_fused": fused_counts}
+    return [line, sline, bline], paths
 
 
 def probe_close(torch, name, got, want) -> dict:
@@ -4196,11 +4828,6 @@ def max_abs_diff(a, b, rows: int = 1 << 16) -> float:
                default=0.0)
 
 
-# R-MAT edges one phase draws and a later one draws again, by (scale,
-# ef, seed): the cc phase's for the batch phases
-RMAT_KEPT: dict = {}
-
-
 def batch_graph(args):
     """bench.py's ksssp-batch / ppr-batch graph: R-MAT one scale under
     --scale (20 by default), --ef, --seed, one part, no relabel; and
@@ -4208,9 +4835,7 @@ def batch_graph(args):
     from lux_tpu_torch.convert import rmat_edges
     from lux_tpu_torch.graph import Graph
     t0 = time.perf_counter()
-    key = (args.scale - 1, args.ef, args.seed)
-    src, dst, nv = RMAT_KEPT.pop(key, None) or rmat_edges(*key[:2],
-                                                          seed=key[2])
+    src, dst, nv = rmat_edges(args.scale - 1, args.ef, seed=args.seed)
     g = Graph.from_edges(src, dst, nv)
     del src, dst
     rng = np.random.default_rng(BATCH_SOURCE_SEED)
@@ -6920,6 +7545,12 @@ def main(argv=None) -> int:
     by_path.update(reorder_counts)
     b1_lines.update(reorder_b1)
     phase_parts(args, torch)
+    # bench.py's pagerank-mp and sssp-mp on the owner exchange, the
+    # exchange sweep (the main engine is its 1-part gather side) and the
+    # streamed forms
+    owner_lines, owner_paths = phase_owner(args, torch, g, main_eng, card)
+    for path, n in owner_paths.items():
+        by_path[path] = {k: n[k] for k in ("chunk_partials", "lane_shuffle")}
     g2, perm, starts, relabel = pair_relabelled(g)
     pair_counts, kpairs, case = phase_pairs(args, torch, g2, starts,
                                             relabel, card)
@@ -7009,8 +7640,11 @@ def main(argv=None) -> int:
     for line in probe_lines:           # S9's system path beside its probe
         if line["name"] == "onehot_reduce":
             line["launches_by_path"]["system paths"] = s9_line["launches"]
-    emit({"kernels": [kline, *b1_lines.values(), *batch_lines, b2,
-                      *reorder_b2.values(), *probe_lines, s9_line]})
+    for line in owner_lines:           # B1 at the owner shapes
+        line["launches_by_path"] = kline["launches_by_path"]
+    emit({"kernels": [kline, *b1_lines.values(), *owner_lines,
+                      *batch_lines, b2, *reorder_b2.values(), *probe_lines,
+                      s9_line]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

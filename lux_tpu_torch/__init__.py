@@ -17,7 +17,8 @@ counterpart is easy to find:
                   and transposed_reduce (csrc/carry.cu, fused_carry.cu,
                   onehot_mma.cu, transposed_reduce.cu); the matrix-unit
                   (use_mxu) forms in tiled.py, onehot_reduce on a
-                  system path
+                  system path; the streamed chunk blocks (tiled.py)
+                  and the owner exchange's layout (owner.py)
   engine/         vertex-program bundle, the pull and push engines,
                   phased.py (timed_phases' PhaseTimer)
   apps/           PageRank

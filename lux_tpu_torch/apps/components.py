@@ -68,13 +68,16 @@ def build_engine(g: Graph, num_parts: int = 1, mesh=None,
                  enable_sparse: bool = True, use_mxu: bool | str = "auto",
                  health: bool = False, sources=None,
                  audit: str | None = None, *,
-                 device=None) -> PushEngine:
+                 device=None, owner_tile_e: int | None = None,
+                 owner_minmax_fused: bool = False) -> PushEngine:
     """Components engine on ``device`` (None = the card; "cpu" when
     asked).  ``pair_threshold``: pair-lane delivery on dense iterations
     (after graph.pair_relabel, passing its ``starts``; labels are then
     relabelled ids).  ``sources=[a, b, ...]`` builds the query-batched
     seeded engine (``make_batched_program``); pair_threshold must be
-    off then."""
+    off then.  ``exchange="owner"`` runs the dense iterations
+    owner-side (chunk width ``owner_tile_e``, default 256;
+    ``owner_minmax_fused`` changes nothing on one device)."""
     dev = resolve_device(device)
     if sg is None:
         sg = ShardedGraph.build(
@@ -86,7 +89,9 @@ def build_engine(g: Graph, num_parts: int = 1, mesh=None,
                       pair_threshold=pair_threshold,
                       pair_min_fill=pair_min_fill, exchange=exchange,
                       gather=gather, enable_sparse=enable_sparse,
-                      use_mxu=use_mxu, health=health, audit=audit)
+                      use_mxu=use_mxu, health=health, audit=audit,
+                      owner_tile_e=owner_tile_e,
+                      owner_minmax_fused=owner_minmax_fused)
 
 
 def run(g: Graph, num_parts: int = 1, mesh=None, max_iters=None,

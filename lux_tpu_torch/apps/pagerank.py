@@ -115,7 +115,9 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                  gather: str = "flat", mesh=None, sources=None,
                  resets=None, dtype=np.float32,
                  health: bool = False,
-                 use_mxu: bool | str = "auto") -> PullEngine:
+                 use_mxu: bool | str = "auto",
+                 owner_tile_e: int | None = None,
+                 owner_minmax_fused: bool = False) -> PullEngine:
     """PageRank engine on ``device`` (None = the card; "cpu" when
     asked).  ``sg`` is a prebuilt layout of ``g``; without it the
     layout is built here, with ``starts`` as its cut points (e.g. from
@@ -128,8 +130,10 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     ``pair_min_fill="auto"`` and ``use_mxu="auto"`` (the default)
     resolve through scalemodel; ``use_mxu=True`` takes the one-hot
     forms of the tiled reduce (kernel S9 for this float32 sum).
-    Options the port does not carry yet (owner, mesh) raise
-    engine.pull.NotPortedError.
+    ``exchange="owner"`` (or "auto" past OWNER_AUTO_BYTES) runs the
+    owner exchange, with its chunk width ``owner_tile_e`` (default
+    256) and ``owner_minmax_fused`` (nothing on one device); the mesh
+    raises engine.pull.NotPortedError (ROADMAP A6b).
 
     ``sources=[a, b, ...]`` builds the query-batched personalized
     engine with one-hot resets (state [P, vpad, B], one gather serving
@@ -156,7 +160,9 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                       tile_e=tile_e, exchange=exchange, gather=gather,
                       pair_threshold=pair_threshold,
                       pair_min_fill=pair_min_fill, pair_stream=pair_stream,
-                      mesh=mesh, health=health, use_mxu=use_mxu)
+                      mesh=mesh, health=health, use_mxu=use_mxu,
+                      owner_tile_e=owner_tile_e,
+                      owner_minmax_fused=owner_minmax_fused)
 
 
 def run(g: Graph, num_iters: int, num_parts: int = 1, *,

@@ -103,7 +103,8 @@ def build_engine(g: Graph, start_vertex: int | None = 0,
                  enable_sparse: bool = True, use_mxu: bool | str = "auto",
                  health: bool = False, sources=None,
                  audit: str | None = None, *,
-                 device=None) -> PushEngine:
+                 device=None, owner_tile_e: int | None = None,
+                 owner_minmax_fused: bool = False) -> PushEngine:
     """SSSP engine on ``device`` (None = the card; "cpu" when asked).
     ``delta``: delta-stepping bucket width, "auto" for the heuristic
     (1.0 in hops mode), None for plain frontier relaxation.
@@ -111,7 +112,9 @@ def build_engine(g: Graph, start_vertex: int | None = 0,
     graph.pair_relabel, passing its ``starts``).  ``sources=[a, b,
     ...]`` builds the query-batched k-source engine instead
     (``make_batched_program``); start_vertex is then ignored, and delta
-    and pair_threshold must be off (single-query machinery)."""
+    and pair_threshold must be off (single-query machinery).  ``exchange="owner"`` runs the dense iterations
+    owner-side (chunk width ``owner_tile_e``, default 256;
+    ``owner_minmax_fused`` changes nothing on one device)."""
     dev = resolve_device(device)
     if weighted and g.weights is None:
         raise ValueError("weighted SSSP needs a weighted graph")
@@ -135,7 +138,9 @@ def build_engine(g: Graph, start_vertex: int | None = 0,
                       pair_threshold=pair_threshold,
                       pair_min_fill=pair_min_fill, exchange=exchange,
                       gather=gather, enable_sparse=enable_sparse,
-                      use_mxu=use_mxu, health=health, audit=audit)
+                      use_mxu=use_mxu, health=health, audit=audit,
+                      owner_tile_e=owner_tile_e,
+                      owner_minmax_fused=owner_minmax_fused)
 
 
 def run(g: Graph, start_vertex: int = 0, num_parts: int = 1, mesh=None,

@@ -2,6 +2,7 @@
 lux_tpu/cli.py:69, :116, :165, :557 and :596-689, :864).
 
     python -m lux_tpu_torch.cli pagerank -file g.lux -ni 10 [-np N]
+                                         [-exchange auto|gather|owner]
                                          [-gather flat|paged|pagemajor|auto]
                                          [-pair T [-min-fill F|auto]]
                                          [-mxu auto|mxu|vpu] [-calibrate]
@@ -9,6 +10,7 @@ lux_tpu/cli.py:69, :116, :165, :557 and :596-689, :864).
                                          [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli sssp -file g.lux [-start S] [-weighted]
                                      [-delta D|auto] [-np N]
+                                     [-exchange auto|gather|owner]
                                      [-gather flat|paged|pagemajor|auto]
                                      [-pair T [-min-fill F|auto]]
                                      [-mxu auto|mxu|vpu] [-calibrate]
@@ -37,7 +39,11 @@ break-even fill for the program's K.  ``-mxu auto|mxu|vpu`` picks the
 tiled reduce: 'mxu' the one-hot (matrix-unit) forms (kernel S9 for a
 scalar float32 sum, the tournament for min/max, the segmented sum as
 matmuls), 'vpu' kernel B1, 'auto' (default) by scalemodel's break-even
-width.
+width.  ``-exchange owner`` (pagerank, sssp, components) runs the owner
+exchange (ops/owner.py: each source part gathers from its own shard);
+'auto' (default) keeps the gather exchange on the card and takes the
+owner exchange elsewhere past OWNER_AUTO_BYTES of state table;
+colfilter notes that it does not apply and ignores it.
 
 ``sssp`` and ``components`` run the push engine to convergence and
 print ``ELAPSED TIME = ... s (N iterations)`` (one timed converge after
@@ -121,6 +127,27 @@ def _add_mxu_flag(ap) -> None:
                     help="tiled reduce: 'mxu' the one-hot (matrix-unit) "
                          "forms, 'vpu' kernel B1, 'auto' (default) by "
                          "scalemodel's break-even on the K x B width")
+
+
+def _add_exchange_flag(ap) -> None:
+    ap.add_argument("-exchange", default="auto",
+                    choices=["auto", "gather", "owner"],
+                    help="state exchange for pagerank/sssp/components: "
+                         "'gather' (every part gathers from the whole "
+                         "state table), 'owner' (each source part "
+                         "gathers from its own shard; ops/owner.py) or "
+                         "'auto' (the default: gather on the card, "
+                         "elsewhere owner past OWNER_AUTO_BYTES of state "
+                         "table).  colfilter's dot path has "
+                         "its own delivery and ignores it")
+
+
+def _warn_exchange_ignored(args) -> None:
+    """colfilter's dot path has its own delivery; -exchange does not
+    apply there (lux_tpu/cli.py:452)."""
+    if args.exchange not in ("gather", "auto"):
+        print(f"note: -exchange {args.exchange} does not apply to "
+              f"colfilter's dot path; ignored")
 
 
 def _maybe_calibrate(args) -> None:
@@ -460,6 +487,7 @@ def cmd_pagerank(argv) -> int:
                     help="with -pair: drop pair rows that would deliver "
                          "< F live lanes (their edges ride the residual "
                          "path); 'auto' is scalemodel's break-even")
+    _add_exchange_flag(ap)
     _add_mxu_flag(ap)
     _add_batch_flags(ap)
     _add_guard_flags(ap)
@@ -498,7 +526,8 @@ def _pagerank(args, tel) -> int:
                                 pair_threshold=args.pair,
                                 pair_min_fill=args.min_fill,
                                 sources=sources, health=args.health,
-                                use_mxu=_mxu_arg(args))
+                                use_mxu=_mxu_arg(args),
+                                exchange=args.exchange)
     _print_memory(args, eng, num_parts)
     sup = _supervisor_opts(args, "pagerank")
     if sup is not None:
@@ -548,6 +577,7 @@ def _push_app(argv, prog_name) -> int:
                     dest="min_fill", metavar="F",
                     help="with -pair: drop pair rows with < F live lanes; "
                          "'auto' is scalemodel's break-even")
+    _add_exchange_flag(ap)
     _add_mxu_flag(ap)
     _add_batch_flags(ap)
     _add_guard_flags(ap)
@@ -595,7 +625,7 @@ def _push_run(args, tel, prog_name) -> int:
     opts = dict(num_parts=num_parts, starts=starts, gather=args.gather,
                 pair_threshold=args.pair, pair_min_fill=args.min_fill,
                 sources=sources, device=args.device, health=args.health,
-                use_mxu=_mxu_arg(args))
+                use_mxu=_mxu_arg(args), exchange=args.exchange)
     if prog_name == "sssp":
         start = args.start
         if perm is not None and 0 <= start < g.nv:
@@ -674,12 +704,14 @@ def cmd_colfilter(argv) -> int:
                     help="with -pair: drop pair rows with < F live lanes "
                          "(bench.py's colfilter config uses 22); 'auto' "
                          "is scalemodel's break-even at K = 20")
+    _add_exchange_flag(ap)
     _add_mxu_flag(ap)
     _add_guard_flags(ap)
     _add_observe_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     _refuse_unported_flags(args)
+    _warn_exchange_ignored(args)
     with _telemetry(args, "colfilter") as tel:
         return _colfilter(args, tel)
 

@@ -70,25 +70,75 @@ def convert_edge_list(text_path: str, lux_path: str, nv: int,
 RMAT_A, RMAT_B, RMAT_C = 0.57, 0.19, 0.19
 
 
+# R-MAT draws are cut into slices of at least this many edges, at most
+# RMAT_MAX_SLICES of them, each drawn on a host thread of its own
+RMAT_SLICE_EDGES = 1 << 16
+RMAT_MAX_SLICES = 8
+
+
+def rmat_cuts(ne: int) -> list:
+    """The slice boundaries ``rmat_edges`` draws ``ne`` edges in: a rule
+    of ``ne`` alone, so every host draws the same slices."""
+    T = max(1, min(RMAT_MAX_SLICES, -(-ne // RMAT_SLICE_EDGES)))
+    return [ne * k // T for k in range(T + 1)]
+
+
 def rmat_edges(scale: int, edge_factor: int = 16, seed: int = 0):
     """R-MAT edge list (Chakrabarti et al., SDM'04): nv = 2**scale,
     ne = nv * edge_factor.  The same draws as the reference's
-    ``rmat_edges`` for the same seed.  Returns (src, dst, nv)."""
+    ``rmat_edges`` for the same seed.  Returns (src, dst, nv).
+
+    The reference draws ``scale`` passes of ``ne`` doubles from one
+    PCG64 stream, then a permutation.  Each draw here is that same
+    stream's: each slice of edges (``rmat_cuts``), on a host thread of
+    its own, reads pass ``i``'s doubles from a PCG64 of the seed
+    advanced to ``i * ne`` plus the slice's start (one 64-bit output a
+    double), and the permutation from one advanced past every pass."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
     nv = 1 << scale
     ne = nv * edge_factor
     a, b, c = RMAT_A, RMAT_B, RMAT_C
-    rng = np.random.default_rng(seed)
-    src = np.zeros(ne, dtype=np.uint64)
-    dst = np.zeros(ne, dtype=np.uint64)
-    for _ in range(scale):
-        r = rng.random(ne)
-        src_bit = (r >= a + b).astype(np.uint64)
-        dst_bit = ((r >= a) & (r < a + b) | (r >= a + b + c)).astype(np.uint64)
-        src = (src << np.uint64(1)) | src_bit
-        dst = (dst << np.uint64(1)) | dst_bit
+    # ids fit uint32 (scale <= 32), updated in place
+    src = np.zeros(ne, dtype=np.uint32)
+    dst = np.zeros(ne, dtype=np.uint32)
+
+    def draws(offset: int, n: int) -> np.ndarray:
+        bg = np.random.PCG64(seed)
+        bg.advance(offset)
+        return np.random.Generator(bg).random(n)
+
+    def fill(lo: int, hi: int) -> None:
+        # one quadrant a draw: q = [r >= a] + [r >= a + b] + [r >= a + b
+        # + c] in {0, 1, 2, 3}; the source bit is q >> 1, the
+        # destination bit q & 1 (r in [a, a + b) or r >= a + b + c)
+        s, d = src[lo:hi], dst[lo:hi]
+        q = np.empty(hi - lo, dtype=np.uint8)
+        hit = np.empty(hi - lo, dtype=bool)
+        for i in range(scale):
+            r = draws(i * ne + lo, hi - lo)
+            np.greater_equal(r, a, out=hit)
+            np.copyto(q, hit, casting="unsafe")
+            np.greater_equal(r, a + b, out=hit)
+            q += hit
+            np.greater_equal(r, a + b + c, out=hit)
+            q += hit
+            del r
+            s <<= 1
+            s |= q >> 1
+            d <<= 1
+            d |= q & 1
+
+    cuts = rmat_cuts(ne)
+    with ThreadPoolExecutor(
+            max_workers=min(len(cuts) - 1, os.cpu_count() or 1)) as ex:
+        list(ex.map(fill, cuts[:-1], cuts[1:]))
     # permute vertex ids so the skew is not correlated with id order
-    perm = rng.permutation(nv).astype(np.uint32)
-    return perm[src.astype(np.uint32)], perm[dst.astype(np.uint32)], nv
+    bg = np.random.PCG64(seed)
+    bg.advance(scale * ne)
+    perm = np.random.Generator(bg).permutation(nv).astype(np.uint32)
+    return perm[src], perm[dst], nv
 
 
 def rmat_graph(scale: int, edge_factor: int = 16, seed: int = 0,

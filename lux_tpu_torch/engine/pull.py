@@ -71,9 +71,25 @@ keep kernel B1, as in the reference.  ``gather="auto"`` resolves flat,
 paged or page-major through scalemodel's break-even on the plan's
 counted stats (ops/pagegather.resolve_gather).
 
-The reference's exchange variants (owner), streamed chunk blocks and
-the mesh are refused with a typed :class:`NotPortedError` naming the
-ROADMAP item that brings them.
+``exchange="owner"`` (ops/owner.py; lux_tpu/engine/pull.py:738-818)
+lays the edges out source-part-major: one iteration gathers each source
+part's messages from its own [vpad] shard, reduces them with one launch
+of kernel B1 over every part's [C, E] owner chunks (its batched form
+over a query axis), combines them per (source part, destination tile)
+and folds the contributions across source parts; pair rows still fetch
+from the whole table.  ``exchange="auto"`` keeps the gather exchange
+on the card, where the owner exchange lost at every table measured,
+and elsewhere takes the owner exchange, as the reference does, once
+the state table passes ``OWNER_AUTO_BYTES``.  ``stream_msgs`` runs the
+tiled path's gather and partials in blocks of chunks
+(ops/tiled.streamed_chunk_partials); None streams on the card only
+what would not fit in its free memory, elsewhere by the reference's
+1 GB rule (ops/tiled.stream_by_default).  An owner layout that streams
+by the same rule runs the fused streamed combine.
+
+The mesh (ROADMAP A6b) and the owner exchange's paged plans (A6a-2)
+are refused with a typed :class:`NotPortedError` naming the item that
+brings them.
 """
 
 from __future__ import annotations
@@ -101,23 +117,34 @@ from lux_tpu_torch.ops.pairs import (DOT_BLOCK_ROWS, PAIR_DOT_KEYS,
                                      plan_sharded_pairs,
                                      resolve_pair_dot_stream,
                                      resolve_pair_stream)
+from lux_tpu_torch.ops.owner import (OwnerLayout, owner_contribs,
+                                     owner_exchange, owner_graph_arrays)
 from lux_tpu_torch.ops.segment import segment_reduce
 from lux_tpu_torch.ops.tiled import (TiledLayout, combine_op,
                                      combine_partials, segment_plan,
+                                     stream_by_default,
+                                     streamed_tiled_reduce,
                                      tiled_segment_reduce)
 from lux_tpu_torch.profiling import annotation, device_fence
 from lux_tpu_torch.scalemodel import ReduceLayout
 from lux_tpu_torch.telemetry import DEFAULT_STATS_CAP
 
-# exchange="auto" picks the owner exchange once the flat state table
-# passes this many bytes: the reference's figure (engine/pull.py:80), a
-# TPU measurement, kept only as the bound past which "auto" refuses
-# until the owner exchange is ported and the card's own step measured
-# (ROADMAP A6)
+# exchange="auto" picks the owner exchange off the card once the flat
+# state table passes this many bytes: the reference's figure
+# (lux_tpu/engine/pull.py:76-80).  On the card "auto" keeps the gather
+# exchange, since the owner exchange won at no table the card's sweep
+# measured.  NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py's
+# owner_sweep line: the PageRank step took 2.08-2.15x the gather
+# exchange's at 8 MB (R-MAT 21, 1 and 4 parts) and at 32 MB (R-MAT 23,
+# 4 parts, 8 MB shards under the gather's 16 MB step while the whole
+# table is past it); no table past 96 MB was measured (PERF.md, §6)
 OWNER_AUTO_BYTES = 96 << 20
 
 TILED_KEYS = ("src_slot", "rel_dst", "chunk_start", "last_chunk", "deg",
               "nvp")
+# an owner engine's keys beside its slots (own_sr + own_nv packed, or
+# own_src + own_rel)
+OWNER_KEYS = ("own_cs", "own_lc", "deg", "nvp")
 
 
 def dot_kdim(program) -> int:
@@ -190,7 +217,7 @@ def _refuse(what: str, item: str):
                          f"the port runs one device, layout "
                          f"'tiled'/'flat', gather 'flat'/'paged'/"
                          f"'pagemajor' or pair-lane rows, exchange "
-                         f"'gather'")
+                         f"'gather' or 'owner' (owner: flat gather)")
 
 
 def _check_pair_program(layout: str, program) -> None:
@@ -224,25 +251,38 @@ def _outside(x: torch.Tensor, hi: int) -> bool:
 
 
 def resolve_exchange(exchange: str, sg: ShardedGraph, program,
-                     itemsize: int | None = None) -> str:
-    """'auto' resolves as the reference does: 'owner' once the state
-    table passes OWNER_AUTO_BYTES (for programs whose messages depend
-    only on the source), else 'gather'.  Only 'gather' is ported.
-    ``itemsize``: bytes per vertex of the state (default the program's
-    ``state_bytes``, else 4)."""
+                     itemsize: int | None = None, device=None) -> str:
+    """'auto' on a card ``device`` resolves to 'gather' (see
+    OWNER_AUTO_BYTES).  Elsewhere it resolves as the reference does
+    (lux_tpu/engine/pull.py:83): 'owner' when the program's messages
+    depend on the source state only (no ``needs_dst``, no dot program)
+    and the state table passes OWNER_AUTO_BYTES, else 'gather'.
+    ``itemsize``: bytes a vertex of the state (default the program's
+    ``state_bytes``, else its identity's itemsize, else 4)."""
     if exchange == "auto":
-        itemsize = itemsize or getattr(program, "state_bytes", None) or 4
+        if device is not None and torch.device(device).type == "cuda":
+            return "gather"
+        if itemsize is None:
+            itemsize = getattr(program, "state_bytes", None)
+        if itemsize is None:
+            ident = getattr(program, "identity", None)
+            itemsize = (np.asarray(ident).dtype.itemsize
+                        if ident is not None else 4)
         big = sg.num_parts * sg.vpad * itemsize > OWNER_AUTO_BYTES
-        if big and not uses_dst(program):
-            _refuse(f"the owner exchange, which exchange='auto' picks "
-                    f"for this {sg.num_parts * sg.vpad * itemsize} B "
-                    f"state table (pass exchange='gather'),", "A6")
-        exchange = "gather"
-    if exchange == "owner":
-        _refuse("exchange='owner'", "A6")
-    if exchange != "gather":
+        return "owner" if big and not uses_dst(program) else "gather"
+    if exchange not in ("gather", "owner"):
         raise ValueError(f"unknown exchange {exchange!r}")
     return exchange
+
+
+def check_owner_program(program) -> None:
+    """The owner exchange's program rule (lux_tpu/engine/pull.py:255):
+    owner-side parts hold no destination state."""
+    if uses_dst(program):
+        raise ValueError(
+            "exchange='owner' supports programs whose edge_value depends "
+            "only on the source state (owner-side parts hold no "
+            "destination state)")
 
 
 def common_graph_arrays(sg: ShardedGraph) -> dict:
@@ -280,13 +320,16 @@ def build_graph_arrays(sg: ShardedGraph, layout: str, tile_e: int,
 
 def device_arrays(arrays: dict, device) -> dict:
     """Host arrays -> tensors on ``device``.  uint32 arrays (the packed
-    slot_lane) ride as int32 with the same bits: torch's uint32 has
-    thin CUDA coverage."""
+    slot_lane, the packed owner slots) ride as int32 and uint16 arrays
+    (the owner's live-lane counts) as int16, with the same bits: torch's
+    unsigned types have thin CUDA coverage."""
     out = {}
     for k, v in arrays.items():
         v = np.asarray(v)
         if v.dtype == np.uint32:
             v = v.view(np.int32)
+        elif v.dtype == np.uint16:
+            v = v.view(np.int16)
         out[k] = torch.tensor(v, device=device)
     return out
 
@@ -300,7 +343,8 @@ def padded_view(table: torch.Tensor) -> torch.Tensor:
     return padded[:, :-1]
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """``table[idx]`` for a [N] or [N, B] state table: the engines' one
     state gather an edge.  On the card, torch's ``index_select`` of
     rows whose bytes are a multiple of 16 takes a vectorized kernel
@@ -310,10 +354,13 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     same rows read through ``padded_view`` take its generic kernel:
     0.31 / 0.57 / 1.00 ms at B = 4 / 8 / 16, the same bits (``chip_smoke.py``'s ppr_batch
     ``gather_by_width``; PERF.md §5).  Other tables, and every table
-    on the CPU, go to ``index_select`` as they are."""
+    on the CPU, go to ``index_select`` as they are.  ``out``: a
+    contiguous buffer of the result's shape to write into."""
     if (table.device.type == "cuda" and table.dim() == 2
             and table.shape[1] * table.element_size() % 16 == 0):
         table = padded_view(table)
+    if out is not None:
+        return torch.index_select(table, 0, idx, out=out)
     return torch.index_select(table, 0, idx)
 
 
@@ -349,6 +396,53 @@ def check_dense_arrays(a: dict, P: int, vpad: int, tiles, pages,
                              f"in [0, {tiles.n_tiles}]")
         if pairs is not None:
             check_pair_arrays(a, P, vpad, pairs)
+
+
+def check_owner_arrays(a: dict, P: int, vpad: int, geom) -> None:
+    """Shapes, dtypes and index ranges of an engine's owner arrays (on
+    the device), checked once: an out-of-range index would fault on the
+    card."""
+    C, E = geom.n_chunks, geom.E
+    packed = "own_sr" in a
+    missing = [k for k in OWNER_KEYS + (("own_sr", "own_nv") if packed
+                                        else ("own_src", "own_rel"))
+               if k not in a]
+    if missing:
+        raise KeyError(f"graph arrays lack {missing}")
+    slots = a["own_sr"] if packed else a["own_src"]
+    ep = a.get("own_ep")
+    ok = (geom.W == W and geom.n_tiles * geom.W >= vpad
+          and geom.G == P * geom.n_tiles
+          and tuple(slots.shape) == (P, C, E)
+          and slots.dtype == torch.int32
+          and tuple(a["own_cs"].shape) == (P, C)
+          and a["own_cs"].dtype == torch.bool
+          and tuple(a["own_lc"].shape) == (P, geom.G)
+          and (a.get("own_w") is None
+               or tuple(a["own_w"].shape) == (P, C, E))
+          and (ep is None or (ep.dim() == 3 and ep.shape[0] == P
+                              and tuple(a["own_et"].shape)
+                              == tuple(ep.shape))))
+    if packed:
+        ok = ok and (tuple(a["own_nv"].shape) == (P, C)
+                     and a["own_nv"].dtype == torch.int16)
+    else:
+        ok = ok and (tuple(a["own_rel"].shape) == (P, C, E)
+                     and a["own_rel"].dtype == torch.int8)
+    if not ok:
+        raise ValueError(f"owner arrays do not match the layout geometry "
+                         f"{geom} (num_parts={P}, vpad={vpad})")
+    if packed:
+        src = torch.bitwise_right_shift(slots, 7) & 0x1FFFFFF
+        nv = a["own_nv"].to(torch.int32) & 0xFFFF
+        bad = _outside(nv, E + 1)
+    else:
+        src, bad = slots, False
+    if (bad or _outside(src, vpad) or _outside(a["own_lc"] + 1, C + 1)
+            or (ep is not None and (_outside(a["own_et"], geom.G + 1)
+                                    or _outside(ep, C)))):
+        raise ValueError("owner arrays index outside a part's shard, "
+                         "its chunks or the global tiles")
 
 
 def flat_segments(dst_local: torch.Tensor, vpad: int) -> torch.Tensor:
@@ -439,8 +533,8 @@ class Placement:
     """The placement surface both engines share, which checkpoints and
     the supervisor reason through (lux_tpu/engine/auditable.py:33-52):
     ``ndev`` and ``placement_meta()``.  A resume must match num_parts /
-    vpad / exchange; ``ndev`` is 1 until the mesh lands (ROADMAP
-    A6)."""
+    vpad / exchange ("gather" or "owner"); ``ndev`` is 1 until the mesh
+    lands (ROADMAP A6b)."""
 
     ndev = 1
     exchange = "gather"
@@ -470,7 +564,9 @@ class PullEngine(Placement):
                  dot_block_chunks: int | None = None,
                  dot_block_rows: int | None = None,
                  health: bool = False, stats_cap: int | None = None,
-                 use_mxu: bool | str = "auto"):
+                 use_mxu: bool | str = "auto",
+                 owner_tile_e: int | None = None,
+                 owner_minmax_fused: bool = False):
         """``pair_threshold``: serve the edges of (src tile, dst tile)
         pairs with at least this many edges by pair-lane rows
         (ops/pairs.py; needs vpad % 128 == 0), the rest by the tiled
@@ -490,30 +586,45 @@ class PullEngine(Placement):
         telemetry.DEFAULT_STATS_CAP); writes past it drop.
         ``use_mxu``: the one-hot forms of the tiled reduce (True / False,
         or "auto" through scalemodel); ``gather="auto"`` picks the
-        delivery by scalemodel's break-even on the plan's stats."""
+        delivery by scalemodel's break-even on the plan's stats.
+        ``exchange``: "gather", "owner" (ops/owner.py; its chunk width
+        ``owner_tile_e``, default 256; ``owner_minmax_fused`` is taken
+        and, on one device, changes nothing, as in the reference) or
+        "auto" (``resolve_exchange``).  ``stream_msgs``: the tiled
+        path's gather and partials in blocks of chunks (None: by
+        ops/tiled.stream_by_default on the [P, epad] messages; an
+        owner layout by ``OwnerLayout.streams``)."""
         dev = resolve_device(device)
         if mesh is not None:
-            _refuse("a device mesh", "A6")
+            _refuse("a device mesh", "A6b")
         if gather in ("paged", "pagemajor") and pair_threshold is not None:
             raise ValueError(
                 f"gather={gather!r} subsumes pair delivery (both are "
                 f"row-granular layouts); build without pair_threshold")
-        if stream_msgs:
-            _refuse("streamed chunk blocks (stream_msgs)", "A6")
         if pair_threshold is not None:
             _check_pair_program(layout, program)
-        resolve_exchange(exchange, sg, program)
+        exchange = resolve_exchange(exchange, sg, program, device=dev)
+        if exchange == "owner":
+            check_owner_program(program)
         t0 = time.perf_counter()
-        plan = engine_page_plan(sg, gather, program)
+        plan = engine_page_plan(sg, gather, program, exchange)
         pairs = None
         if pair_threshold is not None:
-            # the tiled path runs on the residual of the pair plan
+            # the tiled (or owner) path runs on the pair plan's residual
             pairs, sg = plan_sharded_pairs(sg, pair_threshold,
                                            min_fill=pair_min_fill,
                                            kdim=dot_kdim(program))
         plan_seconds = time.perf_counter() - t0
         dot = getattr(program, "edge_value_from_dot", None) is not None
-        if plan is not None:
+        owner = None
+        if plan is None and exchange == "owner":
+            owner = OwnerLayout.build(sg, E=owner_tile_e or 256)
+            arrays = dict(common_graph_arrays(sg), **owner_graph_arrays(
+                owner, owner.streams(dev, mxu_wide_of(program))))
+            tiles = None
+            if pairs is not None:
+                arrays.update(pair_graph_arrays(pairs, vpad=sg.vpad))
+        elif plan is not None:
             # the paged plan IS the edge layout: no chunk arrays
             arrays, tiles = dict(common_graph_arrays(sg),
                                  **plan_graph_arrays(plan, dot=dot,
@@ -526,11 +637,17 @@ class PullEngine(Placement):
                 arrays.update(pair_graph_arrays(pairs, dot=dot,
                                                 vpad=sg.vpad))
         arrays.update(program_arrays(program, sg))
+        if stream_msgs is None:
+            wide = mxu_wide_of(program) if dev.type == "cuda" else 1
+            stream_msgs = stream_by_default(
+                sg.num_parts * sg.epad * 4 * wide, dev)
         self._bind(program, arrays, tiles, nv=sg.nv, ne=sg.ne,
                    num_parts=sg.num_parts, vpad=sg.vpad, device=dev, sg=sg,
                    pages=plan, pairs=pairs, pair_stream=pair_stream,
                    dot_block_chunks=dot_block_chunks,
-                   dot_block_rows=dot_block_rows, use_mxu=use_mxu)
+                   dot_block_rows=dot_block_rows, use_mxu=use_mxu,
+                   owner=owner, stream_msgs=stream_msgs,
+                   owner_minmax_fused=owner_minmax_fused)
         self.plan_seconds = plan_seconds
         self.health = bool(health)
         if stats_cap is not None:
@@ -543,7 +660,8 @@ class PullEngine(Placement):
                     nv: int, ne: int, num_parts: int, vpad: int,
                     device=None, pages=None, pairs=None, pair_stream=None,
                     dot_block_chunks=None, dot_block_rows=None,
-                    use_mxu=False):
+                    use_mxu=False, owner=None, stream_msgs=False,
+                    owner_minmax_fused=False):
         """An engine on given per-part arrays and their geometry — how
         interop.from_reference carries a reference engine's arrays
         across bit for bit.  Tiled: keys src_slot, rel_dst,
@@ -555,28 +673,44 @@ class PullEngine(Placement):
         ops/pairs.PairGeometry.  Paged: keys pg_ids, pg_sl, pg_rel,
         pg_tp (+ pg_w, pg_vrs; + pg_rt, pg_t0 for dot programs), deg,
         nvp, ``tiles=None`` and ``pages`` an
-        ops/pagegather.PageGeometry.  A program with ``extra_arrays``
-        takes them as keys ``prog_<name>``."""
+        ops/pagegather.PageGeometry.  Owner exchange: keys own_sr,
+        own_nv (packed) or own_src, own_rel, and own_cs, own_lc (+
+        own_w; + own_ep, own_et for the fused streamed combine), deg,
+        nvp, ``tiles=None`` and ``owner`` an ops/owner.OwnerGeometry;
+        pair rows ride beside them as on the tiled layout.  A program
+        with ``extra_arrays`` takes them as keys ``prog_<name>``."""
         eng = cls.__new__(cls)
         eng._bind(program, arrays, tiles, nv=nv, ne=ne,
                   num_parts=num_parts, vpad=vpad,
                   device=resolve_device(device), sg=None, pages=pages,
                   pairs=pairs, pair_stream=pair_stream,
                   dot_block_chunks=dot_block_chunks,
-                  dot_block_rows=dot_block_rows, use_mxu=use_mxu)
+                  dot_block_rows=dot_block_rows, use_mxu=use_mxu,
+                  owner=owner, stream_msgs=stream_msgs,
+                  owner_minmax_fused=owner_minmax_fused)
         return eng
 
     def _bind(self, program, arrays, tiles, *, nv, ne, num_parts, vpad,
               device, sg, pages=None, pairs=None, pair_stream=None,
-              dot_block_chunks=None, dot_block_rows=None, use_mxu=False):
+              dot_block_chunks=None, dot_block_rows=None, use_mxu=False,
+              owner=None, stream_msgs=False, owner_minmax_fused=False):
         self.program = program
         self.sg = sg
         self.tiles = tiles
+        # the OwnerLayout (or, carried from arrays, its OwnerGeometry)
+        self.owner = owner
+        self.exchange = "gather" if owner is None else "owner"
+        if owner is not None:
+            check_owner_program(program)
+            if tiles is not None or pages is not None:
+                raise ValueError("the owner layout replaces the tiled and "
+                                 "paged layouts")
+        self.owner_minmax_fused = bool(owner_minmax_fused)
         # the PagedPlan (or, carried from arrays, its PageGeometry)
         self.page_plan = pages
         self.gather = "flat" if pages is None else pages.mode
         # the StackedPairPlan (or its PairGeometry); None without pairs
-        if pairs is not None and tiles is None:
+        if pairs is not None and tiles is None and owner is None:
             raise ValueError("pair rows need the tiled layout")
         self.pairs = pairs
         self.pair_stream = resolve_pair_stream(pair_stream, pairs)
@@ -601,6 +735,9 @@ class PullEngine(Placement):
             wkey = "pg_w"
             if dot:
                 need += PAGED_DOT_KEYS
+        elif owner is not None:
+            need = ()                       # check_owner_arrays's
+            wkey = "own_w"
         elif tiles is not None:
             need = TILED_KEYS + (("chunk_tile",) if uses_dst(program)
                                  else ())
@@ -630,7 +767,12 @@ class PullEngine(Placement):
                 _check_pair_program("tiled", program)
         self.arrays = device_arrays(arrays, device)
         a, P = self.arrays, self.num_parts
-        check_dense_arrays(a, P, self.vpad, tiles, pages, pairs)
+        if owner is not None:
+            check_owner_arrays(a, P, self.vpad, owner)
+            if pairs is not None:
+                check_pair_arrays(a, P, self.vpad, pairs)
+        else:
+            check_dense_arrays(a, P, self.vpad, tiles, pages, pairs)
         for k, v in a.items():
             if k.startswith("prog_") and tuple(v.shape[:2]) != (P,
                                                                self.vpad):
@@ -638,14 +780,19 @@ class PullEngine(Placement):
                                  f"{tuple(v.shape)} is not [num_parts, "
                                  f"vpad, ...] = [{P}, {self.vpad}, ...]")
         layout = None
-        if tiles is not None:
-            self._plan = segment_plan(a["chunk_start"], a["last_chunk"])
-            layout = ReduceLayout(P * tiles.n_chunks, tiles.E, tiles.W,
+        chunks = tiles if owner is None else owner
+        if chunks is not None:
+            self._plan = segment_plan(
+                *((a["chunk_start"], a["last_chunk"]) if owner is None
+                  else (a["own_cs"], a["own_lc"])))
+            layout = ReduceLayout(P * chunks.n_chunks, chunks.E, chunks.W,
                                   self._plan.max_len)
         self.scalar_f32_sum = scalar_f32_sum(program, sg)
         self.use_mxu = resolve_use_mxu(use_mxu, program, layout=layout,
                                        scalar_f32=self.scalar_f32_sum)
-        if pages is not None:
+        # the tiled path's gather and partials in blocks of chunks
+        self.stream_chunks = bool(stream_msgs)
+        if pages is not None or owner is not None:
             return
         self._src = a["src_slot"].reshape(-1)
         self._rel32 = None
@@ -899,8 +1046,65 @@ class PullEngine(Placement):
 
     def _phase_gather_reduce(self, flat):
         """gather_reduce: the paged delivery, which fetches and reduces
-        in one go."""
-        return self._paged_red(flat)
+        in one go, or the streamed tiled path (gather, messages and B1 a
+        block of chunks at a time, then the combine and the pair
+        rows)."""
+        if self.page_plan is not None:
+            return self._paged_red(flat)
+        prog = self.program
+        red = streamed_tiled_reduce(
+            flat, self.arrays, self.tiles, self.vpad, prog.reduce,
+            lambda vals, w: prog.edge_value(vals, None, w), self._plan,
+            self.use_mxu)
+        if self.pairs is not None:
+            red = combine_op(prog.reduce)(red, self._pair_red(flat))
+        return red
+
+    @property
+    def _streams(self) -> bool:
+        """Whether the tiled path runs streamed (``stream_msgs``; the
+        reference's rule: tiled layouts of programs that read no
+        destination state, lux_tpu/engine/pull.py:597)."""
+        return (self.stream_chunks and self.tiles is not None
+                and not self.dot and not self.program.needs_dst)
+
+    # -- the owner exchange (ops/owner.py) -------------------------------
+
+    def _owner_contribs(self, state):
+        """Every source part's contribution to every destination part
+        [P, n_tiles * W, ...] (ops/owner.owner_contribs)."""
+        prog = self.program
+        return owner_contribs(
+            self.owner, state, self.arrays, prog.reduce,
+            lambda vals, w: prog.edge_value(vals, None, w),
+            self.num_parts, use_mxu=self.use_mxu, plan=self._plan,
+            max_run=self._plan.max_len)
+
+    def _owner_exchange(self, acc):
+        """The contributions to their destination parts
+        (ops/owner.owner_exchange: the identity on one device)."""
+        return owner_exchange(acc, self.program.reduce,
+                              minmax_fused=self.owner_minmax_fused)
+
+    def _phase_gen_exchange(self, state):
+        """gen_exchange: the owner exchange's message generation and
+        routing, one fused phase as in the reference
+        (lux_tpu/engine/pull.py:1306) -> [P, vpad, ...]."""
+        return self._owner_exchange(self._owner_contribs(state))[
+            :, :self.vpad]
+
+    def _owner_red(self, state, red):
+        """The pair rows' contribution folded into the owner reduction;
+        pair rows fetch from the whole state table."""
+        if self.pairs is None:
+            return red
+        flat = self._phase_exchange(state)
+        return combine_op(self.program.reduce)(red, self._pair_red(flat))
+
+    def _phase_owner_apply(self, state, red):
+        """apply on an owner engine: the pair rows, then the epilogue
+        (lux_tpu/engine/pull.py:772 ``_owner_apply``)."""
+        return self._apply_epilogue(state, self._owner_red(state, red))
 
     def _phase_dot_reduce(self, flat, state):
         """dot_reduce: the blocked SDDMM delivery and its combine."""
@@ -918,7 +1122,7 @@ class PullEngine(Placement):
         if self.dot:
             with annotation("lux_dot_reduce"):
                 return self._phase_dot_reduce(flat, state)
-        if self.page_plan is not None:
+        if self.page_plan is not None or self._streams:
             with annotation("lux_gather_reduce"):
                 return self._phase_gather_reduce(flat)
         with annotation("lux_gather"):
@@ -932,11 +1136,18 @@ class PullEngine(Placement):
         """One iteration's delivery and reduce, before the apply
         epilogue: [P, vpad, ...] -> the per-vertex reductions [P, vpad,
         ...] (the reduce identity where no edge arrives)."""
+        if self.owner is not None:
+            return self._owner_red(state, self._phase_gen_exchange(state))
         return self._delivery(state, self._phase_exchange(state))
 
     def step(self, state: torch.Tensor) -> torch.Tensor:
         """One iteration: [P, vpad, ...] -> [P, vpad, ...]."""
         with annotation(f"lux_{self.program.name or 'pull'}"):
+            if self.owner is not None:
+                with annotation("lux_gen_exchange"):
+                    red = self._phase_gen_exchange(state)
+                with annotation("lux_apply"):
+                    return self._phase_owner_apply(state, red)
             with annotation("lux_exchange"):
                 flat = self._phase_exchange(state)
             red = self._delivery(state, flat)
@@ -947,7 +1158,8 @@ class PullEngine(Placement):
         """``iters`` iterations run phase by phase, each fenced (a
         device synchronize on the card) -> (state, [{phase: seconds}])
         (lux_tpu/engine/pull.py:1397).  The phases are the methods
-        ``step`` calls, in its order, so the state is ``run``'s.  The
+        ``step`` calls, in its order, so the state is ``run``'s; an
+        owner engine's are ``gen_exchange`` and ``apply``.  The
         fences and host returns between phases are not in a plain run:
         read the split for relative weight, not for the rate."""
         from lux_tpu_torch.engine.phased import PhaseTimer
@@ -956,10 +1168,15 @@ class PullEngine(Placement):
         report = []
         for _ in range(int(iters)):
             pt = PhaseTimer(fence)
+            if self.owner is not None:
+                red = pt("gen_exchange", self._phase_gen_exchange, state)
+                state = pt("apply", self._phase_owner_apply, state, red)
+                report.append(pt.t)
+                continue
             flat = pt("exchange", self._phase_exchange, state)
             if self.dot:
                 red = pt("dot_reduce", self._phase_dot_reduce, flat, state)
-            elif self.page_plan is not None:
+            elif self.page_plan is not None or self._streams:
                 red = pt("gather_reduce", self._phase_gather_reduce, flat)
             else:
                 msgs = pt("gather", self._phase_gather, flat)

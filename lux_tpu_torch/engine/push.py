@@ -61,6 +61,16 @@ sparse expansion's running owner by the cumsum as matmuls
 (engine/frontier.py); ``gather="auto"`` picks the dense delivery by
 scalemodel (ops/pagegather.resolve_gather).
 
+``exchange="owner"`` (ops/owner.py; lux_tpu/engine/push.py:474-540)
+runs the dense iterations owner-side: each source part masks its own
+label shard and gathers from it, kernel B1 reduces every part's owner
+chunks in one launch, and the contributions fold across source parts
+(one ``gen_exchange`` phase); sparse iterations are unchanged.
+``stream_msgs`` runs the tiled dense path's gather, relax and partials
+in blocks of chunks; None streams on the card only what would not fit
+in its free memory, elsewhere by the reference's 1 GB rule
+(ops/tiled.stream_by_default).
+
 Options the port does not carry yet raise :class:`NotPortedError`
 naming the ROADMAP item that brings them.
 """
@@ -81,6 +91,8 @@ from lux_tpu_torch.engine.program import vmask_of
 from lux_tpu_torch.engine.pull import (NotPortedError, Placement, _outside,
                                        build_graph_arrays,
                                        check_dense_arrays,
+                                       check_owner_arrays,
+                                       check_pair_arrays,
                                        common_graph_arrays, device_arrays,
                                        flat_segments, gather_rows,
                                        resolve_exchange, resolve_use_mxu)
@@ -90,8 +102,12 @@ from lux_tpu_torch.ops.pagegather import (engine_page_plan, paged_partial,
 from lux_tpu_torch.ops.pairs import (pair_graph_arrays, pair_partial,
                                      pair_partial_streamed,
                                      plan_sharded_pairs, resolve_pair_stream)
+from lux_tpu_torch.ops.owner import (OwnerLayout, owner_contribs,
+                                     owner_exchange, owner_graph_arrays)
 from lux_tpu_torch.ops.segment import segment_reduce
 from lux_tpu_torch.ops.tiled import (combine_op, segment_plan,
+                                     stream_by_default,
+                                     streamed_tiled_reduce,
                                      tiled_segment_reduce)
 from lux_tpu_torch.partition import frontier_capacity
 from lux_tpu_torch.profiling import annotation, device_fence
@@ -109,7 +125,8 @@ def _refuse(what: str, item: str):
                          f"layout 'tiled'/'flat', gather "
                          f"'flat'/'paged'/'pagemajor' or pair-lane rows "
                          f"(query-batched programs: tiled or flat), "
-                         f"exchange 'gather'")
+                         f"exchange 'gather' or 'owner' (owner: flat "
+                         f"gather)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,13 +177,13 @@ class PushEngine(Placement):
                  pair_stream: bool | None = None,
                  stream_msgs: bool | None = None,
                  exchange: str = "auto", gather: str = "flat",
+                 owner_tile_e: int | None = None,
+                 owner_minmax_fused: bool = False,
                  stats_cap: int | None = None, health: bool = False,
                  audit: str | None = None):
         dev = resolve_device(device)
         if mesh is not None:
-            _refuse("a device mesh", "A6")
-        if stream_msgs:
-            _refuse("streamed chunk blocks (stream_msgs)", "A6")
+            _refuse("a device mesh", "A6b")
         if program.batch is not None:
             # the reference's rule (lux_tpu/engine/push.py:131-146):
             # dense masked iterations only
@@ -188,8 +205,9 @@ class PushEngine(Placement):
         # the auto-exchange estimate is the whole label table's bytes: a
         # B-wide batch is B tables
         ident_dt = np.asarray(program.identity).dtype
-        resolve_exchange(exchange, sg, program,
-                         itemsize=ident_dt.itemsize * (program.batch or 1))
+        exchange = resolve_exchange(
+            exchange, sg, program,
+            itemsize=ident_dt.itemsize * (program.batch or 1), device=dev)
         if layout == "flat" and dev.type != "cpu":
             raise ValueError(
                 "layout='flat' is the scatter oracle over every edge and "
@@ -202,7 +220,7 @@ class PushEngine(Placement):
         if pair_threshold is not None and layout != "tiled":
             raise ValueError("pair_threshold requires the tiled layout")
         t0 = time.perf_counter()
-        plan = engine_page_plan(sg, gather, program)
+        plan = engine_page_plan(sg, gather, program, exchange)
         pairs, dense_sg = None, sg
         if pair_threshold is not None:
             # the dense tiled path runs on the pair plan's residual;
@@ -210,7 +228,15 @@ class PushEngine(Placement):
             pairs, dense_sg = plan_sharded_pairs(sg, pair_threshold,
                                                  min_fill=pair_min_fill)
         plan_seconds = time.perf_counter() - t0
-        if plan is not None:
+        owner = None
+        if plan is None and exchange == "owner":
+            owner = OwnerLayout.build(dense_sg, E=owner_tile_e or 256)
+            arrays, tiles = dict(
+                common_graph_arrays(dense_sg), **owner_graph_arrays(
+                    owner, owner.streams(dev, program.batch or 1))), None
+            if pairs is not None:
+                arrays.update(pair_graph_arrays(pairs))
+        elif plan is not None:
             arrays, tiles = dict(common_graph_arrays(dense_sg),
                                  **plan_graph_arrays(plan)), None
         else:
@@ -234,12 +260,18 @@ class PushEngine(Placement):
                               np.int32)[:, None])
             if ss["ss_weight"] is not None:
                 arrays["ss_weight"] = ss["ss_weight"]
+        if stream_msgs is None:
+            wide = (program.batch or 1) if dev.type == "cuda" else 1
+            stream_msgs = stream_by_default(
+                sg.num_parts * dense_sg.epad * 4 * wide, dev)
         self._bind(program, arrays, tiles, nv=sg.nv, ne=sg.ne,
                    num_parts=sg.num_parts, vpad=sg.vpad, device=dev, sg=sg,
                    pages=plan, pairs=pairs, pair_stream=pair_stream,
                    enable_sparse=enable_sparse,
                    sparse_threshold=sparse_threshold, queue_cap=queue_cap,
-                   edge_budget=eb, delta=delta, use_mxu=use_mxu)
+                   edge_budget=eb, delta=delta, use_mxu=use_mxu,
+                   owner=owner, stream_msgs=stream_msgs,
+                   owner_minmax_fused=owner_minmax_fused)
         self.plan_seconds = plan_seconds
         self.health = bool(health)
         if stats_cap is not None:
@@ -251,11 +283,13 @@ class PushEngine(Placement):
                     queue_cap: int, edge_budget: int,
                     enable_sparse: bool = True, sparse_threshold: int = 16,
                     delta=None, device=None, pages=None, pairs=None,
-                    pair_stream=None, use_mxu=False):
+                    pair_stream=None, use_mxu=False, owner=None,
+                    stream_msgs=False, owner_minmax_fused=False):
         """An engine on given per-part arrays and their geometry — how
         interop.push_from_reference carries a reference engine's
         arrays across bit for bit.  The dense keys are
-        PullEngine.from_arrays's; with sparse iterations also
+        PullEngine.from_arrays's (``owner`` an ops/owner.OwnerGeometry
+        for the owner exchange's arrays); with sparse iterations also
         src_ids, src_off, ss_dst, part_start (+ ss_weight)."""
         eng = cls.__new__(cls)
         eng._bind(program, arrays, tiles, nv=nv, ne=ne,
@@ -264,13 +298,16 @@ class PushEngine(Placement):
                   pairs=pairs, pair_stream=pair_stream,
                   enable_sparse=enable_sparse,
                   sparse_threshold=sparse_threshold, queue_cap=queue_cap,
-                  edge_budget=edge_budget, delta=delta, use_mxu=use_mxu)
+                  edge_budget=edge_budget, delta=delta, use_mxu=use_mxu,
+                  owner=owner, stream_msgs=stream_msgs,
+                  owner_minmax_fused=owner_minmax_fused)
         return eng
 
     def _bind(self, program, arrays, tiles, *, nv, ne, num_parts, vpad,
               device, sg, pages, pairs, pair_stream, enable_sparse,
               sparse_threshold, queue_cap, edge_budget, delta,
-              use_mxu=False):
+              use_mxu=False, owner=None, stream_msgs=False,
+              owner_minmax_fused=False):
         if program.reduce not in ("min", "max"):
             raise ValueError(f"push programs reduce by 'min' or 'max', "
                              f"not {program.reduce!r}")
@@ -284,8 +321,17 @@ class PushEngine(Placement):
                 raise ValueError(
                     f"delta-stepping bucket width {delta!r} is not > 0 "
                     f"in label dtype {ldt}")
-        if pairs is not None and tiles is None:
+        if pairs is not None and tiles is None and owner is None:
             raise ValueError("pair rows need the tiled layout")
+        if owner is not None and (tiles is not None or pages is not None):
+            raise ValueError("the owner layout replaces the tiled and "
+                             "paged layouts")
+        # the OwnerLayout (or its OwnerGeometry); None on the gather
+        # exchange
+        self.owner = owner
+        self.exchange = "gather" if owner is None else "owner"
+        self.owner_minmax_fused = bool(owner_minmax_fused)
+        self.stream_chunks = bool(stream_msgs)
         self.batch = program.batch
         if self.batch is not None and (enable_sparse or pairs is not None):
             raise ValueError("query-batched push engines run dense "
@@ -313,8 +359,14 @@ class PushEngine(Placement):
         self._placed = None
         self.arrays = device_arrays(arrays, device)
         a, P = self.arrays, self.num_parts
-        check_dense_arrays(a, P, vpad, tiles, pages, pairs)
-        if pages is None:
+        if owner is not None:
+            check_owner_arrays(a, P, vpad, owner)
+            if pairs is not None:
+                check_pair_arrays(a, P, vpad, pairs)
+            self._plan = segment_plan(a["own_cs"], a["own_lc"])
+        else:
+            check_dense_arrays(a, P, vpad, tiles, pages, pairs)
+        if pages is None and owner is None:
             self._src = a["src_slot"].reshape(-1)
             if tiles is not None:
                 self._plan = segment_plan(a["chunk_start"], a["last_chunk"])
@@ -465,13 +517,52 @@ class PushEngine(Placement):
 
     def _phase_relax_reduce(self, flat):
         """relax_reduce: the paged delivery, which relaxes and reduces
-        in one go."""
-        return self._dense_red(flat, None)
+        in one go, or the streamed tiled path (gather, relax and B1 a
+        block of chunks at a time, then the combine and the pair
+        rows)."""
+        if self.page_plan is not None:
+            return self._dense_red(flat, None)
+        kind = self.program.reduce
+        red = streamed_tiled_reduce(flat, self.arrays, self.tiles,
+                                    self.vpad, kind, self._msg, self._plan,
+                                    self.use_mxu)
+        if self.pairs is not None:
+            red = combine_op(kind)(red, self._pair_red(flat))
+        return red
+
+    @property
+    def _streams(self) -> bool:
+        """Whether the tiled dense path runs streamed (``stream_msgs``)."""
+        return self.stream_chunks and self.tiles is not None
+
+    def _phase_gen_exchange(self, label, active):
+        """gen_exchange: one owner dense iteration, one fused phase as in
+        the reference (lux_tpu/engine/push.py:487 ``_dense_parts_owner``):
+        each source part's shard masked (inactive -> identity), the owner
+        contributions folded across source parts and routed, the pair
+        rows from the whole masked table, the update -> (label,
+        improved)."""
+        kind = self.program.reduce
+        masked = torch.where(active, label, self._ident)
+        acc = owner_contribs(self.owner, masked, self.arrays, kind,
+                             self._msg, self.num_parts,
+                             use_mxu=self.use_mxu, plan=self._plan,
+                             max_run=self._plan.max_len)
+        red = owner_exchange(acc, kind,
+                             minmax_fused=self.owner_minmax_fused)[
+            :, :self.vpad]
+        if self.pairs is not None:
+            flat = masked.reshape((-1,) + tuple(label.shape[2:]))
+            red = combine_op(kind)(red, self._pair_red(flat))
+        return self._dense_update(label, red)
 
     def _dense(self, label, active):
+        if self.owner is not None:
+            with annotation("lux_gen_exchange"):
+                return self._phase_gen_exchange(label, active)
         with annotation("lux_exchange"):
             flat = self._phase_exchange(label, active)
-        if self.page_plan is not None:
+        if self.page_plan is not None or self._streams:
             with annotation("lux_reduce"):
                 red = self._phase_relax_reduce(flat)
         else:
@@ -751,7 +842,9 @@ class PushEngine(Placement):
         [{phase: seconds, "frontier": count}])
         (lux_tpu/engine/push.py:1327).  Dense iterations split into
         exchange / relax / reduce / update (relax_reduce on paged
-        rows); those the engine runs sparse are one ``sparse`` entry.
+        rows and the streamed tiled path; one ``gen_exchange`` on an
+        owner engine); those the engine runs sparse are one ``sparse``
+        entry.
         A delta engine runs its actual bucket schedule, each entry also
         carrying the bucket bound and the advances before it.  The
         phases are the methods a converge calls, in its order: the
@@ -784,8 +877,12 @@ class PushEngine(Placement):
         self.schedule.append("dense")
         pt = PhaseTimer(fence)
         pt.t = t
+        if self.owner is not None:
+            label, na = pt("gen_exchange", self._phase_gen_exchange, label,
+                           active)
+            return label, na, int(na.sum(dtype=torch.int32))
         flat = pt("exchange", self._phase_exchange, label, active)
-        if self.page_plan is not None:
+        if self.page_plan is not None or self._streams:
             red = pt("relax_reduce", self._phase_relax_reduce, flat)
         else:
             cand = pt("relax", self._phase_relax, flat)

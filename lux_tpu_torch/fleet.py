@@ -61,8 +61,9 @@ recovery (counterpart of lux_tpu/fleet.py).
   live fleet refuses them.
 
 ``device`` (None means the card, as everywhere in the port) goes to
-every runner and to a subprocess replica's spec.  Refused until ROADMAP
-A6: ``mesh=`` and ``exchange="owner"``.
+every runner and to a subprocess replica's spec; so does ``exchange``
+("owner" runs every replica's engines on the owner exchange).  Refused
+until ROADMAP A6b: ``mesh=``.
 
 Smoke: ``python -m lux_tpu_torch.fleet [-device cpu]`` drains an
 oversubscribed mixed load across 2 replicas with one killed mid-drain
@@ -292,11 +293,8 @@ class FleetServer:
                  heal_clock=time.monotonic):
         if mesh is not None:
             raise NotPortedError("FleetServer(mesh=...) is not ported yet "
-                                 "(ROADMAP A6); the port's replicas serve "
+                                 "(ROADMAP A6b); the port's replicas serve "
                                  "one device each")
-        if exchange == "owner":
-            raise NotPortedError("FleetServer(exchange='owner') is not "
-                                 "ported yet (ROADMAP A6)")
         if replicas < 1:
             raise ValueError(f"fleet needs >= 1 replica, got {replicas}")
         self.device = resolve_device(device)
@@ -431,7 +429,8 @@ class FleetServer:
                 "graph": dict(graph_spec), "batch": self.batch,
                 "num_parts": int(num_parts), "seg_iters": self.seg_iters,
                 "tol": self.tol, "weighted": self.weighted,
-                "device": str(self.device), "kill_boundary": kill_boundary}
+                "device": str(self.device), "kill_boundary": kill_boundary,
+                "exchange": self.opts["exchange"]}
         spec_path = os.path.join(spool, f"spec_{name}.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
@@ -1441,6 +1440,7 @@ def _worker_main(spec_path: str) -> int:
                            seg_iters=int(spec["seg_iters"]),
                            tol=float(spec.get("tol", 1e-8)),
                            weighted=bool(spec.get("weighted", False)),
+                           exchange=spec.get("exchange", "auto"),
                            metrics=False, on_boundary=on_boundary,
                            replica=name)
     inbox = os.path.join(spec["dir"], f"inbox_{name}")

@@ -422,6 +422,8 @@ class ShardedGraph:
     # ---- the memory advisor ----------------------------------------
 
     def memory_report(self, *, exchange: str = "gather",
+                      owner_slots_per_part: int | None = None,
+                      owner_packed: bool | None = None,
                       push_sparse: bool = False, pairs=None,
                       pair_kdim: int = 1, pair_stream: bool | None = None,
                       page_plan=None, query_batch: int = 1,
@@ -444,12 +446,18 @@ class ShardedGraph:
         1-byte mask per query).  What the port's eager forms allocate
         beyond these terms, memwatch's ledger prices as ``port_*``
         terms.
-        ``total_bytes`` is num_parts times the terms' sum.  Only the
-        gather exchange is priced: the owner exchange is ROADMAP A6."""
-        if exchange != "gather":
-            from lux_tpu_torch.engine.pull import NotPortedError
-            raise NotPortedError(f"memory_report(exchange={exchange!r}) is "
-                                 f"not ported yet (ROADMAP A6)")
+        ``total_bytes`` is num_parts times the terms' sum.
+        ``exchange="owner"`` prices the owner layout's slots instead of
+        the tiled one's (lux_tpu/graph.py:731-749): one packed uint32 a
+        slot, or int32 + int8 (``owner_packed`` None: packed whenever
+        vpad <= 2^25), + f32 weights, over ``owner_slots_per_part``
+        slots (default epad, a lower bound: the build's chunk padding
+        sits above it, ops/owner.OwnerLayout.stats); the owner
+        accumulator, vpad x 4 x query_batch bytes a part, is reported as
+        ``owner_msg_bytes_per_part`` and left out of the total, as in
+        the reference."""
+        if exchange not in ("gather", "owner"):
+            raise ValueError(f"unknown exchange {exchange!r}")
         if query_batch < 1:
             raise ValueError(f"query_batch must be >= 1, got "
                              f"{query_batch}")
@@ -465,6 +473,13 @@ class ShardedGraph:
             wide = max(1, pair_kdim) * query_batch
             page_buf = pp.n_pages * 128 * 4 * wide
             page_temp = (2 * pp.Rp + getattr(pp, "Rg", 0)) * 128 * 4 * wide
+        elif exchange == "owner":
+            slots = (self.epad if owner_slots_per_part is None
+                     else int(owner_slots_per_part))
+            if owner_packed is None:
+                from lux_tpu_torch.ops.owner import OwnerLayout
+                owner_packed = self.vpad <= OwnerLayout.PACK_VPAD_MAX
+            edge_bytes = slots * ((4 if owner_packed else 5) + w)
         else:
             edge_bytes = self.epad * (4 + 1 + w)
         sparse_bytes = 0
@@ -516,7 +531,8 @@ class ShardedGraph:
             "page_temp_bytes_per_part": page_temp,
             "mxu_temp_bytes_per_part": mxu_temp,
             "vertex_bytes_per_part": vert_bytes,
-            "owner_msg_bytes_per_part": 0,
+            "owner_msg_bytes_per_part": (self.vpad * 4 * query_batch
+                                         if exchange == "owner" else 0),
             "terms_per_part": terms,
             "total_bytes": self.num_parts * sum(terms.values()),
         }

@@ -21,6 +21,7 @@ import torch
 from lux_tpu_torch.apps.pagerank import make_program
 from lux_tpu_torch.engine.pull import TILED_KEYS, PullEngine
 from lux_tpu_torch.engine.push import SPARSE_KEYS, PushEngine
+from lux_tpu_torch.ops.owner import OWNER_SCAN_KEYS, OwnerGeometry
 from lux_tpu_torch.ops.pagegather import (PAGED_DOT_KEYS, PAGED_KEYS,
                                           PageGeometry)
 from lux_tpu_torch.ops.pairs import PAIR_DOT_KEYS, PAIR_KEYS, PairGeometry
@@ -33,6 +34,7 @@ PAGED_META_KEYS = ("classes", "R", "Rp", "n_tiles", "n_slots",
 PAIR_META_KEYS = ("classes", "R", "Rp", "n_tiles", "n_slots")
 PUSH_META_KEYS = ("queue_cap", "edge_budget", "enable_sparse",
                   "sparse_threshold", "delta")
+OWNER_META_KEYS = ("W", "E", "n_tiles", "G", "n_chunks", "needs_scan")
 
 
 def _require(meta: dict, keys):
@@ -45,7 +47,8 @@ def _geometry(arrays: dict, meta: dict):
     """The dense layout carried in ``meta`` -> (host arrays of its keys,
     the from_arrays keyword arguments)."""
     paged = meta.get("mode") in ("paged", "pagemajor")
-    _require(meta, PAGED_META_KEYS if paged else META_KEYS)
+    _require(meta, PAGED_META_KEYS if paged else
+             COMMON_META if meta.get("owner") is not None else META_KEYS)
     kw = dict(nv=meta["nv"], ne=meta["ne"], num_parts=meta["num_parts"],
               vpad=meta["vpad"])
     if paged:
@@ -58,11 +61,21 @@ def _geometry(arrays: dict, meta: dict):
         keys = PAGED_KEYS + ("deg", "nvp", "pg_w", "pg_vrs") \
             + PAGED_DOT_KEYS
     else:
-        kw["tiles"] = TileGeometry(W=int(meta["W"]), E=int(meta["E"]),
-                                   n_tiles=int(meta["n_tiles"]),
-                                   n_chunks=int(meta["n_chunks"]),
-                                   needs_scan=bool(meta["needs_scan"]))
-        keys = TILED_KEYS + ("weight", "chunk_tile")
+        if meta.get("owner") is not None:
+            om = meta["owner"]
+            _require(om, OWNER_META_KEYS)
+            kw["owner"] = OwnerGeometry(
+                W=int(om["W"]), E=int(om["E"]), n_tiles=int(om["n_tiles"]),
+                G=int(om["G"]), n_chunks=int(om["n_chunks"]),
+                needs_scan=bool(om["needs_scan"]))
+            kw["tiles"] = None
+            keys = OWNER_SCAN_KEYS + ("deg", "nvp")
+        else:
+            kw["tiles"] = TileGeometry(W=int(meta["W"]), E=int(meta["E"]),
+                                       n_tiles=int(meta["n_tiles"]),
+                                       n_chunks=int(meta["n_chunks"]),
+                                       needs_scan=bool(meta["needs_scan"]))
+            keys = TILED_KEYS + ("weight", "chunk_tile")
         if meta.get("pairs") is not None:
             pm = meta["pairs"]
             _require(pm, PAIR_META_KEYS)
@@ -108,6 +121,12 @@ def from_reference(arrays: dict, state: np.ndarray, *, meta: dict,
       pg_vrs where the reference has them; meta classes, R, Rp,
       n_tiles, n_slots, mode + the common keys.
 
+    - owner-exchange engine (meta ``owner``, a dict of the reference's
+      OwnerLayout W, E, n_tiles, G, n_chunks, needs_scan): arrays own_sr
+      (uint32) and own_nv (uint16), or own_src and own_rel, and own_cs,
+      own_lc, deg, nvp (+ own_w; + own_ep, own_et when it streams; +
+      the pair arrays and meta ``pairs`` as above) + the common keys.
+
     Programs reading the destination carry ``chunk_tile``; dot
     programs (colfilter) also pair_row_tile, pair_tile0 or pg_rt,
     pg_t0, as the reference builds them.  A query-batched program
@@ -117,6 +136,7 @@ def from_reference(arrays: dict, state: np.ndarray, *, meta: dict,
     if program is None:
         program = make_program()
         host.pop("weight", None)        # PageRank reads no weights
+        host.pop("own_w", None)
     eng = PullEngine.from_arrays(program, host, device=device, **kw)
     return eng, _state(state, eng, "state")
 

@@ -69,7 +69,7 @@ ANSWER_BYTES_PER_VERTEX = 8
 TEMP_TERMS = ("graph_pair_temp", "graph_page_buffer", "graph_page_temp",
               "graph_mxu_temp", "port_messages", "port_candidates",
               "port_partials", "port_combine", "port_mxu",
-              "port_host_roundtrip")
+              "port_host_roundtrip", "port_owner_decode", "port_owner_acc")
 
 # torch.cuda.memory_stats keys of the allocator's live and peak bytes
 CUDA_CURRENT = "allocated_bytes.all.current"
@@ -177,8 +177,9 @@ def report_kwargs(eng) -> dict:
         kw["query_batch"] = int(getattr(eng, "batch", None) or 1)
     if getattr(eng, "use_mxu", False):
         kw["use_mxu"] = True
-        if eng.tiles is not None:
-            kw["mxu_tile_e"] = int(eng.tiles.E)
+        lay = eng.tiles or getattr(eng, "owner", None)
+        if lay is not None:
+            kw["mxu_tile_e"] = int(lay.E)
     return kw
 
 
@@ -242,7 +243,10 @@ def eager_terms(eng) -> dict:
 
     Paged and pair rows are priced by the reference's own terms
     (page_temp, pair_temp); the dot path's blocks by ops/dot's budget
-    under pair_temp.  Returns {} for those layouts."""
+    under pair_temp.  Returns {} for those layouts.  Owner engines:
+    ``owner_terms``."""
+    if getattr(eng, "owner", None) is not None:
+        return owner_terms(eng)
     tiles = getattr(eng, "tiles", None)
     if tiles is None or getattr(eng, "dot", False):
         return {}
@@ -272,6 +276,52 @@ def eager_terms(eng) -> dict:
             from lux_tpu_torch.ops.tiled import MXU_BLOCK_BYTES
             terms["port_mxu"] = min(MXU_BLOCK_BYTES,
                                     rows * tiles.E * tiles.W * 4)
+    return terms
+
+
+def owner_terms(eng) -> dict:
+    """An owner engine's terms beyond memory_report's (bytes, whole
+    engine): ``port_owner_layout`` (resident: the owner arrays' bytes
+    above the report's ``edge`` term, which prices epad slots only: the
+    chunk padding, the chunk flags, the last-chunk table and any
+    extraction plan), and the per-iteration temporaries of the
+    monolithic form (a streamed layout holds one block at a time):
+    ``port_owner_decode`` (a packed layout's decoded int32 slots and
+    int8 lanes), ``port_messages`` (the gathered values, [P*C*E,
+    K*B]), ``port_candidates`` (push: the masked labels and the
+    candidates beside them), ``port_partials`` (B1's [P*C, W, K*B]),
+    ``port_combine`` (the doubling combine's three buffers when a tile
+    spans chunks) and ``port_owner_acc`` (the [P, G, W] tiles and the
+    folded [P, n_tiles * W] accumulator)."""
+    from lux_tpu_torch.engine.push import PushEngine
+    lay, P = eng.owner, eng.num_parts
+    is_push = isinstance(eng, PushEngine)
+    if is_push:
+        wide = int(eng.batch or 1)
+        isz = int(np.asarray(eng.program.identity).dtype.itemsize)
+    else:
+        sb = getattr(eng.program, "state_bytes", None) or 4
+        wide, isz = max(1, sb // 4), 4
+    own = _tensor_bytes(t for k, t in eng.arrays.items()
+                        if k.startswith("own_"))
+    edge = eng.sg.memory_report(**report_kwargs(eng))["terms_per_part"][
+        "edge"] * P if eng.sg is not None else 0
+    terms = {"port_owner_layout": max(0, own - edge)}
+    if "own_ep" in eng.arrays:
+        return terms
+    slots = P * lay.n_chunks * lay.E
+    partials = P * lay.n_chunks * lay.W * wide * isz
+    if "own_sr" in eng.arrays:
+        terms["port_owner_decode"] = slots * 5
+    terms["port_messages"] = slots * wide * isz
+    if is_push:
+        terms["port_candidates"] = slots * wide * (isz + 1)
+    terms["port_partials"] = partials
+    plan = getattr(eng, "_plan", None)
+    if plan is not None and plan.max_len > 1:
+        terms["port_combine"] = 3 * partials
+    terms["port_owner_acc"] = (P * lay.G + P * lay.n_tiles) * lay.W \
+        * wide * isz
     return terms
 
 

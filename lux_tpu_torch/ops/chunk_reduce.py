@@ -12,7 +12,8 @@ ops/tiled.TiledLayout).  Any C and any E >= 1.
 ``chunk_partials`` launches the CUDA kernel (csrc/chunk_partials.cu)
 for tensors on the card and takes ``chunk_partials_plain`` only for
 tensors on the CPU — there is no fallback from the card to the plain
-version.  ``chunk_partials.launches`` counts kernel launches.
+version.  ``chunk_partials.launches`` counts kernel launches, and
+``chunk_partials.launches_by_e`` the same launches by chunk length.
 
 The same function over a trailing query axis (query-batched programs,
 whose state is [P, vpad, B]):
@@ -158,10 +159,15 @@ def chunk_partials(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
         raise KernelLaunchError(f"chunk_partials launch failed with "
                                 f"cudaError_t {err} (C={C} E={E} W={W})")
     chunk_partials.launches += 1
+    chunk_partials.launches_by_e[E] = (
+        chunk_partials.launches_by_e.get(E, 0) + 1)
     return out
 
 
 chunk_partials.launches = 0
+# the same launches by chunk length E: a path that reduces chunks of
+# two shapes (owner chunks at E = 256, pair rows at 128) tells them apart
+chunk_partials.launches_by_e = {}
 
 
 def chunk_partials_batched_plain(vals: torch.Tensor, rel_dst: torch.Tensor,

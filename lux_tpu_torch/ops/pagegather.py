@@ -50,7 +50,7 @@ On the device ``slot_lane`` rides as int32 with the uint32's bits;
 page slots decode as ``(x >> 7) & 0x1FFFFFF``, lanes as ``x & 0x7F``.
 ``gather="auto"`` resolves flat, paged or page-major through
 scalemodel's break-even on the counted plan stats (``resolve_gather``).
-The owner-exchange plans (ROADMAP A6) are not ported.
+The owner-exchange plans (ROADMAP A6a-2) are not ported.
 """
 
 from __future__ import annotations
@@ -579,8 +579,8 @@ def resolve_gather(gather: str, stats: dict | None = None,
     when its delivered ns an edge undercuts the flat gather's rate for
     a ``table_bytes`` state table (the residual path's for ``kdim`` > 1),
     page-major (scalar programs, stats with ``pm_*`` keys) when it
-    undercuts both.  The owner exchange's baseline waits for ROADMAP
-    A6."""
+    undercuts both.  Against the owner exchange 'auto' would price the
+    owner paged plans, which wait for ROADMAP A6a-2."""
     if gather in GATHER_MODES:
         return gather
     if gather != "auto":
@@ -590,7 +590,8 @@ def resolve_gather(gather: str, stats: dict | None = None,
     if exchange == "owner":
         from lux_tpu_torch.engine.pull import NotPortedError
         raise NotPortedError("gather='auto' against the owner exchange "
-                             "is not ported yet (ROADMAP A6)")
+                             "is not ported yet (ROADMAP A6a-2: the owner "
+                             "paged plans); pass gather='flat'")
     if stats is None:
         raise ValueError("gather='auto' resolves from the plan's stats "
                          "(plan_paged_stats)")
@@ -627,7 +628,8 @@ def state_table_bytes(sg, program) -> int:
     return sg.num_parts * sg.vpad * itemsize
 
 
-def engine_page_plan(sg, gather: str, program) -> PagedPlan | None:
+def engine_page_plan(sg, gather: str, program,
+                     exchange: str = "gather") -> PagedPlan | None:
     """The engines' plan-or-not resolution (lux_tpu/ops/pagegather.py:
     925-975): the paged or page-major plan of a dense (gather-exchange)
     engine, None for the flat gather.  Dot programs
@@ -635,11 +637,20 @@ def engine_page_plan(sg, gather: str, program) -> PagedPlan | None:
     'paged' / 'pagemajor' raises ValueError, with the reference's
     messages, on configurations the plans do not support; 'auto' stays
     flat there, and elsewhere resolves from the counting pass alone
-    (``resolve_gather``), so a flat answer builds no plan arrays."""
+    (``resolve_gather``), so a flat answer builds no plan arrays.
+    Under ``exchange="owner"`` the plans are the owner paged plans,
+    which wait for ROADMAP A6a-2: 'paged', 'pagemajor' and an 'auto'
+    that the plans could serve raise NotPortedError."""
     if gather not in GATHER_MODES + ("auto",):
         resolve_gather(gather)              # the typed ValueError
     if gather == "flat":
         return None
+    if exchange == "owner" and gather != "auto":
+        from lux_tpu_torch.engine.pull import NotPortedError
+        raise NotPortedError(
+            f"gather={gather!r} with exchange='owner' (the owner paged "
+            f"plans) is not ported yet (ROADMAP A6a-2); pass "
+            f"gather='flat'")
     dot = getattr(program, "edge_value_from_dot", None) is not None
     why = None
     if getattr(program, "needs_dst", False) and not dot:
@@ -659,6 +670,8 @@ def engine_page_plan(sg, gather: str, program) -> PagedPlan | None:
         kdim = 1
         if dot:
             kdim = max(1, (getattr(program, "state_bytes", None) or 4) // 4)
+        if exchange == "owner":
+            resolve_gather("auto", exchange=exchange)   # A6a-2
         stats = plan_paged_stats(sg, pagemajor=not dot)
         gather = resolve_gather("auto", stats,
                                 state_table_bytes(sg, program), kdim)

@@ -543,21 +543,27 @@ def plan_sharded_pairs(sg, threshold: int,
             analysis=analysis, min_fill=min_fill)
 
     if P > 1:
-        analyses = []
-        for p in range(P):
+        from concurrent.futures import ThreadPoolExecutor
+
+        def analyze(p):
             nep = int(sg.ne_part[p])
-            analyses.append(analyze_pairs(
+            return analyze_pairs(
                 sg.src_slot[p, :nep], sg.dst_local[p, :nep], sg.vpad,
-                threshold=threshold, min_fill=min_fill))
-        prof_max = np.maximum.reduce([a.depth_sorted for a in analyses])
-        if sum(int(a.depth_sorted.sum()) for a in analyses) == 0:
-            return None, sg             # no pair anywhere dense enough
-        common = quantize_depths(prof_max)
-        plans = []
-        for p in range(P):
-            plans.append(plan_part(p, slot_depths=common,
-                                   analysis=analyses[p]))
-            analyses[p] = None          # release the per-part arrays
+                threshold=threshold, min_fill=min_fill)
+
+        # the parts are independent: one host thread each (their sorts
+        # and array passes release the GIL), results in part order
+        with ThreadPoolExecutor(max_workers=min(P, 8)) as ex:
+            analyses = list(ex.map(analyze, range(P)))
+            prof_max = np.maximum.reduce([a.depth_sorted
+                                          for a in analyses])
+            if sum(int(a.depth_sorted.sum()) for a in analyses) == 0:
+                return None, sg         # no pair anywhere dense enough
+            common = quantize_depths(prof_max)
+            plans = list(ex.map(
+                lambda p: plan_part(p, slot_depths=common,
+                                    analysis=analyses[p]), range(P)))
+        del analyses
     else:
         plans = [plan_part(0)]
         if plans[0].stats["covered"] == 0:

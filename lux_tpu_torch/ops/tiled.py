@@ -168,9 +168,32 @@ def combine_op(kind: str):
 # bytes of the one-hot (or byte-plane) operands one contraction block
 # holds; the reference streams STREAM_BLOCK_CHUNKS (1,024) chunks
 MXU_BLOCK_BYTES = 1 << 30
-# chunks of a streamed block in the reference (lux_tpu/ops/tiled.py:533),
-# which memory_report's ``mxu_temp`` prices the one-hot over
+# chunks of a streamed block (lux_tpu/ops/tiled.py:533): the streamed
+# forms below reduce this many chunks a B1 launch, and memory_report's
+# ``mxu_temp`` prices the one-hot over it
 STREAM_BLOCK_CHUNKS = 1024
+# engines stream the gather + partials once a [rows, C, E] f32 message
+# temporary would pass this many bytes (lux_tpu/ops/tiled.py:535): the
+# rule off the card (``stream_by_default``)
+STREAM_MSG_BYTES = 1 << 30
+# message-sized temporaries a monolithic step holds at once on the card:
+# the gathered source values, the messages and the partials
+MONOLITHIC_TEMPS = 3
+
+
+def stream_by_default(msg_bytes: int, device) -> bool:
+    """What ``stream_msgs=None`` means for a step whose monolithic form
+    holds ``msg_bytes`` of messages.  On the card: stream only when
+    MONOLITHIC_TEMPS of them do not fit in the device memory free now,
+    since the streamed forms took 5-10x the monolithic step's time there
+    and the owner layout's fused one 50x (NVIDIA H100 80GB HBM3, 700.00
+    W; chip_smoke.py's owner_streamed line, PERF.md §5).  Elsewhere: the
+    reference's rule, past STREAM_MSG_BYTES (read at call time)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(device)
+        return MONOLITHIC_TEMPS * msg_bytes > free
+    return msg_bytes > STREAM_MSG_BYTES
 # block length of the scan-as-matmul combine: one [256, 256] segment
 # matrix a block of chunks (lux_tpu/ops/tiled.py:475)
 MXU_SCAN_BLOCK = 256
@@ -499,6 +522,19 @@ def segment_plan(chunk_start: torch.Tensor,
     return SegmentPlan(pos=pos, max_len=max_len, take=take, empty=lc < 0)
 
 
+def _doubling(x: torch.Tensor, pos: torch.Tensor, bound: int, comb):
+    """The inclusive segmented scan of ``x`` along dim 0 by doubling,
+    ``pos`` each row's position within its segment: the passes up to
+    ``bound``, the longest segment."""
+    tail = (1,) * (x.dim() - 1)
+    d = 1
+    while d < bound:
+        m = (pos[d:] >= d).reshape((-1,) + tail)
+        x = torch.cat([x[:d], torch.where(m, comb(x[:-d], x[d:]), x[d:])])
+        d *= 2
+    return x
+
+
 def combine_chunks(partials: torch.Tensor, layout, chunk_start,
                    last_chunk, kind: str,
                    plan: SegmentPlan | None = None,
@@ -516,17 +552,12 @@ def combine_chunks(partials: torch.Tensor, layout, chunk_start,
     min has no matmul form: each output would need its own vote)."""
     if plan is None:
         plan = segment_plan(chunk_start, last_chunk)
-    comb = combine_op(kind)
     trail = tuple(partials.shape[1:])
     x = partials.reshape((-1,) + trail)
-    d = 1
     if use_mxu and kind == "sum" and plan.max_len > 1:
         x = _segscan_matmul(x, chunk_start)
-        d = plan.max_len
-    while d < plan.max_len:
-        m = (plan.pos[d:] >= d).reshape((-1,) + (1,) * len(trail))
-        x = torch.cat([x[:d], torch.where(m, comb(x[:-d], x[d:]), x[d:])])
-        d *= 2
+    else:
+        x = _doubling(x, plan.pos, plan.max_len, combine_op(kind))
     out = x[plan.take].reshape(tuple(last_chunk.shape) + trail)
     empty = plan.empty.reshape(tuple(last_chunk.shape) +
                                (1,) * len(trail))
@@ -577,3 +608,223 @@ def tiled_segment_reduce(vals, layout, chunk_start, last_chunk, rel_dst,
             kind)
     return combine_partials(partials, layout, chunk_start, last_chunk, vpad,
                             kind, plan, use_mxu)
+
+
+# ---------------------------------------------------------------------
+# the streamed forms (lux_tpu/ops/tiled.py:530-800): gather, messages and
+# partials a block of STREAM_BLOCK_CHUNKS chunks at a time, so the
+# [C, E] message temporaries never exist whole
+
+def unpack_src_rel(packed: torch.Tensor, n_valid: torch.Tensor):
+    """Decode the packed owner slots (ops/owner.OwnerLayout: the uint32
+    ``src_local << 7 | rel``, carried as int32 with the same bits, and
+    each chunk's live-lane count, uint16 carried as int16 bits) to (src
+    int32, pads 0; rel int8, pads -1) (lux_tpu/ops/tiled.py:538).  The
+    decode is five elementwise passes over the slots."""
+    src = torch.bitwise_right_shift(packed, 7).bitwise_and_(0x1FFFFFF)
+    rel = packed.bitwise_and(0x7F).to(torch.int8)
+    lane = torch.arange(packed.shape[-1], dtype=torch.int32,
+                        device=packed.device)
+    pad = lane >= (n_valid.to(torch.int32) & 0xFFFF)[..., None]
+    return src.masked_fill_(pad, 0), rel.masked_fill_(pad, -1)
+
+
+def block_partials(flat_state: torch.Tensor, src_b: torch.Tensor, rel_b,
+                   w_b, msg_fn, kind: str, W: int, use_mxu: bool = False,
+                   nv_b=None) -> torch.Tensor:
+    """One block's gather + messages + per-chunk partials [n, E] slots
+    -> [n, W, ...] (lux_tpu/ops/tiled.py:554 ``_block_partials``):
+    kernel B1, or its batched form over a trailing state axis, or the
+    one-hot forms under ``use_mxu``.  ``nv_b`` set: ``src_b`` holds the
+    packed owner slots and ``rel_b`` is None."""
+    from lux_tpu_torch.engine.pull import gather_rows
+    if nv_b is not None:
+        src_b, rel_b = unpack_src_rel(src_b, nv_b)
+    n, E = src_b.shape
+    trail = tuple(flat_state.shape[1:])
+    vals = gather_rows(flat_state, src_b.reshape(-1)).view(
+        (n, E) + trail)
+    return reduce_partials(msg_fn(vals, w_b), rel_b, W, kind, use_mxu)
+
+
+def reduce_partials(msgs: torch.Tensor, rel: torch.Tensor, W: int,
+                    kind: str, use_mxu: bool = False,
+                    rel32: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-chunk partials of [n, E, ...] messages -> [n, W, ...]: kernel
+    B1, its batched form over the flattened trailing dims, or the
+    one-hot forms under ``use_mxu`` (``rel32``: S9's int32 lanes)."""
+    if use_mxu:
+        return chunk_partials_mxu(msgs, rel, W, kind, rel32)
+    n, E = msgs.shape[:2]
+    mtrail = tuple(msgs.shape[2:])
+    if not mtrail:
+        return chunk_partials(msgs.contiguous(), rel, W, kind)
+    out = chunk_partials_batched(msgs.reshape(n, E, -1).contiguous(), rel,
+                                 W, kind)
+    return out.view((n, W) + mtrail)
+
+
+def _blocks(C: int, block_chunks: int | None):
+    B = STREAM_BLOCK_CHUNKS if block_chunks is None else block_chunks
+    B = max(8, min(int(B), C))
+    return [(c0, min(C, c0 + B)) for c0 in range(0, C, B)]
+
+
+def streamed_chunk_partials(flat_state, src_slot, rel_dst, weight, layout,
+                            kind: str, msg_fn, use_mxu: bool = False,
+                            block_chunks: int | None = None,
+                            nvalid=None) -> torch.Tensor:
+    """Gather + messages + per-chunk partials over [C, E] slots (any
+    number of parts' chunks stacked) in blocks of ``block_chunks``
+    (default STREAM_BLOCK_CHUNKS) -> [C, W, ...]
+    (lux_tpu/ops/tiled.py:584).  A chunk's partial does not depend on
+    the blocking, so the result is the monolithic reduce's, bit for
+    bit; one B1 launch a block.  ``nvalid``: ``src_slot`` holds packed
+    owner slots and ``rel_dst`` is None."""
+    C = src_slot.shape[0]
+    out = None
+    for c0, c1 in _blocks(C, block_chunks):
+        part = block_partials(
+            flat_state, src_slot[c0:c1],
+            None if rel_dst is None else rel_dst[c0:c1],
+            None if weight is None else weight[c0:c1], msg_fn, kind,
+            layout.W, use_mxu,
+            nv_b=None if nvalid is None else nvalid[c0:c1])
+        if out is None:
+            out = part.new_empty((C,) + tuple(part.shape[1:]))
+        out[c0:c1] = part
+    return out
+
+
+def streamed_tiled_reduce(flat_state, a: dict, layout, vpad: int,
+                          kind: str, msg_fn, plan=None,
+                          use_mxu: bool = False) -> torch.Tensor:
+    """An engine's tiled path streamed: ``streamed_chunk_partials`` over
+    every part's [C, E] chunks of the arrays ``a`` (src_slot, rel_dst,
+    chunk_start, last_chunk, + weight), then the segmented combine ->
+    [P, vpad, ...]."""
+    n = a["src_slot"].shape[0] * layout.n_chunks
+    E = layout.E
+    partials = streamed_chunk_partials(
+        flat_state, a["src_slot"].view(n, E), a["rel_dst"].view(n, E),
+        None if "weight" not in a else a["weight"].view(n, E), layout,
+        kind, msg_fn, use_mxu=use_mxu)
+    return combine_partials(partials, layout, a["chunk_start"],
+                            a["last_chunk"], vpad, kind, plan, use_mxu)
+
+
+def extract_plan_width(last_chunk_rows: np.ndarray, C: int,
+                       block: int | None = None) -> int:
+    """The most last chunks of any (row, block): the width L a build
+    needs (lux_tpu/ops/tiled.py:685)."""
+    lc = np.asarray(last_chunk_rows, np.int64)
+    if block is None:
+        block = STREAM_BLOCK_CHUNKS
+    nB = max(1, _ceil_div(C, block))
+    best = 1
+    for r in range(lc.shape[0]):
+        live = lc[r] >= 0
+        if live.any():
+            cnt = np.bincount(lc[r][live] // block, minlength=nB)
+            best = max(best, int(cnt.max()))
+    return best
+
+
+def build_extract_plan(last_chunk_rows: np.ndarray, C: int,
+                       block: int | None = None, L: int | None = None):
+    """Host plan of the fused streamed combine (lux_tpu/ops/tiled.py:633):
+    for each ``block``-chunk slice of each row, the in-block positions
+    of the tiles whose last chunk falls in it, and those tiles.
+    last_chunk_rows int32 [R, n_tiles] (-1 = edge-less tile) ->
+    (extr_pos int32 [R, nB, L], pad 0; extr_tile int32 [R, nB, L], pad
+    n_tiles, the trash row).  The arrays are the reference's."""
+    lc = np.asarray(last_chunk_rows, np.int64)
+    R, n_tiles = lc.shape
+    if block is None:
+        block = STREAM_BLOCK_CHUNKS
+    nB = max(1, _ceil_div(C, block))
+    need = extract_plan_width(lc, C, block)
+    if L is None:
+        L = need
+    elif L < need:
+        raise ValueError(f"extract width L={L} < this build's {need}")
+    extr_pos = np.zeros((R, nB, L), np.int32)
+    extr_tile = np.full((R, nB, L), n_tiles, np.int32)
+    for r in range(R):
+        live = np.nonzero(lc[r] >= 0)[0]
+        if not live.size:
+            continue
+        c = lc[r][live]
+        b = c // block
+        order = np.argsort(b, kind="stable")
+        bs = b[order]
+        newb = np.ones(len(bs), bool)
+        newb[1:] = bs[1:] != bs[:-1]
+        pos = np.arange(len(bs))
+        gst = np.maximum.accumulate(np.where(newb, pos, 0))
+        slot = pos - gst                     # rank within its block
+        extr_pos[r, bs, slot] = (c[order] - bs * block).astype(np.int32)
+        extr_tile[r, bs, slot] = live[order].astype(np.int32)
+    return extr_pos, extr_tile
+
+
+def segscan(x: torch.Tensor, start: torch.Tensor, kind: str,
+            max_run: int | None = None) -> torch.Tensor:
+    """Inclusive segmented scan of ``x`` [n, ...] along dim 0, a segment
+    beginning at each True of ``start`` [n] (rows before the first True
+    form one segment), by doubling: ceil(log2) of the longest run
+    passes, ``max_run`` bounding it when the caller knows it."""
+    n = x.shape[0]
+    bound = n if max_run is None else min(n, int(max_run))
+    if bound <= 1:
+        return x
+    idx = torch.arange(n, device=x.device)
+    pos = idx - torch.cummax(torch.where(start, idx, 0), 0).values
+    return _doubling(x, pos, bound, combine_op(kind))
+
+
+def streamed_chunk_combined(flat_state, src_slot, rel_dst, weight, layout,
+                            kind: str, msg_fn, chunk_start, extr_pos,
+                            extr_tile, last_chunk, use_mxu: bool = False,
+                            block_chunks: int | None = None, nvalid=None,
+                            max_run: int | None = None) -> torch.Tensor:
+    """The fused streamed form for ONE row of chunks
+    (lux_tpu/ops/tiled.py:701): per block, gather + messages + partials
+    (``block_partials``: one B1 launch), the segmented scan inside the
+    block, the running value carried in from the previous block into
+    the rows before its first segment start, and each tile's last chunk
+    scattered into an [n_tiles + 1, W, ...] output (pads into the trash
+    row n_tiles).  Returns [n_tiles, W, ...]; the [C, W] partials are
+    never held whole.  src_slot [C, E] (packed owner slots when
+    ``nvalid`` [C] is given, ``rel_dst`` None), chunk_start bool [C],
+    extr_pos / extr_tile [nB, L] of ``build_extract_plan`` at the same
+    block, last_chunk int [n_tiles] (its < 0 mask).  ``max_run``: the
+    longest segment, bounding the scan's passes."""
+    C = src_slot.shape[0]
+    comb = combine_op(kind)
+    n_tiles = last_chunk.shape[0]
+    run = acc = None
+    for b, (c0, c1) in enumerate(_blocks(C, block_chunks)):
+        partials = block_partials(
+            flat_state, src_slot[c0:c1],
+            None if rel_dst is None else rel_dst[c0:c1],
+            None if weight is None else weight[c0:c1], msg_fn, kind,
+            layout.W, use_mxu,
+            nv_b=None if nvalid is None else nvalid[c0:c1])
+        if acc is None:
+            ident = identity_for(kind, partials.dtype)
+            run = partials.new_full(tuple(partials.shape[1:]), ident)
+            acc = partials.new_full((n_tiles + 1,) +
+                                    tuple(partials.shape[1:]), ident)
+        f = chunk_start[c0:c1]
+        inner = segscan(partials, f, kind, max_run)
+        absorb = (torch.cumsum(f.to(torch.int32), 0) == 0).reshape(
+            (-1,) + (1,) * (partials.dim() - 1))
+        out = torch.where(absorb, comb(run, inner), inner)
+        acc[extr_tile[b].long()] = out[extr_pos[b].long()]
+        run = out[-1]
+    out = acc[:n_tiles]
+    empty = (last_chunk < 0).reshape((-1,) + (1,) * (out.dim() - 1))
+    return torch.where(empty, torch.full((), identity_for(kind, out.dtype),
+                                         dtype=out.dtype,
+                                         device=out.device), out)

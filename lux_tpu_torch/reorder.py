@@ -48,16 +48,16 @@ def page_fill_stats(g: Graph, num_parts: int = 1, exchange: str = "gather",
     """The plan builder's measured objective for ``g`` in its current
     vertex order: the 128-aligned layout and the counting pass of the
     dense paged plan (ops/pagegather.plan_paged_stats, none of the
-    [P, Rp, 128] assembly).  Only the gather exchange is ported: the
-    owner exchange's plans come with several GPUs (ROADMAP A6)."""
+    [P, Rp, 128] assembly).  Only the gather exchange's plans are
+    ported: the owner exchange's paged plans are ROADMAP A6a-2."""
     from lux_tpu_torch.ops.pagegather import plan_paged_stats
 
     if exchange != "gather":
         from lux_tpu_torch.engine.pull import NotPortedError
         raise NotPortedError(
             f"page_fill_stats(exchange={exchange!r}) is not ported yet "
-            f"(ROADMAP A6): the owner exchange's paged plans come with "
-            f"several GPUs; pass exchange='gather'")
+            f"(ROADMAP A6a-2: the owner exchange's paged plans); pass "
+            f"exchange='gather'")
     sg = ShardedGraph.build(g, num_parts, vpad_align=W)
     return plan_paged_stats(sg, pagemajor=pagemajor)
 

@@ -37,10 +37,10 @@ The formulas are the reference's; what a figure prices:
 - the session-calibration probes' own figures (observe.py grades a
   session against them).
 
-What waits for ROADMAP A6: the owner exchange's slot rate, the link
+What waits for ROADMAP A6b: the owner exchange's slot rate, the link
 tiers and measured link rates, ``Projection`` / ``project_pull`` /
 ``project_table``, the owner branch of ``phase_model`` and the routed
-page-major hop.  Each raises NotPortedError naming A6.
+page-major hop.  Each raises NotPortedError naming A6b.
 """
 
 from __future__ import annotations
@@ -185,7 +185,7 @@ def _c(constants):
 
 def _refuse_a6(what: str):
     from lux_tpu_torch.engine.pull import NotPortedError
-    raise NotPortedError(f"{what} is not ported yet (ROADMAP A6): it "
+    raise NotPortedError(f"{what} is not ported yet (ROADMAP A6b): it "
                          f"prices the owner exchange or a link between "
                          f"cards")
 

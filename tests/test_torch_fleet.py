@@ -531,8 +531,10 @@ def test_device_rule_and_refusals(sides, tmp_path, monkeypatch):
     g = sides[True].g
     with pytest.raises(NotPortedError, match="A6"):
         fleet.FleetServer(g, mesh=object(), device=CPU)
-    with pytest.raises(NotPortedError, match="A6"):
-        fleet.FleetServer(g, exchange="owner", device=CPU)
+    # exchange="owner" runs since A6a (answers: tests/test_torch_owner.py)
+    own = fleet.FleetServer(g, exchange="owner", device=CPU)
+    assert own.opts["exchange"] == "owner"
+    own.close()
     with pytest.raises(ValueError, match="journal_path"):
         fleet.FleetServer.recover(g, str(tmp_path / "j.journal"),
                                   journal_path=str(tmp_path / "j.journal"))

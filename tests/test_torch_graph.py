@@ -34,6 +34,22 @@ def test_rmat_edges_same_draws(lux_ref):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("scale,ef,slices", [(13, 16, 2), (12, 33, 3),
+                                             (15, 16, 8)])
+def test_rmat_edges_sliced_draws(lux_ref, scale, ef, slices):
+    """Sizes drawn in several slices, each from a PCG64 advanced to its
+    start (uneven cuts at ef 33), give the reference's edges bit for
+    bit."""
+    cuts = convert.rmat_cuts((1 << scale) * ef)
+    assert len(cuts) - 1 == slices and cuts[1] > 0
+    got = convert.rmat_edges(scale, ef, seed=5)
+    want = lux_ref.convert.rmat_edges(scale, ef, seed=5)
+    assert got[2] == want[2]
+    for a, b in zip(got[:2], want[:2]):
+        assert a.dtype == np.uint32
+        np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 def test_edges_to_csc(lux_ref, edges, weighted):
     src, dst, w, nv = edges

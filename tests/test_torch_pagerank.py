@@ -207,9 +207,19 @@ def test_default_device_is_the_card(small_graph):
     (dict(mesh=object()), "A6"),
 ])
 def test_unported_options_refused(small_graph, kwargs, item):
-    """A6 stays refused; the "auto" options A10b brought (once refused
-    naming A10) build and run, within rtol 2e-5 of the explicit
-    choice they resolve to."""
+    """The mesh (A6b) stays refused; exchange="owner" (A6a) and the
+    "auto" options A10b brought (once refused naming A6 / A10) build and
+    run, within rtol 2e-5 of the gather exchange / the explicit choice
+    they resolve to."""
+    if "exchange" in kwargs:
+        eng = pagerank.build_engine(small_graph, device=CPU, **kwargs)
+        ref = pagerank.build_engine(small_graph, device=CPU,
+                                    exchange="gather")
+        assert eng.exchange == "owner" and ref.exchange == "gather"
+        torch.testing.assert_close(eng.run(eng.init_state(), 5),
+                                   ref.run(ref.init_state(), 5),
+                                   rtol=2e-5, atol=1e-9)
+        return
     if item != "A10":
         with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
             pagerank.build_engine(small_graph, device=CPU, **kwargs)
