@@ -89,14 +89,14 @@ Phases, each printing one JSON line:
             once a dense iteration), each against its oracle;
 9b. owner   the exchange sweep: the PageRank pull step with
             exchange="gather" and "owner" in turns on R-MAT --scale with
-            1 part (the main engine) and 4 parts and on R-MAT --scale + 2
+            1 part (the main engine) and 4 parts and on R-MAT --scale + 1
             with 4 parts, beside what exchange="auto" resolves to, three
             iterations of each agreeing; the streamed forms against
             their monolithic runs (stream_msgs on the pull and push
             tiled paths of the main graph, B1 a block of 1,024 chunks;
             the 4-part owner layout's fused streamed combine with
             ops/owner.STREAM_MSG_BYTES lowered, then restored); then
-            bench.py's pagerank-mp (R-MAT --scale + 2, ef 16, 4 parts,
+            bench.py's pagerank-mp (R-MAT --scale + 1, ef 16, 4 parts,
             pair_relabel, pair rows at threshold 16, min_fill 24,
             exchange="owner"; 10 iterations against the float64 oracle
             at MAIN_TOL, B1 once over the owner chunks plus once a pair
@@ -435,6 +435,31 @@ Phases, each printing one JSON line:
             kernels line's chunk_partials_batched@fleet_* entries).
             Printed only: the walls, MTTR, latencies, SLO good counts,
             qps, beat ages, the routing pick.
+
+25. audit   (ROADMAP A12b and A12a's CLI half; printed after guarded)
+            lux_tpu_torch/audit.py on the card over main, paged,
+            pagemajor, pagerank-mp, sssp-mp, pairs (monolithic and
+            streamed), sssp, cc, colfilter (pairs, monolithic),
+            ksssp_batch, ppr_batch and the live delta step
+            (LiveGraph.register_audit on the serving sssp runner), each
+            in its own phase after that phase's checks: one iteration of
+            every program variant on a fresh state, mode "error" with
+            the ledger (its launches left out of the phases' counts; the
+            step variants under torch.cuda.set_sync_debug_mode
+            "error"); per engine the variants, state-table gathers (1,
+            0 on the owner exchange), host syncs and hand-kernel
+            launches each variant's iteration made (the dense step must
+            launch one, the dot path and the delta step none) and
+            memwatch's ledger over one step's measured peak; then the
+            reference's engine matrix (audit.run_repo_audit: 32 small
+            configurations, mode "error" with the ledger where the
+            reference checks it) on the card, the port's lockcheck,
+            GCC's analyzer over the five native units
+            (their seconds) and the CLI in this process on an R-MAT 12
+            .lux: -validate -audit error -check, -validate on a copy
+            with one out-degree changed (exit 2, its GraphFormatError),
+            -tol 1e-7 -max-iters 500 -check, sssp -sparse 0 / 1 -check
+            (the same iterations);
 
 The last line is {"ok": true, "device": {...}}.  Any failure raises
 and the script exits non-zero without that line; so does a machine
@@ -1511,6 +1536,7 @@ def phase_paged(args, torch, g2, sg, mode: str, want, card):
           "card": card})
     if mode == "paged":
         observed(observe_pull_split, torch, eng, "paged", "paged")
+    audit_case(torch, eng, mode)
     flat = eng.init_state().reshape(-1)
     PRICED[mode] = {"layers": layers, "P": eng.num_parts, "Rp": pp.Rp,
                     "Rg": pp.Rg or pp.Rp, "n_pages": pp.n_pages,
@@ -2061,6 +2087,7 @@ def phase_pairs(args, torch, g2, starts, relabel, card):
               "layers": layers, "card": card})
         counts_by[label] = counts
         observed(observe_pull_split, torch, eng, f"pairs_{label}")
+        audit_case(torch, eng, f"pairs_{label}")
         if not stream:
             del eng, state, vals, rel
             torch.cuda.empty_cache()
@@ -2589,6 +2616,7 @@ def phase_sssp(args, torch, g, g2, perm, starts, card):
              "oracle_seconds": round(t_oracle, 3)}
     line, counts, label, it = run_push_config(args, torch, eng, g2, want,
                                               "sssp", card, extra)
+    audit_case(torch, eng, "sssp")
     priced(pricing_decompose, torch, eng, "sssp", it)
     em = sssp.build_engine(g2, start, 1, pair_threshold=PAIR_THRESHOLD,
                            pair_min_fill=PAIR_MIN_FILL, starts=starts,
@@ -2647,6 +2675,7 @@ def phase_cc(args, torch, card):
              "oracle_seconds": round(t_oracle, 3)}
     line, counts, label, it = run_push_config(args, torch, eng, g2, want,
                                               "cc", card, extra)
+    audit_case(torch, eng, "cc")
     em = components.build_engine(g2, 1, pair_threshold=PAIR_THRESHOLD,
                                  pair_min_fill=PAIR_MIN_FILL, starts=starts,
                                  use_mxu=True)
@@ -2749,9 +2778,12 @@ def parts_push(args, torch, g) -> dict:
 
 
 # bench.py's pagerank-mp / sssp-mp (bench.py:987-1011, :1056-1077):
-# R-MAT two scales over --scale (23 by default), 4 parts, the exchange
-# pinned to "owner"; the exchange sweep's (scale over --scale, parts)
-OWNER_SCALE_OVER = 2
+# R-MAT one scale over --scale (22 by default: cut from bench.py's 23,
+# which took the smoke past its time, for the audit step), 4 parts, the
+# exchange pinned to "owner"; the exchange sweep's (scale over --scale,
+# parts): its 4-part case's 16.8 MB table is still past the gather's
+# 16 MB step
+OWNER_SCALE_OVER = 1
 OWNER_PARTS = 4
 OWNER_SWEEP = ((0, 1), (0, 4), (OWNER_SCALE_OVER, OWNER_PARTS))
 W_LANES = 128
@@ -3057,12 +3089,12 @@ def _phase_owner(args, torch, g, main_eng, card):
     scale = args.scale + OWNER_SCALE_OVER
     seconds = {}
     t0 = time.perf_counter()
-    g23 = rmat_graph(scale, args.ef, seed=args.seed)
+    g_mp = rmat_graph(scale, args.ef, seed=args.seed)
     seconds["rmat_graph"] = round(time.perf_counter() - t0, 3)
     sweep = []
     owner4 = None
     for over, P in OWNER_SWEEP:
-        G = g if over == 0 else g23
+        G = g if over == 0 else g_mp
         case, kept = owner_sweep_case(
             args, torch, G, P, main_eng if (over, P) == (0, 1) else None,
             keep_owner=(over, P) == (0, OWNER_PARTS))
@@ -3078,7 +3110,7 @@ def _phase_owner(args, torch, g, main_eng, card):
     emit({"phase": "owner_streamed", **streamed})
     # pagerank-mp: one relabelled graph and ShardedGraph for both configs
     t0 = time.perf_counter()
-    g3, perm, starts = pair_relabel(g23, OWNER_PARTS,
+    g3, perm, starts = pair_relabel(g_mp, OWNER_PARTS,
                                     pair_threshold=PAIR_THRESHOLD)
     seconds["pair_relabel"] = round(time.perf_counter() - t0, 3)
     t0 = time.perf_counter()
@@ -3134,10 +3166,11 @@ def _phase_owner(args, torch, g, main_eng, card):
           "ledger_over_peak": ledger.total_bytes / peak,
           "ledger_terms": ledger.terms, "kernel_cases": cases,
           "card": card})
+    audit_case(torch, eng, "pagerank-mp")
     del eng
     torch.cuda.empty_cache()
     # sssp-mp on the same relabelled graph, ShardedGraph and pair plan
-    v0 = 0 if g23.out_degrees[0] > 0 else first_out_vertex(g23)
+    v0 = 0 if g_mp.out_degrees[0] > 0 else first_out_vertex(g_mp)
     start = relabelled_id(perm, v0)
     t0 = time.perf_counter()
     eng = sssp.build_engine(g3, start, OWNER_PARTS, sg=sg,
@@ -3176,7 +3209,7 @@ def _phase_owner(args, torch, g, main_eng, card):
     del cand, srel
     emit({"phase": "owner", "config": "sssp-mp", "scale": scale,
           "parts": OWNER_PARTS, "start_input_id": v0,
-          "input_vertex_0_out_degree": int(g23.out_degrees[0]),
+          "input_vertex_0_out_degree": int(g_mp.out_degrees[0]),
           "start_relabelled_id": start,
           "reached": int((want < sssp.HOP_INF).sum()),
           "iterations": it, "dense": sched.count("dense"),
@@ -3188,6 +3221,7 @@ def _phase_owner(args, torch, g, main_eng, card):
           "oracle": "level-synchronous BFS on the card",
           "oracle_seconds": round(t_oracle, 3), "kernel_cases": scases,
           "card": card})
+    audit_case(torch, eng, "sssp-mp")
     del eng, label, want
     torch.cuda.empty_cache()
     bcase = [_check_case(torch, "owner_block", block, block_rel, W_LANES,
@@ -3262,19 +3296,26 @@ def carry_graph_case(torch, gen, part, start) -> dict:
 def carry_profile_case(torch, part, start) -> dict:
     """torch.profiler over 10 S7 calls: the card ran 10 kernels, each
     carry.cu's carry_kernel, and no memset (the status scratch is
-    zeroed once, when it is allocated)."""
+    zeroed once, when it is allocated).  A profile that delivered no
+    device event at all (the process's first tracer session has come
+    back empty on this machine) is the tracer's failure, not the
+    kernel's: it is taken once more, and the count holds for that
+    one."""
     from torch.profiler import ProfilerActivity, profile
 
     from lux_tpu_torch.ops.carry import carry_combine
     carry_combine(part, start)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            carry_combine(part, start)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for tries in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                carry_combine(part, start)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
     kernels = sum("carry_kernel" in n for n in names)
     memsets = sum("memset" in n.lower() for n in names)
     require(kernels == 10 and memsets == 0 and len(names) == 10,
@@ -3282,6 +3323,7 @@ def carry_profile_case(torch, part, start) -> dict:
             f"among {len(names)} device events over 10 calls (want 10, 0, "
             f"10)")
     return {"case": "carry/profile_10_calls", "shape": list(part.shape),
+            "profiles_taken": tries,
             "device_events": len(names), "carry_kernels": kernels,
             "memsets": memsets, "max_abs_err": 0.0}
 
@@ -4362,6 +4404,7 @@ def phase_colfilter(args, torch, card) -> dict:
             (int_state[perm], int_red[perm]), f"pairs_{label}", card,
             extra)
         if not stream:
+            audit_case(torch, eng, "colfilter")
             priced(cf_pricing, args, torch, eng, lambda um: colfilter.
                    build_engine(g3, 1, sg=sg, pair_threshold=PAIR_THRESHOLD,
                                 pair_min_fill=CF_MIN_FILL, pair_stream=None,
@@ -5004,6 +5047,7 @@ def phase_ksssp_batch(args, torch, g, sources, card):
                                          eng.tiles.W, "min")]
     line = b1_batched_line(args, torch, vals, rel, eng.tiles.W,
                            "chunk_partials_batched@ksssp_batch", "min")
+    audit_case(torch, eng, "ksssp_batch")
     line["note"] = ("int32 compare-selects counted at the f32 rate (the "
                     "data sheet gives no int32 rate); bytes bound it")
     del vals, rel
@@ -5071,6 +5115,7 @@ def phase_ppr_batch(args, torch, g, sources, card):
                                          eng.tiles.W, "sum")]
     line = b1_batched_line(args, torch, vals, rel, eng.tiles.W,
                            "chunk_partials_batched@ppr_batch", "sum")
+    audit_case(torch, eng, "ppr_batch")
     del eng, vals, rel
     torch.cuda.empty_cache()
     return line, counts, cases, want
@@ -5591,6 +5636,9 @@ def phase_live(args, torch, g0, card):
             "live: a delta step check is missing")
     require(len(reseeds) == len(LIVE_DELETE_PHASES),
             f"live: {len(reseeds)} re-seeds")
+    # the delta-relax step under the auditor, through register_audit
+    lv.register_audit(eng_b)
+    audit_case(torch, eng_b, "live_delta", only=["live_delta"])
     # the delta step at a full block, and a revalidate over it, on the
     # last re-seed's graph, engine and state (a fixed point there)
     with Uncounted():
@@ -6939,6 +6987,195 @@ def observed(fn, *args, book=None):
     return out
 
 
+# the audit step's per-engine records: each phase that builds an engine
+# audits it on the card after its own checks (audit_case), and
+# phase_audit prints them with the lockcheck, analyzer and CLI runs
+AUDITED = {}
+AUDIT_ENGINES = ("main", "paged", "pagemajor", "pagerank-mp", "sssp-mp",
+                 "pairs_monolithic", "pairs_streamed", "sssp", "cc",
+                 "colfilter", "ksssp_batch", "ppr_batch", "live_delta")
+# the engines whose audited paths launch no hand kernel: the dot path,
+# and the live graph's delta-relax step (one gather and a scatter)
+AUDIT_NO_KERNEL = ("colfilter", "live_delta")
+CLI_SCALE = 12          # the CLI flags' R-MAT .lux (edge factor 8)
+
+
+def audit_case(torch, eng, name: str, only=None) -> None:
+    """lux_tpu_torch.audit over ``eng`` on the card: mode "error" with
+    the ledger (one iteration of each registered variant, or of
+    ``only``, on a fresh init state), its launches left out of the
+    phases' counts.  Records the variants, the state-table gathers of
+    the dense step (or of the one variant), the host syncs and the hand
+    kernel launches each variant's iteration made, and memwatch's ledger
+    over one step's measured peak."""
+    from lux_tpu_torch import audit, memwatch
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    t0 = time.perf_counter()
+    by_e = dict(chunk_partials.launches_by_e)
+    with Uncounted():
+        # the smoke runs no other thread: torch's process-wide sync
+        # debug mode may watch the step variants
+        traces = audit.run_variants(eng, only, sync_debug=True)
+        findings = audit.audit_engine(eng, mode="error", ledger=True,
+                                      traces=traces)
+        led = audit.ledger_report(eng)
+        gathers = audit.table_gathers(eng, traces,
+                                      None if only is None else only[0])
+    chunk_partials.launches_by_e = by_e
+    torch.cuda.synchronize()
+    launches = {v: tr.kernel_launches for v, tr in traces.items()}
+    dense = only[0] if only else (
+        "step_dense" if "step_dense" in traces else "step")
+    if name in AUDIT_NO_KERNEL:
+        require(sum(launches.values()) == 0,
+                f"audit {name}: its path launched hand kernels {launches}")
+    else:
+        require(launches[dense] > 0,
+                f"audit {name}: the dense step launched no hand kernel "
+                f"on the card {launches}")
+    require(gathers == (0 if eng.exchange == "owner" else 1),
+            f"audit {name}: {gathers} state-table gathers")
+    AUDITED[name] = {
+        "variants": sorted(traces), "table_gathers": gathers,
+        "host_syncs": {v: len(tr.host_reads) for v, tr in traces.items()},
+        "kernel_launches": launches,
+        "ledger_bytes": led["ledger_bytes"],
+        "measured_bytes": led["measured_bytes"],
+        "argument_bytes": led["argument_bytes"],
+        "temp_terms": {k: v for k, v in memwatch.MemoryLedger.for_engine(
+            eng).terms.items() if k in memwatch.TEMP_TERMS},
+        "ledger_over_peak": led["ledger_bytes"] / max(1, led[
+            "measured_bytes"]),
+        "warnings": [str(f) for f in findings],
+        "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def corrupt_degrees(src: str, dst: str) -> None:
+    """A copy of a .lux file with its last out-degree changed: it loads,
+    and fails format.validate_graph's degree check."""
+    raw = bytearray(open(src, "rb").read())
+    raw[-4:] = (int.from_bytes(raw[-4:], "little") + 7).to_bytes(4,
+                                                                 "little")
+    with open(dst, "wb") as f:
+        f.write(bytes(raw))
+
+
+def cli_run(argv) -> dict:
+    """lux_tpu_torch.cli.main in this process, its output captured ->
+    {"rc", "out": its last lines, "err": stderr's last line}."""
+    import contextlib
+    import io
+
+    from lux_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(list(argv))
+    return {"argv": list(argv), "rc": rc,
+            "out": out.getvalue().strip().splitlines()[-4:],
+            "err": (err.getvalue().strip().splitlines() or [""])[-1]}
+
+
+def phase_audit(args, torch, card) -> None:
+    """The audit step (ROADMAP A12b, A12a's CLI half): every engine the
+    phases audited (AUDITED, each mode "error" with the ledger), the
+    port's lockcheck over its threaded modules, GCC's analyzer over the
+    five native units on this host, and the CLI's -validate (a sound
+    file, and a corrupted copy that must exit 2 with its typed
+    GraphFormatError), -audit error, -tol / -max-iters and -sparse on
+    an R-MAT CLI_SCALE .lux, on the card."""
+    import tempfile
+
+    from lux_tpu_torch import lockcheck, native
+    from lux_tpu_torch.convert import rmat_edges
+    from lux_tpu_torch.format import GraphFormatError, write_lux
+    from lux_tpu_torch.graph import Graph
+    from lux_tpu_torch import audit
+    t0 = time.perf_counter()
+    require(sorted(AUDITED) == sorted(AUDIT_ENGINES),
+            f"audit: engines audited {sorted(AUDITED)}, want "
+            f"{sorted(AUDIT_ENGINES)}")
+    # the reference's engine matrix on the card (its ops are the card's:
+    # the hand kernels, not their plain versions)
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    by_e = dict(chunk_partials.launches_by_e)
+    with Uncounted():
+        found = audit.run_repo_audit(device="cuda", sync_debug=True)
+    torch.cuda.synchronize()
+    chunk_partials.launches_by_e = by_e
+    errors = [str(f) for f in found if f.severity == "error"]
+    require(not errors, f"audit: the matrix on the card: {errors[:4]}")
+    matrix = {"configs": len(audit.matrix_configs(device="cuda")),
+              "errors": 0,
+              "warnings": [str(f) for f in found if f.severity == "warn"],
+              "seconds": round(time.perf_counter() - t0, 3)}
+    lockcheck.run_lockcheck(mode="error")
+    t1 = time.perf_counter()
+    units = native.analyze()
+    analyzer_s = time.perf_counter() - t1
+    cxx = subprocess.run([native.compiler(), "--version"],
+                         capture_output=True, text=True).stdout
+    cxx = (cxx.splitlines() or [""])[0]
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        src, dst, nv = rmat_edges(CLI_SCALE, 8, seed=args.seed)
+        g = Graph.from_edges(src, dst, nv)
+        f, bad = os.path.join(d, "g.lux"), os.path.join(d, "bad.lux")
+        write_lux(f, g.row_ptrs, g.col_idx, None, g.out_degrees)
+        corrupt_degrees(f, bad)
+        try:
+            Graph.from_file(bad, validate=True)
+            typed = None
+        except GraphFormatError as e:
+            typed = f"{type(e).__name__}: {e}"
+        require(typed is not None and "degree" in typed,
+                f"audit: the corrupted copy passed validate_graph ({typed})")
+        for name, argv, rc in (
+                ("validate_audit", ["pagerank", "-file", f, "-ni", "5",
+                                    "-validate", "-audit", "error",
+                                    "-check"], 0),
+                ("validate_corrupt", ["pagerank", "-file", bad, "-ni", "1",
+                                      "-validate"], 2),
+                ("tol", ["pagerank", "-file", f, "-tol", "1e-7",
+                         "-max-iters", "500", "-check"], 0),
+                ("sparse_0", ["sssp", "-file", f, "-sparse", "0",
+                              "-audit", "error", "-check"], 0),
+                ("sparse_1", ["sssp", "-file", f, "-sparse", "1",
+                              "-check"], 0)):
+            runs[name] = cli_run(argv)
+            require(runs[name]["rc"] == rc,
+                    f"audit: cli {' '.join(argv)} exited "
+                    f"{runs[name]['rc']} (want {rc}): "
+                    f"{runs[name]['err']} {runs[name]['out']}")
+    require("degree" in runs["validate_corrupt"]["err"],
+            f"audit: -validate on the corrupted copy said "
+            f"{runs['validate_corrupt']['err']!r}")
+
+    def iters(run):
+        import re
+        m = re.search(r"\((\d+) iterations", " ".join(run["out"]))
+        return int(m.group(1)) if m else None
+
+    require(iters(runs["tol"]) is not None and iters(runs["tol"]) < 500,
+            f"audit: -tol ran {iters(runs['tol'])} iterations")
+    require(iters(runs["sparse_0"]) == iters(runs["sparse_1"]),
+            f"audit: -sparse 0 / 1 ran {iters(runs['sparse_0'])} / "
+            f"{iters(runs['sparse_1'])} iterations")
+    emit({"phase": "audit", "engines": AUDITED,
+          "engine_audit_seconds": round(sum(
+              a["seconds"] for a in AUDITED.values()), 3),
+          "matrix": matrix,
+          "lockcheck": {"modules": len(lockcheck.default_paths()),
+                        "findings": 0},
+          "analyzer": {"units": {k: round(v, 3) for k, v in units.items()},
+                       "seconds": round(analyzer_s, 3), "compiler": cxx,
+                       "flags": " ".join(native.ANALYZE_FLAGS)},
+          "cli": {"scale": CLI_SCALE, "ne": g.ne, "typed_error": typed,
+                  "tol_iterations": iters(runs["tol"]),
+                  "sparse_iterations": iters(runs["sparse_0"]),
+                  "runs": runs},
+          "seconds": round(time.perf_counter() - t0, 3), "card": card})
+
+
 def phase_observe(card) -> None:
     """Print what the observe steps gathered, one line each, then the
     seconds each step took (the phase's share of the smoke)."""
@@ -7522,6 +7759,7 @@ def main(argv=None) -> int:
     kline = phase_kernels(args, torch, eng)
     kline["launches"] = phase_main(args, torch, g, eng, card)
     phase_layers(args, torch, eng)
+    audit_case(torch, eng, "main")
     observed(observe_pull_split, torch, eng, "main")
     priced(pricing_decompose, torch, eng, "main")
     main_eng = eng          # the mxu case holds its B1 twin to it
@@ -7613,6 +7851,7 @@ def main(argv=None) -> int:
             live=live_counts["chunk_partials_batched"],
             fleet=fleet_counts["chunk_partials_batched"])
     phase_guarded(torch, guarded, card)
+    phase_audit(args, torch, card)
     phase_observe(card)
     phase_pricing(card)
     phase_mxu(card)

@@ -14,7 +14,8 @@ source (per part of a source in ``PARTS``), all started together; ``load(name)``
 returns the library with ``argtypes``/``restype`` set on every C
 function (without them ctypes would pass a Python int as 32 bits and
 cut a pointer); ``launch(name, *args)`` calls kernel ``name``'s
-``lux_<name>`` and raises on a failed launch.
+``lux_<name>`` and raises on a failed launch; ``counted`` is where each
+wrapper counts its launches.
 """
 
 from __future__ import annotations
@@ -93,6 +94,35 @@ KERNELS = {
 # (the source says what each part holds).  A source with many template
 # forms is otherwise the build's longest nvcc.
 PARTS = {"chunk_partials_batched": 3}
+
+
+# the audit's recorder (lux_tpu_torch/audit.py) while one records on
+# this thread: shown each launch as (kernel name, input tensors, output
+# tensors).  Thread-local, as the recorder's torch modes are: a launch
+# from another thread is not the recorded program's.
+_local = threading.local()
+
+
+def observer():
+    """The calling thread's launch observer, or None."""
+    return getattr(_local, "observer", None)
+
+
+def set_observer(fn) -> None:
+    """Make ``fn`` (or None) the calling thread's launch observer."""
+    _local.observer = fn
+
+
+def counted(wrapper, name: str, inputs=(), outputs=()) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``
+    (the counts chip_smoke.py reads) and show it, with its tensors, to
+    an audit recording on this thread if one is active.  The kernels
+    stay ctypes calls: no dispatcher hop on the launch-bound streamed
+    paths."""
+    wrapper.launches += 1
+    obs = getattr(_local, "observer", None)
+    if obs is not None:
+        obs(name, inputs, outputs)
 
 
 class KernelBuildError(RuntimeError):

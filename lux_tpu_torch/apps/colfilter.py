@@ -26,7 +26,7 @@ import torch
 
 from lux_tpu_torch.device import resolve_device
 from lux_tpu_torch.engine.program import PullProgram
-from lux_tpu_torch.engine.pull import PullEngine, _refuse
+from lux_tpu_torch.engine.pull import PullEngine
 from lux_tpu_torch.graph import VPAD_ALIGN, Graph, ShardedGraph
 
 K = 20              # reference col_filter/app.h:28
@@ -79,14 +79,13 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     watchdog variants (lux_tpu_torch/health.py).  ``use_mxu=True``
     runs the segmented combine as matmuls (the dot path's one-hot
     reduce is a ``torch.bmm`` either way); ``"auto"`` resolves through
-    scalemodel at K = 20, as does ``pair_min_fill="auto"``.  Refused,
-    naming their ROADMAP item: ``audit`` (A12) and ``mesh`` (A6);
+    scalemodel at K = 20, as does ``pair_min_fill="auto"``.
+    ``audit="warn"|"error"`` audits every program variant at build time
+    (lux_tpu_torch/audit.py).  ``mesh`` is refused, naming ROADMAP A6b;
     gather 'pagemajor' raises the reference's ValueError."""
     dev = resolve_device(device)
     if g.weights is None:
         raise ValueError("collaborative filtering needs a weighted graph")
-    if audit is not None:
-        _refuse("the static program audit (audit=)", "A12")
     if sg is None:
         sg = ShardedGraph.build(g, num_parts, starts=starts,
                                 pair_threshold=pair_threshold,
@@ -100,7 +99,7 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                       pair_min_fill=pair_min_fill, pair_stream=pair_stream,
                       dot_block_chunks=dot_block_chunks,
                       dot_block_rows=dot_block_rows, mesh=mesh,
-                      health=health, use_mxu=use_mxu)
+                      health=health, use_mxu=use_mxu, audit=audit)
 
 
 def run(g: Graph, num_iters: int, num_parts: int = 1, *,

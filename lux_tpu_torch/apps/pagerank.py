@@ -117,7 +117,8 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                  health: bool = False,
                  use_mxu: bool | str = "auto",
                  owner_tile_e: int | None = None,
-                 owner_minmax_fused: bool = False) -> PullEngine:
+                 owner_minmax_fused: bool = False,
+                 audit: str | None = None) -> PullEngine:
     """PageRank engine on ``device`` (None = the card; "cpu" when
     asked).  ``sg`` is a prebuilt layout of ``g``; without it the
     layout is built here, with ``starts`` as its cut points (e.g. from
@@ -140,7 +141,8 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     every query); ``resets`` [nv, B] passes arbitrary per-query reset
     distributions instead.  Batched engines refuse pair_threshold
     (pair rows read scalar state).  ``health=True`` runs the watchdog
-    variants (lux_tpu_torch/health.py)."""
+    variants (lux_tpu_torch/health.py).  ``audit="warn"|"error"``
+    audits every program variant at build time (lux_tpu_torch/audit.py)."""
     if sources is not None and resets is not None:
         raise ValueError("pass sources=[...] OR resets=[nv, B], "
                          "not both")
@@ -162,7 +164,7 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
                       pair_min_fill=pair_min_fill, pair_stream=pair_stream,
                       mesh=mesh, health=health, use_mxu=use_mxu,
                       owner_tile_e=owner_tile_e,
-                      owner_minmax_fused=owner_minmax_fused)
+                      owner_minmax_fused=owner_minmax_fused, audit=audit)
 
 
 def run(g: Graph, num_iters: int, num_parts: int = 1, *,

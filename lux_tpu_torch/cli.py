@@ -7,6 +7,7 @@ lux_tpu/cli.py:69, :116, :165, :557 and :596-689, :864).
                                          [-pair T [-min-fill F|auto]]
                                          [-mxu auto|mxu|vpu] [-calibrate]
                                          [-sources A,B,C | -batch B]
+                                         [-tol T [-max-iters N]]
                                          [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli sssp -file g.lux [-start S] [-weighted]
                                      [-delta D|auto] [-np N]
@@ -15,6 +16,7 @@ lux_tpu/cli.py:69, :116, :165, :557 and :596-689, :864).
                                      [-pair T [-min-fill F|auto]]
                                      [-mxu auto|mxu|vpu] [-calibrate]
                                      [-sources A,B,C | -batch B]
+                                     [-sparse 0|1]
                                      [-check] [-device cuda|cpu]
     python -m lux_tpu_torch.cli components -file g.lux [-np N] [...]
     python -m lux_tpu_torch.cli colfilter -file w.lux -ni 10 [-np N]
@@ -61,6 +63,20 @@ B queries; QUERY-GTEPS = ...`` (ne x iterations x B / seconds); ``-pair``
 and ``-delta`` are single-query machinery and refused with them, and
 ``-check`` is skipped for them with a note, as in the reference.
 
+``-tol T`` runs pagerank to convergence (the max-abs change of the
+degree-scaled rank state <= T, at most ``-max-iters`` iterations,
+default 10000) instead of ``-ni`` iterations, and prints ``ELAPSED TIME
+= ... s (N iterations, residual R)``.  ``-sparse 0`` (sssp, components)
+builds the push engine without the src-sorted sparse view: every
+iteration runs dense.
+
+Every app but ``convert`` takes ``-validate`` (format.validate_graph at
+load: a malformed file exits 2 with its typed GraphFormatError) and
+``-audit warn|error`` (lux_tpu_torch/audit.py over one iteration of
+every program variant at engine build; under ``error`` a violation
+exits 2 with its typed AuditError).  ``-mesh N`` with N > 1 is refused
+(exit 2, ROADMAP A6b).
+
 ``colfilter`` trains the K = 20 factorization on a weighted graph for
 ``-ni`` iterations and prints ``ELAPSED TIME``, ``GTEPS`` and ``RMSE``
 (over the edges of the graph it ran, relabelled under ``-pair``) as
@@ -82,7 +98,10 @@ complete in checkpoint)``.  ``-elastic`` (ROADMAP A6) is refused (exit
 Every app but ``convert`` takes the observability flags
 (lux_tpu/cli.py:84, :113, :210-244, :288-330, :395-445):
 ``-verbose`` prints the load line, the memory advisor's estimate
-(ShardedGraph.memory_report) and, for ``sssp`` / ``components``, the
+(ShardedGraph.memory_report: the reference's pricing, the same line),
+the port's own ledger of the step (``ledger:``, memwatch.MemoryLedger:
+the pair rows', dot blocks' and one-hot forms' temporaries as the port
+allocates them) and, for ``sssp`` / ``components``, the
 converge's per-iteration ``iter i: frontier=F edges=E`` lines replayed
 from its device-side counters; ``-phases N`` runs N more iterations
 phase by phase after the timed run and prints ``iter i: ...
@@ -108,6 +127,7 @@ import time
 
 import numpy as np
 
+from lux_tpu_torch.audit import AuditError
 from lux_tpu_torch.device import DeviceUnavailableError
 from lux_tpu_torch.engine.pull import NotPortedError
 
@@ -308,7 +328,52 @@ def _add_observe_flags(ap) -> None:
                          "print / emit the fingerprint")
 
 
+def _add_build_flags(ap) -> None:
+    """-validate, -audit and -mesh (lux_tpu/cli.py:75-112)."""
+    ap.add_argument("-validate", action="store_true",
+                    help="validate the .lux file's structural invariants "
+                         "at load (monotone row_ptrs, col_idx in range, "
+                         "section sizes, degree consistency -- "
+                         "format.validate_graph); a malformed file exits "
+                         "2 with a typed error instead of running to a "
+                         "wrong answer")
+    ap.add_argument("-audit", default=None, choices=["warn", "error"],
+                    help="audit one iteration of every program variant "
+                         "at engine build (lux_tpu_torch/audit.py: gather "
+                         "budget, host data, dtype discipline, owner "
+                         "schedule, identity inits, host reads an "
+                         "iteration).  'warn' prints AuditWarnings; "
+                         "'error' refuses a violating build (exit 2, "
+                         "typed AuditError)")
+    ap.add_argument("-mesh", type=int, default=1,
+                    help="devices in the parts mesh: 1 (more is ROADMAP "
+                         "A6b, refused)")
+
+
+def _load_graph(args, weighted):
+    """Graph.from_file with -validate -> the graph, or exit code 2 on a
+    missing or malformed file (a typed GraphFormatError)."""
+    from lux_tpu_torch.format import GraphFormatError
+    from lux_tpu_torch.graph import Graph
+
+    if not os.path.exists(args.file):
+        print(f"error: graph file not found: {args.file}", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    try:
+        g = Graph.from_file(args.file, weighted=weighted,
+                            validate=args.validate)
+    except GraphFormatError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    _print_loaded(args, g, time.perf_counter() - t0)
+    return g
+
+
 def _refuse_unported_flags(args) -> None:
+    if args.mesh != 1:
+        raise NotPortedError(f"-mesh {args.mesh} (a device mesh of "
+                             f"parts) is not ported yet (ROADMAP A6b)")
     if args.elastic:
         raise NotPortedError("-elastic (re-placement over the surviving "
                              "devices after a topology fault) is not "
@@ -377,8 +442,10 @@ def _print_loaded(args, g, seconds: float) -> None:
 
 def _print_memory(args, eng, num_parts: int) -> None:
     """-verbose: the memory advisor's estimate of the engine's layout
-    (reference cli.py:586-592)."""
-    from lux_tpu_torch import telemetry
+    (reference cli.py:586-592), the reference's pricing, and below it
+    the port's ledger of one step (memwatch.MemoryLedger), which prices
+    the temporaries the port allocates its own way."""
+    from lux_tpu_torch import memwatch, telemetry
     telemetry.current().emit("header", schema=telemetry.SCHEMA,
                              **eng.sg.telemetry_header())
     if args.verbose:
@@ -388,6 +455,10 @@ def _print_memory(args, eng, num_parts: int) -> None:
               f"({rep['edge_bytes_per_part'] / 1e6:.1f} MB edges + "
               f"{rep['vertex_bytes_per_part'] / 1e6:.1f} MB vertices "
               f"per part)")
+        led = memwatch.MemoryLedger.for_engine(eng)
+        print(f"ledger: {led.total_bytes / 1e6:.1f} MB a step (the port's "
+              f"arrays and eager temporaries, memwatch.MemoryLedger; the "
+              f"memory: line above is the reference's pricing)")
 
 
 def _supervisor_opts(args, app):
@@ -468,6 +539,13 @@ def cmd_pagerank(argv) -> int:
     ap = argparse.ArgumentParser(prog="lux_tpu_torch pagerank")
     ap.add_argument("-file", required=True, help=".lux graph file")
     ap.add_argument("-ni", type=int, default=10, help="iterations")
+    ap.add_argument("-tol", type=float, default=None,
+                    help="run to convergence (max-abs change of the "
+                         "degree-scaled rank state <= tol) instead of "
+                         "a fixed -ni count")
+    ap.add_argument("-max-iters", type=int, default=10000,
+                    dest="max_iters",
+                    help="iteration cap for -tol runs (default 10000)")
     ap.add_argument("-np", type=int, default=1, help="partitions")
     ap.add_argument("-check", action="store_true",
                     help="residual audit of the result (exit 1 on FAIL)")
@@ -492,6 +570,7 @@ def cmd_pagerank(argv) -> int:
     _add_batch_flags(ap)
     _add_guard_flags(ap)
     _add_observe_flags(ap)
+    _add_build_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     _refuse_unported_flags(args)
@@ -501,23 +580,17 @@ def cmd_pagerank(argv) -> int:
 
 def _pagerank(args, tel) -> int:
     from lux_tpu_torch.apps import pagerank
-    from lux_tpu_torch.format import GraphFormatError
-    from lux_tpu_torch.graph import Graph
     from lux_tpu_torch.ops.pairs import resolve_min_fill
-    from lux_tpu_torch.timing import timed_fused_run
+    from lux_tpu_torch.timing import timed_fused_run, timed_run_until
 
     resolve_min_fill(args.min_fill)     # a bad value fails before any work
     if not os.path.exists(args.file):
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
     _maybe_calibrate(args)
-    t0 = time.perf_counter()
-    try:
-        g = Graph.from_file(args.file)
-    except GraphFormatError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    _print_loaded(args, g, time.perf_counter() - t0)
+    g = _load_graph(args, None)
+    if isinstance(g, int):
+        return g
     num_parts = max(1, args.np)
     sources = _batched_sources(args, g.nv)
     g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
@@ -527,18 +600,29 @@ def _pagerank(args, tel) -> int:
                                 pair_min_fill=args.min_fill,
                                 sources=sources, health=args.health,
                                 use_mxu=_mxu_arg(args),
-                                exchange=args.exchange)
+                                exchange=args.exchange, audit=args.audit)
     _print_memory(args, eng, num_parts)
     sup = _supervisor_opts(args, "pagerank")
-    if sup is not None:
+    if args.tol is not None:
+        if sup is not None:
+            print("note: -tol runs one convergence; -retries/-seg-budget/"
+                  "-resume apply to fixed -ni runs only and are ignored "
+                  "here")
+        state, total, res, elapsed = timed_run_until(
+            eng, args.tol, args.max_iters, trace_dir=args.profile)
+        ni, mark = total, ""
+        print(f"ELAPSED TIME = {elapsed:.7f} s ({total} iterations, "
+              f"residual {res:.3e})")
+    elif sup is not None:
         state, total, elapsed, ni, mark = _run_supervised(
             eng, sup, args, ni=args.ni)
+        print(f"ELAPSED TIME = {elapsed:.7f} s")
     else:
         state, elapsed = timed_fused_run(eng, args.ni,
                                          trace_dir=args.profile)
         total = ni = args.ni
         mark = ""
-    print(f"ELAPSED TIME = {elapsed:.7f} s")
+        print(f"ELAPSED TIME = {elapsed:.7f} s")
     _print_gteps(g.ne, ni, elapsed, mark)
     _finish_run(tel, elapsed, total)
     if args.phases:
@@ -583,6 +667,12 @@ def _push_app(argv, prog_name) -> int:
     _add_guard_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     _add_observe_flags(ap)
+    _add_build_flags(ap)
+    ap.add_argument("-sparse", type=int, default=1, choices=[0, 1],
+                    metavar="0|1",
+                    help="keep the src-sorted sparse-frontier view (1, "
+                         "the default); 0 leaves it out (less edge "
+                         "memory) and every iteration runs dense")
     if prog_name == "sssp":
         ap.add_argument("-start", type=int, default=0,
                         help="start vertex (input id)")
@@ -601,8 +691,6 @@ def _push_run(args, tel, prog_name) -> int:
 
     from lux_tpu_torch import device_check
     from lux_tpu_torch.apps import components, sssp
-    from lux_tpu_torch.format import GraphFormatError
-    from lux_tpu_torch.graph import Graph
     from lux_tpu_torch.ops.pairs import resolve_min_fill
     from lux_tpu_torch.timing import timed_converge
 
@@ -612,20 +700,17 @@ def _push_run(args, tel, prog_name) -> int:
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
     _maybe_calibrate(args)
-    t0 = time.perf_counter()
-    try:
-        g = Graph.from_file(args.file, weighted=weighted or None)
-    except GraphFormatError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    _print_loaded(args, g, time.perf_counter() - t0)
+    g = _load_graph(args, weighted or None)
+    if isinstance(g, int):
+        return g
     num_parts = max(1, args.np)
     sources = _batched_sources(args, g.nv)
     g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
     opts = dict(num_parts=num_parts, starts=starts, gather=args.gather,
                 pair_threshold=args.pair, pair_min_fill=args.min_fill,
                 sources=sources, device=args.device, health=args.health,
-                use_mxu=_mxu_arg(args), exchange=args.exchange)
+                use_mxu=_mxu_arg(args), exchange=args.exchange,
+                enable_sparse=bool(args.sparse), audit=args.audit)
     if prog_name == "sssp":
         start = args.start
         if perm is not None and 0 <= start < g.nv:
@@ -708,6 +793,7 @@ def cmd_colfilter(argv) -> int:
     _add_mxu_flag(ap)
     _add_guard_flags(ap)
     _add_observe_flags(ap)
+    _add_build_flags(ap)
     ap.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     _refuse_unported_flags(args)
@@ -719,8 +805,7 @@ def cmd_colfilter(argv) -> int:
 def _colfilter(args, tel) -> int:
     from lux_tpu_torch import device_check
     from lux_tpu_torch.apps import colfilter
-    from lux_tpu_torch.format import GraphFormatError
-    from lux_tpu_torch.graph import VPAD_ALIGN, Graph, ShardedGraph
+    from lux_tpu_torch.graph import VPAD_ALIGN, ShardedGraph
     from lux_tpu_torch.ops.pairs import resolve_min_fill
     from lux_tpu_torch.timing import timed_fused_run
 
@@ -729,13 +814,9 @@ def _colfilter(args, tel) -> int:
         print(f"error: graph file not found: {args.file}", file=sys.stderr)
         return 2
     _maybe_calibrate(args)
-    t0 = time.perf_counter()
-    try:
-        g = Graph.from_file(args.file, weighted=True)
-    except GraphFormatError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 2
-    _print_loaded(args, g, time.perf_counter() - t0)
+    g = _load_graph(args, True)
+    if isinstance(g, int):
+        return g
     num_parts = max(1, args.np)
     g_run, _perm, starts = _relabel_for_pairs(args, g, num_parts)
     # the whole graph's layout: the audit reads every edge, while a
@@ -750,7 +831,8 @@ def _colfilter(args, tel) -> int:
                                      pair_threshold=args.pair,
                                      pair_min_fill=args.min_fill,
                                      health=args.health,
-                                     use_mxu=_mxu_arg(args))
+                                     use_mxu=_mxu_arg(args),
+                                     audit=args.audit)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -813,7 +895,10 @@ def main(argv=None) -> int:
         return 2
     try:
         return _APPS[argv[0]](argv[1:])
-    except (DeviceUnavailableError, NotPortedError) as e:
+    except (DeviceUnavailableError, NotPortedError, AuditError) as e:
+        # -audit error: a violating build is a typed, named refusal
+        # (like GraphFormatError), never a run whose numbers silently
+        # embed the violation
         print(f"error: {e}", file=sys.stderr)
         return 2
 

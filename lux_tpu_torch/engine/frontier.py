@@ -152,6 +152,10 @@ def expand_frontier(ids, vals, src_ids, src_off, nv: int,
         marks.scatter_add_(-1, at, torch.where(deg > 0, qidx - prev, 0))
         owner = _cumsum_matmul(marks[..., :EB]) - 1
     else:
+        # audit: allow(identity-init) 0 deliberately marks "no item starts
+        # here": values are 1-based queue indices >= 1, and the cummax - 1
+        # below maps an untouched 0 back to no owner (an int32-min init
+        # would overflow that - 1)
         marks.scatter_reduce_(-1, at, torch.where(deg > 0, qidx, 0), "amax",
                               include_self=True)
         owner = torch.cummax(marks[..., :EB], -1).values - 1

@@ -121,7 +121,8 @@ from lux_tpu_torch.ops.owner import (OwnerLayout, owner_contribs,
                                      owner_exchange, owner_graph_arrays)
 from lux_tpu_torch.ops.segment import segment_reduce
 from lux_tpu_torch.ops.tiled import (TiledLayout, combine_op,
-                                     combine_partials, segment_plan,
+                                     combine_partials,
+                                     engine_lane_occupancy, segment_plan,
                                      stream_by_default,
                                      streamed_tiled_reduce,
                                      tiled_segment_reduce)
@@ -530,11 +531,18 @@ def check_pair_arrays(a: dict, P: int, vpad: int, sp) -> None:
 
 
 class Placement:
-    """The placement surface both engines share, which checkpoints and
-    the supervisor reason through (lux_tpu/engine/auditable.py:33-52):
-    ``ndev`` and ``placement_meta()``.  A resume must match num_parts /
-    vpad / exchange ("gather" or "owner"); ``ndev`` is 1 until the mesh
-    lands (ROADMAP A6b)."""
+    """The surface both engines share (lux_tpu/engine/auditable.py):
+
+    - placement, which checkpoints and the supervisor reason through:
+      ``ndev`` and ``placement_meta()``.  A resume must match num_parts
+      / vpad / exchange ("gather" or "owner"); ``ndev`` is 1 until the
+      mesh lands (ROADMAP A6b);
+    - the registry of program variants the auditor (lux_tpu_torch/
+      audit.py) runs: name -> (callable, example-args thunk).  Each
+      callable runs ONE iteration of its variant on the thunk's
+      arguments, a fresh init state; the registry is filled at first use
+      (``_register_engine_variants``), and a live graph adds its
+      delta-relax step (LiveGraph.register_audit)."""
 
     ndev = 1
     exchange = "gather"
@@ -542,6 +550,41 @@ class Placement:
     def placement_meta(self) -> dict:
         return {"ndev": self.ndev, "num_parts": self.num_parts,
                 "vpad": self.vpad, "exchange": self.exchange}
+
+    def _variants(self) -> dict:
+        reg = self.__dict__.get("_audit_variants")
+        if reg is None:
+            reg = self._audit_variants = {}
+            self._register_engine_variants()
+        return reg
+
+    def _register_engine_variants(self) -> None:
+        """Each engine registers its variants here."""
+
+    def _register_variant(self, name: str, fn, args_thunk) -> None:
+        """Expose one program variant to the auditor: ``fn(*args_thunk())``
+        runs one iteration of it."""
+        self._variants()[name] = (fn, args_thunk)
+
+    def audit_programs(self) -> dict:
+        """name -> (callable, example-args thunk) for every program
+        variant this engine can run."""
+        return dict(self._variants())
+
+    def audit_variant(self, name: str):
+        """One registered variant."""
+        try:
+            return self._variants()[name]
+        except KeyError:
+            raise KeyError(f"no registered program variant {name!r} "
+                           f"(have {sorted(self._variants())})") from None
+
+    def _run_audit(self, audit) -> None:
+        """The engines' build-time ``audit=`` (None skips it; the mode is
+        validated by audit_engine: an unknown one is a ValueError)."""
+        if audit is not None:
+            from lux_tpu_torch import audit as _audit
+            _audit.audit_engine(self, mode=audit)
 
 
 class PullEngine(Placement):
@@ -566,7 +609,8 @@ class PullEngine(Placement):
                  health: bool = False, stats_cap: int | None = None,
                  use_mxu: bool | str = "auto",
                  owner_tile_e: int | None = None,
-                 owner_minmax_fused: bool = False):
+                 owner_minmax_fused: bool = False,
+                 audit: str | None = None):
         """``pair_threshold``: serve the edges of (src tile, dst tile)
         pairs with at least this many edges by pair-lane rows
         (ops/pairs.py; needs vpad % 128 == 0), the rest by the tiled
@@ -593,7 +637,9 @@ class PullEngine(Placement):
         "auto" (``resolve_exchange``).  ``stream_msgs``: the tiled
         path's gather and partials in blocks of chunks (None: by
         ops/tiled.stream_by_default on the [P, epad] messages; an
-        owner layout by ``OwnerLayout.streams``)."""
+        owner layout by ``OwnerLayout.streams``).  ``audit="warn"|
+        "error"`` runs one iteration of every program variant under the
+        auditor at build time (lux_tpu_torch/audit.py)."""
         dev = resolve_device(device)
         if mesh is not None:
             _refuse("a device mesh", "A6b")
@@ -654,6 +700,7 @@ class PullEngine(Placement):
             if int(stats_cap) < 1:
                 raise ValueError(f"stats_cap must be >= 1, got {stats_cap}")
             self.stats_cap = int(stats_cap)
+        self._run_audit(audit)
 
     @classmethod
     def from_arrays(cls, program: PullProgram, arrays: dict, tiles, *,
@@ -790,6 +837,8 @@ class PullEngine(Placement):
         self.scalar_f32_sum = scalar_f32_sum(program, sg)
         self.use_mxu = resolve_use_mxu(use_mxu, program, layout=layout,
                                        scalar_f32=self.scalar_f32_sum)
+        # the tournament's occupied slots, fixed by the layout
+        self._occ = engine_lane_occupancy(self)
         # the tiled path's gather and partials in blocks of chunks
         self.stream_chunks = bool(stream_msgs)
         if pages is not None or owner is not None:
@@ -821,6 +870,21 @@ class PullEngine(Placement):
         base = torch.arange(P, device=local.device) * vpad
         return (local + base.reshape((P,) + (1,) * (local.dim() - 1))
                 ).reshape(-1)
+
+    def _register_engine_variants(self) -> None:
+        """One iteration of each program variant the reference compiles
+        (lux_tpu/engine/pull.py:1143-1320), from the init state."""
+        def st():
+            return (self.init_state(),)
+        reg = self._register_variant
+        reg("step", self.step, st)
+        reg("run", lambda s: self.run(s, 1), st)
+        reg("run_stats", lambda s: self.run_stats(s, 1), st)
+        reg("run_until_stats", lambda s: self.run_until_stats(s, 0.0, 1), st)
+        reg("run_health", lambda s: self.run_health(s, 1), st)
+        reg("run_until_health",
+            lambda s: self.run_until_health(s, 0.0, 1), st)
+        reg("run_until", lambda s: self.run_until(s, 0.0, 1), st)
 
     # -- state --------------------------------------------------------
 
@@ -918,7 +982,7 @@ class PullEngine(Placement):
                                    prog.reduce, self._plan,
                                    batch=int(np.prod(trail)) if trail
                                    else None, use_mxu=self.use_mxu,
-                                   rel32=self._rel32)
+                                   rel32=self._rel32, occ=self._occ)
         return red.reshape((P, vpad) + trail)
 
     def _paged_red(self, flat_state, upto: str | None = None):
@@ -1055,7 +1119,7 @@ class PullEngine(Placement):
         red = streamed_tiled_reduce(
             flat, self.arrays, self.tiles, self.vpad, prog.reduce,
             lambda vals, w: prog.edge_value(vals, None, w), self._plan,
-            self.use_mxu)
+            self.use_mxu, self._occ)
         if self.pairs is not None:
             red = combine_op(prog.reduce)(red, self._pair_red(flat))
         return red
@@ -1078,7 +1142,7 @@ class PullEngine(Placement):
             self.owner, state, self.arrays, prog.reduce,
             lambda vals, w: prog.edge_value(vals, None, w),
             self.num_parts, use_mxu=self.use_mxu, plan=self._plan,
-            max_run=self._plan.max_len)
+            max_run=self._plan.max_len, occ=self._occ)
 
     def _owner_exchange(self, acc):
         """The contributions to their destination parts
@@ -1201,6 +1265,8 @@ class PullEngine(Placement):
             from lux_tpu_torch import health as hw
             state, _it, _rb, _cb, _rbp, _cbp, watch = self.run_health(
                 state, num_iters)
+            # audit: allow(callback-in-loop) the word is read once, after
+            # the loop
             hw.ensure_ok(watch, engine="pull", where="pull run")
             return state
         return self._run_plain(state, num_iters)
@@ -1386,6 +1452,6 @@ class _PullGuard(_PullCounters):
         if it < self.rb.shape[0]:
             self.rb[it], self.cb[it] = r, cnt
             self.rbp[it], self.cbp[it] = rp, cp
-        pair = torch.stack([r.to(torch.float64),
-                            self.h[0].to(torch.float64)]).cpu()
-        return float(pair[0]), int(pair[1])
+        # the flags ride as float32 bits beside the float32 residual
+        pair = torch.stack([r, self.h[0].view(torch.float32)]).cpu()
+        return float(pair[0]), int(pair[1:].view(torch.int32))

@@ -71,8 +71,10 @@ in blocks of chunks; None streams on the card only what would not fit
 in its free memory, elsewhere by the reference's 1 GB rule
 (ops/tiled.stream_by_default).
 
-Options the port does not carry yet raise :class:`NotPortedError`
-naming the ROADMAP item that brings them.
+``audit="warn"|"error"`` runs one iteration of every program variant
+under the auditor at build time (lux_tpu_torch/audit.py).  Options the
+port does not carry yet raise :class:`NotPortedError` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -105,7 +107,8 @@ from lux_tpu_torch.ops.pairs import (pair_graph_arrays, pair_partial,
 from lux_tpu_torch.ops.owner import (OwnerLayout, owner_contribs,
                                      owner_exchange, owner_graph_arrays)
 from lux_tpu_torch.ops.segment import segment_reduce
-from lux_tpu_torch.ops.tiled import (combine_op, segment_plan,
+from lux_tpu_torch.ops.tiled import (combine_op, engine_lane_occupancy,
+                                     segment_plan,
                                      stream_by_default,
                                      streamed_tiled_reduce,
                                      tiled_segment_reduce)
@@ -199,8 +202,6 @@ class PushEngine(Placement):
             enable_sparse = False
         if stats_cap is not None and int(stats_cap) < 1:
             raise ValueError(f"stats_cap must be >= 1, got {stats_cap}")
-        if audit is not None:
-            _refuse("the static program audit (audit=)", "A12")
         fr.check_use_mxu(use_mxu)
         # the auto-exchange estimate is the whole label table's bytes: a
         # B-wide batch is B tables
@@ -276,6 +277,7 @@ class PushEngine(Placement):
         self.health = bool(health)
         if stats_cap is not None:
             self.stats_cap = int(stats_cap)
+        self._run_audit(audit)
 
     @classmethod
     def from_arrays(cls, program: PushProgram, arrays: dict, tiles, *,
@@ -379,6 +381,8 @@ class PushEngine(Placement):
             self._delta_t = torch.tensor(np.asarray(delta, ldt),
                                          device=device)
         self._vmask = vmask_of(a, self.vpad)
+        # the tournament's occupied slots, fixed by the layout
+        self._occ = engine_lane_occupancy(self)
 
     def _check_sparse(self):
         """Shapes and index ranges of the src-sorted view, checked once
@@ -406,6 +410,23 @@ class PushEngine(Placement):
                 or _outside(ps, self.nv + 1)):
             raise ValueError("src-sorted arrays index outside the graph "
                              "or the part's edges")
+
+    def _register_engine_variants(self) -> None:
+        """One iteration of each program variant the reference compiles
+        (lux_tpu/engine/push.py:658-694), from the init state.  The
+        reference's step holds both paths (a cond); here an iteration
+        takes one, so an engine that also iterates sparse registers each
+        path forced too: ``step_dense`` and ``step_sparse``."""
+        reg = self._register_variant
+        st = self.init_state
+        reg("step", self.step, st)
+        if self.enable_sparse:
+            reg("step_dense", lambda l, a: self._body(l, a, INT32_MAX), st)
+            reg("step_sparse", lambda l, a: self._body(l, a, 0), st)
+        reg("converge", lambda l, a: self.converge(l, a, 1), st)
+        reg("converge_stats", lambda l, a: self.converge_stats(l, a, 1), st)
+        reg("converge_health",
+            lambda l, a: self.converge_health(l, a, 1), st)
 
     # -- state ---------------------------------------------------------
 
@@ -487,7 +508,7 @@ class PushEngine(Placement):
             red = tiled_segment_reduce(cand, self.tiles, a["chunk_start"],
                                        a["last_chunk"], a["rel_dst"], vpad,
                                        kind, self._plan, batch=self.batch,
-                                       use_mxu=self.use_mxu)
+                                       use_mxu=self.use_mxu, occ=self._occ)
         if self.pairs is not None:
             red = combine_op(kind)(red, self._pair_red(flat))
         return red
@@ -525,7 +546,7 @@ class PushEngine(Placement):
         kind = self.program.reduce
         red = streamed_tiled_reduce(flat, self.arrays, self.tiles,
                                     self.vpad, kind, self._msg, self._plan,
-                                    self.use_mxu)
+                                    self.use_mxu, self._occ)
         if self.pairs is not None:
             red = combine_op(kind)(red, self._pair_red(flat))
         return red
@@ -547,7 +568,7 @@ class PushEngine(Placement):
         acc = owner_contribs(self.owner, masked, self.arrays, kind,
                              self._msg, self.num_parts,
                              use_mxu=self.use_mxu, plan=self._plan,
-                             max_run=self._plan.max_len)
+                             max_run=self._plan.max_len, occ=self._occ)
         red = owner_exchange(acc, kind,
                              minmax_fused=self.owner_minmax_fused)[
             :, :self.vpad]
@@ -620,10 +641,10 @@ class PushEngine(Placement):
         processed = ((flat_pos < done.min()) & (pos < cnts[:, None])
                      & (gids < self.nv))
         loc = (gids - self.arrays["part_start"]).clamp(0, vpad - 1)
+        # a count of the processed entries a slot (a sum onto zeros: the
+        # sum's identity), not their max onto zeros
         upd = torch.zeros((P, vpad), dtype=torch.int32, device=off.device)
-        upd.scatter_reduce_(1, loc.to(torch.int64),
-                            processed.to(torch.int32), "amax",
-                            include_self=True)
+        upd.scatter_add_(1, loc.to(torch.int64), processed.to(torch.int32))
         return active & (upd == 0)
 
     def _sparse(self, label, active):
@@ -672,6 +693,8 @@ class PushEngine(Placement):
         from lux_tpu_torch import health as hw
         label, active, it, *_bufs, watch = self.converge_health(
             label, active, max_iters)
+        # audit: allow(callback-in-loop) the word is read once, after
+        # the loop
         hw.ensure_ok(watch, engine="push", where="push converge")
         return label, active, it
 

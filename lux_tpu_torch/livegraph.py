@@ -48,8 +48,8 @@ Push kinds (sssp, components) see base + published delta through the
 delta relax; pull kinds (pagerank) through the Server's host-side
 degree correction (serve.py ``PullBatchRunner``).  While an
 anti-monotone op is pending, ``view_epoch`` holds both families at the
-epoch before it.  ``register_audit`` (the reference's static program
-audit) is not ported yet (ROADMAP A12).
+epoch before it.  ``register_audit`` adds the delta-relax step to an
+engine's audited variants (lux_tpu_torch/audit.py).
 """
 
 from __future__ import annotations
@@ -806,6 +806,10 @@ class LiveGraph:
             cached = (weakref.ref(sg), self.d_src, n, src_slot, dst_slot,
                       self.d_w.copy(), self.d_kind.copy(),
                       self.d_epoch.copy())
+            # lockcheck: allow(guarded-field) idempotent cache fill
+            # (last-writer-wins over immutable published slots);
+            # compact()'s under-lock clear targets a generation the
+            # engines must refresh_live() past before serving anyway
             self._slot_cache[key] = cached
         return cached[3], cached[4], cached[5], cached[6], cached[7]
 
@@ -891,12 +895,19 @@ class LiveGraph:
         return step
 
     def register_audit(self, eng) -> None:
-        """The reference exposes the delta step to its static program
-        auditor (lux_tpu/livegraph.py:1098): not ported yet."""
-        from lux_tpu_torch.engine.pull import NotPortedError
-        raise NotPortedError(
-            "LiveGraph.register_audit (the static program audit of the "
-            "delta-relax step) is not ported yet (ROADMAP A12)")
+        """Expose the delta-relax step to the auditor as the engine's
+        ``live_delta`` variant (lux_tpu/livegraph.py:1098), so an audit
+        of ``eng`` checks its single state-table gather with the
+        engine's own ProgramSpec.  Its arguments: a fresh init state,
+        this graph's published delta slots and the published epoch."""
+        step = self.delta_step(eng)
+
+        def args():
+            label, active = eng.init_state()
+            return (label, active, *self.delta_tensors(eng),
+                    self.col_epochs(eng, self.epoch))
+
+        eng._register_variant("live_delta", step, args)
 
     # -- incremental revalidation --------------------------------------
 

@@ -69,7 +69,16 @@ ANSWER_BYTES_PER_VERTEX = 8
 TEMP_TERMS = ("graph_pair_temp", "graph_page_buffer", "graph_page_temp",
               "graph_mxu_temp", "port_messages", "port_candidates",
               "port_partials", "port_combine", "port_mxu",
+              "port_pair_temp", "port_dot",
               "port_host_roundtrip", "port_owner_decode", "port_owner_acc")
+
+# memory_report terms the ledger prices the port's own way instead:
+# ``mxu_temp``, the [C, E, W] one-hot the reference's XLA form holds
+# (S9 builds none, the port's other one-hot forms a block at a time:
+# eager_terms' port_mxu), and ``pair_temp``, a streamed TPU block budget
+# whatever the rows, or the dot path's (pair_terms' port_pair_temp,
+# dot_terms' port_dot)
+REPLACED_TERMS = ("mxu_temp", "pair_temp")
 
 # torch.cuda.memory_stats keys of the allocator's live and peak bytes
 CUDA_CURRENT = "allocated_bytes.all.current"
@@ -200,12 +209,13 @@ def _tensor_bytes(tensors) -> int:
 def port_index_tensors(eng) -> list:
     """The int64 index tensors the port's engines keep for their eager
     reduce (the tiled combine plan, the flat segment ids, destination
-    slots): resident, and absent from the reference's programs."""
+    slots, the one-hot tournament's lane occupancy): resident, and
+    absent from the reference's programs."""
     out = []
     plan = getattr(eng, "_plan", None)
     if plan is not None:
         out += [plan.pos, plan.take, plan.empty]
-    for name in ("_seg", "_dst"):
+    for name in ("_seg", "_dst", "_occ"):
         t = getattr(eng, name, None)
         if isinstance(t, torch.Tensor):
             out.append(t)
@@ -224,10 +234,135 @@ def _state_nbytes(eng) -> int:
     return n * (getattr(eng.program, "state_bytes", None) or 4)
 
 
+def _makes_new_tensor(fn, dtype, weighted: bool) -> bool:
+    """Whether ``fn(x, w)`` returns a new tensor rather than ``x``
+    itself, probed on one element."""
+    x = torch.zeros(1, dtype=dtype)
+    y = fn(x, torch.ones(1, dtype=dtype) if weighted else None)
+    return (not isinstance(y, torch.Tensor)
+            or y.untyped_storage().data_ptr()
+            != x.untyped_storage().data_ptr())
+
+
+def pair_row_bytes(eng) -> int:
+    """Bytes one element of a pair row holds at the delivery's peak.
+    Pull: the fetched value and B1's row partial (4 + 4), and the
+    message when the program's edge value makes a new tensor
+    (PageRank's returns its source value).  Push: the fetched label,
+    the message and B1's row partial (3 x itemsize), or, at the
+    message's select, the label, its relaxed candidate when ``relax``
+    makes a new tensor (components' returns its source), the identity
+    mask and the selected message, whichever is more."""
+    from lux_tpu_torch.engine.push import PushEngine
+    weighted = "pair_weight" in eng.arrays
+    prog = eng.program
+    if isinstance(eng, PushEngine):
+        dt = np.asarray(prog.identity).dtype
+        isz = int(dt.itemsize)
+        fresh = _makes_new_tensor(prog.relax, getattr(torch, dt.name),
+                                  weighted)
+        return max(3 * isz, (3 if fresh else 2) * isz + 1)
+    fresh = _makes_new_tensor(lambda v, w: prog.edge_value(v, None, w),
+                              torch.float32, weighted)
+    return 4 * (3 if fresh else 2)
+
+
+def pair_temp_bytes(eng) -> int:
+    """The pair rows' delivery temporaries as the port allocates them
+    (bytes, whole engine): ``pair_row_bytes`` over the [rows, 128] rows
+    of the monolithic form (Rp rows a part), or of the streamed form's
+    largest block (ops/pairs.stream_blocks: at most
+    PAIR_STREAM_BLOCK_BYTES a part, where the reference prices the whole
+    budget whatever the rows) with its per-slot results.  Scalar rows
+    (the dot path's: ``dot_terms``)."""
+    from lux_tpu_torch.ops.pairs import W, stream_blocks
+    sp, P = eng.pairs, eng.num_parts
+    per = pair_row_bytes(eng)
+    if not eng.pair_stream:
+        return P * int(sp.Rp) * W * per
+    rows = max((S * L for _r, S, L in stream_blocks(sp.classes)),
+               default=0)
+    return P * (rows * per + int(sp.n_slots) * 4) * W
+
+
+def pair_terms(eng, phase: dict) -> dict:
+    """``port_pair_temp``, in place of the reference's ``pair_temp``:
+    what the pair rows' phase adds above ``phase``, the residual (or
+    owner) phase's temporaries, which it never coexists with.  The pair
+    phase holds its delivery's temporaries (``pair_temp_bytes``), the
+    residual's reduced [P, vpad] state and what its caller still holds:
+    a pull step's messages, a push step's candidates (its gathered
+    labels die with the relax); so the ledger prices the larger of the
+    two phases."""
+    from lux_tpu_torch.engine.push import PushEngine
+    n = eng.num_parts * eng.vpad
+    if isinstance(eng, PushEngine):
+        isz = int(np.asarray(eng.program.identity).dtype.itemsize)
+        held = phase.get("port_candidates", 0)
+    else:
+        isz = 4
+        held = phase.get("port_messages", 0)
+    pair = pair_temp_bytes(eng) + n * isz + held
+    return {"port_pair_temp": max(0, pair - sum(phase.values()))}
+
+
+def dot_block_bytes(units: int, lanes: int, kdim: int) -> int:
+    """Peak bytes of one ops/dot.dot_partials block of ``units`` units
+    of ``lanes`` edges: the fetched source rows [units, lanes, K] and
+    destination tiles [units, 128, K], the messages and their product
+    (two more [units, lanes, K]), and the larger of D [units, lanes,
+    128] f32 and the one-hot sum's f32 one-hot beside its bool mask (5
+    bytes an element)."""
+    from lux_tpu_torch.ops.pairs import W
+    return units * (3 * lanes * kdim * 4 + W * kdim * 4 + lanes * W * 5)
+
+
+def dot_terms(eng) -> dict:
+    """The dot path's per-iteration temporaries on the tiled layout
+    (bytes, whole engine): ``port_dot``, the larger of its two phases,
+    which never coexist (the chunk partials are combined before the
+    pair rows run): the chunk partials [P*C, 128, K] with the larger of
+    a chunk block (ops/dot.dot_partials over ``dot_block_chunks``
+    chunks) and the doubling combine's three buffers; the pair rows'
+    stacked partials [P*Rp, 128, K] (monolithic) with a block of
+    ``dot_block_rows`` rows, or the streamed form's largest block
+    (ops/pairs.dot_stream_blocks) with its per-slot sums, beside the
+    combined chunk result [P, vpad, K].  It prices the reference's
+    ``pair_temp`` too, which it replaces.  Paged dot engines keep the
+    reference's page terms ({})."""
+    from lux_tpu_torch.engine.pull import dot_kdim
+    from lux_tpu_torch.ops.pairs import W, dot_stream_blocks
+    t = getattr(eng, "tiles", None)
+    if t is None:
+        return {}
+    P, K = eng.num_parts, dot_kdim(eng.program)
+    n = P * t.n_chunks
+    partials = n * W * K * 4
+    plan = getattr(eng, "_plan", None)
+    combine = 3 * partials if plan is not None and plan.max_len > 1 else 0
+    peak = partials + max(dot_block_bytes(min(n, eng.dot_block_chunks),
+                                          t.E, K), combine)
+    sp = eng.pairs
+    if sp is not None:
+        red = P * eng.vpad * K * 4
+        if eng.pair_dot_stream:
+            rows = P * max((S * L for _r, S, L in
+                            dot_stream_blocks(sp.classes, K)), default=0)
+            pair = (dot_block_bytes(rows, W, K) + rows * W * K * 4
+                    + P * int(sp.n_slots) * W * K * 4)
+        else:
+            rows = P * int(sp.Rp)
+            pair = (rows * W * K * 4
+                    + dot_block_bytes(min(rows, eng.dot_block_rows), W, K))
+        peak = max(peak, red + pair)
+    return {"port_dot": peak}
+
+
 def eager_terms(eng) -> dict:
     """The per-iteration temporaries the port's eager tiled step
     allocates beyond the reference's terms, priced from the engine's
-    shapes (bytes, whole engine):
+    shapes (bytes, whole engine), with the pair rows' (``pair_terms``)
+    and, on the dot path, ``dot_terms`` alone:
 
     - ``port_messages``: the gathered source rows (the messages of a
       program whose edge value is the source value) over every chunk
@@ -241,15 +376,24 @@ def eager_terms(eng) -> dict:
     - ``port_mxu`` (``use_mxu``): kernel S9's int32 lanes (resident),
       or the one-hot forms' blocks (ops/tiled.MXU_BLOCK_BYTES).
 
-    Paged and pair rows are priced by the reference's own terms
-    (page_temp, pair_temp); the dot path's blocks by ops/dot's budget
-    under pair_temp.  Returns {} for those layouts.  Owner engines:
-    ``owner_terms``."""
+    Paged rows are priced by the reference's own terms (page_buffer,
+    page_temp): {} for that layout.  Owner engines: ``owner_terms``."""
+    if getattr(eng, "dot", False):
+        return dot_terms(eng)
     if getattr(eng, "owner", None) is not None:
-        return owner_terms(eng)
-    tiles = getattr(eng, "tiles", None)
-    if tiles is None or getattr(eng, "dot", False):
-        return {}
+        terms = owner_terms(eng)
+    elif getattr(eng, "tiles", None) is not None:
+        terms = _tiled_terms(eng, eng.tiles)
+    else:
+        terms = {}
+    if getattr(eng, "pairs", None) is not None:
+        phase = {k: v for k, v in terms.items() if k in TEMP_TERMS}
+        terms.update(pair_terms(eng, phase))
+    return terms
+
+
+def _tiled_terms(eng, tiles) -> dict:
+    """eager_terms' tiled-layout part."""
     from lux_tpu_torch.engine.push import PushEngine
     is_push = isinstance(eng, PushEngine)
     if is_push:
@@ -289,10 +433,13 @@ def owner_terms(eng) -> dict:
     ``port_owner_decode`` (a packed layout's decoded int32 slots and
     int8 lanes), ``port_messages`` (the gathered values, [P*C*E,
     K*B]), ``port_candidates`` (push: the masked labels and the
-    candidates beside them), ``port_partials`` (B1's [P*C, W, K*B]),
-    ``port_combine`` (the doubling combine's three buffers when a tile
-    spans chunks) and ``port_owner_acc`` (the [P, G, W] tiles and the
-    folded [P, n_tiles * W] accumulator)."""
+    candidates beside them), ``port_partials`` (B1's [P*C, W, K*B]):
+    the gather stage, all live at B1's launch; then
+    ``port_owner_acc``, what the combine stage adds above it: the
+    partials with the doubling combine's three buffers (when a tile
+    spans chunks), the [P, G, W] tiles and the folded [P, n_tiles * W]
+    accumulator, which outlive the gather stage's slots (the two
+    stages never coexist: the ledger prices the larger)."""
     from lux_tpu_torch.engine.push import PushEngine
     lay, P = eng.owner, eng.num_parts
     is_push = isinstance(eng, PushEngine)
@@ -317,11 +464,12 @@ def owner_terms(eng) -> dict:
     if is_push:
         terms["port_candidates"] = slots * wide * (isz + 1)
     terms["port_partials"] = partials
+    gather = sum(v for k, v in terms.items() if k != "port_owner_layout")
     plan = getattr(eng, "_plan", None)
-    if plan is not None and plan.max_len > 1:
-        terms["port_combine"] = 3 * partials
-    terms["port_owner_acc"] = (P * lay.G + P * lay.n_tiles) * lay.W \
-        * wide * isz
+    combine = 3 * partials if plan is not None and plan.max_len > 1 \
+        else 0
+    acc = (P * lay.G + P * lay.n_tiles) * lay.W * wide * isz
+    terms["port_owner_acc"] = max(0, partials + combine + acc - gather)
     return terms
 
 
@@ -352,14 +500,16 @@ class MemoryLedger:
         (``program_state``: state_bytes - 4 a vertex) and extra arrays
         (``program_extra``, the bytes of the engine's own ``prog_*``
         tensors), ``port_index`` (port_index_tensors) and the eager
-        step's temporaries (``eager_terms``)."""
+        step's temporaries (``eager_terms``).  REPLACED_TERMS of the
+        report give way to the port's own pricing."""
         if eng.sg is None:
             raise ValueError("an engine built from arrays has no graph "
                              "to price")
         P = eng.sg.num_parts
         rep = eng.sg.memory_report(**report_kwargs(eng))
         terms = {f"graph_{k}": P * v
-                 for k, v in rep["terms_per_part"].items() if v}
+                 for k, v in rep["terms_per_part"].items()
+                 if v and k not in REPLACED_TERMS}
         sb = getattr(eng.program, "state_bytes", None)
         if sb:
             terms["program_state"] = P * eng.sg.vpad * (sb - 4)

@@ -107,7 +107,8 @@ class Gauge:
         self._lock = threading.Lock()
 
     def set(self, v: float) -> None:
-        # one GIL-atomic assignment; set_max/inc/dec lock because they
+        # lockcheck: allow(guarded-field) last-value store is ONE
+        # GIL-atomic assignment; set_max/inc/dec lock because they
         # read-modify-write
         self.value = float(v)
 

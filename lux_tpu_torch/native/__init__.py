@@ -47,6 +47,13 @@ CONVERTER_FLAGS = ("-O3", "-std=c++17", "-Wall", "-Wextra")
 SANITIZE_FLAGS = ("-O1", "-g", "-std=c++17", "-fsanitize=address,undefined",
                   "-fno-sanitize-recover=all", "-Wall", "-Wextra", "-Werror")
 
+# lux_tpu/native/Makefile's analyze target: -fanalyzer needs a real
+# compilation (-fsyntax-only stops before the analyzer pass)
+ANALYZE_SOURCES = ("converter.cc", "loader.cc", "rmat.cc", "sort.cc",
+                   "reorder.cc")
+ANALYZE_FLAGS = ("-fanalyzer", "-O1", "-std=c++17", "-Wall", "-Wextra",
+                 "-Werror")
+
 MAX_PAYLOADS = 4        # sort.cc kMaxPay
 
 
@@ -159,6 +166,44 @@ def build() -> dict:
         report[key] = 0.0 if out.exists() else compile_to(out, sources,
                                                           flags)
     return report
+
+
+def analyze() -> dict:
+    """GCC's static analyzer over the five translation units
+    (lux_tpu/native/Makefile's ``analyze`` target; sanitize_driver.cc is
+    left out, as there): real compilation with ``ANALYZE_FLAGS`` into
+    the git-ignored ``_build/analyze/``, the five compilers started
+    together.  Returns {source: seconds}; any diagnostic raises
+    NativeBuildError carrying every failing unit's output.  A justified
+    exemption is a ``/* lockcheck: allow(analyzer) */`` comment in the
+    source plus a ``-Wno-analyzer-*`` flag for that unit alone (none is
+    needed)."""
+    cxx = compiler()
+    exe = shutil.which(cxx)
+    if exe is None:
+        raise NativeBuildError(f"C++ compiler {cxx!r} not found: the "
+                               f"analyzer runs inside g++ (set CXX)")
+    out_dir = BUILD_DIR / "analyze"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for src in ANALYZE_SOURCES:
+        obj = out_dir / f"{Path(src).stem}.{os.getpid()}.o"
+        procs[src] = (obj, subprocess.Popen(
+            [exe, *ANALYZE_FLAGS, "-c", str(SRC_DIR / src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    secs, failed = {}, []
+    for src, (obj, proc) in procs.items():
+        text, _ = proc.communicate()
+        secs[src] = time.perf_counter() - t0
+        obj.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            failed.append(f"--- {src} (exit {proc.returncode})\n{text}")
+    if failed:
+        raise NativeBuildError(
+            f"{cxx} -fanalyzer refused {len(failed)} unit(s)",
+            "\n".join(failed))
+    return secs
 
 
 def converter_path() -> str:

@@ -15,12 +15,14 @@
 // perm_out must hold n int64; keys are NOT modified.
 
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <pthread.h>
-#include <vector>
 
 namespace {
+
+constexpr int kMaxThreads = 256;
 
 struct PassArgs {
   const uint64_t* keys;       // key of ORIGINAL index i
@@ -157,12 +159,16 @@ extern "C" int lux_sort_kv_u64(uint64_t* keys, uint64_t* key_tmp,
     if (s != 1 && s != 2 && s != 4 && s != 8) return 2;
   }
   if (n == 0) return 0;
-  if (threads > 256) threads = 256;
+  if (threads > kMaxThreads) threads = kMaxThreads;
   int64_t chunk = (n + threads - 1) / threads;
 
-  std::vector<HistArgs> ha(threads);
-  std::vector<pthread_t> tid(threads);
-  std::vector<char> created(threads, 0);
+  // per-thread records in zeroed fixed arrays (threads <= kMaxThreads)
+  // and checked calloc'd histograms, not std::vector: GCC's analyzer
+  // cannot prove a vector's data() non-null across the thread hand-off,
+  // nor that a handle read after `created[t]` was written
+  HistArgs ha[kMaxThreads] = {};
+  pthread_t tid[kMaxThreads] = {};
+  char created[kMaxThreads] = {};
 
   auto run_threads = [&](void* (*fn)(void*), auto* argv) {
     for (int t = 0; t < threads; t++) {
@@ -188,7 +194,7 @@ extern "C" int lux_sort_kv_u64(uint64_t* keys, uint64_t* key_tmp,
       if (lo > n) lo = n;
       ha[t] = HistArgs{keys, lo, hi, 0, nullptr, 0};
     }
-    run_threads(kv_max, ha.data());
+    run_threads(kv_max, ha);
     for (int t = 0; t < threads; t++)
       if (ha[t].maxk > maxk) maxk = ha[t].maxk;
   }
@@ -197,15 +203,23 @@ extern "C" int lux_sort_kv_u64(uint64_t* keys, uint64_t* key_tmp,
 
   uint64_t* kcur = keys;
   uint64_t* knxt = key_tmp;
-  std::vector<char*> pcur(n_pay), pnxt(n_pay);
+  char* pcur[kMaxPay] = {};
+  char* pnxt[kMaxPay] = {};
   for (int j = 0; j < n_pay; j++) {
     pcur[j] = static_cast<char*>(pay[j]);
     pnxt[j] = static_cast<char*>(pay_tmp[j]);
   }
 
-  std::vector<int64_t> hist(static_cast<size_t>(threads) * 256);
-  std::vector<int64_t> offs(static_cast<size_t>(threads) * 256);
-  std::vector<KvPass> args(threads);
+  auto* hist = static_cast<int64_t*>(
+      std::calloc(static_cast<size_t>(threads) * 256, sizeof(int64_t)));
+  auto* offs = static_cast<int64_t*>(
+      std::calloc(static_cast<size_t>(threads) * 256, sizeof(int64_t)));
+  if (hist == nullptr || offs == nullptr) {
+    std::free(hist);
+    std::free(offs);
+    return 3;
+  }
+  KvPass args[kMaxThreads] = {};
 
   for (int pass = 0; pass < npass; pass++) {
     int shift = pass * 8;
@@ -217,7 +231,7 @@ extern "C" int lux_sort_kv_u64(uint64_t* keys, uint64_t* key_tmp,
       ha[t] = HistArgs{kcur, lo, hi, shift,
                        &hist[static_cast<size_t>(t) * 256], 0};
     }
-    run_threads(kv_hist, ha.data());
+    run_threads(kv_hist, ha);
     // all keys in one digit bucket => identity pass; skip the scatter
     bool trivial = false;
     for (int d = 0; d < 256 && !trivial; d++) {
@@ -253,7 +267,7 @@ extern "C" int lux_sort_kv_u64(uint64_t* keys, uint64_t* key_tmp,
         args[t].pay_size[j] = pay_size[j];
       }
     }
-    run_threads(kv_scatter, args.data());
+    run_threads(kv_scatter, args);
     std::swap(kcur, knxt);
     for (int j = 0; j < n_pay; j++) std::swap(pcur[j], pnxt[j]);
   }
@@ -265,24 +279,35 @@ extern "C" int lux_sort_kv_u64(uint64_t* keys, uint64_t* key_tmp,
       std::memcpy(pay[j], pcur[j],
                   static_cast<size_t>(n) * pay_size[j]);
   }
+  std::free(hist);
+  std::free(offs);
   return 0;
 }
 
 extern "C" int lux_argsort_u64(const uint64_t* keys, int64_t n,
                                int threads, int64_t* perm_out) {
   if (n < 0 || threads < 1) return 1;
-  if (threads > 256) threads = 256;
+  if (threads > kMaxThreads) threads = kMaxThreads;
   // uninitialized scratch (a vector would zero-fill 8 GB at scale)
   std::unique_ptr<int64_t[]> tmp(new int64_t[n]);
   int64_t* cur = perm_out;
   int64_t* nxt = tmp.get();
   for (int64_t i = 0; i < n; i++) cur[i] = i;
 
-  std::vector<int64_t> hist(static_cast<size_t>(threads) * 256);
-  std::vector<int64_t> offs(static_cast<size_t>(threads) * 256);
-  std::vector<PassArgs> args(threads);
-  std::vector<pthread_t> tid(threads);
-  std::vector<char> created(threads, 0);
+  // fixed per-thread arrays and checked calloc'd histograms, as in
+  // lux_sort_kv_u64
+  auto* hist = static_cast<int64_t*>(
+      std::calloc(static_cast<size_t>(threads) * 256, sizeof(int64_t)));
+  auto* offs = static_cast<int64_t*>(
+      std::calloc(static_cast<size_t>(threads) * 256, sizeof(int64_t)));
+  if (hist == nullptr || offs == nullptr) {
+    std::free(hist);
+    std::free(offs);
+    return 3;
+  }
+  PassArgs args[kMaxThreads] = {};
+  pthread_t tid[kMaxThreads] = {};
+  char created[kMaxThreads] = {};
   int64_t chunk = (n + threads - 1) / threads;
 
   for (int pass = 0; pass < 8; pass++) {
@@ -341,5 +366,7 @@ extern "C" int lux_argsort_u64(const uint64_t* keys, int64_t n,
   // trivial-pass skips can leave the result in the scratch buffer
   if (cur != perm_out)
     std::memcpy(perm_out, cur, static_cast<size_t>(n) * sizeof(int64_t));
+  std::free(hist);
+  std::free(offs);
   return 0;
 }

@@ -25,8 +25,10 @@ and a persistent perf ledger (counterpart of lux_tpu/observe.py:76-370,
    figures this port leaves modeled rather than measured.
 
 Waits for ROADMAP A6: the link calibration (``calibrate_links``) and
-the communication attribution.  Waits for A12: the static audit of the
-probe programs -- the digest says so in its ``audit`` field.
+the communication attribution.  The digest's ``audit`` field is the
+auditor's verdict on one step of each probe (``_audit_probe_programs``,
+lux_tpu_torch/audit.py): a probe that recomputed state-independent work
+or synced with the host would measure nothing.
 
 CLI: ``python -m lux_tpu_torch.observe [-device cpu]`` prints the
 calibrated phase report of the four apps.
@@ -63,9 +65,6 @@ PROBE_PAGE_ROWS = 2048        # paged delivery rows a step
 PROBE_PAGE_TABLE = 256        # pages in the probe's page buffer
 PROBE_LOOP_K = 8              # steps a timed sample
 DEVIATION_BOUND = 3.0         # outside [1/3, 3] x the card's = degraded
-
-# the static audit of the probe programs waits for ROADMAP A12
-AUDIT_STATUS = {"status": "not ported (ROADMAP A12)"}
 
 
 def canonical_figures(constants=None) -> dict:
@@ -120,7 +119,7 @@ class Fingerprint:
     canonical: dict           # the figures of record (canonical_figures)
     deviation: float          # gather probe / the card's gather figure
     grade: str
-    audit: dict               # AUDIT_STATUS until ROADMAP A12
+    audit: dict               # audit.digest of the probe programs
 
     def digest(self) -> dict:
         """The compact field ledger records carry."""
@@ -145,6 +144,7 @@ def _gather_probe(dev):
         sv = torch.index_select(carry[0], 0, idx).sum()
         carry[0] = carry[0] + sv * 1e-30
         return sv
+    step.carry = carry
     return step
 
 
@@ -161,6 +161,7 @@ def _dot_probe(dev, kdim: int = PROBE_DOT_K):
             sv = torch.bmm(carry[0], t.transpose(1, 2)).sum()
         carry[0] = carry[0] + sv * 1e-30
         return sv
+    step.carry = carry
     return step
 
 
@@ -188,7 +189,23 @@ def _page_probe(dev):
         sv = chunk_partials(vals, rel_t, 128, "sum").sum()
         carry[0] = carry[0] + sv * 1e-30
         return sv
+    step.carry = carry
     return step
+
+
+def _audit_probe_programs(dev):
+    """The auditor over one step of each probe (the reference's
+    lux_tpu/observe.py:268): the calibration must satisfy the invariants
+    it referees.  Each step runs once under the recorder, its carry the
+    state -> (audit.digest, findings)."""
+    from lux_tpu_torch import audit
+    findings = []
+    for name, make in (("gather", _gather_probe), ("pair_dot", _dot_probe),
+                       ("page_gather", _page_probe)):
+        step = make(dev)
+        trace = audit.record(step, (), state=step.carry)
+        findings += audit.audit_trace(trace, where=f"observe.probe_{name}")
+    return audit.digest(findings, mode="error"), findings
 
 
 def _device_name(dev) -> str:
@@ -237,6 +254,7 @@ def calibrate(force: bool = False, clock=None, repeats: int = 3,
         "page_gather_row_mad_ns": p_mad / PROBE_PAGE_ROWS * 1e9,
     }
     canon = canonical_figures(c)
+    audit_digest, _findings = _audit_probe_programs(dev)
     deviation = probe["gather_small_ns"] / canon["gather_small_ns"]
     name = _device_name(dev)
     fp = Fingerprint(
@@ -245,7 +263,7 @@ def calibrate(force: bool = False, clock=None, repeats: int = 3,
         device_name=name,
         ndev=torch.cuda.device_count() if dev.type == "cuda" else 1,
         probe=probe, canonical=canon, deviation=deviation,
-        grade=_grade(name, deviation, constants=c), audit=dict(AUDIT_STATUS))
+        grade=_grade(name, deviation, constants=c), audit=audit_digest)
     telemetry.current().emit("calibration", **fp.digest())
     _FP = fp
     return fp

@@ -69,7 +69,7 @@ def block_rowsum(x: torch.Tensor, bm: int = BM) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _kernels.launch("block_rowsum", x.data_ptr(), out.data_ptr(), R, bm,
                         stream)
-    block_rowsum.launches += 1
+    _kernels.counted(block_rowsum, "block_rowsum", (x,), (out,))
     return out
 
 

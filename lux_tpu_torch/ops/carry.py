@@ -174,7 +174,8 @@ def carry_combine(part: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     else:
         with torch.cuda.device(part.device):
             _launch_carry(part, st, out)
-    carry_combine.launches += 1
+    from lux_tpu_torch import _kernels
+    _kernels.counted(carry_combine, "carry", (part, st), (out,))
     return out
 
 
@@ -222,7 +223,8 @@ def fused_carry(vals: torch.Tensor, rel: torch.Tensor, start: torch.Tensor,
                         st.data_ptr(), out.data_ptr(), agg.data_ptr(),
                         first.data_ptr(), cin.data_ptr(), C, E, W,
                         FUSED_TILE, stream)
-    fused_carry.launches += 1
+    _kernels.counted(fused_carry, "fused_carry", (vals, rel, st),
+                     (out,))
     return out
 
 

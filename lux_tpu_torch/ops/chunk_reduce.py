@@ -158,7 +158,8 @@ def chunk_partials(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
     if err != 0:
         raise KernelLaunchError(f"chunk_partials launch failed with "
                                 f"cudaError_t {err} (C={C} E={E} W={W})")
-    chunk_partials.launches += 1
+    _kernels.counted(chunk_partials, "chunk_partials", (vals, rel_dst),
+                     (out,))
     chunk_partials.launches_by_e[E] = (
         chunk_partials.launches_by_e.get(E, 0) + 1)
     return out
@@ -216,7 +217,8 @@ def chunk_partials_batched(vals: torch.Tensor, rel_dst: torch.Tensor,
         raise KernelLaunchError(
             f"chunk_partials_batched launch failed with cudaError_t {err} "
             f"(C={C} E={E} B={B} W={W})")
-    chunk_partials_batched.launches += 1
+    _kernels.counted(chunk_partials_batched, "chunk_partials_batched",
+                     (vals, rel_dst), (out,))
     return out
 
 

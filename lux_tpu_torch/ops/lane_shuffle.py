@@ -93,7 +93,8 @@ def lane_shuffle(rows: torch.Tensor, slot_lane: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise KernelLaunchError(f"lane_shuffle launch failed with "
                                 f"cudaError_t {err} (R={R})")
-    lane_shuffle.launches += 1
+    _kernels.counted(lane_shuffle, "lane_shuffle", (rows, slot_lane),
+                     (out,))
     return out
 
 

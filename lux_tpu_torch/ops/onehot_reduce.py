@@ -82,7 +82,7 @@ def onehot_reduce(vals: torch.Tensor, rel: torch.Tensor,
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         _kernels.launch("onehot_reduce", vals.data_ptr(), rel.data_ptr(),
                         out.data_ptr(), C, E, W, stream)
-    onehot_reduce.launches += 1
+    _kernels.counted(onehot_reduce, "onehot_reduce", (vals, rel), (out,))
     return out
 
 

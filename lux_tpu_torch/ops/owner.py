@@ -304,7 +304,7 @@ def gather_messages(state: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 
 
 def owner_partials(geom, state, a: dict, kind: str, msg_fn,
-                   use_mxu: bool = False, rel32=None):
+                   use_mxu: bool = False, rel32=None, occ=None):
     """The monolithic form's per-chunk partials [P*C, W, ...]: decode,
     gather (``gather_messages``), messages, then one launch of kernel B1
     (or its batched form, or the one-hot forms) over every source part's
@@ -316,7 +316,7 @@ def owner_partials(geom, state, a: dict, kind: str, msg_fn,
     msgs = msg_fn(vals, a.get("own_w"))
     return reduce_partials(msgs.reshape((P * C, E) + tuple(msgs.shape[3:])),
                            rel.reshape(P * C, E), geom.W, kind, use_mxu,
-                           rel32)
+                           rel32, occ)
 
 
 def fold_parts(tiles: torch.Tensor, num_parts: int, kind: str):
@@ -336,7 +336,7 @@ def fold_parts(tiles: torch.Tensor, num_parts: int, kind: str):
 
 def owner_contribs(geom, state, a: dict, kind: str, msg_fn,
                    num_parts: int, use_mxu: bool = False, plan=None,
-                   rel32=None, max_run: int | None = None):
+                   rel32=None, max_run: int | None = None, occ=None):
     """Every source part's contribution to every destination part,
     folded across source parts -> [P, n_tiles * W, ...]
     (lux_tpu/ops/owner.py:386).  ``state`` [P, vpad, ...]; ``a`` the
@@ -345,7 +345,8 @@ def owner_contribs(geom, state, a: dict, kind: str, msg_fn,
     the fused streamed combine on its own shard (``max_run``: the
     longest segment); otherwise the monolithic form: ``owner_partials``
     (one B1 launch over [P*C, E]) and one segmented combine over [P, C]
-    (``plan``: its ops/tiled.SegmentPlan)."""
+    (``plan``: its ops/tiled.SegmentPlan).  ``occ``: the [P*C, W]
+    ``lane_occupancy`` of use_mxu's tournament."""
     if "own_ep" in a:
         packed = "own_sr" in a
         tiles = torch.stack([streamed_chunk_combined(
@@ -354,11 +355,13 @@ def owner_contribs(geom, state, a: dict, kind: str, msg_fn,
             None if "own_w" not in a else a["own_w"][s], geom, kind,
             msg_fn, a["own_cs"][s], a["own_ep"][s], a["own_et"][s],
             a["own_lc"][s], use_mxu=use_mxu,
-            nvalid=a["own_nv"][s] if packed else None, max_run=max_run)
+            nvalid=a["own_nv"][s] if packed else None, max_run=max_run,
+            occ=None if occ is None else occ.view(
+                state.shape[0], -1, geom.W)[s])
             for s in range(state.shape[0])])
     else:
         partials = owner_partials(geom, state, a, kind, msg_fn, use_mxu,
-                                  rel32)
+                                  rel32, occ)
         tiles = combine_chunks(partials, geom, a["own_cs"], a["own_lc"],
                                kind, plan, use_mxu)
     return fold_parts(tiles, num_parts, kind)

@@ -914,7 +914,13 @@ def paged_dot_blocks(state, page_ids, slot_lane, rel, weight, row_tile,
     def fetch(sl, n):
         pg = torch.index_select(pages, 0, rs[sl])           # [n, 128, K]
         S = torch.gather(pg, 1, lane[sl].unsqueeze(-1).expand(n, W, K))
-        return S, torch.index_select(s3, 0, tile[sl])
+        # dst-tile block fetch: row-granular [*, 128K] movement -- the same
+        # fetch pair_partial_dot makes, exempt there because its operand
+        # shape differs from the flat table; here the paged table view
+        # shares the shape, so the exemption is explicit:
+        # audit: allow(gather-budget)
+        T = torch.index_select(s3, 0, tile[sl])
+        return S, T
 
     out = []
     for r0, n in blocks(P * slot_lane.shape[1], block_rows):

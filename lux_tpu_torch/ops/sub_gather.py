@@ -163,7 +163,7 @@ def sub_gather(x: torch.Tensor, idx: torch.Tensor, M: int,
         _kernels.launch("sub_gather", x.data_ptr(), idx.data_ptr(),
                         out.data_ptr(), R, M, MODES[p["mode"]], p["cw"],
                         p["K"], p["threads"], stream)
-    sub_gather.launches += 1
+    _kernels.counted(sub_gather, "sub_gather", (x, idx), (out,))
     return out
 
 

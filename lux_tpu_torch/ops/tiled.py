@@ -354,8 +354,41 @@ def _onehot_sum(vals: torch.Tensor, rel: torch.Tensor, W: int):
     return out
 
 
+def lane_occupancy(rel: torch.Tensor, W: int) -> torch.Tensor:
+    """Which of each chunk's W slots a live lane maps to: lanes [n, E]
+    (pads -1) -> [n, W] bool.  The layout alone decides it, so an engine
+    makes it once at build (``engine_lane_occupancy``) for the
+    tournament's empty slots."""
+    n = rel.shape[0]
+    idx = torch.where(rel >= 0, rel.long(), W)      # pads: a trash column
+    occ = torch.zeros((n, W + 1), dtype=torch.bool, device=rel.device)
+    occ.scatter_(1, idx, True)
+    return occ[:, :W]
+
+
+def engine_lane_occupancy(eng):
+    """The engine's ``lane_occupancy`` over all its [P*C, E] chunks (the
+    owner layout's decoded lanes on the owner exchange) when its reduce
+    runs the one-hot tournament (``use_mxu`` with a min / max), else
+    None."""
+    if not (getattr(eng, "use_mxu", False) and not getattr(eng, "dot", False)
+            and eng.program.reduce in ("min", "max")):
+        return None
+    a = eng.arrays
+    if getattr(eng, "owner", None) is not None:
+        from lux_tpu_torch.ops.owner import decoded_slots
+        geom = eng.owner
+        rel = decoded_slots(a)[1]
+        return lane_occupancy(rel.reshape(-1, geom.E), geom.W)
+    if getattr(eng, "tiles", None) is None or "rel_dst" not in a:
+        return None
+    return lane_occupancy(a["rel_dst"].reshape(-1, eng.tiles.E),
+                          eng.tiles.W)
+
+
 def _mxu_compare_reduce(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
-                        kind: str) -> torch.Tensor:
+                        kind: str, occ: torch.Tensor | None = None
+                        ) -> torch.Tensor:
     """min/max per-chunk partials as one-hot contractions: a radix
     tournament over the payload's order encoding, most significant bit
     first (lux_tpu/ops/tiled.py:269-323).  Each bit plane takes two
@@ -364,7 +397,8 @@ def _mxu_compare_reduce(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
     that narrows each lane's candidacy to its slot's winning prefix.
     Bit-equal to kernel B1 for integers; floats take the encoding's
     total order.  Pad lanes have all-zero one-hot rows, so they never
-    vote; a slot no live lane maps to gets the identity.
+    vote; a slot no live lane maps to gets the identity (``occ``, the
+    chunks' ``lane_occupancy``, made here when not given).
 
     The counts are exact small integers (a vote counts at most E lanes,
     a route-back is 0 or 1), contracted in float16 on the card -- exact
@@ -384,7 +418,8 @@ def _mxu_compare_reduce(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
     cdt = (torch.float16 if vals.device.type == "cuda"
            and E <= _F16_EXACT else torch.float32)
     res = torch.empty((C, W, T), dtype=torch.int64, device=vals.device)
-    occ = torch.empty((C, W, 1), dtype=torch.bool, device=vals.device)
+    if occ is None:
+        occ = lane_occupancy(rel_dst, W)
     step = _block_rows(C, E * W * cdt.itemsize + E * T * 24)
     with full_fp32():
         for c0 in range(0, C, step):
@@ -392,7 +427,6 @@ def _mxu_compare_reduce(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
             oh = _lane_onehot(rel_dst[sl], W, cdt)          # [b, E, W]
             ohT = oh.transpose(1, 2)
             b = oh.shape[0]
-            occ[sl] = torch.bmm(ohT, oh.new_ones((b, E, 1))) > 0
             mb = m[sl]
             cand = torch.ones((b, E, T), dtype=torch.bool,
                               device=vals.device)
@@ -416,12 +450,14 @@ def _mxu_compare_reduce(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
 
 
 def chunk_partials_mxu(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
-                       kind: str, rel32: torch.Tensor | None = None):
+                       kind: str, rel32: torch.Tensor | None = None,
+                       occ: torch.Tensor | None = None):
     """Per-chunk partials [C, E, ...] -> [C, W, ...] by the one-hot
     forms (the reference's ``chunk_partials(use_mxu=True)``).  A scalar
     float32 sum is kernel S9 (``rel32``: the lanes as int32, S9's
     dtype; made here when not given); other sums a ``torch.bmm``
-    against the one-hot; min/max the tournament."""
+    against the one-hot; min/max the tournament (``occ``: the chunks'
+    ``lane_occupancy``)."""
     _check_mxu_dtype(kind, vals.dtype)
     if kind == "sum":
         if vals.dim() == 2 and vals.dtype == torch.float32 \
@@ -435,7 +471,7 @@ def chunk_partials_mxu(vals: torch.Tensor, rel_dst: torch.Tensor, W: int,
         out = _onehot_sum(vals.reshape(C, E, -1), rel_dst, W)
         return out.reshape((C, W) + trail)
     if kind in ("min", "max"):
-        return _mxu_compare_reduce(vals, rel_dst, W, kind)
+        return _mxu_compare_reduce(vals, rel_dst, W, kind, occ)
     raise MXUUnsupportedError(kind, vals.dtype, "unknown reduce kind")
 
 
@@ -474,7 +510,7 @@ def _segscan_matmul(partials: torch.Tensor, chunk_start: torch.Tensor,
         flags = torch.cat([flags, flags.new_ones(Cp - C)])
     x = x.reshape(nB, block, -1)
     f = flags.reshape(nB, block)
-    sid = torch.cumsum(f.to(torch.int32), 1)
+    sid = torch.cumsum(f.to(torch.int32), 1, dtype=torch.int32)
     ii = torch.arange(block, device=x.device)
     T = ((ii[:, None] >= ii[None, :])[None]
          & (sid[:, :, None] == sid[:, None, :])).to(torch.float32)
@@ -583,7 +619,8 @@ def tiled_segment_reduce(vals, layout, chunk_start, last_chunk, rel_dst,
                          vpad: int, kind: str,
                          plan: SegmentPlan | None = None,
                          batch: int | None = None, use_mxu: bool = False,
-                         rel32: torch.Tensor | None = None):
+                         rel32: torch.Tensor | None = None,
+                         occ: torch.Tensor | None = None):
     """Full scatter-free segment reduce: chunked messages [R*C, E]
     (or [C, E]) -> [R, vpad] (or [vpad]).  Drop-in for
     ``segment_reduce(msgs, dst_local, vpad+1, kind)[:vpad]``; the
@@ -592,13 +629,14 @@ def tiled_segment_reduce(vals, layout, chunk_start, last_chunk, rel_dst,
     [R, vpad, B], through B1's batched form (a strided view is made
     contiguous first: the kernel takes contiguous rows only).
     ``use_mxu``: the partials and a sum's combine by the one-hot forms
-    (``chunk_partials_mxu``; ``rel32`` the lanes as int32 for S9)."""
+    (``chunk_partials_mxu``; ``rel32`` the lanes as int32 for S9,
+    ``occ`` their ``lane_occupancy`` for the tournament)."""
     rel = rel_dst.reshape(-1, layout.E)
     if use_mxu:
         shape = (-1, layout.E) + (() if batch is None else (batch,))
         partials = chunk_partials_mxu(
             vals.reshape(shape), rel, layout.W, kind,
-            None if rel32 is None else rel32.reshape(-1, layout.E))
+            None if rel32 is None else rel32.reshape(-1, layout.E), occ)
     elif batch is None:
         partials = chunk_partials(vals.reshape(-1, layout.E), rel,
                                   layout.W, kind)
@@ -631,12 +669,13 @@ def unpack_src_rel(packed: torch.Tensor, n_valid: torch.Tensor):
 
 def block_partials(flat_state: torch.Tensor, src_b: torch.Tensor, rel_b,
                    w_b, msg_fn, kind: str, W: int, use_mxu: bool = False,
-                   nv_b=None) -> torch.Tensor:
+                   nv_b=None, occ_b=None) -> torch.Tensor:
     """One block's gather + messages + per-chunk partials [n, E] slots
     -> [n, W, ...] (lux_tpu/ops/tiled.py:554 ``_block_partials``):
     kernel B1, or its batched form over a trailing state axis, or the
-    one-hot forms under ``use_mxu``.  ``nv_b`` set: ``src_b`` holds the
-    packed owner slots and ``rel_b`` is None."""
+    one-hot forms under ``use_mxu`` (``occ_b``: the block's
+    ``lane_occupancy``).  ``nv_b`` set: ``src_b`` holds the packed owner
+    slots and ``rel_b`` is None."""
     from lux_tpu_torch.engine.pull import gather_rows
     if nv_b is not None:
         src_b, rel_b = unpack_src_rel(src_b, nv_b)
@@ -644,17 +683,20 @@ def block_partials(flat_state: torch.Tensor, src_b: torch.Tensor, rel_b,
     trail = tuple(flat_state.shape[1:])
     vals = gather_rows(flat_state, src_b.reshape(-1)).view(
         (n, E) + trail)
-    return reduce_partials(msg_fn(vals, w_b), rel_b, W, kind, use_mxu)
+    return reduce_partials(msg_fn(vals, w_b), rel_b, W, kind, use_mxu,
+                           occ=occ_b)
 
 
 def reduce_partials(msgs: torch.Tensor, rel: torch.Tensor, W: int,
                     kind: str, use_mxu: bool = False,
-                    rel32: torch.Tensor | None = None) -> torch.Tensor:
+                    rel32: torch.Tensor | None = None,
+                    occ: torch.Tensor | None = None) -> torch.Tensor:
     """Per-chunk partials of [n, E, ...] messages -> [n, W, ...]: kernel
     B1, its batched form over the flattened trailing dims, or the
-    one-hot forms under ``use_mxu`` (``rel32``: S9's int32 lanes)."""
+    one-hot forms under ``use_mxu`` (``rel32``: S9's int32 lanes;
+    ``occ``: the tournament's ``lane_occupancy``)."""
     if use_mxu:
-        return chunk_partials_mxu(msgs, rel, W, kind, rel32)
+        return chunk_partials_mxu(msgs, rel, W, kind, rel32, occ)
     n, E = msgs.shape[:2]
     mtrail = tuple(msgs.shape[2:])
     if not mtrail:
@@ -673,14 +715,15 @@ def _blocks(C: int, block_chunks: int | None):
 def streamed_chunk_partials(flat_state, src_slot, rel_dst, weight, layout,
                             kind: str, msg_fn, use_mxu: bool = False,
                             block_chunks: int | None = None,
-                            nvalid=None) -> torch.Tensor:
+                            nvalid=None, occ=None) -> torch.Tensor:
     """Gather + messages + per-chunk partials over [C, E] slots (any
     number of parts' chunks stacked) in blocks of ``block_chunks``
     (default STREAM_BLOCK_CHUNKS) -> [C, W, ...]
     (lux_tpu/ops/tiled.py:584).  A chunk's partial does not depend on
     the blocking, so the result is the monolithic reduce's, bit for
     bit; one B1 launch a block.  ``nvalid``: ``src_slot`` holds packed
-    owner slots and ``rel_dst`` is None."""
+    owner slots and ``rel_dst`` is None; ``occ``: the chunks'
+    ``lane_occupancy`` (use_mxu's tournament)."""
     C = src_slot.shape[0]
     out = None
     for c0, c1 in _blocks(C, block_chunks):
@@ -689,7 +732,8 @@ def streamed_chunk_partials(flat_state, src_slot, rel_dst, weight, layout,
             None if rel_dst is None else rel_dst[c0:c1],
             None if weight is None else weight[c0:c1], msg_fn, kind,
             layout.W, use_mxu,
-            nv_b=None if nvalid is None else nvalid[c0:c1])
+            nv_b=None if nvalid is None else nvalid[c0:c1],
+            occ_b=None if occ is None else occ[c0:c1])
         if out is None:
             out = part.new_empty((C,) + tuple(part.shape[1:]))
         out[c0:c1] = part
@@ -698,17 +742,18 @@ def streamed_chunk_partials(flat_state, src_slot, rel_dst, weight, layout,
 
 def streamed_tiled_reduce(flat_state, a: dict, layout, vpad: int,
                           kind: str, msg_fn, plan=None,
-                          use_mxu: bool = False) -> torch.Tensor:
+                          use_mxu: bool = False,
+                          occ=None) -> torch.Tensor:
     """An engine's tiled path streamed: ``streamed_chunk_partials`` over
     every part's [C, E] chunks of the arrays ``a`` (src_slot, rel_dst,
     chunk_start, last_chunk, + weight), then the segmented combine ->
-    [P, vpad, ...]."""
+    [P, vpad, ...] (``occ``: the chunks' ``lane_occupancy``)."""
     n = a["src_slot"].shape[0] * layout.n_chunks
     E = layout.E
     partials = streamed_chunk_partials(
         flat_state, a["src_slot"].view(n, E), a["rel_dst"].view(n, E),
         None if "weight" not in a else a["weight"].view(n, E), layout,
-        kind, msg_fn, use_mxu=use_mxu)
+        kind, msg_fn, use_mxu=use_mxu, occ=occ)
     return combine_partials(partials, layout, a["chunk_start"],
                             a["last_chunk"], vpad, kind, plan, use_mxu)
 
@@ -787,7 +832,8 @@ def streamed_chunk_combined(flat_state, src_slot, rel_dst, weight, layout,
                             kind: str, msg_fn, chunk_start, extr_pos,
                             extr_tile, last_chunk, use_mxu: bool = False,
                             block_chunks: int | None = None, nvalid=None,
-                            max_run: int | None = None) -> torch.Tensor:
+                            max_run: int | None = None,
+                            occ=None) -> torch.Tensor:
     """The fused streamed form for ONE row of chunks
     (lux_tpu/ops/tiled.py:701): per block, gather + messages + partials
     (``block_partials``: one B1 launch), the segmented scan inside the
@@ -799,7 +845,8 @@ def streamed_chunk_combined(flat_state, src_slot, rel_dst, weight, layout,
     ``nvalid`` [C] is given, ``rel_dst`` None), chunk_start bool [C],
     extr_pos / extr_tile [nB, L] of ``build_extract_plan`` at the same
     block, last_chunk int [n_tiles] (its < 0 mask).  ``max_run``: the
-    longest segment, bounding the scan's passes."""
+    longest segment, bounding the scan's passes; ``occ``: the chunks'
+    ``lane_occupancy`` (use_mxu's tournament)."""
     C = src_slot.shape[0]
     comb = combine_op(kind)
     n_tiles = last_chunk.shape[0]
@@ -810,7 +857,8 @@ def streamed_chunk_combined(flat_state, src_slot, rel_dst, weight, layout,
             None if rel_dst is None else rel_dst[c0:c1],
             None if weight is None else weight[c0:c1], msg_fn, kind,
             layout.W, use_mxu,
-            nv_b=None if nvalid is None else nvalid[c0:c1])
+            nv_b=None if nvalid is None else nvalid[c0:c1],
+            occ_b=None if occ is None else occ[c0:c1])
         if acc is None:
             ident = identity_for(kind, partials.dtype)
             run = partials.new_full(tuple(partials.shape[1:]), ident)
@@ -818,7 +866,8 @@ def streamed_chunk_combined(flat_state, src_slot, rel_dst, weight, layout,
                                     tuple(partials.shape[1:]), ident)
         f = chunk_start[c0:c1]
         inner = segscan(partials, f, kind, max_run)
-        absorb = (torch.cumsum(f.to(torch.int32), 0) == 0).reshape(
+        absorb = (torch.cumsum(f.to(torch.int32), 0, dtype=torch.int32)
+                  == 0).reshape(
             (-1,) + (1,) * (partials.dim() - 1))
         out = torch.where(absorb, comb(run, inner), inner)
         acc[extr_tile[b].long()] = out[extr_pos[b].long()]

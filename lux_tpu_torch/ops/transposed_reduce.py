@@ -120,7 +120,8 @@ def transposed_reduce(vals: torch.Tensor, rel: torch.Tensor, W: int,
         _kernels.launch("transposed_reduce", vals.data_ptr(), rel.data_ptr(),
                         out.data_ptr(), E, N, W, p["cols"], p["slices"],
                         p["slice"], stream)
-    transposed_reduce.launches += 1
+    _kernels.counted(transposed_reduce, "transposed_reduce", (vals, rel),
+                     (out,))
     return out
 
 

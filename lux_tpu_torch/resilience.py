@@ -114,17 +114,18 @@ def classify(exc: BaseException) -> str:
     (InjectedWorkerKill, heartbeat.WorkerLostError) is TOPOLOGY; the
     fleet's typed shed (fleet.AdmissionError) is FATAL before any scan:
     a shed is a decision, and retrying it would re-admit a query the
-    tier rejected (its message says 'deadline').  The audit's
-    AuditError comes with ROADMAP A12 and is not classified here."""
-    from lux_tpu_torch import (checkpoint, debug, faults, fleet, health,
-                               heartbeat)
+    tier rejected (its message says 'deadline').  The auditor's
+    AuditError is FATAL too: a violation is a property of the build, and
+    a retry runs the same program into the same refusal."""
+    from lux_tpu_torch import (audit, checkpoint, debug, faults, fleet,
+                               health, heartbeat)
 
     if isinstance(exc, (faults.InjectedDeviceLoss, faults.InjectedWorkerKill,
                         heartbeat.WorkerLostError)):
         return TOPOLOGY
     if isinstance(exc, faults.InjectedWorkerCrash):
         return RETRYABLE
-    if isinstance(exc, fleet.AdmissionError):
+    if isinstance(exc, (fleet.AdmissionError, audit.AuditError)):
         return FATAL
     if isinstance(exc, _fatal_types()):
         return FATAL

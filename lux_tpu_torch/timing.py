@@ -94,6 +94,45 @@ def timed_fused_run(eng, num_iters: int, trace_dir: str | None = None):
     return state, seconds
 
 
+def timed_run_until(eng, tol: float, max_iters: int,
+                    trace_dir: str | None = None):
+    """Warm up a pull engine with one untimed iteration, then time one
+    ``run_until(tol, max_iters)`` from a fresh ``init_state`` whose
+    upload is fenced outside the timed region (the reference's
+    lux_tpu/timing.py ``timed_run_until``; guarded engines take
+    ``run_until_health`` and decode its word after the clock stops).
+    Returns (state, iterations, final residual, seconds)."""
+    from lux_tpu_torch import telemetry
+    from lux_tpu_torch.profiling import step_annotation, trace
+
+    dev = eng.device
+    guarded = getattr(eng, "health", False)
+
+    def one(state, cap):
+        if guarded:
+            s, it, res, *_bufs, watch = eng.run_until_health(state, tol,
+                                                             cap)
+            return s, it, res, watch
+        s, it, res = eng.run_until(state, tol, cap)
+        return s, it, res, None
+
+    one(eng.init_state(), 1)
+    state = eng.init_state()
+    fence(dev)
+    with trace(trace_dir, dev):
+        with step_annotation("lux_timed_run", 0):
+            (state, it, res, watch), seconds = _elapsed(
+                dev, lambda: one(state, max_iters))
+    tel = telemetry.current()
+    tel.emit("timed_run", repeat=0, iters=int(it), seconds=round(seconds, 6))
+    if guarded:
+        from lux_tpu_torch import health
+        tel.emit("health", **health.ensure_ok(
+            watch, engine="pull", where="timed pull run_until"),
+            iters=int(it))
+    return state, int(it), float(res), seconds
+
+
 def timed_converge(eng, max_iters=None, repeats: int = 1,
                    verbose: bool = False, trace_dir: str | None = None):
     """Warm up a push engine with one untimed converge, then time

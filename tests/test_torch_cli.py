@@ -5,6 +5,7 @@ import os
 import re
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -267,6 +268,9 @@ def test_push_verbose_replays_the_reference_series(lux_ref, lux_file,
         assert len(ours) == len(theirs) == 1
         if head == "memory: ":
             assert ours == theirs
+    # the port's own ledger of the step, beside the reference's pricing
+    led = [ln for ln in out.splitlines() if ln.startswith("ledger: ")]
+    assert len(led) == 1 and "reference's pricing" in led[0]
 
 
 @pytest.mark.parametrize("app,args,names", [
@@ -332,3 +336,128 @@ def test_flight_flag_dumps_on_a_fatal_failure(lux_file, tmp_path, capsys,
     assert "deterministic failure" in doc["reason"]
     assert {"run_start", "failure"} <= {e["kind"] for e in doc["events"]}
     assert tracing.flight_recorder() is None      # uninstalled after
+
+
+# ---------------------------------------------------------------------
+# -validate, -audit, -tol / -max-iters, -sparse, -mesh (ROADMAP A12a)
+
+APPS3 = ("pagerank", "sssp", "components")
+
+
+@pytest.fixture(scope="module")
+def bad_lux_file(lux_file, tmp_path_factory):
+    """``lux_file`` with one out-degree of its degree section changed: it
+    loads, but fails format.validate_graph's degree check."""
+    raw = bytearray(open(lux_file, "rb").read())
+    raw[-4:] = (int.from_bytes(raw[-4:], "little") + 7).to_bytes(4,
+                                                                 "little")
+    path = str(tmp_path_factory.mktemp("bad") / "bad.lux")
+    open(path, "wb").write(bytes(raw))
+    return path
+
+
+@pytest.mark.parametrize("app", APPS3)
+def test_validate_flag_exits_2_like_the_reference(lux_ref, lux_file,
+                                                  bad_lux_file, capsys, app):
+    """-validate: a corrupted file exits 2 with its typed error, in both
+    CLIs; a sound file runs; without -validate the corrupted file loads."""
+    extra = ["-ni", "1"] if app == "pagerank" else []
+    assert cli.main([app, "-file", bad_lux_file, "-device", "cpu",
+                     "-validate", *extra]) == 2
+    err = capsys.readouterr().err
+    assert "degree" in err
+    with pytest.raises(SystemExit) as ei:
+        lux_ref.cli.main([app, "-file", bad_lux_file, "-validate", *extra])
+    assert ei.value.code == 2
+    capsys.readouterr()
+    assert cli.main([app, "-file", lux_file, "-device", "cpu", "-validate",
+                     *extra]) == 0
+    assert cli.main([app, "-file", bad_lux_file, "-device", "cpu",
+                     *extra]) == 0
+
+
+@pytest.mark.parametrize("mode", ["warn", "error"])
+@pytest.mark.parametrize("app", APPS3)
+def test_audit_flag_clean_build_runs(lux_file, capsys, app, mode):
+    extra = ["-ni", "2"] if app == "pagerank" else []
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert cli.main([app, "-file", lux_file, "-device", "cpu",
+                         "-audit", mode, *extra]) == 0
+    assert "ELAPSED TIME" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("app", APPS3)
+def test_audit_error_exits_2_on_a_violation(lux_file, capsys, monkeypatch,
+                                            app):
+    """A violating build under -audit error exits 2 with the typed
+    AuditError (here: a gather budget of 0 on the gather exchange);
+    under -audit warn it runs, warning."""
+    import dataclasses
+
+    from lux_tpu_torch import audit
+    spec = audit.engine_spec
+    monkeypatch.setattr(audit, "engine_spec", lambda e, s: dataclasses.replace(
+        spec(e, s), gather_budget=0))
+    extra = ["-ni", "1"] if app == "pagerank" else []
+    assert cli.main([app, "-file", lux_file, "-device", "cpu", "-audit",
+                     "error", *extra]) == 2
+    assert "gather-budget" in capsys.readouterr().err
+    with pytest.warns(audit.AuditWarning, match="gather-budget"):
+        assert cli.main([app, "-file", lux_file, "-device", "cpu",
+                         "-audit", "warn", *extra]) == 0
+
+
+def _iters(out: str) -> int:
+    return int(re.search(r"\((\d+) iterations", out).group(1))
+
+
+def test_tol_runs_to_convergence_like_the_reference(lux_ref, lux_file,
+                                                    capsys):
+    """-tol T -max-iters N: the reference's iteration count and a
+    passing -check; -max-iters caps it."""
+    assert cli.main(["pagerank", "-file", lux_file, "-device", "cpu",
+                     "-tol", "1e-7", "-check"]) == 0
+    out = capsys.readouterr().out
+    assert "residual" in out and "PASS" in out
+    assert lux_ref.cli.main(["pagerank", "-file", lux_file, "-tol",
+                             "1e-7"]) == 0
+    ref = capsys.readouterr().out
+    assert _iters(out) == _iters(ref) < 10000
+    assert cli.main(["pagerank", "-file", lux_file, "-device", "cpu",
+                     "-tol", "1e-30", "-max-iters", "3"]) == 0
+    assert _iters(capsys.readouterr().out) == 3
+
+
+@pytest.mark.parametrize("app", ["sssp", "components"])
+def test_sparse_flag_like_the_reference(lux_ref, lux_file, capsys,
+                                        monkeypatch, app):
+    """-sparse 0 builds the push engine without the sparse view (every
+    iteration dense), with the reference's iteration count, and -check
+    passes; -sparse 1 is the default."""
+    from lux_tpu_torch.apps import components, sssp
+    mod = sssp if app == "sssp" else components
+    seen = []
+    orig = mod.build_engine
+
+    def spy(*a, **kw):
+        eng = orig(*a, **kw)
+        seen.append(eng.enable_sparse)
+        return eng
+    monkeypatch.setattr(mod, "build_engine", spy)
+    for flag in ("0", "1"):
+        assert cli.main([app, "-file", lux_file, "-device", "cpu",
+                         "-sparse", flag, "-check"]) == 0
+        out = capsys.readouterr().out
+        assert lux_ref.cli.main([app, "-file", lux_file, "-sparse",
+                                 flag]) == 0
+        assert _iters(out) == _iters(capsys.readouterr().out)
+    assert seen == [False, True]
+
+
+@pytest.mark.parametrize("app", APPS3 + ("colfilter",))
+def test_mesh_flag_refused_naming_a6b(lux_file, weighted_lux_file, capsys,
+                                      app):
+    f = weighted_lux_file if app == "colfilter" else lux_file
+    assert cli.main([app, "-file", f, "-device", "cpu", "-mesh", "2"]) == 2
+    assert "ROADMAP A6b" in capsys.readouterr().err

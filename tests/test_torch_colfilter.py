@@ -182,11 +182,11 @@ def test_pagemajor_and_unweighted_refused():
     (dict(gather="auto"), "A10"),
 ])
 def test_unported_options_refused(kwargs, item):
-    """A12 and A6 stay refused; the options A10b and A8 brought (once
-    refused naming A10 / A8) now build and run, within TOL of the
+    """A6 stays refused; the options A10b, A8 and A12 brought (once
+    refused naming A10 / A8 / A12) now build and run, within TOL of the
     engine without them."""
     g = weighted_rmat(7, 8, seed=2)
-    if item in ("A10", "A8"):
+    if item in ("A10", "A8", "A12"):
         if "pair_threshold" in kwargs:
             g3, _perm, starts = pair_relabel(g, 1, pair_threshold=4)
             kw = dict(kwargs, starts=starts)

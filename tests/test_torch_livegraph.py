@@ -18,8 +18,8 @@ mutation streams, made from numpy seeds, on the CPU:
   reference Server's, admission epochs included;
 - the new oracles equal the reference's, the names ROADMAP A11b lifted
   (the fleet, the journal, the kill plan, the fleet crash, the replica
-  ledger) equal the reference's, and the name still refused names
-  ROADMAP A12.
+  ledger) equal the reference's, and ``register_audit`` (ROADMAP A12)
+  audits the delta-relax step.
 
 Graphs are R-MAT 8 and 9 (edge factor 8), one or two parts; weights
 are integer-valued float32 (1..5), so every distance is exact."""
@@ -33,7 +33,6 @@ from lux_tpu_torch import faults, livegraph, serve
 from lux_tpu_torch import format as luxfmt
 from lux_tpu_torch.apps import components, pagerank, sssp
 from lux_tpu_torch.convert import rmat_edges
-from lux_tpu_torch.engine.pull import NotPortedError
 from lux_tpu_torch.graph import Graph
 from lux_tpu_torch.livegraph import LiveGraph, MutationLog
 
@@ -746,9 +745,24 @@ def test_oracles_equal_reference(lux_ref, pair, oracle):
 
 @pytest.mark.parametrize("name,item", [("register_audit", "A12")])
 def test_remaining_refusals(pair, name, item):
+    """register_audit (once refused naming A12) adds the delta-relax
+    step to the engine's audited variants: it audits clean, with one
+    state-table gather, and its run leaves the engine's own results
+    alone."""
+    from lux_tpu_torch import audit
     g, _rg = pair[False]
-    with pytest.raises(NotPortedError, match=item):
-        LiveGraph(g).register_audit(sssp.build_engine(g, 0, device=CPU))
+    lg = LiveGraph(g, capacity=32)
+    lg.append_edges([1, 2], [5, 9])
+    eng = sssp.build_engine(g, 0, device=CPU)
+    want = eng.converge(*eng.init_state())
+    getattr(lg, name)(eng)
+    assert "live_delta" in eng.audit_programs()
+    traces = audit.run_variants(eng, ["live_delta"])
+    spec = audit.engine_spec(eng, eng.init_state()[0])
+    assert len(audit.table_gather_sites(traces["live_delta"], spec)) == 1
+    assert audit.audit_engine(eng, mode="error") == []
+    got = eng.converge(*eng.init_state())
+    assert torch.equal(got[0], want[0]) and got[2] == want[2]
 
 
 def _kill_trace(mod, action):

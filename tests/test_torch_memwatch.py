@@ -2,7 +2,9 @@
 ShardedGraph.memory_report) against lux_tpu's.
 
 - ``MemoryLedger.for_engine``: every term the reference prices equals
-  the reference's, bit for bit, on the same graph and build (tiled,
+  the reference's, bit for bit, but the temporaries the port prices its
+  own way (``REPLACED_TERMS``: the pair rows', the one-hot's), on the
+  same graph and build (tiled,
   pair rows, paged, page-major, the dot path, push with its sparse
   view, on pair rows and paged, query-batched pull and push): the
   arrays those terms price have the reference's dtypes in the port
@@ -106,7 +108,11 @@ def test_ledger_terms_equal_reference(lux_ref, graph, name):
     ours = dict(led.terms)
     port = {k: ours.pop(k) for k in list(ours) if k.startswith("port_")}
     idx = port.pop("port_index", 0)
-    assert ours == rled.terms               # every shared term, bitwise
+    # every shared term, bitwise; the port prices REPLACED_TERMS its own
+    # way (the pair rows' and the one-hot's temporaries), in port terms
+    replaced = {f"graph_{k}" for k in memwatch.REPLACED_TERMS}
+    shared = {k: v for k, v in rled.terms.items() if k not in replaced}
+    assert ours == shared
     want = sum(t.untyped_storage().nbytes()
                for t in memwatch.port_index_tensors(eng))
     assert idx == want
@@ -115,7 +121,8 @@ def test_ledger_terms_equal_reference(lux_ref, graph, name):
     # the eager step's temporaries, priced beside the reference's terms
     assert port == memwatch.eager_terms(eng)
     assert set(port) <= set(memwatch.TEMP_TERMS)
-    assert led.total_bytes == rled.total_bytes + idx + sum(port.values())
+    assert led.total_bytes == (sum(shared.values()) + idx
+                               + sum(port.values()))
     assert led.argument_bytes() == rled.argument_bytes() + idx
     # the memory advisor itself: the same report
     kw = memwatch.report_kwargs(eng)
@@ -352,3 +359,70 @@ def test_server_mem_assigned_after_the_runners_are_built(graph):
     srv.submit("sssp", source=2)
     srv.run()
     assert trail.count >= 1
+
+
+# ---------------------------------------------------------------------
+# the port's own temporaries (REPLACED_TERMS' replacements) against one
+# recorded step
+
+
+def _skewed(weighted: bool = False, seed: int = 0) -> Graph:
+    """A graph whose destinations follow a Zipf law: enough hot
+    destinations that pair rows carry most edges."""
+    r = np.random.default_rng(seed)
+    nv, ne = 2048, 32768
+    w = r.integers(1, 6, ne).astype(np.float32) if weighted else None
+    return Graph.from_edges(r.integers(0, nv, ne), r.zipf(1.3, ne) % nv,
+                            nv, weights=w)
+
+
+def _paired(g):
+    return pair_relabel(g, 2, pair_threshold=8)
+
+
+def _temps_config(name):
+    from lux_tpu_torch.apps import components
+    if name.startswith("pagerank"):
+        g2, _p, st = _paired(_skewed())
+        return pagerank.build_engine(
+            g2, 2, pair_threshold=8, starts=st, device=CPU,
+            pair_stream=name.endswith("streamed"))
+    if name == "colfilter_tiled":
+        return colfilter.build_engine(_skewed(True, 1), 2, device=CPU)
+    if name.startswith("colfilter"):
+        g2, _p, st = _paired(_skewed(True, 1))
+        return colfilter.build_engine(
+            g2, 2, pair_threshold=8, starts=st, device=CPU,
+            pair_stream=name.endswith("streamed"))
+    if name == "sssp_pairs":
+        g2, _p, st = _paired(_skewed())
+        return sssp.build_engine(g2, 0, 2, pair_threshold=8, starts=st,
+                                 device=CPU)
+    g = _skewed()
+    s, d = components.symmetrize(*g.edge_arrays())
+    g2, _p, st = _paired(Graph.from_edges(s, d, g.nv))
+    return components.build_engine(g2, 2, pair_threshold=8, starts=st,
+                                   device=CPU)
+
+
+@pytest.mark.parametrize("name", [
+    "pagerank_pairs_monolithic", "pagerank_pairs_streamed",
+    "colfilter_tiled", "colfilter_pairs_monolithic",
+    "colfilter_pairs_streamed", "sssp_pairs", "cc_pairs"])
+def test_port_temporaries_hold_to_the_measured_step(name):
+    """The ledger's temporaries (pair_terms' port_pair_temp, dot_terms'
+    port_dot, with the residual's) against what one recorded dense step
+    allocates above its arguments (audit.measure_step_peak), within
+    1.25x either way: the pricing that replaces the reference's
+    pair_temp and mxu_temp is held to a measurement, not to itself."""
+    from lux_tpu_torch import audit
+    eng = _temps_config(name)
+    led = memwatch.MemoryLedger.for_engine(eng)
+    temps = {k: v for k, v in led.terms.items()
+             if k in memwatch.TEMP_TERMS}
+    own = "port_dot" if name.startswith("colfilter") else "port_pair_temp"
+    # the replaced term carries the phase that peaks
+    assert temps.get(own, 0) >= 0.8 * sum(temps.values()), temps
+    measured = audit.measure_step_peak(eng) - memwatch.argument_bytes(eng)
+    ratio = measured / sum(temps.values())
+    assert 1 / 1.25 <= ratio <= 1.25, (ratio, temps, measured)

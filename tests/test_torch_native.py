@@ -444,3 +444,33 @@ def test_sanitizer_build_runs_the_smoke(tmp_path):
     np.testing.assert_array_equal(src, [2, 0, 1])
     np.testing.assert_array_equal(dst, [0, 1, 2])
     np.testing.assert_array_equal(np.asarray(g.weights), [1, 5, 3])
+
+
+# ---- GCC's static analyzer -------------------------------------------------
+
+@pytest.mark.skipif(native.shutil.which(native.compiler()) is None,
+                    reason="no C++ compiler on this machine: the analyzer "
+                           "runs inside g++")
+def test_analyzer_passes_the_five_units():
+    """lux_tpu/native/Makefile's ``analyze`` target for the port's five
+    units (-fanalyzer with real compilation and -Werror): every one
+    passes, sort.cc included."""
+    secs = native.analyze()
+    assert set(secs) == set(native.ANALYZE_SOURCES)
+    assert "sanitize_driver.cc" not in secs
+    assert not list((native.BUILD_DIR / "analyze").glob("*.o"))
+
+
+def test_analyzer_refusal_carries_its_diagnostics(tmp_path, monkeypatch):
+    """A unit the analyzer refuses raises NativeBuildError with g++'s
+    diagnostic, never a silent pass."""
+    if native.shutil.which(native.compiler()) is None:
+        pytest.skip("no C++ compiler on this machine")
+    bad = tmp_path / "bad.cc"
+    bad.write_text("#include <cstdio>\nvoid f(const char* n) { FILE* fp = "
+                   "std::fopen(n, \"r\"); if (!fp) return; std::fgetc(fp); "
+                   "}\n")
+    monkeypatch.setattr(native, "ANALYZE_SOURCES", (str(bad),))
+    with pytest.raises(native.NativeBuildError) as ei:
+        native.analyze()
+    assert "analyzer-file-leak" in ei.value.stderr

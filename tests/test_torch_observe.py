@@ -64,7 +64,8 @@ def synthetic_fp(device_name=CARD, ndev=1, gather_ns=None,
                "page_gather_row_ns": 9.0, "page_gather_row_mad_ns": 0.1},
         canonical=canon, deviation=deviation,
         grade=observe._grade(device_name, deviation),
-        audit=dict(observe.AUDIT_STATUS))
+        audit={"mode": "error", "errors": 0, "warnings": 0,
+               "failed_checks": []})
 
 
 # ---------------------------------------------------------------------
@@ -101,8 +102,9 @@ def test_calibrate_deterministic_clock_fingerprint():
     d = fp.digest()
     assert d["grade"] == "uncalibrated" and d["device"] == "cpu"
     assert set(d["probe"]) == set(fp.probe)
-    # the probe audit waits for ROADMAP A12, said so, not a zero
-    assert d["audit"] == {"status": "not ported (ROADMAP A12)"}
+    # the auditor ran over one step of each probe, and found them clean
+    assert d["audit"] == {"mode": "error", "errors": 0, "warnings": 0,
+                          "failed_checks": []}
     assert observe.fingerprint_digest(fp) == d
 
 

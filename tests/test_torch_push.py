@@ -248,10 +248,11 @@ def _engine(graphs, **kw):
     (dict(audit="warn"), "A12"),
     (dict(use_mxu=True), "A8"), (dict(gather="auto"), "A10b")])
 def test_refused_options(graphs, opts, item):
-    """The mesh (A6b) and A12 stay refused; exchange="owner" and
-    stream_msgs (A6a), use_mxu=True (A8) and gather="auto" (A10b), once
-    refused, converge to the plain engine's labels."""
-    if item in ("A8", "A10b") or ("mesh" not in opts and item == "A6"):
+    """The mesh (A6b) stays refused; exchange="owner" and stream_msgs
+    (A6a), use_mxu=True (A8), gather="auto" (A10b) and audit="warn"
+    (A12), once refused, converge to the plain engine's labels."""
+    if item in ("A8", "A10b", "A12") or ("mesh" not in opts
+                                         and item == "A6"):
         eng, plain = _engine(graphs, **opts), _engine(graphs)
         got = eng.converge(*eng.init_state())
         want = plain.converge(*plain.init_state())
