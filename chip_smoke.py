@@ -86,17 +86,21 @@ Phases, each printing one JSON line:
             once a step over every part's owner chunks), hop and
             weighted SSSP, components with pair rows, and the batched
             k-source SSSP and personalized PageRank (B1's batched form
-            once a dense iteration), each against its oracle;
+            once a dense iteration), each against its oracle, and each
+            of those apps again on the owner exchange's paged and
+            page-major plans (B2 and B1 once a step or dense iteration,
+            the batched engines B1's batched form);
 9b. owner   the exchange sweep: the PageRank pull step with
             exchange="gather" and "owner" in turns on R-MAT --scale with
-            1 part (the main engine) and 4 parts and on R-MAT --scale + 1
-            with 4 parts, beside what exchange="auto" resolves to, three
+            1 part (the main engine) and 4 parts (OWNER_SWEEP), beside
+            what exchange="auto" resolves to, three
             iterations of each agreeing; the streamed forms against
             their monolithic runs (stream_msgs on the pull and push
             tiled paths of the main graph, B1 a block of 1,024 chunks;
             the 4-part owner layout's fused streamed combine with
             ops/owner.STREAM_MSG_BYTES lowered, then restored); then
-            bench.py's pagerank-mp (R-MAT --scale + 1, ef 16, 4 parts,
+            bench.py's pagerank-mp (R-MAT --scale + OWNER_SCALE_OVER,
+            the main graph since the cut to 0, ef 16, 4 parts,
             pair_relabel, pair rows at threshold 16, min_fill 24,
             exchange="owner"; 10 iterations against the float64 oracle
             at MAIN_TOL, B1 once over the owner chunks plus once a pair
@@ -109,7 +113,29 @@ Phases, each printing one JSON line:
             B1 at the owner chunks (f32 sum; sssp-mp's int32 min) and at
             one streamed block against its plain version, two launches
             bit-equal (the kernels line's chunk_partials@owner,
-            @owner_sssp, @owner_block entries);
+            @owner_sssp, @owner_block entries).  Its owner_paged step
+            runs after the paged phases, on their graph (bench.py's
+            gather-ab: the degree-relabelled R-MAT --scale), 128-aligned
+            with 4 parts, exchange="owner", gather="paged" then
+            "pagemajor" (one plan a mode, built once by
+            pagegather.engine_page_plan and given to both apps' engines
+            as ``page_plan``): PageRank, 10
+            iterations against the float64 oracle at MAIN_TOL, B2 and B1
+            once a step; hop SSSP from input vertex 0 (or the smallest
+            input id with an out-edge) bit-equal to a BFS, B2 and B1
+            once a dense iteration; plan stats and build seconds, step
+            and host enqueue ms, the layers (page fetch, B2, then B1,
+            class combine and fold, or the route, the virtual-row take,
+            B1 and class combine), peak memory against memwatch's
+            ledger, the step's audit; B2 and B1 on each path's own rows,
+            fetched from a state of distinct values, against their
+            plain versions (B2 bit for bit, B1's float32 sums at rtol
+            1e-5), two launches of each bit-equal (B1 in blocks of rows
+            and at a row count that is not a multiple of its block); then what gather="auto"
+            resolves to under the owner exchange beside the flat owner
+            step and the two measured (the kernels line's
+            lane_shuffle@owner_paged, @owner_pagemajor and
+            chunk_partials@owner_paged, @owner_pagemajor entries);
 10. pairs   bench.py's pagerank config on the main graph: pair_relabel,
             pair_threshold 16, min_fill 24, tile_e 128, through
             pagerank.build_engine once with each pair_stream setting
@@ -436,9 +462,10 @@ Phases, each printing one JSON line:
             Printed only: the walls, MTTR, latencies, SLO good counts,
             qps, beat ages, the routing pick.
 
-25. audit   (ROADMAP A12b and A12a's CLI half; printed after guarded)
-            lux_tpu_torch/audit.py on the card over main, paged,
-            pagemajor, pagerank-mp, sssp-mp, pairs (monolithic and
+25. audit   (ROADMAP A12b, A12c and A12a's CLI half; printed after
+            guarded) lux_tpu_torch/audit.py on the card over main, paged,
+            pagemajor, pagerank-mp, sssp-mp, owner_paged and
+            owner_pagemajor (their step variant), pairs (monolithic and
             streamed), sssp, cc, colfilter (pairs, monolithic),
             ksssp_batch, ppr_batch and the live delta step
             (LiveGraph.register_audit on the serving sssp runner), each
@@ -451,10 +478,12 @@ Phases, each printing one JSON line:
             launches each variant's iteration made (the dense step must
             launch one, the dot path and the delta step none) and
             memwatch's ledger over one step's measured peak; then the
-            reference's engine matrix (audit.run_repo_audit: 32 small
-            configurations, mode "error" with the ledger where the
-            reference checks it) on the card, the port's lockcheck,
-            GCC's analyzer over the five native units
+            reference's engine matrix (audit.run_repo_audit: 34 small
+            configurations, its two owner paged ones included, mode
+            "error" with the ledger where the reference checks it) on
+            the card, the port's lockcheck, ``python -m
+            lux_tpu_torch.lint`` (clean: exit 0, "lint: clean"), GCC's
+            analyzer over the five native units
             (their seconds) and the CLI in this process on an R-MAT 12
             .lux: -validate -audit error -check, -validate on a copy
             with one out-degree changed (exit 2, its GraphFormatError),
@@ -469,9 +498,12 @@ without CUDA, or a directory without the port.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import resource
+import runpy
 import subprocess
 import sys
 import time
@@ -1022,10 +1054,17 @@ def b1_line(args, torch, vals, rel, W, name, kind="sum"):
     library_ms = cuda_ms(lambda: base.scatter_reduce(
         0, idx, flat, SCATTER_REDUCE[kind], include_self=True), reps)
     del idx, base
-    got = chunk_partials(vals, rel, W, kind)
-    want = chunk_partials_plain(vals, rel, W, kind)
-    max_abs_err = float((got.double() - want.double()).abs().max())
-    del got, want
+    # a block of rows at a time: B1 is row by row, and the float64
+    # copies of all [P*Rp, 128] partials of the owner paged rows would
+    # take 30 GB
+    errs = []
+    for r0 in range(0, C, B1_CHECK_ROWS):
+        v, r = vals[r0:r0 + B1_CHECK_ROWS], rel[r0:r0 + B1_CHECK_ROWS]
+        got = chunk_partials(v, r, W, kind)
+        want = chunk_partials_plain(v, r, W, kind)
+        errs.append((got.double() - want.double()).abs().max())
+        del got, want
+    max_abs_err = float(torch.stack(errs).max()) if errs else 0.0
     return {"name": name, "route": "cuda",
             "source": "lux_tpu_torch/csrc/chunk_partials.cu",
             "replaces": "lux_tpu/ops/pallas_reduce.py:63",
@@ -1328,7 +1367,7 @@ def phase_paged_graph(args, torch, g):
     emit({"phase": "paged_graph", "nv": g2.nv, "ne": g2.ne, "vpad": sg.vpad,
           "relabel_seconds": round(t_relabel, 3),
           "layout_seconds": round(t_layout, 3)})
-    return g2, sg
+    return g2, _perm, sg
 
 
 def _same_words(a, b) -> bool:
@@ -1844,6 +1883,9 @@ def parts_owner(args, torch, g, want) -> dict:
     del eng
     sources = sorted(int(v) for v in np.random.default_rng(
         BATCH_SOURCE_SEED).choice(g.nv, BATCH_B, replace=False))
+    for mode in ("paged", "pagemajor"):
+        out[f"owner_{mode}"] = parts_owner_paged(args, torch, g, want,
+                                                 sources, mode)
     eng = sssp.build_engine(g, sources=sources, num_parts=4,
                             exchange="owner")
     lab0, act0 = eng.init_state()
@@ -1875,6 +1917,65 @@ def parts_owner(args, torch, g, want) -> dict:
             f"4-part owner ppr launched {counts}")
     out["ppr_batch"] = {"B": BATCH_B, "max_rel_err": float(rel.max()),
                         "launches": counts}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def parts_owner_paged(args, torch, g, want, sources, mode) -> dict:
+    """exchange="owner" with ``gather=mode`` on the parts phase's graph
+    with 4 parts (128-aligned): PageRank against ``want`` (B2 and B1
+    once a step), then k-source SSSP (labels bit-equal to a BFS a
+    column) and personalized PageRank (MAIN_TOL against the float64
+    oracle), each through B1's batched form once a dense iteration, the
+    scalar kernels never."""
+    from lux_tpu_torch.apps import pagerank, sssp
+    out = {}
+    eng = pagerank.build_engine(g, num_parts=4, exchange="owner",
+                                gather=mode)
+    require(eng.exchange == "owner" and eng.gather == mode,
+            f"4-part owner {mode}: resolved {eng.exchange}/{eng.gather}")
+    (state, counts, _syncs) = counted_sync_run(
+        torch, lambda: eng.run(eng.init_state(), args.iters))
+    err = check_pagerank(g, eng.unpad(state), want, f"4-part owner {mode}")
+    require(counts == {"chunk_partials": args.iters,
+                       "lane_shuffle": args.iters,
+                       "chunk_partials_batched": 0},
+            f"4-part owner {mode} launched {counts}")
+    out["pagerank"] = {"Rp": eng.page_plan.Rp, "Mg": eng.page_plan.route,
+                       "max_rel_err": err, "launches": counts}
+    del eng
+    eng = sssp.build_engine(g, sources=sources, num_parts=4,
+                            exchange="owner", gather=mode)
+    lab0, act0 = eng.init_state()
+    (label, _act, it), counts, _syncs = counted_sync_run(
+        torch, lambda: eng.converge(lab0, act0))
+    levels = bfs_many(g, sources)
+    got = eng.unpad(label)
+    for q, v in enumerate(sources):
+        require(np.array_equal(got[:, q], levels[v]),
+                f"4-part owner {mode} ksssp column {q} (source {v}) "
+                f"differs from its BFS")
+    require(counts == {"chunk_partials": 0, "lane_shuffle": 0,
+                       "chunk_partials_batched": it},
+            f"4-part owner {mode} ksssp launched {counts} in {it} "
+            f"iterations")
+    out["ksssp_batch"] = {"iterations": it, "launches": counts}
+    del eng, label
+    eng = pagerank.build_engine(g, 4, sources=sources, exchange="owner",
+                                gather=mode)
+    (state, counts, _syncs) = counted_sync_run(
+        torch, lambda: eng.run(eng.init_state(), args.iters))
+    ref = ppr_oracle(g, pagerank.one_hot_resets(g.nv, sources), args.iters)
+    got = eng.unpad(state)
+    rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)
+    require(np.isfinite(got).all() and np.allclose(got, ref, **MAIN_TOL),
+            f"4-part owner {mode} ppr disagrees with the float64 oracle "
+            f"({rel.max():.3e})")
+    require(counts == {"chunk_partials": 0, "lane_shuffle": 0,
+                       "chunk_partials_batched": args.iters},
+            f"4-part owner {mode} ppr launched {counts}")
+    out["ppr_batch"] = {"max_rel_err": float(rel.max()), "launches": counts}
     del eng
     torch.cuda.empty_cache()
     return out
@@ -2690,8 +2791,9 @@ def parts_push(args, torch, g) -> dict:
     one card: hop SSSP, weighted SSSP with delta="auto" (weights drawn as
     bench.py:198-200 draws them) and components on the symmetrized
     graph, each over a tiled layout that needs the segmented combine,
-    degree-relabelled paged and page-major delivery, and pair_relabel'd
-    pair rows streamed and monolithic; labels bit-equal to the oracle,
+    degree-relabelled paged and page-major delivery on either exchange,
+    and pair_relabel'd pair rows streamed and monolithic; labels
+    bit-equal to the oracle,
     launches as dense_launches says for every dense iteration, none
     for a sparse one (the paged paths: B2 once a dense iteration)."""
     from lux_tpu_torch.apps import components, sssp
@@ -2721,6 +2823,14 @@ def parts_push(args, torch, g) -> dict:
             "pagemajor": (gd, perm_d,
                           ShardedGraph.build(gd, P, vpad_align=128),
                           dict(gather="pagemajor")),
+            # the owner exchange's paged plans (B2 and B1 once a dense
+            # iteration, as the dense paged paths)
+            "owner_paged": (gd, perm_d,
+                            ShardedGraph.build(gd, P, vpad_align=128),
+                            dict(gather="paged", exchange="owner")),
+            "owner_pagemajor": (gd, perm_d,
+                                ShardedGraph.build(gd, P, vpad_align=128),
+                                dict(gather="pagemajor", exchange="owner")),
             "pairs_streamed": (gp, perm_p, ShardedGraph.build(
                 gp, P, starts=starts_p, pair_threshold=16),
                 dict(pair_threshold=16, pair_min_fill=24)),
@@ -2778,14 +2888,15 @@ def parts_push(args, torch, g) -> dict:
 
 
 # bench.py's pagerank-mp / sssp-mp (bench.py:987-1011, :1056-1077):
-# R-MAT one scale over --scale (22 by default: cut from bench.py's 23,
-# which took the smoke past its time, for the audit step), 4 parts, the
-# exchange pinned to "owner"; the exchange sweep's (scale over --scale,
-# parts): its 4-part case's 16.8 MB table is still past the gather's
-# 16 MB step
-OWNER_SCALE_OVER = 1
+# R-MAT this many scales over --scale (0: the main graph, R-MAT 21 by
+# default; cut from bench.py's 23 to 22 for the audit step, then to 21
+# for the owner paged step and the lint: with it at 22 the smoke took
+# 851 s of its 900 on an NVIDIA H100 80GB HBM3 at 700 W whose host ran
+# the host-bound phases slowly), 4 parts, the exchange pinned to "owner";
+# the exchange sweep's (scale over --scale, parts) cases
+OWNER_SCALE_OVER = 0
 OWNER_PARTS = 4
-OWNER_SWEEP = ((0, 1), (0, 4), (OWNER_SCALE_OVER, OWNER_PARTS))
+OWNER_SWEEP = ((0, 1), (0, OWNER_PARTS))
 W_LANES = 128
 
 
@@ -3068,6 +3179,310 @@ def owner_streamed(args, torch, g, main_eng, owner4) -> dict:
     return out, block, rel[:STREAM_BLOCK_CHUNKS].contiguous(), counts
 
 
+# the owner exchange's paged plans (the owner phase's owner_paged step):
+# bench.py's gather-ab graph (the paged phases' degree-relabelled R-MAT
+# --scale), 128-aligned, with this many parts
+OWNER_PAGED_PARTS = 4
+# timing repetitions of the owner_paged step (its rows are 15M deep: at
+# --reps 20 the plain and library timings took seconds of the step's)
+OWNER_PAGED_REPS = 5
+# rows a block of the owner paged paths' B1 check against its plain
+# version (whose int64 index of all [P*Rp, 128] rows takes ~15 GB)
+B1_CHECK_ROWS = 1 << 22
+
+
+def owner_paged_rows(torch, eng, state):
+    """The page rows an owner paged / page-major step fetches, as its
+    step fetches them: (rows [R, 128], slot_lane int32 [R, 128]), R =
+    P * Rp (paged) or P * P * Mg (page-major gather rows)."""
+    from lux_tpu_torch.ops.pagegather import W, fetch_pages, row_slots
+    a, pm = eng.arrays, eng.page_plan.mode == "pagemajor"
+    ids = a["own_pm_ids" if pm else "own_pg_ids"]
+    sl = a["own_pm_gsl" if pm else "own_pg_sl"]
+    P, n_pages = ids.shape
+    pages = fetch_pages(state.reshape(-1), ids, shard=True)
+    base = torch.arange(P, device=state.device)[:, None] * n_pages
+    rows = torch.index_select(pages, 0, (row_slots(sl) + base).reshape(-1))
+    return rows, sl.reshape(-1, W)
+
+
+def owner_paged_layers(args, torch, eng) -> tuple:
+    """Device ms of each layer of one owner paged / page-major step on
+    the engine's own arrays, each timed alone (CUDA events): the page
+    fetch (one index_select a source part on its shard's pages, then
+    the row fetch), kernel B2, then paged: B1, the class combine, the
+    fold across source parts; page-major: the messages' route (the
+    transpose), the virtual-row take, B1, the class combine; then the
+    apply, the step and its host enqueue.  The layers run on a state of
+    distinct values, (i + 1) / n for vertex slot i of n (distinct in
+    float32 for n < 2**24), so that B2 and B1's checks on the rows
+    returned can tell every lane of a page apart (the init state's low
+    degree tail holds one value across whole pages); the apply and the
+    step run on the init state.  Returns (the times, B2's rows and
+    slot_lane, B1's rows and rel ids)."""
+    from lux_tpu_torch.ops import pagegather as pgm
+    from lux_tpu_torch.ops.chunk_reduce import chunk_partials
+    from lux_tpu_torch.ops.lane_shuffle import lane_shuffle
+    from lux_tpu_torch.ops.owner import fold_parts
+    from lux_tpu_torch.ops.pairs import class_combine
+    W = pgm.W
+    a, pp, reps = eng.arrays, eng.page_plan, args.reps
+    pm = pp.mode == "pagemajor"
+    P = eng.num_parts
+    state = eng.init_state()
+    n = state.numel()
+    require(n < 1 << 24, f"{n} vertex slots: (i + 1) / n not distinct")
+    distinct = ((torch.arange(n, dtype=torch.float64, device=state.device)
+                 + 1) / n).to(state.dtype).reshape(state.shape)
+    out = {"page_fetch_ms": cuda_ms(
+        lambda: owner_paged_rows(torch, eng, distinct), reps)}
+    rows, sl = owner_paged_rows(torch, eng, distinct)
+    out["lane_shuffle_ms"] = cuda_ms(lambda: lane_shuffle(rows, sl), reps)
+    vals = lane_shuffle(rows, sl)
+    out["lane_shuffle_bound_ms"] = sl.numel() * 12 / HBM_BYTES_PER_S * 1e3
+    key = "own_pm_" if pm else "own_pg_"
+    rel = a[key + "rel"].reshape(-1, W)
+    if pm:
+        msgs = eng.program.edge_value(vals.view(P, -1, W), None,
+                                      a.get("own_pm_w"))
+        m4 = msgs.view(P, P, pp.route, W)
+        out["route_ms"] = cuda_ms(lambda: pgm.pagemajor_route(m4), reps)
+        recv = pgm.pagemajor_route(m4)
+        out["route_bytes"] = recv.numel() * recv.element_size()
+        vidx = (a["own_pm_vrs"].long() + torch.arange(
+            P, device=recv.device)[:, None] * (P * pp.route)).reshape(-1)
+        out["vrow_take_ms"] = cuda_ms(
+            lambda: torch.index_select(recv, 0, vidx), reps)
+        del vals, msgs, m4
+        vals = torch.index_select(recv, 0, vidx)
+        del recv
+    out["chunk_partials_ms"] = cuda_ms(
+        lambda: chunk_partials(vals, rel, W, "sum"), reps)
+    partials = chunk_partials(vals, rel, W, "sum")
+    out["chunk_partials_bound_ms"] = b1_bound(torch, vals, rel,
+                                              W)["bound_ms"]
+    part3 = partials.view(P, pp.Rp, W)[:, :pp.R]
+    tp = a[key + "tp"]
+    out["class_combine_ms"] = cuda_ms(
+        lambda: class_combine(pp, part3, tp, "sum"), reps)
+    red = class_combine(pp, part3, tp, "sum")
+    del part3, partials
+    if not pm:
+        tiles = red.reshape(P, pp.n_tiles, W)
+        out["fold_ms"] = cuda_ms(lambda: fold_parts(tiles, P, "sum"), reps)
+        red = fold_parts(tiles, P, "sum")
+    red = red.reshape(P, -1)[:, :eng.vpad]
+    out["apply_ms"] = cuda_ms(lambda: eng._apply_epilogue(state, red), reps)
+    out["step_ms"] = cuda_ms(lambda: eng.step(state), reps)
+    out["step_host_ms"] = host_ms(torch, lambda: eng.step(state), reps)
+    return out, (rows, sl), (vals, rel)
+
+
+def owner_paged_kernels(args, torch, label, b2_in, b1_in) -> list:
+    """B2 and B1 on the owner paged path's own rows against their plain
+    versions (B2 bit for bit, B1's float32 sums at rtol 1e-5), two
+    launches of each bit-equal, B1 also at a
+    row count that is not a multiple of its block; their kernels-line
+    entries (lane_shuffle@<label>, chunk_partials@<label>).  ``b2_in``
+    (rows, slot_lane) and ``b1_in`` (rows, rel) are lists, emptied as
+    they are used: the plain versions' int64 indices of the [P*Rp, 128]
+    rows take tens of GB, so B1's plain version is held to the kernel a
+    block of B1_CHECK_ROWS rows at a time."""
+    import gc
+
+    from lux_tpu_torch.ops.lane_shuffle import lane_shuffle, lane_shuffle_plain
+    from lux_tpu_torch.ops.pagegather import W
+    rows, sl = b2_in
+    b2_in.clear()
+    a, b = lane_shuffle(rows, sl), lane_shuffle(rows, sl)
+    want = lane_shuffle_plain(rows, sl)
+    torch.cuda.synchronize()
+    require(_same_words(a, want), f"B2 at {label}'s rows is not bit-equal "
+                                  f"to its plain version")
+    require(_same_words(a, b), f"B2 at {label}'s rows: two launches "
+                               f"differ in bits")
+    del a, b, want
+    b2 = b2_line(args, torch, rows, sl)
+    b2["name"] = f"lane_shuffle@{label}"
+    R = rows.shape[0]
+    del rows, sl
+    gc.collect()
+    torch.cuda.empty_cache()
+    vals, rel = b1_in
+    b1_in.clear()
+    C = vals.shape[0]
+    blocks = [_check_case(torch, f"{label}_rows[{r0}:{min(C, r0 + n)}]",
+                          vals[r0:r0 + n], rel[r0:r0 + n], W, "sum")
+              for r0, n in ((r0, B1_CHECK_ROWS)
+                            for r0 in range(0, C, B1_CHECK_ROWS))]
+    odd = min(C, B1_CHECK_ROWS) - 3
+    cases = [{"case": f"{label}_rows", "C": C, "E": W, "dtype": "float32",
+              "kind": "sum", "blocks": len(blocks),
+              "max_abs_err": max(c["max_abs_err"] for c in blocks),
+              "tolerance": blocks[0]["tolerance"]},
+             check_deterministic(torch, f"{label}_rows", vals, rel, W),
+             _check_case(torch, f"{label}_rows/R{odd}", vals[:odd],
+                         rel[:odd], W, "sum")]
+    emit({"phase": "kernels", "kernel": "lane_shuffle+chunk_partials",
+          "path": label, "cases": len(cases) + 2, "all_pass": True,
+          "detail": cases + [
+              {"case": f"{label}_rows/lane_shuffle", "R": R,
+               "tolerance": "bit-equal"},
+              {"case": f"{label}_rows/lane_shuffle/deterministic", "R": R,
+               "tolerance": "bit-equal across launches"}]})
+    b1 = b1_line(args, torch, vals, rel, W, f"chunk_partials@{label}")
+    del vals, rel
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [b2, b1]
+
+
+def phase_owner_paged(args, torch, g, g2, perm, want, card):
+    """The owner phase's owner_paged step: bench.py's gather-ab graph
+    ``g2`` (the paged phases' degree-relabelled R-MAT, its PageRank
+    oracle ``want``), 128-aligned with OWNER_PAGED_PARTS parts,
+    exchange="owner" with gather="paged" and "pagemajor": PageRank
+    against the float64 oracle at MAIN_TOL (B2 and B1 once a step), hop
+    SSSP from input vertex 0 (or the smallest input id with an
+    out-edge) bit-equal to a BFS (B2 and B1 once a dense iteration, none
+    a sparse one), the layers, peak memory against memwatch's ledger,
+    B2 and B1 on each path's own rows against their plain versions;
+    then what gather="auto" resolves to under the owner exchange beside
+    the flat owner engine's step and the two measured.  Returns (the
+    kernels-line entries, the paths' launches)."""
+    import gc
+
+    from lux_tpu_torch import memwatch
+    from lux_tpu_torch.apps import pagerank, sssp
+    from lux_tpu_torch.engine.pull import PullEngine
+    from lux_tpu_torch.engine.push import PushEngine
+    from lux_tpu_torch.graph import ShardedGraph
+    from lux_tpu_torch.ops import pagegather as pgm
+    P = OWNER_PAGED_PARTS
+    args = fewer_reps(args, OWNER_PAGED_REPS)
+    t_step = time.perf_counter()
+    seconds = {}
+    t0 = time.perf_counter()
+    sg = ShardedGraph.build(g2, P, vpad_align=pgm.W)
+    seconds["sharded_graph"] = round(time.perf_counter() - t0, 3)
+    v0 = 0 if g.out_degrees[0] > 0 else first_out_vertex(g)
+    start = relabelled_id(perm, v0)
+    t0 = time.perf_counter()
+    bfs = bfs_levels_card(torch, g2, start)
+    seconds["bfs_oracle"] = round(time.perf_counter() - t0, 3)
+    lines, paths, steps, cases, plan_stats = [], {}, {}, {}, {}
+    seconds["plans"] = {}
+    pr_program = pagerank.make_program()
+    for mode in ("paged", "pagemajor"):
+        label = f"owner_{mode}"
+        # one plan a mode, shared by the PageRank and SSSP engines
+        t0 = time.perf_counter()
+        plan = pgm.engine_page_plan(sg, mode, pr_program, "owner")
+        seconds["plans"][f"owner/{mode}"] = round(time.perf_counter() - t0,
+                                                  3)
+        t0 = time.perf_counter()
+        eng = PullEngine(sg, pr_program, exchange="owner", gather=mode,
+                         page_plan=plan)
+        torch.cuda.synchronize()
+        seconds[f"{mode}_engine"] = round(time.perf_counter() - t0, 3)
+        pp = eng.page_plan
+        plan_stats[mode] = pp.stats
+        require(eng.exchange == "owner" and eng.gather == mode
+                and eng.owner is None and pp.owner,
+                f"{label}: engine resolved exchange={eng.exchange} "
+                f"gather={eng.gather}")
+        state, secs, counts, peak, host_s = timed_run(torch, eng,
+                                                      args.iters)
+        err = check_pagerank(g2, eng.unpad(state), want, label)
+        require(counts == {"chunk_partials": args.iters,
+                           "lane_shuffle": args.iters},
+                f"{label} launched {counts} in {args.iters} "
+                f"iterations (want B2 and B1 once a step)")
+        del state
+        ledger = memwatch.MemoryLedger.for_engine(eng, label)
+        audit_case(torch, eng, label, only=("step",))
+        gc.collect()
+        torch.cuda.empty_cache()
+        layers, b2_in, b1_in = owner_paged_layers(args, torch, eng)
+        b2_in, b1_in = list(b2_in), list(b1_in)
+        del eng
+        torch.cuda.empty_cache()
+        lines += owner_paged_kernels(args, torch, label, b2_in, b1_in)
+        for ln in lines[-2:]:
+            ln["launches"] = counts[ln["name"].split("@")[0]]
+        steps[mode] = layers["step_ms"]
+        if mode == "pagemajor":
+            PRICED["route"] = {"bytes": layers["route_bytes"],
+                               "ms": layers["route_ms"]}
+        # hop SSSP on the same ShardedGraph and plan
+        t0 = time.perf_counter()
+        seng = PushEngine(sg, sssp.make_program(start), exchange="owner",
+                          gather=mode, page_plan=plan)
+        torch.cuda.synchronize()
+        seconds[f"{mode}_sssp_engine"] = round(time.perf_counter()
+                                               - t0, 3)
+        label_t, _act, it, scounts, syncs, sched = converge_counted(
+            torch, seng)
+        require(np.array_equal(seng.unpad(label_t), bfs),
+                f"{label} sssp labels differ from the BFS oracle")
+        check_push_launches(seng, scounts, sched, f"{label} sssp")
+        del seng, label_t
+        torch.cuda.empty_cache()
+        paths[label] = counts
+        paths[f"{label}_sssp"] = scounts
+        cases[mode] = {
+            "plan": {"Rp": pp.Rp, "R": pp.R, "Rg": pp.Rg or pp.Rp,
+                     "n_pages": pp.n_pages, "classes": len(pp.classes),
+                     "Mg": pp.route, "n_tiles": pp.n_tiles,
+                     **{k: pp.stats[k] for k in (
+                         "rows", "fill", "padded_fill", "page_ratio",
+                         "unique_pages", "lane_inflation", "g_rows",
+                         "g_fill", "padded_g_fill", "route_rows",
+                         "route_inflation") if k in pp.stats}},
+            "iters": args.iters, "ms_per_iter": secs * 1e3 / args.iters,
+            "host_enqueue_ms_per_iter": host_s * 1e3 / args.iters,
+            "gteps": g2.ne * args.iters / secs / 1e9,
+            "max_rel_err": err, "tolerance": MAIN_TOL,
+            "launches": counts, "layers": layers,
+            "peak_bytes": int(peak),
+            "ledger_bytes": ledger.total_bytes,
+            "ledger_over_peak": ledger.total_bytes / peak,
+            "ledger_terms": ledger.terms,
+            "sssp": {"start_input_id": v0, "start_relabelled_id": start,
+                     "iterations": it, "dense": sched.count("dense"),
+                     "sparse": sched.count("sparse"),
+                     "host_syncs": syncs, "launches": scounts}}
+        del plan, pp
+    # gather="auto" under the owner exchange, beside the flat owner step:
+    # the counting pass's stats (pagegather.plan_paged_stats) are the
+    # two built plans' (tests/test_torch_owner_paged.py holds them
+    # equal), so they are read from the plans, not counted again
+    pst, mst = plan_stats["paged"], plan_stats["pagemajor"]
+    stats = dict(pst, pm_rows=mst["rows"], pm_vfill=mst["fill"],
+                 pm_padded_vfill=mst["padded_fill"],
+                 pm_g_rows=mst["g_rows"], pm_g_fill=mst["g_fill"],
+                 pm_g_padded_fill=mst["padded_g_fill"])
+    auto = pgm.resolve_gather("auto", stats, pgm.state_table_bytes(
+        sg, pagerank.make_program()), exchange="owner")
+    t0 = time.perf_counter()
+    flat = pagerank.build_engine(g2, P, sg=sg, exchange="owner")
+    torch.cuda.synchronize()
+    seconds["flat_owner_engine"] = round(time.perf_counter() - t0, 3)
+    st = flat.init_state()
+    steps["flat"] = cuda_ms(lambda: flat.step(st), args.reps)
+    del flat, st
+    torch.cuda.empty_cache()
+    emit({"phase": "owner", "config": "owner_paged", "graph": "gather-ab",
+          "scale": args.scale, "ef": args.ef, "nv": g2.nv, "ne": g2.ne,
+          "parts": P, "vpad": sg.vpad, "modes": cases,
+          "gather_auto": {"resolves": auto, "step_ms": steps,
+                          "stats": stats},
+          "seconds": seconds,
+          "step_seconds": round(time.perf_counter() - t_step, 3),
+          "card": card})
+    return lines, paths
+
+
 def phase_owner(args, torch, g, main_eng, card):
     """bench.py's pagerank-mp and sssp-mp on the owner exchange, the
     exchange sweep and the streamed forms (see the module docstring),
@@ -3089,7 +3504,8 @@ def _phase_owner(args, torch, g, main_eng, card):
     scale = args.scale + OWNER_SCALE_OVER
     seconds = {}
     t0 = time.perf_counter()
-    g_mp = rmat_graph(scale, args.ef, seed=args.seed)
+    g_mp = g if OWNER_SCALE_OVER == 0 else rmat_graph(scale, args.ef,
+                                                      seed=args.seed)
     seconds["rmat_graph"] = round(time.perf_counter() - t0, 3)
     sweep = []
     owner4 = None
@@ -3140,6 +3556,10 @@ def _phase_owner(args, torch, g, main_eng, card):
     err = check_pagerank(g3, eng.unpad(state), want, "pagerank-mp")
     del want, state
     layers = owner_layers(args, torch, eng)
+    PRICED["owner"] = {"slots": OWNER_PARTS * lay.n_chunks * lay.E,
+                       "ms": sum(layers[k] for k in (
+                           "decode_ms", "gather_ms", "b1_ms",
+                           "segmented_combine_ms", "fold_ms"))}
     ledger = memwatch.MemoryLedger.for_engine(eng, "pagerank-mp")
     src, rel = om.decoded_slots(eng.arrays)
     P, C, E = OWNER_PARTS, lay.n_chunks, lay.E
@@ -6992,6 +7412,7 @@ def observed(fn, *args, book=None):
 # phase_audit prints them with the lockcheck, analyzer and CLI runs
 AUDITED = {}
 AUDIT_ENGINES = ("main", "paged", "pagemajor", "pagerank-mp", "sssp-mp",
+                 "owner_paged", "owner_pagemajor",
                  "pairs_monolithic", "pairs_streamed", "sssp", "cc",
                  "colfilter", "ksssp_batch", "ppr_batch", "live_delta")
 # the engines whose audited paths launch no hand kernel: the dot path,
@@ -7076,9 +7497,11 @@ def cli_run(argv) -> dict:
 
 
 def phase_audit(args, torch, card) -> None:
-    """The audit step (ROADMAP A12b, A12a's CLI half): every engine the
-    phases audited (AUDITED, each mode "error" with the ledger), the
-    port's lockcheck over its threaded modules, GCC's analyzer over the
+    """The audit step (ROADMAP A12b, A12c, A12a's CLI half): every engine
+    the phases audited (AUDITED, each mode "error" with the ledger), the
+    reference's engine matrix on the card (its owner paged
+    configurations included), the port's lockcheck over its threaded
+    modules, ``python -m lux_tpu_torch.lint``, GCC's analyzer over the
     five native units on this host, and the CLI's -validate (a sound
     file, and a corrupted copy that must exit 2 with its typed
     GraphFormatError), -audit error, -tol / -max-iters and -sparse on
@@ -7104,11 +7527,34 @@ def phase_audit(args, torch, card) -> None:
     chunk_partials.launches_by_e = by_e
     errors = [str(f) for f in found if f.severity == "error"]
     require(not errors, f"audit: the matrix on the card: {errors[:4]}")
-    matrix = {"configs": len(audit.matrix_configs(device="cuda")),
-              "errors": 0,
+    labels = [lb for lb, _b, _l in audit.matrix_configs(device="cuda")]
+    require({"pagerank_np4_owner_paged", "pagerank_np4_owner_pagemajor"}
+            <= set(labels), "audit: the matrix lacks the owner paged "
+                            "configurations")
+    matrix = {"configs": len(labels), "errors": 0,
               "warnings": [str(f) for f in found if f.severity == "warn"],
               "seconds": round(time.perf_counter() - t0, 3)}
     lockcheck.run_lockcheck(mode="error")
+    # the port's lint over its tree and documents: ``python -m
+    # lux_tpu_torch.lint`` run in this process (runpy, as -m runs it;
+    # a second interpreter's torch import took 9-11 s of the step)
+    t1 = time.perf_counter()
+    lint_out, lint_err = io.StringIO(), io.StringIO()
+    argv, sys.argv = sys.argv, ["lux_tpu_torch.lint"]
+    try:
+        with contextlib.redirect_stdout(lint_out), \
+                contextlib.redirect_stderr(lint_err):
+            runpy.run_module("lux_tpu_torch.lint", run_name="__main__",
+                             alter_sys=True)
+        lint_rc = 0
+    except SystemExit as e:
+        lint_rc = e.code
+    finally:
+        sys.argv = argv
+    require(lint_rc == 0 and lint_out.getvalue().strip() == "lint: clean",
+            f"audit: python -m lux_tpu_torch.lint exited {lint_rc}: "
+            f"{lint_err.getvalue()[-2000:]}")
+    lint_s = time.perf_counter() - t1
     t1 = time.perf_counter()
     units = native.analyze()
     analyzer_s = time.perf_counter() - t1
@@ -7166,6 +7612,8 @@ def phase_audit(args, torch, card) -> None:
           "matrix": matrix,
           "lockcheck": {"modules": len(lockcheck.default_paths()),
                         "findings": 0},
+          "lint": {"rc": lint_rc, "out": lint_out.getvalue().strip(),
+                   "seconds": round(lint_s, 3)},
           "analyzer": {"units": {k: round(v, 3) for k, v in units.items()},
                        "seconds": round(analyzer_s, 3), "compiler": cxx,
                        "flags": " ".join(native.ANALYZE_FLAGS)},
@@ -7667,7 +8115,10 @@ def card_constants() -> dict:
         "combine_pass_ns": (cm["doubling_ms"] + cc["doubling_ms"]) * 1e6
         / sum(passes),
         "segscan_lane_ns": scan[0] - scan_slice * cm["wide"],
-        "segscan_slice_ns": scan_slice}
+        "segscan_slice_ns": scan_slice,
+        "owner_slot_ns": P["owner"]["ms"] * 1e6 / P["owner"]["slots"],
+        "route_bytes_per_s": P["route"]["bytes"] / (P["route"]["ms"]
+                                                    * 1e-3)}
 
 
 def phase_pricing(card) -> None:
@@ -7765,7 +8216,7 @@ def main(argv=None) -> int:
     main_eng = eng          # the mxu case holds its B1 twin to it
     del eng
     torch.cuda.empty_cache()
-    g2, sg = phase_paged_graph(args, torch, g)
+    g2, perm2, sg = phase_paged_graph(args, torch, g)
     want = pagerank.reference_pagerank(g2, args.iters)
     by_path = {"main": {"chunk_partials": kline["launches"],
                         "lane_shuffle": 0}}
@@ -7777,7 +8228,13 @@ def main(argv=None) -> int:
            {"flat": PRICED["main"]["step_ms"],
             **{m: PRICED[m]["layers"]["step_ms"]
                for m in ("paged", "pagemajor")}})
-    del g2, sg, want
+    del sg
+    # the owner exchange's paged plans on the same graph with 4 parts
+    # (the owner phase's owner_paged step)
+    owner_paged_lines, owner_paged_paths = phase_owner_paged(
+        args, torch, g, g2, perm2, want, card)
+    by_path.update(owner_paged_paths)
+    del g2, perm2, want
     b2 = lines["paged"]                 # B2 at the paged path's own rows
     reorder_counts, reorder_b1, reorder_b2 = phase_reorder(args, torch, card)
     by_path.update(reorder_counts)
@@ -7881,7 +8338,12 @@ def main(argv=None) -> int:
             line["launches_by_path"]["system paths"] = s9_line["launches"]
     for line in owner_lines:           # B1 at the owner shapes
         line["launches_by_path"] = kline["launches_by_path"]
+    for line in owner_paged_lines:     # B2 and B1 at the owner paged rows
+        line["launches_by_path"] = (
+            b2["launches_by_path"] if line["name"].startswith(
+                "lane_shuffle") else kline["launches_by_path"])
     emit({"kernels": [kline, *b1_lines.values(), *owner_lines,
+                      *owner_paged_lines,
                       *batch_lines, b2, *reorder_b2.values(), *probe_lines,
                       s9_line]})
     print(card, flush=True)

@@ -34,7 +34,8 @@ Check catalogue (check name -> typed error), mapped to eager PyTorch:
       row-granular and exempt, as in the reference.
   collective-schedule  CollectiveScheduleError
       One card's half: the owner exchange gathers each source part from
-      its own [vpad, ...] shard (at least num_parts shard gathers a
+      its own [vpad, ...] shard, its paged plans from the shard's
+      [vpad / 128, 128, ...] pages (at least num_parts shard gathers a
       dense iteration), never over the global ids.  The ring,
       reduce-scatter and all-to-all rules come with the mesh (ROADMAP
       A6b).
@@ -938,12 +939,15 @@ def engine_spec(engine, state) -> ProgramSpec:
         paged_shapes = ((T, 128) + trail,)
         if trail:
             paged_shapes += ((T, 128 * int(np.prod(trail))),)
+    # the owner exchange gathers from each part's shard; its paged plans
+    # from the PAGE-RESHAPED shard (lux_tpu/audit.py:821-825)
+    shard = (vpad // 128, 128) + trail if paged else (vpad,) + trail
     return ProgramSpec(
         table_shape=(P * vpad,) + trail,
         gather_budget=0 if owner else 1,
         paged_table_shapes=paged_shapes,
         state_itemsize=state.element_size(),
-        shard_shape=((vpad,) + trail) if owner else None,
+        shard_shape=shard if owner else None,
         min_shard_gathers=P if owner else 0)
 
 
@@ -1151,8 +1155,9 @@ def _matrix_graphs():
 
 def matrix_configs(ledger: bool = True, device=None):
     """The reference's engine configuration matrix (lux_tpu/audit.py:
-    1046), each config under the reference's label, without its mesh
-    configurations (ROADMAP A6b): [(label, build thunk, ledger?)].
+    1046), each config under the reference's label, its owner paged
+    ones included, without its mesh configurations (ROADMAP A6b):
+    [(label, build thunk, ledger?)].
     ``device``: the card unless "cpu" is asked for."""
     from lux_tpu_torch.apps import colfilter, components, pagerank, sssp
     from lux_tpu_torch.device import resolve_device
@@ -1206,6 +1211,11 @@ def matrix_configs(ledger: bool = True, device=None):
                     lambda: sssp.build_engine(g, 0, num_parts=2,
                                               gather="paged", device=dev),
                     False))
+    configs.append(("pagerank_np4_owner_paged",
+                    lambda: pagerank.build_engine(g, num_parts=4,
+                                                  exchange="owner",
+                                                  gather="paged",
+                                                  device=dev), False))
     configs.append(("colfilter_np2_paged_dot",
                     lambda: colfilter.build_engine(gw, num_parts=2,
                                                    gather="paged",
@@ -1223,6 +1233,11 @@ def matrix_configs(ledger: bool = True, device=None):
                     lambda: components.build_engine(
                         g, num_parts=2, enable_sparse=False,
                         gather="pagemajor", device=dev), False))
+    configs.append(("pagerank_np4_owner_pagemajor",
+                    lambda: pagerank.build_engine(g, num_parts=4,
+                                                  exchange="owner",
+                                                  gather="pagemajor",
+                                                  device=dev), False))
     QB = [0, 3, 7, 11]
     configs.append(("ksssp_np2_batched",
                     lambda: sssp.build_engine(g, num_parts=2, sources=QB,

@@ -43,6 +43,9 @@ scalar float32 sum, the tournament for min/max, the segmented sum as
 matmuls), 'vpu' kernel B1, 'auto' (default) by scalemodel's break-even
 width.  ``-exchange owner`` (pagerank, sssp, components) runs the owner
 exchange (ops/owner.py: each source part gathers from its own shard);
+with ``-gather paged|pagemajor|auto`` it runs the owner paged plans
+(ops/pagegather.py: each source part's page rows against its own shard;
+page-major rows routed whole to their destination parts);
 'auto' (default) keeps the gather exchange on the card and takes the
 owner exchange elsewhere past OWNER_AUTO_BYTES of state table;
 colfilter notes that it does not apply and ignores it.

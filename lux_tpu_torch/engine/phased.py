@@ -1,5 +1,6 @@
 """Per-iteration phase timing shared by the engines' ``timed_phases``
-(counterpart of lux_tpu/engine/phased.py).
+(counterpart of lux_tpu/engine/phased.py:53 ``PhaseTimer``, as
+lux_tpu/engine/pull.py:1397 ``timed_phases`` uses it).
 
 Each phase is a plain method of the eager engine, run on its own and
 fenced (``profiling.device_fence``: a device synchronize on the card,

@@ -77,7 +77,14 @@ part's messages from its own [vpad] shard, reduces them with one launch
 of kernel B1 over every part's [C, E] owner chunks (its batched form
 over a query axis), combines them per (source part, destination tile)
 and folds the contributions across source parts; pair rows still fetch
-from the whole table.  ``exchange="auto"`` keeps the gather exchange
+from the whole table.  With ``gather="paged"`` the owner paged plan
+replaces the owner chunks (no ``OwnerLayout`` is built, as in the
+reference): each source part's page rows against its own shard, B2
+and B1 once each over every part's rows, the fold across source parts
+(ops/pagegather.paged_owner_contribs); with ``"pagemajor"`` the
+senders' full rows route to their destination parts, which reduce them
+(ops/pagegather.pagemajor_owner_deliver: B2 and B1 once each, no
+separate exchange).  ``exchange="auto"`` keeps the gather exchange
 on the card, where the owner exchange lost at every table measured,
 and elsewhere takes the owner exchange, as the reference does, once
 the state table passes ``OWNER_AUTO_BYTES``.  ``stream_msgs`` runs the
@@ -87,9 +94,8 @@ what would not fit in its free memory, elsewhere by the reference's
 1 GB rule (ops/tiled.stream_by_default).  An owner layout that streams
 by the same rule runs the fused streamed combine.
 
-The mesh (ROADMAP A6b) and the owner exchange's paged plans (A6a-2)
-are refused with a typed :class:`NotPortedError` naming the item that
-brings them.
+The mesh (ROADMAP A6b) is refused with a typed :class:`NotPortedError`
+naming the item that brings it.
 """
 
 from __future__ import annotations
@@ -106,7 +112,9 @@ from lux_tpu_torch.ops.dot import (DOT_BLOCK_BYTES, DotBlock, blocks,
                                    run_blocks)
 from lux_tpu_torch.ops.pagegather import (PAGED_DOT_KEYS, PAGED_KEYS, W,
                                           engine_page_plan, paged_partial,
+                                          paged_owner_contribs,
                                           paged_partial_dot,
+                                          pagemajor_owner_deliver,
                                           plan_graph_arrays, row_slots)
 from lux_tpu_torch.ops.pairs import (DOT_BLOCK_ROWS, PAIR_DOT_KEYS,
                                      PAIR_KEYS,
@@ -218,7 +226,7 @@ def _refuse(what: str, item: str):
                          f"the port runs one device, layout "
                          f"'tiled'/'flat', gather 'flat'/'paged'/"
                          f"'pagemajor' or pair-lane rows, exchange "
-                         f"'gather' or 'owner' (owner: flat gather)")
+                         f"'gather' or 'owner'")
 
 
 def _check_pair_program(layout: str, program) -> None:
@@ -457,33 +465,50 @@ def flat_segments(dst_local: torch.Tensor, vpad: int) -> torch.Tensor:
 def check_paged_arrays(a: dict, P: int, vpad: int, pp) -> None:
     """Shapes and index ranges of an engine's paged arrays ``a`` (on
     the device), checked once: an out-of-range index would fault on
-    the card."""
-    ids, sl, rel, tp = (a[k] for k in PAGED_KEYS)
+    the card.  A dense plan's ``pg_*`` keys, the owner paged plan's
+    ``own_pg_*`` (pages in a part's own shard, global destination
+    tiles) or the owner page-major plan's ``own_pm_*`` (sender rows and
+    weights [P, P*Mg, 128], ``own_pm_vrs`` into the routed rows)."""
+    owner, pm = getattr(pp, "owner", False), pp.mode == "pagemajor"
+    if owner:
+        pre = "own_pm_" if pm else "own_pg_"
+        keys = tuple(pre + k for k in (("ids", "gsl", "rel", "tp") if pm
+                                       else ("ids", "sl", "rel", "tp")))
+    else:
+        pre, keys = "pg_", PAGED_KEYS
+    missing = [k for k in keys if k not in a]
+    if missing:
+        raise KeyError(f"graph arrays lack {missing}")
+    ids, sl, rel, tp = (a[k] for k in keys)
     Rg = sl.shape[1] if sl.dim() == 3 else -1
-    vrs = a.get("pg_vrs")
-    w = a.get("pg_w")
-    ok = (ids.dim() == 2 and ids.shape[0] == P
+    vrs = a.get(pre + "vrs")
+    w = a.get(pre + "w")
+    ntp = vpad // W
+    # tiles a plan row reduces into, pages a page id indexes, rows a
+    # weight row follows
+    n_tiles = P * ntp if owner and not pm else ntp
+    n_pages = ntp if owner else P * ntp
+    w_rows = Rg if owner and pm else pp.Rp
+    ok = (vpad % W == 0 and ids.dim() == 2 and ids.shape[0] == P
           and tuple(sl.shape) == (P, Rg, W) and sl.dtype == torch.int32
           and tuple(rel.shape) == (P, pp.Rp, W)
           and rel.dtype == torch.int8
-          and tuple(tp.shape) == (P, pp.n_tiles)
-          and pp.n_tiles * W == vpad
+          and tuple(tp.shape) == (P, pp.n_tiles) and pp.n_tiles == n_tiles
           and sum(c * L for c, L in pp.classes) == pp.R <= pp.Rp
-          and (w is None or tuple(w.shape) == (P, pp.Rp, W))
+          and (w is None or tuple(w.shape) == (P, w_rows, W))
           and (tuple(vrs.shape) == (P, pp.Rp) if vrs is not None
-               else Rg == pp.Rp))
+               else Rg == pp.Rp and not pm))
     if not ok:
         raise ValueError(
             f"paged arrays do not match the plan geometry {pp} "
             f"(num_parts={P}, vpad={vpad})")
-
-    if (_outside(ids, P * vpad // W)
+    if (_outside(ids, n_pages)
             or _outside(row_slots(sl), ids.shape[1])
             or _outside(tp, pp.n_slots + 1)
             or (vrs is not None and _outside(vrs, Rg))):
-        raise ValueError("paged arrays index outside the state table, "
-                         "the page list, the class slots or the "
-                         "gather rows")
+        raise ValueError("paged arrays index outside the state table or "
+                         "a part's shard, the page list, the class slots "
+                         "or the gather rows")
     if "pg_rt" in a:
         check_dot_tiles(a["pg_rt"], a["pg_t0"], P, vpad, pp, "pg")
 
@@ -610,7 +635,7 @@ class PullEngine(Placement):
                  use_mxu: bool | str = "auto",
                  owner_tile_e: int | None = None,
                  owner_minmax_fused: bool = False,
-                 audit: str | None = None):
+                 page_plan=None, audit: str | None = None):
         """``pair_threshold``: serve the edges of (src tile, dst tile)
         pairs with at least this many edges by pair-lane rows
         (ops/pairs.py; needs vpad % 128 == 0), the rest by the tiled
@@ -634,8 +659,11 @@ class PullEngine(Placement):
         ``exchange``: "gather", "owner" (ops/owner.py; its chunk width
         ``owner_tile_e``, default 256; ``owner_minmax_fused`` is taken
         and, on one device, changes nothing, as in the reference) or
-        "auto" (``resolve_exchange``).  ``stream_msgs``: the tiled
-        path's gather and partials in blocks of chunks (None: by
+        "auto" (``resolve_exchange``).  ``page_plan``: a paged or
+        page-major plan built before on ``sg`` for this ``gather`` and
+        ``exchange`` (ops/pagegather.engine_page_plan), which engines on
+        one layout share; checked, not rebuilt.  ``stream_msgs``: the
+        tiled path's gather and partials in blocks of chunks (None: by
         ops/tiled.stream_by_default on the [P, epad] messages; an
         owner layout by ``OwnerLayout.streams``).  ``audit="warn"|
         "error"`` runs one iteration of every program variant under the
@@ -653,7 +681,7 @@ class PullEngine(Placement):
         if exchange == "owner":
             check_owner_program(program)
         t0 = time.perf_counter()
-        plan = engine_page_plan(sg, gather, program, exchange)
+        plan = engine_page_plan(sg, gather, program, exchange, page_plan)
         pairs = None
         if pair_threshold is not None:
             # the tiled (or owner) path runs on the pair plan's residual
@@ -671,7 +699,8 @@ class PullEngine(Placement):
             if pairs is not None:
                 arrays.update(pair_graph_arrays(pairs, vpad=sg.vpad))
         elif plan is not None:
-            # the paged plan IS the edge layout: no chunk arrays
+            # the paged plan IS the edge layout: no chunk arrays, and
+            # under the owner exchange no OwnerLayout
             arrays, tiles = dict(common_graph_arrays(sg),
                                  **plan_graph_arrays(plan, dot=dot,
                                                      vpad=sg.vpad)), None
@@ -746,12 +775,17 @@ class PullEngine(Placement):
         self.tiles = tiles
         # the OwnerLayout (or, carried from arrays, its OwnerGeometry)
         self.owner = owner
-        self.exchange = "gather" if owner is None else "owner"
-        if owner is not None:
+        owner_pages = pages is not None and getattr(pages, "owner", False)
+        self.exchange = "owner" if owner is not None or owner_pages \
+            else "gather"
+        if self.exchange == "owner":
             check_owner_program(program)
-            if tiles is not None or pages is not None:
-                raise ValueError("the owner layout replaces the tiled and "
-                                 "paged layouts")
+        if owner is not None and (tiles is not None or pages is not None):
+            raise ValueError("the owner layout replaces the tiled and "
+                             "paged layouts")
+        if owner_pages and (tiles is not None or pairs is not None):
+            raise ValueError("the owner paged plan replaces the tiled "
+                             "layout and pair rows")
         self.owner_minmax_fused = bool(owner_minmax_fused)
         # the PagedPlan (or, carried from arrays, its PageGeometry)
         self.page_plan = pages
@@ -776,7 +810,10 @@ class PullEngine(Placement):
             dot_block_chunks
             or max(1, DOT_BLOCK_BYTES // (tiles.E * tiles.W * 4)))
         self.dot_block_rows = int(dot_block_rows or DOT_BLOCK_ROWS)
-        if pages is not None:
+        if owner_pages:
+            need = ("deg", "nvp")           # check_paged_arrays's
+            wkey = "own_pm_w" if pages.mode == "pagemajor" else "own_pg_w"
+        elif pages is not None:
             need = PAGED_KEYS + ("deg", "nvp") + (
                 ("pg_vrs",) if pages.mode == "pagemajor" else ())
             wkey = "pg_w"
@@ -1136,8 +1173,14 @@ class PullEngine(Placement):
 
     def _owner_contribs(self, state):
         """Every source part's contribution to every destination part
-        [P, n_tiles * W, ...] (ops/owner.owner_contribs)."""
+        [P, n_tiles * W, ...] (ops/owner.owner_contribs; an owner paged
+        plan's by ops/pagegather.paged_owner_contribs)."""
         prog = self.program
+        if self.page_plan is not None:
+            return paged_owner_contribs(
+                self.page_plan, state, self.arrays, prog.reduce,
+                lambda vals, w: prog.edge_value(vals, None, w),
+                self.num_parts)
         return owner_contribs(
             self.owner, state, self.arrays, prog.reduce,
             lambda vals, w: prog.edge_value(vals, None, w),
@@ -1153,7 +1196,15 @@ class PullEngine(Placement):
     def _phase_gen_exchange(self, state):
         """gen_exchange: the owner exchange's message generation and
         routing, one fused phase as in the reference
-        (lux_tpu/engine/pull.py:1306) -> [P, vpad, ...]."""
+        (lux_tpu/engine/pull.py:784-808) -> [P, vpad, ...].  An owner
+        page-major plan routes its full rows and reduces them
+        receiver-side: that replaces the exchange."""
+        if self.page_plan is not None and self.page_plan.mode == "pagemajor":
+            prog = self.program
+            return pagemajor_owner_deliver(
+                self.page_plan, state, self.arrays, prog.reduce,
+                lambda vals, w: prog.edge_value(vals, None, w))[
+                :, :self.vpad]
         return self._owner_exchange(self._owner_contribs(state))[
             :, :self.vpad]
 
@@ -1200,14 +1251,14 @@ class PullEngine(Placement):
         """One iteration's delivery and reduce, before the apply
         epilogue: [P, vpad, ...] -> the per-vertex reductions [P, vpad,
         ...] (the reduce identity where no edge arrives)."""
-        if self.owner is not None:
+        if self.exchange == "owner":
             return self._owner_red(state, self._phase_gen_exchange(state))
         return self._delivery(state, self._phase_exchange(state))
 
     def step(self, state: torch.Tensor) -> torch.Tensor:
         """One iteration: [P, vpad, ...] -> [P, vpad, ...]."""
         with annotation(f"lux_{self.program.name or 'pull'}"):
-            if self.owner is not None:
+            if self.exchange == "owner":
                 with annotation("lux_gen_exchange"):
                     red = self._phase_gen_exchange(state)
                 with annotation("lux_apply"):
@@ -1232,7 +1283,7 @@ class PullEngine(Placement):
         report = []
         for _ in range(int(iters)):
             pt = PhaseTimer(fence)
-            if self.owner is not None:
+            if self.exchange == "owner":
                 red = pt("gen_exchange", self._phase_gen_exchange, state)
                 state = pt("apply", self._phase_owner_apply, state, red)
                 report.append(pt.t)

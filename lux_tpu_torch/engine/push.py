@@ -65,7 +65,12 @@ scalemodel (ops/pagegather.resolve_gather).
 runs the dense iterations owner-side: each source part masks its own
 label shard and gathers from it, kernel B1 reduces every part's owner
 chunks in one launch, and the contributions fold across source parts
-(one ``gen_exchange`` phase); sparse iterations are unchanged.
+(one ``gen_exchange`` phase); sparse iterations are unchanged.  With
+``gather="paged"`` / ``"pagemajor"`` the owner paged plans replace the
+owner chunks (lux_tpu/engine/push.py:505-528; ops/pagegather.py
+``paged_owner_contribs``, ``pagemajor_owner_deliver``: B2 and B1 once
+each a dense iteration), weighted plans carrying ``own_pg_w`` /
+``own_pm_w``.
 ``stream_msgs`` runs the tiled dense path's gather, relax and partials
 in blocks of chunks; None streams on the card only what would not fit
 in its free memory, elsewhere by the reference's 1 GB rule
@@ -99,7 +104,9 @@ from lux_tpu_torch.engine.pull import (NotPortedError, Placement, _outside,
                                        flat_segments, gather_rows,
                                        resolve_exchange, resolve_use_mxu)
 from lux_tpu_torch.graph import ShardedGraph
-from lux_tpu_torch.ops.pagegather import (engine_page_plan, paged_partial,
+from lux_tpu_torch.ops.pagegather import (engine_page_plan,
+                                          paged_owner_contribs, paged_partial,
+                                          pagemajor_owner_deliver,
                                           plan_graph_arrays)
 from lux_tpu_torch.ops.pairs import (pair_graph_arrays, pair_partial,
                                      pair_partial_streamed,
@@ -128,8 +135,7 @@ def _refuse(what: str, item: str):
                          f"layout 'tiled'/'flat', gather "
                          f"'flat'/'paged'/'pagemajor' or pair-lane rows "
                          f"(query-batched programs: tiled or flat), "
-                         f"exchange 'gather' or 'owner' (owner: flat "
-                         f"gather)")
+                         f"exchange 'gather' or 'owner'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,7 +168,10 @@ class PushEngine(Placement):
     """Frontier iterations for one ShardedGraph + PushProgram on one
     device (``device=None`` means the card; pass ``"cpu"`` for the
     plain PyTorch versions).  ``schedule`` lists the kind ("dense" or
-    "sparse") of every iteration since the last ``converge``."""
+    "sparse") of every iteration since the last ``converge``.
+    ``page_plan``: a paged or page-major plan built before on ``sg``
+    for this ``gather`` and ``exchange``, shared with other engines on
+    the layout (as PullEngine's)."""
 
     plan_seconds = 0.0      # host seconds spent building the paged or
                             # pair plan
@@ -183,7 +192,7 @@ class PushEngine(Placement):
                  owner_tile_e: int | None = None,
                  owner_minmax_fused: bool = False,
                  stats_cap: int | None = None, health: bool = False,
-                 audit: str | None = None):
+                 page_plan=None, audit: str | None = None):
         dev = resolve_device(device)
         if mesh is not None:
             _refuse("a device mesh", "A6b")
@@ -221,7 +230,7 @@ class PushEngine(Placement):
         if pair_threshold is not None and layout != "tiled":
             raise ValueError("pair_threshold requires the tiled layout")
         t0 = time.perf_counter()
-        plan = engine_page_plan(sg, gather, program, exchange)
+        plan = engine_page_plan(sg, gather, program, exchange, page_plan)
         pairs, dense_sg = None, sg
         if pair_threshold is not None:
             # the dense tiled path runs on the pair plan's residual;
@@ -328,10 +337,15 @@ class PushEngine(Placement):
         if owner is not None and (tiles is not None or pages is not None):
             raise ValueError("the owner layout replaces the tiled and "
                              "paged layouts")
+        owner_pages = pages is not None and getattr(pages, "owner", False)
+        if owner_pages and (tiles is not None or pairs is not None):
+            raise ValueError("the owner paged plan replaces the tiled "
+                             "layout and pair rows")
         # the OwnerLayout (or its OwnerGeometry); None on the gather
-        # exchange
+        # exchange and under an owner paged plan
         self.owner = owner
-        self.exchange = "gather" if owner is None else "owner"
+        self.exchange = "owner" if owner is not None or owner_pages \
+            else "gather"
         self.owner_minmax_fused = bool(owner_minmax_fused)
         self.stream_chunks = bool(stream_msgs)
         self.batch = program.batch
@@ -563,12 +577,21 @@ class PushEngine(Placement):
         contributions folded across source parts and routed, the pair
         rows from the whole masked table, the update -> (label,
         improved)."""
-        kind = self.program.reduce
+        kind, pp = self.program.reduce, self.page_plan
         masked = torch.where(active, label, self._ident)
-        acc = owner_contribs(self.owner, masked, self.arrays, kind,
-                             self._msg, self.num_parts,
-                             use_mxu=self.use_mxu, plan=self._plan,
-                             max_run=self._plan.max_len, occ=self._occ)
+        if pp is not None and pp.mode == "pagemajor":
+            # the route of whole rows replaces the owner exchange
+            red = pagemajor_owner_deliver(pp, masked, self.arrays, kind,
+                                          self._msg)[:, :self.vpad]
+            return self._dense_update(label, red)
+        if pp is not None:
+            acc = paged_owner_contribs(pp, masked, self.arrays, kind,
+                                       self._msg, self.num_parts)
+        else:
+            acc = owner_contribs(self.owner, masked, self.arrays, kind,
+                                 self._msg, self.num_parts,
+                                 use_mxu=self.use_mxu, plan=self._plan,
+                                 max_run=self._plan.max_len, occ=self._occ)
         red = owner_exchange(acc, kind,
                              minmax_fused=self.owner_minmax_fused)[
             :, :self.vpad]
@@ -578,7 +601,7 @@ class PushEngine(Placement):
         return self._dense_update(label, red)
 
     def _dense(self, label, active):
-        if self.owner is not None:
+        if self.exchange == "owner":
             with annotation("lux_gen_exchange"):
                 return self._phase_gen_exchange(label, active)
         with annotation("lux_exchange"):
@@ -900,7 +923,7 @@ class PushEngine(Placement):
         self.schedule.append("dense")
         pt = PhaseTimer(fence)
         pt.t = t
-        if self.owner is not None:
+        if self.exchange == "owner":
             label, na = pt("gen_exchange", self._phase_gen_exchange, label,
                            active)
             return label, na, int(na.sum(dtype=torch.int32))

@@ -23,6 +23,9 @@ from lux_tpu_torch.engine.pull import TILED_KEYS, PullEngine
 from lux_tpu_torch.engine.push import SPARSE_KEYS, PushEngine
 from lux_tpu_torch.ops.owner import OWNER_SCAN_KEYS, OwnerGeometry
 from lux_tpu_torch.ops.pagegather import (PAGED_DOT_KEYS, PAGED_KEYS,
+                                          PAGED_OWNER_KEYS,
+                                          PAGEMAJOR_OWNER_RECV_KEYS,
+                                          PAGEMAJOR_OWNER_SEND_KEYS,
                                           PageGeometry)
 from lux_tpu_torch.ops.pairs import PAIR_DOT_KEYS, PAIR_KEYS, PairGeometry
 from lux_tpu_torch.ops.tiled import TileGeometry
@@ -56,10 +59,13 @@ def _geometry(arrays: dict, meta: dict):
             classes=tuple((int(c), int(L)) for c, L in meta["classes"]),
             R=int(meta["R"]), Rp=int(meta["Rp"]),
             n_tiles=int(meta["n_tiles"]), n_slots=int(meta["n_slots"]),
-            mode=meta["mode"])
+            mode=meta["mode"], route=int(meta.get("route", 0)),
+            owner=bool(meta.get("owner_pages", False)))
         kw["tiles"] = None
         keys = PAGED_KEYS + ("deg", "nvp", "pg_w", "pg_vrs") \
-            + PAGED_DOT_KEYS
+            + PAGED_DOT_KEYS + PAGED_OWNER_KEYS + ("own_pg_w",) \
+            + PAGEMAJOR_OWNER_SEND_KEYS + ("own_pm_w",) \
+            + PAGEMAJOR_OWNER_RECV_KEYS
     else:
         if meta.get("owner") is not None:
             om = meta["owner"]
@@ -119,7 +125,13 @@ def from_reference(arrays: dict, state: np.ndarray, *, meta: dict,
     - paged engine (meta ``mode`` "paged" or "pagemajor"): arrays
       pg_ids, pg_sl (uint32), pg_rel, pg_tp, deg, nvp, and pg_w /
       pg_vrs where the reference has them; meta classes, R, Rp,
-      n_tiles, n_slots, mode + the common keys.
+      n_tiles, n_slots, mode + the common keys.  An owner paged engine
+      (meta ``owner_pages`` True) carries own_pg_ids, own_pg_sl,
+      own_pg_rel, own_pg_tp (+ own_pg_w), an owner page-major one
+      own_pm_ids, own_pm_gsl, own_pm_vrs, own_pm_rel, own_pm_tp (+
+      own_pm_w) and meta ``route`` (its Mg); the reference's
+      PagedPlan.n_tiles is G for the first, the tiles a part for the
+      second.
 
     - owner-exchange engine (meta ``owner``, a dict of the reference's
       OwnerLayout W, E, n_tiles, G, n_chunks, needs_scan): arrays own_sr

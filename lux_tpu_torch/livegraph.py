@@ -32,7 +32,11 @@ lux_tpu/livegraph.py:1-1619).
    past one re-seeds the affected cone (forward reachability from the
    touched destinations, capped by ``cone_cap`` with a full-recompute
    fallback) from the program's init labels and re-converges over
-   ``graph_at(epoch)``.
+   ``graph_at(epoch)``: proved equal to full recompute against the
+   decremental oracles (apps/sssp.reference_sssp_decremental,
+   apps/components.reference_components_decremental; the reference
+   cites them at lux_tpu/livegraph.py:67-68), bitwise for the integer
+   apps.
 
 4. **Compaction** (:meth:`LiveGraph.compact`,
    :class:`CompactionScheduler`): the delta folds into a new base

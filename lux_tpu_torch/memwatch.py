@@ -70,7 +70,8 @@ TEMP_TERMS = ("graph_pair_temp", "graph_page_buffer", "graph_page_temp",
               "graph_mxu_temp", "port_messages", "port_candidates",
               "port_partials", "port_combine", "port_mxu",
               "port_pair_temp", "port_dot",
-              "port_host_roundtrip", "port_owner_decode", "port_owner_acc")
+              "port_host_roundtrip", "port_owner_decode", "port_owner_acc",
+              "port_owner_tiles", "port_route")
 
 # memory_report terms the ledger prices the port's own way instead:
 # ``mxu_temp``, the [C, E, W] one-hot the reference's XLA form holds
@@ -377,11 +378,15 @@ def eager_terms(eng) -> dict:
       or the one-hot forms' blocks (ops/tiled.MXU_BLOCK_BYTES).
 
     Paged rows are priced by the reference's own terms (page_buffer,
-    page_temp): {} for that layout.  Owner engines: ``owner_terms``."""
+    page_temp): {} for that layout, beside ``owner_page_terms`` on the
+    owner exchange.  Owner engines: ``owner_terms``."""
     if getattr(eng, "dot", False):
         return dot_terms(eng)
+    pp = getattr(eng, "page_plan", None)
     if getattr(eng, "owner", None) is not None:
         terms = owner_terms(eng)
+    elif pp is not None and getattr(pp, "owner", False):
+        terms = owner_page_terms(eng)
     elif getattr(eng, "tiles", None) is not None:
         terms = _tiled_terms(eng, eng.tiles)
     else:
@@ -396,12 +401,7 @@ def _tiled_terms(eng, tiles) -> dict:
     """eager_terms' tiled-layout part."""
     from lux_tpu_torch.engine.push import PushEngine
     is_push = isinstance(eng, PushEngine)
-    if is_push:
-        wide = int(eng.batch or 1)
-        isz = int(np.asarray(eng.program.identity).dtype.itemsize)
-    else:
-        sb = getattr(eng.program, "state_bytes", None) or 4
-        wide, isz = max(1, sb // 4), 4
+    wide, isz = _payload(eng)
     rows = eng.num_parts * tiles.n_chunks
     slots = rows * tiles.E
     partials = rows * tiles.W * wide * isz
@@ -421,6 +421,33 @@ def _tiled_terms(eng, tiles) -> dict:
             terms["port_mxu"] = min(MXU_BLOCK_BYTES,
                                     rows * tiles.E * tiles.W * 4)
     return terms
+
+
+def _payload(eng) -> tuple:
+    """(payload slices a vertex, bytes a slice) of an engine's state:
+    push labels by their dtype and query batch, pull by state_bytes."""
+    from lux_tpu_torch.engine.push import PushEngine
+    if isinstance(eng, PushEngine):
+        return (int(eng.batch or 1),
+                int(np.asarray(eng.program.identity).dtype.itemsize))
+    sb = getattr(eng.program, "state_bytes", None) or 4
+    return max(1, sb // 4), 4
+
+
+def owner_page_terms(eng) -> dict:
+    """An owner paged engine's temporaries beyond the reference's page
+    terms (bytes, whole engine).  The paged plan: ``port_owner_tiles``,
+    the class combine's [P_src, G, 128] tile partials and the folded
+    [P_dst, n_tiles * 128] accumulator beside them.  The page-major
+    plan: ``port_route``, the routed copy of the senders' [P, P*Mg, 128]
+    message rows, which lives beside them while the route runs."""
+    pp, P = eng.page_plan, eng.num_parts
+    wide, isz = _payload(eng)
+    if pp.mode == "pagemajor":
+        return {"port_route": P * P * pp.route * 128 * wide * isz}
+    ntp = eng.vpad // 128
+    return {"port_owner_tiles": (P * pp.n_tiles + P * ntp) * 128 * wide
+            * isz}
 
 
 def owner_terms(eng) -> dict:
@@ -443,12 +470,7 @@ def owner_terms(eng) -> dict:
     from lux_tpu_torch.engine.push import PushEngine
     lay, P = eng.owner, eng.num_parts
     is_push = isinstance(eng, PushEngine)
-    if is_push:
-        wide = int(eng.batch or 1)
-        isz = int(np.asarray(eng.program.identity).dtype.itemsize)
-    else:
-        sb = getattr(eng.program, "state_bytes", None) or 4
-        wide, isz = max(1, sb // 4), 4
+    wide, isz = _payload(eng)
     own = _tensor_bytes(t for k, t in eng.arrays.items()
                         if k.startswith("own_"))
     edge = eng.sg.memory_report(**report_kwargs(eng))["terms_per_part"][

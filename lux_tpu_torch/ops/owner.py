@@ -1,5 +1,6 @@
 """The owner-side (source-part-major) edge layout and exchange on one
-device (counterpart of lux_tpu/ops/owner.py).
+device (counterpart of lux_tpu/ops/owner.py:47-433: ``OwnerLayout``
+:47, ``owner_contribs`` :386, ``owner_exchange`` :433).
 
 The gather exchange reads every part's source states from the whole
 [P*vpad] table.  The owner exchange turns the edge layout around: each

@@ -46,20 +46,14 @@ def apply_perm(g: Graph, perm: np.ndarray) -> Graph:
 def page_fill_stats(g: Graph, num_parts: int = 1, exchange: str = "gather",
                     pagemajor: bool = False) -> dict:
     """The plan builder's measured objective for ``g`` in its current
-    vertex order: the 128-aligned layout and the counting pass of the
-    dense paged plan (ops/pagegather.plan_paged_stats, none of the
-    [P, Rp, 128] assembly).  Only the gather exchange's plans are
-    ported: the owner exchange's paged plans are ROADMAP A6a-2."""
+    vertex order (lux_tpu/reorder.py:49-61): the 128-aligned layout and
+    the counting pass of the paged plan (ops/pagegather.plan_paged_stats,
+    none of the [P, Rp, 128] assembly), the dense plan's or, under
+    ``exchange="owner"``, the owner plans'."""
     from lux_tpu_torch.ops.pagegather import plan_paged_stats
 
-    if exchange != "gather":
-        from lux_tpu_torch.engine.pull import NotPortedError
-        raise NotPortedError(
-            f"page_fill_stats(exchange={exchange!r}) is not ported yet "
-            f"(ROADMAP A6a-2: the owner exchange's paged plans); pass "
-            f"exchange='gather'")
     sg = ShardedGraph.build(g, num_parts, vpad_align=W)
-    return plan_paged_stats(sg, pagemajor=pagemajor)
+    return plan_paged_stats(sg, exchange=exchange, pagemajor=pagemajor)
 
 
 def _dominant_tile_regroup(g: Graph) -> np.ndarray:

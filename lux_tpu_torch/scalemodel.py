@@ -37,10 +37,17 @@ The formulas are the reference's; what a figure prices:
 - the session-calibration probes' own figures (observe.py grades a
   session against them).
 
-What waits for ROADMAP A6b: the owner exchange's slot rate, the link
-tiers and measured link rates, ``Projection`` / ``project_pull`` /
-``project_table``, the owner branch of ``phase_model`` and the routed
-page-major hop.  Each raises NotPortedError naming A6b.
+- the owner exchange's scan a padded owner slot (``owner_slot_ns``:
+  decode, gather, B1, segmented combine and fold, the baseline the
+  owner paged plans are priced against) and the owner page-major
+  plan's route (``route_bytes_per_s``: on one card a device-local
+  transpose of the routed rows; under the reference's figures its ICI
+  link, ``pagemajor_route_ns``, lux_tpu/scalemodel.py:223).
+
+What waits for ROADMAP A6b: the link tiers and measured link rates
+between cards, ``Projection`` / ``project_pull`` / ``project_table``
+and the owner branch of ``phase_model``.  Each raises NotPortedError
+naming A6b.
 """
 
 from __future__ import annotations
@@ -88,11 +95,17 @@ class CardConstants:
     segscan_lane_ns: float | None = None   # the combine as matmuls, per
     #                                        chunk lane
     segscan_slice_ns: float | None = None  # + per payload slice
+    # the owner exchange (None: a table without it)
+    owner_slot_ns: float | None = None     # the owner scan, per padded
+    #                                        owner slot
+    route_bytes_per_s: float | None = None  # the owner page-major
+    #                                        route: routed row bytes a
+    #                                        second
 
 
 # NVIDIA H100 80GB HBM3 at 700.00 W, as chip_smoke.py's pricing line
-# measured them (PERF.md §6, the H100 constants table, names the run and
-# lists each figure beside its re-measurements).  Shapes: H100_SOURCES.
+# measured them (PERF.md §6 names the run of each).  Shapes:
+# H100_SOURCES.
 H100 = CardConstants(
     card="NVIDIA H100 80GB HBM3",
     power_limit="700.00 W",
@@ -120,6 +133,8 @@ H100 = CardConstants(
     combine_pass_ns=0.010589,
     segscan_lane_ns=0.20683,
     segscan_slice_ns=0.017196,
+    owner_slot_ns=0.080400,
+    route_bytes_per_s=1.0993e12,
 )
 
 # Where each H100 figure came from: chip_smoke.py's phase and shape.
@@ -173,6 +188,12 @@ H100_SOURCES = {
                        "(K = 1), less segscan_slice_ns",
     "segscan_slice_ns": "mxu: (the same on colfilter pairs_monolithic's "
                         "residual partials (K = 20) - on main's) / 19",
+    "owner_slot_ns": "owner: pagerank-mp's decode + owner gather + B1 + "
+                     "segmented combine + fold ms / (P * C * E) padded "
+                     "owner slots, R-MAT 21 ef 16 pair_relabel, 4 parts",
+    "route_bytes_per_s": "owner_paged: the page-major route's [P, P*Mg, "
+                         "128] f32 rows / its transpose ms, gather-ab's "
+                         "R-MAT 21, 4 parts",
 }
 
 DEFAULT = H100
@@ -279,13 +300,37 @@ def page_break_even_ratio(fill: float, table_bytes: float = 0.0,
         / ((c.page_row_fetch_ns / 128.0) * max(1, kdim))
 
 
+def owner_slot_ns(constants=None) -> float:
+    """The owner exchange's scan, ns a padded owner slot (the reference's
+    OWNER_SLOT_NS, lux_tpu/scalemodel.py:43)."""
+    c = _c(constants)
+    if c.owner_slot_ns is None:
+        raise ValueError(f"{c.card}'s table has no owner slot rate")
+    return c.owner_slot_ns
+
+
+def pagemajor_route_ns(g_fill: float, itemsize: int = 4,
+                       constants=None) -> float:
+    """The owner page-major route's ns an edge: every (padded) lane of a
+    routed 128-lane row moves ``itemsize`` bytes once, so an edge pays
+    itemsize * 128 / g_fill bytes at ``route_bytes_per_s``
+    (lux_tpu/scalemodel.py:223, there a link's rate; on one card a
+    transpose)."""
+    c = _c(constants)
+    if g_fill <= 0:
+        raise ValueError(f"g_fill must be > 0, got {g_fill}")
+    if c.route_bytes_per_s is None:
+        raise ValueError(f"{c.card}'s table has no route rate")
+    return itemsize * (128.0 / g_fill) / (c.route_bytes_per_s * 1e-9)
+
+
 def pagemajor_gather_ns(page_ratio: float, g_fill: float, v_fill: float,
                         kdim: int = 1, routed: bool = False,
                         itemsize: int = 4, constants=None) -> float:
     """Delivered ns an edge of the page-major layout: the page fetch,
     row fetch and shuffle over the gather rows (``g_fill``), the reduce
-    over the virtual rows (``v_fill``).  ``routed`` (the owner plan's
-    hop between cards) waits for ROADMAP A6."""
+    over the virtual rows (``v_fill``), and with ``routed`` (the owner
+    plan) the route (``pagemajor_route_ns``)."""
     c = _c(constants)
     if kdim > 1:
         raise ValueError("page-major does not serve K-dim (SDDMM) "
@@ -295,12 +340,12 @@ def pagemajor_gather_ns(page_ratio: float, g_fill: float, v_fill: float,
                          f"v_fill={v_fill}")
     if page_ratio < 0:
         raise ValueError(f"page_ratio must be >= 0, got {page_ratio}")
-    if routed:
-        _refuse_a6("the routed page-major hop (pagemajor_route_ns)")
     fetch = page_ratio * (c.page_row_fetch_ns / 128.0)
     gather = (c.page_row_fetch_ns + 128 * c.lane_shuffle_ns) / g_fill
     reduce = (c.page_row_fetch_ns + c.vrow_reduce_ns) / v_fill
-    return fetch + gather + reduce
+    route = pagemajor_route_ns(g_fill, itemsize, constants) if routed \
+        else 0.0
+    return fetch + gather + reduce + route
 
 
 def pagemajor_break_even_vfill(page_ratio: float = 1.0,
@@ -308,13 +353,14 @@ def pagemajor_break_even_vfill(page_ratio: float = 1.0,
                                table_bytes: float = 0.0,
                                routed: bool = False, itemsize: int = 4,
                                constants=None) -> int:
-    """Virtual-row fill above which page-major beats the flat gather."""
+    """Virtual-row fill above which page-major beats the flat gather
+    (``routed``: with the owner plan's route)."""
     c = _c(constants)
-    if routed:
-        _refuse_a6("the routed page-major hop (pagemajor_route_ns)")
     rate = flat_gather_ns(table_bytes, constants)
     margin = rate - page_ratio * (c.page_row_fetch_ns / 128.0) \
         - (c.page_row_fetch_ns + 128 * c.lane_shuffle_ns) / g_fill
+    if routed:
+        margin -= pagemajor_route_ns(g_fill, itemsize, constants)
     if margin <= 0:
         return 1 << 30
     return max(1, math.ceil((c.page_row_fetch_ns + c.vrow_reduce_ns)

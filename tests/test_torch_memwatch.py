@@ -303,13 +303,18 @@ def test_server_and_drivers_sample_at_boundaries(graph):
     assert t2.count == -(-total // 2)
 
 
-def test_a11_refusals(lux_ref, graph):
+def test_a11_refusals(lux_ref, graph, monkeypatch):
     """The live graph's consumer terms are ported (ROADMAP A11a) and
     equal the reference's, and so is the fleet replica ledger (A11b):
     every term the reference prices, for a warmed cached fleet, equal,
     the port's own terms beside them, and the memory shed it drives."""
     from lux_tpu_torch import fleet
     from lux_tpu_torch.livegraph import LiveGraph
+    # a checkpoint saved earlier in this process leaves its staging bytes
+    # in memwatch's module state: this test's fleets save none, so hold
+    # both packages' notes at none for its duration
+    monkeypatch.setattr(memwatch, "_STAGING_BYTES", 0)
+    monkeypatch.setattr(lux_ref.memwatch, "_STAGING_BYTES", 0)
     lv = LiveGraph(graph, capacity=8)
     rlv = lux_ref.livegraph.LiveGraph(lux_ref.graph.Graph.from_edges(
         *graph.edge_arrays(), graph.nv), capacity=8)

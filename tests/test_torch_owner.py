@@ -9,7 +9,7 @@ PageRank within rtol 2e-5, personalized PageRank 5e-5, integer labels
 and iteration counts bit for bit; the single-device cases of
 tests/test_owner.py; the exchange rule under 96 MB; the memory report
 and ledger; the CLI flag, the Server and the fleet; and what stays
-refused (ROADMAP A6a-2, A6b), typed with its item.
+refused (ROADMAP A6b), typed with its item.
 
 Graphs are R-MAT (scale 9, edge factor 8) made with numpy from a seed;
 integer weights 1..5 as float32, so weighted float sums are exact.  The
@@ -753,23 +753,37 @@ def test_stream_by_default(monkeypatch, graphs):
 
 @pytest.mark.parametrize("gather", ["paged", "pagemajor", "auto"])
 def test_owner_paged_plans_refused_a6a2(graphs, gather):
+    """Refused until the owner paged plans were ported (ROADMAP A6a-2):
+    now they build and run, PageRank within rtol 2e-5 and SSSP labels
+    bit for bit against the flat owner engines (the parity tests:
+    tests/test_torch_owner_paged.py)."""
     g = graphs["plain"][0]
-    with pytest.raises(NotPortedError, match="A6a-2"):
-        pagerank.build_engine(g, 2, gather=gather, exchange="owner",
-                              device=CPU)
-    with pytest.raises(NotPortedError, match="A6a-2"):
-        sssp.build_engine(g, 0, num_parts=2, gather=gather,
+    eng = pagerank.build_engine(g, 2, gather=gather, exchange="owner",
+                                device=CPU)
+    flat = pagerank.build_engine(g, 2, exchange="owner", device=CPU)
+    assert eng.exchange == "owner"
+    assert (eng.owner is None) == (eng.gather != "flat")
+    np.testing.assert_allclose(eng.unpad(eng.run(eng.init_state(), 5)),
+                               flat.unpad(flat.run(flat.init_state(), 5)),
+                               **PR_TOL)
+    s = sssp.build_engine(g, 0, num_parts=2, gather=gather,
                           exchange="owner", device=CPU)
+    f = sssp.build_engine(g, 0, num_parts=2, exchange="owner", device=CPU)
+    np.testing.assert_array_equal(s.unpad(s.converge(*s.init_state())[0]),
+                                  f.unpad(f.converge(*f.init_state())[0]))
 
 
 def test_other_a6a2_and_a6b_refusals(graphs):
+    """page_fill_stats and resolve_gather under the owner exchange
+    (once refused naming A6a-2) answer; the mesh, an exchange axis, the
+    ring and the multi-host build stay refused naming A6b."""
     from lux_tpu_torch.ops.pagegather import resolve_gather
     from lux_tpu_torch.reorder import page_fill_stats
     g = graphs["plain"][0]
-    with pytest.raises(NotPortedError, match="A6a-2"):
-        page_fill_stats(g, 2, exchange="owner")
-    with pytest.raises(NotPortedError, match="A6a-2"):
-        resolve_gather("auto", {}, exchange="owner")
+    st = page_fill_stats(g, 2, exchange="owner", pagemajor=True)
+    assert st["ne"] == g.ne and "pm_g_padded_fill" in st
+    assert resolve_gather("auto", st, exchange="owner") in (
+        "flat", "paged", "pagemajor")
     with pytest.raises(NotPortedError, match="A6b"):
         pagerank.build_engine(g, 2, exchange="owner", mesh=object(),
                               device=CPU)

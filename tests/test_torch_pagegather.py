@@ -358,9 +358,11 @@ def _small_graph():
     (dict(gather="pagemajor", exchange="owner"), "A6"),
 ])
 def test_paged_options_refused(kwargs, item):
-    """What A6 brings is refused naming it; gather='auto' (A10b, once
-    refused naming A10) builds the mode scalemodel picks from the
-    counted plan stats."""
+    """Once refused: gather='auto' (A10b, named A10) builds the mode
+    scalemodel picks from the counted plan stats; the owner paged plans
+    (A6a-2, named A6) build and run as the flat owner engine does (their
+    parity tests: tests/test_torch_owner_paged.py); the mesh (A6b) stays
+    refused naming A6."""
     g = _small_graph()
     if item == "A10":
         eng = pagerank.build_engine(g, device=CPU, **kwargs)
@@ -369,8 +371,14 @@ def test_paged_options_refused(kwargs, item):
             sg, pagemajor=True), 4 * sg.vpad)
         assert eng.gather == want
         return
+    eng = pagerank.build_engine(g, 2, device=CPU, **kwargs)
+    flat = pagerank.build_engine(g, 2, device=CPU, exchange="owner")
+    assert eng.gather == kwargs["gather"] and eng.exchange == "owner"
+    np.testing.assert_allclose(eng.unpad(eng.run(eng.init_state(), 3)),
+                               flat.unpad(flat.run(flat.init_state(), 3)),
+                               rtol=2e-5, atol=1e-9)
     with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
-        pagerank.build_engine(g, device=CPU, **kwargs)
+        pagerank.build_engine(g, device=CPU, mesh=object(), **kwargs)
 
 
 def test_paged_value_errors():

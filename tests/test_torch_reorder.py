@@ -186,11 +186,15 @@ def test_page_fill_stats_equal_reference(ref, comm12):
 
 
 def test_page_reorder_refusals(comm12):
-    from lux_tpu_torch.engine.pull import NotPortedError
+    """An unknown method is refused; the owner exchange (once refused
+    naming A6) is scored by the owner plans' counting pass."""
     with pytest.raises(ValueError, match="unknown reorder method"):
         page_reorder(comm12, method="rabbit")
-    with pytest.raises(NotPortedError, match="A6"):
-        page_reorder(comm12, method="degree", exchange="owner")
+    _g2, _perm, rep = page_reorder(comm12, method="degree",
+                                   exchange="owner")
+    g3, _perm3 = degree_relabel(comm12)
+    assert rep["candidates"]["degree"] == _digest(
+        page_fill_stats(g3, 1, "owner"))
 
 
 def test_apply_perm_equals_reference(ref, comm12):

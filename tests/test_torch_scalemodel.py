@@ -80,9 +80,18 @@ def test_pagemajor_prices_equal_reference(ref):
             rsm.pagemajor_break_even_vfill(ratio, g, t)
     with pytest.raises(ValueError, match="K-dim"):
         sm.pagemajor_gather_ns(1.0, 128.0, 16.0, kdim=20, constants=c)
-    # the routed hop prices a link between cards: ROADMAP A6
-    with pytest.raises(NotPortedError, match="A6"):
-        sm.pagemajor_gather_ns(1.0, 128.0, 16.0, routed=True, constants=c)
+    # the owner plan's routed hop (once refused naming A6): the
+    # reference's pagemajor_route_ns under its figures
+    for ratio, g, v in itertools.product(RATIOS, [8.0, 64.0, 128.0],
+                                         FILLS):
+        _same(sm.pagemajor_gather_ns(ratio, g, v, routed=True,
+                                     constants=c),
+              rsm.pagemajor_gather_ns(ratio, g, v, routed=True))
+    for ratio, g, t in itertools.product(RATIOS, [8.0, 64.0, 128.0],
+                                         TABLES):
+        assert sm.pagemajor_break_even_vfill(ratio, g, t, routed=True,
+                                             constants=c) == \
+            rsm.pagemajor_break_even_vfill(ratio, g, t, routed=True)
 
 
 @pytest.mark.parametrize("kind", ["sum", "min", "max"])
@@ -386,7 +395,8 @@ def test_default_table_is_the_cards():
     assert all(src.split(":")[0] in (
         "pricing", "pairs (monolithic)", "colfilter pairs_monolithic",
         "colfilter paged", "paged", "pagemajor", "main", "mxu",
-        "ppr_batch") for src in sm.H100_SOURCES.values())
+        "ppr_batch", "owner", "owner_paged")
+        for src in sm.H100_SOURCES.values())
     assert sm.STATE_NS_PER_VERTEX == c.state_ns_per_vertex
     # None means the card's table in every function
     assert sm.break_even_fill(20) == sm.break_even_fill(20, constants=c)

@@ -507,3 +507,70 @@ def test_retired_refusals_now_run(graphs):
                                  pair_min_fill="auto").pairs is not None
     with pytest.raises(NotPortedError, match="A6"):
         pagerank.build_engine(g, device=CPU, mesh=object())
+
+
+# ---------------------------------------------------------------------
+# per-part counters against NumPy oracles (the stats variants whose
+# docstrings cite per-part rows: pull run_stats, push converge_stats
+# and converge_health)
+
+
+def per_part_pull_oracle(states) -> tuple:
+    """float64 per-part counters of a sequence of pull states [P, vpad]:
+    row i is (max |s[i+1] - s[i]| over the part, vertices it changed)."""
+    res, chg = [], []
+    for old, new in zip(states, states[1:]):
+        d = np.abs(new.astype(np.float64) - old.astype(np.float64))
+        res.append(d.reshape(d.shape[0], -1).max(1))
+        chg.append((d > 0).reshape(d.shape[0], -1).sum(1))
+    return np.array(res), np.array(chg)
+
+
+def per_part_push_oracle(g, sg, actives) -> tuple:
+    """Per-part push counters from the active masks [P, vpad] entering
+    each iteration (and the last one after it): row i is (the frontier
+    after iteration i, the out-edges of the frontier entering it), the
+    out-degrees counted from the graph's edge list."""
+    src, _dst = g.edge_arrays()
+    deg = sg.to_padded(np.bincount(src, minlength=g.nv).astype(np.int64))
+    size = [a.reshape(a.shape[0], -1).sum(1) for a in actives[1:]]
+    edges = [np.where(a, deg, 0).sum(1) for a in actives[:-1]]
+    return np.array(size), np.array(edges)
+
+
+@pytest.mark.parametrize("variant", ["run_stats", "converge_stats",
+                                     "converge_health"])
+def test_per_part_counters_match_numpy_oracle(graphs, variant):
+    """Each per-part counter row equals its NumPy oracle over the states
+    ``step`` gives one at a time (pull residuals to float32 rounding of
+    the float64 difference, counts exactly), and the scalars are the
+    rows' max / sum."""
+    if variant == "run_stats":
+        eng = pagerank.build_engine(graphs["g"], 3, device=CPU)
+        s = eng.init_state()
+        states = [_np(s)]
+        for _ in range(5):
+            s = eng.step(s)
+            states.append(_np(s))
+        _st, rb, cb, rbp, cbp = eng.run_stats(eng.init_state(), 5)
+        res, chg = per_part_pull_oracle(states)
+        np.testing.assert_allclose(_np(rbp[:5]), res, rtol=1e-6, atol=0)
+        np.testing.assert_array_equal(_np(cbp[:5]), chg)
+        assert torch.equal(rbp[:5].amax(1), rb[:5])
+        assert torch.equal(cbp[:5].sum(1, dtype=torch.int32), cb[:5])
+        return
+    eng = sssp.build_engine(graphs["g"], graphs["start"], num_parts=2,
+                            device=CPU)
+    label, act = eng.init_state()
+    actives = [_np(act)]
+    while actives[-1].any():
+        label, act, _n = eng.step(label, act)
+        actives.append(_np(act))
+    out = getattr(eng, variant)(*eng.init_state())
+    it, fsz, fed, fszp, fedp = out[2:7]
+    assert it == len(actives) - 1
+    size, edges = per_part_push_oracle(graphs["g"], eng.sg, actives)
+    np.testing.assert_array_equal(_np(fszp[:it]), size)
+    np.testing.assert_array_equal(_np(fedp[:it]), edges)
+    assert torch.equal(fszp[:it].sum(1, dtype=torch.int32), fsz[:it])
+    assert torch.equal(fedp[:it].sum(1), fed[:it])
