@@ -136,6 +136,24 @@ Phases, each printing one JSON line:
             step and the two measured (the kernels line's
             lane_shuffle@owner_paged, @owner_pagemajor and
             chunk_partials@owner_paged, @owner_pagemajor entries);
+9c. mesh    (ROADMAP A6b-1; printed after the owner lines) the parts
+            mesh over torch.cuda.device_count() ranks, NCCL: one card
+            is world 1 in this process on an in-process HashStore (a
+            collective is then a copy on the card, and no link is
+            timed), several cards one spawned rank each; a mesh_env line
+            (backend, world, NCCL version); the dryrun's six
+            configurations (lux_tpu_torch/parallel/dryrun.py) against
+            their oracles; pagerank-mp and sssp-mp with mesh= on the
+            owner phase's graph, ShardedGraph and pair plan, against the
+            owner phase's engines without a mesh (PageRank within rtol
+            2e-5, bit equality recorded; labels, iterations and the
+            dense / sparse schedule equal), every kernel's launches a
+            run and a converge equal to theirs; step and converge ms
+            with and without the mesh; the all_gather of the state, the
+            owner reduce-scatter and all_to_all and the count's
+            all_reduce timed alone by CUDA events; B1 on the mesh
+            path's owner chunks against its plain version, two launches
+            bit-equal (the kernels line's chunk_partials@mesh entry);
 10. pairs   bench.py's pagerank config on the main graph: pair_relabel,
             pair_threshold 16, min_fill 24, tile_e 128, through
             pagerank.build_engine once with each pair_stream setting
@@ -3068,11 +3086,12 @@ class SharedPairPlans:
         self.real = pull.plan_sharded_pairs
         memo = {}
 
-        def shared(sg, threshold, min_fill=None, kdim=1):
+        def shared(sg, threshold, min_fill=None, kdim=1, mesh=None):
+            # a whole ShardedGraph plans the same on any mesh
             key = (id(sg), threshold, min_fill, kdim)
             if key not in memo:
                 memo[key] = (sg, self.real(sg, threshold, min_fill=min_fill,
-                                           kdim=kdim))
+                                           kdim=kdim, mesh=mesh))
             return memo[key][1]
 
         for m in self.mods:
@@ -3553,7 +3572,11 @@ def _phase_owner(args, torch, g, main_eng, card):
     require(own_launches == args.iters,
             f"pagerank-mp launched B1 {own_launches} times on its owner "
             f"chunks (want one a step)")
-    err = check_pagerank(g3, eng.unpad(state), want, "pagerank-mp")
+    pr_host = eng.unpad(state)
+    err = check_pagerank(g3, pr_host, want, "pagerank-mp")
+    ref = {"pagerank-mp": dict(result=pr_host, launches=counts,
+                               owner_launches=own_launches,
+                               step_ms=secs * 1e3 / args.iters)}
     del want, state
     layers = owner_layers(args, torch, eng)
     PRICED["owner"] = {"slots": OWNER_PARTS * lay.n_chunks * lay.E,
@@ -3642,6 +3665,9 @@ def _phase_owner(args, torch, g, main_eng, card):
           "oracle_seconds": round(t_oracle, 3), "kernel_cases": scases,
           "card": card})
     audit_case(torch, eng, "sssp-mp")
+    ref["sssp-mp"] = dict(result=eng.unpad(label), iterations=it,
+                          schedule=sched, launches=scounts,
+                          owner_launches=sown, converge_ms=walls)
     del eng, label, want
     torch.cuda.empty_cache()
     bcase = [_check_case(torch, "owner_block", block, block_rel, W_LANES,
@@ -3650,9 +3676,171 @@ def _phase_owner(args, torch, g, main_eng, card):
                     "chunk_partials@owner_block")
     bline["launches"] = fused_counts["chunk_partials"]
     bline["cases"] = bcase
+    mline, mcounts = phase_mesh(args, torch, g3, sg, start, ref, card)
     paths = {"owner": counts, "owner_sssp": scounts,
-             "owner_fused": fused_counts}
-    return [line, sline, bline], paths
+             "owner_fused": fused_counts, "mesh": mcounts}
+    return [line, sline, bline, mline], paths
+
+
+def mesh_ranks(args, torch, g3, sg, start, spec):
+    """The dryrun's configurations and the mp configs on a mesh of every
+    card (``torch.cuda.device_count()`` ranks): one card in this process
+    over NCCL on an in-process HashStore, several cards as spawned
+    ranks.  Returns (backend, world, per-rank dryrun results, per-rank
+    mp results, the dryrun's seconds)."""
+    import torch.distributed as dist
+    from lux_tpu_torch.parallel import dryrun, multihost, suites
+    from lux_tpu_torch.parallel.launch import spawn_ranks
+    from lux_tpu_torch.parallel.mesh import make_mesh
+    world = torch.cuda.device_count()
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    t0 = time.perf_counter()
+    if world > 1:
+        emit({"phase": "mesh_env", "backend": "nccl", "world": world,
+              "nccl": nccl, "ranks": "spawned, one a card"})
+        dry = spawn_ranks(dryrun.configs, world, "cuda", 600)
+        dry_s = time.perf_counter() - t0
+        res = spawn_ranks(suites.mp_configs, world, "cuda", 900, args=(
+            dict(spec, scale=args.scale + OWNER_SCALE_OVER, ef=args.ef,
+                 seed=args.seed),))
+        return "nccl", world, dry, res, dry_s
+    multihost.initialize(store=dist.HashStore(), world_size=1, rank=0,
+                         device="cuda")
+    try:
+        mesh = make_mesh(1, "cuda:0")
+        backend = str(dist.get_backend())
+        emit({"phase": "mesh_env", "backend": backend, "world": mesh.world,
+              "nccl": nccl, "ranks": "this process, an in-process "
+                                     "HashStore"})
+        dry = [dryrun.configs(mesh)]
+        dry_s = time.perf_counter() - t0
+        res = [suites.mp_configs(mesh, dict(spec, g3=g3, sg=sg,
+                                            start=start, keep=True))]
+        res[0]["turns"] = mesh_turns(args, torch, g3, sg, start,
+                                     res[0].pop("engines"))
+    finally:
+        dist.destroy_process_group()
+    return backend, 1, dry, res, dry_s
+
+
+def mesh_turns(args, torch, g3, sg, start, mesh_engs) -> dict:
+    """pagerank-mp and sssp-mp with and without the mesh in turns
+    (without, mesh, mesh, without; twice), the engines without it built
+    on the same ShardedGraph and pair plan: ms of a run of --iters steps
+    by CUDA events (the host's enqueue on the clock: the step syncs with
+    the host, so ``device_ms``'s hold cannot take it off), and the wall
+    of a converge (host clock, synchronized)."""
+    from lux_tpu_torch.apps import pagerank, sssp
+    kw = dict(sg=sg, pair_threshold=PAIR_THRESHOLD,
+              pair_min_fill=PAIR_MIN_FILL, exchange="owner")
+    pr_mesh, ss_mesh = mesh_engs
+    pr = {"without_mesh": pagerank.build_engine(g3, OWNER_PARTS, **kw),
+          "mesh": pr_mesh}
+    ss = {"without_mesh": sssp.build_engine(g3, start, OWNER_PARTS, **kw),
+          "mesh": ss_mesh}
+    out = {k: {n: [] for n in pr} for k in ("run_ms", "converge_ms")}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for _ in range(2):
+        for name in ("without_mesh", "mesh", "mesh", "without_mesh"):
+            eng = pr[name]
+            st = eng.init_state()
+            torch.cuda.synchronize()
+            ev[0].record()
+            eng.run(st, args.iters)
+            ev[1].record()
+            ev[1].synchronize()
+            out["run_ms"][name].append(ev[0].elapsed_time(ev[1]))
+            eng = ss[name]
+            lab, act = eng.init_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.converge(lab, act)
+            torch.cuda.synchronize()
+            out["converge_ms"][name].append(
+                (time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_mesh(args, torch, g3, sg, start, ref, card):
+    """The parts mesh (ROADMAP A6b-1) on the card: the dryrun's six
+    configurations against their oracles; bench.py's pagerank-mp and
+    sssp-mp with ``mesh=`` held against the same engines without one
+    (``ref``: the owner phase's, same graph, ShardedGraph and pair
+    plan): results, iterations and schedules, and every kernel's
+    launches a run and a converge equal; the steps with and without
+    the mesh and each collective of an iteration timed alone; B1 on
+    the mesh path's owner chunks against its plain version.  One card:
+    world 1, where a collective is a copy on the card and no link is
+    timed.  Returns (B1's kernels-line entry, the path's launches)."""
+    from lux_tpu_torch.parallel import dryrun
+    t_phase = time.perf_counter()
+    spec = dict(parts=OWNER_PARTS, threshold=PAIR_THRESHOLD,
+                min_fill=PAIR_MIN_FILL, iters=args.iters, reps=args.reps)
+    backend, world, dry, res, dry_s = mesh_ranks(args, torch, g3, sg,
+                                                 start, spec)
+    want = dryrun.oracles()
+    for r in dry:
+        dryrun.check(r, want)
+    out = res[0]
+    pr, ss = out["pagerank-mp"], out["sssp-mp"]
+    rpr, rss = ref["pagerank-mp"], ref["sssp-mp"]
+    pr_bits = bool(np.array_equal(pr["result"], rpr["result"]))
+    pr_err = float(np.max(np.abs(pr["result"] - rpr["result"])
+                          / np.maximum(np.abs(rpr["result"]), 1e-30)))
+    require(np.allclose(pr["result"], rpr["result"], rtol=2e-5, atol=0),
+            f"pagerank-mp on the mesh differs from the engine without "
+            f"one (max rel err {pr_err:.3e})")
+    require(np.array_equal(ss["result"], rss["result"])
+            and ss["iterations"] == rss["iterations"]
+            and ss["schedule"] == rss["schedule"],
+            "sssp-mp on the mesh differs from the engine without one "
+            "(labels, iterations or dense / sparse schedule)")
+    E = pr["owner_E"]
+    for name, got, exp in (
+            ("pagerank-mp", pr["launches"], rpr),
+            ("sssp-mp", ss["launches"], rss)):
+        want_l = {"chunk_partials": exp["launches"]["chunk_partials"],
+                  "lane_shuffle": exp["launches"]["lane_shuffle"],
+                  "chunk_partials_batched": 0,
+                  "owner": exp["owner_launches"]}
+        got_l = {k: got[k] for k in ("chunk_partials", "lane_shuffle",
+                                      "chunk_partials_batched")}
+        got_l["owner"] = got["chunk_partials_by_e"].get(E, 0)
+        require(got_l == want_l,
+                f"{name} on the mesh launched {got_l}, the engine "
+                f"without one {want_l}")
+    msgs, rel = (x.cuda() for x in out["b1_rows"])
+    cases = [_check_case(torch, "mesh", msgs, rel, W_LANES, "sum"),
+             check_deterministic(torch, "mesh", msgs, rel, W_LANES, "sum")]
+    line = b1_line(args, torch, msgs, rel, W_LANES, "chunk_partials@mesh")
+    line["launches"] = pr["launches"]["chunk_partials_by_e"].get(E, 0)
+    line["cases"] = cases
+    del msgs, rel, out["b1_rows"]
+    mesh_ms = pr["run_ms"] / args.iters
+    emit({"phase": "mesh", "backend": backend, "world": world,
+          "parts": OWNER_PARTS, "scale": args.scale + OWNER_SCALE_OVER,
+          "dryrun": sorted(dry[0]), "dryrun_seconds": round(dry_s, 3),
+          "pagerank_mp": {
+              "bit_equal": pr_bits, "max_rel_err": pr_err,
+              "step_ms": mesh_ms, "step_ms_without_mesh": rpr["step_ms"],
+              "launches": pr["launches"],
+              "b1_per_iter": pr["launches"]["chunk_partials"] / args.iters},
+          "sssp_mp": {
+              "bit_equal": True, "iterations": ss["iterations"],
+              "dense": ss["schedule"].count("dense"),
+              "sparse": ss["schedule"].count("sparse"),
+              "converge_ms": ss["converge_ms"],
+              "converge_ms_without_mesh": rss["converge_ms"],
+              "launches": ss["launches"]},
+          "in_turns": out.get("turns"),
+          "collectives_ms": out["collectives_ms"],
+          "collective_bytes": out["collective_bytes"],
+          "link": ("none timed: world 1, each collective a copy on the "
+                   "card" if world == 1 else f"{world} cards"),
+          "phase_seconds": round(time.perf_counter() - t_phase, 3),
+          "card": card})
+    return line, {"chunk_partials": pr["launches"]["chunk_partials"],
+                  "lane_shuffle": pr["launches"]["lane_shuffle"]}
 
 
 def probe_close(torch, name, got, want) -> dict:

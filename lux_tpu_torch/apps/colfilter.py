@@ -28,6 +28,7 @@ from lux_tpu_torch.device import resolve_device
 from lux_tpu_torch.engine.program import PullProgram
 from lux_tpu_torch.engine.pull import PullEngine
 from lux_tpu_torch.graph import VPAD_ALIGN, Graph, ShardedGraph
+from lux_tpu_torch.parallel.mesh import mesh_device
 
 K = 20              # reference col_filter/app.h:28
 LAMBDA = 0.001      # reference col_filter/app.h:26
@@ -81,9 +82,11 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     reduce is a ``torch.bmm`` either way); ``"auto"`` resolves through
     scalemodel at K = 20, as does ``pair_min_fill="auto"``.
     ``audit="warn"|"error"`` audits every program variant at build time
-    (lux_tpu_torch/audit.py).  ``mesh`` is refused, naming ROADMAP A6b;
-    gather 'pagemajor' raises the reference's ValueError."""
-    dev = resolve_device(device)
+    (lux_tpu_torch/audit.py).  ``mesh``: run as this rank of a parts
+    mesh (engine.pull.PullEngine); gather 'pagemajor' raises the
+    reference's ValueError."""
+    dev = (resolve_device(device) if mesh is None
+           else mesh_device(mesh, device))
     if g.weights is None:
         raise ValueError("collaborative filtering needs a weighted graph")
     if sg is None:

@@ -15,6 +15,7 @@ import numpy as np
 from lux_tpu_torch.device import resolve_device
 from lux_tpu_torch.engine.push import PushEngine, PushProgram
 from lux_tpu_torch.graph import VPAD_ALIGN, Graph, ShardedGraph
+from lux_tpu_torch.parallel.mesh import mesh_device
 
 
 def make_program() -> PushProgram:
@@ -77,8 +78,11 @@ def build_engine(g: Graph, num_parts: int = 1, mesh=None,
     seeded engine (``make_batched_program``); pair_threshold must be
     off then.  ``exchange="owner"`` runs the dense iterations
     owner-side (chunk width ``owner_tile_e``, default 256;
-    ``owner_minmax_fused`` changes nothing on one device)."""
-    dev = resolve_device(device)
+    ``owner_minmax_fused`` takes the ring reduce-scatter on a mesh and
+    changes nothing on one device).  ``mesh``: run as this rank of a
+    parts mesh (engine.push.PushEngine)."""
+    dev = (resolve_device(device) if mesh is None
+           else mesh_device(mesh, device))
     if sg is None:
         sg = ShardedGraph.build(
             g, num_parts, starts=starts, pair_threshold=pair_threshold,

@@ -23,6 +23,7 @@ from lux_tpu_torch.device import resolve_device
 from lux_tpu_torch.engine.program import PullProgram
 from lux_tpu_torch.engine.pull import PullEngine
 from lux_tpu_torch.graph import VPAD_ALIGN, Graph, ShardedGraph
+from lux_tpu_torch.parallel.mesh import mesh_device
 
 ALPHA = 0.15
 
@@ -133,8 +134,9 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     forms of the tiled reduce (kernel S9 for this float32 sum).
     ``exchange="owner"`` (or "auto" past OWNER_AUTO_BYTES) runs the
     owner exchange, with its chunk width ``owner_tile_e`` (default
-    256) and ``owner_minmax_fused`` (nothing on one device); the mesh
-    raises engine.pull.NotPortedError (ROADMAP A6b).
+    256) and ``owner_minmax_fused`` (the ring reduce-scatter on a
+    mesh).  ``mesh``: run as this rank of a parts mesh (on its device;
+    engine.pull.PullEngine).
 
     ``sources=[a, b, ...]`` builds the query-batched personalized
     engine with one-hot resets (state [P, vpad, B], one gather serving
@@ -146,7 +148,8 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
     if sources is not None and resets is not None:
         raise ValueError("pass sources=[...] OR resets=[nv, B], "
                          "not both")
-    dev = resolve_device(device)
+    dev = (resolve_device(device) if mesh is None
+           else mesh_device(mesh, device))
     if sources is not None:
         resets = one_hot_resets(g.nv, sources)
     if sg is None:
@@ -168,18 +171,20 @@ def build_engine(g: Graph, num_parts: int = 1, *, device=None,
 
 
 def run(g: Graph, num_iters: int, num_parts: int = 1, *,
-        device=None, health: bool = False) -> np.ndarray:
+        device=None, health: bool = False, mesh=None) -> np.ndarray:
     """Run PageRank; returns degree-normalized ranks [nv] (host).  With
-    ``health`` a tripped watchdog raises health.HealthError."""
-    eng = build_engine(g, num_parts, device=device, health=health)
+    ``health`` a tripped watchdog raises health.HealthError.  On a
+    ``mesh`` every rank returns the whole result."""
+    eng = build_engine(g, num_parts, device=device, health=health,
+                       mesh=mesh)
     return eng.unpad(eng.run(eng.init_state(), num_iters))
 
 
 def run_until(g: Graph, tol: float = 1e-9, max_iters: int = 10000,
-              num_parts: int = 1, *, device=None):
+              num_parts: int = 1, *, device=None, mesh=None):
     """Iterate until the max-abs change of the degree-scaled rank state
     is <= tol.  Returns (ranks [nv], iterations)."""
-    eng = build_engine(g, num_parts, device=device)
+    eng = build_engine(g, num_parts, device=device, mesh=mesh)
     state, it, _res = eng.run_until(eng.init_state(), tol, max_iters)
     return eng.unpad(state), it
 

@@ -18,6 +18,7 @@ import numpy as np
 from lux_tpu_torch.device import resolve_device
 from lux_tpu_torch.engine.push import PushEngine, PushProgram
 from lux_tpu_torch.graph import VPAD_ALIGN, Graph, ShardedGraph
+from lux_tpu_torch.parallel.mesh import mesh_device
 
 HOP_INF = np.int32(np.iinfo(np.int32).max // 2)   # +1 cannot overflow
 DIST_INF = np.float32(np.inf)
@@ -114,8 +115,11 @@ def build_engine(g: Graph, start_vertex: int | None = 0,
     (``make_batched_program``); start_vertex is then ignored, and delta
     and pair_threshold must be off (single-query machinery).  ``exchange="owner"`` runs the dense iterations
     owner-side (chunk width ``owner_tile_e``, default 256;
-    ``owner_minmax_fused`` changes nothing on one device)."""
-    dev = resolve_device(device)
+    ``owner_minmax_fused`` takes the ring reduce-scatter on a mesh and
+    changes nothing on one device).  ``mesh``: run as this rank of a
+    parts mesh (engine.push.PushEngine)."""
+    dev = (resolve_device(device) if mesh is None
+           else mesh_device(mesh, device))
     if weighted and g.weights is None:
         raise ValueError("weighted SSSP needs a weighted graph")
     if sources is not None:

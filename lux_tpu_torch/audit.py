@@ -38,7 +38,7 @@ Check catalogue (check name -> typed error), mapped to eager PyTorch:
       [vpad / 128, 128, ...] pages (at least num_parts shard gathers a
       dense iteration), never over the global ids.  The ring,
       reduce-scatter and all-to-all rules come with the mesh (ROADMAP
-      A6b).
+      A6b-2).
   dtype-discipline     DtypeDisciplineError
       No complex and no float wider than max(4, state itemsize)
       anywhere.  Integers wider than that (int64) pass where torch
@@ -761,7 +761,7 @@ def check_collectives(trace: Trace, spec: ProgramSpec, where: str,
         f"parts); {n} shard gathers seen — a gather over the global ids "
         f"pays the whole table's rate (PERF.md §5: 0.878 ms against "
         f"0.556 ms a part).  The ring, reduce-scatter and all-to-all "
-        f"rules come with the mesh (ROADMAP A6b)")]
+        f"rules come with the mesh (ROADMAP A6b-2)")]
 
 
 def check_dtypes(trace: Trace, spec: ProgramSpec, where: str):
@@ -1156,7 +1156,7 @@ def _matrix_graphs():
 def matrix_configs(ledger: bool = True, device=None):
     """The reference's engine configuration matrix (lux_tpu/audit.py:
     1046), each config under the reference's label, its owner paged
-    ones included, without its mesh configurations (ROADMAP A6b):
+    ones included, without its mesh configurations (ROADMAP A6b-2):
     [(label, build thunk, ledger?)].
     ``device``: the card unless "cpu" is asked for."""
     from lux_tpu_torch.apps import colfilter, components, pagerank, sssp

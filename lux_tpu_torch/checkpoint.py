@@ -22,6 +22,11 @@ byte, so either package resumes a run the other began).
 - ``run_checkpointed`` (pull, fixed iterations) and
   ``converge_checkpointed`` (push, to convergence) save after every
   segment (segmented.py) and resume from the newest good generation.
+- On a mesh (lux_tpu/checkpoint.py:91-100, :263-290) ``save(...,
+  mesh=)`` all_gathers every leaf into the global [P, vpad, ...] view
+  on every rank (all ranks call it together) and rank 0 alone writes;
+  a resume's ``eng.place`` keeps each rank's rows of that view, so a
+  run saved on one world resumes on any world that divides P.
 
 Leaf order is the reference's flattening: a pull checkpoint holds one
 leaf (the state), a push checkpoint two (labels, then the active mask).
@@ -92,12 +97,31 @@ def chained_crc32(data: bytes, prev: int = 0) -> int:
 
 
 def save(path: str, state, meta: dict | None = None,
-         rotate: bool = True) -> int:
+         rotate: bool = True, mesh=None) -> int:
     """Atomically write a checkpoint: ``state`` is a tensor or array,
     or a tuple / list / dict of them; ``meta`` a JSON-serializable
     dict.  Returns the staged host bytes.  With ``rotate`` an existing
-    file at ``path`` becomes ``<path>.prev`` before the rename."""
+    file at ``path`` becomes ``<path>.prev`` before the rename.
+    ``mesh``: the leaves are a rank's part rows; every rank calls this,
+    the global view is gathered, rank 0 writes it (the others return
+    0) and every rank returns once the file is in place."""
+    if mesh is not None:
+        from lux_tpu_torch.ops.collectives import barrier
+        from lux_tpu_torch.parallel.multihost import fetch_global
+        leaves = [np.ascontiguousarray(fetch_global(x, mesh))
+                  for x in _leaves(state)]
+        staged = 0
+        if mesh.rank == 0:
+            staged = _write(path, leaves, meta, rotate)
+        barrier(mesh)
+        return staged
     leaves = [np.ascontiguousarray(to_host(x)) for x in _leaves(state)]
+    return _write(path, leaves, meta, rotate)
+
+
+def _write(path: str, leaves: list, meta: dict | None,
+           rotate: bool) -> int:
+    """The atomic write of host leaves -> their bytes."""
     staged = sum(int(leaf.nbytes) for leaf in leaves)
     payload = {f"leaf_{i}": leaf for i, leaf in enumerate(leaves)}
     crcs = [_leaf_crc(leaf) for leaf in leaves]
@@ -249,7 +273,7 @@ def _check_placement(used: str, meta: dict, eng, kind: str) -> None:
             path=used)
 
 
-def _timed_save(path, state, meta):
+def _timed_save(path, state, meta, mesh=None):
     """save() under a ``lux_checkpoint_save`` profiler range and a
     ``checkpoint_save`` event (its staged bytes and seconds); the staged
     bytes are the memory ledger's ``checkpoint_staging`` term
@@ -259,7 +283,7 @@ def _timed_save(path, state, meta):
 
     t0 = time.perf_counter()
     with annotation("lux_checkpoint_save"):
-        staged = save(path, state, meta)
+        staged = save(path, state, meta, mesh=mesh)
     memwatch.note_staging(staged)
     telemetry.current().emit(
         "checkpoint_save", iter=int(meta.get("iter", 0)),
@@ -305,7 +329,8 @@ def run_checkpointed(eng, state, num_iters: int, path: str,
             if res is not None:
                 s = out = res
         _timed_save(path, (s,), {"iter": done, "kind": "pull",
-                                 **_placement_of(eng)})
+                                 **_placement_of(eng)},
+                    getattr(eng, "mesh", None))
         return out
 
     return run_segments(eng, state, num_iters, segment,
@@ -364,7 +389,8 @@ def converge_checkpointed(eng, path: str, segment=50,
                 lbl, act = res
                 out = res
         _timed_save(path, (lbl, act), {"iter": total, "kind": "push",
-                                       **_placement_of(eng)})
+                                       **_placement_of(eng)},
+                    getattr(eng, "mesh", None))
         return out
 
     return converge_segments(

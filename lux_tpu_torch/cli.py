@@ -77,8 +77,12 @@ Every app but ``convert`` takes ``-validate`` (format.validate_graph at
 load: a malformed file exits 2 with its typed GraphFormatError) and
 ``-audit warn|error`` (lux_tpu_torch/audit.py over one iteration of
 every program variant at engine build; under ``error`` a violation
-exits 2 with its typed AuditError).  ``-mesh N`` with N > 1 is refused
-(exit 2, ROADMAP A6b).
+exits 2 with its typed AuditError).  ``-mesh N`` runs the app over a
+parts mesh of N ranks (lux_tpu/cli.py:14-15), one process a card:
+``torchrun --nproc-per-node N -m lux_tpu_torch.cli pagerank -file g.lux
+-np P -mesh N`` (P a multiple of N; ``-device cpu`` takes gloo ranks on
+the CPU).  A process group whose world is not N exits 2 saying so, and
+only rank 0 prints.
 
 ``colfilter`` trains the K = 20 factorization on a weighted graph for
 ``-ni`` iterations and prints ``ELAPSED TIME``, ``GTEPS`` and ``RMSE``
@@ -95,8 +99,8 @@ checkpoint, ``-resume`` continuing a run a previous invocation (of
 either package) checkpointed.  The supervised path prints ``#
 supervisor: attempts=... segments=... resumed_from=[...]`` and, for a
 run the checkpoint already completed, ``GTEPS = n/a (run already
-complete in checkpoint)``.  ``-elastic`` (ROADMAP A6) is refused (exit
-2).
+complete in checkpoint)``.  ``-elastic`` (ROADMAP A6b-2) is refused
+(exit 2).
 
 Every app but ``convert`` takes the observability flags
 (lux_tpu/cli.py:84, :113, :210-244, :288-330, :395-445):
@@ -292,7 +296,7 @@ def _add_guard_flags(ap) -> None:
                          "for in-run recovery only).  Supervised timing "
                          "includes the checkpoint saves")
     ap.add_argument("-elastic", action="store_true",
-                    help="not ported (ROADMAP A6: degraded-mesh "
+                    help="not ported (ROADMAP A6b-2: degraded-mesh "
                          "recovery needs several devices)")
     ap.add_argument("-flight", default=None, metavar="FILE",
                     help="install the crash flight recorder "
@@ -349,8 +353,9 @@ def _add_build_flags(ap) -> None:
                          "'error' refuses a violating build (exit 2, "
                          "typed AuditError)")
     ap.add_argument("-mesh", type=int, default=1,
-                    help="devices in the parts mesh: 1 (more is ROADMAP "
-                         "A6b, refused)")
+                    help="ranks in the parts mesh, one a card: N > 1 runs "
+                         "under torchrun --nproc-per-node N (the process "
+                         "group's world must be N)")
 
 
 def _load_graph(args, weighted):
@@ -373,14 +378,48 @@ def _load_graph(args, weighted):
     return g
 
 
+class MeshWorldError(RuntimeError):
+    """``-mesh N`` in a process group whose world is not N."""
+
+
 def _refuse_unported_flags(args) -> None:
-    if args.mesh != 1:
-        raise NotPortedError(f"-mesh {args.mesh} (a device mesh of "
-                             f"parts) is not ported yet (ROADMAP A6b)")
+    """-elastic stays refused; -mesh joins the parts mesh (``args.
+    mesh_obj``: None for -mesh 1 outside a launcher)."""
     if args.elastic:
         raise NotPortedError("-elastic (re-placement over the surviving "
                              "devices after a topology fault) is not "
-                             "ported yet (ROADMAP A6)")
+                             "ported yet (ROADMAP A6b-2)")
+    args.mesh_obj = _join_mesh(args)
+
+
+def _join_mesh(args):
+    """-mesh N (lux_tpu/cli.py:14-15): the process group's mesh, which
+    must have N ranks.  A process that no launcher started is a world
+    of 1, so -mesh 1 there runs without a mesh."""
+    import torch.distributed as dist
+
+    from lux_tpu_torch.parallel import multihost
+    if args.mesh < 1:
+        raise MeshWorldError(f"-mesh {args.mesh}: a mesh has >= 1 rank")
+    launched = multihost.launched() or dist.is_initialized()
+    if dist.is_initialized():
+        world = dist.get_world_size()
+    else:
+        world = int(os.environ["WORLD_SIZE"]) if launched else 1
+    if world != args.mesh:
+        raise MeshWorldError(
+            f"-mesh {args.mesh} needs a process group of world "
+            f"{args.mesh}, this one has world {world}: start it as "
+            f"torchrun --nproc-per-node {args.mesh} -m lux_tpu_torch.cli "
+            f"... -mesh {args.mesh}")
+    if not launched:
+        return None
+    multihost.initialize(device=args.device)
+    mesh = multihost.global_mesh(device=args.device)
+    if mesh.rank != 0:
+        # every rank runs the app; rank 0 alone prints its lines
+        sys.stdout = open(os.devnull, "w")
+    return mesh
 
 
 @contextlib.contextmanager
@@ -598,6 +637,7 @@ def _pagerank(args, tel) -> int:
     sources = _batched_sources(args, g.nv)
     g_run, perm, starts = _relabel_for_pairs(args, g, num_parts)
     eng = pagerank.build_engine(g_run, num_parts, device=args.device,
+                                mesh=args.mesh_obj,
                                 gather=args.gather, starts=starts,
                                 pair_threshold=args.pair,
                                 pair_min_fill=args.min_fill,
@@ -713,7 +753,8 @@ def _push_run(args, tel, prog_name) -> int:
                 pair_threshold=args.pair, pair_min_fill=args.min_fill,
                 sources=sources, device=args.device, health=args.health,
                 use_mxu=_mxu_arg(args), exchange=args.exchange,
-                enable_sparse=bool(args.sparse), audit=args.audit)
+                enable_sparse=bool(args.sparse), audit=args.audit,
+                mesh=args.mesh_obj)
     if prog_name == "sssp":
         start = args.start
         if perm is not None and 0 <= start < g.nv:
@@ -830,6 +871,7 @@ def _colfilter(args, tel) -> int:
                             else VPAD_ALIGN)
     try:
         eng = colfilter.build_engine(g_run, num_parts, device=args.device,
+                                     mesh=args.mesh_obj,
                                      sg=sg, gather=args.gather,
                                      pair_threshold=args.pair,
                                      pair_min_fill=args.min_fill,
@@ -860,6 +902,9 @@ def _colfilter(args, tel) -> int:
     # relabelled graph is the matching choice
     print(f"RMSE = {colfilter.rmse(g_run, out):.6f}")
     if args.check:
+        if args.mesh_obj is not None:
+            # the audit reads the whole state: every rank's rows
+            state = np.asarray(sg.to_padded(out))
         res = device_check.check_colfilter_device(sg, state,
                                                   device=args.device)
         print(res)
@@ -898,7 +943,8 @@ def main(argv=None) -> int:
         return 2
     try:
         return _APPS[argv[0]](argv[1:])
-    except (DeviceUnavailableError, NotPortedError, AuditError) as e:
+    except (DeviceUnavailableError, NotPortedError, AuditError,
+            MeshWorldError) as e:
         # -audit error: a violating build is a typed, named refusal
         # (like GraphFormatError), never a run whose numbers silently
         # embed the violation

@@ -94,8 +94,23 @@ what would not fit in its free memory, elsewhere by the reference's
 1 GB rule (ops/tiled.stream_by_default).  An owner layout that streams
 by the same rule runs the fused streamed combine.
 
-The mesh (ROADMAP A6b) is refused with a typed :class:`NotPortedError`
-naming the item that brings it.
+``mesh=`` (lux_tpu/engine/pull.py:206-233, :346, :481, :760-880,
+:1235) runs the engine on one rank of a parts mesh
+(lux_tpu_torch/parallel/mesh.py): the rank holds its part rows
+``[r*P/world, (r+1)*P/world)`` of every array and of the state, and
+an iteration adds the collectives of ops/collectives.py.  The gather
+exchange all_gathers the state into the whole [P*vpad, ...] table
+(the ``exchange`` phase), then the tiled, flat, pair-row and dot
+paths reduce the rank's own parts; the owner exchange reduce-scatters
+(a sum) or all_to_alls (a min / max) the contributions, and pair rows
+all_gather the table only for themselves.  ``run_until``'s residual is
+the max across ranks, so every rank stops at the same iteration;
+``unpad`` all_gathers the state.  A local-parts build
+(``ShardedGraph.build(..., parts=)``) must hold exactly the rank's
+rows.  What a mesh does not run yet raises :class:`NotPortedError`
+naming ROADMAP A6b-2: query-batched programs, ``health``, the counter
+and watchdog variants, ``timed_phases``, duration-budgeted segments,
+``audit=`` and the paged / page-major deliveries.
 """
 
 from __future__ import annotations
@@ -127,6 +142,7 @@ from lux_tpu_torch.ops.pairs import (DOT_BLOCK_ROWS, PAIR_DOT_KEYS,
                                      resolve_pair_stream)
 from lux_tpu_torch.ops.owner import (OwnerLayout, owner_contribs,
                                      owner_exchange, owner_graph_arrays)
+from lux_tpu_torch.ops.collectives import all_gather_parts, all_reduce_scalar
 from lux_tpu_torch.ops.segment import segment_reduce
 from lux_tpu_torch.ops.tiled import (TiledLayout, combine_op,
                                      combine_partials,
@@ -134,6 +150,9 @@ from lux_tpu_torch.ops.tiled import (TiledLayout, combine_op,
                                      stream_by_default,
                                      streamed_tiled_reduce,
                                      tiled_segment_reduce)
+from lux_tpu_torch.parallel.mesh import (check_divisible, local_part_rows,
+                                         mesh_device, rows_of,
+                                         shard_over_parts)
 from lux_tpu_torch.profiling import annotation, device_fence
 from lux_tpu_torch.scalemodel import ReduceLayout
 from lux_tpu_torch.telemetry import DEFAULT_STATS_CAP
@@ -221,12 +240,62 @@ class NotPortedError(NotImplementedError):
     yet; the message names the ROADMAP item that brings it."""
 
 
-def _refuse(what: str, item: str):
-    raise NotPortedError(f"{what} is not ported yet (ROADMAP {item}); "
-                         f"the port runs one device, layout "
-                         f"'tiled'/'flat', gather 'flat'/'paged'/"
-                         f"'pagemajor' or pair-lane rows, exchange "
-                         f"'gather' or 'owner'")
+def refuse_on_mesh(what: str):
+    """The options a mesh does not run yet (ROADMAP A6b-2)."""
+    raise NotPortedError(f"{what} on a device mesh is not ported yet "
+                         f"(ROADMAP A6b-2); a mesh runs the tiled, flat, "
+                         f"pair-row and dot paths on the gather or owner "
+                         f"exchange, unbatched, without health, counters, "
+                         f"phase timing or the auditor")
+
+
+def check_mesh_build(sg, mesh, *, batch=None, health=False, audit=None,
+                     gather="flat", page_plan=None) -> None:
+    """A mesh engine's build rules: the reference's divisibility and
+    local-parts checks (lux_tpu/engine/pull.py:226, :1434), then the
+    options left for ROADMAP A6b-2."""
+    if mesh is None:
+        check_local_parts(sg, mesh)
+        return
+    check_divisible(sg.num_parts, mesh)
+    check_local_parts(sg, mesh)
+    if batch is not None:
+        refuse_on_mesh("a query-batched program (batch=B)")
+    if health:
+        refuse_on_mesh("the health watchdog (health=True)")
+    if audit is not None:
+        refuse_on_mesh("the build-time auditor (audit=)")
+    if gather not in ("flat", "auto") or page_plan is not None:
+        refuse_on_mesh(f"gather={gather!r} (the paged deliveries)")
+
+
+def check_local_parts(sg, mesh) -> None:
+    """A local-parts build (``sg.local_parts``) needs a mesh and must
+    hold exactly this rank's rows (lux_tpu/engine/pull.py:1434)."""
+    local = getattr(sg, "local_parts", None)
+    if local is None:
+        return
+    if mesh is None:
+        raise ValueError(
+            "a ShardedGraph built with parts= (multi-host local rows) "
+            "requires a mesh")
+    expect = list(local_part_rows(mesh, sg.num_parts))
+    got = [int(p) for p in np.asarray(local)]
+    if got != expect:
+        raise ValueError(
+            f"local_parts {got} != this process's sharding rows "
+            f"{expect}; build with parts=multihost.process_parts(P)")
+
+
+def bind_mesh(eng, mesh, num_parts: int) -> None:
+    """An engine's place in the mesh: ``mesh`` (None: one device),
+    ``ndev`` its world, and the rank's part rows (``part0`` on, ``lp``
+    of them; every part without a mesh)."""
+    eng.mesh = mesh
+    rows = (range(num_parts) if mesh is None
+            else local_part_rows(mesh, num_parts))
+    eng.part0, eng.lp = rows.start, len(rows)
+    eng.ndev = 1 if mesh is None else mesh.world
 
 
 def _check_pair_program(layout: str, program) -> None:
@@ -315,8 +384,10 @@ def build_graph_arrays(sg: ShardedGraph, layout: str, tile_e: int,
         return arrays, None
     if layout != "tiled":
         raise ValueError(f"unknown layout {layout!r}")
-    lay = TiledLayout.build(sg.row_ptr_local, sg.dst_local, sg.vpad,
-                            E=tile_e)
+    lay = TiledLayout.build(
+        sg.row_ptr_local, sg.dst_local, sg.vpad, E=tile_e,
+        sizing_row_ptr=(None if getattr(sg, "local_parts", None) is None
+                        else sg.sizing_row_ptr()))
     arrays = dict(src_slot=lay.chunk(sg.src_slot), rel_dst=lay.rel_dst,
                   chunk_start=lay.chunk_start, last_chunk=lay.last_chunk,
                   **common)
@@ -374,10 +445,14 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
 
 
 def check_dense_arrays(a: dict, P: int, vpad: int, tiles, pages,
-                       pairs) -> None:
+                       pairs, num_parts: int | None = None,
+                       part0: int = 0) -> None:
     """Shapes and index ranges of a dense engine's arrays on the
     device (tiled, flat or paged, with or without pair rows), checked
-    once: an out-of-range index would fault on the card."""
+    once: an out-of-range index would fault on the card.  ``P`` rows of
+    the ``num_parts`` (default P) parts, from part ``part0`` on: a
+    mesh rank's (its sources index the whole table)."""
+    Pg = P if num_parts is None else int(num_parts)
     if a["deg"].shape != (P, vpad) or a["nvp"].shape != (P, 1):
         raise ValueError(f"deg {tuple(a['deg'].shape)} / nvp "
                          f"{tuple(a['nvp'].shape)} do not match "
@@ -386,8 +461,8 @@ def check_dense_arrays(a: dict, P: int, vpad: int, tiles, pages,
         check_paged_arrays(a, P, vpad, pages)
         return
     src = a["src_slot"]
-    if _outside(src, P * vpad):
-        raise ValueError(f"src_slot outside the [0, {P * vpad}) state "
+    if _outside(src, Pg * vpad):
+        raise ValueError(f"src_slot outside the [0, {Pg * vpad}) state "
                          f"table")
     if tiles is not None:
         shape = (P, tiles.n_chunks, tiles.E)
@@ -404,13 +479,15 @@ def check_dense_arrays(a: dict, P: int, vpad: int, tiles, pages,
             raise ValueError(f"chunk_tile is not [P, C] = {shape[:2]} "
                              f"in [0, {tiles.n_tiles}]")
         if pairs is not None:
-            check_pair_arrays(a, P, vpad, pairs)
+            check_pair_arrays(a, P, vpad, pairs, Pg, part0)
 
 
-def check_owner_arrays(a: dict, P: int, vpad: int, geom) -> None:
+def check_owner_arrays(a: dict, P: int, vpad: int, geom,
+                       num_parts: int | None = None) -> None:
     """Shapes, dtypes and index ranges of an engine's owner arrays (on
     the device), checked once: an out-of-range index would fault on the
-    card."""
+    card.  ``P`` source rows of ``num_parts`` (default P) parts."""
+    Pg = P if num_parts is None else int(num_parts)
     C, E = geom.n_chunks, geom.E
     packed = "own_sr" in a
     missing = [k for k in OWNER_KEYS + (("own_sr", "own_nv") if packed
@@ -421,7 +498,7 @@ def check_owner_arrays(a: dict, P: int, vpad: int, geom) -> None:
     slots = a["own_sr"] if packed else a["own_src"]
     ep = a.get("own_ep")
     ok = (geom.W == W and geom.n_tiles * geom.W >= vpad
-          and geom.G == P * geom.n_tiles
+          and geom.G == Pg * geom.n_tiles
           and tuple(slots.shape) == (P, C, E)
           and slots.dtype == torch.int32
           and tuple(a["own_cs"].shape) == (P, C)
@@ -514,10 +591,12 @@ def check_paged_arrays(a: dict, P: int, vpad: int, pp) -> None:
 
 
 def check_dot_tiles(row_tile, tile0, P: int, vpad: int, geom,
-                    what: str) -> None:
+                    what: str, part0: int = 0) -> None:
     """A dot engine's destination-tile arrays: ``row_tile`` [P, Rp] in
-    [0, n_tiles) and ``tile0`` [P, 1] = each part's first state tile."""
-    want = torch.arange(P, device=tile0.device)[:, None] * (vpad // W)
+    [0, n_tiles) and ``tile0`` [P, 1] = each part's first state tile
+    (parts ``part0`` on)."""
+    want = (part0 + torch.arange(P, device=tile0.device)[:, None]) * (
+        vpad // W)
     if (tuple(row_tile.shape) != (P, geom.Rp)
             or _outside(row_tile, geom.n_tiles)
             or tuple(tile0.shape) != (P, 1)
@@ -527,10 +606,13 @@ def check_dot_tiles(row_tile, tile0, P: int, vpad: int, geom,
                          f"p * vpad / {W}")
 
 
-def check_pair_arrays(a: dict, P: int, vpad: int, sp) -> None:
+def check_pair_arrays(a: dict, P: int, vpad: int, sp,
+                      num_parts: int | None = None, part0: int = 0) -> None:
     """Shapes and index ranges of an engine's pair arrays ``a`` (on the
     device), checked once: an out-of-range rowbind or tile_pos would
-    fault on the card."""
+    fault on the card.  ``P`` rows of ``num_parts`` (default P) parts,
+    from part ``part0`` on."""
+    Pg = P if num_parts is None else int(num_parts)
     rb, rel, tp = (a[k] for k in PAIR_KEYS)
     w = a.get("pair_weight")
     ok = (tuple(rb.shape) == (P, sp.Rp) and rb.dtype == torch.int32
@@ -547,12 +629,12 @@ def check_pair_arrays(a: dict, P: int, vpad: int, sp) -> None:
             f"{len(sp.classes)}, R={sp.R}, Rp={sp.Rp}, n_tiles="
             f"{sp.n_tiles}, n_slots={sp.n_slots}; num_parts={P}, "
             f"vpad={vpad})")
-    if _outside(rb, P * vpad // W) or _outside(tp, sp.n_slots + 1):
+    if _outside(rb, Pg * vpad // W) or _outside(tp, sp.n_slots + 1):
         raise ValueError("pair arrays index outside the state table "
                          "or the class slots")
     if "pair_row_tile" in a:
         check_dot_tiles(a["pair_row_tile"], a["pair_tile0"], P, vpad, sp,
-                        "pair")
+                        "pair", part0)
 
 
 class Placement:
@@ -560,8 +642,8 @@ class Placement:
 
     - placement, which checkpoints and the supervisor reason through:
       ``ndev`` and ``placement_meta()``.  A resume must match num_parts
-      / vpad / exchange ("gather" or "owner"); ``ndev`` is 1 until the
-      mesh lands (ROADMAP A6b);
+      / vpad / exchange ("gather" or "owner"); ``ndev`` is the mesh's
+      world (1 without a mesh);
     - the registry of program variants the auditor (lux_tpu_torch/
       audit.py) runs: name -> (callable, example-args thunk).  Each
       callable runs ONE iteration of its variant on the thunk's
@@ -570,6 +652,7 @@ class Placement:
       delta-relax step (LiveGraph.register_audit)."""
 
     ndev = 1
+    mesh = None
     exchange = "gather"
 
     def placement_meta(self) -> dict:
@@ -667,10 +750,15 @@ class PullEngine(Placement):
         ops/tiled.stream_by_default on the [P, epad] messages; an
         owner layout by ``OwnerLayout.streams``).  ``audit="warn"|
         "error"`` runs one iteration of every program variant under the
-        auditor at build time (lux_tpu_torch/audit.py)."""
-        dev = resolve_device(device)
-        if mesh is not None:
-            _refuse("a device mesh", "A6b")
+        auditor at build time (lux_tpu_torch/audit.py).  ``mesh``: run as
+        this rank of a parts mesh (lux_tpu_torch/parallel/mesh.py) on
+        the mesh's device; ``sg`` holds every part or exactly the
+        rank's (a local-parts build)."""
+        dev = (resolve_device(device) if mesh is None
+               else mesh_device(mesh, device))
+        check_mesh_build(sg, mesh, batch=getattr(program, "batch", None),
+                         health=health, audit=audit, gather=gather,
+                         page_plan=page_plan)
         if gather in ("paged", "pagemajor") and pair_threshold is not None:
             raise ValueError(
                 f"gather={gather!r} subsumes pair delivery (both are "
@@ -682,17 +770,21 @@ class PullEngine(Placement):
             check_owner_program(program)
         t0 = time.perf_counter()
         plan = engine_page_plan(sg, gather, program, exchange, page_plan)
+        if plan is not None and mesh is not None:
+            refuse_on_mesh(f"gather={plan.mode!r} (the paged deliveries)")
         pairs = None
         if pair_threshold is not None:
             # the tiled (or owner) path runs on the pair plan's residual
             pairs, sg = plan_sharded_pairs(sg, pair_threshold,
                                            min_fill=pair_min_fill,
-                                           kdim=dot_kdim(program))
+                                           kdim=dot_kdim(program),
+                                           mesh=mesh)
         plan_seconds = time.perf_counter() - t0
         dot = getattr(program, "edge_value_from_dot", None) is not None
+        local = getattr(sg, "local_parts", None)
         owner = None
         if plan is None and exchange == "owner":
-            owner = OwnerLayout.build(sg, E=owner_tile_e or 256)
+            owner = OwnerLayout.build(sg, E=owner_tile_e or 256, mesh=mesh)
             arrays = dict(common_graph_arrays(sg), **owner_graph_arrays(
                 owner, owner.streams(dev, mxu_wide_of(program))))
             tiles = None
@@ -709,20 +801,24 @@ class PullEngine(Placement):
                                              needs_dst=uses_dst(program))
             tiles = None if lay is None else lay.geometry
             if pairs is not None:
-                arrays.update(pair_graph_arrays(pairs, dot=dot,
-                                                vpad=sg.vpad))
+                arrays.update(pair_graph_arrays(
+                    pairs, dot=dot, vpad=sg.vpad,
+                    parts=None if local is None else sg.part_ids()))
         arrays.update(program_arrays(program, sg))
+        # a mesh rank keeps its own part rows
+        arrays = {k: rows_of(mesh, v, sg.num_parts)
+                  for k, v in arrays.items()}
+        rows = sg.num_parts if mesh is None else sg.num_parts // mesh.world
         if stream_msgs is None:
             wide = mxu_wide_of(program) if dev.type == "cuda" else 1
-            stream_msgs = stream_by_default(
-                sg.num_parts * sg.epad * 4 * wide, dev)
+            stream_msgs = stream_by_default(rows * sg.epad * 4 * wide, dev)
         self._bind(program, arrays, tiles, nv=sg.nv, ne=sg.ne,
                    num_parts=sg.num_parts, vpad=sg.vpad, device=dev, sg=sg,
                    pages=plan, pairs=pairs, pair_stream=pair_stream,
                    dot_block_chunks=dot_block_chunks,
                    dot_block_rows=dot_block_rows, use_mxu=use_mxu,
                    owner=owner, stream_msgs=stream_msgs,
-                   owner_minmax_fused=owner_minmax_fused)
+                   owner_minmax_fused=owner_minmax_fused, mesh=mesh)
         self.plan_seconds = plan_seconds
         self.health = bool(health)
         if stats_cap is not None:
@@ -769,8 +865,10 @@ class PullEngine(Placement):
     def _bind(self, program, arrays, tiles, *, nv, ne, num_parts, vpad,
               device, sg, pages=None, pairs=None, pair_stream=None,
               dot_block_chunks=None, dot_block_rows=None, use_mxu=False,
-              owner=None, stream_msgs=False, owner_minmax_fused=False):
+              owner=None, stream_msgs=False, owner_minmax_fused=False,
+              mesh=None):
         self.program = program
+        bind_mesh(self, mesh, num_parts)
         self.sg = sg
         self.tiles = tiles
         # the OwnerLayout (or, carried from arrays, its OwnerGeometry)
@@ -850,13 +948,14 @@ class PullEngine(Placement):
             if pairs is not None:
                 _check_pair_program("tiled", program)
         self.arrays = device_arrays(arrays, device)
-        a, P = self.arrays, self.num_parts
+        a, P, Pg = self.arrays, self.lp, self.num_parts
         if owner is not None:
-            check_owner_arrays(a, P, self.vpad, owner)
+            check_owner_arrays(a, P, self.vpad, owner, Pg)
             if pairs is not None:
-                check_pair_arrays(a, P, self.vpad, pairs)
+                check_pair_arrays(a, P, self.vpad, pairs, Pg, self.part0)
         else:
-            check_dense_arrays(a, P, self.vpad, tiles, pages, pairs)
+            check_dense_arrays(a, P, self.vpad, tiles, pages, pairs, Pg,
+                               self.part0)
         for k, v in a.items():
             if k.startswith("prog_") and tuple(v.shape[:2]) != (P,
                                                                self.vpad):
@@ -897,14 +996,14 @@ class PullEngine(Placement):
         into its part as the reference does (pads point at a real slot;
         the reduce drops them): flat ``dst_local``, tiled ``chunk_tile
         * W + rel_dst``."""
-        a, P, vpad = self.arrays, self.num_parts, self.vpad
+        a, P, vpad = self.arrays, self.lp, self.vpad
         if self.tiles is None:
             local = a["dst_local"].to(torch.int64).clamp(max=vpad - 1)
         else:
             local = (a["chunk_tile"].to(torch.int64)[..., None]
                      * self.tiles.W + a["rel_dst"].to(torch.int64)
                      ).clamp(0, vpad - 1)
-        base = torch.arange(P, device=local.device) * vpad
+        base = (self.part0 + torch.arange(P, device=local.device)) * vpad
         return (local + base.reshape((P,) + (1,) * (local.dim() - 1))
                 ).reshape(-1)
 
@@ -929,13 +1028,20 @@ class PullEngine(Placement):
         if self.sg is None:
             raise ValueError("engine built from arrays has no graph to "
                              "initialise from; pass the state in")
-        return torch.as_tensor(self.program.init(self.sg)).to(self.device)
+        st = self.program.init(self.sg)
+        if self.mesh is not None:
+            return shard_over_parts(self.mesh, np.asarray(st),
+                                    self.num_parts)
+        return torch.as_tensor(st).to(self.device)
 
     def place(self, state) -> torch.Tensor:
         """A host state [P, vpad, ...] -> a tensor on the engine's
-        device (the serving layer's re-place after a refill)."""
-        st = torch.as_tensor(np.asarray(state)).to(self.device)
-        if tuple(st.shape[:2]) != (self.num_parts, self.vpad):
+        device (the serving layer's re-place after a refill); on a mesh,
+        this rank's rows of it, so a state saved on one world resumes
+        on any other that divides P (lux_tpu/engine/pull.py:481)."""
+        st = rows_of(self.mesh, np.asarray(state), self.num_parts)
+        st = torch.as_tensor(np.ascontiguousarray(st)).to(self.device)
+        if tuple(st.shape[:2]) != (self.lp, self.vpad):
             raise ValueError(f"state {tuple(st.shape)} is not [num_parts, "
                              f"vpad, ...] = [{self.num_parts}, "
                              f"{self.vpad}, ...]")
@@ -974,7 +1080,9 @@ class PullEngine(Placement):
         if self.sg is None:
             raise ValueError("engine built from arrays has no partition "
                              "to unpad with")
-        return self.sg.from_padded(state.detach().cpu().numpy())
+        from lux_tpu_torch.parallel.multihost import fetch_global
+        return self.sg.from_padded(fetch_global(state, self.mesh,
+                                                self.num_parts))
 
     # -- one iteration ------------------------------------------------
 
@@ -1003,8 +1111,7 @@ class PullEngine(Placement):
 
     def _reduce(self, msgs):
         """Phase 2 (reduce): [P, vpad, ...] per-vertex reductions."""
-        prog, a, P, vpad = self.program, self.arrays, self.num_parts, \
-            self.vpad
+        prog, a, P, vpad = self.program, self.arrays, self.lp, self.vpad
         if self.tiles is None:
             trail = tuple(msgs.shape[2:])
             red = segment_reduce(msgs.reshape((-1,) + trail), self._seg,
@@ -1047,13 +1154,15 @@ class PullEngine(Placement):
 
     # -- the dot path (edge_value_from_dot programs) --------------------
 
-    def dot_chunk_blocks(self, state) -> list:
+    def dot_chunk_blocks(self, state, flat=None) -> list:
         """The tiled layout's SDDMM blocks (ops/dot.DotBlock): the
         [P*C] chunks in blocks of ``dot_block_chunks``, each fetching
-        its edges' source rows and its chunks' destination tiles from
-        ``state`` [P, vpad, K] padded to whole tiles
-        (lux_tpu/engine/pull.py:635-697).  Pad chunks (tile n_tiles)
-        read the last tile and are never taken by the combine."""
+        its edges' source rows from the whole table ``flat`` [P*vpad, K]
+        (default ``state``'s rows) and its chunks' destination tiles
+        from ``state`` [P, vpad, K] (a mesh rank's rows) padded to
+        whole tiles (lux_tpu/engine/pull.py:635-697).  Pad chunks (tile
+        n_tiles) read the last tile and are never taken by the
+        combine."""
         a, t = self.arrays, self.tiles
         P, vpad, K = state.shape
         pad = t.n_tiles * t.W - vpad
@@ -1062,7 +1171,8 @@ class PullEngine(Placement):
         else:
             state_t = state
         tiles = state_t.reshape(P * t.n_tiles, t.W, K)
-        flat = state.reshape(-1, K)
+        if flat is None:
+            flat = state.reshape(-1, K)
         n = P * t.n_chunks
         src = self._src.view(n, t.E)
         rel = a["rel_dst"].view(n, t.E)
@@ -1082,13 +1192,13 @@ class PullEngine(Placement):
                                 rel=rel[sl], weight=wgt[sl], units=sl))
         return out
 
-    def dot_chunk_partials(self, state):
-        """Every chunk's [W, K] partials -> [P*C, W, K]."""
+    def dot_chunk_partials(self, state, flat=None):
+        """Every chunk's [W, K] partials -> [P*C, W, K] (``flat``: the
+        whole source table, as ``dot_chunk_blocks``)."""
         t = self.tiles
-        out = torch.empty((self.num_parts * t.n_chunks, t.W,
-                           state.shape[-1]), dtype=state.dtype,
-                          device=state.device)
-        return run_blocks(self.dot_chunk_blocks(state),
+        out = torch.empty((self.lp * t.n_chunks, t.W, state.shape[-1]),
+                          dtype=state.dtype, device=state.device)
+        return run_blocks(self.dot_chunk_blocks(state, flat),
                           self.program.edge_value_from_dot, out)
 
     def _pair_dot_red(self, flat_state):
@@ -1117,7 +1227,8 @@ class PullEngine(Placement):
         """The tiled dot path: chunk partials, their segmented combine,
         plus the pair rows' sums -> [P, vpad, K]."""
         a = self.arrays
-        red = combine_partials(self.dot_chunk_partials(state), self.tiles,
+        red = combine_partials(self.dot_chunk_partials(state, flat_state),
+                               self.tiles,
                                a["chunk_start"], a["last_chunk"],
                                self.vpad, "sum", self._plan, self.use_mxu)
         if self.pairs is not None:
@@ -1128,7 +1239,10 @@ class PullEngine(Placement):
 
     def _phase_exchange(self, state):
         """exchange: the flat [P*vpad, ...] state table every part reads
-        (one device: a view of the state)."""
+        (one device: a view of the state; a mesh: every rank's rows,
+        all_gathered)."""
+        if self.mesh is not None:
+            state = all_gather_parts(self.mesh, state)
         return state.reshape((-1,) + tuple(state.shape[2:]))
 
     def _phase_gather(self, flat):
@@ -1189,8 +1303,10 @@ class PullEngine(Placement):
 
     def _owner_exchange(self, acc):
         """The contributions to their destination parts
-        (ops/owner.owner_exchange: the identity on one device)."""
-        return owner_exchange(acc, self.program.reduce,
+        (ops/owner.owner_exchange: the identity on one device, across
+        the mesh's ranks on one)."""
+        return owner_exchange(acc, self.program.reduce, axis=self.mesh,
+                              ndev=self.ndev,
                               minmax_fused=self.owner_minmax_fused)
 
     def _phase_gen_exchange(self, state):
@@ -1277,6 +1393,8 @@ class PullEngine(Placement):
         owner engine's are ``gen_exchange`` and ``apply``.  The
         fences and host returns between phases are not in a plain run:
         read the split for relative weight, not for the rate."""
+        if self.mesh is not None:
+            refuse_on_mesh("timed_phases")
         from lux_tpu_torch.engine.phased import PhaseTimer
         fence = device_fence(self.device)
         fence()             # the caller's queued work is no phase's
@@ -1309,6 +1427,8 @@ class PullEngine(Placement):
         ``seg_budget`` (seconds) runs duration-budgeted segments
         instead (segmented.DurationBudget)."""
         if seg_budget is not None:
+            if self.mesh is not None:
+                refuse_on_mesh("a duration-budgeted run (seg_budget=)")
             from lux_tpu_torch.segmented import DurationBudget, run_segments
             return run_segments(self, state, num_iters,
                                 DurationBudget(seg_budget))
@@ -1365,6 +1485,8 @@ class PullEngine(Placement):
         until the caller fetches the buffers (telemetry.IterStats).
         Iterations past ``stats_cap`` run and record nothing.  The state
         is ``run``'s, bit for bit."""
+        if self.mesh is not None:
+            refuse_on_mesh("run_stats")
         bufs = _PullCounters(self)
         for i in range(num_iters):
             new = self.step(state)
@@ -1378,6 +1500,8 @@ class PullEngine(Placement):
         residual, residual_buf, changed_buf, residual_parts,
         changed_parts) (lux_tpu/engine/pull.py:1097).  The loop keeps
         ``run_until``'s one small read an iteration, the residual."""
+        if self.mesh is not None:
+            refuse_on_mesh("run_until_stats")
         bufs = _PullCounters(self)
         state, it, res = self._run_until(state, tol, max_iters, bufs)
         return state, it, res, bufs.rb, bufs.cb, bufs.rbp, bufs.cbp
@@ -1398,6 +1522,8 @@ class PullEngine(Placement):
         the reference's.  A healthy run's state is the plain run's,
         bit for bit (``where`` on True returns the new state).  Decode
         the word once with ``health.ensure_ok(watch)``."""
+        if self.mesh is not None:
+            refuse_on_mesh("run_health")
         from lux_tpu_torch import health as hw
         h, win = watch if watch is not None else (
             hw.init_word(self.device), hw.init_window(self.device))
@@ -1429,6 +1555,8 @@ class PullEngine(Placement):
         word's flags together, and stops when the residual is <= tol
         (never on a NaN residual), at max_iters, or the iteration a
         check trips."""
+        if self.mesh is not None:
+            refuse_on_mesh("run_until_health")
         guard = _PullGuard(self)
         state, it, res = self._run_until(state, tol, max_iters, guard)
         return (state, it, res, guard.rb, guard.cb, guard.rbp, guard.cbp,
@@ -1438,7 +1566,9 @@ class PullEngine(Placement):
                   max_iters: int = np.iinfo(np.int32).max):
         """Iterate until the max-abs change of the state is <= tol, or
         max_iters.  Returns (state, iterations, final residual).  A NaN
-        residual never reports convergence (``not res <= tol``)."""
+        residual never reports convergence (``not res <= tol``).  On a
+        mesh the residual is the max over every rank's parts, so the
+        ranks stop together."""
         return self._run_until(state, tol, max_iters, None)
 
     def _run_until(self, state, tol, max_iters, guard):
@@ -1446,8 +1576,10 @@ class PullEngine(Placement):
         while not res <= tol and it < max_iters:
             new = self.step(state)
             if guard is None:
-                res = float((new.float() - state.float()).abs().max())
-                flags = 0
+                r = (new.float() - state.float()).abs().max()
+                if self.mesh is not None:
+                    r = all_reduce_scalar(self.mesh, r, "max")
+                res, flags = float(r), 0
             else:
                 res, flags = guard.record(it, new, state)  # the one read
             state, it = new, it + 1

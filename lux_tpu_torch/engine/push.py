@@ -80,6 +80,21 @@ in its free memory, elsewhere by the reference's 1 GB rule
 under the auditor at build time (lux_tpu_torch/audit.py).  Options the
 port does not carry yet raise :class:`NotPortedError` naming the
 ROADMAP item that brings them.
+
+``mesh=`` (lux_tpu/engine/push.py:102-130, :309, :333, :493-546,
+:641-790, :1175) runs the engine on one rank of a parts mesh, holding
+its own part rows (engine/pull.py's rules): a dense iteration
+all_gathers the masked labels into the whole table (or, on the owner
+exchange, all_to_alls the contributions for a local min / max, or
+rings them with ``owner_minmax_fused``); a sparse one all_gathers
+every rank's (vertex, label) queue, relaxes the rank's own parts and
+clears the queue prefix every part expanded, agreed by a min across
+ranks.  The one int32 an iteration is read after its sum across ranks,
+so every rank takes the same dense-or-sparse branch and stops at the
+same iteration; delta-stepping's bucket bound and counts are agreed
+the same way.  ``converge_stats`` / ``converge_health``,
+``timed_phases``, duration-budgeted segments and the options pull
+refuses on a mesh raise :class:`NotPortedError` naming ROADMAP A6b-2.
 """
 
 from __future__ import annotations
@@ -96,14 +111,19 @@ from lux_tpu_torch.device import resolve_device
 from lux_tpu_torch.engine import frontier as fr
 from lux_tpu_torch.engine.program import vmask_of
 from lux_tpu_torch.engine.pull import (NotPortedError, Placement, _outside,
-                                       build_graph_arrays,
+                                       bind_mesh, build_graph_arrays,
+                                       check_mesh_build,
                                        check_dense_arrays,
                                        check_owner_arrays,
                                        check_pair_arrays,
                                        common_graph_arrays, device_arrays,
                                        flat_segments, gather_rows,
-                                       resolve_exchange, resolve_use_mxu)
+                                       refuse_on_mesh, resolve_exchange,
+                                       resolve_use_mxu)
 from lux_tpu_torch.graph import ShardedGraph
+from lux_tpu_torch.ops.collectives import (all_gather_parts,
+                                           all_reduce_scalar,
+                                           allreduce_host)
 from lux_tpu_torch.ops.pagegather import (engine_page_plan,
                                           paged_owner_contribs, paged_partial,
                                           pagemajor_owner_deliver,
@@ -119,6 +139,7 @@ from lux_tpu_torch.ops.tiled import (combine_op, engine_lane_occupancy,
                                      stream_by_default,
                                      streamed_tiled_reduce,
                                      tiled_segment_reduce)
+from lux_tpu_torch.parallel.mesh import mesh_device, rows_of
 from lux_tpu_torch.partition import frontier_capacity
 from lux_tpu_torch.profiling import annotation, device_fence
 from lux_tpu_torch.telemetry import DEFAULT_STATS_CAP
@@ -127,15 +148,6 @@ INT32_MAX = int(np.iinfo(np.int32).max)
 
 # the src-sorted view's keys (ss_weight when weighted)
 SPARSE_KEYS = ("src_ids", "src_off", "ss_dst", "part_start")
-
-
-def _refuse(what: str, item: str):
-    raise NotPortedError(f"{what} is not ported yet (ROADMAP {item}); "
-                         f"the port's push engine runs one device, "
-                         f"layout 'tiled'/'flat', gather "
-                         f"'flat'/'paged'/'pagemajor' or pair-lane rows "
-                         f"(query-batched programs: tiled or flat), "
-                         f"exchange 'gather' or 'owner'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,9 +205,10 @@ class PushEngine(Placement):
                  owner_minmax_fused: bool = False,
                  stats_cap: int | None = None, health: bool = False,
                  page_plan=None, audit: str | None = None):
-        dev = resolve_device(device)
-        if mesh is not None:
-            _refuse("a device mesh", "A6b")
+        dev = (resolve_device(device) if mesh is None
+               else mesh_device(mesh, device))
+        check_mesh_build(sg, mesh, batch=program.batch, health=health,
+                         audit=audit, gather=gather, page_plan=page_plan)
         if program.batch is not None:
             # the reference's rule (lux_tpu/engine/push.py:131-146):
             # dense masked iterations only
@@ -231,16 +244,21 @@ class PushEngine(Placement):
             raise ValueError("pair_threshold requires the tiled layout")
         t0 = time.perf_counter()
         plan = engine_page_plan(sg, gather, program, exchange, page_plan)
+        if plan is not None and mesh is not None:
+            refuse_on_mesh(f"gather={plan.mode!r} (the paged deliveries)")
         pairs, dense_sg = None, sg
         if pair_threshold is not None:
             # the dense tiled path runs on the pair plan's residual;
             # sparse iterations keep the FULL graph's src-sorted view
             pairs, dense_sg = plan_sharded_pairs(sg, pair_threshold,
-                                                 min_fill=pair_min_fill)
+                                                 min_fill=pair_min_fill,
+                                                 mesh=mesh)
         plan_seconds = time.perf_counter() - t0
         owner = None
+        local = getattr(sg, "local_parts", None) is not None
         if plan is None and exchange == "owner":
-            owner = OwnerLayout.build(dense_sg, E=owner_tile_e or 256)
+            owner = OwnerLayout.build(dense_sg, E=owner_tile_e or 256,
+                                      mesh=mesh)
             arrays, tiles = dict(
                 common_graph_arrays(dense_sg), **owner_graph_arrays(
                     owner, owner.streams(dev, program.batch or 1))), None
@@ -256,24 +274,36 @@ class PushEngine(Placement):
                 arrays.update(pair_graph_arrays(pairs))
         queue_cap = eb = 0
         if enable_sparse:
-            ss = sg.src_sorted(s_pad=sg.src_unique_max())
+            s_pad = sg.src_unique_max()
+            if local:
+                # a shape every rank of a local-parts build agrees on
+                s_pad = int(allreduce_host(mesh, np.int64(s_pad), "max"))
+            ss = sg.src_sorted(s_pad=s_pad)
             # the reference's queue sizing (push_model.inl:393-397)
             queue_cap = frontier_capacity(sg.vpad, sparse_threshold)
             # the budget covers any one source's out-edges in a part,
-            # so a truncated hub always makes progress
+            # so a truncated hub always makes progress; a local-parts
+            # build bounds it by the global max out-degree, the same on
+            # every rank (lux_tpu/engine/push.py:293)
+            max_deg = (int(sg.max_out_degree) if local
+                       else sg.max_in_deg()) or 1
             default_eb = max(1024, sg.epad // sparse_threshold)
             eb = int(edge_budget if edge_budget is not None
-                     else max(default_eb, (sg.max_in_deg() or 1) + 128))
+                     else max(default_eb, max_deg + 128))
             arrays.update(src_ids=ss["src_ids"], src_off=ss["src_off"],
                           ss_dst=ss["ss_dst"],
                           part_start=sg.starts[:-1].astype(
                               np.int32)[:, None])
             if ss["ss_weight"] is not None:
                 arrays["ss_weight"] = ss["ss_weight"]
+        # a mesh rank keeps its own part rows
+        arrays = {k: rows_of(mesh, v, sg.num_parts)
+                  for k, v in arrays.items()}
+        rows = sg.num_parts if mesh is None else sg.num_parts // mesh.world
         if stream_msgs is None:
             wide = (program.batch or 1) if dev.type == "cuda" else 1
             stream_msgs = stream_by_default(
-                sg.num_parts * dense_sg.epad * 4 * wide, dev)
+                rows * dense_sg.epad * 4 * wide, dev)
         self._bind(program, arrays, tiles, nv=sg.nv, ne=sg.ne,
                    num_parts=sg.num_parts, vpad=sg.vpad, device=dev, sg=sg,
                    pages=plan, pairs=pairs, pair_stream=pair_stream,
@@ -281,7 +311,7 @@ class PushEngine(Placement):
                    sparse_threshold=sparse_threshold, queue_cap=queue_cap,
                    edge_budget=eb, delta=delta, use_mxu=use_mxu,
                    owner=owner, stream_msgs=stream_msgs,
-                   owner_minmax_fused=owner_minmax_fused)
+                   owner_minmax_fused=owner_minmax_fused, mesh=mesh)
         self.plan_seconds = plan_seconds
         self.health = bool(health)
         if stats_cap is not None:
@@ -318,7 +348,8 @@ class PushEngine(Placement):
               device, sg, pages, pairs, pair_stream, enable_sparse,
               sparse_threshold, queue_cap, edge_budget, delta,
               use_mxu=False, owner=None, stream_msgs=False,
-              owner_minmax_fused=False):
+              owner_minmax_fused=False, mesh=None):
+        bind_mesh(self, mesh, num_parts)
         if program.reduce not in ("min", "max"):
             raise ValueError(f"push programs reduce by 'min' or 'max', "
                              f"not {program.reduce!r}")
@@ -374,14 +405,15 @@ class PushEngine(Placement):
         self.schedule: list[str] = []
         self._placed = None
         self.arrays = device_arrays(arrays, device)
-        a, P = self.arrays, self.num_parts
+        a, P, Pg = self.arrays, self.lp, self.num_parts
         if owner is not None:
-            check_owner_arrays(a, P, vpad, owner)
+            check_owner_arrays(a, P, vpad, owner, Pg)
             if pairs is not None:
-                check_pair_arrays(a, P, vpad, pairs)
+                check_pair_arrays(a, P, vpad, pairs, Pg, self.part0)
             self._plan = segment_plan(a["own_cs"], a["own_lc"])
         else:
-            check_dense_arrays(a, P, vpad, tiles, pages, pairs)
+            check_dense_arrays(a, P, vpad, tiles, pages, pairs, Pg,
+                               self.part0)
         if pages is None and owner is None:
             self._src = a["src_slot"].reshape(-1)
             if tiles is not None:
@@ -401,7 +433,7 @@ class PushEngine(Placement):
     def _check_sparse(self):
         """Shapes and index ranges of the src-sorted view, checked once
         (an out-of-range index would fault on the card)."""
-        a, P = self.arrays, self.num_parts
+        a, P = self.arrays, self.lp
         missing = [k for k in SPARSE_KEYS if k not in a]
         if missing:
             raise KeyError(f"sparse iterations need {missing}")
@@ -452,13 +484,22 @@ class PushEngine(Placement):
         return self.place(*self.program.init(self.sg))
 
     def place(self, label, active):
-        """Host state arrays -> (label, active) tensors on the device.
-        The host counts the active mask here, so a converge from this
-        state reads no count before its first iteration."""
-        active = np.asarray(active, dtype=bool)
-        lab = torch.tensor(np.asarray(label), device=self.device)
-        act = torch.tensor(active, device=self.device)
-        self._placed = (act, int(np.count_nonzero(active)))
+        """Host state arrays -> (label, active) tensors on the device
+        (on a mesh, this rank's rows of the global [P, vpad] arrays).
+        The host counts the active mask here (across ranks on a mesh),
+        so a converge from this state reads no count before its first
+        iteration."""
+        active = rows_of(self.mesh, np.asarray(active, dtype=bool),
+                         self.num_parts)
+        label = rows_of(self.mesh, np.asarray(label), self.num_parts)
+        lab = torch.tensor(np.ascontiguousarray(label), device=self.device)
+        act = torch.tensor(np.ascontiguousarray(active), device=self.device)
+        cnt = int(np.count_nonzero(active))
+        if self.mesh is not None:
+            cnt = int(all_reduce_scalar(
+                self.mesh, torch.tensor(cnt, dtype=torch.int64,
+                                        device=self.device), "sum"))
+        self._placed = (act, cnt)
         return lab, act
 
     def unpad(self, state: torch.Tensor) -> np.ndarray:
@@ -466,14 +507,27 @@ class PushEngine(Placement):
         if self.sg is None:
             raise ValueError("engine built from arrays has no partition "
                              "to unpad with")
-        return self.sg.from_padded(state.detach().cpu().numpy())
+        from lux_tpu_torch.parallel.multihost import fetch_global
+        return self.sg.from_padded(fetch_global(state, self.mesh,
+                                                self.num_parts))
+
+    def _global_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A count summed across the mesh's ranks (itself without one):
+        what every rank reads, so every rank branches alike."""
+        if self.mesh is None:
+            return x
+        return all_reduce_scalar(self.mesh, x, "sum")
+
+    def _active_count(self, active: torch.Tensor) -> torch.Tensor:
+        """The active count as a device int32 scalar, across ranks."""
+        return self._global_sum(active.sum(dtype=torch.int32))
 
     def _count(self, active: torch.Tensor) -> int:
         """The active count on the host: known for a state ``place``
         made, else one read of one int32."""
         if self._placed is not None and self._placed[0] is active:
             return self._placed[1]
-        return int(active.sum(dtype=torch.int32))
+        return int(self._active_count(active))
 
     # -- messages ------------------------------------------------------
 
@@ -491,6 +545,8 @@ class PushEngine(Placement):
         gather fetches every query's column, and a retired column is
         all-inactive, so it offers the identity)."""
         masked = torch.where(active, label, self._ident)
+        if self.mesh is not None:
+            masked = all_gather_parts(self.mesh, masked)
         return masked.reshape((-1,) + tuple(label.shape[2:]))
 
     def _dense_cand(self, flat):
@@ -505,8 +561,8 @@ class PushEngine(Placement):
         segmented combine, plus the pair rows; or the paged delivery,
         which fetches and reduces in one go; ``upto``, profiling, stops
         a vector state's paged delivery after that stage)."""
-        a, kind, P, vpad = self.arrays, self.program.reduce, \
-            self.num_parts, self.vpad
+        a, kind, P, vpad = self.arrays, self.program.reduce, self.lp, \
+            self.vpad
         if self.page_plan is not None:
             red = paged_partial(
                 self.page_plan, flat, a["pg_ids"], a["pg_sl"], a["pg_rel"],
@@ -592,10 +648,12 @@ class PushEngine(Placement):
                                  self._msg, self.num_parts,
                                  use_mxu=self.use_mxu, plan=self._plan,
                                  max_run=self._plan.max_len, occ=self._occ)
-        red = owner_exchange(acc, kind,
+        red = owner_exchange(acc, kind, axis=self.mesh, ndev=self.ndev,
                              minmax_fused=self.owner_minmax_fused)[
             :, :self.vpad]
         if self.pairs is not None:
+            if self.mesh is not None:
+                masked = all_gather_parts(self.mesh, masked)
             flat = masked.reshape((-1,) + tuple(label.shape[2:]))
             red = combine_op(kind)(red, self._pair_red(flat))
         return self._dense_update(label, red)
@@ -628,9 +686,13 @@ class PushEngine(Placement):
         return gids, vals, cnts
 
     def _sparse_expand(self, gids, vals):
-        """Every part expands the whole [P*Q] queue over its own
-        src-sorted edges -> (edge_idx, src_val, in_range, off)."""
+        """Every part expands the whole [P*Q] queue (every rank's, on a
+        mesh) over its own src-sorted edges -> (edge_idx, src_val,
+        in_range, off)."""
         a = self.arrays
+        if self.mesh is not None:
+            gids = all_gather_parts(self.mesh, gids)
+            vals = all_gather_parts(self.mesh, vals)
         edge_idx, src_val, in_range, _total, off = fr.expand_frontier(
             gids.reshape(-1), vals.reshape(-1), a["src_ids"], a["src_off"],
             self.nv, self.edge_budget, use_mxu=self.use_mxu)
@@ -651,17 +713,19 @@ class PushEngine(Placement):
         return new, prog.better(new, label) & self._vmask
 
     def _sparse_clear(self, active, gids, cnts, off):
-        """Clear the queue prefix that every part expanded fully; the
-        rest stays active (truncation safety)."""
-        P, Q, vpad = self.num_parts, self.queue_cap, self.vpad
+        """Clear the queue prefix that every part (of every rank)
+        expanded fully; the rest stays active (truncation safety)."""
+        P, Q, vpad = self.lp, self.queue_cap, self.vpad
         budget = torch.full((P, 1), self.edge_budget, dtype=torch.int32,
                             device=off.device)
         done = torch.searchsorted(off, budget, side="right",
-                                  out_int32=True)
+                                  out_int32=True).min()
+        if self.mesh is not None:
+            done = all_reduce_scalar(self.mesh, done, "min")
         pos = torch.arange(Q, dtype=torch.int32, device=off.device)
-        flat_pos = torch.arange(P, dtype=torch.int32,
-                                device=off.device)[:, None] * Q + pos
-        processed = ((flat_pos < done.min()) & (pos < cnts[:, None])
+        flat_pos = (self.part0 + torch.arange(
+            P, dtype=torch.int32, device=off.device))[:, None] * Q + pos
+        processed = ((flat_pos < done) & (pos < cnts[:, None])
                      & (gids < self.nv))
         loc = (gids - self.arrays["part_start"]).clamp(0, vpad - 1)
         # a count of the processed entries a slot (a sum onto zeros: the
@@ -703,7 +767,7 @@ class PushEngine(Placement):
         """One iteration -> (label, active, active count as a device
         int32 scalar)."""
         label, active = self._body(label, active, self._count(active))
-        return label, active, active.sum(dtype=torch.int32)
+        return label, active, self._active_count(active)
 
     def converge(self, label, active, max_iters: int | None = None):
         """Iterate to an empty frontier (or ``max_iters``).  Returns
@@ -732,6 +796,8 @@ class PushEngine(Placement):
         sum of its per-part row; writes past ``stats_cap`` drop, rows
         past ``iters`` are zero (the reference's edges are uint32).  The
         loop reads the same one int32 an iteration as ``converge``."""
+        if self.mesh is not None:
+            refuse_on_mesh("converge_stats")
         stats = _PushStats(self, active)
         label, active, it = self._converge(label, active, max_iters, stats)
         return (label, active, it, stats.fsz, stats.fed, stats.fszp,
@@ -755,6 +821,8 @@ class PushEngine(Placement):
         frontier's out-edges; delta: each relax step's bucket front);
         writes past stats_cap drop.  Pass the previous segment's
         ``watch`` back in so a stall spanning a boundary accumulates."""
+        if self.mesh is not None:
+            refuse_on_mesh("converge_health")
         guard = _PushGuard(self, active, watch)
         label, active, it = self._converge(label, active, max_iters, guard)
         return (label, active, it, guard.fsz, guard.fed, guard.fszp,
@@ -769,7 +837,7 @@ class PushEngine(Placement):
         while cnt > 0 and it < cap:
             if guard is None:
                 label, active = self._body(label, active, cnt)
-                cnt = int(active.sum(dtype=torch.int32))  # the one read
+                cnt = int(self._active_count(active))     # the one read
                 it += 1
                 continue
             guard.enter(it, active)
@@ -791,16 +859,25 @@ class PushEngine(Placement):
         pass folded into the next relax.  Returns (front, B, counts
         int32 [2] = front size, active count)."""
         front0 = active & (label < B)
-        am = torch.where(active, label, self._ident).amin()
+        am = self._active_min(label, active)
         nb = am + self._delta_t
         if label.dtype.is_floating_point:
             nb = torch.maximum(nb, torch.nextafter(
                 am, torch.full_like(am, float("inf"))))
-        B = torch.where(front0.any(), B, nb)
+        B = torch.where(self._global_sum(front0.sum(dtype=torch.int32))
+                        > 0, B, nb)
         front = active & (label < B)
-        counts = torch.stack([front.sum(dtype=torch.int32),
-                              active.sum(dtype=torch.int32)])
+        counts = self._global_sum(torch.stack(
+            [front.sum(dtype=torch.int32), active.sum(dtype=torch.int32)]))
         return front, B, counts
+
+    def _active_min(self, label, active):
+        """The least active label (the identity when none), across
+        ranks."""
+        am = torch.where(active, label, self._ident).amin()
+        if self.mesh is None:
+            return am
+        return all_reduce_scalar(self.mesh, am, "min")
 
     def _converge_delta(self, label, active, cap, guard=None):
         """Delta-stepping (Meyer & Sanders): relax only the bucket
@@ -808,8 +885,7 @@ class PushEngine(Placement):
         iterations only; an advance relaxes nothing.  One read of
         [front size, active count] (+ the health flags when guarded)
         per relax iteration, plus one before the first."""
-        am = torch.where(active, label, self._ident).amin()
-        B = am + self._delta_t
+        B = self._active_min(label, active) + self._delta_t
         it = 0
         while it < cap:
             front, B, counts = self._bucket(label, active, B)
@@ -855,6 +931,9 @@ class PushEngine(Placement):
             ctx = telemetry.use(events=tel.events, iter_stats=st)
         with ctx:
             if seg_budget is not None:
+                if self.mesh is not None:
+                    refuse_on_mesh("a duration-budgeted converge "
+                                   "(seg_budget=)")
                 from lux_tpu_torch.segmented import (DurationBudget,
                                                      converge_segments)
                 label, active, it = converge_segments(
@@ -895,6 +974,8 @@ class PushEngine(Placement):
         carrying the bucket bound and the advances before it.  The
         phases are the methods a converge calls, in its order: the
         labels are a converge's of the same iterations."""
+        if self.mesh is not None:
+            refuse_on_mesh("timed_phases")
         device_fence(self.device)()   # the caller's queued work is no phase's
         if self.delta is not None:
             return self._timed_phases_delta(label, active, int(iters))

@@ -40,7 +40,7 @@ FLEET_CRASH (the whole fleet: :class:`InjectedFleetCrash`, a
 BaseException) and REPLICA_FLAP (the one action that fires again, at
 every later boundary, until quarantine stops it).  Not ported yet:
 ``FaultPlan``'s own WORKER_KILL, a worker process of a device mesh
-dying (NotPortedError naming ROADMAP A6).
+dying (NotPortedError naming ROADMAP A6b-2).
 """
 
 from __future__ import annotations
@@ -145,7 +145,7 @@ class FaultPlan:
                 from lux_tpu_torch.engine.pull import NotPortedError
                 raise NotPortedError("the WORKER_KILL fault (a whole "
                                      "worker process dying) is not "
-                                     "ported yet (ROADMAP A6)")
+                                     "ported yet (ROADMAP A6b-2)")
             if a not in known:
                 raise ValueError(f"schedule[{i}]: unknown fault action "
                                  f"{a!r}")

@@ -63,7 +63,7 @@ recovery (counterpart of lux_tpu/fleet.py).
 ``device`` (None means the card, as everywhere in the port) goes to
 every runner and to a subprocess replica's spec; so does ``exchange``
 ("owner" runs every replica's engines on the owner exchange).  Refused
-until ROADMAP A6b: ``mesh=``.
+until ROADMAP A6b-2: ``mesh=``.
 
 Smoke: ``python -m lux_tpu_torch.fleet [-device cpu]`` drains an
 oversubscribed mixed load across 2 replicas with one killed mid-drain
@@ -296,7 +296,7 @@ class FleetServer:
                  heal_clock=time.monotonic):
         if mesh is not None:
             raise NotPortedError("FleetServer(mesh=...) is not ported yet "
-                                 "(ROADMAP A6b); the port's replicas serve "
+                                 "(ROADMAP A6b-2); the port's replicas serve "
                                  "one device each")
         if replicas < 1:
             raise ValueError(f"fleet needs >= 1 replica, got {replicas}")

@@ -18,8 +18,13 @@ the per-iteration device work is nothing but gathers and reductions:
 The arrays stay host numpy; engines move them onto the device.
 ``Graph.from_file`` reads through the mmap path or the native pthread
 loader (``use_native=True``) and applies a ``.perm`` sidecar
-(``reorder=``); ``ShardedGraph.build_from_file`` builds every part on
-one host.  Local-parts (multi-host) builds are not ported yet.
+(``reorder=``).  ``ShardedGraph.build(..., parts=)`` and
+``build_from_file(..., parts=)`` materialize only some parts' rows, the
+local-parts build of a several-process mesh (lux_tpu/graph.py:386-410,
+:413-516, :520-600): each rank builds its own parts, the file's edges
+read by the native loader a part at a time (``native.load_partition``),
+while the global metadata (nv, starts, vpad, epad, nv_part, ne_part)
+stays global so every rank lays out the same shapes.
 """
 
 from __future__ import annotations
@@ -278,23 +283,52 @@ class ShardedGraph:
     weighted: bool = False
     # max out-degree over the whole graph
     max_out_degree: int = 0
+    # a local-parts build: only these parts' rows are materialized in
+    # the part-major arrays (None = all parts)
+    local_parts: np.ndarray | None = None
+    # the global row_ptrs (END offsets), kept on local builds so the
+    # chunk geometry can be sized over all parts
+    row_ptr_global: np.ndarray | None = None
     # the src-sorted view, built once (_src_sorted_raw); not an init
     # field, so dataclasses.replace (the pair residual) starts empty
     _src_sorted_cache: tuple | None = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
 
+    def part_ids(self) -> np.ndarray:
+        """Global part id of each materialized array row."""
+        if self.local_parts is None:
+            return np.arange(self.num_parts, dtype=np.int64)
+        return np.asarray(self.local_parts, dtype=np.int64)
+
+    def sizing_row_ptr(self) -> np.ndarray:
+        """row_ptr_local for ALL parts: the chunk geometry every rank
+        of a local-parts build must agree on (lux_tpu/graph.py:595)."""
+        if self.local_parts is None:
+            return self.row_ptr_local
+        rp = np.asarray(self.row_ptr_global).astype(np.int64)
+        out = np.zeros((self.num_parts, self.vpad + 1), np.int64)
+        for p in range(self.num_parts):
+            v0, v1 = int(self.starts[p]), int(self.starts[p + 1])
+            ebegin = int(rp[v0 - 1]) if v0 else 0
+            out[p, 1:v1 - v0 + 1] = rp[v0:v1] - ebegin
+            out[p, v1 - v0 + 1:] = out[p, v1 - v0]
+        return out
+
     @classmethod
     def build(cls, g: Graph, num_parts: int,
               vpad_align: int = VPAD_ALIGN,
               starts: np.ndarray | None = None,
-              pair_threshold: int | None = None) -> "ShardedGraph":
+              pair_threshold: int | None = None,
+              parts=None) -> "ShardedGraph":
         """Edge-balanced parts, padded and stacked.  ``vpad_align=128``
         gives the 128-aligned vertex padding the paged gather needs
         (ops/pagegather.py).  ``starts`` overrides the cut points.
         ``pair_threshold``: build for pair-lane delivery — 128-aligned
         vertex padding and, for several parts without ``starts``, cuts
         that balance the estimated cost under the pair/gather split
-        (ops/pairs.cost_balanced_starts)."""
+        (ops/pairs.cost_balanced_starts).  ``parts``: materialize only
+        these parts' rows (a rank of a mesh builds its own; the engines
+        take them as they are)."""
         if pair_threshold is not None:
             vpad_align = max(vpad_align, 128)
             if starts is None and num_parts > 1:
@@ -324,17 +358,26 @@ class ShardedGraph:
         v_slot = (v_part * vpad +
                   (np.arange(g.nv, dtype=np.int64) - starts[v_part]))
 
-        P = num_parts
-        src_slot = np.zeros((P, epad), dtype=np.int32)
-        dst_local = np.full((P, epad), vpad, dtype=np.int32)
+        local = None if parts is None else np.asarray(list(parts),
+                                                       np.int64)
+        if local is not None and (local.size == 0 or local.min() < 0
+                                  or local.max() >= num_parts
+                                  or np.unique(local).size != local.size):
+            raise ValueError(f"parts {local.tolist()} are not distinct "
+                             f"part ids in [0, {num_parts})")
+        rows = np.arange(num_parts) if local is None else local
+        R = len(rows)
+        src_slot = np.zeros((R, epad), dtype=np.int32)
+        dst_local = np.full((R, epad), vpad, dtype=np.int32)
         edge_weight = None
         if g.weights is not None:
-            edge_weight = np.zeros((P, epad), dtype=np.float32)
-        row_ptr_local = np.zeros((P, vpad + 1), dtype=np.int32)
-        vmask = np.zeros((P, vpad), dtype=bool)
-        deg_padded = np.zeros((P, vpad), dtype=np.int32)
+            edge_weight = np.zeros((R, epad), dtype=np.float32)
+        row_ptr_local = np.zeros((R, vpad + 1), dtype=np.int32)
+        vmask = np.zeros((R, vpad), dtype=bool)
+        deg_padded = np.zeros((R, vpad), dtype=np.int32)
 
-        for p in range(P):
+        for r, p in enumerate(rows):
+            p = int(p)
             v0, v1 = int(starts[p]), int(starts[p + 1])
             nep = int(ne_part[p])
             ebegin = int(rp[v0 - 1]) if v0 else 0
@@ -358,16 +401,16 @@ class ShardedGraph:
                 raise luxfmt.GraphFormatError(
                     f"part {p}", "col_idx_range",
                     f"edge source {bad} outside [0, {g.nv})")
-            src_slot[p, :nep] = v_slot[srcs]
-            dst_local[p, :nep] = np.repeat(
+            src_slot[r, :nep] = v_slot[srcs]
+            dst_local[r, :nep] = np.repeat(
                 np.arange(v1 - v0, dtype=np.int32), in_deg)
             if edge_weight is not None:
-                edge_weight[p, :nep] = np.asarray(
+                edge_weight[r, :nep] = np.asarray(
                     g.weights[ebegin:eend], dtype=np.float32)
-            row_ptr_local[p, 1:v1 - v0 + 1] = local_ends
-            row_ptr_local[p, v1 - v0 + 1:] = nep
-            vmask[p, :v1 - v0] = True
-            deg_padded[p, :v1 - v0] = g.out_degrees[v0:v1]
+            row_ptr_local[r, 1:v1 - v0 + 1] = local_ends
+            row_ptr_local[r, v1 - v0 + 1:] = nep
+            vmask[r, :v1 - v0] = True
+            deg_padded[r, :v1 - v0] = g.out_degrees[v0:v1]
 
         return cls(nv=g.nv, ne=g.ne, num_parts=num_parts, starts=starts,
                    vpad=vpad, epad=epad, nv_part=nv_part, ne_part=ne_part,
@@ -375,27 +418,65 @@ class ShardedGraph:
                    edge_weight=edge_weight, row_ptr_local=row_ptr_local,
                    vmask=vmask, deg_padded=deg_padded,
                    weighted=g.weights is not None,
-                   max_out_degree=int(g.out_degrees.max(initial=0)))
+                   max_out_degree=int(g.out_degrees.max(initial=0)),
+                   local_parts=local,
+                   row_ptr_global=(np.asarray(g.row_ptrs)
+                                   if local is not None else None))
 
     @classmethod
     def build_from_file(cls, path: str, num_parts: int, parts=None,
                         vpad_align: int = VPAD_ALIGN,
                         starts: np.ndarray | None = None,
                         weighted: bool | None = None) -> "ShardedGraph":
-        """Every part of a .lux file on this host: the graph read by
-        the native pthread loader (under ``native.numpy_versions()``:
-        the mmap path), then ``build``.  ``parts``, a subset of the parts for a
-        process of a multi-host run, is not ported (ROADMAP A6)."""
-        if parts is not None and sorted(int(p) for p in parts) != list(
-                range(num_parts)):
-            from lux_tpu_torch.engine.pull import NotPortedError
-            raise NotPortedError(
-                "ShardedGraph.build_from_file with a subset of the parts "
-                "(a multi-host build) is not ported yet (ROADMAP A6); "
-                "pass parts=None to build every part on this host")
-        g = Graph.from_file(path, weighted,
-                            use_native=not _native.numpy_only())
-        return cls.build(g, num_parts, vpad_align=vpad_align, starts=starts)
+        """Build from a .lux file.  ``parts=None``: every part, the graph
+        read by the native pthread loader (under
+        ``native.numpy_versions()``: the mmap path), then ``build``.
+        ``parts``: only those parts' rows, each part's edges read by
+        ``native.load_partition`` over its vertex range (the mmap view
+        under ``numpy_versions()``); the small row_ptr and degree
+        sections are read whole, for cuts and paddings every rank
+        agrees on (lux_tpu/graph.py:520 ``build_from_file``).  A rank of
+        a mesh passes ``parts=multihost.process_parts(P, mesh)``."""
+        if parts is None:
+            g = Graph.from_file(path, weighted,
+                                use_native=not _native.numpy_only())
+            return cls.build(g, num_parts, vpad_align=vpad_align,
+                             starts=starts)
+        hdr, row_ptrs, col_mm, w_mm, degrees = luxfmt.read_lux(path,
+                                                               weighted)
+        row_ptrs = np.asarray(row_ptrs)
+        if degrees is not None:
+            out_deg = np.asarray(degrees).astype(np.uint32)
+        else:
+            out_deg = np.bincount(np.asarray(col_mm),
+                                  minlength=hdr.nv).astype(np.uint32)
+        use_native = not _native.numpy_only()
+
+        class _LazyCols:
+            """Graph.col_idx stand-in serving per-part slices from the
+            native loader (the mmap view without it)."""
+
+            def __getitem__(self, sl):
+                lo, hi = sl.start or 0, sl.stop
+                if hi <= lo:
+                    return np.empty(0, np.uint32)
+                if not use_native:
+                    return np.asarray(col_mm[sl])
+                # parts are vertex-contiguous: the vertex range whose
+                # in-edges cover this slice
+                v0 = int(np.searchsorted(row_ptrs, lo, side="right"))
+                v1 = min(hdr.nv, 1 + int(
+                    np.searchsorted(row_ptrs, hi, side="left")))
+                _r, cols, _w, e_lo = _native.load_partition(
+                    path, hdr.nv, hdr.ne, v0, v1, weighted=False)
+                return cols[lo - e_lo:hi - e_lo]
+
+        g = Graph(nv=hdr.nv, ne=hdr.ne, row_ptrs=row_ptrs,
+                  col_idx=_LazyCols(),
+                  weights=w_mm if hdr.has_weights else None,
+                  out_degrees=out_deg)
+        return cls.build(g, num_parts, vpad_align=vpad_align,
+                         starts=starts, parts=parts)
 
     def to_padded(self, x: np.ndarray) -> np.ndarray:
         """[nv, ...] user order -> [num_parts, vpad, ...] padded."""
@@ -559,8 +640,8 @@ class ShardedGraph:
         if self._src_sorted_cache is None:
             ids_l, off_l, dst_l, w_l = [], [], [], []
             max_deg = 0
-            for p in range(self.num_parts):
-                nep = int(self.ne_part[p])
+            for p, gp in enumerate(self.part_ids()):
+                nep = int(self.ne_part[gp])
                 # global source of each real edge: invert the
                 # part-major slot translation
                 slot = self.src_slot[p, :nep].astype(np.int64)

@@ -20,7 +20,7 @@ presumed dead.
   through the board: the lowest surviving pid writes it, everyone reads
   the same file.  The supervisor's ``heartbeat=`` / ``elastic=``
   options, which drive this across a device mesh, stay refused until
-  ROADMAP A6.
+  ROADMAP A6b-2.
 
 Clocks and sleeps are injectable, so detection is tested with a fake
 clock.

@@ -24,7 +24,7 @@ and a persistent perf ledger (counterpart of lux_tpu/observe.py:76-370,
    ``PERFLEDGER.jsonl``, which other programs own.  ``DEBTS`` lists the card's
    figures this port leaves modeled rather than measured.
 
-Waits for ROADMAP A6: the link calibration (``calibrate_links``) and
+Waits for ROADMAP A6b-2: the link calibration (``calibrate_links``) and
 the communication attribution.  The digest's ``audit`` field is the
 auditor's verdict on one step of each probe (``_audit_probe_programs``,
 lux_tpu_torch/audit.py): a probe that recomputed state-independent work
@@ -311,7 +311,7 @@ class AppDecomposition:
     session: str
     scale: float              # session_scale applied to the model
     phases: tuple             # PhaseCost, report order
-    comm: dict | None = None  # the communication attribution (ROADMAP A6)
+    comm: dict | None = None  # the communication attribution (ROADMAP A6b-2)
 
     def as_dict(self) -> dict:
         return {
@@ -654,6 +654,14 @@ def collect_debts(fp: Fingerprint, ledger: PerfLedger | None, only=None,
 # CLI: python -m lux_tpu_torch.observe
 
 APPS = ("pagerank", "cc", "sssp", "colfilter")
+
+
+def calibrate_links(*args, **kwargs):
+    """The reference's link calibration (lux_tpu/observe.py:416): the
+    collectives' rates between cards, ROADMAP A6b-2."""
+    from lux_tpu_torch.engine.pull import NotPortedError
+    raise NotPortedError("calibrate_links (the collectives' rates between "
+                         "cards) is not ported yet (ROADMAP A6b-2)")
 
 
 def _build_app_engine(app: str, scale: int, ef: int, num_parts: int,

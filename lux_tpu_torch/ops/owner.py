@@ -31,8 +31,18 @@ keeps one uint32 ``src_local << 7 | rel`` a slot plus a uint16 live-lane
 count a chunk instead of int32 + int8 slots; it is decoded by
 ops/tiled.unpack_src_rel on the device, each iteration or each block.
 
-What stays refused (ROADMAP A6b, several GPUs): the multi-host build
-(``_local_src_edges``), the ring reduce-scatter and any exchange axis.
+On a mesh (lux_tpu/ops/owner.py:291-497) each rank holds its own
+source parts' rows: step 3 folds them into contributions to every
+destination part, and ``owner_exchange(axis=mesh)`` routes them: a sum
+by one reduce-scatter (ops/collectives.py), a min or max by an
+all_to_all and a local min / max, or with ``minmax_fused`` by the ring
+reduce-scatter (``ring_reduce_scatter``: world - 1 hops of one
+destination block, each folding the visited rank's contribution).  A
+local-parts build (``sg.local_parts``) lays out only its source parts,
+after the planning-time edge exchange (``_local_src_edges``) streams
+every destination part's edge row across the ranks; the chunk count,
+the scan's need and the extraction plan's width are agreed by
+``allreduce_host``.
 """
 
 from __future__ import annotations
@@ -57,13 +67,6 @@ def _ceil_div(a, b):
     return -(-a // b)
 
 
-def _refuse_a6b(what: str):
-    from lux_tpu_torch.engine.pull import NotPortedError
-    raise NotPortedError(f"{what} is not ported yet (ROADMAP A6b: several "
-                         f"GPUs); the port's owner exchange runs every "
-                         f"part on one device")
-
-
 @dataclasses.dataclass
 class OwnerLayout:
     """Host-side src-part-major chunk plan, stacked over source parts
@@ -84,6 +87,9 @@ class OwnerLayout:
     stats: dict
     src_rel: np.ndarray | None = None   # uint32 [R, C, E]; pad 0
     n_valid: np.ndarray | None = None   # uint16 [R, C] live lanes
+    # a local-parts layout's extraction-plan width, agreed across the
+    # ranks at build time (None: computed from the rows held)
+    extract_width: int | None = None
 
     # vpad bound of the packed encoding's 25-bit src_local field
     PACK_VPAD_MAX = 1 << 25
@@ -99,17 +105,18 @@ class OwnerLayout:
                              needs_scan=self.needs_scan)
 
     @classmethod
-    def build(cls, sg, E: int = 256,
-              packed: bool | None = None) -> "OwnerLayout":
+    def build(cls, sg, E: int = 256, packed: bool | None = None,
+              mesh=None) -> "OwnerLayout":
         """Re-lay a ShardedGraph's edges src-part-major (host, once;
         lux_tpu/ops/owner.py:90).  Chunks bind to one global dst tile
         each, so each (src part, dst tile)'s edge count rounds up to E:
         ``stats`` reports the inflation.  ``packed`` None: packed
         whenever the 25-bit src_local field and the uint16 lane count
-        fit.  The arrays are the reference's, bit for bit."""
-        if getattr(sg, "local_parts", None) is not None:
-            _refuse_a6b("the owner layout of a multi-host build "
-                        "(_local_src_edges)")
+        fit.  The arrays are the reference's, bit for bit.  A
+        local-parts ``sg`` lays out its own source parts only, agreeing
+        on the geometry with the ranks of ``mesh`` (None: the default
+        process group); its arrays lead with its own row count."""
+        local = getattr(sg, "local_parts", None) is not None
         P, vpad = sg.num_parts, sg.vpad
         if packed is None:
             packed = (vpad <= cls.PACK_VPAD_MAX
@@ -125,32 +132,38 @@ class OwnerLayout:
                 f"counts), got E={E}; pass packed=False")
         n_tiles = max(1, _ceil_div(vpad, W))
         G = P * n_tiles
-        R = P
+        own_rows = np.asarray(sg.part_ids(), np.int64)
+        R = len(own_rows)
 
-        # per edge (src part, src local, global dst tile, rel), then one
-        # stable sort by (src part, dst tile)
-        key_l, srcl_l, rel_l, w_l = [], [], [], []
-        for r in range(P):
-            nep = int(sg.ne_part[r])
-            slot = sg.src_slot[r, :nep].astype(np.int64)
-            s = slot // vpad
-            srcl_l.append((slot - s * vpad).astype(np.int32))
-            dst = sg.dst_local[r, :nep].astype(np.int64)
-            key_l.append(s * G + (r * n_tiles + dst // W))
-            rel_l.append((dst % W).astype(np.int8))
-            if sg.weighted:
-                w_l.append(sg.edge_weight[r, :nep])
-        key = np.concatenate(key_l) if key_l else np.empty(0, np.int64)
-        srcl = np.concatenate(srcl_l) if srcl_l else np.empty(0, np.int32)
-        rel = np.concatenate(rel_l) if rel_l else np.empty(0, np.int8)
-        wgt = np.concatenate(w_l) if w_l else None
-        del key_l, srcl_l, rel_l, w_l
+        if local:
+            key, srcl, rel, wgt = _local_src_edges(sg, n_tiles, G, mesh)
+        else:
+            # per edge (src part, src local, global dst tile, rel), then
+            # one stable sort by (src part, dst tile)
+            key_l, srcl_l, rel_l, w_l = [], [], [], []
+            for r in range(P):
+                nep = int(sg.ne_part[r])
+                slot = sg.src_slot[r, :nep].astype(np.int64)
+                s = slot // vpad
+                srcl_l.append((slot - s * vpad).astype(np.int32))
+                dst = sg.dst_local[r, :nep].astype(np.int64)
+                key_l.append(s * G + (r * n_tiles + dst // W))
+                rel_l.append((dst % W).astype(np.int8))
+                if sg.weighted:
+                    w_l.append(sg.edge_weight[r, :nep])
+            key = (np.concatenate(key_l) if key_l
+                   else np.empty(0, np.int64))
+            srcl = (np.concatenate(srcl_l) if srcl_l
+                    else np.empty(0, np.int32))
+            rel = np.concatenate(rel_l) if rel_l else np.empty(0, np.int8)
+            wgt = np.concatenate(w_l) if w_l else None
+            del key_l, srcl_l, rel_l, w_l
         from lux_tpu_torch import native
         native.sort_kv(key, (srcl, rel) + (() if wgt is None else (wgt,)))
         s_of = key // G
 
         per_part = []
-        for p in range(R):
+        for p in own_rows:
             lo, hi = (int(np.searchsorted(s_of, p)),
                       int(np.searchsorted(s_of, p + 1)))
             ks = key[lo:hi] - p * np.int64(G)
@@ -168,6 +181,11 @@ class OwnerLayout:
                         for _, _, c in per_part), default=1))
         needs_scan = any((_ceil_div(c, E) > 1).any()
                          for _, _, c in per_part if c.size)
+        if local:
+            from lux_tpu_torch.ops.collectives import allreduce_host
+            C = int(allreduce_host(mesh, np.int64(C), "max"))
+            needs_scan = bool(allreduce_host(mesh, np.int64(needs_scan),
+                                             "max"))
         C = _ceil_div(C, 8) * 8
 
         if packed:
@@ -219,11 +237,17 @@ class OwnerLayout:
                      inflation=round(P * C * E / max(1, sg.ne), 3),
                      chunk_inflation=round(used * E / max(1, sg.ne), 3),
                      packed=packed)
+        width = None
+        if local:
+            from lux_tpu_torch.ops.collectives import allreduce_host
+            width = int(allreduce_host(mesh, np.int64(
+                extract_plan_width(last_chunk, C)), "max"))
         return cls(W=W, E=E, n_tiles=n_tiles, G=G, n_chunks=C,
                    needs_scan=needs_scan, src_local=src_local,
                    rel_dst=rel_dst, weight=weight,
                    chunk_start=chunk_start, last_chunk=last_chunk,
-                   stats=stats, src_rel=src_rel, n_valid=n_valid)
+                   stats=stats, src_rel=src_rel, n_valid=n_valid,
+                   extract_width=width)
 
     def streams(self, device=None, wide: int = 1) -> bool:
         """Whether the engines run the fused streamed combine
@@ -241,8 +265,61 @@ class OwnerLayout:
     def extract_plan(self):
         """The fused streamed combine's extraction plan (extr_pos,
         extr_tile), each int32 [R, nB, L] (lux_tpu/ops/owner.py:271)."""
-        L = extract_plan_width(self.last_chunk, self.n_chunks)
+        L = (extract_plan_width(self.last_chunk, self.n_chunks)
+             if self.extract_width is None else self.extract_width)
         return build_extract_plan(self.last_chunk, self.n_chunks, L=L)
+
+
+def _local_src_edges(sg, n_tiles: int, G: int, mesh=None):
+    """The planning-time edge exchange of a local-parts owner build
+    (lux_tpu/ops/owner.py:291): every destination part's edge row,
+    sent by the rank that holds it to every rank, of which each keeps
+    the edges its own source parts emit -> (key, src_local, rel,
+    weight) in the full build's per-edge encoding (key = src part * G +
+    global dst tile), in destination-part order.  Peak memory is one
+    part's edges per rank; traffic is ne x world, once at build time."""
+    from lux_tpu_torch.ops.collectives import allgather_host
+
+    P, vpad = sg.num_parts, sg.vpad
+    own = np.asarray(sg.local_parts, np.int64)
+    own_mask = np.zeros(P, bool)
+    own_mask[own] = True
+    local_row = {int(p): i for i, p in enumerate(own)}
+    holders = np.full(P, -1, np.int64)
+    for q, parts in enumerate(allgather_host(mesh, own)):
+        holders[np.asarray(parts, np.int64)] = q
+    if (holders < 0).any():
+        raise ValueError("local_parts rows do not cover every partition "
+                         "across the ranks")
+    key_l, srcl_l, rel_l, w_l = [], [], [], []
+    for r in range(P):
+        nep = int(sg.ne_part[r])
+        if nep == 0:
+            continue
+        mine = local_row.get(r)
+        row = None
+        if mine is not None:
+            row = (sg.src_slot[mine, :nep], sg.dst_local[mine, :nep],
+                   sg.edge_weight[mine, :nep] if sg.weighted else None)
+        row = allgather_host(mesh, row)[int(holders[r])]
+        slot = np.asarray(row[0]).astype(np.int64)
+        s = slot // vpad
+        keep = own_mask[s]
+        if not keep.any():
+            continue
+        s, slot = s[keep], slot[keep]
+        dst = np.asarray(row[1]).astype(np.int64)[keep]
+        key_l.append(s * G + (r * n_tiles + dst // W))
+        srcl_l.append((slot - s * vpad).astype(np.int32))
+        rel_l.append((dst % W).astype(np.int8))
+        if sg.weighted:
+            w_l.append(np.asarray(row[2], np.float32)[keep])
+    key = np.concatenate(key_l) if key_l else np.empty(0, np.int64)
+    srcl = np.concatenate(srcl_l) if srcl_l else np.empty(0, np.int32)
+    rel = np.concatenate(rel_l) if rel_l else np.empty(0, np.int8)
+    wgt = (np.concatenate(w_l) if w_l
+           else (np.empty(0, np.float32) if sg.weighted else None))
+    return key, srcl, rel, wgt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -373,14 +450,53 @@ def owner_exchange(acc, kind: str, axis=None, ndev: int = 1,
     """Route the accumulated contributions [P, ntw, ...] to their
     destination parts (lux_tpu/ops/owner.py:433).  One device
     (``axis=None``): the identity, whatever ``minmax_fused`` says, as
-    in the reference.  An exchange axis is ROADMAP A6b."""
+    in the reference.  ``axis`` a mesh: this rank's rows [P/world, ntw,
+    ...] of the contributions combined across ranks: a sum by one
+    reduce-scatter, a min or max by an all_to_all and a local min /
+    max, or with ``minmax_fused`` by ``ring_reduce_scatter``.  ``ndev``
+    is the mesh's world (the reference's argument; checked)."""
     if axis is None:
         return acc
-    _refuse_a6b("the owner exchange across devices (reduce-scatter / "
-                "all_to_all)")
+    from lux_tpu_torch.ops.collectives import (all_to_all_parts,
+                                               reduce_scatter_parts)
+    mesh = axis
+    if ndev not in (1, mesh.world):
+        raise ValueError(f"ndev={ndev} is not the mesh's world "
+                         f"{mesh.world}")
+    if kind == "sum":
+        return reduce_scatter_parts(mesh, acc, "sum")
+    if kind not in ("min", "max"):
+        raise ValueError(f"unknown reduction {kind!r}")
+    if minmax_fused:
+        return ring_reduce_scatter(acc, kind, mesh, mesh.world)
+    recv = all_to_all_parts(mesh, acc)
+    red = recv.reshape((mesh.world, acc.shape[0] // mesh.world)
+                       + tuple(acc.shape[1:]))
+    return red.amin(0) if kind == "min" else red.amax(0)
 
 
 def ring_reduce_scatter(acc, kind: str, axis, ndev: int):
-    """The ring reduce-scatter of the fused min/max exchange
-    (lux_tpu/ops/owner.py:466): several GPUs, ROADMAP A6b."""
-    _refuse_a6b("ring_reduce_scatter")
+    """The ring reduce-scatter (lux_tpu/ops/owner.py:466): ``acc`` [P,
+    ...] on every rank of the mesh ``axis`` -> this rank's rows
+    [P/world, ...] combined by ``kind`` across ranks, the contract of
+    the sum's reduce-scatter.  Block ``c`` starts at rank ``c + 1`` and
+    travels the ring ``c + 1 -> c + 2 -> ... -> c``, each hop folding
+    the visited rank's contribution: world - 1 hops of one [P/world,
+    ...] block each."""
+    from lux_tpu_torch.ops.collectives import ring_shift
+    mesh = axis
+    if ndev != mesh.world:
+        raise ValueError(f"ndev={ndev} is not the mesh's world "
+                         f"{mesh.world}")
+    comb = combine_op(kind)
+    rows = acc.shape[0] // ndev
+    chunks = acc.reshape((ndev, rows) + tuple(acc.shape[1:]))
+    idx = mesh.rank
+    # rank i launches its contribution to block i - 1
+    cur = chunks[(idx - 1) % ndev].contiguous()
+    for s in range(ndev - 1):
+        cur = ring_shift(mesh, cur)
+        # after hop s rank i holds block (i - 2 - s) mod ndev and folds
+        # its own contribution; the last hop lands block i at rank i
+        cur = comb(cur, chunks[(idx - 2 - s) % ndev])
+    return cur

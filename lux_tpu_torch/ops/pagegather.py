@@ -63,7 +63,7 @@ source part's full gather rows by destination part, ``Mg`` rows a
 messages them sender-side (B2 once), routes them whole (on one device
 a transpose), and each destination part reduces its received buffer
 through its virtual rows (B1 once over every part's rows).  An exchange
-axis (several GPUs) is ROADMAP A6b.
+axis (several GPUs) is ROADMAP A6b-2.
 """
 
 from __future__ import annotations
@@ -1242,11 +1242,11 @@ def pagemajor_route(msgs: torch.Tensor, axis=None) -> torch.Tensor:
     """The route of the owner page-major rows: [P_src, P_dst, Mg, 128,
     ...] -> each destination part's received buffer [P_dst * P_src * Mg,
     128, ...].  On one device a transpose (the reference's ``swapaxes``,
-    lux_tpu/ops/pagegather.py:1341); an exchange axis is several GPUs."""
+    lux_tpu/ops/pagegather.py:1341); an exchange axis (the route across
+    a mesh's ranks) is ROADMAP A6b-2."""
     if axis is not None:
-        from lux_tpu_torch.ops.owner import _refuse_a6b
-        _refuse_a6b("the page-major owner route across devices "
-                    "(all_to_all)")
+        from lux_tpu_torch.engine.pull import refuse_on_mesh
+        refuse_on_mesh("the page-major owner route (all_to_all)")
     P = msgs.shape[0]
     return msgs.transpose(0, 1).contiguous().view(
         (P * P * msgs.shape[2],) + tuple(msgs.shape[3:]))

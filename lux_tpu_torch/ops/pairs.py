@@ -509,7 +509,8 @@ def cost_balanced_starts(g, num_parts: int, threshold: int) -> np.ndarray:
 
 
 def plan_sharded_pairs(sg, threshold: int,
-                       min_fill: int | str | None = None, kdim: int = 1):
+                       min_fill: int | str | None = None, kdim: int = 1,
+                       mesh=None):
     """Per-part pair plans for a ShardedGraph and the RESIDUAL
     ShardedGraph (uncovered edges, re-padded) the tiled gather path
     runs on.  Returns (StackedPairPlan | None, residual_sg); None when
@@ -518,51 +519,57 @@ def plan_sharded_pairs(sg, threshold: int,
 
     With several parts, every part is analysed once, then laid out
     against the elementwise-max depth profile so classes are identical
-    across parts.  Multi-host local-parts builds are not ported.
+    across parts.  A local-parts build (``sg.local_parts``) plans only
+    its own rows, against the depth profile, pair total and residual
+    edge counts agreed across the ranks of ``mesh`` (None: the default
+    process group) by ``allreduce_host`` (lux_tpu/ops/pairs.py:570-643).
     ``min_fill="auto"`` resolves for ``kdim``-wide rows
     (resolve_min_fill)."""
-    if getattr(sg, "local_parts", None) is not None:
-        from lux_tpu_torch.engine.pull import NotPortedError
-        raise NotPortedError(
-            "pair planning of a local-parts (multi-host) build is not "
-            "ported yet (ROADMAP A6): it agrees on the depth profile "
-            "across processes")
     min_fill = resolve_min_fill(min_fill, kdim)
     if sg.vpad % W:
         raise ValueError("pair delivery needs vpad % 128 == 0; build "
                          "the ShardedGraph with vpad_align=128")
     P = sg.num_parts
+    rows = sg.part_ids()            # global part id of each array row
+    R = len(rows)
+    local = getattr(sg, "local_parts", None) is not None
 
-    def plan_part(p, slot_depths=None, analysis=None):
-        nep = int(sg.ne_part[p])
-        wp = (np.asarray(sg.edge_weight[p, :nep])
+    def plan_part(r, slot_depths=None, analysis=None):
+        nep = int(sg.ne_part[rows[r]])
+        wp = (np.asarray(sg.edge_weight[r, :nep])
               if sg.weighted else None)
         return build_pair_plan(
-            sg.src_slot[p, :nep], sg.dst_local[p, :nep], sg.vpad,
+            sg.src_slot[r, :nep], sg.dst_local[r, :nep], sg.vpad,
             threshold=threshold, weights=wp, slot_depths=slot_depths,
             analysis=analysis, min_fill=min_fill)
 
-    if P > 1:
+    if P > 1 or local:
         from concurrent.futures import ThreadPoolExecutor
 
-        def analyze(p):
-            nep = int(sg.ne_part[p])
+        def analyze(r):
+            nep = int(sg.ne_part[rows[r]])
             return analyze_pairs(
-                sg.src_slot[p, :nep], sg.dst_local[p, :nep], sg.vpad,
+                sg.src_slot[r, :nep], sg.dst_local[r, :nep], sg.vpad,
                 threshold=threshold, min_fill=min_fill)
 
         # the parts are independent: one host thread each (their sorts
         # and array passes release the GIL), results in part order
-        with ThreadPoolExecutor(max_workers=min(P, 8)) as ex:
-            analyses = list(ex.map(analyze, range(P)))
-            prof_max = np.maximum.reduce([a.depth_sorted
-                                          for a in analyses])
-            if sum(int(a.depth_sorted.sum()) for a in analyses) == 0:
+        with ThreadPoolExecutor(max_workers=max(1, min(R, 8))) as ex:
+            analyses = list(ex.map(analyze, range(R)))
+            prof_max = (np.maximum.reduce([a.depth_sorted
+                                           for a in analyses])
+                        if analyses else np.zeros(sg.vpad // W, np.int64))
+            total = sum(int(a.depth_sorted.sum()) for a in analyses)
+            if local:
+                from lux_tpu_torch.ops.collectives import allreduce_host
+                prof_max = allreduce_host(mesh, prof_max, "max")
+                total = int(allreduce_host(mesh, np.int64(total), "sum"))
+            if total == 0:
                 return None, sg         # no pair anywhere dense enough
             common = quantize_depths(prof_max)
             plans = list(ex.map(
-                lambda p: plan_part(p, slot_depths=common,
-                                    analysis=analyses[p]), range(P)))
+                lambda r: plan_part(r, slot_depths=common,
+                                    analysis=analyses[r]), range(R)))
         del analyses
     else:
         plans = [plan_part(0)]
@@ -572,25 +579,38 @@ def plan_sharded_pairs(sg, threshold: int,
     sp = stack_pair_plans(plans, sg.weighted)
 
     ne_r = np.asarray([int(pl.residual.sum()) for pl in plans], np.int64)
-    epad_r = max(128, -(-int(ne_r.max(initial=0)) // 128) * 128)
-    src_slot = np.zeros((P, epad_r), np.int32)
-    dst_local = np.full((P, epad_r), sg.vpad, np.int32)
-    ew = np.zeros((P, epad_r), np.float32) if sg.weighted else None
-    row_ptr_local = np.zeros((P, sg.vpad + 1), np.int32)
-    for p, pl in enumerate(plans):
-        nep = int(sg.ne_part[p])
+    if local:
+        # residual shapes and the global metadata agree across ranks;
+        # rows are disjoint, so the max merges the counts
+        from lux_tpu_torch.ops.collectives import allreduce_host
+        ne_part_r = np.zeros(P, np.int64)
+        ne_part_r[rows] = ne_r
+        ne_part_r = np.asarray(allreduce_host(mesh, ne_part_r, "max"),
+                               np.int64)
+    else:
+        ne_part_r = ne_r
+    epad_r = max(128, -(-int(ne_part_r.max(initial=0)) // 128) * 128)
+    src_slot = np.zeros((R, epad_r), np.int32)
+    dst_local = np.full((R, epad_r), sg.vpad, np.int32)
+    ew = np.zeros((R, epad_r), np.float32) if sg.weighted else None
+    row_ptr_local = np.zeros((R, sg.vpad + 1), np.int32)
+    for r, pl in enumerate(plans):
+        nep = int(sg.ne_part[rows[r]])
         res = pl.residual
-        nr = int(ne_r[p])
-        src_slot[p, :nr] = sg.src_slot[p, :nep][res]
-        r_dst = sg.dst_local[p, :nep][res]
-        dst_local[p, :nr] = r_dst
+        nr = int(ne_r[r])
+        src_slot[r, :nr] = sg.src_slot[r, :nep][res]
+        r_dst = sg.dst_local[r, :nep][res]
+        dst_local[r, :nr] = r_dst
         if ew is not None:
-            ew[p, :nr] = sg.edge_weight[p, :nep][res]
+            ew[r, :nr] = sg.edge_weight[r, :nep][res]
         counts = np.bincount(r_dst, minlength=sg.vpad)
-        row_ptr_local[p, 1:] = np.cumsum(counts).astype(np.int32)
+        row_ptr_local[r, 1:] = np.cumsum(counts).astype(np.int32)
+    # a local-parts residual keeps the full graph's row_ptr_global: its
+    # chunk geometry (sizing_row_ptr) over-counts the residual's chunks,
+    # the same on every rank; the pad chunks are isolated identities
     residual = dataclasses.replace(
         sg, src_slot=src_slot, dst_local=dst_local, edge_weight=ew,
-        row_ptr_local=row_ptr_local, ne_part=ne_r, epad=epad_r)
+        row_ptr_local=row_ptr_local, ne_part=ne_part_r, epad=epad_r)
     return sp, residual
 
 
@@ -938,16 +958,20 @@ def part_tile0(num_parts: int, vpad: int) -> np.ndarray:
 
 
 def pair_graph_arrays(sp: StackedPairPlan, dot: bool = False,
-                      vpad: int | None = None) -> dict:
+                      vpad: int | None = None, parts=None) -> dict:
     """The stacked plan's per-part host arrays for an engine's array
     dict (leading dim num_parts); ``dot`` adds each row's destination
     tile and each part's tile 0 (``vpad`` needed), which the SDDMM
-    delivery fetches."""
+    delivery fetches.  ``parts``: the global part ids of a local-parts
+    plan's rows (their tile 0 is their own)."""
     arrays = {"pair_rowbind": sp.rowbind, "pair_rel": sp.rel_dst,
               "pair_tile_pos": sp.tile_pos}
     if sp.weight is not None:
         arrays["pair_weight"] = sp.weight
     if dot:
         arrays["pair_row_tile"] = sp.row_tile
-        arrays["pair_tile0"] = part_tile0(sp.rowbind.shape[0], vpad)
+        tile0 = part_tile0(sp.rowbind.shape[0] if parts is None
+                           else int(np.max(parts)) + 1, vpad)
+        arrays["pair_tile0"] = (tile0 if parts is None
+                                else tile0[np.asarray(parts)])
     return arrays

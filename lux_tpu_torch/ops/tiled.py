@@ -74,9 +74,14 @@ class TiledLayout:
 
     @classmethod
     def build(cls, row_ptr_local: np.ndarray, dst_local: np.ndarray,
-              vpad: int, W: int = 128, E: int = 512) -> "TiledLayout":
+              vpad: int, W: int = 128, E: int = 512,
+              sizing_row_ptr: np.ndarray | None = None) -> "TiledLayout":
         """row_ptr_local: int [P, vpad+1] END offsets; dst_local:
-        int32 [P, epad] part-local sorted destinations (pad -> vpad)."""
+        int32 [P, epad] part-local sorted destinations (pad -> vpad).
+        ``sizing_row_ptr``: the row_ptr_local rows of ALL parts when
+        ``row_ptr_local`` holds only a rank's (a local-parts build), so
+        the chunk count and the scan's need are every rank's
+        (lux_tpu/ops/tiled.py:91)."""
         if W > 128:
             raise ValueError(
                 f"tile width W={W} > 128: rel_dst is int8 (valid lane "
@@ -95,9 +100,11 @@ class TiledLayout:
             return tile_lo, tile_hi, n_ch
 
         per_part = [tile_chunks(row_ptr_local[p]) for p in range(P)]
-        C = max(1, int(max(int(x[2].sum()) for x in per_part)))
+        sizing = (per_part if sizing_row_ptr is None else
+                  [tile_chunks(r) for r in sizing_row_ptr])
+        C = max(1, int(max(int(x[2].sum()) for x in sizing)))
         C = _ceil_div(C, 8) * 8
-        needs_scan = any(x[2].max(initial=0) > 1 for x in per_part)
+        needs_scan = any(x[2].max(initial=0) > 1 for x in sizing)
 
         edge_gather = np.zeros((P, C, E), dtype=np.int64)
         rel_dst = np.full((P, C, E), -1, dtype=np.int8)

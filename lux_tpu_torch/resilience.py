@@ -26,8 +26,8 @@ or a topology fault dumps the installed crash flight recorder
 ``telemetry.use(iter_stats=)`` carries the counters' digest in
 ``RunReport.counters``.  Not ported yet: the elastic path (a TOPOLOGY
 fault re-placing the run on the surviving devices, ``elastic=`` / the
-CLI's ``-elastic``: ROADMAP A6) and the supervisor's per-segment
-heartbeat sync across a mesh (``heartbeat=``: A6; the board itself,
+CLI's ``-elastic``: ROADMAP A6b-2) and the supervisor's per-segment
+heartbeat sync across a mesh (``heartbeat=``: A6b-2; the board itself,
 heartbeat.py, is ported); each raises NotPortedError when asked for.
 """
 
@@ -247,7 +247,7 @@ class RunReport:
     counters: dict | None = None
     #           ^ the iteration counters' digest (IterStats.summary)
     topology: list = dataclasses.field(default_factory=list)
-    #           ^ one entry per elastic mesh shrink (ROADMAP A6)
+    #           ^ one entry per elastic mesh shrink (ROADMAP A6b-2)
 
     def as_dict(self) -> dict:
         return dict(attempts=self.attempts, segments=self.segments,
@@ -337,10 +337,10 @@ def _refuse_unported(elastic, heartbeat) -> None:
     if elastic is not None:
         raise NotPortedError("elastic re-placement after a topology "
                              "fault (elastic=) is not ported yet (ROADMAP "
-                             "A6: the port runs one device)")
+                             "A6b-2)")
     if heartbeat is not None:
         raise NotPortedError("per-segment heartbeat supervision "
-                             "(heartbeat=) is not ported yet (ROADMAP A6)")
+                             "(heartbeat=) is not ported yet (ROADMAP A6b-2)")
 
 
 def _int_sentinel(eng):

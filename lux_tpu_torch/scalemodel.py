@@ -44,10 +44,10 @@ The formulas are the reference's; what a figure prices:
   transpose of the routed rows; under the reference's figures its ICI
   link, ``pagemajor_route_ns``, lux_tpu/scalemodel.py:223).
 
-What waits for ROADMAP A6b: the link tiers and measured link rates
+What waits for ROADMAP A6b-2: the link tiers and measured link rates
 between cards, ``Projection`` / ``project_pull`` / ``project_table``
 and the owner branch of ``phase_model``.  Each raises NotPortedError
-naming A6b.
+naming A6b-2.
 """
 
 from __future__ import annotations
@@ -206,7 +206,7 @@ def _c(constants):
 
 def _refuse_a6(what: str):
     from lux_tpu_torch.engine.pull import NotPortedError
-    raise NotPortedError(f"{what} is not ported yet (ROADMAP A6b): it "
+    raise NotPortedError(f"{what} is not ported yet (ROADMAP A6b-2): it "
                          f"prices the owner exchange or a link between "
                          f"cards")
 
@@ -619,3 +619,16 @@ def phase_model(*, engine: str, exchange: str, ne: int, nv: int,
             model[f"{key}_reduce"] = deliver + pair_ns
     model["update" if engine == "push" else "apply"] = apply_ns
     return model
+
+
+def project_pull(ne: int, nv: int, chips: int, **kw):
+    """The reference's projection of a pull step onto ``chips`` cards
+    over its link tiers (lux_tpu/scalemodel.py:457): ROADMAP A6b-2,
+    which needs a link's measured rate between cards."""
+    _refuse_a6("project_pull (a step projected over a link)")
+
+
+def project_table(ne: int, nv: int, chip_counts=(1, 4, 8, 16, 64), **kw):
+    """The reference's projection table (lux_tpu/scalemodel.py:639):
+    ROADMAP A6b-2."""
+    _refuse_a6("project_table (steps projected over links)")

@@ -47,7 +47,7 @@ rank mass on the host between iterations (seg_iters 1), together one
 exact iteration over ``graph_at(column epoch)``.  Resident queries pin
 the generation; ``mutate`` publishes, ``refresh_live`` adopts a
 compacted base, and the answer cache keys entries by epoch.  Not ported
-yet: a device mesh (``mesh``: NotPortedError, A6b).
+yet: a device mesh (``mesh``: NotPortedError, A6b-2).
 ``health=True`` builds every runner's engine with the watchdog
 (lux_tpu_torch/health.py): a tripped word raises HealthError out of
 the segmented driver rather than retiring a column with a corrupt
@@ -937,7 +937,7 @@ class Server:
                  on_boundary=None, replica: str | None = None, live=None,
                  cache=False, mem=None):
         if mesh is not None:
-            _refuse("a device mesh", "A6b")
+            _refuse("a device mesh", "A6b-2")
         self.live = live
         if live is not None and g is not live.base:
             raise ValueError(

@@ -33,7 +33,7 @@ CLI (``python -m lux_tpu_torch.tracing``):
 
 The reference's mesh drills (``-drill``: the elastic device-loss and
 the two-process worker-kill drills) need a mesh or several processes
-and are refused, naming ROADMAP A6.  Pure host code over event dicts,
+and are refused, naming ROADMAP A6b-2.  Pure host code over event dicts,
 apart from the smoke's engine runs; it imports nothing of the
 reference.
 """
@@ -945,7 +945,7 @@ def run_smoke(events_path: str, apps=SMOKE_APPS, scale: int = 8,
 
 def _refuse_drill(what: str):
     from lux_tpu_torch.engine.pull import NotPortedError
-    raise NotPortedError(f"{what} is not ported yet (ROADMAP A6: it "
+    raise NotPortedError(f"{what} is not ported yet (ROADMAP A6b-2: it "
                          f"needs a device mesh or several processes; "
                          f"the port runs one device)")
 
@@ -999,7 +999,7 @@ def main(argv=None) -> int:
                     metavar="TRACE_JSON")
     ap.add_argument("-drill", action="store_true",
                     help="the reference's mesh drills: not ported "
-                         "(ROADMAP A6)")
+                         "(ROADMAP A6b-2)")
     ap.add_argument("-workdir", default=None,
                     help="working directory for smoke artifacts "
                          "(default: a fresh temp dir)")

@@ -458,6 +458,11 @@ def test_sparse_flag_like_the_reference(lux_ref, lux_file, capsys,
 @pytest.mark.parametrize("app", APPS3 + ("colfilter",))
 def test_mesh_flag_refused_naming_a6b(lux_file, weighted_lux_file, capsys,
                                       app):
+    """-mesh N runs since A6b-1 under a launcher of world N
+    (tests/test_torch_multiprocess.py); in a process of world 1 -mesh 2
+    exits 2, saying how to start it."""
     f = weighted_lux_file if app == "colfilter" else lux_file
     assert cli.main([app, "-file", f, "-device", "cpu", "-mesh", "2"]) == 2
-    assert "ROADMAP A6b" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "-mesh 2 needs a process group of world 2" in err
+    assert "torchrun --nproc-per-node 2" in err

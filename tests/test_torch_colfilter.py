@@ -16,6 +16,7 @@ from lux_tpu_torch.device import DeviceUnavailableError
 from lux_tpu_torch.engine.program import PullProgram
 from lux_tpu_torch.engine.pull import NotPortedError, PullEngine
 from lux_tpu_torch.graph import Graph, ShardedGraph, pair_relabel
+from lux_tpu_torch.parallel.mesh import Mesh
 from lux_tpu_torch.ops.segment import segment_reduce
 from lux_tpu_torch.ops.tiled import TiledLayout, combine_chunks
 
@@ -178,13 +179,16 @@ def test_pagemajor_and_unweighted_refused():
     (dict(pair_threshold=4, pair_min_fill="auto"), "A10"),
     (dict(use_mxu=True), "A8"),
     (dict(audit="warn"), "A12"),
-    (dict(mesh=object()), "A6"),
+    (dict(mesh=Mesh(group=None, world=1, rank=0,
+                    device=torch.device("cpu"), backend="gloo"),
+          health=True), "A6"),
     (dict(gather="auto"), "A10"),
 ])
 def test_unported_options_refused(kwargs, item):
-    """A6 stays refused; the options A10b, A8 and A12 brought (once
-    refused naming A10 / A8 / A12) now build and run, within TOL of the
-    engine without them."""
+    """The mesh runs since A6b-1 (tests/test_torch_mesh.py); its health
+    watchdog stays refused (A6b-2).  The options A10b, A8 and A12
+    brought (once refused naming A10 / A8 / A12) now build and run,
+    within TOL of the engine without them."""
     g = weighted_rmat(7, 8, seed=2)
     if item in ("A10", "A8", "A12"):
         if "pair_threshold" in kwargs:

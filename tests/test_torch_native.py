@@ -255,10 +255,23 @@ def test_build_from_file_equals_build(lux_file, num_parts, use_native):
 
 
 def test_build_from_file_parts_subset_refused(lux_file):
-    from lux_tpu_torch.engine.pull import NotPortedError
+    """A subset of the parts (a rank's local-parts build, ROADMAP A6b-1,
+    once refused naming A6) loads only those parts' rows, each equal to
+    the whole build's row; an engine without a mesh refuses it with the
+    reference's ValueError."""
+    from lux_tpu_torch.engine.pull import PullEngine
+    from lux_tpu_torch.apps import pagerank
     path, _g = lux_file
-    with pytest.raises(NotPortedError, match="A6"):
-        ShardedGraph.build_from_file(path, 4, parts=[1, 3])
+    full = ShardedGraph.build_from_file(path, 4)
+    sg = ShardedGraph.build_from_file(path, 4, parts=[1, 3])
+    assert list(sg.local_parts) == [1, 3] and sg.src_slot.shape[0] == 2
+    for r, p in enumerate([1, 3]):
+        np.testing.assert_array_equal(sg.src_slot[r], full.src_slot[p])
+        np.testing.assert_array_equal(sg.dst_local[r], full.dst_local[p])
+        np.testing.assert_array_equal(sg.deg_padded[r], full.deg_padded[p])
+    np.testing.assert_array_equal(sg.sizing_row_ptr(), full.row_ptr_local)
+    with pytest.raises(ValueError, match="requires a mesh"):
+        PullEngine(sg, pagerank.make_program(), device="cpu")
     sg = ShardedGraph.build_from_file(path, 2, parts=[1, 0])
     assert sg.num_parts == 2
 

@@ -360,8 +360,8 @@ def _build_pull(lux_ref, graphs, case, monkeypatch):
             real = mod.OwnerLayout.build.__func__
             monkeypatch.setattr(
                 mod.OwnerLayout, "build",
-                classmethod(lambda cls, sg_, E=256, packed=None, _r=real:
-                            _r(cls, sg_, E=E, packed=False)))
+                classmethod(lambda cls, sg_, E=256, packed=None, _r=real,
+                            **kw: _r(cls, sg_, E=E, packed=False, **kw)))
     kw = dict(owner_tile_e=c.get("owner_tile_e"))
     if c.get("pairs"):
         g, perm, starts = pair_relabel(g, P, pair_threshold=c["pairs"])
@@ -775,8 +775,12 @@ def test_owner_paged_plans_refused_a6a2(graphs, gather):
 
 def test_other_a6a2_and_a6b_refusals(graphs):
     """page_fill_stats and resolve_gather under the owner exchange
-    (once refused naming A6a-2) answer; the mesh, an exchange axis, the
-    ring and the multi-host build stay refused naming A6b."""
+    (once refused naming A6a-2) answer.  The mesh, an exchange axis, the
+    ring and the multi-host build run since A6b-1 (tests/test_torch_mesh.py,
+    tests/test_torch_multiprocess.py): a multi-host build that covers
+    no process's other parts raises, as the reference's does; the owner
+    paged plans on a mesh and phase_model's owner branch stay refused
+    naming A6b (A6b-2)."""
     from lux_tpu_torch.ops.pagegather import resolve_gather
     from lux_tpu_torch.reorder import page_fill_stats
     g = graphs["plain"][0]
@@ -784,16 +788,15 @@ def test_other_a6a2_and_a6b_refusals(graphs):
     assert st["ne"] == g.ne and "pm_g_padded_fill" in st
     assert resolve_gather("auto", st, exchange="owner") in (
         "flat", "paged", "pagemajor")
+    from lux_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(group=None, world=1, rank=0, device=torch.device(CPU),
+                backend="gloo")
     with pytest.raises(NotPortedError, match="A6b"):
-        pagerank.build_engine(g, 2, exchange="owner", mesh=object(),
-                              device=CPU)
-    with pytest.raises(NotPortedError, match="A6b"):
-        owner_mod.owner_exchange(torch.zeros(2, 4), "sum", axis="parts")
-    with pytest.raises(NotPortedError, match="A6b"):
-        owner_mod.ring_reduce_scatter(torch.zeros(2, 4), "min", "parts", 2)
-    sg = ShardedGraph.build(g, 2)
-    sg.local_parts = [0]
-    with pytest.raises(NotPortedError, match="A6b"):
+        pagerank.build_engine(g, 2, exchange="owner", gather="paged",
+                              mesh=mesh, device=CPU)
+    # one process holding part 0 of 2: part 1 has no holder
+    sg = ShardedGraph.build(g, 2, parts=[0])
+    with pytest.raises(ValueError, match="do not cover every partition"):
         OwnerLayout.build(sg)
     from lux_tpu_torch import scalemodel
     with pytest.raises(NotPortedError, match="A6b"):

@@ -615,14 +615,17 @@ def test_no_a6a2_refusal_left_and_a6b_still_refused(layouts):
     pkg = REPO / "lux_tpu_torch"
     for p in pkg.rglob("*.py"):
         assert "A6a-2" not in p.read_text(), p
+    from lux_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(group=None, world=1, rank=0, device=torch.device(CPU),
+                backend="gloo")
     sg, _r = layouts("skewed", 2)
     for mode in MODES:
         with pytest.raises(NotPortedError, match="A6b"):
             PullEngine(sg, pagerank.make_program(), exchange="owner",
-                       gather=mode, mesh=object(), device=CPU)
+                       gather=mode, mesh=mesh, device=CPU)
         with pytest.raises(NotPortedError, match="A6b"):
             PushEngine(sg, sssp.make_program(0), exchange="owner",
-                       gather=mode, mesh=object(), device=CPU)
+                       gather=mode, mesh=mesh, device=CPU)
     eng = PullEngine(sg, pagerank.make_program(), exchange="owner",
                      gather="pagemajor", device=CPU)
     msgs = pg.pagemajor_owner_sends(eng.init_state(), eng.arrays,

@@ -361,8 +361,8 @@ def test_paged_options_refused(kwargs, item):
     """Once refused: gather='auto' (A10b, named A10) builds the mode
     scalemodel picks from the counted plan stats; the owner paged plans
     (A6a-2, named A6) build and run as the flat owner engine does (their
-    parity tests: tests/test_torch_owner_paged.py); the mesh (A6b) stays
-    refused naming A6."""
+    parity tests: tests/test_torch_owner_paged.py); on a mesh (A6b-1)
+    they stay refused, naming A6b-2."""
     g = _small_graph()
     if item == "A10":
         eng = pagerank.build_engine(g, device=CPU, **kwargs)
@@ -377,8 +377,11 @@ def test_paged_options_refused(kwargs, item):
     np.testing.assert_allclose(eng.unpad(eng.run(eng.init_state(), 3)),
                                flat.unpad(flat.run(flat.init_state(), 3)),
                                rtol=2e-5, atol=1e-9)
+    from lux_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(group=None, world=1, rank=0, device=torch.device(CPU),
+                backend="gloo")
     with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
-        pagerank.build_engine(g, device=CPU, mesh=object(), **kwargs)
+        pagerank.build_engine(g, device=CPU, mesh=mesh, **kwargs)
 
 
 def test_paged_value_errors():

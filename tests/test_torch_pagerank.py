@@ -14,6 +14,7 @@ from lux_tpu_torch.convert import rmat_edges, uniform_random_edges
 from lux_tpu_torch.device import DeviceUnavailableError
 from lux_tpu_torch.engine.pull import NotPortedError
 from lux_tpu_torch.graph import Graph, ShardedGraph
+from lux_tpu_torch.parallel.mesh import Mesh
 from lux_tpu_torch.ops.tiled import (TiledLayout, combine_chunks,
                                      tiled_segment_reduce)
 
@@ -200,14 +201,22 @@ def test_default_device_is_the_card(small_graph):
         pagerank.run(small_graph, 1)
 
 
+# a one-rank mesh on no process group: enough to build an engine and
+# meet what a mesh refuses, which raises before any collective
+CPU_MESH = Mesh(group=None, world=1, rank=0, device=torch.device("cpu"),
+                backend="gloo")
+
+
 @pytest.mark.parametrize("kwargs,item", [
     (dict(exchange="owner"), "A6"),
     (dict(pair_threshold=16, pair_min_fill="auto"), "A10"),
     (dict(gather="auto"), "A10"),
-    (dict(mesh=object()), "A6"),
+    (dict(mesh=CPU_MESH, sources=[0, 1]), "A6"),
 ])
 def test_unported_options_refused(small_graph, kwargs, item):
-    """The mesh (A6b) stays refused; exchange="owner" (A6a) and the
+    """The mesh runs since A6b-1 (tests/test_torch_mesh.py); a
+    query-batched program on one stays refused (A6b-2).  exchange="owner"
+    (A6a) and the
     "auto" options A10b brought (once refused naming A6 / A10) build and
     run, within rtol 2e-5 of the gather exchange / the explicit choice
     they resolve to."""

@@ -579,9 +579,14 @@ def test_pair_not_ported_refusals():
     with pytest.raises(ValueError, match="requires a weighted graph"):
         PullEngine(sg, _program(needs_dst=True, edge_value_from_dot=len),
                    device=CPU, pair_threshold=16)
-    sg.local_parts = np.array([0])
-    with pytest.raises(NotPortedError, match="ROADMAP A6"):
-        pr.plan_sharded_pairs(sg, 16)
+    # a local-parts build plans its own rows (ROADMAP A6b-1, once refused
+    # naming A6): one process holding every part plans them as the whole
+    # build does
+    sg.local_parts = np.arange(sg.num_parts)
+    local, _res = pr.plan_sharded_pairs(sg, 16)
+    sg.local_parts = None
+    whole, _res = pr.plan_sharded_pairs(sg, 16)
+    np.testing.assert_array_equal(local.rowbind, whole.rowbind)
     with pytest.raises(ValueError, match="min_fill must be"):
         pr.resolve_min_fill(2.5)
 

@@ -23,6 +23,7 @@ from lux_tpu_torch.device import DeviceUnavailableError
 from lux_tpu_torch.engine.pull import NotPortedError
 from lux_tpu_torch.engine.push import SPARSE_KEYS, PushEngine, PushProgram
 from lux_tpu_torch.graph import Graph, ShardedGraph
+from lux_tpu_torch.parallel.mesh import Mesh
 
 CPU = "cpu"
 
@@ -242,13 +243,21 @@ def _engine(graphs, **kw):
                       sssp.make_program(start), device=CPU, **kw)
 
 
+# a one-rank mesh on no process group: enough to build an engine and
+# meet what a mesh refuses, which raises before any collective
+CPU_MESH = Mesh(group=None, world=1, rank=0, device=torch.device("cpu"),
+                backend="gloo")
+
+
 @pytest.mark.parametrize("opts,item", [
-    (dict(mesh=object()), "A6"), (dict(exchange="owner"), "A6"),
+    (dict(mesh=CPU_MESH, health=True), "A6"),
+    (dict(exchange="owner"), "A6"),
     (dict(stream_msgs=True), "A6"),
     (dict(audit="warn"), "A12"),
     (dict(use_mxu=True), "A8"), (dict(gather="auto"), "A10b")])
 def test_refused_options(graphs, opts, item):
-    """The mesh (A6b) stays refused; exchange="owner" and stream_msgs
+    """The mesh runs since A6b-1 (tests/test_torch_mesh.py); its health
+    watchdog stays refused (A6b-2).  exchange="owner" and stream_msgs
     (A6a), use_mxu=True (A8), gather="auto" (A10b) and audit="warn"
     (A12), once refused, converge to the plain engine's labels."""
     if item in ("A8", "A10b", "A12") or ("mesh" not in opts

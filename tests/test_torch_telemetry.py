@@ -491,7 +491,8 @@ def test_observers_see_events_with_and_without_a_sink():
 
 def test_retired_refusals_now_run(graphs):
     """What refused naming ROADMAP A10 runs, the pricing half (A10b)
-    too: its "auto" options build; the mesh (A6) still refuses."""
+    too: its "auto" options build; the mesh's counters and watchdog
+    (A6b-2) still refuse."""
     g = graphs["g"]
     base = sssp.build_engine(g, graphs["start"], device=CPU)
     assert PushEngine(base.sg, base.program, device=CPU,
@@ -505,8 +506,13 @@ def test_retired_refusals_now_run(graphs):
     assert pagerank.build_engine(g3, device=CPU, pair_threshold=4,
                                  starts=starts,
                                  pair_min_fill="auto").pairs is not None
+    from lux_tpu_torch.parallel.mesh import Mesh
+    mesh = Mesh(group=None, world=1, rank=0, device=torch.device(CPU),
+                backend="gloo")
     with pytest.raises(NotPortedError, match="A6"):
-        pagerank.build_engine(g, device=CPU, mesh=object())
+        pagerank.build_engine(g, device=CPU, mesh=mesh, health=True)
+    with pytest.raises(NotPortedError, match="A6"):
+        pagerank.build_engine(g, device=CPU, mesh=mesh).run_stats(None, 1)
 
 
 # ---------------------------------------------------------------------
